@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``panacea_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 1 and 2 only
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
-     with nvcc (one process per source, started together);
-  2. kernels: each kernel at every shape the generation path gives it, held
-     against its plain PyTorch version on the same bf16 inputs (per element,
-     the rule of ``panacea_tpu_torch/ops/tolerance.py``), and timed beside
-     the plain version, a one-call PyTorch yardstick and its bound;
+     with nvcc (one process per source, started together); an ignored
+     ``setmaxnreg`` in the ptxas report is a failure;
+  2. kernels: each kernel at every shape the generation path gives it and at
+     ragged and tiny shapes, held against its plain PyTorch version on the
+     same bf16 inputs (per element, the rule of
+     ``panacea_tpu_torch/ops/tolerance.py``), and timed beside the plain
+     version, a one-call PyTorch yardstick and its bound;
   3. small input: the tiny engine on the card (bf16, kernels) against the
      same weights on the CPU (fp32, plain versions), two sampler steps;
   4. main path: ``DiffusionEngine3D.log_images`` at full production width
@@ -65,15 +68,28 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(torch, fn, iters: int) -> float:
+    """Host time of one call, not waiting for the card: checks, tensor-map
+    specs and their encoding, and the launch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_kv=False,
-                timed=True):
+                timed=True, lens=None):
     """``merged_kv``: k and v are the two halves of one (B, Skv, 2 H D)
-    projection, the strided layout the cross-view call gives the kernel."""
+    projection, the strided layout the cross-view call gives the kernel.
+    ``ragged`` draws the rows' key counts; ``lens`` gives them."""
     g = torch.Generator(device=dev).manual_seed(sq * 7 + skv + d)
     q = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
     if merged_kv:
@@ -82,15 +98,19 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
     else:
         k = torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16()
         v = torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16()
-    lens = None
-    if ragged:
+    if lens is not None:
+        ragged = True
+        lens = torch.tensor(lens, device=dev, dtype=torch.int32)
+    elif ragged:
         lens = torch.randint(1, skv + 1, (b,), generator=g, device=dev, dtype=torch.int32)
+    routes = dict(fa.flash_attention.route_launches)
     got = fa.flash_attention(q, k, v, kv_lens=lens)
+    route = next(r for r, n in fa.flash_attention.route_launches.items() if n != routes[r])
     want = fa.flash_attention_plain(q, k, v, kv_lens=lens)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     ratio = tol.worst_ratio(got, want, **tol.FLASH)
-    rec = {"kernel": "flash_attention",
+    rec = {"kernel": "flash_attention", "route": route,
            "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "D": d, "ragged": ragged,
                      "kv": "merged" if merged_kv else "contiguous"},
            "max_abs_err": err, "rms_want": want.float().square().mean().sqrt().item(),
@@ -109,14 +129,15 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
             torch, lambda: fa.flash_attention_plain(q, k, v, kv_lens=lens), 2)
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask), 20)
+        rec["host_us"] = host_us(torch, lambda: fa.flash_attention(q, k, v, kv_lens=lens), 50)
     log(rec)
     if not ratio <= 1.0:
         raise AssertionError(f"flash_attention disagrees with its plain version: {rec}")
     return rec
 
 
-def check_geglu(torch, F, gg, tol, dev, tokens, c, timed=True):
-    inner = 4 * c
+def check_geglu(torch, F, gg, tol, dev, tokens, c, timed=True, inner=None):
+    inner = 4 * c if inner is None else inner
     g = torch.Generator(device=dev).manual_seed(tokens + c)
     x = torch.randn((tokens, c), generator=g, device=dev).bfloat16()
     w = (torch.randn((2 * inner, c), generator=g, device=dev) * c**-0.5).bfloat16()
@@ -136,6 +157,13 @@ def check_geglu(torch, F, gg, tol, dev, tokens, c, timed=True):
         rec["ms"] = time_ms(torch, lambda: gg.geglu(x, w, b), 20)
         rec["plain_ms"] = time_ms(torch, lambda: gg.geglu_plain(x, w, b), 3)
         rec["library_ms"] = time_ms(torch, lambda: F.linear(x, w, b), 20)
+
+        def unfused():  # the whole function in PyTorch calls, bf16
+            hh, gate = F.linear(x, w, b).chunk(2, dim=-1)
+            return hh * F.gelu(gate)
+
+        rec["unfused_ms"] = time_ms(torch, unfused, 20)
+        rec["host_us"] = host_us(torch, lambda: gg.geglu(x, w, b), 50)
     log(rec)
     if not ratio <= 1.0:
         raise AssertionError(f"geglu disagrees with its plain version: {rec}")
@@ -209,6 +237,7 @@ def main_path(torch, np, dev, fa, gg, steps: int, card: str):
     eng.network_fn = timed_network
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
+    fa.flash_attention.route_launches.update(wgmma=0, mma=0)
     gg.geglu.launches = 0
     t0 = time.perf_counter()
     logd = eng.log_images(batch, N=1, generator=torch.Generator(device=dev).manual_seed(SEED),
@@ -227,7 +256,7 @@ def main_path(torch, np, dev, fa, gg, steps: int, card: str):
            "log_images_s": total_s, "step_s": step_s, "s_per_step": steady,
            "s_per_clip_25_steps": total_s - sum(step_s) + 25 * steady,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": launches,
+           "launches": launches, "flash_routes": dict(fa.flash_attention.route_launches),
            "expected": {"flash_attention": FLASH_PER_EVAL * steps, "geglu": GEGLU_PER_EVAL * steps},
            "finite": finite, "shapes_ok": ok_shape,
            "sample_abs_mean": logd["samples"].abs().mean().item()}
@@ -236,12 +265,14 @@ def main_path(torch, np, dev, fa, gg, steps: int, card: str):
         raise AssertionError(f"main path output is wrong: {rec}")
     if launches != rec["expected"]:
         raise AssertionError(f"kernel launches {launches} != expected {rec['expected']}")
+    if rec["flash_routes"]["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"the main path (head dim 64) left the wgmma route: {rec}")
     profile_step(torch, lambda: network_fn(*last_call[0], **last_call[1]))
     return launches
 
 
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
-BUCKETS = (("flash_attention", ("pn_flash_fwd",)), ("geglu", ("pn_geglu_fwd",)),
+BUCKETS = (("flash_attention", ("pn_flash_",)), ("geglu", ("pn_geglu_fwd",)),
            ("sdpa", ("fmha", "flash", "attention", "softmax")),
            ("conv", ("conv", "cudnn", "implicit", "dgrad", "wgrad", "nhwc")),
            ("matmul", ("gemm", "xmma", "cutlass", "gemv", "matmul", "sm90")),
@@ -262,7 +293,7 @@ def profile_step(torch, step):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    buckets, total = {}, 0.0
+    buckets, other, total = {}, {}, 0.0
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0.0) or 0.0
         if us <= 0 or not str(evt.device_type).endswith("CUDA"):
@@ -270,15 +301,19 @@ def profile_step(torch, step):
         name = evt.key.lower()
         bucket = next((b for b, keys in BUCKETS if any(k in name for k in keys)), "other")
         buckets[bucket] = buckets.get(bucket, 0.0) + us / 1e3
+        if bucket == "other":
+            other[evt.key] = other.get(evt.key, 0.0) + us / 1e3
         total += us / 1e3
     rec = {"phase": "profile_step", "wall_ms": wall_ms,
            "device_ms": total if total > 0 else "not measured",
            "idle_share": 1 - total / wall_ms if total > 0 else "not measured",
            "bucket_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1]))}
     log(rec)
+    log({"phase": "profile_other", "top10_ms": [
+        [name[:120], ms] for name, ms in sorted(other.items(), key=lambda kv: -kv[1])[:10]]})
 
 
-def main() -> int:
+def main(kernels_only: bool = False) -> int:
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -306,8 +341,12 @@ def main() -> int:
     log({"phase": "build", "seconds": time.perf_counter() - t0})
     for src, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line or "warning" in line.lower()
+                    or "(C7" in line):   # ptxas advisories: serialised or injected wgmma waits
                 log(f"ptxas {src}: {line.strip()}")
+        if "C7508" in text or "setmaxnreg ignored" in text:
+            raise AssertionError(f"{src}: ptxas ignored setmaxnreg, so the consumer "
+                                 "warpgroups do not get the producer's registers")
 
     b = 16 * 5   # CFG batch of 16 frames x views 0-4
     levels = ((2048, 4096, 5), (512, 1024, 10), (128, 256, 20))
@@ -321,11 +360,30 @@ def main() -> int:
               check_flash(torch, F, fa, tol, dev, 8, 300, 650, 5, 64),
               check_flash(torch, F, fa, tol, dev, 16, 100, 70, 3, 64, ragged=True, timed=False)]
     flash += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d) for d in (16, 32, 128)]
+    # tails of one row past a tile, a single key, one key past a tile edge,
+    # and a batch whose rows all differ in length
+    flash += [check_flash(torch, F, fa, tol, dev, 4, 129, 4097, 5, 64, timed=False),
+              check_flash(torch, F, fa, tol, dev, 4, 256, 512, 5, 64, timed=False,
+                          merged_kv=True, lens=[1, 129, 128, 512]),
+              check_flash(torch, F, fa, tol, dev, 12, 200, 700, 2, 64, timed=False,
+                          lens=[1 + 61 * i for i in range(12)])]
+    for rec in flash:
+        want = "wgmma" if rec["shape"]["D"] == 64 else "mma"
+        if rec["route"] != want:
+            raise AssertionError(f"flash_attention took route {rec['route']}, not {want}: {rec}")
     geglu = []
     for tokens, c in ((196608, 320), (49152, 640), (12288, 1280), (3072, 1280)):
         geglu.append(check_geglu(torch, F, gg, tol, dev, tokens, c))
         geglu.append(check_geglu(torch, F, gg, tol, dev, tokens + 77, c, timed=False))
+    # channels off the 64-wide slice, columns off the 128-wide tile (also odd),
+    # fewer tokens than one tile, and the tiny config's widths
+    for tokens, c, inner in ((1000, 72, 288), (5000, 328, 1312), (300, 64, 200), (300, 64, 77),
+                             (50, 320, 1280), (1, 64, 256), (256, 32, 128), (256, 64, 256)):
+        geglu.append(check_geglu(torch, F, gg, tol, dev, tokens, c, timed=False, inner=inner))
 
+    if kernels_only:
+        log({"phase": "kernels_only", "ok": True})
+        return 0
     small_input_agreement(torch, np, dev)
     launches = main_path(torch, np, dev, fa, gg, MAIN_STEPS, card)
 
@@ -348,4 +406,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] not in ([], ["--kernels"]):
+        sys.exit(f"usage: {sys.argv[0]} [--kernels]")
+    sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels"]))

@@ -1,5 +1,5 @@
 // Flash attention forward, bf16 in / bf16 out, fp32 softmax and accumulation,
-// for Hopper (sm_90a), on bf16 tensor cores through mma.sync m16n8k16.
+// for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel panacea_tpu/ops/flash_attention.py
 // (_flash_kernel, :33-86; its pallas_call in flash_attention, :236).
@@ -11,28 +11,281 @@
 // Skv = 2 Sq, D = 64) the work is 4 B H Sq Skv D flops against
 // 2 B H (Sq + 2 Skv) D bytes, about 2 Sq / 3 flops per byte: above the
 // card's ~295 flop/byte ridge from Sq = 512 up, so the tensor cores bound
-// levels 0 and 1 and memory bounds level 2.
-// What the design does about it: the (Sq, Skv) score matrix never leaves
-// registers. One block of 4 warps owns 64 query rows of one (batch, head);
-// each warp keeps its 16 rows of Q as mma A-fragments in registers for the
-// whole KV loop. K/V tiles of 64 keys are staged in padded shared memory
-// (conflict-free fragment reads); the loop over KV tiles inside the block
-// replaces the TPU's sequential grid axis. The running max, sum and the
-// output accumulator stay in fp32 registers, exp2f runs with scale*log2(e)
-// folded into one multiply, and tiles past a row's kv_len are not visited.
-// Not yet done (a later change): cp.async/TMA double buffering, wgmma and
-// warp specialisation.
+// levels 0 and 1 and memory bounds level 2. At D = 64 a score costs 256
+// tensor-core flops and one exponential, and an SM does 16 of either per
+// clock: the exponentials take as long as both products, so the two must
+// overlap.
+//
+// Two hand-written kernels, chosen by head dim in the C entry:
+//
+// pn_flash_fwd (D = 64, the production head dim): one block of three
+// warpgroups per (128 query rows, head, batch).
+//  - The producer warpgroup gives its registers away (setmaxnreg) and one of
+//    its threads starts TMA loads: the Q tile once, then K and V tiles of
+//    128 keys into two rings of STAGES slots each, with the 128-byte
+//    swizzle, completing on mbarriers. The tensor maps are 4-D (D, H, S, B)
+//    with the byte strides of the views, so the halves of a merged kv
+//    projection load in place; rows past Skv (and past Sq) arrive as zeros.
+//  - Two consumer warpgroups own 64 query rows each. S = Q K^T is
+//    wgmma m64n128k16 with both operands in shared memory; the probabilities
+//    stay in registers, are rounded to bf16 and are the A operand of the
+//    P V wgmma (m64n64k16), which reads V MN-major, as TMA laid it down.
+//    Running max, sum and the output stay in fp32 registers; the exponent is
+//    base 2 with scale * log2(e) folded into one fused multiply-add.
+//  - Overlap of softmax and tensor cores: inside a warpgroup, tile j's
+//    Q K^T and tile j-1's P V are both started before tile j's softmax, so
+//    the exponentials run while P V is in flight; and the two warpgroups run
+//    unsynchronised, so one's exponentials also fill the other's products.
+//  - A block visits only the tiles below its row's kv_len and masks the last
+//    one in registers. The output is written once with masked stores.
+//
+// pn_flash_mma_fwd (D = 16, 32, 128): the mma.sync m16n8k16 kernel, one block
+// of 4 warps per 64 query rows, Q fragments in registers, K/V tiles of 64
+// keys staged in padded shared memory with plain loads.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+constexpr float NEG = -1e30f;
+
+// ------------------------------------------------------------ wgmma, D = 64
+
+namespace wg {
+
+constexpr int D = 64;
+constexpr int BQ = 128;      // query rows per block: 2 consumer warpgroups x 64
+constexpr int BK = 128;      // keys per tile
+constexpr int STAGES = 3;    // slots in each of the K and V rings
+constexpr int NTHREADS = 384;
+constexpr int TILE_BYTES = BK * D * 2;
+
+struct Smem {
+  __nv_bfloat16 q[BQ * D];
+  __nv_bfloat16 k[STAGES][BK * D];
+  __nv_bfloat16 v[STAGES][BK * D];
+  uint64_t q_full;
+  uint64_t k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
+};
+constexpr int SMEM_BYTES = sizeof(Smem) + pn::SWIZZLE_ATOM;  // room to align
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile's online-softmax step on this thread's two rows. On entry s holds
+// raw scores; on exit the probabilities exp2((s - max) * scale_log2). m is
+// the running max of raw scores, l this thread's share of the running sum.
+// Columns from `limit` on are masked. Returns the factors for the old sums.
+__device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float scale_log2, int limit,
+                                             int t) {
+  if (limit < BK) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if ((i >> 2) * 8 + t * 2 + (i & 1) >= limit) s[i] = NEG;
+  }
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);
+    corr[r] = ex2((m[r] - mn) * scale_log2);
+    m[r] = mn;
+    ms[r] = mn * scale_log2;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    s[i] = ex2(fmaf(s[i], scale_log2, -ms[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += s[i];
+  }
+  l[0] = l[0] * corr[0] + sum[0];
+  l[1] = l[1] * corr[1] + sum[1];
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+             const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
+             const int* __restrict__ kv_lens, int heads, int sq, int skv, int q_tiles,
+             float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(pn::align_smem(smem_raw));
+
+  // blockIdx.x = (batch * heads + head) * q_tiles + q tile: the blocks that
+  // share one head's K and V are neighbours in launch order
+  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int h = bh % heads, b = bh / heads;
+  // lengths are >= 1 by contract; the clamp keeps a bad one from stalling the block
+  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int n_tiles = (row_len + BK - 1) / BK;
+  const int group = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    pn::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      pn::mbar_init(&sm.k_full[s], 1);
+      pn::mbar_init(&sm.v_full[s], 1);
+      pn::mbar_init(&sm.k_empty[s], 8);  // one arrival per consumer warp
+      pn::mbar_init(&sm.v_empty[s], 8);
+    }
+    pn::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (group == 2) {
+    // ---- producer
+    pn::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      pn::mbar_arrive_expect_tx(&sm.q_full, BQ * D * 2);
+      pn::tma_load_4d(sm.q, &q_map, &sm.q_full, 0, h, qt * BQ, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES, free_parity = ((j / STAGES) & 1) ^ 1;
+        pn::mbar_wait(&sm.k_empty[s], free_parity);
+        pn::mbar_arrive_expect_tx(&sm.k_full[s], TILE_BYTES);
+        pn::tma_load_4d(sm.k[s], &k_map, &sm.k_full[s], 0, h, j * BK, b);
+        pn::mbar_wait(&sm.v_empty[s], free_parity);
+        pn::mbar_arrive_expect_tx(&sm.v_full[s], TILE_BYTES);
+        pn::tma_load_4d(sm.v[s], &v_map, &sm.v_full[s], 0, h, j * BK, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup `group` owns rows [64 group, 64 group + 64)
+    pn::setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const uint64_t q_desc = pn::smem_desc(pn::smem_u32(sm.q) + group * 64 * pn::SWIZZLE_BYTES);
+
+    float s[64], acc[32];
+    uint32_t p[BK / 16][4];
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+    auto start_qk = [&](int stage) {  // s = Q K^T, one committed group
+      const uint64_t k_desc = pn::smem_desc(pn::smem_u32(sm.k[stage]));
+      pn::pin(s);
+      pn::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        pn::wgmma_m64n128k16_ss(s, pn::desc_advance(q_desc, kk * 32),
+                                pn::desc_advance(k_desc, kk * 32), kk > 0);
+      pn::wgmma_commit();
+    };
+    auto start_pv = [&](int stage) {  // acc += P V, one committed group
+      const uint64_t v_desc = pn::smem_desc(pn::smem_u32(sm.v[stage]));
+      pn::pin(acc);
+      pn::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        pn::wgmma_m64n64k16_rs_mn(acc, p[kk], pn::desc_advance(v_desc, kk * 16 * pn::SWIZZLE_BYTES));
+      pn::wgmma_commit();
+    };
+    auto pack_p = [&]() {  // the probabilities, rounded to bf16, as A fragments
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[kk][e] = pn::pack_bf16x2(s[kk * 8 + e * 2], s[kk * 8 + e * 2 + 1]);
+    };
+    auto release = [&](uint64_t* bar) {
+      if (lane == 0) pn::mbar_arrive(bar);
+    };
+
+    pn::mbar_wait(&sm.q_full, 0);
+    pn::mbar_wait(&sm.k_full[0], 0);
+    start_qk(0);
+    pn::wgmma_wait<0>();
+    pn::pin(s);
+    release(&sm.k_empty[0]);
+    softmax_step(s, m, l, corr, scale_log2, row_len, t);
+    pack_p();
+
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % STAGES, prev = (j - 1) % STAGES;
+      pn::mbar_wait(&sm.k_full[st], (j / STAGES) & 1);
+      start_qk(st);
+      pn::mbar_wait(&sm.v_full[prev], ((j - 1) / STAGES) & 1);
+      start_pv(prev);
+      pn::wgmma_wait<1>();  // Q K^T of tile j is done; P V of tile j-1 runs on
+      pn::pin(s);
+      release(&sm.k_empty[st]);
+      softmax_step(s, m, l, corr, scale_log2, row_len - j * BK, t);
+      pn::wgmma_wait<0>();
+      pn::pin(acc);
+      release(&sm.v_empty[prev]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] *= corr[(i >> 1) & 1];
+      pack_p();
+    }
+    const int last = (n_tiles - 1) % STAGES;
+    pn::mbar_wait(&sm.v_full[last], ((n_tiles - 1) / STAGES) & 1);
+    start_pv(last);
+    pn::wgmma_wait<0>();
+    pn::pin(acc);
+
+    // the output, (B, Sq, H, D) contiguous, written once; rows past Sq never
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / l[r];
+    }
+    const int row0 = qt * BQ + group * 64 + warp * 16 + g;
+    __nv_bfloat16* ob = o + (static_cast<long long>(b) * sq * heads + h) * D;
+    const long long o_ss = static_cast<long long>(heads) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row < sq) {
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt)
+          *reinterpret_cast<uint32_t*>(ob + row * o_ss + dt * 8 + t * 2) =
+              pn::pack_bf16x2(acc[dt * 4 + r * 2] * inv[r], acc[dt * 4 + r * 2 + 1] * inv[r]);
+      }
+    }
+  }
+}
+
+// maps: three specs of 12 values (dims, byte strides, boxes of the 4-D views
+// of q, k and v, innermost first), as encode_bf16_map takes them.
+int launch(const void* q, const void* k, const void* v, void* o, const void* kv_lens, int batch,
+           int heads, int sq, int skv, const long long* maps, float scale_log2,
+           cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pn_flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (!maps) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, k_map, v_map;
+  int err = pn::encode_bf16_map(&q_map, q, 4, maps);
+  if (!err) err = pn::encode_bf16_map(&k_map, k, 4, maps + 12);
+  if (!err) err = pn::encode_bf16_map(&v_map, v, 4, maps + 24);
+  if (err) return err;
+  const int q_tiles = (sq + BQ - 1) / BQ;
+  const long long blocks = static_cast<long long>(batch) * heads * q_tiles;
+  if (blocks < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  pn_flash_fwd<<<static_cast<unsigned>(blocks), NTHREADS, SMEM_BYTES, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_lens),
+      heads, sq, skv, q_tiles, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+// ------------------------------------------------- mma.sync, D = 16, 32, 128
+
+namespace mma {
 
 constexpr int BQ = 64;     // query rows per block: 4 warps x 16 rows
 constexpr int BK = 64;     // keys per shared-memory tile
 constexpr int NTHREADS = 128;
-constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -65,8 +318,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-pn_flash_fwd(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+pn_flash_mma_fwd(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
              const int* __restrict__ kv_lens, int heads, int sq, int skv,
              long long q_sb, long long q_ss, long long q_sh,
              long long k_sb, long long k_ss, long long k_sh,
@@ -207,29 +460,33 @@ void launch(const void* q, const void* k, const void* v, void* o, const void* kv
             int batch, int heads, int sq, int skv, const long long* st, float scale_log2,
             cudaStream_t stream) {
   dim3 grid((sq + BQ - 1) / BQ, batch * heads);
-  pn_flash_fwd<D><<<grid, NTHREADS, 0, stream>>>(
+  pn_flash_mma_fwd<D><<<grid, NTHREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<const int*>(kv_lens), heads, sq, skv, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], scale_log2);
 }
 
+}  // namespace mma
+
 }  // namespace
 
 // strides: {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h} in elements; the
-// head-dim stride is 1. kv_lens: (B,) int32 on the device, or null.
-// Returns cudaGetLastError() after the launch.
+// head-dim stride is 1. kv_lens: (B,) int32 on the device, or null. maps: the
+// tensor-map specs of q, k and v (see wg::launch), used at d = 64.
+// Returns a cudaError_t value: of the set-up, or cudaGetLastError() after
+// the launch.
 extern "C" int pn_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                        const void* kv_lens, int batch, int heads, int sq,
-                                       int skv, int d, const long long* strides, float scale,
-                                       void* stream) {
+                                       int skv, int d, const long long* strides,
+                                       const long long* maps, float scale, void* stream) {
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: launch<16>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
-    case 32: launch<32>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
-    case 64: launch<64>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
-    case 128: launch<128>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
+    case 64: return wg::launch(q, k, v, o, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
+    case 16: mma::launch<16>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
+    case 32: mma::launch<32>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
+    case 128: mma::launch<128>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -10,187 +10,265 @@
 // bytes. At the main path's widths (C 320..1280, I = 4 C, T >= 3072) that is
 // hundreds of flops per byte, above the ~295 flop/byte ridge: the tensor
 // cores bound it. Unfused, the (T, 2I) intermediate would also be written
-// and read back (0.8 GB at level 0), which the fusion removes.
-// What the design does about it: one block computes a 128-token x 64-column
-// tile of BOTH halves from the same x tile (rows j and I + j of W), so x is
-// read from shared memory once for both products. 8 warps, each 32 x 32 of
-// each half on mma.sync m16n8k16 (bf16 in, fp32 accumulate); the K loop
-// runs over 32-wide slices, double-buffered with cp.async into padded shared
-// memory (conflict-free fragment reads). Bias, erf-GELU and the product are
-// applied in registers; only the (T, I) result is written. The token, inner
-// and channel tails are zero-filled on load and masked on store.
-// Not yet done (a later change): wgmma/TMA, a deeper pipeline, persistence.
+// and read back (0.8 GB at level 0), which the fusion removes. K is short
+// (C = 320 is five 64-channel slices), so what surrounds the products weighs
+// much: the erf epilogue of a tile costs about as many scheduler slots as the
+// tile's products at C = 320.
+//
+// The design: a persistent, warp-specialised kernel, one block of three
+// warpgroups per SM, each block walking over output tiles of 128 tokens x
+// 128 columns.
+//  - The producer warpgroup gives its registers away (setmaxnreg) and one of
+//    its threads starts TMA loads per 64-channel slice: the x tile
+//    (128 x 64) and rows j.. and I + j.. of W (two 128 x 64 boxes laid one
+//    after the other, so the slot holds one 256-row operand), into a ring of
+//    STAGES slots with the 128-byte swizzle, completing on mbarriers. TMA's
+//    zero fill serves the token, column and channel tails (C % 64 != 0).
+//  - Two consumer warpgroups own 64 tokens each: one wgmma m64n256k16 per 16
+//    channels gives both halves, 128 fp32 accumulators a thread. One group
+//    of products stays in flight while the next slice is awaited (the first
+//    slice is peeled out of the loop: a conditional wait_group makes ptxas
+//    serialise every wgmma).
+//  - The epilogue (bias, exact-erf GELU, product, bf16 pack) runs in
+//    registers; only the (T, I) result is written. The tile's biases are
+//    brought to shared memory at the top of the tile, under the products
+//    (read from global memory in the epilogue they cost it half again as
+//    long at C = 1280). Each warpgroup lays its
+//    64 x 128 result down in shared memory in the swizzle of the out map and
+//    one thread sends it off as two TMA stores, which clip the token and
+//    column tails and run on under the next tile. Where the out rows are not
+//    16-byte multiples (inner % 8 != 0) TMA cannot write them, and the
+//    threads store from registers with masks.
+//  - The producer does not wait for the epilogue: it runs ahead into the
+//    next tile, so the ring is full when the consumers come back, and a
+//    warpgroup that finishes its epilogue first starts the next tile's
+//    products while the other still computes erf. The products of one
+//    warpgroup do not run under its own epilogue (that takes a second
+//    accumulator set, which 232 registers do not hold at this tile size).
+//  - Tile order: tile = token tile * column tiles + column tile, and block b
+//    takes tiles b, b + blocks, ...: at any time the SMs work on
+//    neighbouring tiles, so the column tiles of one token tile run next to
+//    each other, x comes from device memory once and is re-read from L2, and
+//    W (1.6 to 26 MB) stays in the 50 MB L2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // tokens per block
-constexpr int BN = 64;   // inner columns per block (of each half)
-constexpr int BKK = 32;  // channels per pipeline stage
-constexpr int LDS = BKK + 8;
-constexpr int NTHREADS = 256;
+constexpr int BM = 128;    // tokens per tile: 2 consumer warpgroups x 64
+constexpr int BN = 128;    // output columns per tile (of each half)
+constexpr int BKC = 64;    // channels per slot: one 128-byte swizzled row
+constexpr int STAGES = 4;
+constexpr int NTHREADS = 384;
+constexpr int X_BYTES = BM * BKC * 2, W_BYTES = 2 * BN * BKC * 2;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct Smem {
+  __nv_bfloat16 x[STAGES][BM * BKC];
+  __nv_bfloat16 w[STAGES][2 * BN * BKC];  // rows [0, BN): W_h, [BN, 2 BN): W_gate
+  __nv_bfloat16 out[2][2][64 * 64];        // per consumer warpgroup: two 64 x 64 panels
+  __nv_bfloat16 bias[2][2 * BN];           // per consumer warpgroup: the tile's b_h, b_gate
+  uint64_t full[STAGES], empty[STAGES];
+};
+constexpr int SMEM_BYTES = sizeof(Smem) + pn::SWIZZLE_ATOM;  // room to align
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// With -DPN_TRACE (scripts/probe_torch_kernels.py --trace) thread 0 of each
+// consumer warpgroup of block 0 stamps the phases of its first tiles.
+#ifdef PN_TRACE
+constexpr int TRACE_TILES = 32, TRACE_SLOTS = 4;
+__device__ long long g_trace[TRACE_TILES * 2 * TRACE_SLOTS];
+#define TRACE(slot)                                                              \
+  if (blockIdx.x == 0 && (threadIdx.x & 127) == 0 && tile_no < TRACE_TILES) {    \
+    long long now;                                                               \
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));                    \
+    g_trace[(tile_no * 2 + group) * TRACE_SLOTS + (slot)] = now;                 \
+  }
+#else
+#define TRACE(slot) (void)tile_no
+#endif
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-pn_geglu_fwd(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-             const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-             int tokens, int c, int inner) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][BM * LDS];
-  __shared__ __align__(16) __nv_bfloat16 whs[2][BN * LDS];
-  __shared__ __align__(16) __nv_bfloat16 wgs[2][BN * LDS];
+__global__ void __launch_bounds__(NTHREADS, 1)
+pn_geglu_fwd(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+             const __grid_constant__ CUtensorMap out_map, const __nv_bfloat16* __restrict__ bias,
+             __nv_bfloat16* __restrict__ out, int tokens, int c, int inner, int n_tiles,
+             int total_tiles, int tma_store) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(pn::align_smem(smem_raw));
+  const int group = threadIdx.x >> 7;
+  const int k_slices = (c + BKC - 1) / BKC;
 
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;  // 4 x 2 warps of 32 x 32
-
-  auto load_stage = [&](int stage, int k0) {
-    // x: 128 rows x 4 chunks of 8 channels = 512 chunks, 2 per thread
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ci = threadIdx.x + i * NTHREADS;
-      const int r = ci >> 2, col = (ci & 3) * 8;
-      const int tok = m0 + r, ch = k0 + col;
-      const bool ok = tok < tokens && ch < c;
-      cp_async16(&as[stage][r * LDS + col], ok ? x + static_cast<long long>(tok) * c + ch : x, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      pn::mbar_init(&sm.full[s], 1);
+      pn::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
     }
-    // W: 64 rows of each half x 4 chunks = 256 chunks each, 1 per thread
-    const int r = threadIdx.x >> 2, col = (threadIdx.x & 3) * 8;
-    const int j = n0 + r, ch = k0 + col;
-    const bool ok = j < inner && ch < c;
-    cp_async16(&whs[stage][r * LDS + col], ok ? w + static_cast<long long>(j) * c + ch : w, ok);
-    cp_async16(&wgs[stage][r * LDS + col],
-               ok ? w + static_cast<long long>(inner + j) * c + ch : w, ok);
-  };
-
-  float acc_h[2][4][4], acc_g[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_h[mi][ni][e] = acc_g[mi][ni][e] = 0.f;
-
-  const int ktiles = (c + BKK - 1) / BKK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < ktiles) {
-      load_stage(st ^ 1, (kt + 1) * BKK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BKK / 16; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* ar = &as[st][(wm * 32 + mi * 16 + g) * LDS + ks * 16 + t * 2];
-        a[mi][0] = ld32(ar);
-        a[mi][1] = ld32(ar + 8 * LDS);
-        a[mi][2] = ld32(ar + 8);
-        a[mi][3] = ld32(ar + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int off = (wn * 32 + ni * 8 + g) * LDS + ks * 16 + t * 2;
-        const uint32_t h0 = ld32(&whs[st][off]), h1 = ld32(&whs[st][off + 8]);
-        const uint32_t g0 = ld32(&wgs[st][off]), g1 = ld32(&wgs[st][off + 8]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc_h[mi][ni], a[mi], h0, h1);
-          mma_bf16(acc_g[mi][ni], a[mi], g0, g1);
-        }
-      }
-    }
-    __syncthreads();  // this stage is refilled two iterations on
+    pn::mbar_init_fence();
   }
+  __syncthreads();
 
-  // epilogue: bias, erf-GELU gate, product; only (T, I) is written
-  const bool pairs = (inner & 1) == 0;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int j = n0 + wn * 32 + ni * 8 + t * 2;
-    float bh[2], bg[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool ok = j + e < inner;
-      bh[e] = ok ? __bfloat162float(bias[j + e]) : 0.f;
-      bg[e] = ok ? __bfloat162float(bias[inner + j + e]) : 0.f;
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int tok = m0 + wm * 32 + mi * 16 + g + half * 8;
-        if (tok >= tokens) continue;
-        float y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          y[e] = (acc_h[mi][ni][half * 2 + e] + bh[e]) * gelu_erf(acc_g[mi][ni][half * 2 + e] + bg[e]);
-        __nv_bfloat16* op = out + static_cast<long long>(tok) * inner + j;
-        if (pairs && j + 1 < inner) {
-          *reinterpret_cast<__nv_bfloat162*>(op) = __floats2bfloat162_rn(y[0], y[1]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (j + e < inner) op[e] = __float2bfloat16_rn(y[e]);
+  if (group == 2) {
+    // ---- producer
+    pn::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int it = 0;  // slices requested so far, over all tiles
+      for (int tile = blockIdx.x; tile < total_tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+        for (int ks = 0; ks < k_slices; ++ks, ++it) {
+          const int s = it % STAGES;
+          pn::mbar_wait(&sm.empty[s], ((it / STAGES) & 1) ^ 1);
+          pn::mbar_arrive_expect_tx(&sm.full[s], X_BYTES + W_BYTES);
+          pn::tma_load_2d(sm.x[s], &x_map, &sm.full[s], ks * BKC, m0);
+          pn::tma_load_2d(sm.w[s], &w_map, &sm.full[s], ks * BKC, n0);
+          pn::tma_load_2d(sm.w[s] + BN * BKC, &w_map, &sm.full[s], ks * BKC, inner + n0);
         }
       }
     }
+  } else {
+    // ---- consumers: warpgroup `group` owns tokens [64 group, 64 group + 64) of the tile
+    pn::setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const bool pairs = (inner & 1) == 0;  // column pairs are 4-byte aligned
+    float acc[128];                       // [0, 64): the h half, [64, 128): the gate half
+    int it = 0;
+    for (int tile = blockIdx.x, tile_no = 0; tile < total_tiles; tile += gridDim.x, ++tile_no) {
+      const int m0 = (tile / n_tiles) * BM + group * 64, n0 = (tile % n_tiles) * BN;
+      TRACE(0);  // loop top
+
+      // this tile's biases go to shared memory now, under the products (the
+      // warpgroup's barrier at the end of its last epilogue freed the space)
+      {
+        const int i = threadIdx.x & 127, j = n0 + i;
+        const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+        sm.bias[group][i] = j < inner ? bias[j] : zero;
+        sm.bias[group][BN + i] = j < inner ? bias[inner + j] : zero;
+      }
+
+      // one group of products stays in flight while the next slice is awaited
+      auto start_slice = [&](int s, bool first) {
+        const uint64_t x_desc =
+            pn::smem_desc(pn::smem_u32(sm.x[s]) + group * 64 * pn::SWIZZLE_BYTES);
+        const uint64_t w_desc = pn::smem_desc(pn::smem_u32(sm.w[s]));
+        pn::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKC / 16; ++kk)
+          pn::wgmma_m64n256k16_ss(acc, pn::desc_advance(x_desc, kk * 32),
+                                  pn::desc_advance(w_desc, kk * 32), !(first && kk == 0));
+        pn::wgmma_commit();
+      };
+      int prev = it % STAGES;
+      pn::mbar_wait(&sm.full[prev], (it / STAGES) & 1);
+      TRACE(1);  // first slot full
+      start_slice(prev, true);
+      ++it;
+      for (int ks = 1; ks < k_slices; ++ks, ++it) {
+        const int s = it % STAGES;
+        pn::mbar_wait(&sm.full[s], (it / STAGES) & 1);
+        start_slice(s, false);
+        pn::wgmma_wait<1>();  // the slice before this one has been read
+        if (lane == 0) pn::mbar_arrive(&sm.empty[prev]);
+        prev = s;
+      }
+      pn::wgmma_wait<0>();
+      pn::pin(acc);
+      if (lane == 0) pn::mbar_arrive(&sm.empty[prev]);
+      TRACE(2);  // products done
+
+      // epilogue: bias, erf-GELU gate, product; only (T, I) is written
+      const int elected = (threadIdx.x & 127) == 0;
+      if (tma_store && elected) pn::tma_store_wait_read();  // the last store has read the panels
+      pn::group_sync(group);  // the biases are written, the panels are free
+      uint8_t* panels = reinterpret_cast<uint8_t*>(sm.out[group]);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {  // this thread's columns nt * 8 + 2 t, + 1
+        const int col = nt * 8 + t * 2, j = n0 + col;
+        const float2 bh =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sm.bias[group][col]));
+        const float2 bg = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&sm.bias[group][BN + col]));
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // and its rows g, g + 8 of the warp's 16
+          const int i = nt * 4 + r * 2, row = warp * 16 + g + r * 8;
+          const __nv_bfloat162 y =
+              __floats2bfloat162_rn((acc[i] + bh.x) * gelu_erf(acc[64 + i] + bg.x),
+                                    (acc[i + 1] + bh.y) * gelu_erf(acc[64 + i + 1] + bg.y));
+          if (tma_store) {
+            // into the 64 x 64 panel of these columns, in the out map's swizzle
+            *reinterpret_cast<__nv_bfloat162*>(panels + (nt >> 3) * 8192 +
+                                               row * pn::SWIZZLE_BYTES +
+                                               (((nt & 7) ^ (row & 7)) << 4) + t * 4) = y;
+          } else if (m0 + row < tokens) {
+            __nv_bfloat16* orow = out + static_cast<long long>(m0 + row) * inner;
+            if (pairs && j + 1 < inner) {
+              *reinterpret_cast<__nv_bfloat162*>(orow + j) = y;
+            } else {
+              if (j < inner) orow[j] = y.x;
+              if (j + 1 < inner) orow[j + 1] = y.y;
+            }
+          }
+        }
+      }
+      if (tma_store) {
+        // one TMA store per panel, which clips the token and column tails and
+        // runs on while this warpgroup starts its next tile
+        pn::tma_store_fence();
+        pn::group_sync(group);
+        if (elected) {
+          pn::tma_store_2d(&out_map, panels, n0, m0);
+          pn::tma_store_2d(&out_map, panels + 8192, n0 + 64, m0);
+          pn::tma_store_commit();
+        }
+      } else {
+        pn::group_sync(group);  // every thread has read the biases
+      }
+      TRACE(3);  // epilogue done
+    }
+    if (tma_store && (threadIdx.x & 127) == 0) pn::tma_store_wait_all();
   }
 }
 
 }  // namespace
 
 // x (tokens, c), w (2 inner, c), bias (2 inner,), out (tokens, inner): all
-// contiguous bf16, 16-byte aligned, c a multiple of 8. Returns
-// cudaGetLastError() after the launch.
+// contiguous bf16, 16-byte aligned, c a multiple of 8. maps: the tensor-map
+// specs of x, w and, where tma_store is set (inner a multiple of 8), out: 6
+// values each (dims, byte strides, boxes, innermost first), as
+// pn::encode_bf16_map takes them. blocks: the size of the persistent grid.
+// Returns a cudaError_t value: of the set-up, or cudaGetLastError() after
+// the launch.
 extern "C" int pn_geglu_bf16(const void* x, const void* w, const void* bias, void* out,
-                             int tokens, int c, int inner, void* stream) {
-  dim3 grid((inner + BN - 1) / BN, (tokens + BM - 1) / BM);
-  pn_geglu_fwd<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), tokens, c,
-      inner);
+                             int tokens, int c, int inner, const long long* maps, int tma_store,
+                             int blocks, void* stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pn_geglu_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (!maps || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x_map, w_map, out_map;
+  int err = pn::encode_bf16_map(&x_map, x, 2, maps);
+  if (!err) err = pn::encode_bf16_map(&w_map, w, 2, maps + 6);
+  if (!err && tma_store) err = pn::encode_bf16_map(&out_map, out, 2, maps + 12);
+  if (!tma_store) out_map = x_map;  // never read
+  if (err) return err;
+  const int m_tiles = (tokens + BM - 1) / BM, n_tiles = (inner + BN - 1) / BN;
+  const long long total = static_cast<long long>(m_tiles) * n_tiles;
+  if (total < 1 || total > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  pn_geglu_fwd<<<blocks, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      x_map, w_map, out_map, static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), tokens, c, inner, n_tiles, static_cast<int>(total),
+      tma_store);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef PN_TRACE
+// Copies the stamps (nanoseconds of %globaltimer) to `host`, TRACE_TILES x 2
+// warpgroups x TRACE_SLOTS values. Returns a cudaError_t value.
+extern "C" int pn_geglu_trace(long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace)));
+}
+#endif
 
 extern "C" const char* pn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,0 +1,101 @@
+"""Host-side arithmetic of the Hopper kernels: tensor-map specs for TMA
+loads of strided bf16 views, and the tile schedules of the two kernels.
+
+Everything here is plain Python on shapes and strides, so the CPU tests hold
+it against brute force; the C entries (``csrc/hopper.cuh``,
+``encode_bf16_map``) only hand the numbers to ``cuTensorMapEncodeTiled``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+ELEM_BYTES = 2          # bf16
+SWIZZLE_BYTES = 128     # the innermost box row: 64 bf16
+MAX_BOX = 256           # TMA's limit on a box dimension
+MAX_RANK = 4
+
+FLASH_BQ, FLASH_BK = 128, 128       # query rows per block, keys per tile
+GEGLU_BM, GEGLU_BN, GEGLU_BK = 128, 128, 64
+GEGLU_OUT_BOX = (64, 64)            # one consumer warpgroup's rows, half the columns
+
+
+def map_spec(t: torch.Tensor, box: Sequence[int]) -> List[int]:
+    """The spec ``encode_bf16_map`` takes for the view ``t``: its dims, its
+    byte strides and the box, each innermost dimension first (the reverse of
+    torch's order). ``box`` is given in torch's order. The element at index
+    ``idx`` lies at ``t.data_ptr() + sum(idx[i] * byte_stride[i])``; a box
+    that reaches past a dim is filled with zeros there by the hardware."""
+    if t.ndim != len(box) or not 2 <= t.ndim <= MAX_RANK:
+        raise ValueError(f"tensor map: view {tuple(t.shape)} and box {tuple(box)} must have "
+                         f"the same rank, 2 to {MAX_RANK}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"tensor map: the innermost stride of {t.stride()} must be 1")
+    if t.data_ptr() % 16:
+        raise ValueError("tensor map: the view is not 16-byte aligned")
+    dims = [int(n) for n in reversed(t.shape)]
+    strides = [int(s) * ELEM_BYTES for s in reversed(t.stride())]
+    boxes = [int(n) for n in reversed(box)]
+    if boxes[0] * ELEM_BYTES != SWIZZLE_BYTES:
+        raise ValueError(f"tensor map: the innermost box {boxes[0]} must span "
+                         f"{SWIZZLE_BYTES} bytes (the swizzle)")
+    if any(not 1 <= n <= MAX_BOX for n in boxes):
+        raise ValueError(f"tensor map: box {tuple(box)} outside 1..{MAX_BOX}")
+    if any(n < 1 or n >= 2**32 for n in dims):
+        raise ValueError(f"tensor map: dims {tuple(t.shape)} outside 1..2^32")
+    if any(s % 16 or not 0 < s < 2**40 for s in strides[1:]):
+        raise ValueError(f"tensor map: strides {t.stride()} must be positive multiples of "
+                         "8 elements (16 bytes) below 2^40 bytes")
+    return dims + strides + boxes
+
+
+def flash_grid(batch: int, heads: int, sq: int) -> Tuple[int, int]:
+    """(query tiles per head, blocks) of the wgmma flash kernel."""
+    q_tiles = -(-sq // FLASH_BQ)
+    return q_tiles, batch * heads * q_tiles
+
+
+def flash_block(block: int, heads: int, q_tiles: int) -> Tuple[int, int, int]:
+    """(batch row, head, first query row) of a block: the query tiles of one
+    (batch row, head) are neighbours, so its K and V are shared in L2."""
+    qt, bh = block % q_tiles, block // q_tiles
+    return bh // heads, bh % heads, qt * FLASH_BQ
+
+
+def flash_kv_tiles(row_len: int) -> int:
+    """Key tiles a block visits for a row of ``row_len`` valid keys."""
+    return -(-row_len // FLASH_BK)
+
+
+def flash_route(d: int) -> str:
+    """Which of the two hand-written kernels serves head dim ``d``."""
+    return "wgmma" if d == 64 else "mma"
+
+
+def geglu_grid(tokens: int, inner: int, sms: int) -> Tuple[int, int, int]:
+    """(token tiles, column tiles, blocks of the persistent grid)."""
+    m_tiles, n_tiles = -(-tokens // GEGLU_BM), -(-inner // GEGLU_BN)
+    return m_tiles, n_tiles, min(m_tiles * n_tiles, sms)
+
+
+def geglu_block_tiles(block: int, blocks: int, m_tiles: int, n_tiles: int
+                      ) -> List[Tuple[int, int]]:
+    """(first token, first column) of the tiles block ``block`` computes, in
+    order. Tile index = token tile * n_tiles + column tile; a block takes
+    every ``blocks``-th tile, so at any time the grid works on neighbouring
+    tiles: all column tiles of a token tile run next to each other."""
+    return [((tile // n_tiles) * GEGLU_BM, (tile % n_tiles) * GEGLU_BN)
+            for tile in range(block, m_tiles * n_tiles, blocks)]
+
+
+def geglu_k_slices(c: int) -> int:
+    """Channel slices per tile; the last is zero-filled past ``c``."""
+    return -(-c // GEGLU_BK)
+
+
+def geglu_tma_store(inner: int) -> bool:
+    """Whether the result leaves through TMA stores: its row stride must be
+    a multiple of 16 bytes. Otherwise the kernel stores from registers."""
+    return inner % 8 == 0

@@ -1,5 +1,5 @@
-"""Flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and its plain
-PyTorch version.
+"""Flash attention: the CUDA kernels of ``csrc/flash_attention.cu`` and their
+plain PyTorch version.
 
 Counterpart of ``panacea_tpu/ops/flash_attention.py`` (the Pallas kernel
 ``_flash_kernel`` and its streamed plain-JAX copy ``_lax_flash``).
@@ -7,7 +7,10 @@ Layout: q (B, Sq, H, D), k and v (B, Skv, H, D) -> (B, Sq, H, D).
 ``kv_lens``: optional (B,) int32 valid key counts per batch row (each >= 1).
 
 On a CPU tensor ``flash_attention`` runs ``flash_attention_plain``. On a
-CUDA tensor it launches the kernel or raises: it never falls back.
+CUDA tensor it launches a kernel or raises: it never falls back. Head dim 64
+goes to the wgmma/TMA kernel, 16, 32 and 128 to the mma.sync kernel
+(``_tma.flash_route``); ``flash_attention.launches`` counts all launches and
+``flash_attention.route_launches`` each route's.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from panacea_tpu_torch.ops import _build
+from panacea_tpu_torch.ops import _build, _tma
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
@@ -83,8 +86,9 @@ def _check_cuda(q, k, v, kv_lens, d):
                 or kv_lens.shape != (q.shape[0],) or not kv_lens.is_contiguous()):
             raise ValueError("flash_attention: kv_lens must be a contiguous (B,) "
                              "int32 tensor on q's device")
-    if q.shape[0] * q.shape[2] > 65535:
-        raise ValueError("flash_attention: batch * heads exceeds the grid's 65535 rows")
+    if _tma.flash_route(d) == "mma" and q.shape[0] * q.shape[2] > 65535:
+        raise ValueError("flash_attention: batch * heads exceeds the mma.sync kernel's "
+                         "65535 grid rows")
 
 
 @functools.cache
@@ -93,7 +97,8 @@ def _lib() -> ctypes.CDLL:
     lib.pn_flash_attention_bf16.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_float, ctypes.c_void_p]
     lib.pn_flash_attention_bf16.restype = ctypes.c_int
     return lib
 
@@ -107,6 +112,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
     scale = d**-0.5 if scale is None else float(scale)
+    if not scale > 0:
+        raise ValueError(f"flash_attention: scale {scale} must be positive")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, kv_lens=kv_lens)
     if q.device.type != "cuda":
@@ -115,15 +122,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _lib()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    route = _tma.flash_route(d)
+    maps = None
+    if route == "wgmma":
+        # 4-D views (B, S, H, D), loaded as (rows, 64) boxes of one head
+        spec = (_tma.map_spec(q, (1, _tma.FLASH_BQ, 1, d))
+                + _tma.map_spec(k, (1, _tma.FLASH_BK, 1, d))
+                + _tma.map_spec(v, (1, _tma.FLASH_BK, 1, d)))
+        maps = (ctypes.c_longlong * len(spec))(*spec)
     err = lib.pn_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         kv_lens.data_ptr() if kv_lens is not None else None,
-        b, h, sq, k.shape[1], d, strides, scale,
+        b, h, sq, k.shape[1], d, strides, maps, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_attention")
+    _build.check(lib, err, f"flash_attention ({route})")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"wgmma": 0, "mma": 0}
 

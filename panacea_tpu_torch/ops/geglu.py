@@ -19,7 +19,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from panacea_tpu_torch.ops import _build
+from panacea_tpu_torch.ops import _build, _tma
 
 
 def geglu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -49,9 +49,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("geglu.cu")
     lib.pn_geglu_bf16.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.pn_geglu_bf16.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def geglu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -68,12 +74,18 @@ def geglu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inner = w.shape[0] // 2
     x2 = x.reshape(-1, c)
     tokens = x2.shape[0]
-    if (tokens + 127) // 128 > 65535:
-        raise ValueError(f"geglu: {tokens} tokens exceed the grid's 65535 row tiles")
     lib = _lib()
     out = torch.empty((tokens, inner), dtype=x.dtype, device=x.device)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    _, _, blocks = _tma.geglu_grid(tokens, inner, _sm_count(index))
+    spec = (_tma.map_spec(x2, (_tma.GEGLU_BM, _tma.GEGLU_BK))
+            + _tma.map_spec(w, (_tma.GEGLU_BN, _tma.GEGLU_BK)))
+    tma_store = _tma.geglu_tma_store(inner)
+    if tma_store:
+        spec += _tma.map_spec(out, _tma.GEGLU_OUT_BOX)
     err = lib.pn_geglu_bf16(x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            tokens, c, inner,
+                            tokens, c, inner, (ctypes.c_longlong * len(spec))(*spec),
+                            int(tma_store), blocks,
                             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "geglu")
     geglu.launches += 1

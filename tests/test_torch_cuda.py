@@ -26,17 +26,23 @@ def cuda():
     (2048, 4096, 5, 64, None, True), (512, 1024, 10, 64, None, True),
     (128, 256, 20, 64, None, True), (512, 1024, 10, 64, None, False),
     (300, 650, 2, 32, None, False), (256, 512, 2, 128, [512, 200], False),
-    (256, 512, 2, 16, None, False), (100, 70, 3, 64, [1, 65], True)])
+    (256, 512, 2, 16, None, False), (100, 70, 3, 64, [1, 65], True),
+    # one row past a tile in Sq and Skv; a single key and one key past a tile
+    # edge; a batch whose rows all differ in length
+    (129, 4097, 5, 64, None, False), (256, 512, 5, 64, [1, 129, 128, 512], True),
+    (200, 700, 2, 64, [1 + 61 * i for i in range(12)], False)])
 def test_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
     """``merged``: k and v are the halves of one (B, Skv, 2 H D) projection,
-    the strided layout of the cross-view call."""
+    the strided layout of the cross-view call. Head dim 64 runs the wgmma
+    kernel, the others the mma.sync kernel."""
+    b = 2 if lens is None else len(lens)
     g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn((2, sq, h, d), generator=g, device=cuda).bfloat16()
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
     if merged:
-        kv = torch.randn((2, skv, 2 * h * d), generator=g, device=cuda).bfloat16()
+        kv = torch.randn((b, skv, 2 * h * d), generator=g, device=cuda).bfloat16()
         k, v = (t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1))
     else:
-        k, v = (torch.randn((2, skv, h, d), generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda).bfloat16()
                 for _ in range(2))
     kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
     got = flash_attention(q, k, v, kv_lens=kvl)
@@ -45,11 +51,16 @@ def test_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tokens,c", [(3001, 320), (1000, 640), (777, 1280)])
-def test_geglu_kernel_matches_plain_on_card(cuda, tokens, c):
+@pytest.mark.parametrize("tokens,c,inner", [
+    (3001, 320, 1280), (1000, 640, 2560), (777, 1280, 5120),
+    # channels off the 64-wide slice; columns off the 128-wide tile, also odd
+    # (stores from registers); fewer tokens than a tile; the tiny config's widths
+    (1000, 72, 288), (5000, 328, 1312), (300, 64, 200), (300, 64, 77), (50, 320, 1280),
+    (1, 64, 256), (256, 32, 128), (256, 64, 256)])
+def test_geglu_kernel_matches_plain_on_card(cuda, tokens, c, inner):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn((tokens, c), generator=g, device=cuda).bfloat16()
-    w = (torch.randn((8 * c, c), generator=g, device=cuda) * c**-0.5).bfloat16()
-    b = (torch.randn(8 * c, generator=g, device=cuda) * 0.1).bfloat16()
+    w = (torch.randn((2 * inner, c), generator=g, device=cuda) * c**-0.5).bfloat16()
+    b = (torch.randn(2 * inner, generator=g, device=cuda) * 0.1).bfloat16()
     got, want = geglu(x, w, b), geglu_plain(x, w, b)
     assert tolerance.worst_ratio(got, want, **tolerance.GEGLU) <= 1.0

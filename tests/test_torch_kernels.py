@@ -144,3 +144,179 @@ def test_kernel_tolerance_passes_rounding_and_rejects_real_errors():
     h, gate = torch.nn.functional.linear(x.float(), w.float(), b.float()).chunk(2, dim=-1)
     tanh_gelu = (h * torch.nn.functional.gelu(gate, approximate="tanh")).bfloat16()
     assert tolerance.worst_ratio(tanh_gelu, want, **tolerance.GEGLU) > 1.0
+
+
+# ---- host-side arithmetic of the Hopper kernels (ops/_tma.py): tensor-map
+# specs, tile schedules and routes, held against brute force
+
+from panacea_tpu_torch.ops import _tma  # noqa: E402
+from panacea_tpu_torch.ops import flash_attention as fa_mod  # noqa: E402
+from panacea_tpu_torch.ops import geglu as gg_mod  # noqa: E402
+
+
+def _views(kind, b, s, h, d):
+    """bf16 (B, S, H, D) views as the model hands them to the flash kernel."""
+    if kind == "contiguous":
+        return [torch.zeros((b, s, h, d), dtype=torch.bfloat16)]
+    if kind == "merged_kv":      # the halves of one (B, S, 2 H D) projection
+        kv = torch.zeros((b, s, 2 * h * d), dtype=torch.bfloat16)
+        return [t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1)]
+    if kind == "merged_qkv":     # the thirds of one (B, S, 3 H D) projection
+        qkv = torch.zeros((b, s, 3 * h * d), dtype=torch.bfloat16)
+        return [t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1)]
+    if kind == "batch_slice":    # views 0-4 of 6, then rows 8.. of the sequence
+        return [torch.zeros((b + 1, s + 8, h, d), dtype=torch.bfloat16)[:b, 8:]]
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "merged_kv", "merged_qkv", "batch_slice"])
+@pytest.mark.parametrize("b,s,h", [(80, 4096, 5), (3, 1024, 10), (2, 650, 20), (1, 129, 1)])
+def test_flash_tensor_map_spec_addresses_every_element(kind, b, s, h):
+    d = 64
+    if b * s * h * d * 3 > 2**26:
+        b = 4   # the arithmetic does not depend on the batch; keep the host copy small
+    rng = np.random.default_rng(s)
+    for t in _views(kind, b, s, h, d):
+        spec = _tma.map_spec(t, (1, _tma.FLASH_BK, 1, d))
+        dims, strides, box = spec[:4], spec[4:8], spec[8:]
+        assert dims == [d, h, s, b] and box == [d, 1, _tma.FLASH_BK, 1]
+        assert strides[0] == 2 and all(x % 16 == 0 for x in strides[1:])
+        corners = [(0, 0, 0, 0), (b - 1, s - 1, h - 1, d - 1)]
+        picks = [tuple(int(rng.integers(n)) for n in (b, s, h, d)) for _ in range(50)]
+        for bi, si, hi, di in corners + picks:
+            want = t[bi, si, hi, di].data_ptr()
+            got = t.data_ptr() + sum(i * st for i, st in zip((di, hi, si, bi), strides))
+            assert got == want
+
+
+@pytest.mark.parametrize("tokens,c,inner", [(196608, 320, 1280), (3072, 1280, 5120),
+                                            (1000, 72, 288), (256, 32, 128)])
+def test_geglu_tensor_map_specs(tokens, c, inner):
+    x = torch.zeros((min(tokens, 4096), c), dtype=torch.bfloat16)
+    w = torch.zeros((2 * inner, c), dtype=torch.bfloat16)
+    out = torch.zeros((x.shape[0], inner), dtype=torch.bfloat16)
+    assert _tma.map_spec(x, (_tma.GEGLU_BM, _tma.GEGLU_BK)) == [c, x.shape[0], 2, 2 * c, 64, 128]
+    assert _tma.map_spec(w, (_tma.GEGLU_BN, _tma.GEGLU_BK)) == [c, 2 * inner, 2, 2 * c, 64, 128]
+    assert _tma.map_spec(out, _tma.GEGLU_OUT_BOX) == [inner, x.shape[0], 2, 2 * inner, 64, 64]
+
+
+@pytest.mark.parametrize("make,box,match", [
+    (lambda: torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16).transpose(2, 3),
+     (1, 128, 64, 1), "innermost stride"),
+    (lambda: torch.zeros((2, 8, 68), dtype=torch.bfloat16)[..., :64].unflatten(-1, (1, 64)),
+     (1, 128, 1, 64), "multiples of"),
+    (lambda: torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16), (1, 128, 1, 32), "swizzle"),
+    (lambda: torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16), (1, 512, 1, 64), "outside 1"),
+    (lambda: torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16), (128, 64), "same rank"),
+    (lambda: torch.zeros((2, 8, 3, 72), dtype=torch.bfloat16)[..., 4:68],
+     (1, 128, 1, 64), "16-byte aligned"),
+])
+def test_tensor_map_spec_refuses_what_tma_cannot_load(make, box, match):
+    with pytest.raises(ValueError, match=match):
+        _tma.map_spec(make(), box)
+
+
+@pytest.mark.parametrize("b,h,sq", [(80, 5, 2048), (80, 10, 512), (80, 20, 128), (4, 5, 129),
+                                    (12, 2, 200), (8, 5, 300)])
+def test_flash_schedule_covers_every_query_tile_once(b, h, sq):
+    q_tiles, blocks = _tma.flash_grid(b, h, sq)
+    seen = [_tma.flash_block(i, h, q_tiles) for i in range(blocks)]
+    want = {(bi, hi, q0) for bi in range(b) for hi in range(h)
+            for q0 in range(0, sq, _tma.FLASH_BQ)}
+    assert len(seen) == len(set(seen)) and set(seen) == want
+    # the query tiles of one (batch row, head) are neighbours in launch order
+    for i in range(0, blocks, q_tiles):
+        assert len({s[:2] for s in seen[i:i + q_tiles]}) == 1
+    # every query row lies in exactly one tile's rows below Sq
+    rows = sorted(r for bi, hi, q0 in seen if (bi, hi) == (0, 0)
+                  for r in range(q0, min(q0 + _tma.FLASH_BQ, sq)))
+    assert rows == list(range(sq))
+
+
+@pytest.mark.parametrize("row_len", [1, 127, 128, 129, 256, 650, 4096, 4097])
+def test_flash_kv_tiles_cover_the_row_length(row_len):
+    n = _tma.flash_kv_tiles(row_len)
+    assert n == len(range(0, row_len, _tma.FLASH_BK))            # brute force
+    assert (n - 1) * _tma.FLASH_BK < row_len <= n * _tma.FLASH_BK
+    # the last tile masks from row_len - (n - 1) * BK on: at least one key stays
+    assert 1 <= row_len - (n - 1) * _tma.FLASH_BK <= _tma.FLASH_BK
+
+
+@pytest.mark.parametrize("tokens,c,inner", [
+    (196608, 320, 1280), (49152, 640, 2560), (12288, 1280, 5120), (3072, 1280, 5120),
+    (196685, 320, 1280), (1000, 72, 288), (5000, 328, 1312), (300, 64, 200), (300, 64, 77),
+    (50, 320, 1280), (1, 64, 256), (256, 32, 128), (256, 64, 256)])
+def test_geglu_schedule_covers_every_tile_once_in_reuse_order(tokens, c, inner):
+    sms = 132
+    m_tiles, n_tiles, blocks = _tma.geglu_grid(tokens, inner, sms)
+    assert blocks == min(sms, m_tiles * n_tiles) and blocks >= 1
+    per_block = [_tma.geglu_block_tiles(i, blocks, m_tiles, n_tiles) for i in range(blocks)]
+    flat = [t for tiles in per_block for t in tiles]
+    want = {(m0, n0) for m0 in range(0, tokens, _tma.GEGLU_BM)
+            for n0 in range(0, inner, _tma.GEGLU_BN)}
+    assert len(flat) == len(set(flat)) and set(flat) == want
+    # round r of the grid works on tiles r * blocks .. : consecutive in
+    # (token tile, column tile) order, so a token tile's column tiles (which
+    # share x) run at the same time or in the next round, never far apart
+    order = sorted(want)
+    for r in range(max(len(t) for t in per_block)):
+        now = [tiles[r] for tiles in per_block if r < len(tiles)]
+        assert now == order[r * blocks:r * blocks + len(now)]
+    # the channel slices cover C; only the last is partly zero-filled
+    k = _tma.geglu_k_slices(c)
+    assert (k - 1) * _tma.GEGLU_BK < c <= k * _tma.GEGLU_BK
+
+
+@pytest.mark.parametrize("d,route", [(16, "mma"), (32, "mma"), (64, "wgmma"), (128, "mma")])
+def test_flash_route_by_head_dim(d, route):
+    assert _tma.flash_route(d) == route
+    assert set(fa_mod.flash_attention.route_launches) == {"wgmma", "mma"}
+
+
+@pytest.mark.parametrize("inner,tma", [(1280, True), (128, True), (200, True), (288, True),
+                                       (77, False), (100, False)])
+def test_geglu_store_route_by_inner_width(inner, tma):
+    assert _tma.geglu_tma_store(inner) is tma
+
+
+@pytest.mark.parametrize("case", ["fp32", "stride", "unaligned", "head_dim", "kv_lens"])
+def test_flash_cuda_checks_refuse_misuse(case):
+    """The checks every CUDA call passes before its launch, run on CPU tensors."""
+    q = torch.zeros((2, 128, 2, 64), dtype=torch.bfloat16)
+    lens = None
+    if case == "fp32":
+        with pytest.raises(TypeError, match="takes bf16"):
+            fa_mod._check_cuda(q.float(), q.float(), q.float(), None, 64)
+        return
+    if case == "stride":
+        bad = torch.zeros((2, 128, 2, 68), dtype=torch.bfloat16)[..., :64]
+    elif case == "unaligned":
+        bad = torch.zeros((2, 128, 2 * 64 + 8), dtype=torch.bfloat16)[..., 4:132].unflatten(-1, (2, 64))
+    elif case == "head_dim":
+        q = bad = torch.zeros((2, 128, 2, 48), dtype=torch.bfloat16)
+    else:
+        bad, lens = q, torch.ones(2, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        fa_mod._check_cuda(q, bad, bad, lens, q.shape[-1])
+
+
+@pytest.mark.parametrize("case", ["fp32", "strided", "channels"])
+def test_geglu_cuda_checks_refuse_misuse(case):
+    x = torch.zeros((64, 64), dtype=torch.bfloat16)
+    w, b = torch.zeros((256, 64), dtype=torch.bfloat16), torch.zeros(256, dtype=torch.bfloat16)
+    if case == "fp32":
+        with pytest.raises(TypeError, match="takes bf16"):
+            gg_mod._check_cuda(x.float(), w, b)
+    elif case == "strided":
+        with pytest.raises(ValueError, match="contiguous"):
+            gg_mod._check_cuda(torch.zeros((64, 128), dtype=torch.bfloat16)[:, ::2], w, b)
+    else:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            gg_mod._check_cuda(torch.zeros((64, 36), dtype=torch.bfloat16),
+                               torch.zeros((256, 36), dtype=torch.bfloat16), b)
+
+
+def test_flash_refuses_a_non_positive_scale():
+    q = torch.zeros((1, 8, 1, 16))
+    with pytest.raises(ValueError, match="positive"):
+        flash_attention(q, q, q, scale=0.0)
