@@ -1,5 +1,5 @@
-// Flash attention forward, bf16 in / bf16 out, fp32 softmax and accumulation,
-// for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a): bf16 in / bf16 out on the tensor
+// cores, or fp32 in / fp32 out on the FMA units; fp32 softmax and accumulation.
 //
 // Replaces the Pallas TPU kernel panacea_tpu/ops/flash_attention.py
 // (_flash_kernel, :33-86; its pallas_call in flash_attention, :236).
@@ -16,7 +16,8 @@
 // clock: the exponentials take as long as both products, so the two must
 // overlap.
 //
-// Two hand-written kernels, chosen by head dim in the C entry:
+// Two hand-written bf16 kernels, chosen by head dim in the C entry (fp32
+// operands go to a third, pn_flash_f32_fwd, described at its namespace):
 //
 // pn_flash_fwd (D = 64, the production head dim): one block of three
 // warpgroups per (128 query rows, head, batch).
@@ -469,6 +470,252 @@ void launch(const void* q, const void* k, const void* v, void* o, const void* kv
 
 }  // namespace mma
 
+// ------------------------------------------- fp32, D = 16, 32, 64, 128
+//
+// The Pallas kernel keeps its operands' type, so fp32 inputs give fp32
+// products. This kernel does the same on the FMA units: no tensor cores, no
+// TF32, no bf16 cut anywhere. The bound is then the card's fp32 rate outside
+// the tensor cores (4 B H Sq Skv D flops at 67 TFLOP/s on an H100 SXM), 15
+// times the bf16 bound, and far above the time to read q, k and v once.
+//
+// One block of 256 threads per (64 query rows, head, batch row), the threads
+// as 16 x 16: thread (ty, tx) owns query rows ty + 16 i (i < 4). The Q tile
+// stays in shared memory for the whole loop; each step stages a tile of 64
+// keys of K and V (rows padded by 4 floats, so that the 16-byte reads below
+// fall on distinct banks), and
+//  - S = Q K^T: the thread's 4 x 4 scores of columns tx + 16 j, both operands
+//    read as float4 along the head dim;
+//  - the online softmax in base 2 on registers, the row maximum taken over
+//    the 16 lanes that share a row; the probabilities go to shared memory in
+//    fp32;
+//  - O += P V: the same rows, D / 16 output columns a thread, P read back as
+//    float4 along the keys (the 16 lanes of a row sit in one warp, so a warp
+//    barrier is enough between the write and the read).
+// Loads are not overlapped with the products inside a block; the two or three
+// blocks an SM holds overlap each other.
+
+namespace f32 {
+
+constexpr int BQ = 64;      // query rows per block
+constexpr int BK = 64;      // keys per tile
+constexpr int NTHREADS = 256;
+constexpr int RI = BQ / 16; // rows a thread owns
+constexpr int CJ = BK / 16; // score columns a thread owns
+constexpr int LDP = BK + 4; // padded row of the probability tile
+
+template <int D>
+constexpr int smem_bytes() {
+  return (BQ * (D + 4) + 2 * BK * (D + 4) + BQ * LDP) * static_cast<int>(sizeof(float));
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x, dst[1] = t.y, dst[2] = t.z, dst[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x, dst[1] = t.y;
+  } else {
+    dst[0] = src[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* dst, const float* src) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+  } else {
+    dst[0] = src[0];
+  }
+}
+
+// rows [row0, row0 + 64) of a (rows, D) view with row stride `stride` into a
+// padded shared-memory tile; rows from `rows` on arrive as zeros
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, long long stride,
+                                           int row0, int rows) {
+  constexpr int LD = D + 4, CH = D / 4;
+  for (int c = threadIdx.x; c < 64 * CH; c += NTHREADS) {
+    const int r = c / CH, col = (c % CH) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < rows) val = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + col);
+    *reinterpret_cast<float4*>(dst + r * LD + col) = val;
+  }
+}
+
+__device__ __forceinline__ float row_max16(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 4);
+  return x + __shfl_xor_sync(0xffffffffu, x, 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+pn_flash_f32_fwd(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 const int* __restrict__ kv_lens, int heads, int sq, int skv, int q_tiles,
+                 long long q_sb, long long q_ss, long long q_sh,
+                 long long k_sb, long long k_ss, long long k_sh,
+                 long long v_sb, long long v_ss, long long v_sh, float scale_log2) {
+  constexpr int LD = D + 4;
+  constexpr int DC = D / 16;            // output columns a thread owns
+  constexpr int VEC = DC >= 4 ? 4 : DC; // in chunks of VEC: columns (c 16 + tx) VEC + e
+  constexpr int NC = DC / VEC;
+  extern __shared__ float4 smem_f32[];
+  float* qs = reinterpret_cast<float*>(smem_f32);
+  float* ks = qs + BQ * LD;
+  float* vs = ks + BK * LD;
+  float* ps = vs + BK * LD;
+
+  // blockIdx.x = (batch * heads + head) * q_tiles + q tile, as pn_flash_fwd
+  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int h = bh % heads, b = bh / heads;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+
+  stage_tile<D>(qs, qb, q_ss, qt * BQ, sq);
+
+  float acc[RI][DC];
+  float m[RI], l[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int n_tiles = (row_len + BK - 1) / BK;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int kv0 = tile * BK;
+    __syncthreads();  // every warp is done with the previous K and V tiles
+    stage_tile<D>(ks, kb, k_ss, kv0, skv);
+    stage_tile<D>(vs, vb, v_ss, kv0, skv);
+    __syncthreads();
+
+    // S = Q K^T, rows ty + 16 i, columns tx + 16 j
+    float s[RI][CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[RI], kv[CJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+    // online softmax in the log2 domain; the probabilities go to shared memory
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        s[i][j] = kv0 + tx + 16 * j < row_len ? s[i][j] * scale_log2 : NEG;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float mn = fmaxf(m[i], row_max16(mx));
+      const float corr = exp2f(m[i] - mn);
+      m[i] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const float p = exp2f(s[i][j] - mn);
+        sum += p;
+        ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * corr + sum;  // this thread's share of the row sum
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+    }
+    __syncwarp();  // a row's 16 lanes are in this warp
+
+    // O += P V
+#pragma unroll 2
+    for (int j = 0; j < BK; j += 4) {
+      float pv[RI][4];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) load_vec<4>(pv[i], ps + (ty + 16 * i) * LDP + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float vv[DC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          load_vec<VEC>(vv + c * VEC, vs + (j + jj) * LD + (c * 16 + tx) * VEC);
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(pv[i][jj], vv[c], acc[i][c]);
+      }
+    }
+    __syncwarp();  // the probabilities are read before the next tile's are written
+  }
+
+  // the output, (B, Sq, H, D) contiguous, written once; rows past Sq never
+  float* ob = o + (static_cast<long long>(b) * sq * heads + h) * D;
+  const long long o_ss = static_cast<long long>(heads) * D;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = qt * BQ + ty + 16 * i;
+    const float inv = 1.f / row_sum16(l[i]);
+    if (row < sq) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= inv;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        store_vec<VEC>(ob + row * o_ss + (c * 16 + tx) * VEC, acc[i] + c * VEC);
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, const void* kv_lens, int batch,
+           int heads, int sq, int skv, const long long* st, float scale_log2,
+           cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pn_flash_f32_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int q_tiles = (sq + BQ - 1) / BQ;
+  const long long blocks = static_cast<long long>(batch) * heads * q_tiles;
+  if (blocks < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  pn_flash_f32_fwd<D><<<static_cast<unsigned>(blocks), NTHREADS, smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<const int*>(kv_lens), heads, sq, skv, q_tiles, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // strides: {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h} in elements; the
@@ -490,6 +737,23 @@ extern "C" int pn_flash_attention_bf16(const void* q, const void* k, const void*
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 entry: the same arguments less the tensor maps; q, k, v and o are
+// fp32, strides in elements of fp32 (multiples of 4, 16 bytes).
+extern "C" int pn_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
+                                      const void* kv_lens, int batch, int heads, int sq, int skv,
+                                      int d, const long long* strides, float scale,
+                                      void* stream) {
+  const float scale_log2 = scale * 1.4426950408889634f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return f32::launch<16>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
+    case 32: return f32::launch<32>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
+    case 64: return f32::launch<64>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
+    case 128: return f32::launch<128>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* pn_error_string(int err) {

@@ -1,4 +1,5 @@
-// Fused GEGLU projection for Hopper (sm_90a), bf16 in / bf16 out:
+// Fused GEGLU projection for Hopper (sm_90a), bf16 in / bf16 out on the tensor
+// cores (pn_geglu_fwd) or fp32 in / fp32 out on the FMA units (pn_geglu_f32_fwd):
 //   out[t, j] = (x[t] . W[j] + b[j]) * gelu_erf(x[t] . W[I + j] + b[I + j])
 // for x (T, C), W (2I, C) in the torch Linear layout, b (2I,), out (T, I).
 //
@@ -230,6 +231,107 @@ pn_geglu_fwd(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ 
   }
 }
 
+// ------------------------------------------------------------------ fp32
+//
+// The Pallas kernel keeps fp32 operands in fp32; so does this one, on the FMA
+// units (no tensor cores, no TF32). Its bound is 4 T C I flops at the card's
+// fp32 rate outside the tensor cores (67 TFLOP/s on an H100 SXM), far above
+// the time to move x, W and the result once.
+//
+// One block of 256 threads per tile of 128 tokens x 64 output columns (both
+// halves: 128 rows of W), the threads as 16 x 16: thread (ty, tx) owns tokens
+// ty + 16 i (i < 8) and columns tx + 16 j (j < 4) of each half, 64 fp32
+// accumulators. Each step stages 32 channels of the x tile and of the two W
+// row blocks in shared memory (rows padded by 4 floats, so that the 16-byte
+// reads along the channels fall on distinct banks). The epilogue (bias,
+// exact-erf GELU, product) runs in registers and only (T, I) is written.
+// Tile index = token tile * column tiles + column tile, so the blocks in
+// flight share x tiles in L2.
+
+namespace f32 {
+
+constexpr int BM = 128, BN = 64, BKC = 32, NTHREADS = 256;
+constexpr int LD = BKC + 4;
+constexpr int RI = BM / 16, CJ = BN / 16;
+static_assert(BM == 2 * BN, "one staging loop fills the x tile and both W row blocks");
+
+__global__ void __launch_bounds__(NTHREADS)
+pn_geglu_f32_fwd(const float* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ bias, float* __restrict__ out, int tokens, int c,
+                 int inner, int n_tiles) {
+  __shared__ __align__(16) float xs[BM * LD];
+  __shared__ __align__(16) float ws[2 * BN * LD];  // rows [0, BN): W_h, [BN, 2 BN): W_gate
+  const int m0 = (blockIdx.x / n_tiles) * BM, n0 = (blockIdx.x % n_tiles) * BN;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  float ah[RI][CJ], ag[RI][CJ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) ah[i][j] = ag[i][j] = 0.f;
+
+  constexpr int CH = BKC / 4;  // float4 chunks per staged row
+  for (int k0 = 0; k0 < c; k0 += BKC) {
+    __syncthreads();  // every warp is done with the previous slices
+    for (int ch = threadIdx.x; ch < BM * CH; ch += NTHREADS) {
+      const int r = ch / CH, col = (ch % CH) * 4;
+      // c is a multiple of 4: a chunk lies wholly inside the row or outside it
+      const bool in_k = k0 + col < c;
+      float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), wv = xv;
+      if (in_k && m0 + r < tokens)
+        xv = *reinterpret_cast<const float4*>(x + static_cast<long long>(m0 + r) * c + k0 + col);
+      const int n = n0 + (r & (BN - 1));  // the column this W row belongs to
+      if (in_k && n < inner)
+        wv = *reinterpret_cast<const float4*>(
+            w + static_cast<long long>(r < BN ? n : inner + n) * c + k0 + col);
+      *reinterpret_cast<float4*>(xs + r * LD + col) = xv;
+      *reinterpret_cast<float4*>(ws + r * LD + col) = wv;
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int kk = 0; kk < BKC; kk += 4) {
+      float4 xv[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xs + (ty + 16 * i) * LD + kk);
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const float4 hv = *reinterpret_cast<const float4*>(ws + (tx + 16 * j) * LD + kk);
+        const float4 gv = *reinterpret_cast<const float4*>(ws + (BN + tx + 16 * j) * LD + kk);
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          ah[i][j] = fmaf(xv[i].x, hv.x, ah[i][j]);
+          ah[i][j] = fmaf(xv[i].y, hv.y, ah[i][j]);
+          ah[i][j] = fmaf(xv[i].z, hv.z, ah[i][j]);
+          ah[i][j] = fmaf(xv[i].w, hv.w, ah[i][j]);
+          ag[i][j] = fmaf(xv[i].x, gv.x, ag[i][j]);
+          ag[i][j] = fmaf(xv[i].y, gv.y, ag[i][j]);
+          ag[i][j] = fmaf(xv[i].z, gv.z, ag[i][j]);
+          ag[i][j] = fmaf(xv[i].w, gv.w, ag[i][j]);
+        }
+      }
+    }
+  }
+
+  // epilogue: bias, erf-GELU gate, product; only (T, I) is written
+#pragma unroll
+  for (int j = 0; j < CJ; ++j) {
+    const int col = n0 + tx + 16 * j;
+    if (col >= inner) continue;
+    const float bh = bias[col], bg = bias[inner + col];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int row = m0 + ty + 16 * i;
+      if (row < tokens)
+        out[static_cast<long long>(row) * inner + col] =
+            (ah[i][j] + bh) * gelu_erf(ag[i][j] + bg);
+    }
+  }
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // x (tokens, c), w (2 inner, c), bias (2 inner,), out (tokens, inner): all
@@ -259,6 +361,20 @@ extern "C" int pn_geglu_bf16(const void* x, const void* w, const void* bias, voi
       x_map, w_map, out_map, static_cast<const __nv_bfloat16*>(bias),
       static_cast<__nv_bfloat16*>(out), tokens, c, inner, n_tiles, static_cast<int>(total),
       tma_store);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 entry: x, w, bias and out contiguous fp32, 16-byte aligned, c a
+// multiple of 4. Returns a cudaError_t value.
+extern "C" int pn_geglu_f32(const void* x, const void* w, const void* bias, void* out,
+                            int tokens, int c, int inner, void* stream) {
+  const int m_tiles = (tokens + f32::BM - 1) / f32::BM, n_tiles = (inner + f32::BN - 1) / f32::BN;
+  const long long total = static_cast<long long>(m_tiles) * n_tiles;
+  if (total < 1 || total > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  f32::pn_geglu_f32_fwd<<<static_cast<unsigned>(total), f32::NTHREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<float*>(out), tokens, c, inner, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

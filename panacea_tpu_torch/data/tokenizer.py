@@ -174,3 +174,10 @@ class SimpleTokenizer:
                 tokens[-1] = self.eot
             result[i, : len(tokens)] = tokens
         return result
+
+
+def has_real_vocab() -> bool:
+    """True when the BPE merge table is found (real CLIP token ids). False
+    means the hash fallback is active: stable ids for shape tests, garbage for
+    real text conditioning — callers doing real inference must refuse it."""
+    return SimpleTokenizer().real_vocab

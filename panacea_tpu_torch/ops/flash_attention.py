@@ -7,9 +7,11 @@ Layout: q (B, Sq, H, D), k and v (B, Skv, H, D) -> (B, Sq, H, D).
 ``kv_lens``: optional (B,) int32 valid key counts per batch row (each >= 1).
 
 On a CPU tensor ``flash_attention`` runs ``flash_attention_plain``. On a
-CUDA tensor it launches a kernel or raises: it never falls back. Head dim 64
-goes to the wgmma/TMA kernel, 16, 32 and 128 to the mma.sync kernel
-(``_tma.flash_route``); ``flash_attention.launches`` counts all launches and
+CUDA tensor it launches a kernel or raises: it never falls back. The
+operands keep their type, as in the Pallas kernel: bf16 at head dim 64 goes
+to the wgmma/TMA kernel, at 16, 32 and 128 to the mma.sync kernel
+(``_tma.flash_route``); fp32 goes to the fp32 kernel (products on the FMA
+units, no TF32). ``flash_attention.launches`` counts all launches and
 ``flash_attention.route_launches`` each route's.
 """
 
@@ -66,17 +68,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / den).permute(0, 2, 1, 3).to(q.dtype)
 
 
+def _route(dtype: torch.dtype, d: int) -> str:
+    return "fp32" if dtype == torch.float32 else _tma.flash_route(d)
+
+
 def _check_cuda(q, k, v, kv_lens, d):
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_attention: the CUDA kernels take bf16 or fp32, got q {q.dtype}")
+    # a row of the head dim is read in 16-byte pieces: 8 bf16 or 4 fp32
+    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(
-                f"flash_attention: the CUDA kernel takes bf16, got {name} {t.dtype}; "
-                "fp32 kernels are not written yet (the main path runs bf16 on the card)")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: q is {q.dtype} and {name} is {t.dtype}; "
+                            "the kernels take one type for all three")
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]):
+        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {name} strides {t.stride()} must be "
-                             "multiples of 8 with a unit head-dim stride")
+                             f"multiples of {vec} ({q.dtype}: 16 bytes) with a unit "
+                             "head-dim stride")
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
     if d not in HEAD_DIMS:
@@ -86,7 +96,7 @@ def _check_cuda(q, k, v, kv_lens, d):
                 or kv_lens.shape != (q.shape[0],) or not kv_lens.is_contiguous()):
             raise ValueError("flash_attention: kv_lens must be a contiguous (B,) "
                              "int32 tensor on q's device")
-    if _tma.flash_route(d) == "mma" and q.shape[0] * q.shape[2] > 65535:
+    if _route(q.dtype, d) == "mma" and q.shape[0] * q.shape[2] > 65535:
         raise ValueError("flash_attention: batch * heads exceeds the mma.sync kernel's "
                          "65535 grid rows")
 
@@ -100,6 +110,11 @@ def _lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
         ctypes.c_float, ctypes.c_void_p]
     lib.pn_flash_attention_bf16.restype = ctypes.c_int
+    lib.pn_flash_attention_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+    lib.pn_flash_attention_f32.restype = ctypes.c_int
     return lib
 
 
@@ -122,19 +137,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _lib()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    route = _tma.flash_route(d)
-    maps = None
-    if route == "wgmma":
-        # 4-D views (B, S, H, D), loaded as (rows, 64) boxes of one head
-        spec = (_tma.map_spec(q, (1, _tma.FLASH_BQ, 1, d))
-                + _tma.map_spec(k, (1, _tma.FLASH_BK, 1, d))
-                + _tma.map_spec(v, (1, _tma.FLASH_BK, 1, d)))
-        maps = (ctypes.c_longlong * len(spec))(*spec)
-    err = lib.pn_flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kv_lens.data_ptr() if kv_lens is not None else None,
-        b, h, sq, k.shape[1], d, strides, maps, scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    route = _route(q.dtype, d)
+    lens_ptr = kv_lens.data_ptr() if kv_lens is not None else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "fp32":
+        err = lib.pn_flash_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lens_ptr,
+            b, h, sq, k.shape[1], d, strides, scale, stream)
+    else:
+        maps = None
+        if route == "wgmma":
+            # 4-D views (B, S, H, D), loaded as (rows, 64) boxes of one head
+            spec = (_tma.map_spec(q, (1, _tma.FLASH_BQ, 1, d))
+                    + _tma.map_spec(k, (1, _tma.FLASH_BK, 1, d))
+                    + _tma.map_spec(v, (1, _tma.FLASH_BK, 1, d)))
+            maps = (ctypes.c_longlong * len(spec))(*spec)
+        err = lib.pn_flash_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lens_ptr,
+            b, h, sq, k.shape[1], d, strides, maps, scale, stream)
     _build.check(lib, err, f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
@@ -142,5 +162,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = {"wgmma": 0, "mma": 0}
+flash_attention.route_launches = {"wgmma": 0, "mma": 0, "fp32": 0}
 

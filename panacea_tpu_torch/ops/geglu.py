@@ -8,7 +8,10 @@ layout (2*inner, C) = [W_h; W_gate] (the flax kernel is its transpose), and
     geglu(x, w, b) = (x W_h^T + b_h) * gelu_erf(x W_gate^T + b_gate)
 
 On a CPU tensor ``geglu`` runs ``geglu_plain``. On a CUDA tensor it
-launches the kernel or raises: it never falls back.
+launches a kernel or raises: it never falls back. The operands keep their
+type, as in the Pallas kernel: bf16 goes to the wgmma/TMA kernel, fp32 to the
+fp32 kernel (products on the FMA units, no TF32). ``geglu.launches`` counts
+all launches and ``geglu.route_launches`` each type's.
 """
 
 from __future__ import annotations
@@ -31,17 +34,21 @@ def geglu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 
 def _check_cuda(x, w, b):
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"geglu: the CUDA kernels take bf16 or fp32, got x {x.dtype}")
     for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(
-                f"geglu: the CUDA kernel takes bf16, got {name} {t.dtype}; "
-                "fp32 kernels are not written yet (the main path runs bf16 on the card)")
+        if t.dtype != x.dtype:
+            raise TypeError(f"geglu: x is {x.dtype} and {name} is {t.dtype}; "
+                            "the kernels take one type for all three")
         if t.device != x.device:
             raise ValueError(f"geglu: {name} on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"geglu: {name} must be contiguous and 16-byte aligned")
-    if x.shape[-1] % 8:
-        raise ValueError(f"geglu: channels {x.shape[-1]} must be a multiple of 8")
+    # a row of x or w is read in 16-byte pieces: 8 bf16 or 4 fp32
+    vec = 16 // x.element_size()
+    if x.shape[-1] % vec:
+        raise ValueError(f"geglu: channels {x.shape[-1]} must be a multiple of {vec} "
+                         f"({x.dtype}: 16 bytes)")
 
 
 @functools.cache
@@ -52,6 +59,10 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.pn_geglu_bf16.restype = ctypes.c_int
+    lib.pn_geglu_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.pn_geglu_f32.restype = ctypes.c_int
     return lib
 
 
@@ -76,21 +87,29 @@ def geglu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     tokens = x2.shape[0]
     lib = _lib()
     out = torch.empty((tokens, inner), dtype=x.dtype, device=x.device)
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    _, _, blocks = _tma.geglu_grid(tokens, inner, _sm_count(index))
-    spec = (_tma.map_spec(x2, (_tma.GEGLU_BM, _tma.GEGLU_BK))
-            + _tma.map_spec(w, (_tma.GEGLU_BN, _tma.GEGLU_BK)))
-    tma_store = _tma.geglu_tma_store(inner)
-    if tma_store:
-        spec += _tma.map_spec(out, _tma.GEGLU_OUT_BOX)
-    err = lib.pn_geglu_bf16(x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            tokens, c, inner, (ctypes.c_longlong * len(spec))(*spec),
-                            int(tma_store), blocks,
-                            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "geglu")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.float32:
+        route = "fp32"
+        err = lib.pn_geglu_f32(x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                               tokens, c, inner, stream)
+    else:
+        route = "bf16"
+        index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+        _, _, blocks = _tma.geglu_grid(tokens, inner, _sm_count(index))
+        spec = (_tma.map_spec(x2, (_tma.GEGLU_BM, _tma.GEGLU_BK))
+                + _tma.map_spec(w, (_tma.GEGLU_BN, _tma.GEGLU_BK)))
+        tma_store = _tma.geglu_tma_store(inner)
+        if tma_store:
+            spec += _tma.map_spec(out, _tma.GEGLU_OUT_BOX)
+        err = lib.pn_geglu_bf16(x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                tokens, c, inner, (ctypes.c_longlong * len(spec))(*spec),
+                                int(tma_store), blocks, stream)
+    _build.check(lib, err, f"geglu ({route})")
     geglu.launches += 1
+    geglu.route_launches[route] += 1
     return out.reshape(*x.shape[:-1], inner)
 
 
 geglu.launches = 0
+geglu.route_launches = {"bf16": 0, "fp32": 0}
 

@@ -1,6 +1,6 @@
 """How closely a CUDA kernel must match its plain version on the card.
 
-Both sides round their result to bf16 from fp32 arithmetic on the same bf16
+bf16 kernels: both sides round their result to bf16 from fp32 arithmetic on the same bf16
 inputs, so two things separate them: the final rounding, which can land one
 bf16 step apart (at most 2**-7 of the value), and the summation order. The
 rule is per element,
@@ -9,6 +9,12 @@ rule is per element,
 
 with ``rel`` just above one bf16 step and ``floor`` a small share of the
 output's own scale, so that no limit is larger than what it checks.
+
+fp32 kernels: both sides compute in fp32 from the same fp32 inputs and differ
+in the summation order, in the running maxima of the online softmax and in
+the last bits of ``exp2`` and ``erf``. The same rule holds them, with ``rel``
+and ``floor`` some tens to hundreds of fp32 steps (2**-24 of the value): far below what
+TF32 (2**-11) or a bf16 cut (2**-8) of an operand would leave.
 """
 
 from __future__ import annotations
@@ -23,6 +29,11 @@ import torch
 FLASH = {"rel": 1e-2, "floor": 2e-2}
 # GEGLU: fp32 accumulation on both sides, one rounding of the product
 GEGLU = {"rel": 1e-2, "floor": 1e-4}
+# the fp32 kernels (products on the FMA units, no TF32). Measured on an H100
+# at rel = floor = 1e-4: flash at most 0.116 of the limit (level 0, 4096 keys),
+# GEGLU at most 0.0143 (and bit-equal to the plain version at most shapes)
+FLASH_F32 = {"rel": 2e-5, "floor": 2e-5}
+GEGLU_F32 = {"rel": 5e-6, "floor": 5e-6}
 
 
 def worst_ratio(got: torch.Tensor, want: torch.Tensor, rel: float, floor: float) -> float:

@@ -64,3 +64,64 @@ def test_geglu_kernel_matches_plain_on_card(cuda, tokens, c, inner):
     b = (torch.randn(2 * inner, generator=g, device=cuda) * 0.1).bfloat16()
     got, want = geglu(x, w, b), geglu_plain(x, w, b)
     assert tolerance.worst_ratio(got, want, **tolerance.GEGLU) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,h,d,lens,merged", [
+    (2048, 4096, 5, 64, None, True), (512, 1024, 10, 64, None, False),
+    (128, 256, 20, 64, None, True), (300, 650, 2, 32, None, False),
+    (256, 512, 2, 128, [512, 200], False), (256, 512, 2, 16, None, False),
+    (100, 70, 3, 64, [1, 65], True), (129, 4097, 5, 64, None, False),
+    (200, 700, 2, 64, [1 + 61 * i for i in range(12)], False)])
+def test_fp32_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
+    """fp32 operands go to the fp32 kernel (FMA units, no TF32) at every head dim."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = 2 if lens is None else len(lens)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda)
+    if merged:
+        kv = torch.randn((b, skv, 2 * h * d), generator=g, device=cuda)
+        k, v = (t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1))
+    else:
+        k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda) for _ in range(2))
+    kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = flash_attention.route_launches["fp32"]
+    got = flash_attention(q, k, v, kv_lens=kvl)
+    assert flash_attention.route_launches["fp32"] == before + 1 and got.dtype == torch.float32
+    want = flash_attention_plain(q, k, v, kv_lens=kvl)
+    assert tolerance.worst_ratio(got, want, **tolerance.FLASH_F32) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,c,inner", [
+    (3001, 320, 1280), (1000, 640, 2560), (777, 1280, 5120), (1000, 72, 288),
+    (300, 64, 200), (300, 64, 77), (1, 64, 256), (256, 32, 128), (100, 36, 100)])
+def test_fp32_geglu_kernel_matches_plain_on_card(cuda, tokens, c, inner):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((tokens, c), generator=g, device=cuda)
+    w = torch.randn((2 * inner, c), generator=g, device=cuda) * c**-0.5
+    b = torch.randn(2 * inner, generator=g, device=cuda) * 0.1
+    before = geglu.route_launches["fp32"]
+    got, want = geglu(x, w, b), geglu_plain(x, w, b)
+    assert geglu.route_launches["fp32"] == before + 1 and got.dtype == torch.float32
+    assert tolerance.worst_ratio(got, want, **tolerance.GEGLU_F32) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["flash", "geglu"])
+def test_wrappers_refuse_mixed_types_on_card(cuda, what):
+    """On a CUDA tensor a wrapper launches its kernel or raises; it never
+    hands another type to a plain version."""
+    if what == "flash":
+        q = torch.zeros((1, 128, 1, 64), device=cuda)
+        with pytest.raises(TypeError, match="one type"):
+            flash_attention(q, q.bfloat16(), q.bfloat16())
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            flash_attention(q.half(), q.half(), q.half())
+    else:
+        x, w, b = (torch.zeros(s, device=cuda) for s in ((8, 64), (128, 64), (128,)))
+        with pytest.raises(TypeError, match="one type"):
+            geglu(x, w.bfloat16(), b)
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            geglu(x.double(), w.double(), b.double())

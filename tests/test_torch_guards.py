@@ -17,17 +17,31 @@ from panacea_tpu_torch.registry import instantiate_from_config
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "panacea_tpu")
+# the port's scripts outside its package
+ROOT_SCRIPTS = ("chip_smoke.py", "inference_torch.py",
+                os.path.join("scripts", "compare_latents_torch.py"),
+                os.path.join("scripts", "probe_torch_kernels.py"))
 
 
 def port_files():
     pkg = os.path.join(ROOT, "panacea_tpu_torch")
     for d, _, files in os.walk(pkg):
         yield from (os.path.join(d, f) for f in files if f.endswith(".py"))
-    yield os.path.join(ROOT, "chip_smoke.py")
+    for script in ROOT_SCRIPTS:
+        yield os.path.join(ROOT, script)
 
 
 def test_port_source_imports_no_jax():
     bad = []
+    names = {os.path.relpath(p, ROOT) for p in port_files()}
+    # the walk reaches the modules of this slice, the new root script included
+    assert {"inference_torch.py", os.path.join("panacea_tpu_torch", "inference.py"),
+            os.path.join("panacea_tpu_torch", "native", "__init__.py"),
+            os.path.join("panacea_tpu_torch", "data", "nuscenes", "dataset.py"),
+            os.path.join("panacea_tpu_torch", "writers.py"),
+            os.path.join("panacea_tpu_torch", "rollout.py"),
+            os.path.join("panacea_tpu_torch", "checkpoint.py"),
+            os.path.join("panacea_tpu_torch", "utils", "profiling.py")} <= names
     for path in port_files():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -48,7 +62,9 @@ def test_port_imports_with_jax_blocked():
         "import panacea_tpu_torch\n"
         "for info in pkgutil.walk_packages(panacea_tpu_torch.__path__, 'panacea_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, inference_torch\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import compare_latents_torch, probe_torch_kernels\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)

@@ -270,7 +270,10 @@ def test_geglu_schedule_covers_every_tile_once_in_reuse_order(tokens, c, inner):
 @pytest.mark.parametrize("d,route", [(16, "mma"), (32, "mma"), (64, "wgmma"), (128, "mma")])
 def test_flash_route_by_head_dim(d, route):
     assert _tma.flash_route(d) == route
-    assert set(fa_mod.flash_attention.route_launches) == {"wgmma", "mma"}
+    assert fa_mod._route(torch.bfloat16, d) == route
+    assert fa_mod._route(torch.float32, d) == "fp32"     # fp32 operands keep their type
+    assert set(fa_mod.flash_attention.route_launches) == {"wgmma", "mma", "fp32"}
+    assert set(gg_mod.geglu.route_launches) == {"bf16", "fp32"}
 
 
 @pytest.mark.parametrize("inner,tma", [(1280, True), (128, True), (200, True), (288, True),
@@ -285,8 +288,14 @@ def test_flash_cuda_checks_refuse_misuse(case):
     q = torch.zeros((2, 128, 2, 64), dtype=torch.bfloat16)
     lens = None
     if case == "fp32":
-        with pytest.raises(TypeError, match="takes bf16"):
-            fa_mod._check_cuda(q.float(), q.float(), q.float(), None, 64)
+        # fp32 is a type of its own kernel; mixed types and other types raise
+        fa_mod._check_cuda(q.float(), q.float(), q.float(), None, 64)
+        with pytest.raises(TypeError, match="one type"):
+            fa_mod._check_cuda(q.float(), q, q, None, 64)
+        with pytest.raises(TypeError, match="one type"):
+            fa_mod._check_cuda(q, q, q.float(), None, 64)
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            fa_mod._check_cuda(q.half(), q.half(), q.half(), None, 64)
         return
     if case == "stride":
         bad = torch.zeros((2, 128, 2, 68), dtype=torch.bfloat16)[..., :64]
@@ -305,8 +314,13 @@ def test_geglu_cuda_checks_refuse_misuse(case):
     x = torch.zeros((64, 64), dtype=torch.bfloat16)
     w, b = torch.zeros((256, 64), dtype=torch.bfloat16), torch.zeros(256, dtype=torch.bfloat16)
     if case == "fp32":
-        with pytest.raises(TypeError, match="takes bf16"):
+        gg_mod._check_cuda(x.float(), w.float(), b.float())
+        with pytest.raises(TypeError, match="one type"):
             gg_mod._check_cuda(x.float(), w, b)
+        with pytest.raises(TypeError, match="one type"):
+            gg_mod._check_cuda(x, w, b.float())
+        with pytest.raises(TypeError, match="bf16 or fp32"):
+            gg_mod._check_cuda(x.double(), w.double(), b.double())
     elif case == "strided":
         with pytest.raises(ValueError, match="contiguous"):
             gg_mod._check_cuda(torch.zeros((64, 128), dtype=torch.bfloat16)[:, ::2], w, b)
@@ -314,9 +328,65 @@ def test_geglu_cuda_checks_refuse_misuse(case):
         with pytest.raises(ValueError, match="multiple of 8"):
             gg_mod._check_cuda(torch.zeros((64, 36), dtype=torch.bfloat16),
                                torch.zeros((256, 36), dtype=torch.bfloat16), b)
+        # 16 bytes are 4 fp32 channels: 36 passes in fp32, 34 does not
+        gg_mod._check_cuda(torch.zeros((64, 36)), torch.zeros((256, 36)), b.float())
+        with pytest.raises(ValueError, match="multiple of 4"):
+            gg_mod._check_cuda(torch.zeros((64, 34)), torch.zeros((256, 34)), b.float())
 
 
 def test_flash_refuses_a_non_positive_scale():
     q = torch.zeros((1, 8, 1, 16))
     with pytest.raises(ValueError, match="positive"):
         flash_attention(q, q, q, scale=0.0)
+
+
+@pytest.mark.parametrize("dtype,vec", [(torch.bfloat16, 8), (torch.float32, 4)])
+def test_flash_alignment_rule_is_per_type(dtype, vec):
+    """Strides are checked in 16-byte pieces: multiples of 8 bf16 or of 4 fp32."""
+    d = 64
+
+    def view(pad):   # (2, 128, 2, 64) with a head stride of 64 + pad elements
+        return torch.zeros((2, 128, 2, d + pad), dtype=dtype)[..., :d]
+
+    fa_mod._check_cuda(view(vec), view(vec), view(vec), None, d)
+    with pytest.raises(ValueError, match=f"multiples of {vec}"):
+        fa_mod._check_cuda(view(vec), view(vec // 2), view(vec), None, d)
+    if dtype == torch.float32:   # 4 elements are 16 bytes of fp32 and 8 bytes of bf16
+        with pytest.raises(ValueError, match="multiples of 8"):
+            bad = torch.zeros((2, 128, 2, d + 4), dtype=torch.bfloat16)[..., :d]
+            fa_mod._check_cuda(bad, bad, bad, None, d)
+
+
+REL = 1e-5  # fp32 operands on both sides, relative to the output's largest value
+
+
+@pytest.mark.parametrize("d,sq,skv,lens", [(64, 128, 256, None), (64, 200, 330, [330, 77]),
+                                           (32, 256, 512, None), (128, 128, 256, [256, 129])])
+def test_fp32_flash_plain_matches_pallas_kernel_on_fp32_inputs(d, sq, skv, lens):
+    """The Pallas kernel keeps fp32 operands in fp32 (interpret mode here);
+    the plain version, which the fp32 CUDA kernel is held to on the card,
+    agrees with it to 1e-5 of the output's scale at the production head dim
+    and the others."""
+    q, k, v = qkv(d + sq, 2, sq, skv, 2, d)
+    kvl = None if lens is None else np.asarray(lens, np.int32)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                block_q=128, block_k=128, interpret=True,
+                                kv_lens=None if kvl is None else jnp.asarray(kvl)))
+    assert want.dtype == np.float32
+    got = flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                kv_lens=None if kvl is None else torch.from_numpy(kvl))
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("tokens,c,inner", [(256, 320, 1280), (130, 64, 128), (64, 36, 256)])
+def test_fp32_geglu_plain_matches_pallas_kernel_on_fp32_inputs(tokens, c, inner):
+    rng = np.random.default_rng(c)
+    x = rng.standard_normal((tokens, c)).astype(np.float32)
+    w = (rng.standard_normal((c, 2 * inner)) * c**-0.5).astype(np.float32)  # flax layout
+    b = (rng.standard_normal(2 * inner) * 0.1).astype(np.float32)
+    want = np.asarray(geglu_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True))
+    assert want.dtype == np.float32
+    got = geglu_plain(torch.from_numpy(x), torch.from_numpy(w.T.copy()), torch.from_numpy(b))
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= REL * np.abs(want).max()
