@@ -8,12 +8,13 @@ Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
      with nvcc (one process per source, started together) and its rasterizer
      with g++; an ignored ``setmaxnreg`` in the ptxas report is a failure;
-  2. kernels: each kernel at every shape the generation path gives it and at
-     ragged and tiny shapes, held against its plain PyTorch version on the
-     same inputs (per element, the rule of
+  2. kernels: each kernel at every shape the generation and training paths
+     give it and at ragged and tiny shapes, held against its plain PyTorch
+     version on the same inputs (per element, the rule of
      ``panacea_tpu_torch/ops/tolerance.py``), and timed beside the plain
-     version, a one-call PyTorch yardstick and its bound: the bf16 kernels
-     (tensor cores), then the fp32 kernels (FMA units, TF32 off everywhere);
+     version, a PyTorch yardstick and its bound: the bf16 kernels (tensor
+     cores; the flash forward also with its row log-sum-exp), the fp32
+     kernels (FMA units, TF32 off everywhere), then the backward kernels;
   3. small input: the tiny engine on the card (bf16, kernels) against the
      same weights on the CPU (fp32, plain versions), two sampler steps;
   4. log_images: ``DiffusionEngine3D.log_images`` called directly at full
@@ -31,7 +32,23 @@ Phases, in order; any failure exits non-zero:
   7. fp32 engine: the production engine in fp32 and in bf16 with the same
      weights and the same injected noise, two sampler steps each; the fp32
      launch counters must rise by 42 and 138, and the latents' relative
-     difference after each step is printed.
+     difference after each step is printed;
+  8. train: the port's train step (``train_step.train_step``) at full
+     production width, bs 1 x 8 frames, random weights and clip: 3 steps
+     training every network parameter with the EMA, then 2 with
+     ``freeze_type spatial`` (frozen parameters bit-equal, temporal masters
+     moved); s/step and its split, peak memory, and 42 flash forward, 21 flash
+     backward, 138 GEGLU forward and 69 GEGLU backward launches a step;
+  9. tiny training step: loss and gradients of the tiny engine, bf16 on the
+     card against fp32 on the CPU, held to a bf16 run on the CPU;
+ 10. training CLI: ``train_torch.py --tiny --synthetic --steps 4 --ckpt_every
+     2 --use_ema`` on the card, resumed from iter_2 (parameters and EMA equal
+     to the uninterrupted run's within ``RESUME_TOL``, bit-equal so far), and
+     its ``engine_final.ckpt`` loaded with strict=True into the inference CLI,
+     2 steps.
+
+The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
+phase 2 at the training shapes, and counted in phase 8.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 summary, the card's name and power limit as nvidia-smi reports them, and
@@ -63,6 +80,26 @@ PEAK_FP32 = 67e12      # H100 SXM fp32 flop/s outside the tensor cores (same dat
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 SMALL_TOL = 5e-2       # tiny engine, bf16 card vs fp32 CPU, relative to the latent's scale
 FLASH_PER_EVAL, GEGLU_PER_EVAL = 21, 69
+TRAIN_B = 8 * 5        # the training batch of one clip: 8 frames x views 0-4
+TRAIN_STEPS, SPATIAL_STEPS = 3, 2
+TRAIN_LR = 2e-5        # the trainer's default
+# launches per training step with every ResBlock and transformer recomputed:
+# 21 flash and 69 GEGLU calls a network evaluation, forward twice, backward once
+TRAIN_LAUNCHES_PER_STEP = {"flash_attention": 42.0, "flash_attention_bwd": 21.0,
+                           "geglu": 138.0, "geglu_bwd": 69.0}
+# tiny training step, bf16 card vs fp32 CPU: the loss to SMALL_TOL relative;
+# each gradient tensor's distance from fp32 (and all together) at most this
+# factor times a bf16 CPU run's, plus SMALL_TOL of its norm and 1e-3 of the
+# largest tensor norm (biases that a GroupNorm follows have an exact gradient
+# of zero and a computed one of rounding noise)
+TINY_GRAD_FACTOR = 2.0
+# the tiny CLI resumed from iter_2 against the uninterrupted run, where the
+# card's reductions are not bit-reproducible: an Adam update moves a
+# parameter by about lr whatever the gradient's size, so two further steps
+# whose gradients differ in their last bits stay within a few lr
+RESUME_TOL = 5 * TRAIN_LR
+# (tokens, channels) of the GEGLU calls of one training clip: levels 0 / 1 / 2 / mid
+TRAIN_GEGLU = ((98304, 320), (24576, 640), (6144, 1280), (1536, 1280))
 
 
 def log(obj) -> None:
@@ -155,9 +192,117 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask), 5 if fp32 else 20)
         rec["host_us"] = host_us(torch, lambda: fa.flash_attention(q, k, v, kv_lens=lens), 50)
+        # the same forward also writing the row log-sum-exp (training only)
+        rec["ms_with_lse"] = time_ms(
+            torch, lambda: fa.flash_attention_with_lse(q, k, v, kv_lens=lens), 5 if fp32 else 20)
     log(rec)
     if not ratio <= 1.0:
         raise AssertionError(f"flash_attention disagrees with its plain version: {rec}")
+    return rec
+
+
+def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, lens=None,
+                    timed=True):
+    """The backward kernel against ``flash_attention_bwd_plain`` on the same
+    q, k, v, kernel output, kernel row log-sum-exp and output gradient; the
+    kernel's log-sum-exp against the plain forward's. ``library_ms`` is SDPA's
+    backward, timed as forward + backward less forward."""
+    g = torch.Generator(device=dev).manual_seed(sq * 5 + skv + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
+    if merged_kv:
+        kv = torch.randn((b, skv, 2 * h * d), generator=g, device=dev).bfloat16()
+        k, v = (t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1))
+    else:
+        k = torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16()
+    do = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
+    if lens is not None:
+        lens = torch.tensor(lens, device=dev, dtype=torch.int32)
+    o, lse = fa.flash_attention_with_lse(q, k, v, kv_lens=lens)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, kv_lens=lens, return_lse=True)
+    n0 = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=lens)
+    if fa.flash_attention_bwd.launches != n0 + 1:
+        raise AssertionError("flash_attention_bwd did not launch its kernel")
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=lens)
+    torch.cuda.synchronize()
+    ratios = {n: tol.worst_ratio(a, w, **tol.FLASH_BWD)
+              for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    rec = {"kernel": "flash_attention_bwd", "route": "mma", "dtype": "torch.bfloat16",
+           "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "D": d, "ragged": lens is not None,
+                     "kv": "merged" if merged_kv else "contiguous"},
+           "max_abs_err": max((a.float() - w.float()).abs().max().item()
+                              for a, w in zip(got, want)),
+           "worst_ratio": ratios, "tol": tol.FLASH_BWD,
+           "lse_worst_ratio": tol.worst_ratio(lse, lse_plain, **tol.FLASH_LSE),
+           "lse_tol": tol.FLASH_LSE}
+    if lens is not None:
+        dead = (torch.arange(skv, device=dev)[None] >= lens[:, None])
+        rec["masked_keys_grad_max"] = max(got[1][dead].abs().max().item() if dead.any() else 0.0,
+                                          got[2][dead].abs().max().item() if dead.any() else 0.0)
+    if timed:
+        kv_eff = float(lens.sum().item()) / b if lens is not None else skv
+        flops = 10.0 * b * h * sq * kv_eff * d
+        nbytes = 2.0 * b * h * d * (3 * sq + 2 * kv_eff) + 4.0 * b * h * sq \
+            + 2.0 * b * h * d * (sq + 2 * skv)
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
+        rec["ms"] = time_ms(
+            torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=lens), 10)
+        rec["plain_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=lens), 1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        mask = None
+        if lens is not None:
+            mask = (torch.arange(skv, device=dev)[None] < lens[:, None])[:, None, None, :]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+        rec["library_ms"] = time_ms(torch, sdpa_fwd_bwd, 10) - time_ms(torch, sdpa_fwd, 10)
+    log(rec)
+    if not (max(ratios.values()) <= 1.0 and rec["lse_worst_ratio"] <= 1.0
+            and rec.get("masked_keys_grad_max", 0.0) == 0.0):
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {rec}")
+    return rec
+
+
+def check_geglu_bwd(torch, F, gg, tol, dev, tokens, inner, timed=True, fp32=False):
+    """The gate-gradient kernel against ``geglu_bwd_plain`` on the same hg
+    and dy; ``library_ms``: the unfused PyTorch gate gradient (``F.gelu``,
+    its backward and the products) in the operands' type."""
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(tokens + inner)
+    hg = torch.randn((tokens, 2 * inner), generator=g, device=dev).to(dtype)
+    dy = torch.randn((tokens, inner), generator=g, device=dev).to(dtype)
+    n0 = gg.geglu_bwd.launches
+    got = gg.geglu_bwd(hg, dy)
+    if gg.geglu_bwd.launches != n0 + 1:
+        raise AssertionError("geglu_bwd did not launch its kernel")
+    want = gg.geglu_bwd_plain(hg, dy)
+    torch.cuda.synchronize()
+    rule = tol.GEGLU_F32 if fp32 else tol.GEGLU_BWD
+    ratio = tol.worst_ratio(got, want, **rule)
+    rec = {"kernel": "geglu_bwd", "route": "cuda", "dtype": str(dtype),
+           "shape": {"tokens": tokens, "inner": inner},
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "worst_ratio": ratio, "tol": rule}
+    if timed:
+        rec["bound_ms"], rec["bound_by"] = bound(0.0, 5.0 * hg.element_size() * tokens * inner)
+        rec["ms"] = time_ms(torch, lambda: gg.geglu_bwd(hg, dy), 20)
+        rec["plain_ms"] = time_ms(torch, lambda: gg.geglu_bwd_plain(hg, dy), 3)
+
+        def library():
+            h, gate = hg.chunk(2, dim=-1)
+            return torch.cat([dy * F.gelu(gate), torch.ops.aten.gelu_backward(dy * h, gate)], -1)
+
+        rec["library_ms"] = time_ms(torch, library, 20)
+    log(rec)
+    if not ratio <= 1.0:
+        raise AssertionError(f"geglu_bwd disagrees with its plain version: {rec}")
     return rec
 
 
@@ -238,12 +383,15 @@ def small_input_agreement(torch, np, dev):
 
 def reset_counts(fa, gg) -> None:
     fa.flash_attention.launches = gg.geglu.launches = 0
+    fa.flash_attention_bwd.launches = gg.geglu_bwd.launches = 0
     for counts in (fa.flash_attention.route_launches, gg.geglu.route_launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
 def read_counts(fa, gg) -> dict:
     return {"flash_attention": fa.flash_attention.launches, "geglu": gg.geglu.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
+            "geglu_bwd": gg.geglu_bwd.launches,
             "flash_routes": dict(fa.flash_attention.route_launches),
             "geglu_routes": dict(gg.geglu.route_launches)}
 
@@ -582,8 +730,222 @@ def fp32_engine_phase(torch, np, dev, fa, gg, card: str):
     return counts32
 
 
+def synthetic_clip(np, rng, t: int, ih: int, iw: int, b: int = 1) -> dict:
+    """A clip batch of random arrays: images, the BEV hint, the conditioning
+    frame (the last one, use_last_frame) and a prompt."""
+    jpg = rng.uniform(-1, 1, (b, t, ih, iw, 3)).astype(np.float32)
+    fcz = np.zeros_like(jpg)
+    fcz[:, -1] = jpg[:, -1]
+    return {"jpg": jpg, "cond_img": rng.uniform(0, 1, (b, t, ih, iw, 19)).astype(np.float32),
+            "final_cond_zero": fcz, "txt": ["a driving scene. daytime. sunny."] * b}
+
+
+def train_phase(torch, np, dev, fa, gg, card: str):
+    """The port's train step at full production width: 3 steps training
+    every network parameter with the EMA, then 2 steps with freeze_type
+    spatial (frozen parameters must stay bit-equal, a temporal one must
+    move). bs 1, 8 frames, random weights and a random clip."""
+    from panacea_tpu_torch.configs import INFERENCE_NUSCENES
+    from panacea_tpu_torch.registry import instantiate_from_config
+    from panacea_tpu_torch.train import GRAD_CLIP, default_loss_config
+    from panacea_tpu_torch.train_step import init_train_state, train_step
+    from panacea_tpu_torch.utils.profiling import Timer
+
+    eng = instantiate_from_config(INFERENCE_NUSCENES["model"], device=dev)
+    eng.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
+    eng.loss_fn = instantiate_from_config(default_loss_config(eng))
+    batch = synthetic_clip(np, np.random.default_rng(SEED), eng.num_frames, 256, 3072)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cond = eng.conditioner(batch, dev, generator=gen, apply_ucg=True)
+    torch.cuda.synchronize()
+    cond_s = time.perf_counter() - t0
+
+    def run(freeze: str, steps: int):
+        eng.freeze_type = freeze
+        state = init_train_state(eng, lr=TRAIN_LR, grad_clip=GRAD_CLIP, use_ema=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timer = Timer(dev)
+        losses, step_s, splits = [], [], []
+        reset_counts(fa, gg)
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            losses.append(float(train_step(eng, state, batch["jpg"], cond, gen, timer=timer)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            splits.append(dict(timer.last))
+        counts = read_counts(fa, gg)
+        later = sorted(range(1, steps), key=lambda i: step_s[i]) or [0]
+        median = later[len(later) // 2]
+        rec = {"phase": f"train_{freeze}", "card": card, "steps": steps, "losses": losses,
+               "trained_params": sum(p.numel() for p in state.params.values()),
+               "step_s": step_s, "s_per_step": step_s[median],
+               "split_s": splits[median], "split_first_step_s": splits[0],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts,
+               "launches_per_step": {k: counts[k] / steps for k in
+                                     ("flash_attention", "flash_attention_bwd", "geglu",
+                                      "geglu_bwd")}}
+        return state, rec
+
+    network = {f"model.{n}": p for n, p in eng.model.named_parameters()}
+    state, rec = run("none", TRAIN_STEPS)
+    rec["conditioning_s"] = cond_s
+    log(rec)
+    # one more step of the same state under the profiler (its warm-up is a step too)
+    profile_step(torch, lambda: train_step(eng, state, batch["jpg"], cond, gen),
+                 name="profile_train_step", grad=True)
+    if not all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"non-finite training loss: {rec}")
+    if rec["launches_per_step"] != TRAIN_LAUNCHES_PER_STEP:
+        raise AssertionError(f"training launches {rec['launches_per_step']} != "
+                             f"{TRAIN_LAUNCHES_PER_STEP} per step")
+    counts = rec["launches"]
+    del state
+    free(torch)
+
+    mask = {k: "temporal" in k for k in network}
+    frozen_before = {k: p.detach().clone() for k, p in network.items() if not mask[k]}
+    temporal_before = {k: p.detach().float().clone() for k, p in network.items() if mask[k]}
+    state, rec2 = run("spatial", SPATIAL_STEPS)
+    frozen_equal = all(torch.equal(network[k], v) for k, v in frozen_before.items())
+    # the fp32 masters: an update below half a bf16 step leaves the network's copy as it was
+    moved = sum(not torch.equal(state.params[k], v) for k, v in temporal_before.items())
+    rec2.update({"frozen_params": len(frozen_before), "frozen_bit_equal": frozen_equal,
+                 "temporal_params": len(temporal_before), "temporal_moved": moved})
+    log(rec2)
+    del state, frozen_before, temporal_before
+    if not (all(np.isfinite(rec2["losses"])) and frozen_equal and moved > 0):
+        raise AssertionError(f"spatial-freeze training is wrong: {rec2}")
+    del eng, network
+    free(torch)
+    return counts
+
+
+def train_tiny_card_vs_cpu(torch, np, dev):
+    """One training step's loss and gradients of the tiny engine: bf16 on
+    the card (kernels, their backward included) against fp32 on the CPU
+    (plain versions), the same weights (drawn in bf16) and the same draws.
+    The tiny config's temporal GroupNorms take their statistics over 2
+    values (2 frames x 1 channel a group), so its bf16 gradients are far
+    from fp32 whatever computes them; the card's are therefore held to the
+    distance of a bf16 run on the CPU (plain versions, no kernel) from fp32,
+    and the loss to fp32 directly."""
+    from panacea_tpu_torch.configs import TINY_CPU
+    from panacea_tpu_torch.registry import instantiate_from_config
+
+    t, lh, lw, ih, iw = 2, 8, 96, 64, 768   # 128 tokens per view: the flash route
+    cpu = instantiate_from_config(TINY_CPU["model"], device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(p.bfloat16().float())
+    card = instantiate_from_config(TINY_CPU["model"], device=dev)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    cpu16 = instantiate_from_config(TINY_CPU["model"], device="cpu", dtype=torch.bfloat16)
+    cpu16.load_state_dict(cpu.state_dict(), strict=True)
+    rng = np.random.default_rng(SEED)
+    cond = {"crossattn": rng.standard_normal((1, 77, 64)),
+            "concat": rng.standard_normal((t, lh, lw, 4)) * 0.5,
+            "cond_feat": rng.uniform(0, 1, (t, ih, iw, 19))}
+    jpg = rng.uniform(-1, 1, (1, t, ih, iw, 3))
+    draws = {"posterior_noise": rng.standard_normal((t, lh, lw, 4)),
+             "sigma_rand": rng.integers(0, 1000, t), "noise": rng.standard_normal((t, lh, lw, 4))}
+    out = []
+    for eng in (cpu, cpu16, card):
+        eng.loss_fn = instantiate_from_config(TINY_CPU["loss_fn_config"])
+        trained = eng.set_trainable()
+        c = {k: torch.as_tensor(v, dtype=torch.float32, device=eng.device) for k, v in cond.items()}
+        inject = {k: torch.as_tensor(v, device=eng.device) for k, v in draws.items()}
+        inject["sigma_rand"] = inject["sigma_rand"].long()
+        loss = eng.train_loss(jpg, c, **inject)
+        loss.backward()
+        out.append((loss.item(), {k: p.grad.float().cpu() for k, p in trained.items()}))
+    (loss_cpu, g_cpu), (loss_cpu16, g_cpu16), (loss_card, g_card) = out
+    norms = {k: g.norm().item() for k, g in g_cpu.items()}
+    top = max(norms.values())
+
+    def errors(g_other):
+        per = {k: (g_other[k] - g).norm().item() for k, g in g_cpu.items()}
+        total = (sum(e * e for e in per.values()) / sum(n * n for n in norms.values())) ** 0.5
+        ranked = sorted(per[k] / max(norms[k], 1e-30) for k in per)
+        return per, total, ranked
+
+    per_card, total_card, ranked_card = errors(g_card)
+    per_16, total_16, ranked_16 = errors(g_cpu16)
+    bad = [k for k in per_card if per_card[k] > TINY_GRAD_FACTOR * per_16[k]
+           + SMALL_TOL * norms[k] + 1e-3 * top]
+    rec = {"phase": "train_tiny_card_vs_cpu", "config": "TINY_CPU", "latent": [t, lh, lw, 4],
+           "loss_cpu_fp32": loss_cpu, "loss_cpu_bf16": loss_cpu16, "loss_card": loss_card,
+           "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "grad_rel_err_all": {"card_vs_fp32": total_card, "cpu_bf16_vs_fp32": total_16},
+           "grad_rel_err_median": {"card_vs_fp32": ranked_card[len(ranked_card) // 2],
+                                   "cpu_bf16_vs_fp32": ranked_16[len(ranked_16) // 2]},
+           "grad_rel_err_card_vs_cpu_bf16_all": (
+               sum((g_card[k] - g).square().sum() for k, g in g_cpu16.items())
+               / sum(g.square().sum() for g in g_cpu.values())).sqrt().item(),
+           "tensors": len(norms), "tensors_over_tol": bad[:10],
+           "tol": {"loss": SMALL_TOL, "factor": TINY_GRAD_FACTOR, "floor": SMALL_TOL}}
+    log(rec)
+    if not (rec["loss_rel_err"] <= SMALL_TOL and not bad
+            and total_card <= TINY_GRAD_FACTOR * total_16 + SMALL_TOL):
+        raise AssertionError(f"tiny training step on the card disagrees with the CPU: {rec}")
+
+
+def train_cli_phase(torch, np, dev, fa, gg, card: str):
+    """``train_torch.py --tiny --synthetic --steps 4 --ckpt_every 2
+    --use_ema`` on the card, the same run resumed from iter_2, and the final
+    engine checkpoint loaded (strict) into the inference CLI, 2 steps."""
+    import shutil
+
+    from panacea_tpu_torch import inference, train
+
+    common = ["--tiny", "--synthetic", "--steps", "4", "--ckpt_every", "2", "--use_ema",
+              "--log_every", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(fa, gg)
+        t0 = time.perf_counter()
+        full = train.main(common + ["--ckpt_dir", os.path.join(tmp, "a")])
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        counts = read_counts(fa, gg)
+        os.makedirs(os.path.join(tmp, "b"))
+        shutil.copytree(os.path.join(tmp, "a", "iter_2"), os.path.join(tmp, "b", "iter_2"))
+        resumed = train.main(common + ["--ckpt_dir", os.path.join(tmp, "b"),
+                                       "--resume", os.path.join(tmp, "b", "iter_2")])
+        diffs = {k: (v - resumed["state"].params[k]).abs().max().item()
+                 for k, v in full["state"].params.items()}
+        ema_diff = max((v - resumed["state"].ema.shadows[k]).abs().max().item()
+                       for k, v in full["state"].ema.shadows.items())
+        files = sorted(os.listdir(os.path.join(tmp, "a")))
+        out = inference.main(["--synthetic", "--tiny", "--num_batches", "1", "--num_steps", "2",
+                              "--outdir", os.path.join(tmp, "inf"), "--ckpt",
+                              full["engine_ckpt"], "--prefer_ema"])
+        samples = sorted(os.listdir(os.path.join(out["outdir"], "samples")))
+    worst = max(diffs.values())
+    rec = {"phase": "train_cli", "card": card, "steps": 4, "full_run_s": full_s,
+           "losses": full["losses"], "resumed_losses": resumed["losses"],
+           "bit_equal": worst == 0.0 and ema_diff == 0.0, "max_param_diff": worst,
+           "max_ema_diff": ema_diff, "tol": RESUME_TOL, "files": files,
+           "inference_done": out["done"], "inference_samples": samples,
+           "launches_full_run": counts}
+    log(rec)
+    if not (worst <= RESUME_TOL and ema_diff <= RESUME_TOL and np.isfinite(full["losses"]).all()):
+        raise AssertionError(f"the resumed run does not continue the uninterrupted one: {rec}")
+    if files != ["engine_final.ckpt", "final.pt", "final_ema.pt", "iter_2", "iter_4"]:
+        raise AssertionError(f"the trainer wrote {files}")
+    if out["done"] != 1 or not samples:
+        raise AssertionError(f"inference from the trained checkpoint failed: {rec}")
+    if counts["geglu"] == 0 or counts["geglu_bwd"] == 0:
+        raise AssertionError(f"the tiny trainer did not reach the GEGLU kernels: {counts}")
+
+
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
-BUCKETS = (("flash_attention", ("pn_flash_",)), ("geglu", ("pn_geglu_fwd",)),
+BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
+           ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
            ("sdpa", ("fmha", "flash", "attention", "softmax")),
            ("conv", ("conv", "cudnn", "implicit", "dgrad", "wgrad", "nhwc")),
            ("matmul", ("gemm", "xmma", "cutlass", "gemv", "matmul", "sm90")),
@@ -591,15 +953,18 @@ BUCKETS = (("flash_attention", ("pn_flash_",)), ("geglu", ("pn_geglu_fwd",)),
            ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "cat")))
 
 
-def profile_step(torch, step):
-    """One network evaluation of the main path under torch.profiler: device
-    time per kernel bucket and the device's idle share of the wall time."""
+def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
+    """One step under torch.profiler (a network evaluation of the main path
+    under no_grad, or with ``grad`` a training step, after one warm-up):
+    device time per kernel bucket and the device's idle share of the wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
+    with torch.set_grad_enabled(grad):
         step()
     torch.cuda.synchronize()
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch.set_grad_enabled(grad), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -609,18 +974,18 @@ def profile_step(torch, step):
         us = getattr(evt, "self_device_time_total", 0.0) or 0.0
         if us <= 0 or not str(evt.device_type).endswith("CUDA"):
             continue  # host ops carry their kernels' time too: count kernels only
-        name = evt.key.lower()
-        bucket = next((b for b, keys in BUCKETS if any(k in name for k in keys)), "other")
+        key = evt.key.lower()
+        bucket = next((b for b, keys in BUCKETS if any(k in key for k in keys)), "other")
         buckets[bucket] = buckets.get(bucket, 0.0) + us / 1e3
         if bucket == "other":
             other[evt.key] = other.get(evt.key, 0.0) + us / 1e3
         total += us / 1e3
-    rec = {"phase": "profile_step", "wall_ms": wall_ms,
+    rec = {"phase": name, "wall_ms": wall_ms,
            "device_ms": total if total > 0 else "not measured",
            "idle_share": 1 - total / wall_ms if total > 0 else "not measured",
            "bucket_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1]))}
     log(rec)
-    log({"phase": "profile_other", "top10_ms": [
+    log({"phase": f"{name}_other", "top10_ms": [
         [name[:120], ms] for name, ms in sorted(other.items(), key=lambda kv: -kv[1])[:10]]})
 
 
@@ -728,6 +1093,27 @@ def main(kernels_only: bool = False) -> int:
         if rec["route"] != "fp32":
             raise AssertionError(f"fp32 operands took route {rec['route']}: {rec}")
 
+    # the backward kernels at the training path's shapes (bs 1: 8 frames x
+    # views 0-4, k and v the halves of the merged kv projection), a ragged
+    # case, tails and one tiny case per head dim
+    flash_bwd = [check_flash_bwd(torch, F, fa, tol, dev, TRAIN_B, sq, skv, h, 64)
+                 for sq, skv, h in levels]
+    flash_bwd += [check_flash_bwd(torch, F, fa, tol, dev, 4, 512, 1024, 10, 64,
+                                  lens=[1, 300, 700, 1024]),
+                  check_flash_bwd(torch, F, fa, tol, dev, 3, 129, 4097, 2, 64, merged_kv=False,
+                                  timed=False, lens=[4097, 64, 65])]
+    flash_bwd += [check_flash_bwd(torch, F, fa, tol, dev, 2, 200, 400, 2, d, merged_kv=False,
+                                  timed=False) for d in (16, 32, 64, 128)]
+    geglu_bwd = []
+    for tokens, c in TRAIN_GEGLU:
+        geglu_bwd.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, 4 * c))
+    # the tiny widths, columns that are not a multiple of 8, and fp32
+    for tokens, inner in ((256, 128), (300, 77), (1, 256)):
+        geglu_bwd.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, inner, timed=False))
+    for tokens, inner in ((3000, 1280), (300, 77)):
+        geglu_bwd.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, inner, timed=False,
+                                         fp32=True))
+
     if kernels_only:
         log({"phase": "kernels_only", "ok": True})
         return 0
@@ -739,9 +1125,16 @@ def main(kernels_only: bool = False) -> int:
     paths["rollout"] = rollout_phase(torch, np, dev, fa, gg, card)
     free(torch)
     paths["fp32_engine"] = fp32_engine_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    paths["train"] = train_phase(torch, np, dev, fa, gg, card)
+    train_tiny_card_vs_cpu(torch, np, dev)
+    free(torch)
+    train_cli_phase(torch, np, dev, fa, gg, card)
 
     def count(c, kernel, fp32):
         """Launches of one kernel on one type's routes, from a path's counts."""
+        if kernel.endswith("_bwd"):
+            return 0 if fp32 else c[kernel]
         routes = c["flash_routes" if kernel == "flash_attention" else "geglu_routes"]
         return routes["fp32"] if fp32 else c[kernel] - routes["fp32"]
 
@@ -767,7 +1160,12 @@ def main(kernels_only: bool = False) -> int:
         summary("flash_attention_fp32", "flash_attention", flash_src, flash_tpu, flash32,
                 flash32[0], "fp32_engine"),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
-                "fp32_engine")]})
+                "fp32_engine"),
+        summary("flash_attention_bwd", "flash_attention_bwd",
+                "panacea_tpu_torch/csrc/flash_attention_bwd.cu", flash_tpu, flash_bwd,
+                flash_bwd[0], "train"),
+        summary("geglu_bwd", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd, geglu_bwd[0],
+                "train")]})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -43,6 +43,11 @@
 // pn_flash_mma_fwd (D = 16, 32, 128): the mma.sync m16n8k16 kernel, one block
 // of 4 warps per 64 query rows, Q fragments in registers, K/V tiles of 64
 // keys staged in padded shared memory with plain loads.
+//
+// Every route can also write the row log-sum-exp that the backward kernels
+// (flash_attention_bwd.cu) recompute the probabilities from: fp32, (B, H, Sq),
+// base 2 of the scaled scores, lse = max * scale * log2(e) + log2(sum). The
+// pointer is null on the sampling path, which then stores nothing more.
 
 #include "hopper.cuh"
 
@@ -114,8 +119,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
 __global__ void __launch_bounds__(NTHREADS, 1)
 pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-             const int* __restrict__ kv_lens, int heads, int sq, int skv, int q_tiles,
-             float scale_log2) {
+             float* __restrict__ lse, const int* __restrict__ kv_lens, int heads, int sq,
+             int skv, int q_tiles, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(pn::align_smem(smem_raw));
 
@@ -250,6 +255,8 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
         for (int dt = 0; dt < D / 8; ++dt)
           *reinterpret_cast<uint32_t*>(ob + row * o_ss + dt * 8 + t * 2) =
               pn::pack_bf16x2(acc[dt * 4 + r * 2] * inv[r], acc[dt * 4 + r * 2 + 1] * inv[r]);
+        if (lse && t == 0)
+          lse[static_cast<long long>(bh) * sq + row] = m[r] * scale_log2 + log2f(l[r]);
       }
     }
   }
@@ -257,8 +264,8 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
 
 // maps: three specs of 12 values (dims, byte strides, boxes of the 4-D views
 // of q, k and v, innermost first), as encode_bf16_map takes them.
-int launch(const void* q, const void* k, const void* v, void* o, const void* kv_lens, int batch,
-           int heads, int sq, int skv, const long long* maps, float scale_log2,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
+           int batch, int heads, int sq, int skv, const long long* maps, float scale_log2,
            cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       pn_flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
@@ -273,8 +280,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* kv_
   const long long blocks = static_cast<long long>(batch) * heads * q_tiles;
   if (blocks < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   pn_flash_fwd<<<static_cast<unsigned>(blocks), NTHREADS, SMEM_BYTES, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_lens),
-      heads, sq, skv, q_tiles, scale_log2);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      static_cast<const int*>(kv_lens), heads, sq, skv, q_tiles, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -321,8 +328,8 @@ template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 pn_flash_mma_fwd(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-             const int* __restrict__ kv_lens, int heads, int sq, int skv,
-             long long q_sb, long long q_ss, long long q_sh,
+                 float* __restrict__ lse, const int* __restrict__ kv_lens, int heads, int sq,
+                 int skv, long long q_sb, long long q_ss, long long q_sh,
              long long k_sb, long long k_ss, long long k_sh,
              long long v_sb, long long v_ss, long long v_sh, float scale_log2) {
   constexpr int LD = D + 8;  // padded row: fragment reads hit 32 distinct banks
@@ -454,17 +461,23 @@ pn_flash_mma_fwd(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     if (r1 < sq)
       *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + c) = pack_f32(acc[dt][2] * inv1, acc[dt][3] * inv1);
   }
+  if (lse && t == 0) {
+    float* lb = lse + static_cast<long long>(bh) * sq;
+    if (r0 < sq) lb[r0] = m0 + log2f(l0);
+    if (r1 < sq) lb[r1] = m1 + log2f(l1);
+  }
 }
 
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, const void* kv_lens,
+void launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
             int batch, int heads, int sq, int skv, const long long* st, float scale_log2,
             cudaStream_t stream) {
   dim3 grid((sq + BQ - 1) / BQ, batch * heads);
   pn_flash_mma_fwd<D><<<grid, NTHREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<const int*>(kv_lens), heads, sq, skv, st[0], st[1], st[2], st[3], st[4],
+      static_cast<float*>(lse), static_cast<const int*>(kv_lens), heads, sq, skv, st[0], st[1],
+      st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], scale_log2);
 }
 
@@ -563,7 +576,7 @@ __device__ __forceinline__ float row_sum16(float x) {
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 pn_flash_f32_fwd(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  const int* __restrict__ kv_lens, int heads, int sq, int skv, int q_tiles,
                  long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sh,
@@ -686,7 +699,8 @@ pn_flash_f32_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int row = qt * BQ + ty + 16 * i;
-    const float inv = 1.f / row_sum16(l[i]);
+    const float sum = row_sum16(l[i]), inv = 1.f / sum;
+    if (lse && tx == 0 && row < sq) lse[static_cast<long long>(bh) * sq + row] = m[i] + log2f(sum);
     if (row < sq) {
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[i][c] *= inv;
@@ -698,8 +712,8 @@ pn_flash_f32_fwd(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, const void* kv_lens, int batch,
-           int heads, int sq, int skv, const long long* st, float scale_log2,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
+           int batch, int heads, int sq, int skv, const long long* st, float scale_log2,
            cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       pn_flash_f32_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
@@ -709,7 +723,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* kv_
   if (blocks < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   pn_flash_f32_fwd<D><<<static_cast<unsigned>(blocks), NTHREADS, smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<const int*>(kv_lens), heads, sq, skv, q_tiles, st[0],
+      static_cast<float*>(o), static_cast<float*>(lse), static_cast<const int*>(kv_lens), heads,
+      sq, skv, q_tiles, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -719,39 +734,40 @@ int launch(const void* q, const void* k, const void* v, void* o, const void* kv_
 }  // namespace
 
 // strides: {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h} in elements; the
-// head-dim stride is 1. kv_lens: (B,) int32 on the device, or null. maps: the
-// tensor-map specs of q, k and v (see wg::launch), used at d = 64.
+// head-dim stride is 1. kv_lens: (B,) int32 on the device, or null. lse:
+// (B, H, Sq) fp32 for the row log-sum-exp, or null. maps: the tensor-map
+// specs of q, k and v (see wg::launch), used at d = 64.
 // Returns a cudaError_t value: of the set-up, or cudaGetLastError() after
 // the launch.
 extern "C" int pn_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                       const void* kv_lens, int batch, int heads, int sq,
+                                       void* lse, const void* kv_lens, int batch, int heads, int sq,
                                        int skv, int d, const long long* strides,
                                        const long long* maps, float scale, void* stream) {
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return wg::launch(q, k, v, o, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
-    case 16: mma::launch<16>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
-    case 32: mma::launch<32>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
-    case 128: mma::launch<128>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
+    case 64: return wg::launch(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
+    case 16: mma::launch<16>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
+    case 32: mma::launch<32>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
+    case 128: mma::launch<128>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The fp32 entry: the same arguments less the tensor maps; q, k, v and o are
-// fp32, strides in elements of fp32 (multiples of 4, 16 bytes).
+// fp32, strides in elements of fp32 (multiples of 4, 16 bytes); lse as above.
 extern "C" int pn_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                                      const void* kv_lens, int batch, int heads, int sq, int skv,
-                                      int d, const long long* strides, float scale,
+                                      void* lse, const void* kv_lens, int batch, int heads, int sq,
+                                      int skv, int d, const long long* strides, float scale,
                                       void* stream) {
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return f32::launch<16>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
-    case 32: return f32::launch<32>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
-    case 64: return f32::launch<64>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
-    case 128: return f32::launch<128>(q, k, v, o, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
+    case 16: return f32::launch<16>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
+    case 32: return f32::launch<32>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
+    case 64: return f32::launch<64>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
+    case 128: return f32::launch<128>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,6 @@
 // Fused GEGLU projection for Hopper (sm_90a), bf16 in / bf16 out on the tensor
-// cores (pn_geglu_fwd) or fp32 in / fp32 out on the FMA units (pn_geglu_f32_fwd):
+// cores (pn_geglu_fwd) or fp32 in / fp32 out on the FMA units (pn_geglu_f32_fwd),
+// and its backward gate pass (pn_geglu_bwd, described at its namespace):
 //   out[t, j] = (x[t] . W[j] + b[j]) * gelu_erf(x[t] . W[I + j] + b[I + j])
 // for x (T, C), W (2I, C) in the torch Linear layout, b (2I,), out (T, I).
 //
@@ -332,6 +333,96 @@ pn_geglu_f32_fwd(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace f32
 
+// ------------------------------------------------------------------ backward
+//
+// pn_geglu_bwd: the gate-gradient pass of GEGLU's backward. The backward
+// recomputes hg = x W^T + b with one library product (the JAX gradient leaves
+// that product to XLA, outside any Pallas kernel); this kernel reads hg and dY
+// and writes
+//   d_hg[t, j]     = dY[t, j] * gelu(g)              (the h half)
+//   d_hg[t, I + j] = dY[t, j] * h * gelu'(g)         (the gate half)
+// with h = hg[t, j], g = hg[t, I + j], gelu'(g) = Phi(g) + g phi(g) and exact
+// erff; dX, dW and db then come from library products and a sum.
+//
+// What bounds it: 10 bytes per (token, column) in bf16 (read h, g and dY,
+// write both halves) against some 30 flops: memory. No tensor cores, no
+// reuse. Each thread takes VEC columns of one row (16-byte loads and stores,
+// 8 bf16 or 4 fp32) in a grid-stride loop; rows whose width is not a
+// multiple of VEC take one column a thread. fp32 math on both types.
+
+namespace bwd {
+
+constexpr int NTHREADS = 256;
+constexpr int MAX_BLOCKS = 4096;
+
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ __nv_bfloat16 from_f(float v) { return __float2bfloat16(v); }
+template <> __device__ __forceinline__ float from_f(float v) { return v; }
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load(T (&dst)[VEC], const T* src) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dst[e] = src[e];
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store(T* dst, const T (&src)[VEC]) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dst[e] = src[e];
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(NTHREADS)
+pn_geglu_bwd(const T* __restrict__ hg, const T* __restrict__ dy, T* __restrict__ dhg,
+             long long tokens, int inner) {
+  const long long per_row = inner / VEC, total = tokens * per_row;
+  for (long long u = static_cast<long long>(blockIdx.x) * NTHREADS + threadIdx.x; u < total;
+       u += static_cast<long long>(gridDim.x) * NTHREADS) {
+    const long long row = u / per_row;
+    const int j = static_cast<int>(u - row * per_row) * VEC;
+    const T* hrow = hg + row * 2 * inner;
+    alignas(16) T h[VEC], g[VEC], d[VEC], dh[VEC], dg[VEC];
+    load<T, VEC>(h, hrow + j);
+    load<T, VEC>(g, hrow + inner + j);
+    load<T, VEC>(d, dy + row * inner + j);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float gf = to_f(g[e]), hf = to_f(h[e]), df = to_f(d[e]);
+      const float cdf = 0.5f * (1.f + erff(gf * 0.70710678118654752f));
+      const float pdf = 0.39894228040143268f * expf(-0.5f * gf * gf);
+      dh[e] = from_f<T>(df * (gf * cdf));
+      dg[e] = from_f<T>(df * hf * (cdf + gf * pdf));
+    }
+    T* orow = dhg + row * 2 * inner;
+    store<T, VEC>(orow + j, dh);
+    store<T, VEC>(orow + inner + j, dg);
+  }
+}
+
+template <typename T, int VEC>
+int launch(const void* hg, const void* dy, void* dhg, long long tokens, int inner,
+           cudaStream_t stream) {
+  const long long units = tokens * (inner / VEC);
+  const long long blocks = (units + NTHREADS - 1) / NTHREADS;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  pn_geglu_bwd<T, VEC><<<static_cast<unsigned>(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS),
+                         NTHREADS, 0, stream>>>(
+      static_cast<const T*>(hg), static_cast<const T*>(dy), static_cast<T*>(dhg), tokens, inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // x (tokens, c), w (2 inner, c), bias (2 inner,), out (tokens, inner): all
@@ -376,6 +467,19 @@ extern "C" int pn_geglu_f32(const void* x, const void* w, const void* bias, void
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
       static_cast<float*>(out), tokens, c, inner, n_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward gate pass: hg (tokens, 2 inner) and dy (tokens, inner) in,
+// dhg (tokens, 2 inner) out, all contiguous and 16-byte aligned, of one type:
+// bf16, or fp32 where `fp32` is set. Returns a cudaError_t value.
+extern "C" int pn_geglu_backward(const void* hg, const void* dy, void* dhg, long long tokens,
+                                 int inner, int fp32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fp32)
+    return inner % 4 ? bwd::launch<float, 1>(hg, dy, dhg, tokens, inner, s)
+                     : bwd::launch<float, 4>(hg, dy, dhg, tokens, inner, s);
+  return inner % 8 ? bwd::launch<__nv_bfloat16, 1>(hg, dy, dhg, tokens, inner, s)
+                   : bwd::launch<__nv_bfloat16, 8>(hg, dy, dhg, tokens, inner, s);
 }
 
 #ifdef PN_TRACE

@@ -32,6 +32,10 @@ class DiscreteDenoiser:
         dists = sigma - self.sigmas(sigma.device)[:, None]
         return dists.abs().argmin(dim=0).reshape(sigma.shape)
 
+    def w(self, sigma: torch.Tensor) -> torch.Tensor:
+        """The training loss's weighting w(sigma)."""
+        return self.weighting(sigma)
+
     def __call__(self, network, x, sigma, cond):
         sigma = self.sigmas(sigma.device)[self.sigma_to_idx(sigma)]
         sigma_shape = sigma.shape

@@ -12,7 +12,7 @@ Outputs are routed to conditioning keys:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -49,8 +49,14 @@ class VAEEmbedder(nn.Module):
 
 
 class GeneralConditioner(nn.Module):
-    """Runs the embedders and routes their outputs by key and rank
-    (modules.py:95-220). Inference only: no ucg dropout."""
+    """Runs the embedders and routes their outputs by key and rank, and
+    applies the training-time ucg dropout (modules.py:95-220): with
+    ``apply_ucg``, each embedder whose config sets ``ucg_rate`` > 0 keeps
+    each batch row's embedding with probability 1 - ucg_rate and zeroes it
+    otherwise (conditioner.py:530-535 of the JAX package), one Bernoulli
+    draw per row from ``generator``, or the keep mask injected in
+    ``ucg_keep[input_key]``. ``ucg_rate`` and ``is_trainable`` are read from
+    each embedder's config, as the JAX conditioner reads them."""
 
     OUTPUT_DIM2KEYS = {2: "vector", 3: "crossattn", 4: "concat", 5: "concat"}
     KEY2CATDIM = {"vector": -1, "crossattn": -2, "concat": -1}
@@ -60,10 +66,15 @@ class GeneralConditioner(nn.Module):
         self.embedders = nn.ModuleList()
         self.input_keys = []
         for cfg in emb_models:
-            self.embedders.append(instantiate_from_config(cfg))
+            emb = instantiate_from_config(cfg)
+            emb.ucg_rate = float(cfg.get("ucg_rate", 0.0))
+            emb.is_trainable = bool(cfg.get("is_trainable", False))
+            self.embedders.append(emb)
             self.input_keys.append(cfg.get("input_key"))
 
-    def forward(self, batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, Any], device, generator: Optional[torch.Generator] = None,
+                apply_ucg: bool = False,
+                ucg_keep: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         output: Dict[str, torch.Tensor] = {}
         for key, embedder in zip(self.input_keys, self.embedders):
             val = batch[key]
@@ -71,11 +82,21 @@ class GeneralConditioner(nn.Module):
                 val = _flatten_bt(torch.as_tensor(val, dtype=torch.float32, device=device))
             emb = embedder(val)
             out_key = "cond_feat" if key == "cond_img" else self.OUTPUT_DIM2KEYS[emb.ndim]
+            injected = ucg_keep is not None and key in ucg_keep
+            if apply_ucg and embedder.ucg_rate > 0.0 and (generator is not None or injected):
+                if injected:
+                    keep = torch.as_tensor(ucg_keep[key], device=emb.device)
+                else:
+                    prob = torch.full((emb.shape[0],), 1.0 - embedder.ucg_rate,
+                                      device=emb.device)
+                    keep = torch.bernoulli(prob, generator=generator)
+                emb = emb * keep.to(emb.dtype).reshape((-1,) + (1,) * (emb.ndim - 1))
             if out_key in output:
                 emb = torch.cat((output[out_key], emb), dim=self.KEY2CATDIM[out_key])
             output[out_key] = emb
         return output
 
     def get_unconditional_conditioning(self, batch_c, batch_uc, device):
-        """c from ``batch_c``, uc from ``batch_uc`` (modules.py:206-220)."""
+        """c from ``batch_c``, uc from ``batch_uc`` (modules.py:206-220); no
+        ucg dropout for either."""
         return self(batch_c, device), self(batch_uc, device)

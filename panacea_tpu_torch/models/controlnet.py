@@ -42,12 +42,12 @@ class ControlNet3D(_Torso):
                  transformer_depth: int = 1, context_dim: int = 1024, num_frames: int = 8,
                  spatial_only_attn_type: str = "intra-view", insert_crossview: bool = True,
                  use_spatial_transformer: bool = True, use_linear_in_transformer: bool = True,
-                 **compat):
+                 use_checkpoint: bool = True, **compat):
         check_compat(type(self).__name__, compat, use_spatial_transformer,
                      use_linear_in_transformer)
         super().__init__(in_channels, model_channels, num_res_blocks, attention_resolutions,
                          channel_mult, num_head_channels, transformer_depth, context_dim,
-                         num_frames, spatial_only_attn_type, insert_crossview)
+                         num_frames, spatial_only_attn_type, insert_crossview, use_checkpoint)
         self.hint_channels = hint_channels
         self.control_scales = control_scales
         self.input_hint_block = HintEncoder(hint_channels, model_channels)

@@ -4,8 +4,9 @@ reference sgm/models/diffusion.py:29-377).
 An ``nn.Module`` whose parameter names are the reference checkpoint's:
 ``model.diffusion_model.*`` (UNet, with the ControlNet under ``.controlnet``),
 ``first_stage_model.*`` (VAE) and ``conditioner.embedders.N.model.*`` (text
-tower). The entry point is ``log_images``: conditioning, VAE encode,
-Euler-EDM sampling with CFG, VAE decode.
+tower). The entry points are ``log_images`` (conditioning, VAE encode,
+Euler-EDM sampling with CFG, VAE decode) and, for training, ``train_loss``
+and ``loss`` with ``set_trainable`` (the freeze mask).
 
 Device and precision:
   * ``device=None`` means CUDA; without a CUDA device the constructor
@@ -15,10 +16,16 @@ Device and precision:
     goes back to fp32 before the sampler.
   * The VAE and the text tower stay fp32. The VAE is the reference's fp32
     island (disable_first_stage_autocast); the text tower runs once per clip.
+  * Training keeps the network's parameters in ``dtype`` and their fp32
+    masters outside the engine (``train_step.TrainState``): the optimizer
+    and the EMA act on the fp32 masters, whose bf16 copies the network
+    computes with, as the JAX package keeps fp32 parameters and computes in
+    bf16 (its gradients are the bf16 cotangents of that cast, in fp32).
   * ``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` are False while the entry points
     (``log_images``, ``sample``, ``encode_first_stage``,
-    ``decode_first_stage``) run, and the caller's values come back after:
+    ``decode_first_stage``, ``train_loss``) run, and the caller's values
+    come back after:
     the flags touch only the fp32 parts (VAE, text tower, sampler
     arithmetic), which are fp32 to stay close to the fp32 reference, and
     TF32 would cut them to a 10-bit mantissa. The bf16 UNet is unaffected.
@@ -39,9 +46,11 @@ from panacea_tpu_torch.models.layers import GroupNorm
 from panacea_tpu_torch.models.clip import CLIPAttention, CLIPTextTransformer
 from panacea_tpu_torch.registry import instantiate_from_config, resolve_target
 
-# engine config keys of the reference yaml that inference does not use
-_COMPAT_KEYS = frozenset({"use_ema", "disable_first_stage_autocast", "freeze_type",
-                          "wrapper_type", "log_keys"})
+# engine config keys of the reference yaml that the port does not use (the
+# trainer's --use_ema decides about the EMA)
+_COMPAT_KEYS = frozenset({"use_ema", "disable_first_stage_autocast", "wrapper_type",
+                          "log_keys"})
+FREEZE_TYPES = ("none", "spatial")
 # checkpoint entries that are not weights of the generation path
 # (panacea_tpu/utils/convert.py:504-509): EMA shadows, loss buffers, the
 # CLIP causal-mask buffer and its pooled-output projection
@@ -85,12 +94,17 @@ class _Wrapper(nn.Module):
 class DiffusionEngine3D(nn.Module):
     def __init__(self, network_config, denoiser_config, first_stage_config,
                  conditioner_config, sampler_config, scale_factor: float = 1.0,
-                 share_noise_level: float = 0.0, device=None,
-                 dtype: Optional[torch.dtype] = None, **compat):
+                 share_noise_level: float = 0.0, freeze_type: str = "none",
+                 loss_fn_config=None, device=None, dtype: Optional[torch.dtype] = None,
+                 **compat):
         super().__init__()
         unknown = set(compat) - _COMPAT_KEYS
         if unknown:
             raise TypeError(f"DiffusionEngine3D: unknown config keys {sorted(unknown)}")
+        if freeze_type not in FREEZE_TYPES:
+            raise ValueError(f"freeze_type {freeze_type!r} not in {FREEZE_TYPES}")
+        self.freeze_type = freeze_type
+        self.loss_fn = instantiate_from_config(loss_fn_config) if loss_fn_config else None
         device = resolve_device(device)
         self.device = device
         self.dtype = dtype or (torch.bfloat16 if device.type == "cuda" else torch.float32)
@@ -162,15 +176,21 @@ class DiffusionEngine3D(nn.Module):
     # -------------------------------------------------------- first stage
     @torch.no_grad()
     @_no_tf32()
-    def encode_first_stage(self, x, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def encode_first_stage(self, x, generator: Optional[torch.Generator] = None,
+                           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (N, H, W, 3) in [-1, 1] -> scaled latents, one frame at a time
         in fp32; samples the posterior (autoencoder.py:371-374) from
         ``generator``, by default a fresh one seeded 0 (as the JAX engine's
-        default key)."""
+        default key), or with the injected standard normals ``noise``
+        (N, h, w, 4)."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if generator is None:
+        if noise is not None:
+            noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
+        elif generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        z = [self.first_stage_model.encode(x[i:i + 1], generator) for i in range(x.shape[0])]
+        z = [self.first_stage_model.encode(x[i:i + 1], generator,
+                                           noise=None if noise is None else noise[i:i + 1])
+             for i in range(x.shape[0])]
         return self.scale_factor * torch.cat(z)
 
     @torch.no_grad()
@@ -276,3 +296,58 @@ class DiffusionEngine3D(nn.Module):
                               generator=generator, **kwargs)
         log["samples"] = self.decode_first_stage(samples)
         return log
+
+    # ------------------------------------------------------------ training
+    def trainable_mask(self) -> Dict[str, bool]:
+        """Network parameter name -> trained (diffusion.py:107-110):
+        ``freeze_type='spatial'`` trains exactly the parameters with
+        ``temporal`` in their name, ``'none'`` all of them."""
+        names = (f"model.{n}" for n, _ in self.model.named_parameters())
+        return {n: self.freeze_type != "spatial" or "temporal" in n for n in names}
+
+    def set_trainable(self) -> Dict[str, nn.Parameter]:
+        """``requires_grad`` from ``trainable_mask``; the VAE and the
+        conditioning towers are frozen. Returns the trained parameters by
+        name."""
+        for p in self.parameters():
+            p.requires_grad_(False)
+        mask = self.trainable_mask()
+        out = {}
+        for n, p in self.model.named_parameters():
+            if mask[f"model.{n}"]:
+                p.requires_grad_(True)
+                out[f"model.{n}"] = p
+        return out
+
+    @_no_tf32()
+    def diffusion_loss(self, z: torch.Tensor, cond: Dict[str, torch.Tensor],
+                       generator: Optional[torch.Generator] = None, **inject) -> torch.Tensor:
+        """The mean loss of the clean latents ``z`` under ``loss_fn``, with
+        gradients to the trained parameters. ``inject``: ``sigma_rand``,
+        ``noise``, ``offset`` for ``StandardDiffusionLoss``."""
+        if self.loss_fn is None:
+            raise RuntimeError("DiffusionEngine3D: training needs a loss_fn")
+        return self.loss_fn(self.network_fn, self.denoiser, cond, z, generator=generator,
+                            **inject).mean()
+
+    def train_loss(self, jpg, cond: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   posterior_noise: Optional[torch.Tensor] = None, **inject) -> torch.Tensor:
+        """The training loss (shared_step, diffusion.py:159-166; JAX
+        ``train_loss``, engine.py:485-495): jpg (B, T, H, W, 3) is encoded
+        without gradients (posterior drawn from ``generator`` or injected),
+        the network runs with gradients, the mean loss comes back. ``cond``
+        is precomputed: conditioning is frozen in Panacea."""
+        x = torch.as_tensor(jpg, dtype=torch.float32, device=self.device)
+        x = x.reshape((-1,) + tuple(x.shape[2:]))
+        z = self.encode_first_stage(x, generator=generator, noise=posterior_noise)
+        return self.diffusion_loss(z, cond, generator=generator, **inject)
+
+    def loss(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
+             ucg_keep=None) -> torch.Tensor:
+        """Host-level loss (engine.py:497-505): conditioning with ucg
+        dropout, then ``train_loss``."""
+        with torch.no_grad():
+            cond = self.conditioner(batch, self.device, generator=generator, apply_ucg=True,
+                                    ucg_keep=ucg_keep)
+        return self.train_loss(batch["jpg"], cond, generator=generator)

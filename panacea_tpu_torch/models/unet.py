@@ -5,6 +5,12 @@ SD2.1 topology with decomposed 4D attention: 320 base channels, mult
 (1, 2, 4, 4), 2 ResBlock3D per level, a SpatialTemporalTransformer wherever
 the downsample rate is in ``attention_resolutions``. Activations are
 channels-last (B*T, H, W, C); the text context stays per clip (B, L, D).
+
+``use_checkpoint`` (default True, as the JAX modules') recomputes each
+ResBlock3D and each SpatialTemporalTransformer in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) where the JAX modules apply
+``nn.remat`` (panacea_tpu/models/unet.py:78-81, 127-137): only while the
+module trains and autograd records. Sampling under ``no_grad`` is unaffected.
 """
 
 from __future__ import annotations
@@ -13,14 +19,15 @@ from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from panacea_tpu_torch.diffusion.util import timestep_embedding
 from panacea_tpu_torch.models.layers import (Conv2d, Downsample, GroupNorm, ResBlock3D,
                                              Upsample, zero_init)
 from panacea_tpu_torch.models.transformer import SpatialTemporalTransformer
 
-# config keys the reference yaml carries that change nothing at inference
-COMPAT_KEYS = frozenset({"use_checkpoint", "use_fp16", "legacy", "alpha"})
+# config keys the reference yaml carries that change nothing here
+COMPAT_KEYS = frozenset({"use_fp16", "legacy", "alpha"})
 
 
 def check_compat(name: str, extra: dict, use_spatial_transformer: bool,
@@ -69,9 +76,10 @@ class _Torso(nn.Module):
 
     def __init__(self, in_channels, model_channels, num_res_blocks, attention_resolutions,
                  channel_mult, num_head_channels, transformer_depth, context_dim,
-                 num_frames, spatial_only_attn_type, insert_crossview):
+                 num_frames, spatial_only_attn_type, insert_crossview, use_checkpoint):
         super().__init__()
         self.model_channels = model_channels
+        self.use_checkpoint = use_checkpoint
         self.num_frames = num_frames
         emb = 4 * model_channels
         self.plan = plan_blocks(model_channels, tuple(channel_mult), num_res_blocks,
@@ -109,13 +117,12 @@ class _Torso(nn.Module):
         t_emb = timestep_embedding(timesteps, self.model_channels).to(self.dtype)
         return self.time_embed(t_emb)
 
-    @staticmethod
-    def run_block(layers, h, emb, context):
+    def run_block(self, layers, h, emb, context):
+        remat = self.use_checkpoint and self.training and torch.is_grad_enabled()
         for layer in layers:
-            if isinstance(layer, ResBlock3D):
-                h = layer(h, emb)
-            elif isinstance(layer, SpatialTemporalTransformer):
-                h = layer(h, context)
+            if isinstance(layer, (ResBlock3D, SpatialTemporalTransformer)):
+                arg = emb if isinstance(layer, ResBlock3D) else context
+                h = checkpoint(layer, h, arg, use_reentrant=False) if remat else layer(h, arg)
             else:
                 h = layer(h)
         return h
@@ -128,12 +135,12 @@ class UNetModel3D(_Torso):
                  transformer_depth: int = 1, context_dim: int = 1024, num_frames: int = 8,
                  spatial_only_attn_type: str = "intra-view", insert_crossview: bool = True,
                  use_spatial_transformer: bool = True, use_linear_in_transformer: bool = True,
-                 **compat):
+                 use_checkpoint: bool = True, **compat):
         check_compat(type(self).__name__, compat, use_spatial_transformer,
                      use_linear_in_transformer)
         super().__init__(in_channels, model_channels, num_res_blocks, attention_resolutions,
                          channel_mult, num_head_channels, transformer_depth, context_dim,
-                         num_frames, spatial_only_attn_type, insert_crossview)
+                         num_frames, spatial_only_attn_type, insert_crossview, use_checkpoint)
         self.output_blocks = nn.ModuleList()
         for _, (i, o), attn, up in self.plan[1]:
             layers = [self.make_resblock(i, o)]

@@ -159,15 +159,19 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = Conv2d((2 if dd.get("double_z", True) else 1) * z, 2 * embed_dim, 1)
         self.post_quant_conv = Conv2d(embed_dim, z, 1)
 
-    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """A posterior sample drawn with ``generator`` (autoencoder.py:371-374),
-        or the posterior mean without one."""
+    def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A posterior sample drawn with ``generator`` (autoencoder.py:371-374)
+        or with the given standard normals ``noise``; the posterior mean
+        without either."""
         mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=-1)
-        if generator is None:
+        if generator is None and noise is None:
             return mean
         std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
-        return mean + std * torch.randn(mean.shape, generator=generator, device=mean.device,
-                                        dtype=mean.dtype)
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                                dtype=mean.dtype)
+        return mean + std * noise.to(mean.dtype)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))

@@ -19,7 +19,7 @@ from typing import Dict, List
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("flash_attention.cu", "geglu.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "geglu.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -13,6 +13,14 @@ to the wgmma/TMA kernel, at 16, 32 and 128 to the mma.sync kernel
 (``_tma.flash_route``); fp32 goes to the fp32 kernel (products on the FMA
 units, no TF32). ``flash_attention.launches`` counts all launches and
 ``flash_attention.route_launches`` each route's.
+
+Gradients: where autograd needs them, ``flash_attention`` goes through a
+``torch.autograd.Function`` whose forward also writes the row log-sum-exp
+(fp32, (B, H, Sq), base 2) and whose backward is ``flash_attention_bwd``:
+the kernels of ``csrc/flash_attention_bwd.cu`` on a bf16 CUDA tensor
+(``flash_attention_bwd.launches``), ``flash_attention_bwd_plain`` on a CPU
+tensor. The Pallas kernel has no VJP; the JAX trainer differentiates its
+plain form (``_lax_flash``), and that is the gradient computed here.
 """
 
 from __future__ import annotations
@@ -31,26 +39,32 @@ HEAD_DIMS = (16, 32, 64, 128)
 PLAIN_BLOCK_K = 512  # keys per chunk of the plain version, as _lax_flash
 
 
+def _row_len(b: int, skv: int, kv_lens: Optional[torch.Tensor], device) -> torch.Tensor:
+    """(B, 1, 1, 1) int32 valid key counts."""
+    if kv_lens is None:
+        row_len = torch.full((b,), skv, dtype=torch.int32, device=device)
+    else:
+        row_len = kv_lens.to(device=device, dtype=torch.int32)
+    return row_len[:, None, None, None]
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None,
-                          kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          kv_lens: Optional[torch.Tensor] = None, return_lse: bool = False):
     """KV-chunked online softmax, the recurrence of ``_lax_flash``
     (panacea_tpu/ops/flash_attention.py:108-163): fp32 scores, max, sum and
     accumulator, base-2 exponent with log2(e) folded into the scale,
     probabilities cast to v's dtype before the PV product. Never holds more
     than one (Sq, PLAIN_BLOCK_K) chunk of scores. Inputs of any float dtype are
-    computed in fp32; the result has q's dtype."""
+    computed in fp32; the result has q's dtype. ``return_lse`` also returns
+    the row log-sum-exp, fp32 (B, H, Sq), base 2 of the scaled scores."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     scale = d**-0.5 if scale is None else scale
     qt = q.permute(0, 2, 1, 3).float()                    # (B, H, Sq, D)
     kt = k.permute(0, 2, 1, 3).float()
     vt = v.permute(0, 2, 1, 3)
-    if kv_lens is None:
-        row_len = torch.full((b,), skv, dtype=torch.int32, device=q.device)
-    else:
-        row_len = kv_lens.to(device=q.device, dtype=torch.int32)
-    row_len = row_len[:, None, None, None]
+    row_len = _row_len(b, skv, kv_lens, q.device)
     m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
     den = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -65,7 +79,50 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         den = den * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.matmul(p.to(vs.dtype).float(), vs.float())
         m = m_new
-    return (acc / den).permute(0, 2, 1, 3).to(q.dtype)
+    out = (acc / den).permute(0, 2, 1, 3).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log2(den))[..., 0]
+    return out
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                              scale: Optional[float] = None,
+                              kv_lens: Optional[torch.Tensor] = None):
+    """The gradient (dq, dk, dv) of ``flash_attention_plain`` at the output
+    ``o`` with row log-sum-exp ``lse`` (B, H, Sq) and output gradient ``do``,
+    in the backward kernels' arithmetic: Delta = rowsum(do * o) in fp32; per
+    chunk of PLAIN_BLOCK_K keys, P = exp2(S scale log2(e) - lse) recomputed
+    in fp32, dV = P^T dO with P rounded to v's dtype, dP = dO V^T,
+    dS = P (dP - Delta), dQ = scale dS K and dK = scale dS^T Q with dS
+    rounded to q's dtype. Masked keys get zero dk and dv. Computed in fp32;
+    the results have the inputs' dtypes."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    scale = d**-0.5 if scale is None else scale
+    qt = q.permute(0, 2, 1, 3).float()                    # (B, H, Sq, D)
+    kt = k.permute(0, 2, 1, 3).float()
+    vt = v.permute(0, 2, 1, 3).float()
+    dot = do.permute(0, 2, 1, 3).float()
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # (B, H, Sq, 1)
+    lse = lse.float()[..., None]
+    row_len = _row_len(b, skv, kv_lens, q.device)
+    dq = torch.zeros_like(qt)
+    dks, dvs = [], []
+    for j in range(0, skv, PLAIN_BLOCK_K):
+        ks, vs = kt[:, :, j:j + PLAIN_BLOCK_K], vt[:, :, j:j + PLAIN_BLOCK_K]
+        s = torch.matmul(qt, ks.transpose(-1, -2)) * (scale * LOG2E)
+        col = torch.arange(j, j + ks.shape[2], device=q.device)
+        p = torch.where(col < row_len, torch.exp2(s - lse), torch.zeros_like(s))
+        dvs.append(torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dot))
+        ds = p * (torch.matmul(dot, vs.transpose(-1, -2)) - delta)
+        ds = ds.to(q.dtype).float()
+        dq += torch.matmul(ds, ks)
+        dks.append(torch.matmul(ds.transpose(-1, -2), qt))
+    dk = torch.cat(dks, dim=2) * scale
+    dv = torch.cat(dvs, dim=2)
+    return ((dq * scale).permute(0, 2, 1, 3).to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 def _route(dtype: torch.dtype, d: int) -> str:
@@ -106,22 +163,29 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention.cu")
     lib.pn_flash_attention_bf16.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
         ctypes.c_float, ctypes.c_void_p]
     lib.pn_flash_attention_bf16.restype = ctypes.c_int
     lib.pn_flash_attention_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
     lib.pn_flash_attention_f32.restype = ctypes.c_int
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: Optional[float] = None,
-                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v; q (B, Sq, H, D), k/v (B, Skv, H, D)."""
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd.cu")
+    lib.pn_flash_attention_bwd_bf16.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
+    lib.pn_flash_attention_bwd_bf16.restype = ctypes.c_int
+    return lib
+
+
+def _check_args(q, k, v, scale):
     b, sq, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -129,20 +193,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = d**-0.5 if scale is None else float(scale)
     if not scale > 0:
         raise ValueError(f"flash_attention: scale {scale} must be positive")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, kv_lens=kv_lens)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return scale
+
+
+def _forward(q, k, v, scale: float, kv_lens, with_lse: bool):
+    """(out, lse or None): the plain version on a CPU tensor, else a kernel."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_plain(q, k, v, scale=scale, kv_lens=kv_lens, return_lse=True)
+        return flash_attention_plain(q, k, v, scale=scale, kv_lens=kv_lens), None
+    b, sq, h, d = q.shape
     _check_cuda(q, k, v, kv_lens, d)
     lib = _lib()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    lse_ptr = lse.data_ptr() if with_lse else None
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     route = _route(q.dtype, d)
     lens_ptr = kv_lens.data_ptr() if kv_lens is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if route == "fp32":
         err = lib.pn_flash_attention_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lens_ptr,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, lens_ptr,
             b, h, sq, k.shape[1], d, strides, scale, stream)
     else:
         maps = None
@@ -153,12 +227,97 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     + _tma.map_spec(v, (1, _tma.FLASH_BK, 1, d)))
             maps = (ctypes.c_longlong * len(spec))(*spec)
         err = lib.pn_flash_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lens_ptr,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, lens_ptr,
             b, h, sq, k.shape[1], d, strides, maps, scale, stream)
     _build.check(lib, err, f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             scale: Optional[float] = None,
+                             kv_lens: Optional[torch.Tensor] = None):
+    """(out, lse): the forward, also writing the row log-sum-exp (fp32,
+    (B, H, Sq), base 2 of the scaled scores) that the backward reads."""
+    scale = _check_args(q, k, v, scale)
+    return _forward(q, k, v, scale, kv_lens, with_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, scale: Optional[float] = None,
+                        kv_lens: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of softmax(q k^T * scale) v at the output ``o`` with the
+    forward's row log-sum-exp ``lse`` (B, H, Sq) and the output gradient
+    ``do``. A CPU tensor takes ``flash_attention_bwd_plain``; a bf16 CUDA
+    tensor the kernels of ``csrc/flash_attention_bwd.cu``; an fp32 CUDA
+    tensor raises (no fp32 backward kernel yet)."""
+    scale = _check_args(q, k, v, scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale=scale, kv_lens=kv_lens)
+    b, sq, h, d = q.shape
+    if q.dtype == torch.float32:
+        raise NotImplementedError(
+            "flash_attention: the fp32 backward has no CUDA kernel yet (ROADMAP.md, Queue B); "
+            "train in bf16 or on the CPU")
+    _check_cuda(q, k, v, kv_lens, d)
+    o, do = o.contiguous(), do.contiguous()
+    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape), ("lse", lse, (b, h, sq))):
+        if t.shape != shape or t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} on {t.device} "
+                             f"does not fit q {tuple(q.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise TypeError("flash_attention_bwd: o and do must have q's type and lse be "
+                        "contiguous fp32")
+    lib = _bwd_lib()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    err = lib.pn_flash_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        kv_lens.data_ptr() if kv_lens is not None else None, b, h, sq, k.shape[1], d, strides,
+        scale, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its row log-sum-exp saved, and the backward
+    kernel; on CPU tensors the plain versions of both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_lens):
+        out, lse = _forward(q, k, v, scale, kv_lens, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.scale, kv_lens)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None,
+                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v; q (B, Sq, H, D), k/v (B, Skv, H, D). Where
+    autograd needs a gradient of q, k or v, the call goes through the
+    autograd Function (forward kernel with the row log-sum-exp, backward
+    kernel); otherwise the forward writes no log-sum-exp."""
+    scale = _check_args(q, k, v, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale, kv_lens)
+    return _forward(q, k, v, scale, kv_lens, with_lse=False)[0]
 
 
 flash_attention.launches = 0

@@ -42,3 +42,15 @@ def worst_ratio(got: torch.Tensor, want: torch.Tensor, rel: float, floor: float)
     got, want = got.float(), want.float()
     rms = want.square().mean().sqrt()
     return ((got - want).abs() / (rel * want.abs() + floor * rms)).max().item()
+# the backward kernels against their plain versions (stated before their
+# first run on the card). Flash: P and dS are rounded to bf16 on both sides
+# from fp32 values that differ in the summation order of S, dP and Delta, and
+# dS = P (dP - Delta) cancels, so a rounding that lands one bf16 step apart
+# enters the sums; ``floor`` is the forward's. GEGLU gate pass: elementwise
+# fp32 from the same bf16 inputs (erff against torch.erf, a few fp32 steps),
+# one rounding of each result; ``floor`` covers gelu'(g) near its zero.
+FLASH_BWD = {"rel": 1e-2, "floor": 2e-2}
+# the forward's row log-sum-exp (base 2, values near log2(Skv)): fp32 sums of
+# the same probabilities in another order, and ex2.approx in the kernel
+FLASH_LSE = {"rel": 1e-5, "floor": 1e-4}
+GEGLU_BWD = {"rel": 1e-2, "floor": 1e-4}

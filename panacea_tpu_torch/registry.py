@@ -41,6 +41,17 @@ _SGM_TO_LOCAL = {
     "sgm.models.autoencoder.AutoencoderKL": f"{_P}.models.vae.AutoencoderKL",
     "sgm.models.autoencoder.AutoencoderKLInferenceWrapper":
         f"{_P}.models.vae.AutoencoderKLInferenceWrapper",
+    "sgm.modules.diffusionmodules.sigma_sampling.EDMSampling":
+        f"{_P}.diffusion.sigma_sampling.EDMSampling",
+    "sgm.modules.diffusionmodules.sigma_sampling.DiscreteSampling":
+        f"{_P}.diffusion.sigma_sampling.DiscreteSampling",
+    "sgm.modules.diffusionmodules.loss.StandardDiffusionLoss":
+        f"{_P}.diffusion.loss.StandardDiffusionLoss",
+    "sgm.lr_scheduler.LambdaLinearScheduler": f"{_P}.utils.lr_schedule.LambdaLinearScheduler",
+    "sgm.lr_scheduler.LambdaWarmUpCosineScheduler":
+        f"{_P}.utils.lr_schedule.LambdaWarmUpCosineScheduler",
+    "sgm.lr_scheduler.LambdaWarmUpCosineScheduler2":
+        f"{_P}.utils.lr_schedule.LambdaWarmUpCosineScheduler2",
 }
 
 

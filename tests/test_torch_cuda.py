@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from panacea_tpu_torch.ops import tolerance
-from panacea_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
-from panacea_tpu_torch.ops.geglu import geglu, geglu_plain
+from panacea_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                   flash_attention_bwd_plain,
+                                                   flash_attention_plain,
+                                                   flash_attention_with_lse)
+from panacea_tpu_torch.ops.geglu import geglu, geglu_bwd, geglu_bwd_plain, geglu_plain
 
 
 @pytest.fixture
@@ -125,3 +128,92 @@ def test_wrappers_refuse_mixed_types_on_card(cuda, what):
             geglu(x, w.bfloat16(), b)
         with pytest.raises(TypeError, match="bf16 or fp32"):
             geglu(x.double(), w.double(), b.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,h,d,lens,merged", [
+    (512, 1024, 10, 64, None, True), (128, 256, 20, 64, None, True),
+    (256, 512, 5, 64, [1, 129, 300, 512], True), (129, 4097, 2, 64, [4097, 65], False),
+    (200, 400, 2, 16, None, False), (200, 400, 2, 32, None, True),
+    (200, 400, 2, 128, None, False)])
+def test_flash_bwd_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
+    """The backward kernel against its plain version on the same q, k, v,
+    kernel output, kernel log-sum-exp and output gradient; masked keys get
+    no gradient."""
+    b = 2 if lens is None else len(lens)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    if merged:
+        kv = torch.randn((b, skv, 2 * h * d), generator=g, device=cuda).bfloat16()
+        k, v = (t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1))
+    else:
+        k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda).bfloat16()
+                for _ in range(2))
+    do = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention_with_lse(q, k, v, kv_lens=kvl)
+    _, lse_plain = flash_attention_plain(q, k, v, kv_lens=kvl, return_lse=True)
+    assert tolerance.worst_ratio(lse, lse_plain, **tolerance.FLASH_LSE) <= 1.0
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, kv_lens=kvl)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=kvl)
+    for a, w in zip(got, want):
+        assert tolerance.worst_ratio(a, w, **tolerance.FLASH_BWD) <= 1.0
+    if lens is not None:
+        dead = torch.arange(skv, device=cuda)[None] >= kvl[:, None]
+        assert not got[1][dead].any() and not got[2][dead].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,inner,dtype", [
+    (3001, 1280, torch.bfloat16), (777, 5120, torch.bfloat16), (300, 77, torch.bfloat16),
+    (1, 256, torch.bfloat16), (3000, 1280, torch.float32), (300, 77, torch.float32)])
+def test_geglu_bwd_kernel_matches_plain_on_card(cuda, tokens, inner, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    hg = torch.randn((tokens, 2 * inner), generator=g, device=cuda).to(dtype)
+    dy = torch.randn((tokens, inner), generator=g, device=cuda).to(dtype)
+    before = geglu_bwd.launches
+    got = geglu_bwd(hg, dy)
+    assert geglu_bwd.launches == before + 1 and got.dtype == dtype
+    rule = tolerance.GEGLU_BWD if dtype == torch.bfloat16 else tolerance.GEGLU_F32
+    assert tolerance.worst_ratio(got, geglu_bwd_plain(hg, dy), **rule) <= 1.0
+
+
+@pytest.mark.cuda
+def test_gradients_flow_through_both_kernels_on_card(cuda):
+    """A cross-view-like block on the card: the output has a grad_fn, the
+    backward launches both backward kernels, and the gradients of x and of
+    the projections match autograd through the plain versions (fp32 on the
+    CPU, the same bf16 numbers) within bf16 accuracy."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    b, s, h, d, c = 2, 256, 2, 64, 128
+    x0 = torch.randn((b, s, c), generator=g).bfloat16()
+    wq, wkv = (torch.randn(shape, generator=g).mul(c**-0.5).bfloat16()
+               for shape in ((h * d, c), (2 * h * d, c)))
+    wff = torch.randn((4 * c, h * d), generator=g).mul((h * d)**-0.5).bfloat16()
+    bff = torch.zeros(4 * c).bfloat16()
+
+    def block(x, wq, wkv, wff, bff, flash, gg):
+        q = (x @ wq.t()).unflatten(-1, (h, d))
+        kv = torch.cat([x, x.flip(1)], dim=1) @ wkv.t()        # Skv = 2 Sq
+        k, v = (t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1))
+        return gg(flash(q, k, v).flatten(2), wff, bff).float().square().mean()
+
+    grads = []
+    for dev, dtype, flash, gg in ((cuda, torch.bfloat16, flash_attention, geglu),
+                                  ("cpu", torch.float32, flash_attention_plain, geglu_plain)):
+        leaves = [t.to(dev, dtype).requires_grad_() for t in (x0, wq, wkv, wff, bff)]
+        before = (flash_attention_bwd.launches, geglu_bwd.launches)
+        loss = block(*leaves, flash, gg)
+        assert loss.grad_fn is not None
+        loss.backward()
+        if dev is cuda:
+            assert (flash_attention_bwd.launches, geglu_bwd.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+        grads.append([t.grad.float().cpu() for t in leaves])
+    for got, want in zip(*grads):
+        assert torch.isfinite(got).all()
+        assert (got - want).norm() <= 5e-2 * want.norm() + 1e-6
+
