@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
      ``panacea_tpu_torch/ops/tolerance.py``), and timed beside the plain
      version, a PyTorch yardstick and its bound: the bf16 kernels (tensor
      cores; the flash forward also with its row log-sum-exp), the fp32
-     kernels (FMA units, TF32 off everywhere), then the backward kernels;
+     kernels (FMA units, TF32 off everywhere), then the backward kernels on
+     each route (bf16 wgmma at head dim 64, mma.sync at 16, 32, 128; fp32),
+     their library time read as the device time of SDPA's backward;
   3. small input: the tiny engine on the card (bf16, kernels) against the
      same weights on the CPU (fp32, plain versions), two sampler steps;
   4. log_images: ``DiffusionEngine3D.log_images`` called directly at full
@@ -38,7 +40,12 @@ Phases, in order; any failure exits non-zero:
      training every network parameter with the EMA, then 2 with
      ``freeze_type spatial`` (frozen parameters bit-equal, temporal masters
      moved); s/step and its split, peak memory, and 42 flash forward, 21 flash
-     backward, 138 GEGLU forward and 69 GEGLU backward launches a step;
+     backward (all on the wgmma route), 138 GEGLU forward and 69 GEGLU
+     backward launches a step; then train_fp32: the engine in fp32 with the
+     same weights, clip, conditioning and draws, the bf16-vs-fp32 drift of
+     one ``spatial`` step's loss and temporal gradients, and 2 fp32
+     ``spatial`` steps (the same launches, the flash backward on the fp32
+     route);
   9. tiny training step: loss and gradients of the tiny engine, bf16 on the
      card against fp32 on the CPU, held to a bf16 run on the CPU;
  10. training CLI: ``train_torch.py --tiny --synthetic --steps 4 --ckpt_every
@@ -48,7 +55,7 @@ Phases, in order; any failure exits non-zero:
      2 steps.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
-phase 2 at the training shapes, and counted in phase 8.
+phase 2 at the training shapes, and counted in phase 8 per route.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 summary, the card's name and power limit as nvidia-smi reports them, and
@@ -83,6 +90,7 @@ FLASH_PER_EVAL, GEGLU_PER_EVAL = 21, 69
 TRAIN_B = 8 * 5        # the training batch of one clip: 8 frames x views 0-4
 TRAIN_STEPS, SPATIAL_STEPS = 3, 2
 TRAIN_LR = 2e-5        # the trainer's default
+TRAIN_DRAW_SEED = SEED + 1  # the posterior, sigma and noise draws of every training run
 # launches per training step with every ResBlock and transformer recomputed:
 # 21 flash and 69 GEGLU calls a network evaluation, forward twice, backward once
 TRAIN_LAUNCHES_PER_STEP = {"flash_attention": 42.0, "flash_attention_bwd": 21.0,
@@ -201,39 +209,62 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
     return rec
 
 
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time of one call: the CUDA kernels' time summed by
+    torch.profiler over ``iters`` calls (after one warm-up), divided by
+    ``iters``; no host time enters. None where the profiler saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(evt, "self_device_time_total", 0.0) or 0.0 for evt in prof.key_averages()
+             if str(evt.device_type).endswith("CUDA"))
+    return us / 1e3 / iters if us > 0 else None
+
+
 def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, lens=None,
-                    timed=True):
+                    timed=True, fp32=False):
     """The backward kernel against ``flash_attention_bwd_plain`` on the same
     q, k, v, kernel output, kernel row log-sum-exp and output gradient; the
-    kernel's log-sum-exp against the plain forward's. ``library_ms`` is SDPA's
-    backward, timed as forward + backward less forward."""
+    kernel's log-sum-exp against the plain forward's. ``fp32``: fp32
+    operands (the fp32 route, ``tol.FLASH_BWD_F32``, the fp32 FMA rate as the
+    bound). ``library_ms`` is SDPA's backward alone on the device (the
+    kernels' time under torch.profiler); ``library_ms_loop`` the same calls
+    timed with CUDA events, and ``library_ms_fwd_bwd_less_fwd`` the older
+    reading, which carries autograd's host time."""
+    dtype, rule = (torch.float32, tol.FLASH_BWD_F32) if fp32 else (torch.bfloat16, tol.FLASH_BWD)
+    elem = 4.0 if fp32 else 2.0
     g = torch.Generator(device=dev).manual_seed(sq * 5 + skv + d)
-    q = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
     if merged_kv:
-        kv = torch.randn((b, skv, 2 * h * d), generator=g, device=dev).bfloat16()
+        kv = torch.randn((b, skv, 2 * h * d), generator=g, device=dev).to(dtype)
         k, v = (t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1))
     else:
-        k = torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16()
-        v = torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16()
-    do = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((b, skv, h, d), generator=g, device=dev).to(dtype)
+        v = torch.randn((b, skv, h, d), generator=g, device=dev).to(dtype)
+    do = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
     if lens is not None:
         lens = torch.tensor(lens, device=dev, dtype=torch.int32)
     o, lse = fa.flash_attention_with_lse(q, k, v, kv_lens=lens)
     _, lse_plain = fa.flash_attention_plain(q, k, v, kv_lens=lens, return_lse=True)
-    n0 = fa.flash_attention_bwd.launches
+    n0, routes = fa.flash_attention_bwd.launches, dict(fa.flash_attention_bwd.route_launches)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=lens)
     if fa.flash_attention_bwd.launches != n0 + 1:
         raise AssertionError("flash_attention_bwd did not launch its kernel")
+    route = next(r for r, n in fa.flash_attention_bwd.route_launches.items() if n != routes[r])
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=lens)
     torch.cuda.synchronize()
-    ratios = {n: tol.worst_ratio(a, w, **tol.FLASH_BWD)
-              for n, a, w in zip(("dq", "dk", "dv"), got, want)}
-    rec = {"kernel": "flash_attention_bwd", "route": "mma", "dtype": "torch.bfloat16",
+    ratios = {n: tol.worst_ratio(a, w, **rule) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    rec = {"kernel": "flash_attention_bwd", "route": route, "dtype": str(dtype),
            "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "D": d, "ragged": lens is not None,
                      "kv": "merged" if merged_kv else "contiguous"},
            "max_abs_err": max((a.float() - w.float()).abs().max().item()
                               for a, w in zip(got, want)),
-           "worst_ratio": ratios, "tol": tol.FLASH_BWD,
+           "worst_ratio": ratios, "tol": rule,
            "lse_worst_ratio": tol.worst_ratio(lse, lse_plain, **tol.FLASH_LSE),
            "lse_tol": tol.FLASH_LSE}
     if lens is not None:
@@ -243,11 +274,15 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
     if timed:
         kv_eff = float(lens.sum().item()) / b if lens is not None else skv
         flops = 10.0 * b * h * sq * kv_eff * d
-        nbytes = 2.0 * b * h * d * (3 * sq + 2 * kv_eff) + 4.0 * b * h * sq \
-            + 2.0 * b * h * d * (sq + 2 * skv)
-        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
-        rec["ms"] = time_ms(
-            torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=lens), 10)
+        nbytes = elem * b * h * d * (3 * sq + 2 * kv_eff) + 4.0 * b * h * sq \
+            + elem * b * h * d * (sq + 2 * skv)
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, PEAK_FP32 if fp32 else PEAK_BF16)
+
+        def kernel():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=lens)
+
+        rec["ms"] = time_ms(torch, kernel, 10)
+        rec["ms_device"] = device_ms(torch, kernel, 5)
         rec["plain_ms"] = time_ms(
             torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=lens), 1)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -262,11 +297,25 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
 
-        rec["library_ms"] = time_ms(torch, sdpa_fwd_bwd, 10) - time_ms(torch, sdpa_fwd, 10)
+        out = sdpa_fwd()
+
+        def sdpa_bwd():  # the backward alone, of one recorded forward
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+        rec["library_ms_loop"] = time_ms(torch, sdpa_bwd, 10)
+        rec["library_ms_fwd_bwd_less_fwd"] = (time_ms(torch, sdpa_fwd_bwd, 10)
+                                              - time_ms(torch, sdpa_fwd, 10))
+        lib_device = device_ms(torch, sdpa_bwd, 5)
+        rec["library_ms"] = lib_device if lib_device is not None else rec["library_ms_loop"]
+        rec["library_ms_from"] = "profiler" if lib_device is not None else "events"
+        del out
     log(rec)
     if not (max(ratios.values()) <= 1.0 and rec["lse_worst_ratio"] <= 1.0
             and rec.get("masked_keys_grad_max", 0.0) == 0.0):
         raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {rec}")
+    want_route = "fp32" if fp32 else ("wgmma" if d == 64 else "mma")
+    if route != want_route:
+        raise AssertionError(f"flash_attention_bwd took route {route}, not {want_route}: {rec}")
     return rec
 
 
@@ -384,7 +433,8 @@ def small_input_agreement(torch, np, dev):
 def reset_counts(fa, gg) -> None:
     fa.flash_attention.launches = gg.geglu.launches = 0
     fa.flash_attention_bwd.launches = gg.geglu_bwd.launches = 0
-    for counts in (fa.flash_attention.route_launches, gg.geglu.route_launches):
+    for counts in (fa.flash_attention.route_launches, fa.flash_attention_bwd.route_launches,
+                   gg.geglu.route_launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -393,6 +443,7 @@ def read_counts(fa, gg) -> dict:
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "geglu_bwd": gg.geglu_bwd.launches,
             "flash_routes": dict(fa.flash_attention.route_launches),
+            "flash_bwd_routes": dict(fa.flash_attention_bwd.route_launches),
             "geglu_routes": dict(gg.geglu.route_launches)}
 
 
@@ -740,69 +791,104 @@ def synthetic_clip(np, rng, t: int, ih: int, iw: int, b: int = 1) -> dict:
             "final_cond_zero": fcz, "txt": ["a driving scene. daytime. sunny."] * b}
 
 
-def train_phase(torch, np, dev, fa, gg, card: str):
-    """The port's train step at full production width: 3 steps training
-    every network parameter with the EMA, then 2 steps with freeze_type
-    spatial (frozen parameters must stay bit-equal, a temporal one must
-    move). bs 1, 8 frames, random weights and a random clip."""
+def train_setup(torch, np, dev) -> dict:
+    """The production engine in bf16 at full width with random weights and
+    its loss, a random clip (bs 1, 8 frames) and the clip's conditioning."""
     from panacea_tpu_torch.configs import INFERENCE_NUSCENES
     from panacea_tpu_torch.registry import instantiate_from_config
-    from panacea_tpu_torch.train import GRAD_CLIP, default_loss_config
-    from panacea_tpu_torch.train_step import init_train_state, train_step
-    from panacea_tpu_torch.utils.profiling import Timer
+    from panacea_tpu_torch.train import default_loss_config
 
     eng = instantiate_from_config(INFERENCE_NUSCENES["model"], device=dev)
     eng.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
     eng.loss_fn = instantiate_from_config(default_loss_config(eng))
     batch = synthetic_clip(np, np.random.default_rng(SEED), eng.num_frames, 256, 3072)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
-        cond = eng.conditioner(batch, dev, generator=gen, apply_ucg=True)
+        cond = eng.conditioner(batch, dev, generator=torch.Generator(device=dev).manual_seed(SEED),
+                               apply_ucg=True)
     torch.cuda.synchronize()
-    cond_s = time.perf_counter() - t0
+    return {"eng": eng, "batch": batch, "cond": cond, "cond_s": time.perf_counter() - t0}
 
-    def run(freeze: str, steps: int):
-        eng.freeze_type = freeze
-        state = init_train_state(eng, lr=TRAIN_LR, grad_clip=GRAD_CLIP, use_ema=True)
+
+def train_run(torch, np, dev, fa, gg, card: str, eng, batch, cond, freeze: str, steps: int,
+              name: str):
+    """``steps`` train steps of ``eng`` (lr TRAIN_LR, clip, EMA) from a
+    fresh train state. The draws come from a generator seeded
+    TRAIN_DRAW_SEED, so runs of the same clip see the same draws whatever
+    the engine's type. Returns the state and the run's record."""
+    from panacea_tpu_torch.train import GRAD_CLIP
+    from panacea_tpu_torch.train_step import init_train_state, train_step
+    from panacea_tpu_torch.utils.profiling import Timer
+
+    eng.freeze_type = freeze
+    state = init_train_state(eng, lr=TRAIN_LR, grad_clip=GRAD_CLIP, use_ema=True)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_DRAW_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = Timer(dev)
+    losses, step_s, splits = [], [], []
+    reset_counts(fa, gg)
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(train_step(eng, state, batch["jpg"], cond, gen, timer=timer)))
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        timer = Timer(dev)
-        losses, step_s, splits = [], [], []
-        reset_counts(fa, gg)
-        for _ in range(steps):
-            t1 = time.perf_counter()
-            losses.append(float(train_step(eng, state, batch["jpg"], cond, gen, timer=timer)))
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t1)
-            splits.append(dict(timer.last))
-        counts = read_counts(fa, gg)
-        later = sorted(range(1, steps), key=lambda i: step_s[i]) or [0]
-        median = later[len(later) // 2]
-        rec = {"phase": f"train_{freeze}", "card": card, "steps": steps, "losses": losses,
-               "trained_params": sum(p.numel() for p in state.params.values()),
-               "step_s": step_s, "s_per_step": step_s[median],
-               "split_s": splits[median], "split_first_step_s": splits[0],
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": counts,
-               "launches_per_step": {k: counts[k] / steps for k in
-                                     ("flash_attention", "flash_attention_bwd", "geglu",
-                                      "geglu_bwd")}}
-        return state, rec
+        step_s.append(time.perf_counter() - t1)
+        splits.append(dict(timer.last))
+    counts = read_counts(fa, gg)
+    later = sorted(range(1, steps), key=lambda i: step_s[i]) or [0]
+    median = later[len(later) // 2]
+    rec = {"phase": name, "card": card, "dtype": str(eng.dtype), "freeze_type": freeze,
+           "steps": steps, "losses": losses,
+           "trained_params": sum(p.numel() for p in state.params.values()),
+           "step_s": step_s, "s_per_step": step_s[median],
+           "split_s": splits[median], "split_first_step_s": splits[0],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts,
+           "launches_per_step": {k: counts[k] / steps for k in TRAIN_LAUNCHES_PER_STEP},
+           "flash_bwd_routes_per_step": {r: n / steps
+                                         for r, n in counts["flash_bwd_routes"].items()}}
+    return state, rec
 
+
+def check_train_launches(rec, route: str) -> None:
+    """A training step's launches: the totals of TRAIN_LAUNCHES_PER_STEP, and
+    every flash backward on ``route`` (the forward kernels on the type's
+    routes: wgmma and bf16, or fp32)."""
+    fp32 = route == "fp32"
+    per = rec["launches_per_step"]
+    steps = rec["steps"]
+    bwd = {r: (TRAIN_LAUNCHES_PER_STEP["flash_attention_bwd"] if r == route else 0.0)
+           for r in rec["flash_bwd_routes_per_step"]}
+    fwd_route = rec["launches"]["flash_routes"]["fp32" if fp32 else "wgmma"] / steps
+    geglu_route = rec["launches"]["geglu_routes"]["fp32" if fp32 else "bf16"] / steps
+    if not (per == TRAIN_LAUNCHES_PER_STEP and rec["flash_bwd_routes_per_step"] == bwd
+            and fwd_route == per["flash_attention"] and geglu_route == per["geglu"]):
+        raise AssertionError(f"{rec['phase']}: launches a step {per}, flash backward routes "
+                             f"{rec['flash_bwd_routes_per_step']}, not {TRAIN_LAUNCHES_PER_STEP} "
+                             f"with the backward on {route}: {rec['launches']}")
+
+
+def train_phase(torch, np, dev, fa, gg, card: str, setup: dict):
+    """The port's train step at full production width: 3 steps training
+    every network parameter with the EMA, then 2 steps with freeze_type
+    spatial (frozen parameters must stay bit-equal, a temporal one must
+    move). bs 1, 8 frames, random weights and a random clip."""
+    from panacea_tpu_torch.train_step import train_step
+
+    eng, batch, cond = setup["eng"], setup["batch"], setup["cond"]
     network = {f"model.{n}": p for n, p in eng.model.named_parameters()}
-    state, rec = run("none", TRAIN_STEPS)
-    rec["conditioning_s"] = cond_s
+    state, rec = train_run(torch, np, dev, fa, gg, card, eng, batch, cond, "none",
+                           TRAIN_STEPS, "train_none")
+    rec["conditioning_s"] = setup["cond_s"]
     log(rec)
     # one more step of the same state under the profiler (its warm-up is a step too)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_DRAW_SEED)
     profile_step(torch, lambda: train_step(eng, state, batch["jpg"], cond, gen),
                  name="profile_train_step", grad=True)
     if not all(np.isfinite(rec["losses"])):
         raise AssertionError(f"non-finite training loss: {rec}")
-    if rec["launches_per_step"] != TRAIN_LAUNCHES_PER_STEP:
-        raise AssertionError(f"training launches {rec['launches_per_step']} != "
-                             f"{TRAIN_LAUNCHES_PER_STEP} per step")
+    check_train_launches(rec, "wgmma")
     counts = rec["launches"]
     del state
     free(torch)
@@ -810,19 +896,86 @@ def train_phase(torch, np, dev, fa, gg, card: str):
     mask = {k: "temporal" in k for k in network}
     frozen_before = {k: p.detach().clone() for k, p in network.items() if not mask[k]}
     temporal_before = {k: p.detach().float().clone() for k, p in network.items() if mask[k]}
-    state, rec2 = run("spatial", SPATIAL_STEPS)
+    state, rec2 = train_run(torch, np, dev, fa, gg, card, eng, batch, cond, "spatial",
+                            SPATIAL_STEPS, "train_spatial")
     frozen_equal = all(torch.equal(network[k], v) for k, v in frozen_before.items())
     # the fp32 masters: an update below half a bf16 step leaves the network's copy as it was
     moved = sum(not torch.equal(state.params[k], v) for k, v in temporal_before.items())
     rec2.update({"frozen_params": len(frozen_before), "frozen_bit_equal": frozen_equal,
                  "temporal_params": len(temporal_before), "temporal_moved": moved})
     log(rec2)
-    del state, frozen_before, temporal_before
+    del state, frozen_before, temporal_before, network
     if not (all(np.isfinite(rec2["losses"])) and frozen_equal and moved > 0):
         raise AssertionError(f"spatial-freeze training is wrong: {rec2}")
-    del eng, network
+    check_train_launches(rec2, "wgmma")
     free(torch)
     return counts
+
+
+def loss_and_grads(torch, dev, eng, batch, cond):
+    """One step's loss and the gradients of the temporal parameters
+    (freeze_type spatial), with draws from a generator seeded
+    TRAIN_DRAW_SEED: (loss, {name: fp32 gradient})."""
+    eng.freeze_type = "spatial"
+    trained = eng.set_trainable()
+    eng.train()
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_DRAW_SEED)
+    loss = eng.train_loss(batch["jpg"], cond, generator=gen)
+    loss.backward()
+    grads = {k: p.grad.float() for k, p in trained.items()}
+    for p in trained.values():
+        p.grad = None
+    return loss.item(), grads
+
+
+def train_fp32_phase(torch, np, dev, fa, gg, card: str, setup: dict):
+    """The production engine in fp32, trained at full width with
+    freeze_type spatial (bs 1 x 8 frames, the bf16 runs' clip, conditioning
+    and draws): first the bf16-vs-fp32 drift of one step's loss and temporal
+    gradients with the same weights and draws, then 2 fp32 steps, whose
+    flash backward runs on the fp32 kernels (21 launches a step)."""
+    from panacea_tpu_torch.configs import INFERENCE_NUSCENES
+    from panacea_tpu_torch.registry import instantiate_from_config
+    from panacea_tpu_torch.train import default_loss_config
+
+    eng16, batch, cond = setup.pop("eng"), setup["batch"], setup["cond"]
+    eng32 = instantiate_from_config(INFERENCE_NUSCENES["model"], device=dev, dtype=torch.float32)
+    eng32.load_state_dict(eng16.state_dict(), strict=True)
+    eng32.loss_fn = instantiate_from_config(default_loss_config(eng32))
+
+    loss16, g16 = loss_and_grads(torch, dev, eng16, batch, cond)
+    del eng16
+    free(torch)
+    loss32, g32 = loss_and_grads(torch, dev, eng32, batch, cond)
+    norms = {k: g.norm().item() for k, g in g32.items()}
+    diffs = {k: (g16[k] - g).norm().item() for k, g in g32.items()}
+    del g16, g32
+    free(torch)
+    live = sorted((diffs[k] / norms[k], k) for k in norms if norms[k] > 0)
+    total = (sum(d * d for d in diffs.values()) / sum(n * n for n in norms.values())) ** 0.5
+    drift = {"phase": "train_drift_bf16_vs_fp32", "card": card, "freeze_type": "spatial",
+             "loss_bf16": loss16, "loss_fp32": loss32,
+             "loss_rel": abs(loss16 - loss32) / abs(loss32),
+             "grad_rel_all": total, "tensors": len(norms),
+             "tensors_zero_in_fp32": len(norms) - len(live),
+             "grad_rel_per_tensor": {
+                 "median": live[len(live) // 2][0], "p90": live[int(0.9 * (len(live) - 1))][0],
+                 "max": live[-1][0], "min": live[0][0]},
+             "worst5": [[k, r] for r, k in live[-5:]],
+             "zero_in_fp32_bf16_norm_max": max(
+                 (diffs[k] for k in norms if norms[k] == 0), default=0.0)}
+    log(drift)
+
+    state, rec = train_run(torch, np, dev, fa, gg, card, eng32, batch, cond, "spatial",
+                           SPATIAL_STEPS, "train_fp32")
+    rec["drift"] = {k: drift[k] for k in ("loss_rel", "grad_rel_all", "grad_rel_per_tensor")}
+    log(rec)
+    del state, eng32
+    free(torch)
+    if not (all(np.isfinite(rec["losses"])) and np.isfinite(total) and np.isfinite(loss32)):
+        raise AssertionError(f"fp32 training is not finite: {rec}")
+    check_train_launches(rec, "fp32")
+    return rec["launches"]
 
 
 def train_tiny_card_vs_cpu(torch, np, dev):
@@ -1094,16 +1247,28 @@ def main(kernels_only: bool = False) -> int:
             raise AssertionError(f"fp32 operands took route {rec['route']}: {rec}")
 
     # the backward kernels at the training path's shapes (bs 1: 8 frames x
-    # views 0-4, k and v the halves of the merged kv projection), a ragged
-    # case, tails and one tiny case per head dim
-    flash_bwd = [check_flash_bwd(torch, F, fa, tol, dev, TRAIN_B, sq, skv, h, 64)
-                 for sq, skv, h in levels]
-    flash_bwd += [check_flash_bwd(torch, F, fa, tol, dev, 4, 512, 1024, 10, 64,
-                                  lens=[1, 300, 700, 1024]),
-                  check_flash_bwd(torch, F, fa, tol, dev, 3, 129, 4097, 2, 64, merged_kv=False,
-                                  timed=False, lens=[4097, 64, 65])]
-    flash_bwd += [check_flash_bwd(torch, F, fa, tol, dev, 2, 200, 400, 2, d, merged_kv=False,
-                                  timed=False) for d in (16, 32, 64, 128)]
+    # views 0-4, k and v the halves of the merged kv projection), ragged
+    # cases, tails and one tiny case per head dim; then the same in fp32
+    # (each check asserts its route)
+    def bwd_checks(fp32):
+        recs = [check_flash_bwd(torch, F, fa, tol, dev, TRAIN_B, sq, skv, h, 64, fp32=fp32)
+                for sq, skv, h in levels]
+        recs += [check_flash_bwd(torch, F, fa, tol, dev, 4, 512, 1024, 10, 64,
+                                 lens=[1, 300, 700, 1024], fp32=fp32),
+                 check_flash_bwd(torch, F, fa, tol, dev, 3, 129, 4097, 2, 64, merged_kv=False,
+                                 timed=False, lens=[4097, 64, 65], fp32=fp32),
+                 # Sq and Skv below one tile; key blocks with one working
+                 # warpgroup, and blocks past kv_len
+                 check_flash_bwd(torch, F, fa, tol, dev, 2, 100, 70, 3, 64, timed=False,
+                                 lens=[1, 65], fp32=fp32),
+                 check_flash_bwd(torch, F, fa, tol, dev, 4, 200, 256, 3, 64, timed=False,
+                                 lens=[1, 129, 128, 192], fp32=fp32)]
+        recs += [check_flash_bwd(torch, F, fa, tol, dev, 2, 200, 400, 2, d, merged_kv=False,
+                                 timed=False, fp32=fp32) for d in (16, 32, 64, 128)]
+        return recs
+
+    flash_bwd = bwd_checks(False)
+    flash_bwd32 = bwd_checks(True)
     geglu_bwd = []
     for tokens, c in TRAIN_GEGLU:
         geglu_bwd.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, 4 * c))
@@ -1126,16 +1291,22 @@ def main(kernels_only: bool = False) -> int:
     free(torch)
     paths["fp32_engine"] = fp32_engine_phase(torch, np, dev, fa, gg, card)
     free(torch)
-    paths["train"] = train_phase(torch, np, dev, fa, gg, card)
+    setup = train_setup(torch, np, dev)
+    paths["train"] = train_phase(torch, np, dev, fa, gg, card, setup)
+    paths["train_fp32"] = train_fp32_phase(torch, np, dev, fa, gg, card, setup)
+    del setup
+    free(torch)
     train_tiny_card_vs_cpu(torch, np, dev)
     free(torch)
     train_cli_phase(torch, np, dev, fa, gg, card)
 
     def count(c, kernel, fp32):
-        """Launches of one kernel on one type's routes, from a path's counts."""
-        if kernel.endswith("_bwd"):
-            return 0 if fp32 else c[kernel]
-        routes = c["flash_routes" if kernel == "flash_attention" else "geglu_routes"]
+        """Launches of one kernel on one type's routes, from a path's counts
+        (the GEGLU backward's one kernel serves both types)."""
+        if kernel == "geglu_bwd":
+            return c[kernel]
+        routes = c[{"flash_attention": "flash_routes", "flash_attention_bwd": "flash_bwd_routes",
+                    "geglu": "geglu_routes"}[kernel]]
         return routes["fp32"] if fp32 else c[kernel] - routes["fp32"]
 
     def summary(name, kernel, source, replaces, recs, main, path):
@@ -1153,6 +1324,7 @@ def main(kernels_only: bool = False) -> int:
 
     flash_src, geglu_src = ("panacea_tpu_torch/csrc/flash_attention.cu",
                             "panacea_tpu_torch/csrc/geglu.cu")
+    flash_bwd_src = "panacea_tpu_torch/csrc/flash_attention_bwd.cu"
     flash_tpu, geglu_tpu = "panacea_tpu/ops/flash_attention.py:33", "panacea_tpu/ops/geglu.py:64"
     log({"kernels": [
         summary("flash_attention", "flash_attention", flash_src, flash_tpu, flash, flash[0], "cli"),
@@ -1161,9 +1333,10 @@ def main(kernels_only: bool = False) -> int:
                 flash32[0], "fp32_engine"),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
                 "fp32_engine"),
-        summary("flash_attention_bwd", "flash_attention_bwd",
-                "panacea_tpu_torch/csrc/flash_attention_bwd.cu", flash_tpu, flash_bwd,
+        summary("flash_attention_bwd", "flash_attention_bwd", flash_bwd_src, flash_tpu, flash_bwd,
                 flash_bwd[0], "train"),
+        summary("flash_attention_bwd_fp32", "flash_attention_bwd", flash_bwd_src, flash_tpu,
+                flash_bwd32, flash_bwd32[0], "train_fp32"),
         summary("geglu_bwd", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd, geglu_bwd[0],
                 "train")]})
     log(card)

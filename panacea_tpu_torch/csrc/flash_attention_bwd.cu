@@ -1,5 +1,6 @@
-// Flash attention backward for Hopper (sm_90a): bf16 q, k, v, o, dO in, bf16
-// dq, dk, dv out, on the tensor cores (mma.sync m16n8k16, fp32 accumulation).
+// Flash attention backward for Hopper (sm_90a): dq, dk, dv of
+// softmax(q k^T * scale) v, in the operands' type: bf16 on the tensor cores
+// (fp32 accumulation), or fp32 on the FMA units.
 //
 // The gradient of the Pallas TPU kernel panacea_tpu/ops/flash_attention.py
 // (_flash_kernel, :33-86; its pallas_call in flash_attention, :236). That
@@ -18,36 +19,123 @@
 // 2 B H D (4 Sq + 4 Skv) bytes (q, o, dO and dq; k, v, dk and dv, bf16): at
 // the main path's shapes (Skv = 2 Sq, D = 64) 0.83 Sq flops per byte, above
 // the card's ~295 flop/byte ridge at levels 0 and 1 (Sq 2048, 512), below it
-// at level 2 (Sq 128).
+// at level 2 (Sq 128). In fp32 the same flops run at the FMA rate (67
+// TFLOP/s), 15 times the bf16 bound and far above the time to move the bytes.
 //
-// The design (FA2's, deterministic, no atomics): three launches.
-//  1. pn_flash_bwd_delta: Delta = rowsum(dO * O), D / 8 lanes a row.
-//  2. pn_flash_bwd_dkdv: one block of 4 warps per (64 keys, head, batch row);
-//     a warp owns 16 keys. The block walks over the query tiles of 64 rows,
-//     staging Q and dO (and the tile's lse and Delta) in padded shared
-//     memory, and recomputes S^T = K Q^T and dP^T = V dO^T with the keys as
-//     rows, so that P^T and dS^T land in registers in the accumulator layout
-//     and serve, rounded to bf16, as the A operands of dV += P^T dO and
-//     dK += dS^T Q, which stay in fp32 registers for the whole walk.
-//     Key tiles past the row's kv_len write zeros and stop; masked keys
-//     inside a tile get P = 0, so their dK and dV are zero.
-//  3. pn_flash_bwd_dq: one block of 4 warps per (64 query rows, head, batch
-//     row); a warp owns 16 rows. The block walks over the key tiles below
-//     kv_len, staging K and V, recomputes S = Q K^T and dP = dO V^T and adds
-//     dS K into fp32 registers.
-// A simple kernel: plain 16-byte loads into padded shared memory, no TMA, no
-// wgmma, no overlap of loads with products inside a block (the blocks an SM
-// holds overlap each other). fp32 operands have no backward kernel yet.
+// Every route keeps FA2's deterministic form, with no atomics: Delta in a
+// pre-pass, dk and dv from blocks over key tiles, dq from blocks over query
+// tiles (S and dP are computed in both passes), so the same inputs give the
+// same bits. Three routes, chosen by the wrapper (ops/flash_attention.py) by
+// type and head dim:
+//
+// wg (bf16, D = 64, the production head dim): TMA + wgmma, two passes.
+// The two passes cost 14 B H Sq Skv D flops, not 10; a single pass would
+// need atomics or an ordered accumulation of dq across key blocks, and the
+// 40 % more tensor-core work is the price of staying deterministic simply.
+// A block is two consumer warpgroups (256 threads) and no producer warp:
+// with 8 warps an SM sub-partition holds two of a block's warps, so ptxas
+// gives every thread up to 255 registers; a ninth warp, or a producer
+// warpgroup with setmaxnreg, held the consumers' code to 168 and spilled.
+// Thread 0 issues the TMA loads (4-D tensor maps, 128-byte swizzle,
+// mbarriers) and refills a ring slot LAG tiles after it was consumed, once
+// both warpgroups have released it (LAG >= 2: a warpgroup releases tile j-1
+// late in iteration j).
+//  - dK/dV pass: one block per (128 keys, head, batch row); K and V are
+//    loaded once and stay resident; 64-row tiles of Q and dO stream through
+//    a 5-slot ring. Each warpgroup owns 64 keys: S^T = K Q^T and
+//    dP^T = V dO^T are wgmma m64n64k16 with both operands in shared memory,
+//    K-major; P^T and dS^T are formed in registers (the accumulator layout)
+//    from the tile's lse (+inf for rows past Sq, so their P is 0) and Delta,
+//    which each warpgroup stages in shared memory a tile ahead; rounded to
+//    bf16 they are the register A operands of dV += P^T dO and dK += dS^T Q,
+//    which read dO and Q MN-major as TMA laid them down. Tile j's S^T and
+//    dP^T are issued before tile j-1's dV and dK products, so the
+//    exponentials of tile j run while those are in flight, and the two
+//    warpgroups run unsynchronised.
+//  - dQ pass: one block per (128 query rows, head, batch row), Q and dO
+//    resident; K and V stream in 128-key tiles through a 4-slot ring.
+//    S = Q K^T and dP = dO V^T are m64n128k16 from shared memory; dS stays
+//    in registers and feeds dQ += dS K (K read MN-major); tile j's S and dP
+//    are issued before tile j-1's dQ product. Only the key tiles below
+//    kv_len are visited, the last one masked in registers.
+//  - Masks select the exponent's argument (-inf), never the result: a
+//    per-thread branch around the exponential, beside thread 0's refill
+//    path, makes ptxas serialise the products (advisory C7520). For the same
+//    reason a dK/dV block whose keys all lie past kv_len does not return
+//    early: it streams one tile with every key masked and writes zeros.
+//
+// mma (bf16, D = 16, 32, 128): the first, simple kernels, mma.sync m16n8k16.
+//  - dK/dV: one block of 4 warps per (64 keys, head, batch row); a warp owns
+//    16 keys and walks over the query tiles of 64 rows, staged with plain
+//    16-byte loads in padded shared memory; S^T = K Q^T and dP^T = V dO^T
+//    with the keys as rows put P^T and dS^T in registers in the accumulator
+//    layout, as the A operands of dV += P^T dO and dK += dS^T Q.
+//  - dQ: one block of 4 warps per (64 query rows, head, batch row) over the
+//    key tiles below kv_len.
+//
+// f32 (fp32, D = 16, 32, 64, 128): the layout of the fp32 forward
+// (pn_flash_f32_fwd): 64 x 64 tiles, 256 threads as 16 x 16, each owning a
+// 4 x 4 tile of scores, rows padded by 4 floats so that the 16-byte reads
+// fall on distinct banks. No tensor cores, no TF32, no bf16 anywhere; P and
+// dS pass through shared memory in fp32 between the products.
+//
+// Masking, the same in every route: a padded query row (past Sq) has lse =
+// +inf, so P = exp2(x - inf) = 0 whatever its zero-filled operands give; a
+// key past the row's kv_len gets P = 0, so its dK and dV are exactly 0.
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BT = 64;        // rows per tile: keys (dk/dv) or queries (dq)
-constexpr int NTHREADS = 128; // 4 warps x 16 rows
-
 // the lse of a padded query row: its P = exp2(x - inf) = 0
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// ------------------------------------------------------- Delta (bf16)
+
+template <int D>
+__global__ void __launch_bounds__(256)
+pn_flash_bwd_delta(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ d_o,
+                   float* __restrict__ delta, int heads, int sq, long long rows) {
+  constexpr int LANES = D / 8;  // lanes of one (b, s, h) row, 8 values each
+  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / LANES;
+  const int lane = threadIdx.x % LANES;
+  float sum = 0.f;
+  if (row < rows) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + row * D + lane * 8);
+    const uint4 dv = *reinterpret_cast<const uint4*>(d_o + row * D + lane * 8);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = __bfloat1622float2(op[e]), b = __bfloat1622float2(dp[e]);
+      sum = fmaf(a.x, b.x, fmaf(a.y, b.y, sum));
+    }
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < rows && lane == 0) {
+    // row = (b Sq + s) H + h  ->  delta[(b H + h) Sq + s]
+    const long long h = row % heads, bs = row / heads;
+    const long long b = bs / sq, s = bs % sq;
+    delta[(b * heads + h) * sq + s] = sum;
+  }
+}
+
+template <int D>
+int launch_delta(const void* o, const void* d_o, void* delta, int heads, int sq, long long rows,
+                 cudaStream_t stream) {
+  pn_flash_bwd_delta<D><<<static_cast<unsigned>((rows * (D / 8) + 255) / 256), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(d_o),
+      static_cast<float*>(delta), heads, sq, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------- mma.sync, D = 16, 32, 128
+
+namespace mma {
+
+constexpr int BT = 64;        // rows per tile: keys (dk/dv) or queries (dq)
+constexpr int NTHREADS = 128; // 4 warps x 16 rows
 
 // the padded row of a shared-memory tile: fragment reads hit distinct banks
 template <int D>
@@ -159,37 +247,6 @@ __device__ __forceinline__ void write_rows(__nv_bfloat16* base, long long row_st
     if (r0 + 8 < rows)
       *reinterpret_cast<uint32_t*>(base + (r0 + 8) * row_stride + c) =
           pn::pack_bf16x2(acc[dt][2] * scale, acc[dt][3] * scale);
-  }
-}
-
-// ------------------------------------------------------------------ Delta
-
-template <int D>
-__global__ void __launch_bounds__(256)
-pn_flash_bwd_delta(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ d_o,
-                   float* __restrict__ delta, int heads, int sq, long long rows) {
-  constexpr int LANES = D / 8;  // lanes of one (b, s, h) row, 8 values each
-  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / LANES;
-  const int lane = threadIdx.x % LANES;
-  float sum = 0.f;
-  if (row < rows) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(o + row * D + lane * 8);
-    const uint4 dv = *reinterpret_cast<const uint4*>(d_o + row * D + lane * 8);
-    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 a = __bfloat1622float2(op[e]), b = __bfloat1622float2(dp[e]);
-      sum = fmaf(a.x, b.x, fmaf(a.y, b.y, sum));
-    }
-  }
-#pragma unroll
-  for (int off = LANES / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (row < rows && lane == 0) {
-    // row = (b Sq + s) H + h  ->  delta[(b H + h) Sq + s]
-    const long long h = row % heads, bs = row / heads;
-    const long long b = bs / sq, s = bs % sq;
-    delta[(b * heads + h) * sq + s] = sum;
   }
 }
 
@@ -355,11 +412,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   const auto* dop = static_cast<const __nv_bfloat16*>(d_o);
   const auto* lens = static_cast<const int*>(kv_lens);
 
-  const long long rows = bh * sq;
-  const long long delta_blocks = (rows * (D / 8) + 255) / 256;
-  pn_flash_bwd_delta<D><<<static_cast<unsigned>(delta_blocks), 256, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(o), dop, static_cast<float*>(delta), heads, sq, rows);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = launch_delta<D>(o, d_o, delta, heads, sq, bh * sq, stream);
   if (err) return err;
 
   dim3 grid_kv((skv + BT - 1) / BT, static_cast<unsigned>(bh));
@@ -378,26 +431,819 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace mma
+
+// ------------------------------------------------------------ wgmma, D = 64
+
+namespace wg {
+
+constexpr int D = 64;
+constexpr int KB = 128;       // keys per dK/dV block: 2 consumer warpgroups x 64
+constexpr int QT = 64;        // query rows per streamed tile of the dK/dV pass
+constexpr int QB = 128;       // query rows per dQ block: 2 consumer warpgroups x 64
+constexpr int KT = 128;       // keys per streamed tile of the dQ pass
+constexpr int KV_STAGES = 5;  // ring slots of the dK/dV pass (Q and dO tiles)
+constexpr int Q_STAGES = 4;   // ring slots of the dQ pass (K and V tiles)
+constexpr int LAG = 2;        // a slot is refilled two tiles after it was consumed
+constexpr int NTHREADS = 256;  // two consumer warpgroups, no producer warp (see above)
+constexpr int ROW = D * 2;    // bytes of one swizzled tile row
+
+struct KvSmem {
+  __nv_bfloat16 k[KB * D];
+  __nv_bfloat16 v[KB * D];
+  __nv_bfloat16 q[KV_STAGES][QT * D];
+  __nv_bfloat16 d_o[KV_STAGES][QT * D];
+  float stats[2][2][2 * QT];  // per warpgroup and tile parity: QT lse, then QT Delta
+  uint64_t kv_full;
+  uint64_t full[KV_STAGES], empty[KV_STAGES];
+};
+
+struct QSmem {
+  __nv_bfloat16 q[QB * D];
+  __nv_bfloat16 d_o[QB * D];
+  __nv_bfloat16 k[Q_STAGES][KT * D];
+  __nv_bfloat16 v[Q_STAGES][KT * D];
+  uint64_t q_full;
+  uint64_t full[Q_STAGES], empty[Q_STAGES];
+};
+
+constexpr int KV_SMEM_BYTES = sizeof(KvSmem) + pn::SWIZZLE_ATOM;  // room to align
+constexpr int Q_SMEM_BYTES = sizeof(QSmem) + pn::SWIZZLE_ATOM;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a masked score's exponent: ex2 of it is 0 (see the note on masks above)
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// The (64 x 64) fp32 accumulator rows 16 w + g and + 8 of a warpgroup, times
+// `scale`, as bf16 into rows r0, r0 + 8 (those below `rows`) of `base`.
+__device__ __forceinline__ void write_acc(__nv_bfloat16* base, long long row_stride,
+                                          const float (&acc)[32], float scale, int r0, int rows,
+                                          int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row < rows) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(base + row * row_stride + n * 8 + t * 2) =
+            pn::pack_bf16x2(acc[n * 4 + r * 2] * scale, acc[n * 4 + r * 2 + 1] * scale);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+pn_flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, const float* __restrict__ lse,
+                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, const int* __restrict__ kv_lens, int heads,
+                     int sq, int skv, int k_tiles, float scale, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  KvSmem& sm = *reinterpret_cast<KvSmem*>(pn::align_smem(smem_raw));
+
+  // blockIdx.x = (batch * heads + head) * k_tiles + key tile: the blocks that
+  // stream one head's Q and dO are neighbours in launch order
+  const int kt = blockIdx.x % k_tiles, bh = blockIdx.x / k_tiles;
+  const int h = bh % heads, b = bh / heads;
+  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int key0 = kt * KB;
+  const long long o_ss = static_cast<long long>(heads) * D;  // row stride of (B, S, H, D)
+  __nv_bfloat16* dkb = dk + (static_cast<long long>(b) * skv * heads + h) * D;
+  __nv_bfloat16* dvb = dv + (static_cast<long long>(b) * skv * heads + h) * D;
+
+  // a block whose keys all lie past kv_len streams one tile, all masked
+  const int q_tiles = key0 < row_len ? (sq + QT - 1) / QT : 1;
+  const int group = threadIdx.x >> 7;
+
+  auto load = [&](int j) {  // Q and dO tile j into its slot (thread 0)
+    const int s = j % KV_STAGES;
+    pn::mbar_arrive_expect_tx(&sm.full[s], 2 * QT * D * 2);
+    pn::tma_load_4d(sm.q[s], &q_map, &sm.full[s], 0, h, j * QT, b);
+    pn::tma_load_4d(sm.d_o[s], &do_map, &sm.full[s], 0, h, j * QT, b);
+  };
+  if (threadIdx.x == 0) {
+    pn::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      pn::mbar_init(&sm.full[s], 1);
+      pn::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    pn::mbar_init_fence();
+    pn::mbar_arrive_expect_tx(&sm.kv_full, 2 * KB * D * 2);
+    pn::tma_load_4d(sm.k, &k_map, &sm.kv_full, 0, h, key0, b);
+    pn::tma_load_4d(sm.v, &v_map, &sm.kv_full, 0, h, key0, b);
+    for (int j = 0; j < min(KV_STAGES, q_tiles); ++j) load(j);
+  }
+  __syncthreads();
+
+  // warpgroup `group` owns keys [key0 + 64 group, + 64)
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, tid = threadIdx.x & 127;
+  const int kr0 = key0 + group * 64 + warp * 16 + g;  // this thread's keys kr0, kr0 + 8
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  {
+    const bool key_ok[2] = {kr0 < row_len, kr0 + 8 < row_len};
+    const uint64_t k_desc = pn::smem_desc(pn::smem_u32(sm.k) + group * 64 * ROW);
+    const uint64_t v_desc = pn::smem_desc(pn::smem_u32(sm.v) + group * 64 * ROW);
+    const float* lse_b = lse + static_cast<long long>(bh) * sq;
+    const float* delta_b = delta + static_cast<long long>(bh) * sq;
+    float s[32], dp[32];           // S^T then P^T; dP^T then dS^T (keys x 64 queries)
+    uint32_t pp[4][4], pds[4][4];  // P^T and dS^T as bf16 A operands, k16 steps
+
+    // tile j's lse (+inf past Sq) and Delta, one value a thread; no branch,
+    // so that no divergent path lies between a wgmma and its wait
+    auto fetch_stats = [&](int j) {
+      const int row = j * QT + (tid & 63);
+      const float v = (tid < 64 ? lse_b : delta_b)[min(row, sq - 1)];
+      return row < sq ? v : (tid < 64 ? pos_inf() : 0.f);
+    };
+    auto start_sdp = [&](int j) {  // S^T = K Q^T, dP^T = V dO^T: one committed group
+      const int st = j % KV_STAGES;
+      const uint64_t q_desc = pn::smem_desc(pn::smem_u32(sm.q[st]));
+      const uint64_t do_desc = pn::smem_desc(pn::smem_u32(sm.d_o[st]));
+      pn::pin(s);
+      pn::pin(dp);
+      pn::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        pn::wgmma_m64n64k16_ss(s, pn::desc_advance(k_desc, kk * 32),
+                               pn::desc_advance(q_desc, kk * 32), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        pn::wgmma_m64n64k16_ss(dp, pn::desc_advance(v_desc, kk * 32),
+                               pn::desc_advance(do_desc, kk * 32), kk > 0);
+      pn::wgmma_commit();
+    };
+    auto start_dkdv = [&](int j) {  // dV += P^T dO, dK += dS^T Q: one committed group
+      const int st = j % KV_STAGES;
+      const uint64_t q_desc = pn::smem_desc(pn::smem_u32(sm.q[st]));
+      const uint64_t do_desc = pn::smem_desc(pn::smem_u32(sm.d_o[st]));
+      pn::pin(dk_acc);
+      pn::pin(dv_acc);
+      pn::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk)
+        pn::wgmma_m64n64k16_rs_mn(dv_acc, pp[kk], pn::desc_advance(do_desc, kk * 16 * ROW));
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk)
+        pn::wgmma_m64n64k16_rs_mn(dk_acc, pds[kk], pn::desc_advance(q_desc, kk * 16 * ROW));
+      pn::wgmma_commit();
+    };
+    auto grads = [&](int j) {  // P^T and dS^T in place, from the tile's lse and Delta
+      const float* ls = sm.stats[group][j & 1];
+      const float* ds = ls + QT;
+#pragma unroll
+      for (int n = 0; n < QT / 8; ++n) {
+        const float2 l = *reinterpret_cast<const float2*>(ls + n * 8 + t * 2);
+        const float2 dl = *reinterpret_cast<const float2*>(ds + n * 8 + t * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = n * 4 + e;
+          const float pe = ex2(key_ok[e >> 1] ? fmaf(s[i], scale_log2, -((e & 1) ? l.y : l.x))
+                                              : neg_inf());
+          s[i] = pe;
+          dp[i] = pe * (dp[i] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pp[kk][e] = pn::pack_bf16x2(s[kk * 8 + e * 2], s[kk * 8 + e * 2 + 1]);
+          pds[kk][e] = pn::pack_bf16x2(dp[kk * 8 + e * 2], dp[kk * 8 + e * 2 + 1]);
+        }
+    };
+    // thread 0 refills the slot of tile j - LAG once both warpgroups are done
+    // with it; the wait lets warpgroup 0 run at most about LAG tiles ahead
+    auto refill = [&](int j) {
+      if (threadIdx.x == 0 && j >= LAG && j - LAG + KV_STAGES < q_tiles) {
+        const int old = j - LAG;
+        pn::mbar_wait(&sm.empty[old % KV_STAGES], (old / KV_STAGES) & 1);
+        load(old + KV_STAGES);
+      }
+      __syncwarp();
+    };
+
+    // the statistics of tile j go to the buffer of parity j & 1 where no
+    // wgmma is in flight, fetched a tile ahead; the barrier after the store
+    // also orders it after the reads of tile j - 2
+    float stat = fetch_stats(0);
+    sm.stats[group][0][tid] = stat;
+    pn::group_sync(group);
+    stat = fetch_stats(1);
+    pn::mbar_wait(&sm.kv_full, 0);
+    pn::mbar_wait(&sm.full[0], 0);
+    start_sdp(0);
+    pn::wgmma_wait<0>();
+    pn::pin(s);
+    pn::pin(dp);
+    grads(0);
+    pack();
+    for (int j = 1; j < q_tiles; ++j) {
+      sm.stats[group][j & 1][tid] = stat;
+      pn::group_sync(group);
+      stat = fetch_stats(j + 1);
+      pn::mbar_wait(&sm.full[j % KV_STAGES], (j / KV_STAGES) & 1);
+      start_sdp(j);
+      start_dkdv(j - 1);
+      refill(j);
+      pn::wgmma_wait<1>();  // S^T, dP^T of tile j are done; dV, dK of tile j-1 run on
+      pn::pin(s);
+      pn::pin(dp);
+      grads(j);
+      pn::wgmma_wait<0>();
+      pn::pin(dk_acc);
+      pn::pin(dv_acc);
+      pn::pin(pp);
+      pn::pin(pds);
+      if (lane == 0) pn::mbar_arrive(&sm.empty[(j - 1) % KV_STAGES]);
+      pack();
+    }
+    start_dkdv(q_tiles - 1);
+    pn::wgmma_wait<0>();
+    pn::pin(dk_acc);
+    pn::pin(dv_acc);
+    pn::pin(pp);
+    pn::pin(pds);
+  }
+  // keys past the row's length get zeros; rows past Skv are not written
+  write_acc(dvb, o_ss, dv_acc, 1.f, kr0, skv, t);
+  write_acc(dkb, o_ss, dk_acc, scale, kr0, skv, t);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+pn_flash_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap do_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, const float* __restrict__ lse,
+                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                   const int* __restrict__ kv_lens, int heads, int sq, int skv, int q_tiles,
+                   float scale, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  QSmem& sm = *reinterpret_cast<QSmem*>(pn::align_smem(smem_raw));
+
+  // blockIdx.x = (batch * heads + head) * q_tiles + query tile, as the forward
+  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int h = bh % heads, b = bh / heads;
+  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int n_tiles = (row_len + KT - 1) / KT;
+  const int group = threadIdx.x >> 7;
+
+  auto load = [&](int j) {  // K and V tile j into its slot (thread 0)
+    const int s = j % Q_STAGES;
+    pn::mbar_arrive_expect_tx(&sm.full[s], 2 * KT * D * 2);
+    pn::tma_load_4d(sm.k[s], &k_map, &sm.full[s], 0, h, j * KT, b);
+    pn::tma_load_4d(sm.v[s], &v_map, &sm.full[s], 0, h, j * KT, b);
+  };
+  if (threadIdx.x == 0) {
+    pn::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < Q_STAGES; ++s) {
+      pn::mbar_init(&sm.full[s], 1);
+      pn::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    pn::mbar_init_fence();
+    pn::mbar_arrive_expect_tx(&sm.q_full, 2 * QB * D * 2);
+    pn::tma_load_4d(sm.q, &q_map, &sm.q_full, 0, h, qt * QB, b);
+    pn::tma_load_4d(sm.d_o, &do_map, &sm.q_full, 0, h, qt * QB, b);
+    for (int j = 0; j < min(Q_STAGES, n_tiles); ++j) load(j);
+  }
+  __syncthreads();
+
+  // warpgroup `group` owns query rows [64 group, 64 group + 64)
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = qt * QB + group * 64 + warp * 16 + g;  // this thread's rows r0, r0 + 8
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    row_lse[r] = row < sq ? lse[static_cast<long long>(bh) * sq + row] : pos_inf();
+    row_delta[r] = row < sq ? delta[static_cast<long long>(bh) * sq + row] : 0.f;
+  }
+  const uint64_t q_desc = pn::smem_desc(pn::smem_u32(sm.q) + group * 64 * ROW);
+  const uint64_t do_desc = pn::smem_desc(pn::smem_u32(sm.d_o) + group * 64 * ROW);
+  float s[64], dp[64], dq_acc[32];  // S, then dP and dS (64 rows x 128 keys); dQ
+  uint32_t pds[KT / 16][4];        // dS as bf16 A operands, k16 steps
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+
+  auto start_sdp = [&](int j) {  // S = Q K^T, dP = dO V^T: one committed group
+    const int st = j % Q_STAGES;
+    const uint64_t k_desc = pn::smem_desc(pn::smem_u32(sm.k[st]));
+    const uint64_t v_desc = pn::smem_desc(pn::smem_u32(sm.v[st]));
+    pn::pin(s);
+    pn::pin(dp);
+    pn::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      pn::wgmma_m64n128k16_ss(s, pn::desc_advance(q_desc, kk * 32),
+                              pn::desc_advance(k_desc, kk * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      pn::wgmma_m64n128k16_ss(dp, pn::desc_advance(do_desc, kk * 32),
+                              pn::desc_advance(v_desc, kk * 32), kk > 0);
+    pn::wgmma_commit();
+  };
+  auto start_dq = [&](int j) {  // dQ += dS K: one committed group
+    const uint64_t k_desc = pn::smem_desc(pn::smem_u32(sm.k[j % Q_STAGES]));
+    pn::pin(dq_acc);
+    pn::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      pn::wgmma_m64n64k16_rs_mn(dq_acc, pds[kk], pn::desc_advance(k_desc, kk * 16 * ROW));
+    pn::wgmma_commit();
+  };
+  auto grads = [&](int limit) {  // dS in dp; keys from `limit` on are masked
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int r = (i >> 1) & 1;
+      const float pe = ex2((i >> 2) * 8 + t * 2 + (i & 1) < limit
+                               ? fmaf(s[i], scale_log2, -row_lse[r])
+                               : neg_inf());
+      dp[i] = pe * (dp[i] - row_delta[r]);
+    }
+  };
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pds[kk][e] = pn::pack_bf16x2(dp[kk * 8 + e * 2], dp[kk * 8 + e * 2 + 1]);
+  };
+  auto refill = [&](int j) {  // as in the dK/dV pass
+    if (threadIdx.x == 0 && j >= LAG && j - LAG + Q_STAGES < n_tiles) {
+      const int old = j - LAG;
+      pn::mbar_wait(&sm.empty[old % Q_STAGES], (old / Q_STAGES) & 1);
+      load(old + Q_STAGES);
+    }
+    __syncwarp();
+  };
+
+  pn::mbar_wait(&sm.q_full, 0);
+  pn::mbar_wait(&sm.full[0], 0);
+  start_sdp(0);
+  pn::wgmma_wait<0>();
+  pn::pin(s);
+  pn::pin(dp);
+  grads(row_len);
+  pack();
+  for (int j = 1; j < n_tiles; ++j) {
+    pn::mbar_wait(&sm.full[j % Q_STAGES], (j / Q_STAGES) & 1);
+    start_sdp(j);
+    start_dq(j - 1);
+    refill(j);
+    pn::wgmma_wait<1>();  // S, dP of tile j are done; dQ of tile j-1 runs on
+    pn::pin(s);
+    pn::pin(dp);
+    grads(row_len - j * KT);
+    pn::wgmma_wait<0>();
+    pn::pin(dq_acc);
+    pn::pin(pds);
+    if (lane == 0) pn::mbar_arrive(&sm.empty[(j - 1) % Q_STAGES]);
+    pack();
+  }
+  start_dq(n_tiles - 1);
+  pn::wgmma_wait<0>();
+  pn::pin(dq_acc);
+  pn::pin(pds);
+
+  // dq, (B, Sq, H, D) contiguous, written once; rows past Sq never
+  write_acc(dq + (static_cast<long long>(b) * sq * heads + h) * D,
+            static_cast<long long>(heads) * D, dq_acc, scale, r0, sq, t);
+}
+
+// maps: six specs of 12 values (dims, byte strides, boxes of 4-D views,
+// innermost first, as encode_bf16_map takes them): q and dO with 64-row
+// boxes (the dK/dV pass's streamed tiles), q and dO with 128-row boxes (the
+// dQ pass's resident rows), k and v with 128-row boxes (both passes).
+int launch(const void* q, const void* k, const void* v, const void* o, const void* d_o,
+           const void* lse, void* delta, void* dq, void* dk, void* dv, const void* kv_lens,
+           int batch, int heads, int sq, int skv, const long long* maps, float scale,
+           cudaStream_t stream) {
+  static const cudaError_t attr_kv = cudaFuncSetAttribute(
+      pn_flash_bwd_dkdv_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM_BYTES);
+  static const cudaError_t attr_q = cudaFuncSetAttribute(
+      pn_flash_bwd_dq_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM_BYTES);
+  if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
+  if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
+  if (!maps) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q64, do64, q128, do128, k_map, v_map;
+  const void* bases[6] = {q, d_o, q, d_o, k, v};
+  CUtensorMap* out[6] = {&q64, &do64, &q128, &do128, &k_map, &v_map};
+  for (int i = 0; i < 6; ++i) {
+    const int err = pn::encode_bf16_map(out[i], bases[i], 4, maps + 12 * i);
+    if (err) return err;
+  }
+  const long long bh = static_cast<long long>(batch) * heads;
+  const int k_tiles = (skv + KB - 1) / KB, q_tiles = (sq + QB - 1) / QB;
+  if (bh < 1 || bh * k_tiles > 2147483647LL || bh * q_tiles > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  int err = launch_delta<D>(o, d_o, delta, heads, sq, bh * sq, stream);
+  if (err) return err;
+  pn_flash_bwd_dkdv_wg<<<static_cast<unsigned>(bh * k_tiles), NTHREADS, KV_SMEM_BYTES, stream>>>(
+      q64, do64, k_map, v_map, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      static_cast<const int*>(kv_lens), heads, sq, skv, k_tiles, scale, scale_log2);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  pn_flash_bwd_dq_wg<<<static_cast<unsigned>(bh * q_tiles), NTHREADS, Q_SMEM_BYTES, stream>>>(
+      q128, do128, k_map, v_map, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), static_cast<const int*>(kv_lens), heads, sq, skv, q_tiles,
+      scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+// --------------------------------------------- fp32, D = 16, 32, 64, 128
+
+namespace f32 {
+
+constexpr int BT = 64;       // rows per tile: keys (dk/dv) or queries (dq)
+constexpr int NTHREADS = 256;
+constexpr int RI = BT / 16;  // rows a thread owns
+constexpr int CJ = BT / 16;  // score columns a thread owns
+constexpr int LDP = BT + 4;  // padded row of the P and dS tiles
+
+// four (64, D) tiles, two (64, 64) score tiles and two rows of 64 floats
+template <int D>
+constexpr int smem_bytes() {
+  return (4 * BT * (D + 4) + 2 * BT * LDP + 2 * BT) * static_cast<int>(sizeof(float));
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x, dst[1] = t.y, dst[2] = t.z, dst[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x, dst[1] = t.y;
+  } else {
+    dst[0] = src[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* dst, const float* src) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+  } else {
+    dst[0] = src[0];
+  }
+}
+
+// rows [row0, row0 + 64) of a (rows, D) view with row stride `stride` into a
+// padded shared-memory tile; rows from `rows` on arrive as zeros
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, long long stride,
+                                           int row0, int rows) {
+  constexpr int LD = D + 4, CH = D / 4;
+  for (int c = threadIdx.x; c < BT * CH; c += NTHREADS) {
+    const int r = c / CH, col = (c % CH) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < rows) val = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + col);
+    *reinterpret_cast<float4*>(dst + r * LD + col) = val;
+  }
+}
+
+// s[i][j] = sum over d of a[(ty + 16 i)] . b[(tx + 16 j)], both tiles padded
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[RI][CJ], const float* a, const float* b,
+                                       int ty, int tx) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 av[RI], bv[CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
+        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
+        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
+        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
+      }
+  }
+}
+
+// acc[i][c..] += sum over the 64 columns x of w[(ty + 16 i)][x] * m[x][cols],
+// the thread's columns (c 16 + tx) VEC + e of the padded (64, D) tile m
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[RI][D / 16], const float* w,
+                                           const float* m, int ty, int tx) {
+  constexpr int LD = D + 4, DC = D / 16, VEC = DC >= 4 ? 4 : DC, NC = DC / VEC;
+#pragma unroll 2
+  for (int x = 0; x < BT; x += 4) {
+    float wv[RI][4];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) load_vec<4>(wv[i], w + (ty + 16 * i) * LDP + x);
+#pragma unroll
+    for (int xx = 0; xx < 4; ++xx) {
+      float mv[DC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) load_vec<VEC>(mv + c * VEC, m + (x + xx) * LD + (c * 16 + tx) * VEC);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(wv[i][xx], mv[c], acc[i][c]);
+    }
+  }
+}
+
+// rows ty + 16 i (those below `rows`) of acc, times `scale`, into a
+// (B, S, H, D) contiguous tensor's (b, h) slice from row0 on
+template <int D>
+__device__ __forceinline__ void write_tile(float* base, long long row_stride,
+                                           float (&acc)[RI][D / 16], float scale, int row0,
+                                           int rows, int ty, int tx) {
+  constexpr int DC = D / 16, VEC = DC >= 4 ? 4 : DC, NC = DC / VEC;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row < rows) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= scale;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        store_vec<VEC>(base + row * row_stride + (c * 16 + tx) * VEC, acc[i] + c * VEC);
+    }
+  }
+}
+
+// Delta = rowsum(dO * O), fp32, D / 4 lanes a row
+template <int D>
+__global__ void __launch_bounds__(256)
+pn_flash_bwd_f32_delta(const float* __restrict__ o, const float* __restrict__ d_o,
+                       float* __restrict__ delta, int heads, int sq, long long rows) {
+  constexpr int LANES = D / 4;
+  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / LANES;
+  const int lane = threadIdx.x % LANES;
+  float sum = 0.f;
+  if (row < rows) {
+    const float4 a = *reinterpret_cast<const float4*>(o + row * D + lane * 4);
+    const float4 c = *reinterpret_cast<const float4*>(d_o + row * D + lane * 4);
+    sum = fmaf(a.x, c.x, fmaf(a.y, c.y, fmaf(a.z, c.z, a.w * c.w)));
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < rows && lane == 0) {
+    const long long h = row % heads, bs = row / heads;
+    const long long b = bs / sq, s = bs % sq;
+    delta[(b * heads + h) * sq + s] = sum;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+pn_flash_bwd_f32_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ d_o,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      const int* __restrict__ kv_lens, int heads, int sq, int skv, int k_tiles,
+                      long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                      long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                      long long v_sh, float scale, float scale_log2) {
+  constexpr int LD = D + 4, DC = D / 16;
+  extern __shared__ float4 smem_f32[];
+  float* ks = reinterpret_cast<float*>(smem_f32);
+  float* vs = ks + BT * LD;
+  float* qs = vs + BT * LD;
+  float* dos = qs + BT * LD;
+  float* ps = dos + BT * LD;   // P^T (keys x queries)
+  float* dss = ps + BT * LDP;  // dS^T
+  float* lse_s = dss + BT * LDP;
+  float* delta_s = lse_s + BT;
+
+  const int kt = blockIdx.x % k_tiles, bh = blockIdx.x / k_tiles;
+  const int h = bh % heads, b = bh / heads;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int key0 = kt * BT;
+  const long long o_ss = static_cast<long long>(heads) * D;
+
+  float dk_acc[RI][DC], dv_acc[RI][DC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  if (key0 < row_len) {
+    stage_tile<D>(ks, k + b * k_sb + h * k_sh, k_ss, key0, skv);
+    stage_tile<D>(vs, v + b * v_sb + h * v_sh, v_ss, key0, skv);
+    bool key_ok[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) key_ok[i] = key0 + ty + 16 * i < row_len;
+    const float* qb = q + b * q_sb + h * q_sh;
+    const float* dob = d_o + (static_cast<long long>(b) * sq * heads + h) * D;
+    const float* lse_b = lse + static_cast<long long>(bh) * sq;
+    const float* delta_b = delta + static_cast<long long>(bh) * sq;
+    for (int q0 = 0; q0 < sq; q0 += BT) {
+      __syncthreads();  // every warp is done with the previous query tile
+      stage_tile<D>(qs, qb, q_ss, q0, sq);
+      stage_tile<D>(dos, dob, o_ss, q0, sq);
+      if (threadIdx.x < BT) {
+        const int r = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = r < sq ? lse_b[r] : pos_inf();
+        delta_s[threadIdx.x] = r < sq ? delta_b[r] : 0.f;
+      }
+      __syncthreads();
+
+      // P^T and dS^T: keys ty + 16 i, queries tx + 16 j
+      float s[RI][CJ], dp[RI][CJ];
+      scores<D>(s, ks, qs, ty, tx);
+      scores<D>(dp, vs, dos, ty, tx);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          const int col = tx + 16 * j;
+          const float pe = key_ok[i] ? exp2f(fmaf(s[i][j], scale_log2, -lse_s[col])) : 0.f;
+          ps[(ty + 16 * i) * LDP + col] = pe;
+          dss[(ty + 16 * i) * LDP + col] = pe * (dp[i][j] - delta_s[col]);
+        }
+      __syncwarp();  // a key row's 16 lanes are in this warp
+      accumulate<D>(dv_acc, ps, dos, ty, tx);
+      accumulate<D>(dk_acc, dss, qs, ty, tx);
+      __syncwarp();
+    }
+  }
+  // keys past the row's length (and whole tiles of them) get zeros
+  const long long base = (static_cast<long long>(b) * skv * heads + h) * D;
+  write_tile<D>(dv + base, o_ss, dv_acc, 1.f, key0, skv, ty, tx);
+  write_tile<D>(dk + base, o_ss, dk_acc, scale, key0, skv, ty, tx);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+pn_flash_bwd_f32_dq(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ d_o,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, const int* __restrict__ kv_lens, int heads, int sq,
+                    int skv, int q_tiles, long long q_sb, long long q_ss, long long q_sh,
+                    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                    long long v_ss, long long v_sh, float scale, float scale_log2) {
+  constexpr int LD = D + 4, DC = D / 16;
+  extern __shared__ float4 smem_f32[];
+  float* ks = reinterpret_cast<float*>(smem_f32);
+  float* vs = ks + BT * LD;
+  float* qs = vs + BT * LD;
+  float* dos = qs + BT * LD;
+  float* dss = dos + BT * LD;  // dS (queries x keys)
+
+  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int h = bh % heads, b = bh / heads;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int q0 = qt * BT;
+  const long long o_ss = static_cast<long long>(heads) * D;
+
+  stage_tile<D>(qs, q + b * q_sb + h * q_sh, q_ss, q0, sq);
+  stage_tile<D>(dos, d_o + (static_cast<long long>(b) * sq * heads + h) * D, o_ss, q0, sq);
+  float row_lse[RI], row_delta[RI], dq_acc[RI][DC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    row_lse[i] = row < sq ? lse[static_cast<long long>(bh) * sq + row] : pos_inf();
+    row_delta[i] = row < sq ? delta[static_cast<long long>(bh) * sq + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dq_acc[i][c] = 0.f;
+  }
+
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  for (int kv0 = 0; kv0 < row_len; kv0 += BT) {
+    __syncthreads();  // every warp is done with the previous key tile
+    stage_tile<D>(ks, kb, k_ss, kv0, skv);
+    stage_tile<D>(vs, vb, v_ss, kv0, skv);
+    __syncthreads();
+
+    // dS: rows ty + 16 i, keys tx + 16 j
+    float s[RI][CJ], dp[RI][CJ];
+    scores<D>(s, qs, ks, ty, tx);
+    scores<D>(dp, dos, vs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int col = tx + 16 * j;
+        const float pe =
+            kv0 + col < row_len ? exp2f(fmaf(s[i][j], scale_log2, -row_lse[i])) : 0.f;
+        dss[(ty + 16 * i) * LDP + col] = pe * (dp[i][j] - row_delta[i]);
+      }
+    __syncwarp();  // a query row's 16 lanes are in this warp
+    accumulate<D>(dq_acc, dss, ks, ty, tx);
+    __syncwarp();
+  }
+  write_tile<D>(dq + (static_cast<long long>(b) * sq * heads + h) * D, o_ss, dq_acc, scale, q0,
+                sq, ty, tx);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* d_o,
+           const void* lse, void* delta, void* dq, void* dk, void* dv, const void* kv_lens,
+           int batch, int heads, int sq, int skv, const long long* st, float scale,
+           cudaStream_t stream) {
+  static const cudaError_t attr_kv = cudaFuncSetAttribute(
+      pn_flash_bwd_f32_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+  static const cudaError_t attr_q = cudaFuncSetAttribute(
+      pn_flash_bwd_f32_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+  if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
+  if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
+  const long long bh = static_cast<long long>(batch) * heads;
+  const int k_tiles = (skv + BT - 1) / BT, q_tiles = (sq + BT - 1) / BT;
+  if (bh < 1 || bh * k_tiles > 2147483647LL || bh * q_tiles > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  const auto* dop = static_cast<const float*>(d_o);
+  const auto* lens = static_cast<const int*>(kv_lens);
+
+  const long long rows = bh * sq;
+  pn_flash_bwd_f32_delta<D><<<static_cast<unsigned>((rows * (D / 4) + 255) / 256), 256, 0,
+                              stream>>>(static_cast<const float*>(o), dop,
+                                        static_cast<float*>(delta), heads, sq, rows);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  pn_flash_bwd_f32_dkdv<D><<<static_cast<unsigned>(bh * k_tiles), NTHREADS, smem_bytes<D>(),
+                             stream>>>(
+      qp, kp, vp, dop, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), lens, heads, sq, skv, k_tiles, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, scale_log2);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  pn_flash_bwd_f32_dq<D><<<static_cast<unsigned>(bh * q_tiles), NTHREADS, smem_bytes<D>(),
+                           stream>>>(
+      qp, kp, vp, dop, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), lens, heads, sq, skv, q_tiles, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // q, k, v: bf16 (B, S, H, D) views, strides {q_b, q_s, q_h, k_b, k_s, k_h,
 // v_b, v_s, v_h} in elements (multiples of 8), unit head-dim stride; o, d_o,
 // dq (B, Sq, H, D) and dk, dv (B, Skv, H, D) contiguous bf16; lse (the
 // forward's) and delta (scratch) fp32 (B, H, Sq); kv_lens (B,) int32 or null.
+// maps: the tensor-map specs of wg::launch, used at d = 64 (null otherwise).
 // Returns a cudaError_t value: of the set-up, or cudaGetLastError() after the
 // last launch.
 extern "C" int pn_flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                            const void* o, const void* d_o, const void* lse,
                                            void* delta, void* dq, void* dk, void* dv,
                                            const void* kv_lens, int batch, int heads, int sq,
-                                           int skv, int d, const long long* strides, float scale,
-                                           void* stream) {
+                                           int skv, int d, const long long* strides,
+                                           const long long* maps, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
-    case 32: return launch<32>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
-    case 64: return launch<64>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
-    case 128: return launch<128>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
+    case 64: return wg::launch(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, maps, scale, s);
+    case 16: return mma::launch<16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
+    case 32: return mma::launch<32>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
+    case 128: return mma::launch<128>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The fp32 entry: the same arguments less the tensor maps; every tensor is
+// fp32, strides in elements of fp32 (multiples of 4, 16 bytes).
+extern "C" int pn_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                          const void* o, const void* d_o, const void* lse,
+                                          void* delta, void* dq, void* dk, void* dv,
+                                          const void* kv_lens, int batch, int heads, int sq,
+                                          int skv, int d, const long long* strides, float scale,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return f32::launch<16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
+    case 32: return f32::launch<32>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
+    case 64: return f32::launch<64>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
+    case 128: return f32::launch<128>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -202,6 +202,16 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The same for register A operands (bf16 pairs) that an asynchronous wgmma
+// reads: pinned after its wait, they stay live (and unchanged) until then.
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
 // Shared-memory matrix descriptor of a tile whose rows are 128 bytes, laid
 // down by TMA with the 128-byte swizzle, 1024-byte aligned. Groups of 8 rows
 // are 1024 bytes apart (the stride offset). The same descriptor serves a
@@ -229,6 +239,25 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // 8 (i / 4) + 2 (lane % 4) + i % 2. The register A operand of a k16 step has
 // the same rows; a[0], a[1] hold k = 2 (lane % 4) + {0, 1} of the two rows,
 // a[2], a[3] the same 8 further on.
+
+// d (64 x 64, fp32) = or += A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 
 // d (64 x 128, fp32) = or += A (64 x 16, shared, K-major) * B (128 x 16, shared, K-major)
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,

@@ -1,5 +1,6 @@
 """Host-side arithmetic of the Hopper kernels: tensor-map specs for TMA
-loads of strided bf16 views, and the tile schedules of the two kernels.
+loads of strided bf16 views, and the tile schedules of the flash forward and
+backward and of GEGLU.
 
 Everything here is plain Python on shapes and strides, so the CPU tests hold
 it against brute force; the C entries (``csrc/hopper.cuh``,
@@ -18,6 +19,11 @@ MAX_BOX = 256           # TMA's limit on a box dimension
 MAX_RANK = 4
 
 FLASH_BQ, FLASH_BK = 128, 128       # query rows per block, keys per tile
+# the wgmma backward: keys per dK/dV block and query rows per tile it
+# streams; query rows per dQ block and keys per tile it streams (one k and
+# one v map serve both passes, so the two key counts are equal)
+FLASH_BWD_KB, FLASH_BWD_QT = 128, 64
+FLASH_BWD_QB, FLASH_BWD_KT = 128, FLASH_BWD_KB
 GEGLU_BM, GEGLU_BN, GEGLU_BK = 128, 128, 64
 GEGLU_OUT_BOX = (64, 64)            # one consumer warpgroup's rows, half the columns
 
@@ -70,8 +76,54 @@ def flash_kv_tiles(row_len: int) -> int:
 
 
 def flash_route(d: int) -> str:
-    """Which of the two hand-written kernels serves head dim ``d``."""
+    """Which of the two hand-written bf16 kernels serves head dim ``d``, in
+    the forward and in the backward alike."""
     return "wgmma" if d == 64 else "mma"
+
+
+def flash_bwd_grid(batch: int, heads: int, sq: int, skv: int) -> Tuple[int, int, int, int]:
+    """(key tiles per head, dK/dV blocks, query tiles per head, dQ blocks)
+    of the wgmma backward."""
+    k_tiles, q_tiles = -(-skv // FLASH_BWD_KB), -(-sq // FLASH_BWD_QB)
+    return k_tiles, batch * heads * k_tiles, q_tiles, batch * heads * q_tiles
+
+
+def flash_bwd_block(block: int, heads: int, tiles: int, rows: int) -> Tuple[int, int, int]:
+    """(batch row, head, first row) of a block of either backward pass:
+    ``tiles`` blocks of ``rows`` keys (dK/dV) or query rows (dQ) per head,
+    the tiles of one (batch row, head) neighbours in launch order, so that
+    the operands they stream are shared in L2."""
+    tile, bh = block % tiles, block // tiles
+    return bh // heads, bh % heads, tile * rows
+
+
+def flash_bwd_key_block_active(key0: int, row_len: int) -> bool:
+    """Whether the dK/dV block at ``key0`` computes: a block whose keys all
+    lie at or past the row's valid length only writes zeros."""
+    return key0 < row_len
+
+
+def flash_bwd_q_tiles(sq: int) -> int:
+    """Query tiles a dK/dV block streams; rows past Sq in the last one are
+    zero-filled and have lse = +inf."""
+    return -(-sq // FLASH_BWD_QT)
+
+
+def flash_bwd_kv_tiles(row_len: int) -> int:
+    """Key tiles a dQ block visits for a row of ``row_len`` valid keys."""
+    return -(-row_len // FLASH_BWD_KT)
+
+
+def flash_bwd_map_specs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor) -> List[int]:
+    """The six tensor maps the wgmma backward takes, as in
+    ``pn_flash_attention_bwd_bf16``: q and dO with boxes of the dK/dV pass's
+    streamed tiles, q and dO with the dQ pass's resident rows, k and v with
+    128-key boxes (both passes)."""
+    d = q.shape[-1]
+    return (map_spec(q, (1, FLASH_BWD_QT, 1, d)) + map_spec(do, (1, FLASH_BWD_QT, 1, d))
+            + map_spec(q, (1, FLASH_BWD_QB, 1, d)) + map_spec(do, (1, FLASH_BWD_QB, 1, d))
+            + map_spec(k, (1, FLASH_BWD_KB, 1, d)) + map_spec(v, (1, FLASH_BWD_KB, 1, d)))
 
 
 def geglu_grid(tokens: int, inner: int, sms: int) -> Tuple[int, int, int]:

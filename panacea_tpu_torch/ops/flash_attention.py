@@ -17,10 +17,13 @@ units, no TF32). ``flash_attention.launches`` counts all launches and
 Gradients: where autograd needs them, ``flash_attention`` goes through a
 ``torch.autograd.Function`` whose forward also writes the row log-sum-exp
 (fp32, (B, H, Sq), base 2) and whose backward is ``flash_attention_bwd``:
-the kernels of ``csrc/flash_attention_bwd.cu`` on a bf16 CUDA tensor
-(``flash_attention_bwd.launches``), ``flash_attention_bwd_plain`` on a CPU
-tensor. The Pallas kernel has no VJP; the JAX trainer differentiates its
-plain form (``_lax_flash``), and that is the gradient computed here.
+``flash_attention_bwd_plain`` on a CPU tensor, and on a CUDA tensor the
+kernels of ``csrc/flash_attention_bwd.cu``, routed as the forward: bf16 at
+head dim 64 to the wgmma/TMA kernels, at 16, 32 and 128 to the mma.sync
+ones, fp32 to the fp32 kernels (``flash_attention_bwd.launches``,
+``flash_attention_bwd.route_launches``). The Pallas kernel has no VJP; the
+JAX trainer differentiates its plain form (``_lax_flash``), and that is the
+gradient computed here.
 """
 
 from __future__ import annotations
@@ -180,8 +183,12 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd.cu")
     lib.pn_flash_attention_bwd_bf16.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_float, ctypes.c_void_p])
     lib.pn_flash_attention_bwd_bf16.restype = ctypes.c_int
+    lib.pn_flash_attention_bwd_f32.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
+    lib.pn_flash_attention_bwd_f32.restype = ctypes.c_int
     return lib
 
 
@@ -249,17 +256,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         kv_lens: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of softmax(q k^T * scale) v at the output ``o`` with the
     forward's row log-sum-exp ``lse`` (B, H, Sq) and the output gradient
-    ``do``. A CPU tensor takes ``flash_attention_bwd_plain``; a bf16 CUDA
-    tensor the kernels of ``csrc/flash_attention_bwd.cu``; an fp32 CUDA
-    tensor raises (no fp32 backward kernel yet)."""
+    ``do``. A CPU tensor takes ``flash_attention_bwd_plain``; a CUDA tensor
+    the kernels of ``csrc/flash_attention_bwd.cu`` on the route of its type
+    and head dim (``_route``)."""
     scale = _check_args(q, k, v, scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale=scale, kv_lens=kv_lens)
     b, sq, h, d = q.shape
-    if q.dtype == torch.float32:
-        raise NotImplementedError(
-            "flash_attention: the fp32 backward has no CUDA kernel yet (ROADMAP.md, Queue B); "
-            "train in bf16 or on the CPU")
     _check_cuda(q, k, v, kv_lens, d)
     o, do = o.contiguous(), do.contiguous()
     for name, t, shape in (("o", o, q.shape), ("do", do, q.shape), ("lse", lse, (b, h, sq))):
@@ -276,17 +279,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    err = lib.pn_flash_attention_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        kv_lens.data_ptr() if kv_lens is not None else None, b, h, sq, k.shape[1], d, strides,
-        scale, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_attention_bwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            kv_lens.data_ptr() if kv_lens is not None else None, b, h, sq, k.shape[1], d,
+            strides)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    route = _route(q.dtype, d)
+    if route == "fp32":
+        err = lib.pn_flash_attention_bwd_f32(*args, scale, stream)
+    else:
+        maps = None
+        if route == "wgmma":
+            spec = _tma.flash_bwd_map_specs(q, k, v, do)
+            maps = (ctypes.c_longlong * len(spec))(*spec)
+        err = lib.pn_flash_attention_bwd_bf16(*args, maps, scale, stream)
+    _build.check(lib, err, f"flash_attention_bwd ({route})")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = {"wgmma": 0, "mma": 0, "fp32": 0}
 
 
 class _FlashAttention(torch.autograd.Function):

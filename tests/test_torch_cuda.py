@@ -130,39 +130,62 @@ def test_wrappers_refuse_mixed_types_on_card(cuda, what):
             geglu(x.double(), w.double(), b.double())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("sq,skv,h,d,lens,merged", [
+BWD_CASES = [
     (512, 1024, 10, 64, None, True), (128, 256, 20, 64, None, True),
     (256, 512, 5, 64, [1, 129, 300, 512], True), (129, 4097, 2, 64, [4097, 65], False),
     (200, 400, 2, 16, None, False), (200, 400, 2, 32, None, True),
-    (200, 400, 2, 128, None, False)])
-def test_flash_bwd_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
+    (200, 400, 2, 128, None, False),
+    # Sq and Skv below one tile; key blocks with one working warpgroup and
+    # blocks wholly past kv_len; Sq off the 64-row tile
+    (100, 70, 3, 64, [1, 65], True), (200, 256, 3, 64, [1, 129, 128, 192], True),
+    (300, 650, 2, 64, None, False)]
+
+
+def _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, dtype):
     """The backward kernel against its plain version on the same q, k, v,
-    kernel output, kernel log-sum-exp and output gradient; masked keys get
-    no gradient."""
+    kernel output, kernel log-sum-exp and output gradient, on the route of
+    its type and head dim; masked keys get no gradient."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     b = 2 if lens is None else len(lens)
     g = torch.Generator(device=cuda).manual_seed(1)
-    q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda).to(dtype)
     if merged:
-        kv = torch.randn((b, skv, 2 * h * d), generator=g, device=cuda).bfloat16()
+        kv = torch.randn((b, skv, 2 * h * d), generator=g, device=cuda).to(dtype)
         k, v = (t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1))
     else:
-        k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda).bfloat16()
+        k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda).to(dtype)
                 for _ in range(2))
-    do = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
+    do = torch.randn((b, sq, h, d), generator=g, device=cuda).to(dtype)
     kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
     o, lse = flash_attention_with_lse(q, k, v, kv_lens=kvl)
     _, lse_plain = flash_attention_plain(q, k, v, kv_lens=kvl, return_lse=True)
     assert tolerance.worst_ratio(lse, lse_plain, **tolerance.FLASH_LSE) <= 1.0
-    before = flash_attention_bwd.launches
+    route = "fp32" if dtype == torch.float32 else ("wgmma" if d == 64 else "mma")
+    before = (flash_attention_bwd.launches, flash_attention_bwd.route_launches[route])
     got = flash_attention_bwd(q, k, v, o, lse, do, kv_lens=kvl)
-    assert flash_attention_bwd.launches == before + 1
+    assert (flash_attention_bwd.launches, flash_attention_bwd.route_launches[route]) == (
+        before[0] + 1, before[1] + 1)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=kvl)
+    rule = tolerance.FLASH_BWD_F32 if dtype == torch.float32 else tolerance.FLASH_BWD
     for a, w in zip(got, want):
-        assert tolerance.worst_ratio(a, w, **tolerance.FLASH_BWD) <= 1.0
+        assert a.dtype == dtype and tolerance.worst_ratio(a, w, **rule) <= 1.0
     if lens is not None:
         dead = torch.arange(skv, device=cuda)[None] >= kvl[:, None]
         assert not got[1][dead].any() and not got[2][dead].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,h,d,lens,merged", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
+    """bf16: the wgmma kernels at head dim 64, the mma.sync ones at the others."""
+    _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,h,d,lens,merged", BWD_CASES)
+def test_fp32_flash_bwd_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
+    """fp32: the fp32 kernels (FMA units, no TF32) at every head dim."""
+    _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, torch.float32)
 
 
 @pytest.mark.cuda

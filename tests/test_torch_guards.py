@@ -20,7 +20,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "panacea_tpu")
 # the port's scripts outside its package
 ROOT_SCRIPTS = ("chip_smoke.py", "inference_torch.py", "train_torch.py",
                 os.path.join("scripts", "compare_latents_torch.py"),
-                os.path.join("scripts", "probe_torch_kernels.py"))
+                os.path.join("scripts", "probe_torch_kernels.py"),
+                os.path.join("scripts", "sampling_step_torch.py"),
+                os.path.join("scripts", "flash_bwd_ablation.py"))
 
 
 def port_files():

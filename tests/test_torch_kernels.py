@@ -390,3 +390,109 @@ def test_fp32_geglu_plain_matches_pallas_kernel_on_fp32_inputs(tokens, c, inner)
     got = geglu_plain(torch.from_numpy(x), torch.from_numpy(w.T.copy()), torch.from_numpy(b))
     assert got.dtype == torch.float32
     assert np.abs(got.numpy() - want).max() <= REL * np.abs(want).max()
+
+
+# ---- the flash backward's routes, tile schedules and tensor maps
+# (ops/_tma.py), held against brute force as the forward's are above
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 128, "mma"), (torch.float32, 16, "fp32"), (torch.float32, 32, "fp32"),
+    (torch.float32, 64, "fp32"), (torch.float32, 128, "fp32")])
+def test_flash_bwd_route_by_type_and_head_dim(dtype, d, route):
+    """The backward takes the forward's route: bf16 at head dim 64 the wgmma
+    kernels, at 16/32/128 the mma.sync ones, fp32 the fp32 kernels; each
+    route has its own launch counter."""
+    assert fa_mod._route(dtype, d) == route
+    assert set(fa_mod.flash_attention_bwd.route_launches) == {"wgmma", "mma", "fp32"}
+
+
+@pytest.mark.parametrize("b,h,skv", [(40, 5, 4096), (40, 10, 1024), (40, 20, 256), (3, 2, 4097),
+                                     (2, 3, 70), (4, 3, 256), (12, 2, 700)])
+def test_flash_bwd_schedule_covers_every_key_tile_once(b, h, skv):
+    k_tiles, kv_blocks, _, _ = _tma.flash_bwd_grid(b, h, 128, skv)
+    seen = [_tma.flash_bwd_block(i, h, k_tiles, _tma.FLASH_BWD_KB) for i in range(kv_blocks)]
+    want = {(bi, hi, k0) for bi in range(b) for hi in range(h)
+            for k0 in range(0, skv, _tma.FLASH_BWD_KB)}
+    assert len(seen) == len(set(seen)) and set(seen) == want
+    # the key tiles of one (batch row, head), which stream the same Q and dO,
+    # are neighbours in launch order
+    for i in range(0, kv_blocks, k_tiles):
+        assert len({s[:2] for s in seen[i:i + k_tiles]}) == 1
+    keys = sorted(k for bi, hi, k0 in seen if (bi, hi) == (b - 1, h - 1)
+                  for k in range(k0, min(k0 + _tma.FLASH_BWD_KB, skv)))
+    assert keys == list(range(skv))
+
+
+@pytest.mark.parametrize("b,h,sq", [(40, 5, 2048), (40, 10, 512), (40, 20, 128), (3, 2, 129),
+                                    (2, 3, 100), (4, 3, 200)])
+def test_flash_bwd_schedule_covers_every_query_tile_once(b, h, sq):
+    _, _, q_tiles, q_blocks = _tma.flash_bwd_grid(b, h, sq, 256)
+    seen = [_tma.flash_bwd_block(i, h, q_tiles, _tma.FLASH_BWD_QB) for i in range(q_blocks)]
+    want = {(bi, hi, q0) for bi in range(b) for hi in range(h)
+            for q0 in range(0, sq, _tma.FLASH_BWD_QB)}
+    assert len(seen) == len(set(seen)) and set(seen) == want
+    rows = sorted(r for bi, hi, q0 in seen if (bi, hi) == (0, 0)
+                  for r in range(q0, min(q0 + _tma.FLASH_BWD_QB, sq)))
+    assert rows == list(range(sq))
+    # a dK/dV block streams every query row once, in tiles of FLASH_BWD_QT
+    n = _tma.flash_bwd_q_tiles(sq)
+    streamed = [r for j in range(n) for r in range(j * _tma.FLASH_BWD_QT,
+                                                    (j + 1) * _tma.FLASH_BWD_QT) if r < sq]
+    assert streamed == list(range(sq)) and (n - 1) * _tma.FLASH_BWD_QT < sq
+
+
+@pytest.mark.parametrize("skv,row_len", [(4096, 4096), (1024, 1), (1024, 300), (1024, 700),
+                                         (256, 129), (256, 128), (256, 192), (4097, 65),
+                                         (70, 1), (70, 65)])
+def test_flash_bwd_key_blocks_past_kv_len_are_skipped(skv, row_len):
+    """Brute force over the keys: a dK/dV block computes where its keys
+    hold a valid one, and only writes zeros otherwise; the computing blocks
+    cover every valid key. The dQ blocks visit the 128-key tiles below
+    row_len."""
+    valid = [k < row_len for k in range(skv)]
+    k_tiles = _tma.flash_bwd_grid(1, 1, 1, skv)[0]
+    covered = set()
+    for kt in range(k_tiles):
+        key0 = kt * _tma.FLASH_BWD_KB
+        keys = range(key0, min(key0 + _tma.FLASH_BWD_KB, skv))
+        active = _tma.flash_bwd_key_block_active(key0, row_len)
+        assert active == any(valid[k] for k in keys)
+        if active:
+            covered.update(keys)
+    assert {k for k in range(skv) if valid[k]} <= covered
+    n = _tma.flash_bwd_kv_tiles(row_len)
+    visited = [k for j in range(n) for k in range(j * _tma.FLASH_BWD_KT,
+                                                   (j + 1) * _tma.FLASH_BWD_KT)]
+    assert set(k for k in range(skv) if valid[k]) <= set(visited)
+    assert n * _tma.FLASH_BWD_KT - row_len < _tma.FLASH_BWD_KT   # no tile of masked keys only
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "merged_kv", "batch_slice"])
+@pytest.mark.parametrize("b,sq,h", [(40, 2048, 5), (3, 512, 10), (2, 129, 20), (1, 100, 1)])
+def test_flash_bwd_tensor_map_specs_address_every_element(kind, b, sq, h):
+    """The six maps of the wgmma backward: q and dO at the streamed 64-row
+    boxes and the resident 128-row ones, the (merged) k and v halves at
+    128-key boxes; each spec addresses the element torch does."""
+    d, skv = 64, 2 * sq
+    if b * skv * h * d * 2 > 2**26:
+        b = 2   # the arithmetic does not depend on the batch; keep the host copy small
+    q = _views("contiguous", b, sq, h, d)[0]
+    do = torch.zeros((b, sq, h, d), dtype=torch.bfloat16)
+    k, v = (_views(kind, b, skv, h, d) * 2)[:2]
+    spec = _tma.flash_bwd_map_specs(q, k, v, do)
+    assert len(spec) == 6 * 12
+    rows = (_tma.FLASH_BWD_QT, _tma.FLASH_BWD_QT, _tma.FLASH_BWD_QB, _tma.FLASH_BWD_QB,
+            _tma.FLASH_BWD_KB, _tma.FLASH_BWD_KT)
+    rng = np.random.default_rng(sq + h)
+    for i, (t, r) in enumerate(zip((q, do, q, do, k, v), rows)):
+        dims, strides, box = spec[12 * i:12 * i + 4], spec[12 * i + 4:12 * i + 8], \
+            spec[12 * i + 8:12 * i + 12]
+        n = t.shape[1]
+        assert dims == [d, h, n, b] and box == [d, 1, r, 1]
+        picks = [(0, 0, 0, 0), (b - 1, n - 1, h - 1, d - 1)]
+        picks += [tuple(int(rng.integers(m)) for m in (b, n, h, d)) for _ in range(30)]
+        for bi, si, hi, di in picks:
+            got = t.data_ptr() + sum(x * st for x, st in zip((di, hi, si, bi), strides))
+            assert got == t[bi, si, hi, di].data_ptr()

@@ -78,6 +78,30 @@ def test_flash_bwd_plain_matches_jax_grad_of_lax_flash(sq, skv, lens, merged):
             assert not g[1, lens[1]:].any()
 
 
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("sq,skv,lens", [(128, 256, None), (200, 650, [650, 130]),
+                                         (100, 1100, [3, 1100])])
+def test_fp32_flash_bwd_plain_matches_jax_grad_of_lax_flash(d, sq, skv, lens):
+    """The plain backward that the fp32 CUDA kernel is held to on the card,
+    on fp32 inputs, against ``jax.grad`` of ``_lax_flash`` in fp32 (the
+    gradient the JAX trainer takes of an fp32 engine): each of dq, dk, dv to
+    1e-5 of its largest entry, at the production head dim and a small one,
+    with ragged rows and Sq off the 64-row tile. (A row of a single key has
+    dk = 0 exactly in JAX and rounding noise from dP - Delta here; the test
+    above covers it with an absolute bound.)"""
+    b, h = 2, 2
+    q, _, k, v, do = _inputs(d * sq + skv, b, sq, skv, h, d, True)
+    want = _jax_grads(q, k, v, do, lens)
+    assert all(w.dtype == np.float32 for w in want)
+    tq, tk, tv, tdo = (torch.from_numpy(np.ascontiguousarray(x)) for x in (q, k, v, do))
+    kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    out, lse = flash_attention_plain(tq, tk, tv, kv_lens=kvl, return_lse=True)
+    got = flash_attention_bwd(tq, tk, tv, out, lse, tdo, kv_lens=kvl)   # the CPU route
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max(), name
+
+
 @pytest.mark.parametrize("sq,skv,lens,merged", FLASH_CASES)
 def test_flash_function_matches_autograd_through_the_plain_forward(sq, skv, lens, merged):
     """The autograd Function (saved tensors, lse, kv_lens, the strided
