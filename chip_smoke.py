@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
      ``panacea_tpu_torch/ops/tolerance.py``), and timed beside the plain
      version, a PyTorch yardstick and its bound: the bf16 kernels (tensor
      cores; the flash forward also with its row log-sum-exp), the fp32
-     kernels (FMA units, TF32 off everywhere), then the backward kernels on
+     kernels (flash on the FMA units, GEGLU as 3xTF32 on the tensor cores,
+     held to its plain version in float64; TF32 off in every PyTorch
+     product), then the backward kernels on
      each route (bf16 wgmma at head dim 64, mma.sync at 16, 32, 128; fp32),
      their library time read as the device time of SDPA's backward;
   3. small input: the tiny engine on the card (bf16, kernels) against the
@@ -84,6 +86,7 @@ FP32_STEPS = 2
 CLI_SEED = 23          # the CLI's default seed
 PEAK_BF16 = 989e12     # H100 SXM dense bf16 flop/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12      # H100 SXM fp32 flop/s outside the tensor cores (same data sheet)
+PEAK_TF32 = 495e12     # H100 SXM dense TF32 flop/s on the tensor cores (same data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 SMALL_TOL = 5e-2       # tiny engine, bf16 card vs fp32 CPU, relative to the latent's scale
 FLASH_PER_EVAL, GEGLU_PER_EVAL = 21, 69
@@ -356,9 +359,12 @@ def check_geglu_bwd(torch, F, gg, tol, dev, tokens, inner, timed=True, fp32=Fals
 
 
 def check_geglu(torch, F, gg, tol, dev, tokens, c, timed=True, inner=None, fp32=False):
-    """``fp32``: fp32 operands (the fp32 kernel, ``tol.GEGLU_F32``, the fp32
-    FMA rate as the bound); TF32 is off for the plain version and the
-    yardstick."""
+    """``fp32``: fp32 operands, the 3xTF32 kernel, held under
+    ``tol.GEGLU_F32`` to the plain version evaluated in float64 (the exact
+    function); the record keeps beside that ratio the kernel's against the
+    fp32 plain version and the fp32 plain version's (cuBLAS, TF32 off)
+    against float64. The bound is three products at the TF32 rate;
+    ``bound_fma_ms`` is the fp32 FMA rate's, the earlier kernel's."""
     dtype, rule = (torch.float32, tol.GEGLU_F32) if fp32 else (torch.bfloat16, tol.GEGLU)
     inner = 4 * c if inner is None else inner
     g = torch.Generator(device=dev).manual_seed(tokens + c)
@@ -368,18 +374,28 @@ def check_geglu(torch, F, gg, tol, dev, tokens, c, timed=True, inner=None, fp32=
     routes = dict(gg.geglu.route_launches)
     got = gg.geglu(x, w, b)
     route = next(r for r, n in gg.geglu.route_launches.items() if n != routes[r])
-    want = gg.geglu_plain(x, w, b)
+    plain = gg.geglu_plain(x, w, b)
+    want = gg.geglu_plain(x.double(), w.double(), b.double()) if fp32 else plain
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
+    err = (got.double() - want.double()).abs().max().item()
     ratio = tol.worst_ratio(got, want, **rule)
     rec = {"kernel": "geglu", "route": route, "dtype": str(dtype),
            "shape": {"tokens": tokens, "C": c, "inner": inner},
-           "max_abs_err": err, "rms_want": want.float().square().mean().sqrt().item(),
+           "max_abs_err": err, "rms_want": want.double().square().mean().sqrt().item(),
            "worst_ratio": ratio, "tol": rule}
+    if fp32:
+        rec["want"] = "geglu_plain in float64"
+        rec["worst_ratio_vs_fp32_plain"] = tol.worst_ratio(got, plain, **rule)
+        rec["fp32_plain_worst_ratio_vs_f64"] = tol.worst_ratio(plain, want, **rule)
+    del want, plain
     if timed:
         flops = 4.0 * tokens * c * inner
         nbytes = (4.0 if fp32 else 2.0) * (tokens * c + 2 * inner * c + 2 * inner + tokens * inner)
-        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, PEAK_FP32 if fp32 else PEAK_BF16)
+        if fp32:
+            rec["bound_ms"], rec["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32)
+            rec["bound_fma_ms"], _ = bound(flops, nbytes, PEAK_FP32)
+        else:
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, PEAK_BF16)
         rec["ms"] = time_ms(torch, lambda: gg.geglu(x, w, b), 5 if fp32 else 20)
         rec["plain_ms"] = time_ms(torch, lambda: gg.geglu_plain(x, w, b), 3)
         rec["library_ms"] = time_ms(torch, lambda: F.linear(x, w, b), 20)
@@ -1177,6 +1193,7 @@ def main(kernels_only: bool = False) -> int:
     for src, text in _build.build_log.items():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line or "warning" in line.lower()
+                    or "entry function" in line
                     or "(C7" in line):   # ptxas advisories: serialised or injected wgmma waits
                 log(f"ptxas {src}: {line.strip()}")
         if "C7508" in text or "setmaxnreg ignored" in text:
@@ -1309,12 +1326,12 @@ def main(kernels_only: bool = False) -> int:
                     "geglu": "geglu_routes"}[kernel]]
         return routes["fp32"] if fp32 else c[kernel] - routes["fp32"]
 
-    def summary(name, kernel, source, replaces, recs, main, path):
+    def summary(name, kernel, source, replaces, recs, main, path, **extra):
         """``launches``: the count of the path that drives this kernel at full
         depth (the CLI for the bf16 kernels, the fp32 engine for the fp32
         ones); ``launches_by_path`` has every path's."""
         fp32 = main["dtype"] == "torch.float32"
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+        return {"name": name, **extra, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": count(paths[path], kernel, fp32),
                 "launches_by_path": {p: count(c, kernel, fp32) for p, c in paths.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
@@ -1332,7 +1349,12 @@ def main(kernels_only: bool = False) -> int:
         summary("flash_attention_fp32", "flash_attention", flash_src, flash_tpu, flash32,
                 flash32[0], "fp32_engine"),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
-                "fp32_engine"),
+                "fp32_engine", entry="f32::pn_geglu_3xtf32_fwd (3xTF32 wgmma, TMA)",
+                bound_fma_ms=geglu32[0]["bound_fma_ms"],
+                worst_ratio_vs_f64=max(r["worst_ratio"] for r in geglu32),
+                worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"] for r in geglu32),
+                fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
+                                                  for r in geglu32)),
         summary("flash_attention_bwd", "flash_attention_bwd", flash_bwd_src, flash_tpu, flash_bwd,
                 flash_bwd[0], "train"),
         summary("flash_attention_bwd_fp32", "flash_attention_bwd", flash_bwd_src, flash_tpu,

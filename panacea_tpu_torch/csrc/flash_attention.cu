@@ -263,7 +263,7 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
 }
 
 // maps: three specs of 12 values (dims, byte strides, boxes of the 4-D views
-// of q, k and v, innermost first), as encode_bf16_map takes them.
+// of q, k and v, innermost first), as pn::encode_map takes them.
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
            int batch, int heads, int sq, int skv, const long long* maps, float scale_log2,
            cudaStream_t stream) {
@@ -272,9 +272,9 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (!maps) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap q_map, k_map, v_map;
-  int err = pn::encode_bf16_map(&q_map, q, 4, maps);
-  if (!err) err = pn::encode_bf16_map(&k_map, k, 4, maps + 12);
-  if (!err) err = pn::encode_bf16_map(&v_map, v, 4, maps + 24);
+  int err = pn::encode_map(&q_map, q, 4, maps, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  if (!err) err = pn::encode_map(&k_map, k, 4, maps + 12, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  if (!err) err = pn::encode_map(&v_map, v, 4, maps + 24, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
   if (err) return err;
   const int q_tiles = (sq + BQ - 1) / BQ;
   const long long blocks = static_cast<long long>(batch) * heads * q_tiles;

@@ -823,7 +823,7 @@ pn_flash_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
 }
 
 // maps: six specs of 12 values (dims, byte strides, boxes of 4-D views,
-// innermost first, as encode_bf16_map takes them): q and dO with 64-row
+// innermost first, as pn::encode_map takes them): q and dO with 64-row
 // boxes (the dK/dV pass's streamed tiles), q and dO with 128-row boxes (the
 // dQ pass's resident rows), k and v with 128-row boxes (both passes).
 int launch(const void* q, const void* k, const void* v, const void* o, const void* d_o,
@@ -841,7 +841,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   const void* bases[6] = {q, d_o, q, d_o, k, v};
   CUtensorMap* out[6] = {&q64, &do64, &q128, &do128, &k_map, &v_map};
   for (int i = 0; i < 6; ++i) {
-    const int err = pn::encode_bf16_map(out[i], bases[i], 4, maps + 12 * i);
+    const int err = pn::encode_map(out[i], bases[i], 4, maps + 12 * i,
+                                   CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
     if (err) return err;
   }
   const long long bh = static_cast<long long>(batch) * heads;

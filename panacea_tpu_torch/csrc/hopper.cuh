@@ -34,11 +34,12 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 constexpr int MAX_RANK = 4;
 
-// A bf16 tensor map with the 128-byte swizzle and zero fill outside the
-// tensor. `spec` holds rank dims, rank byte strides (the first is the element
-// size and is implied) and rank box sizes, innermost dimension first.
-// Returns a cudaError_t value.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const long long* spec) {
+// A tensor map of bf16 or fp32 elements (`type`) with the 128-byte swizzle
+// and zero fill outside the tensor. `spec` holds rank dims, rank byte strides
+// (the first is the element size and is implied) and rank box sizes,
+// innermost dimension first. Returns a cudaError_t value.
+inline int encode_map(CUtensorMap* map, const void* base, int rank, const long long* spec,
+                      CUtensorMapDataType type) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (!fn) return static_cast<int>(cudaErrorNotSupported);
   if (rank < 2 || rank > MAX_RANK) return static_cast<int>(cudaErrorInvalidValue);
@@ -50,16 +51,15 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const l
     box[i] = static_cast<cuuint32_t>(spec[2 * rank + i]);
     elem[i] = 1;
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                        dims, strides + 1, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides + 1, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return static_cast<int>(r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue);
 }
 
 // -------------------------------------------------------------- device side
 
-constexpr int SWIZZLE_BYTES = 128;   // one swizzled row: 64 bf16
+constexpr int SWIZZLE_BYTES = 128;   // one swizzled row: 64 bf16 or 32 fp32
 constexpr int SWIZZLE_ATOM = 1024;   // 8 rows; tiles are aligned to it
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -159,7 +159,8 @@ __device__ __forceinline__ void tma_store_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// Makes this thread's shared-memory writes visible to TMA (the async proxy).
+// Makes this thread's shared-memory writes visible to the async proxy: to TMA
+// stores and to wgmma's shared-memory operands.
 __device__ __forceinline__ void tma_store_fence() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -215,7 +216,8 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 // Shared-memory matrix descriptor of a tile whose rows are 128 bytes, laid
 // down by TMA with the 128-byte swizzle, 1024-byte aligned. Groups of 8 rows
 // are 1024 bytes apart (the stride offset). The same descriptor serves a
-// K-major operand (a row is 64 values of K; 16 more of K are 32 bytes on)
+// K-major operand (a row is 64 bf16 or 32 fp32 values of K; a k16 step of
+// bf16 and a k8 step of TF32 are both 32 bytes on)
 // and an MN-major one of width 64 (a row is one k; 16 more of K are 16 rows
 // on); the leading offset is then unused and set to the same 1024 bytes.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
@@ -347,6 +349,56 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------- TF32
+//
+// The 3xTF32 product keeps fp32 accuracy on the TF32 tensor cores: each fp32
+// operand a is split as a = big + small, both TF32 (8 exponent bits, 10
+// mantissa bits), and A B = Ab Bb + Ab Bs + As Bb + As Bs, of which the last
+// term (about 2^-22 of the product) is dropped. big is a rounded to nearest
+// TF32; a - big is exact in fp32 and rounded to TF32 again, so the split
+// loses about 2^-22 of a where fp32 keeps 2^-24.
+
+// a rounded to the nearest TF32 value (ties away from zero), its low 13 bits 0
+__device__ __forceinline__ float tf32_round(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
+__device__ __forceinline__ void tf32_split(float a, float& big, float& small) {
+  big = tf32_round(a);
+  small = tf32_round(a - big);
+}
+
+// d (64 x 128, fp32) = or += A (64 x 8, shared, K-major) * B (128 x 8, shared,
+// K-major), TF32 operands (fp32 words whose low 13 bits are ignored). TF32
+// takes both operands K-major and has no transpose flags.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64], uint64_t desc_a,
+                                                        uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace pn

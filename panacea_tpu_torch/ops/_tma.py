@@ -1,10 +1,10 @@
 """Host-side arithmetic of the Hopper kernels: tensor-map specs for TMA
-loads of strided bf16 views, and the tile schedules of the flash forward and
-backward and of GEGLU.
+loads of strided bf16 and fp32 views, and the tile schedules of the flash
+forward and backward and of both GEGLU forwards.
 
 Everything here is plain Python on shapes and strides, so the CPU tests hold
-it against brute force; the C entries (``csrc/hopper.cuh``,
-``encode_bf16_map``) only hand the numbers to ``cuTensorMapEncodeTiled``.
+it against brute force; the C entries (``csrc/hopper.cuh``, ``encode_map``)
+only hand the numbers to ``cuTensorMapEncodeTiled``.
 """
 
 from __future__ import annotations
@@ -13,8 +13,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-ELEM_BYTES = 2          # bf16
-SWIZZLE_BYTES = 128     # the innermost box row: 64 bf16
+SWIZZLE_BYTES = 128     # the innermost box row: 64 bf16 or 32 fp32
 MAX_BOX = 256           # TMA's limit on a box dimension
 MAX_RANK = 4
 
@@ -26,14 +25,20 @@ FLASH_BWD_KB, FLASH_BWD_QT = 128, 64
 FLASH_BWD_QB, FLASH_BWD_KT = 128, FLASH_BWD_KB
 GEGLU_BM, GEGLU_BN, GEGLU_BK = 128, 128, 64
 GEGLU_OUT_BOX = (64, 64)            # one consumer warpgroup's rows, half the columns
+# the fp32 (3xTF32) kernel, ``f32`` in csrc/geglu.cu: tile and slot, token
+# tiles per group of its tile order, out panels of 64 x 32
+GEGLU_F32_BM, GEGLU_F32_BN, GEGLU_F32_BK = 128, 64, 32
+GEGLU_F32_GROUP_M = 16
+GEGLU_F32_OUT_BOX = (64, 32)
 
 
 def map_spec(t: torch.Tensor, box: Sequence[int]) -> List[int]:
-    """The spec ``encode_bf16_map`` takes for the view ``t``: its dims, its
-    byte strides and the box, each innermost dimension first (the reverse of
-    torch's order). ``box`` is given in torch's order. The element at index
-    ``idx`` lies at ``t.data_ptr() + sum(idx[i] * byte_stride[i])``; a box
-    that reaches past a dim is filled with zeros there by the hardware."""
+    """The spec ``encode_map`` takes for the view ``t`` (bf16 or fp32): its
+    dims, its byte strides and the box, each innermost dimension first (the
+    reverse of torch's order). ``box`` is given in torch's order. The element
+    at index ``idx`` lies at ``t.data_ptr() + sum(idx[i] * byte_stride[i])``;
+    a box that reaches past a dim is filled with zeros there by the
+    hardware."""
     if t.ndim != len(box) or not 2 <= t.ndim <= MAX_RANK:
         raise ValueError(f"tensor map: view {tuple(t.shape)} and box {tuple(box)} must have "
                          f"the same rank, 2 to {MAX_RANK}")
@@ -41,10 +46,13 @@ def map_spec(t: torch.Tensor, box: Sequence[int]) -> List[int]:
         raise ValueError(f"tensor map: the innermost stride of {t.stride()} must be 1")
     if t.data_ptr() % 16:
         raise ValueError("tensor map: the view is not 16-byte aligned")
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"tensor map: {t.dtype} is neither bf16 nor fp32")
+    elem = t.element_size()
     dims = [int(n) for n in reversed(t.shape)]
-    strides = [int(s) * ELEM_BYTES for s in reversed(t.stride())]
+    strides = [int(s) * elem for s in reversed(t.stride())]
     boxes = [int(n) for n in reversed(box)]
-    if boxes[0] * ELEM_BYTES != SWIZZLE_BYTES:
+    if boxes[0] * elem != SWIZZLE_BYTES:
         raise ValueError(f"tensor map: the innermost box {boxes[0]} must span "
                          f"{SWIZZLE_BYTES} bytes (the swizzle)")
     if any(not 1 <= n <= MAX_BOX for n in boxes):
@@ -53,7 +61,7 @@ def map_spec(t: torch.Tensor, box: Sequence[int]) -> List[int]:
         raise ValueError(f"tensor map: dims {tuple(t.shape)} outside 1..2^32")
     if any(s % 16 or not 0 < s < 2**40 for s in strides[1:]):
         raise ValueError(f"tensor map: strides {t.stride()} must be positive multiples of "
-                         "8 elements (16 bytes) below 2^40 bytes")
+                         f"{16 // elem} elements (16 bytes) below 2^40 bytes")
     return dims + strides + boxes
 
 
@@ -126,20 +134,35 @@ def flash_bwd_map_specs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             + map_spec(k, (1, FLASH_BWD_KB, 1, d)) + map_spec(v, (1, FLASH_BWD_KB, 1, d)))
 
 
-def geglu_grid(tokens: int, inner: int, sms: int) -> Tuple[int, int, int]:
-    """(token tiles, column tiles, blocks of the persistent grid)."""
-    m_tiles, n_tiles = -(-tokens // GEGLU_BM), -(-inner // GEGLU_BN)
+def geglu_grid(tokens: int, inner: int, sms: int, fp32: bool = False) -> Tuple[int, int, int]:
+    """(token tiles, column tiles, blocks of the persistent grid) of the bf16
+    kernel, or of the fp32 one."""
+    bm, bn = (GEGLU_F32_BM, GEGLU_F32_BN) if fp32 else (GEGLU_BM, GEGLU_BN)
+    m_tiles, n_tiles = -(-tokens // bm), -(-inner // bn)
     return m_tiles, n_tiles, min(m_tiles * n_tiles, sms)
 
 
 def geglu_block_tiles(block: int, blocks: int, m_tiles: int, n_tiles: int
                       ) -> List[Tuple[int, int]]:
-    """(first token, first column) of the tiles block ``block`` computes, in
-    order. Tile index = token tile * n_tiles + column tile; a block takes
-    every ``blocks``-th tile, so at any time the grid works on neighbouring
-    tiles: all column tiles of a token tile run next to each other."""
+    """(first token, first column) of the tiles block ``block`` of the bf16
+    kernel computes, in order. Tile index = token tile * n_tiles + column
+    tile; a block takes every ``blocks``-th tile, so at any time the grid
+    works on neighbouring tiles: all column tiles of a token tile run next
+    to each other."""
     return [((tile // n_tiles) * GEGLU_BM, (tile % n_tiles) * GEGLU_BN)
             for tile in range(block, m_tiles * n_tiles, blocks)]
+
+
+def geglu_f32_tile(tile: int, m_tiles: int, n_tiles: int) -> Tuple[int, int]:
+    """(token tile, column tile) of tile index ``tile`` in the fp32 kernel's
+    order (``f32::tile_coords``): groups of ``GEGLU_F32_GROUP_M`` token
+    tiles, inside a group column-major, so that the tiles in flight share a
+    few W column tiles and the group's x tiles stay in L2 while it sweeps W."""
+    per_group = GEGLU_F32_GROUP_M * n_tiles
+    group, local = divmod(tile, per_group)
+    first = group * GEGLU_F32_GROUP_M
+    rows = min(GEGLU_F32_GROUP_M, m_tiles - first)
+    return first + local % rows, local // rows
 
 
 def geglu_k_slices(c: int) -> int:
@@ -147,7 +170,8 @@ def geglu_k_slices(c: int) -> int:
     return -(-c // GEGLU_BK)
 
 
-def geglu_tma_store(inner: int) -> bool:
+def geglu_tma_store(inner: int, fp32: bool = False) -> bool:
     """Whether the result leaves through TMA stores: its row stride must be
-    a multiple of 16 bytes. Otherwise the kernel stores from registers."""
-    return inner % 8 == 0
+    a multiple of 16 bytes (8 bf16 or 4 fp32). Otherwise the kernel stores
+    from registers."""
+    return inner % (4 if fp32 else 8) == 0

@@ -25,11 +25,16 @@ from panacea_tpu_torch.ops.flash_attention import flash_attention
 def attention_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: Optional[float] = None,
                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dense attention through ``F.scaled_dot_product_attention``."""
+    """Dense attention through ``F.scaled_dot_product_attention``. Keys at
+    or past ``kv_lens[b]`` get -1e30 added to their scores, as in the
+    reference ``attention_xla``: a row with no valid key gets the uniform
+    softmax, the mean of V. Without ``kv_lens`` the call takes no mask, so
+    SDPA keeps its fused backends."""
     mask = None
     if kv_lens is not None:
         col = torch.arange(k.shape[1], device=k.device)
-        mask = (col[None, :] < kv_lens.to(k.device)[:, None])[:, None, None, :]
+        valid = (col[None, :] < kv_lens.to(k.device)[:, None])[:, None, None, :]
+        mask = torch.zeros(valid.shape, dtype=q.dtype, device=q.device).masked_fill(~valid, -1e30)
     out = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=mask, scale=scale)

@@ -9,9 +9,12 @@ layout (2*inner, C) = [W_h; W_gate] (the flax kernel is its transpose), and
 
 On a CPU tensor ``geglu`` runs ``geglu_plain``. On a CUDA tensor it
 launches a kernel or raises: it never falls back. The operands keep their
-type, as in the Pallas kernel: bf16 goes to the wgmma/TMA kernel, fp32 to the
-fp32 kernel (products on the FMA units, no TF32). ``geglu.launches`` counts
-all launches and ``geglu.route_launches`` each type's.
+type, as in the Pallas kernel: bf16 goes to the bf16 wgmma/TMA kernel, fp32
+to the fp32 one, which runs its products on the TF32 tensor cores as 3xTF32
+(each operand split into two TF32 parts, three products summed in fp32), so
+that it stays as close to the exact function as an fp32 FMA sum; a call is
+then two launches, the split of W and the product. ``geglu.launches`` counts
+all calls and ``geglu.route_launches`` each type's.
 
 Gradients: where autograd needs them, ``geglu`` goes through a
 ``torch.autograd.Function`` whose backward recomputes hg = x W^T + b with one
@@ -34,9 +37,11 @@ from panacea_tpu_torch.ops import _build, _tma
 
 
 def geglu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Unfused form (``F.linear``, split, exact-erf GELU), computed in fp32
-    from the given inputs; the result has x's dtype."""
-    hg = F.linear(x.float(), w.float(), b.float())
+    """Unfused form (``F.linear``, split, exact-erf GELU), computed from the
+    given inputs in fp32, or in float64 for float64 inputs (the exact
+    function the fp32 kernel is held to); the result has x's dtype."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    hg = F.linear(x.to(dt), w.to(dt), b.to(dt))
     h, gate = hg.chunk(2, dim=-1)
     return (h * F.gelu(gate)).to(x.dtype)
 
@@ -80,8 +85,9 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.pn_geglu_bf16.restype = ctypes.c_int
     lib.pn_geglu_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.pn_geglu_f32.restype = ctypes.c_int
     lib.pn_geglu_backward.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -106,13 +112,22 @@ def _forward(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     lib = _lib()
     out = torch.empty((tokens, inner), dtype=x2.dtype, device=x2.device)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
+    index = x2.device.index if x2.device.index is not None else torch.cuda.current_device()
     if x2.dtype == torch.float32:
         route = "fp32"
+        _, _, blocks = _tma.geglu_grid(tokens, inner, _sm_count(index), fp32=True)
+        w_split = torch.empty((2 * w.shape[0], c), dtype=w.dtype, device=w.device)
+        spec = (_tma.map_spec(x2, (_tma.GEGLU_F32_BM, _tma.GEGLU_F32_BK))
+                + _tma.map_spec(w_split, (_tma.GEGLU_F32_BN, _tma.GEGLU_F32_BK)))
+        tma_store = _tma.geglu_tma_store(inner, fp32=True)
+        if tma_store:
+            spec += _tma.map_spec(out, _tma.GEGLU_F32_OUT_BOX)
         err = lib.pn_geglu_f32(x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                               tokens, c, inner, stream)
+                               w_split.data_ptr(), tokens, c, inner,
+                               (ctypes.c_longlong * len(spec))(*spec), int(tma_store), blocks,
+                               stream)
     else:
         route = "bf16"
-        index = x2.device.index if x2.device.index is not None else torch.cuda.current_device()
         _, _, blocks = _tma.geglu_grid(tokens, inner, _sm_count(index))
         spec = (_tma.map_spec(x2, (_tma.GEGLU_BM, _tma.GEGLU_BK))
                 + _tma.map_spec(w, (_tma.GEGLU_BN, _tma.GEGLU_BK)))

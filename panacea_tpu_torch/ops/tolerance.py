@@ -10,11 +10,18 @@ rule is per element,
 with ``rel`` just above one bf16 step and ``floor`` a small share of the
 output's own scale, so that no limit is larger than what it checks.
 
-fp32 kernels: both sides compute in fp32 from the same fp32 inputs and differ
-in the summation order, in the running maxima of the online softmax and in
-the last bits of ``exp2`` and ``erf``. The same rule holds them, with ``rel``
-and ``floor`` some tens to hundreds of fp32 steps (2**-24 of the value): far below what
-TF32 (2**-11) or a bf16 cut (2**-8) of an operand would leave.
+fp32 kernels: the flash kernels compute in fp32 on the FMA units from the
+same fp32 inputs as their plain versions and differ from them in the
+summation order, in the running maxima of the online softmax and in the last
+bits of ``exp2``. The fp32 GEGLU kernel runs its products as 3xTF32 on the
+tensor cores (each operand split into two TF32 parts, the three larger of
+the four products summed in fp32): as close to the exact function as an fp32
+FMA sum, but in another order than the library's fp32 product, so that two
+fp32-accurate answers can lie further apart than either lies from the exact
+one. It is held to its plain version evaluated in float64. The same rule
+holds them all, with ``rel`` and ``floor`` some tens to hundreds of fp32
+steps (2**-24 of the value): far below what one TF32 product (2**-11) or a
+bf16 cut (2**-8) of an operand would leave.
 """
 
 from __future__ import annotations
@@ -29,17 +36,22 @@ import torch
 FLASH = {"rel": 1e-2, "floor": 2e-2}
 # GEGLU: fp32 accumulation on both sides, one rounding of the product
 GEGLU = {"rel": 1e-2, "floor": 1e-4}
-# the fp32 kernels (products on the FMA units, no TF32). Measured on an H100
-# at rel = floor = 1e-4: flash at most 0.116 of the limit (level 0, 4096 keys),
-# GEGLU at most 0.0143 (and bit-equal to the plain version at most shapes)
+# the fp32 kernels. Flash (FMA units, no TF32) against its fp32 plain version,
+# measured on an H100 at rel = floor = 1e-4: at most 0.116 of the limit (level
+# 0, 4096 keys). GEGLU (3xTF32 on the tensor cores) against its plain version
+# evaluated in float64, which keeps the library's rounding out of the check:
+# measured on an H100 at the rule's numbers, the kernel at most 0.79 of the
+# limit (level 0), the fp32 plain version (cuBLAS, TF32 off) 2.1 (level 2)
 FLASH_F32 = {"rel": 2e-5, "floor": 2e-5}
 GEGLU_F32 = {"rel": 5e-6, "floor": 5e-6}
 
 
 def worst_ratio(got: torch.Tensor, want: torch.Tensor, rel: float, floor: float) -> float:
-    """max over elements of |got - want| / (rel |want| + floor rms(want));
-    the kernel agrees with its plain version where this is <= 1."""
-    got, want = got.float(), want.float()
+    """max over elements of |got - want| / (rel |want| + floor rms(want)),
+    in fp32, or in float64 where either side is; the kernel agrees with its
+    plain version where this is <= 1."""
+    dt = torch.promote_types(torch.promote_types(got.dtype, want.dtype), torch.float32)
+    got, want = got.to(dt), want.to(dt)
     rms = want.square().mean().sqrt()
     return ((got - want).abs() / (rel * want.abs() + floor * rms)).max().item()
 # the backward kernels against their plain versions (stated before their

@@ -7,6 +7,7 @@ plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import importlib
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -189,15 +190,35 @@ def test_flash_tensor_map_spec_addresses_every_element(kind, b, s, h):
             assert got == want
 
 
-@pytest.mark.parametrize("tokens,c,inner", [(196608, 320, 1280), (3072, 1280, 5120),
-                                            (1000, 72, 288), (256, 32, 128)])
-def test_geglu_tensor_map_specs(tokens, c, inner):
-    x = torch.zeros((min(tokens, 4096), c), dtype=torch.bfloat16)
-    w = torch.zeros((2 * inner, c), dtype=torch.bfloat16)
-    out = torch.zeros((x.shape[0], inner), dtype=torch.bfloat16)
-    assert _tma.map_spec(x, (_tma.GEGLU_BM, _tma.GEGLU_BK)) == [c, x.shape[0], 2, 2 * c, 64, 128]
-    assert _tma.map_spec(w, (_tma.GEGLU_BN, _tma.GEGLU_BK)) == [c, 2 * inner, 2, 2 * c, 64, 128]
-    assert _tma.map_spec(out, _tma.GEGLU_OUT_BOX) == [inner, x.shape[0], 2, 2 * inner, 64, 64]
+GEGLU_MAP_CASES = [(196608, 320, 1280), (3072, 1280, 5120), (1000, 72, 288), (256, 32, 128)]
+
+
+@pytest.mark.parametrize(
+    "tokens,c,inner,dtype",
+    [(*k, torch.bfloat16) for k in GEGLU_MAP_CASES]
+    + [(*k, torch.float32) for k in GEGLU_MAP_CASES],
+    ids=[f"{t}-{c}-{i}" for t, c, i in GEGLU_MAP_CASES]
+    + [f"fp32-{t}-{c}-{i}" for t, c, i in GEGLU_MAP_CASES])
+def test_geglu_tensor_map_specs(tokens, c, inner, dtype):
+    """bf16: 64-channel boxes of x and W, 64 x 64 out panels. fp32: a
+    32-float box row is the same 128 bytes; the W map is that of the
+    (4 inner, C) scratch [W_big; W_small], the out panels 64 x 32."""
+    x = torch.zeros((min(tokens, 4096), c), dtype=dtype)
+    out = torch.zeros((x.shape[0], inner), dtype=dtype)
+    if dtype == torch.bfloat16:
+        w = torch.zeros((2 * inner, c), dtype=dtype)
+        assert _tma.map_spec(x, (_tma.GEGLU_BM, _tma.GEGLU_BK)) == [c, x.shape[0], 2, 2 * c, 64,
+                                                                    128]
+        assert _tma.map_spec(w, (_tma.GEGLU_BN, _tma.GEGLU_BK)) == [c, 2 * inner, 2, 2 * c, 64,
+                                                                    128]
+        assert _tma.map_spec(out, _tma.GEGLU_OUT_BOX) == [inner, x.shape[0], 2, 2 * inner, 64, 64]
+        return
+    w_split = torch.zeros((4 * inner, c), dtype=dtype)
+    bm, bn, bk = _tma.GEGLU_F32_BM, _tma.GEGLU_F32_BN, _tma.GEGLU_F32_BK
+    assert bk * 4 == _tma.SWIZZLE_BYTES
+    assert _tma.map_spec(x, (bm, bk)) == [c, x.shape[0], 4, 4 * c, 32, 128]
+    assert _tma.map_spec(w_split, (bn, bk)) == [c, 4 * inner, 4, 4 * c, 32, 64]
+    assert _tma.map_spec(out, _tma.GEGLU_F32_OUT_BOX) == [inner, x.shape[0], 4, 4 * inner, 32, 64]
 
 
 @pytest.mark.parametrize("make,box,match", [
@@ -210,6 +231,11 @@ def test_geglu_tensor_map_specs(tokens, c, inner):
     (lambda: torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16), (128, 64), "same rank"),
     (lambda: torch.zeros((2, 8, 3, 72), dtype=torch.bfloat16)[..., 4:68],
      (1, 128, 1, 64), "16-byte aligned"),
+    # fp32: a 64-float box row is 256 bytes, not the swizzle's 128; rows of
+    # C % 4 != 0 floats are not 16-byte multiples; fp16 has no map here
+    (lambda: torch.zeros((256, 64)), (128, 64), "swizzle"),
+    (lambda: torch.zeros((256, 34)), (128, 32), "multiples of 4 elements"),
+    (lambda: torch.zeros((256, 64), dtype=torch.float16), (128, 64), "neither bf16 nor fp32"),
 ])
 def test_tensor_map_spec_refuses_what_tma_cannot_load(make, box, match):
     with pytest.raises(ValueError, match=match):
@@ -265,6 +291,144 @@ def test_geglu_schedule_covers_every_tile_once_in_reuse_order(tokens, c, inner):
     # the channel slices cover C; only the last is partly zero-filled
     k = _tma.geglu_k_slices(c)
     assert (k - 1) * _tma.GEGLU_BK < c <= k * _tma.GEGLU_BK
+
+
+@pytest.mark.parametrize("tokens,c,inner", [
+    (196608, 320, 1280), (49152, 640, 2560), (12288, 1280, 5120), (3072, 1280, 5120),
+    (196685, 320, 1280), (12365, 1280, 5120), (1000, 72, 288), (5000, 328, 1312),
+    (300, 64, 200), (300, 64, 77), (1, 64, 256), (256, 32, 128), (100, 36, 100)])
+def test_geglu_f32_schedule_covers_every_tile_once_in_reuse_order(tokens, c, inner):
+    """The 3xTF32 kernel's tile order (``f32::tile_coords``, mirrored by
+    ``_tma.geglu_f32_tile``): every tile once; inside a group of
+    GEGLU_F32_GROUP_M token tiles column-major, so that the tiles of a
+    round of the grid share few W column tiles, and a group's x tiles are
+    all it reads of x until the group is done."""
+    sms, gm = 132, _tma.GEGLU_F32_GROUP_M
+    m_tiles, n_tiles, blocks = _tma.geglu_grid(tokens, inner, sms, fp32=True)
+    assert (m_tiles, n_tiles) == (-(-tokens // 128), -(-inner // 64))
+    assert blocks == min(sms, m_tiles * n_tiles) and blocks >= 1
+    order = [_tma.geglu_f32_tile(i, m_tiles, n_tiles) for i in range(m_tiles * n_tiles)]
+    assert sorted(order) == [(m, n) for m in range(m_tiles) for n in range(n_tiles)]
+    # brute force: groups of gm token tiles, each swept column by column
+    want = [(m, n) for g0 in range(0, m_tiles, gm) for n in range(n_tiles)
+            for m in range(g0, min(g0 + gm, m_tiles))]
+    assert order == want
+    # round r of the persistent grid: tiles r * blocks .. r * blocks + blocks
+    for r0 in range(0, len(order), blocks):
+        now = order[r0:r0 + blocks]
+        # at most two groups' x tiles, and W column tiles in proportion to
+        # the token tiles its groups have
+        rows = min(min(gm, m_tiles - m // gm * gm) for m, _ in now)
+        assert len({m for m, _ in now}) <= 2 * gm
+        assert len({n for _, n in now}) <= -(-len(now) // rows) + 2
+
+
+def _f32_kernel_constants():
+    """The constants of the fp32 kernel's namespace in csrc/geglu.cu."""
+    import re
+    src = open(os.path.join(_build.CSRC, "geglu.cu")).read()
+    body = src[src.index("namespace f32 {"):src.index("}  // namespace f32")]
+    return {name: int(value) for decl in re.findall(r"constexpr int ([^;]+);", body)
+            for name, value in re.findall(r"(\w+) = (\d+)(?:,|$)", decl)}
+
+
+def test_geglu_f32_shared_memory_fits_a_block():
+    """The ring depth and the shared-memory layout of the 3xTF32 kernel,
+    computed from the source's own constants (``f32::Smem``: per slot x,
+    x_small, W_big and W_small; two 64 x 32 out panels and the biases per
+    consumer warpgroup; two mbarriers per slot; and the 1,024-byte pad that
+    aligns the tiles): they fit the 232,448 bytes an H100 block may have,
+    and one slot more would not. The host's tiles are the source's."""
+    k = _f32_kernel_constants()
+    assert (k["BM"], k["BN"], k["BKC"], k["GROUP_M"]) == (
+        _tma.GEGLU_F32_BM, _tma.GEGLU_F32_BN, _tma.GEGLU_F32_BK, _tma.GEGLU_F32_GROUP_M)
+    assert k["BKC"] * 4 == _tma.SWIZZLE_BYTES        # one swizzled row of fp32
+    assert _tma.GEGLU_F32_OUT_BOX == (64, k["PANEL_COLS"])
+
+    def smem(stages):
+        slot = 2 * k["BM"] * k["BKC"] * 4 + 2 * (2 * k["BN"] * k["BKC"] * 4)
+        panels = 2 * 2 * 64 * k["PANEL_COLS"] * 4
+        return stages * slot + panels + 2 * 2 * k["BN"] * 4 + 2 * stages * 8 + 1024
+
+    assert smem(k["STAGES"]) == 231472 <= 232448 < smem(k["STAGES"] + 1)
+
+
+def _tf32(a):
+    """a rounded to the nearest TF32 value, ties away from zero (cvt.rna):
+    the sign-magnitude bits rounded at bit 13, the low 13 bits cleared."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tc_add(acc, a, b):
+    """acc + a b^T over one 8-channel step, added as a model of the tensor
+    cores' adder: the accumulator and the 8 exact products aligned to the
+    largest of them and cut 3 bits below its fp32 precision, the sum rounded
+    toward zero to fp32."""
+    terms = torch.cat([acc.double()[..., None],
+                       a.double()[:, None, :] * b.double()[None, :, :]], -1)
+    lead = terms.abs().amax(-1, keepdim=True).clamp_min(2.0**-126)
+    q = torch.exp2(torch.floor(torch.log2(lead)) - 26)
+    s = (torch.trunc(terms / q) * q).sum(-1)
+    r = s.float()
+    return torch.where(r.double().abs() > s.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _geglu_tf32_emulated(x, w, b, products, adder):
+    """The fp32 kernel's arithmetic: both operands split into TF32 big and
+    small parts, and per 8 channels the products added in the kernel's
+    order (3: x_small W_big, x_big W_small, x_big W_big; 1: the big product
+    alone). ``adder``: "exact", each product exact and added to fp32
+    accumulators rounded to nearest; "tc_tile", the tensor cores' adder
+    (``_tc_add``) over the whole tile; "tc_slice", the same into a fresh
+    accumulator set per 32-channel slice, added to the tile's fp32 sums
+    rounded to nearest, as the kernel does. The epilogue in fp32."""
+    xb, wb = _tf32(x), _tf32(w)
+    xs, ws = _tf32(x - xb), _tf32(w - wb)
+    pairs = [(xs, wb), (xb, ws), (xb, wb)] if products == 3 else [(xb, wb)]
+    total = torch.zeros((x.shape[0], w.shape[0]), dtype=torch.float32)
+    acc = torch.zeros_like(total)
+    for k in range(0, x.shape[1], 8):
+        for a, bb in pairs:
+            a, bb = a[:, k:k + 8], bb[:, k:k + 8]
+            if adder == "exact":
+                acc = (acc.double() + a.double() @ bb.double().T).float()
+            else:
+                acc = _tc_add(acc, a, bb)
+        if adder == "tc_slice" and (k + 8) % _tma.GEGLU_F32_BK == 0:
+            total, acc = total + acc, torch.zeros_like(acc)
+    h, gate = (total + acc + b).chunk(2, dim=-1)
+    return h * torch.nn.functional.gelu(gate)
+
+
+@pytest.mark.parametrize("c", [320, 1280])
+@pytest.mark.parametrize("products,adder,passes", [
+    (3, "exact", True), (1, "exact", False), (3, "tc_slice", True), (3, "tc_tile", False)],
+    ids=["3xTF32", "1xTF32", "3xTF32-truncating-per-slice", "3xTF32-truncating-per-tile"])
+def test_3xtf32_arithmetic_against_float64(c, products, adder, passes):
+    """Under GEGLU_F32, against the function evaluated in float64 (the
+    reference of the card's fp32 check), at the production channel counts
+    and input scales: the three-product split passes; the TF32 product alone
+    fails by orders of magnitude, so the rule catches a dropped term. With
+    an adder that truncates, as the tensor cores' does, the sums over a
+    whole tile fail (on an H100 the kernel read 5.1 at level 0 without
+    the per-slice sums) and the kernel's per-slice fp32 sums pass."""
+    g = torch.Generator().manual_seed(c)
+    x = torch.randn((128, c), generator=g)
+    w = torch.randn((256, c), generator=g) * c**-0.5
+    b = torch.randn(256, generator=g) * 0.1
+    # TF32 values keep 10 mantissa bits; a tie rounds away from zero
+    assert torch.equal(_tf32(_tf32(x)), _tf32(x))
+    assert (_tf32(x).view(torch.int32) & 0x1FFF).eq(0).all()
+    tie = torch.tensor([1 + 2**-11, -(1 + 2**-11)])
+    assert torch.equal(_tf32(tie), torch.tensor([1 + 2**-10, -(1 + 2**-10)]))
+    want = geglu_plain(x.double(), w.double(), b.double())
+    assert want.dtype == torch.float64
+    ratio = tolerance.worst_ratio(_geglu_tf32_emulated(x, w, b, products, adder), want,
+                                  **tolerance.GEGLU_F32)
+    if passes:
+        assert ratio <= 1.0
+    else:
+        assert ratio > (100.0 if products == 1 else 1.5)
 
 
 @pytest.mark.parametrize("d,route", [(16, "mma"), (32, "mma"), (64, "wgmma"), (128, "mma")])
