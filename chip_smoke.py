@@ -17,8 +17,10 @@ Phases, in order; any failure exits non-zero:
      kernels (flash on the FMA units, GEGLU as 3xTF32 on the tensor cores,
      held to its plain version in float64; TF32 off in every PyTorch
      product), then the backward kernels on
-     each route (bf16 wgmma at head dim 64, mma.sync at 16, 32, 128; fp32),
-     their library time read as the device time of SDPA's backward;
+     each route (bf16 wgmma at head dim 64, mma.sync at 16, 32, 128; fp32:
+     3xTF32 wgmma at head dim 64, FMA at the others, held to the plain
+     version in float64), their library time read as the device time of
+     SDPA's backward; every flash route also with rows of no valid key;
   3. small input: the tiny engine on the card (bf16, kernels) against the
      same weights on the CPU (fp32, plain versions), two sampler steps;
   4. log_images: ``DiffusionEngine3D.log_images`` called directly at full
@@ -234,9 +236,14 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
     """The backward kernel against ``flash_attention_bwd_plain`` on the same
     q, k, v, kernel output, kernel row log-sum-exp and output gradient; the
     kernel's log-sum-exp against the plain forward's. ``fp32``: fp32
-    operands (the fp32 route, ``tol.FLASH_BWD_F32``, the fp32 FMA rate as the
-    bound). ``library_ms`` is SDPA's backward alone on the device (the
-    kernels' time under torch.profiler); ``library_ms_loop`` the same calls
+    operands (the fp32 route, ``tol.FLASH_BWD_F32``), held to the plain
+    version evaluated in float64, with the kernel's ratio against the fp32
+    plain version and the fp32 plain version's against float64 beside it;
+    the bound is three products at the TF32 rate (3xTF32 at head dim 64),
+    ``bound_fma_ms`` the fp32 FMA rate's. A row with ``lens`` 0 attends to
+    every key alike: its dq and dk must be exactly 0. ``library_ms`` is
+    SDPA's backward alone on the device (the kernels' time under
+    torch.profiler); ``library_ms_loop`` the same calls
     timed with CUDA events, and ``library_ms_fwd_bwd_less_fwd`` the older
     reading, which carries autograd's host time."""
     dtype, rule = (torch.float32, tol.FLASH_BWD_F32) if fp32 else (torch.bfloat16, tol.FLASH_BWD)
@@ -259,7 +266,9 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
     if fa.flash_attention_bwd.launches != n0 + 1:
         raise AssertionError("flash_attention_bwd did not launch its kernel")
     route = next(r for r, n in fa.flash_attention_bwd.route_launches.items() if n != routes[r])
-    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=lens)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=lens)
+    want = (fa.flash_attention_bwd_plain(*(t.double() for t in (q, k, v, o, lse, do)),
+                                         kv_lens=lens) if fp32 else plain)
     torch.cuda.synchronize()
     ratios = {n: tol.worst_ratio(a, w, **rule) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
     rec = {"kernel": "flash_attention_bwd", "route": route, "dtype": str(dtype),
@@ -270,16 +279,33 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
            "worst_ratio": ratios, "tol": rule,
            "lse_worst_ratio": tol.worst_ratio(lse, lse_plain, **tol.FLASH_LSE),
            "lse_tol": tol.FLASH_LSE}
+    if fp32:
+        rec["want"] = "flash_attention_bwd_plain in float64"
+        rec["worst_ratio_vs_fp32_plain"] = max(tol.worst_ratio(a, p, **rule)
+                                               for a, p in zip(got, plain))
+        rec["fp32_plain_worst_ratio_vs_f64"] = max(tol.worst_ratio(p, w, **rule)
+                                                   for p, w in zip(plain, want))
+    del want, plain
+    free(torch)
     if lens is not None:
-        dead = (torch.arange(skv, device=dev)[None] >= lens[:, None])
+        # keys past a row's kv_len; a row with none attends to every key
+        dead = (torch.arange(skv, device=dev)[None] >= lens[:, None]) & (lens[:, None] > 0)
         rec["masked_keys_grad_max"] = max(got[1][dead].abs().max().item() if dead.any() else 0.0,
                                           got[2][dead].abs().max().item() if dead.any() else 0.0)
+        empty = lens == 0
+        rec["empty_rows_dq_dk_max"] = max(got[0][empty].abs().max().item() if empty.any() else 0.0,
+                                          got[1][empty].abs().max().item() if empty.any() else 0.0)
     if timed:
         kv_eff = float(lens.sum().item()) / b if lens is not None else skv
         flops = 10.0 * b * h * sq * kv_eff * d
         nbytes = elem * b * h * d * (3 * sq + 2 * kv_eff) + 4.0 * b * h * sq \
             + elem * b * h * d * (sq + 2 * skv)
-        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, PEAK_FP32 if fp32 else PEAK_BF16)
+        if fp32 and d == 64:
+            rec["bound_ms"], rec["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32)
+            rec["bound_fma_ms"], _ = bound(flops, nbytes, PEAK_FP32)
+        else:
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
+                                                     PEAK_FP32 if fp32 else PEAK_BF16)
 
         def kernel():
             return fa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=lens)
@@ -314,7 +340,8 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
         del out
     log(rec)
     if not (max(ratios.values()) <= 1.0 and rec["lse_worst_ratio"] <= 1.0
-            and rec.get("masked_keys_grad_max", 0.0) == 0.0):
+            and rec.get("masked_keys_grad_max", 0.0) == 0.0
+            and rec.get("empty_rows_dq_dk_max", 0.0) == 0.0):
         raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {rec}")
     want_route = "fp32" if fp32 else ("wgmma" if d == 64 else "mma")
     if route != want_route:
@@ -1219,6 +1246,11 @@ def main(kernels_only: bool = False) -> int:
                           merged_kv=True, lens=[1, 129, 128, 512]),
               check_flash(torch, F, fa, tol, dev, 12, 200, 700, 2, 64, timed=False,
                           lens=[1 + 61 * i for i in range(12)])]
+    # rows with no valid key (the mean of V) on each route
+    flash += [check_flash(torch, F, fa, tol, dev, 4, 256, 512, 5, 64, timed=False,
+                          merged_kv=True, lens=[0, 129, 0, 512])]
+    flash += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d, timed=False, lens=[0, 300])
+              for d in (16, 32, 128)]
     for rec in flash:
         want = "wgmma" if rec["shape"]["D"] == 64 else "mma"
         if rec["route"] != want:
@@ -1246,9 +1278,12 @@ def main(kernels_only: bool = False) -> int:
                 check_flash(torch, F, fa, tol, dev, 4, 256, 512, 5, 64, timed=False, fp32=True,
                             merged_kv=True, lens=[1, 129, 128, 512]),
                 check_flash(torch, F, fa, tol, dev, 12, 200, 700, 2, 64, timed=False, fp32=True,
-                            lens=[1 + 61 * i for i in range(12)])]
-    flash32 += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d, timed=False, fp32=True)
-                for d in (16, 32, 128)]
+                            lens=[1 + 61 * i for i in range(12)]),
+                check_flash(torch, F, fa, tol, dev, 4, 256, 512, 5, 64, timed=False, fp32=True,
+                            merged_kv=True, lens=[0, 129, 0, 512])]
+    flash32 += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d, timed=False, fp32=True,
+                            lens=lens)
+                for d in (16, 32, 128) for lens in (None, [0, 300])]
     geglu32 = []
     for tokens, c in ((196608, 320), (49152, 640), (12288, 1280), (3072, 1280)):
         geglu32.append(check_geglu(torch, F, gg, tol, dev, tokens, c, fp32=True))
@@ -1282,6 +1317,11 @@ def main(kernels_only: bool = False) -> int:
                                  lens=[1, 129, 128, 192], fp32=fp32)]
         recs += [check_flash_bwd(torch, F, fa, tol, dev, 2, 200, 400, 2, d, merged_kv=False,
                                  timed=False, fp32=fp32) for d in (16, 32, 64, 128)]
+        # rows with no valid key on each route: dq = dk = 0, dv = sum dO / Skv
+        recs += [check_flash_bwd(torch, F, fa, tol, dev, 2, 100, 70, 3, 64, timed=False,
+                                 lens=[0, 65], fp32=fp32)]
+        recs += [check_flash_bwd(torch, F, fa, tol, dev, 2, 200, 400, 2, d, merged_kv=False,
+                                 timed=False, lens=[0, 300], fp32=fp32) for d in (16, 32, 64, 128)]
         return recs
 
     flash_bwd = bwd_checks(False)
@@ -1358,7 +1398,16 @@ def main(kernels_only: bool = False) -> int:
         summary("flash_attention_bwd", "flash_attention_bwd", flash_bwd_src, flash_tpu, flash_bwd,
                 flash_bwd[0], "train"),
         summary("flash_attention_bwd_fp32", "flash_attention_bwd", flash_bwd_src, flash_tpu,
-                flash_bwd32, flash_bwd32[0], "train_fp32"),
+                flash_bwd32, flash_bwd32[0], "train_fp32",
+                entry="tc::pn_flash_bwd_f32_{dkdv,dq}_tc (3xTF32 wgmma, TMA)",
+                bound_fma_ms=flash_bwd32[0]["bound_fma_ms"],
+                ms_levels=[r["ms"] for r in flash_bwd32[:3]],
+                library_ms_levels=[r["library_ms"] for r in flash_bwd32[:3]],
+                worst_ratio_vs_f64=max(max(r["worst_ratio"].values()) for r in flash_bwd32),
+                worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"]
+                                              for r in flash_bwd32),
+                fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
+                                                  for r in flash_bwd32)),
         summary("geglu_bwd", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd, geglu_bwd[0],
                 "train")]})
     log(card)

@@ -48,6 +48,12 @@
 // (flash_attention_bwd.cu) recompute the probabilities from: fp32, (B, H, Sq),
 // base 2 of the scaled scores, lse = max * scale * log2(e) + log2(sum). The
 // pointer is null on the sampling path, which then stores nothing more.
+//
+// A row with kv_lens 0 attends to all Skv keys with every score 0
+// (pn::row_keys; the score scale set to 0, or in pn_flash_fwd a Q tile of
+// zeros): each probability is 1 / Skv, the output the mean of V and lse =
+// log2(Skv), the answer of the reference, whose empty row masks every score
+// alike.
 
 #include "hopper.cuh"
 
@@ -128,8 +134,11 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
   // share one head's K and V are neighbours in launch order
   const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
   const int h = bh % heads, b = bh / heads;
-  // lengths are >= 1 by contract; the clamp keeps a bad one from stalling the block
-  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  // an empty row (kv_lens 0) attends to every key with scores 0 (pn::row_keys):
+  // its Q tile is loaded from past Sq, which TMA fills with zeros; the scale
+  // stays, so that keys past Skv keep their mask
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  const int q_row0 = pn::empty_row(kv_lens, b) ? sq : qt * BQ;
   const int n_tiles = (row_len + BK - 1) / BK;
   const int group = threadIdx.x >> 7;
 
@@ -150,7 +159,7 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     pn::setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
       pn::mbar_arrive_expect_tx(&sm.q_full, BQ * D * 2);
-      pn::tma_load_4d(sm.q, &q_map, &sm.q_full, 0, h, qt * BQ, b);
+      pn::tma_load_4d(sm.q, &q_map, &sm.q_full, 0, h, q_row0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES, free_parity = ((j / STAGES) & 1) ^ 1;
         pn::mbar_wait(&sm.k_empty[s], free_parity);
@@ -340,7 +349,8 @@ pn_flash_mma_fwd(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int b = bh / heads, h = bh % heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int row_len = kv_lens ? min(kv_lens[b], skv) : skv;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
 
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
   const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
@@ -595,7 +605,8 @@ pn_flash_f32_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
   const int h = bh % heads, b = bh / heads;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
 
   const float* qb = q + b * q_sb + h * q_sh;
   const float* kb = k + b * k_sb + h * k_sh;

@@ -1,6 +1,7 @@
 // Flash attention backward for Hopper (sm_90a): dq, dk, dv of
 // softmax(q k^T * scale) v, in the operands' type: bf16 on the tensor cores
-// (fp32 accumulation), or fp32 on the FMA units.
+// (fp32 accumulation), or fp32: 3xTF32 on the tensor cores at head dim 64,
+// the FMA units at the others.
 //
 // The gradient of the Pallas TPU kernel panacea_tpu/ops/flash_attention.py
 // (_flash_kernel, :33-86; its pallas_call in flash_attention, :236). That
@@ -19,13 +20,14 @@
 // 2 B H D (4 Sq + 4 Skv) bytes (q, o, dO and dq; k, v, dk and dv, bf16): at
 // the main path's shapes (Skv = 2 Sq, D = 64) 0.83 Sq flops per byte, above
 // the card's ~295 flop/byte ridge at levels 0 and 1 (Sq 2048, 512), below it
-// at level 2 (Sq 128). In fp32 the same flops run at the FMA rate (67
-// TFLOP/s), 15 times the bf16 bound and far above the time to move the bytes.
+// at level 2 (Sq 128). In fp32 each product is three TF32 products (495
+// TFLOP/s), 6 times the bf16 bound and far above the time to move the bytes;
+// on the FMA units (67 TFLOP/s) 15 times.
 //
 // Every route keeps FA2's deterministic form, with no atomics: Delta in a
 // pre-pass, dk and dv from blocks over key tiles, dq from blocks over query
 // tiles (S and dP are computed in both passes), so the same inputs give the
-// same bits. Three routes, chosen by the wrapper (ops/flash_attention.py) by
+// same bits. Four routes, chosen by the wrapper (ops/flash_attention.py) by
 // type and head dim:
 //
 // wg (bf16, D = 64, the production head dim): TMA + wgmma, two passes.
@@ -73,15 +75,46 @@
 //  - dQ: one block of 4 warps per (64 query rows, head, batch row) over the
 //    key tiles below kv_len.
 //
-// f32 (fp32, D = 16, 32, 64, 128): the layout of the fp32 forward
+// tc (fp32, D = 64, the production head dim): the five products on the
+// tensor cores as 3xTF32 (pn::tf32_split: each operand a big and a small
+// TF32 part, the three larger of the four products summed), which keeps fp32
+// accuracy, with TMA loads (fp32 tensor maps, 128-byte swizzle) and two
+// passes, as wg. Bound: 3 x 14 B H Sq Skv D flops at the TF32 rate.
+//  - TF32 wgmma takes both shared-memory operands K-major. S^T = K Q^T,
+//    dP^T = V dO^T, S and dP are K-major as loaded; dV = P^T dO, dK = dS^T Q
+//    and dQ = dS K contract over the tile rows, so the consumers write
+//    transposed split copies of dO, Q and K (64 rows of d) while they split
+//    each tile. P^T, dS^T and dS are the register A operands; a TF32 k8 A
+//    fragment holds columns t and t + 4 where the accumulator holds 2t and
+//    2t + 1, so the transposed copies permute the rows within each 8 to match
+//    (perm_col) instead of shuffling registers.
+//  - The tensor cores' adder truncates: each 16 channels of S and dP go to a
+//    fresh accumulator set (one set over all 64 left dk of a row with one
+//    valid key, where dS = P (dP - Delta) is rounding noise, at 1.8 times
+//    the rule), and each 32-row tile's dV, dK and dQ to a fresh set; the
+//    threads add the sets to fp32 sums rounded to nearest.
+//  - dK/dV pass: one block per (64 keys, head, batch row), K and V resident
+//    and split; two warpgroups, each with its own 2-slot ring of 32-row Q and
+//    dO tiles (its thread 0 issues the loads), take the query tiles in turn
+//    and own all 64 keys (m64n32 products for S^T and dP^T, m64n64 for dV and
+//    dK); warpgroup 1's sums reach warpgroup 0 through shared memory at the
+//    end, added in a fixed order. dQ pass: the same per (64 query rows, head,
+//    batch row) over the 32-key tiles below kv_len. No atomics: the same
+//    inputs give the same bits.
+//
+// f32 (fp32, D = 16, 32, 128): the layout of the fp32 forward
 // (pn_flash_f32_fwd): 64 x 64 tiles, 256 threads as 16 x 16, each owning a
 // 4 x 4 tile of scores, rows padded by 4 floats so that the 16-byte reads
 // fall on distinct banks. No tensor cores, no TF32, no bf16 anywhere; P and
-// dS pass through shared memory in fp32 between the products.
+// dS pass through shared memory in fp32 between the products. No main-path
+// call has these head dims.
 //
 // Masking, the same in every route: a padded query row (past Sq) has lse =
 // +inf, so P = exp2(x - inf) = 0 whatever its zero-filled operands give; a
-// key past the row's kv_len gets P = 0, so its dK and dV are exactly 0.
+// key past the row's kv_len gets P = 0, so its dK and dV are exactly 0. A
+// row with kv_lens 0 attends to all Skv keys at scale 0 (pn::row_keys): P =
+// exp2(0 - lse) = 1 / Skv gives the reference's dv = sum over queries of
+// dO / Skv, and dq and dk, scaled by 0, are exactly 0.
 
 #include "hopper.cuh"
 
@@ -272,7 +305,9 @@ pn_flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
   const int key0 = blockIdx.x * BT;
   const long long o_ss = static_cast<long long>(heads) * D;  // row stride of (B, S, H, D)
   __nv_bfloat16* dkb = dk + (static_cast<long long>(b) * skv * heads + h) * D;
@@ -346,7 +381,9 @@ pn_flash_bwd_dq(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
   const int q0 = blockIdx.x * BT;
   const long long o_ss = static_cast<long long>(heads) * D;
 
@@ -511,7 +548,9 @@ pn_flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap q_map,
   // stream one head's Q and dO are neighbours in launch order
   const int kt = blockIdx.x % k_tiles, bh = blockIdx.x / k_tiles;
   const int h = bh % heads, b = bh / heads;
-  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
   const int key0 = kt * KB;
   const long long o_ss = static_cast<long long>(heads) * D;  // row stride of (B, S, H, D)
   __nv_bfloat16* dkb = dk + (static_cast<long long>(b) * skv * heads + h) * D;
@@ -695,7 +734,9 @@ pn_flash_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
   // blockIdx.x = (batch * heads + head) * q_tiles + query tile, as the forward
   const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
   const int h = bh % heads, b = bh / heads;
-  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
   const int n_tiles = (row_len + KT - 1) / KT;
   const int group = threadIdx.x >> 7;
 
@@ -867,7 +908,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 }  // namespace wg
 
-// --------------------------------------------- fp32, D = 16, 32, 64, 128
+// ------------------------------------------------- fp32, D = 16, 32, 128
 
 namespace f32 {
 
@@ -1040,7 +1081,9 @@ pn_flash_bwd_f32_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   const int kt = blockIdx.x % k_tiles, bh = blockIdx.x / k_tiles;
   const int h = bh % heads, b = bh / heads;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
   const int key0 = kt * BT;
   const long long o_ss = static_cast<long long>(heads) * D;
 
@@ -1116,7 +1159,9 @@ pn_flash_bwd_f32_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
   const int h = bh % heads, b = bh / heads;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int row_len = kv_lens ? max(1, min(kv_lens[b], skv)) : skv;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
   const int q0 = qt * BT;
   const long long o_ss = static_cast<long long>(heads) * D;
 
@@ -1206,6 +1251,521 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 }  // namespace f32
 
+// ------------------------------------------- fp32 on the tensor cores, D = 64
+
+namespace tc {
+
+constexpr int D = 64;
+constexpr int KB = 64;         // keys per dK/dV block
+constexpr int QB = 64;         // query rows per dQ block
+constexpr int T = 32;          // rows per streamed tile: queries (dK/dV) or keys (dQ)
+constexpr int STAGES = 2;      // ring slots of each warpgroup
+constexpr int NTHREADS = 256;  // two consumer warpgroups; thread 0 of each issues its loads
+constexpr int PANEL = 32;      // fp32 values of one 128-byte swizzled row
+constexpr int TILE = T * D;    // floats of a streamed tile, and of a transposed one
+
+// Float offset of (row, col) in a panel of 128-byte rows laid down with the
+// 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r % 8).
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * PANEL + ((((col >> 2) ^ (row & 7)) << 2) | (col & 3));
+}
+
+// The contraction index of the transposed copies is permuted within each 8:
+// the register A operand of a k8 step holds k = t and t + 4 of a row where
+// the accumulator holds columns 2t and 2t + 1, so logical k = 8 n + j holds
+// tile row 8 n + (0 2 4 6 1 3 5 7)[j]. This is the logical k of tile row r.
+__device__ __forceinline__ int perm_col(int r) {
+  const int a = r & 7;
+  return (r & ~7) | (a >> 1) | ((a & 1) << 2);
+}
+
+struct KvSmem {
+  float k[2][KB * D];  // K as loaded, split in place into K_big; K_small
+  float v[2][KB * D];
+  struct Group {
+    float raw[STAGES][2][TILE];  // per slot Q and dO as loaded, split in place into big parts
+    float small[2][TILE];        // Q_small, dO_small
+    float tr[2][2][TILE];        // Q^T and dO^T (64 rows of d), each big and small
+  } wg[2];
+  uint64_t kv_full;
+  uint64_t full[2][STAGES];
+};
+
+struct QSmem {
+  float q[2][QB * D];  // Q as loaded, split in place into Q_big; Q_small
+  float d_o[2][QB * D];
+  struct Group {
+    float raw[STAGES][2][TILE];  // per slot K and V as loaded, split in place
+    float small[2][TILE];        // K_small, V_small
+    float tr[2][TILE];           // K^T big and small
+  } wg[2];
+  uint64_t q_full;
+  uint64_t full[2][STAGES];
+};
+
+constexpr int KV_SMEM_BYTES = sizeof(KvSmem) + pn::SWIZZLE_ATOM;  // room to align
+constexpr int Q_SMEM_BYTES = sizeof(QSmem) + pn::SWIZZLE_ATOM;
+static_assert(KV_SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
+static_assert(Q_SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
+
+// rows [row0, row0 + rows) of one head of a (B, S, H, 64) fp32 tensor into a
+// tile of two 32-column panels, in 32-row boxes; rows past S arrive as zeros
+__device__ __forceinline__ void load_rows(float* dst, int rows, const CUtensorMap* map,
+                                          uint64_t* bar, int h, int row0, int b) {
+  for (int p = 0; p < 2; ++p)
+    for (int r = 0; r < rows; r += T)
+      pn::tma_load_4d(dst + p * rows * PANEL + r * PANEL, map, bar, p * PANEL, h, row0 + r, b);
+}
+
+__device__ __forceinline__ void split4(const float4 v, float4& hi, float4& lo) {
+  pn::tf32_split(v.x, hi.x, lo.x);
+  pn::tf32_split(v.y, hi.y, lo.y);
+  pn::tf32_split(v.z, hi.z, lo.z);
+  pn::tf32_split(v.w, hi.w, lo.w);
+}
+
+// A resident tile of `n` floats split in place into its big part, the small
+// part beside it at the same offsets (so the swizzle needs no care)
+__device__ __forceinline__ void split_flat(float* big, float* small, int n) {
+  float4* b4 = reinterpret_cast<float4*>(big);
+  float4* s4 = reinterpret_cast<float4*>(small);
+  for (int i = threadIdx.x; i < n / 4; i += NTHREADS) {
+    float4 hi, lo;
+    split4(b4[i], hi, lo);
+    b4[i] = hi;
+    s4[i] = lo;
+  }
+}
+
+// A streamed (32 x 64) tile, by one warpgroup: split in place, the small part
+// beside it and, with TRANSPOSE, the transposed copy (64 rows of d, the tile
+// rows permuted by perm_col), big and small. Lane = tile row, and warp w
+// takes the 16-byte chunks 4 w .. 4 w + 3 of it, so that the reads and the
+// transposed writes of a warp fall on distinct banks.
+template <bool TRANSPOSE>
+__device__ __forceinline__ void split_tile(float* raw, float* small, float* tr_big,
+                                           float* tr_small, int warp, int lane) {
+  const int jj = perm_col(lane);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int c = warp * 4 + e;  // columns 4 c .. 4 c + 3, in panel c / 8
+    const int off = (c >> 3) * T * PANEL + swz(lane, (c & 7) * 4);
+    float4 hi, lo;
+    split4(*reinterpret_cast<const float4*>(raw + off), hi, lo);
+    *reinterpret_cast<float4*>(raw + off) = hi;
+    *reinterpret_cast<float4*>(small + off) = lo;
+    if constexpr (TRANSPOSE) {
+      const float hs[4] = {hi.x, hi.y, hi.z, hi.w}, ls[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tr_big[swz(c * 4 + i, jj)] = hs[i];
+        tr_small[swz(c * 4 + i, jj)] = ls[i];
+      }
+    }
+  }
+}
+
+// acc (64 x 32) = A (64 x 64) B^T (B: 32 x 64), both K-major in two 32-column
+// panels (`a_panel`, `b_panel`: bytes from one panel to the next), each as
+// big and small parts: 8 k-steps of three products, every 16 channels into
+// a fresh accumulator set (SETS of them), which sum_sets adds. Not committed.
+constexpr int SETS = D / 16;
+__device__ __forceinline__ void product_nt(float (&acc)[SETS][16], uint32_t a_big,
+                                           uint32_t a_small, int a_panel, uint32_t b_big,
+                                           uint32_t b_small, int b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    float(&set)[16] = acc[kk / 2];
+    const int ao = (kk >> 2) * a_panel + (kk & 3) * 32, bo = (kk >> 2) * b_panel + (kk & 3) * 32;
+    pn::wgmma_m64n32k8_tf32_ss(set, pn::smem_desc(a_small + ao), pn::smem_desc(b_big + bo),
+                               kk & 1);
+    pn::wgmma_m64n32k8_tf32_ss(set, pn::smem_desc(a_big + ao), pn::smem_desc(b_small + bo), 1);
+    pn::wgmma_m64n32k8_tf32_ss(set, pn::smem_desc(a_big + ao), pn::smem_desc(b_big + bo), 1);
+  }
+}
+
+// the sets of product_nt added in order, rounded to nearest
+__device__ __forceinline__ void sum_sets(float (&out)[16], const float (&acc)[SETS][16]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    out[j] = acc[0][j];
+#pragma unroll
+    for (int c = 1; c < SETS; ++c) out[j] += acc[c][j];
+  }
+}
+
+// acc (64 x 64) = A (64 x 32; big and small parts in registers, four k8
+// steps) times a transposed tile (64 rows x 32, big and small), in a fresh
+// accumulator set. Not committed.
+__device__ __forceinline__ void product_rs(float (&acc)[32], const uint32_t (&a_big)[4][4],
+                                           const uint32_t (&a_small)[4][4], uint32_t b_big,
+                                           uint32_t b_small) {
+#pragma unroll
+  for (int kk = 0; kk < T / 8; ++kk) {
+    pn::wgmma_m64n64k8_tf32_rs(acc, a_small[kk], pn::smem_desc(b_big + kk * 32), kk > 0);
+    pn::wgmma_m64n64k8_tf32_rs(acc, a_big[kk], pn::smem_desc(b_small + kk * 32), 1);
+    pn::wgmma_m64n64k8_tf32_rs(acc, a_big[kk], pn::smem_desc(b_big + kk * 32), 1);
+  }
+}
+
+// x (64 x 32 in the accumulator layout) as the big and small TF32 parts of
+// the register A operands of four k8 steps: a[0], a[1] the rows g, g + 8 at
+// column 2t (logical k = t), a[2], a[3] at column 2t + 1 (k = t + 4)
+__device__ __forceinline__ void to_a(const float (&x)[16], uint32_t (&big)[4][4],
+                                     uint32_t (&small)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float hi, lo;
+      pn::tf32_split(x[kk * 4 + (e == 1 ? 2 : e == 2 ? 1 : e)], hi, lo);
+      big[kk][e] = __float_as_uint(hi);
+      small[kk][e] = __float_as_uint(lo);
+    }
+}
+
+// The (64 x 64) sums of warpgroup 1 go through shared memory (`red`, 32 KB)
+// to warpgroup 0, which adds them to its own, always in this order, and
+// writes its rows r0, r0 + 8 (those below `rows`) of a (B, S, H, 64) fp32
+// tensor, times `scale`.
+__device__ __forceinline__ void reduce_write(float* red, float (&sum)[32], int group, int tid,
+                                             float* base, long long row_stride, float scale,
+                                             int r0, int rows, int t) {
+  if (group == 1) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) red[i * 128 + tid] = sum[i];
+  }
+  __syncthreads();
+  if (group == 0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sum[i] += red[i * 128 + tid];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row < rows) {
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<float2*>(base + row * row_stride + n * 8 + t * 2) =
+              make_float2(sum[n * 4 + r * 2] * scale, sum[n * 4 + r * 2 + 1] * scale);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+pn_flash_bwd_f32_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map, const float* __restrict__ lse,
+                         const float* __restrict__ delta, float* __restrict__ dk,
+                         float* __restrict__ dv, const int* __restrict__ kv_lens, int heads,
+                         int sq, int skv, int k_tiles, float scale, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  KvSmem& sm = *reinterpret_cast<KvSmem*>(pn::align_smem(smem_raw));
+
+  // blockIdx.x = (batch * heads + head) * k_tiles + key tile
+  const int kt = blockIdx.x % k_tiles, bh = blockIdx.x / k_tiles;
+  const int h = bh % heads, b = bh / heads;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
+  const int key0 = kt * KB;
+  const int group = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // a block whose keys all lie past kv_len streams one tile, all masked; the
+  // warpgroups take the query tiles in turn: group, group + 2, ...
+  const int q_tiles = key0 < row_len ? (sq + T - 1) / T : 1;
+  const int my_tiles = (q_tiles - group + 1) / 2;
+  KvSmem::Group& w = sm.wg[group];
+
+  auto load = [&](int i) {  // this warpgroup's tile i (by its thread 0)
+    const int s = i % STAGES, row0 = (group + 2 * i) * T;
+    pn::mbar_arrive_expect_tx(&sm.full[group][s], 2 * TILE * 4);
+    load_rows(w.raw[s][0], T, &q_map, &sm.full[group][s], h, row0, b);
+    load_rows(w.raw[s][1], T, &do_map, &sm.full[group][s], h, row0, b);
+  };
+  if (threadIdx.x == 0) {
+    pn::mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      pn::mbar_init(&sm.full[0][s], 1);
+      pn::mbar_init(&sm.full[1][s], 1);
+    }
+    pn::mbar_init_fence();
+    pn::mbar_arrive_expect_tx(&sm.kv_full, 2 * KB * D * 4);
+    load_rows(sm.k[0], KB, &k_map, &sm.kv_full, h, key0, b);
+    load_rows(sm.v[0], KB, &v_map, &sm.kv_full, h, key0, b);
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < min(STAGES, my_tiles); ++i) load(i);
+  pn::mbar_wait(&sm.kv_full, 0);
+  split_flat(sm.k[0], sm.k[1], KB * D);
+  split_flat(sm.v[0], sm.v[1], KB * D);
+  pn::tma_store_fence();  // the writes are seen by wgmma (the async proxy)
+  __syncthreads();
+
+  // both warpgroups own the block's 64 keys; this thread's are kr0, kr0 + 8
+  const int kr0 = key0 + warp * 16 + g;
+  const bool key_ok[2] = {kr0 < row_len, kr0 + 8 < row_len};
+  const uint32_t kb = pn::smem_u32(sm.k[0]), ks = pn::smem_u32(sm.k[1]);
+  const uint32_t vb = pn::smem_u32(sm.v[0]), vs = pn::smem_u32(sm.v[1]);
+  const float* lse_b = lse + static_cast<long long>(bh) * sq;
+  const float* delta_b = delta + static_cast<long long>(bh) * sq;
+  float dk_sum[32], dv_sum[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_sum[i] = dv_sum[i] = 0.f;
+
+  for (int i = 0; i < my_tiles; ++i) {
+    const int st = i % STAGES, q0 = (group + 2 * i) * T;
+    pn::mbar_wait(&sm.full[group][st], (i / STAGES) & 1);
+    split_tile<true>(w.raw[st][0], w.small[0], w.tr[0][0], w.tr[0][1], warp, lane);
+    split_tile<true>(w.raw[st][1], w.small[1], w.tr[1][0], w.tr[1][1], warp, lane);
+    pn::tma_store_fence();
+    pn::group_sync(group);
+
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x 32 queries)
+    float s_sets[SETS][16], dp_sets[SETS][16];
+    pn::wgmma_fence();
+    product_nt(s_sets, kb, ks, KB * 128, pn::smem_u32(w.raw[st][0]), pn::smem_u32(w.small[0]),
+               T * 128);
+    product_nt(dp_sets, vb, vs, KB * 128, pn::smem_u32(w.raw[st][1]), pn::smem_u32(w.small[1]),
+               T * 128);
+    pn::wgmma_commit();
+    // the lse (+inf past Sq) and Delta of this thread's queries q0 + 8 n + 2 t + e
+    float ls[8], dl[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qr = q0 + (j >> 1) * 8 + t * 2 + (j & 1), qc = min(qr, sq - 1);
+      ls[j] = qr < sq ? lse_b[qc] : pos_inf();
+      dl[j] = qr < sq ? delta_b[qc] : 0.f;
+    }
+    pn::wgmma_wait<0>();
+    pn::pin(s_sets);
+    pn::pin(dp_sets);
+    float s[16], dp[16];
+    sum_sets(s, s_sets);
+    sum_sets(dp, dp_sets);
+
+    // P^T and dS^T in place; a masked key selects the exponent -inf
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = (j >> 2) * 2 + (j & 1);
+      const float pe = wg::ex2(key_ok[(j >> 1) & 1] ? fmaf(s[j], scale_log2, -ls[c])
+                                                     : wg::neg_inf());
+      s[j] = pe;
+      dp[j] = pe * (dp[j] - dl[c]);
+    }
+    uint32_t p_big[4][4], p_small[4][4], ds_big[4][4], ds_small[4][4];
+    to_a(s, p_big, p_small);
+    to_a(dp, ds_big, ds_small);
+
+    // dV += P^T dO and dK += dS^T Q, each tile's into a fresh set that the
+    // threads add to the sums, rounded to nearest
+    float acc_v[32], acc_k[32];
+    pn::wgmma_fence();
+    product_rs(acc_v, p_big, p_small, pn::smem_u32(w.tr[1][0]), pn::smem_u32(w.tr[1][1]));
+    product_rs(acc_k, ds_big, ds_small, pn::smem_u32(w.tr[0][0]), pn::smem_u32(w.tr[0][1]));
+    pn::wgmma_commit();
+    pn::wgmma_wait<0>();
+    pn::pin(acc_v);
+    pn::pin(acc_k);
+    pn::pin(p_big);
+    pn::pin(p_small);
+    pn::pin(ds_big);
+    pn::pin(ds_small);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      dv_sum[j] += acc_v[j];
+      dk_sum[j] += acc_k[j];
+    }
+    pn::group_sync(group);  // every warp is done with the slot and the derived tiles
+    if (tid == 0 && i + STAGES < my_tiles) load(i + STAGES);
+    __syncwarp();
+  }
+
+  // keys past the row's length get zeros; rows past Skv are not written
+  const long long o_ss = static_cast<long long>(heads) * D;
+  const long long base = (static_cast<long long>(b) * skv * heads + h) * D;
+  float* red = &sm.wg[0].raw[0][0][0];  // 32 KB, free once both warpgroups are done
+  __syncthreads();
+  reduce_write(red, dv_sum, group, tid, dv + base, o_ss, 1.f, kr0, skv, t);
+  reduce_write(red, dk_sum, group, tid, dk + base, o_ss, scale, kr0, skv, t);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+pn_flash_bwd_f32_dq_tc(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap do_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, const float* __restrict__ lse,
+                       const float* __restrict__ delta, float* __restrict__ dq,
+                       const int* __restrict__ kv_lens, int heads, int sq, int skv, int q_tiles,
+                       float scale, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  QSmem& sm = *reinterpret_cast<QSmem*>(pn::align_smem(smem_raw));
+
+  // blockIdx.x = (batch * heads + head) * q_tiles + query tile
+  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int h = bh % heads, b = bh / heads;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
+  const int group = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // the key tiles below kv_len, taken in turn by the warpgroups
+  const int n_tiles = (row_len + T - 1) / T;
+  const int my_tiles = (n_tiles - group + 1) / 2;
+  QSmem::Group& w = sm.wg[group];
+
+  auto load = [&](int i) {  // this warpgroup's key tile i (by its thread 0)
+    const int s = i % STAGES, row0 = (group + 2 * i) * T;
+    pn::mbar_arrive_expect_tx(&sm.full[group][s], 2 * TILE * 4);
+    load_rows(w.raw[s][0], T, &k_map, &sm.full[group][s], h, row0, b);
+    load_rows(w.raw[s][1], T, &v_map, &sm.full[group][s], h, row0, b);
+  };
+  if (threadIdx.x == 0) {
+    pn::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      pn::mbar_init(&sm.full[0][s], 1);
+      pn::mbar_init(&sm.full[1][s], 1);
+    }
+    pn::mbar_init_fence();
+    pn::mbar_arrive_expect_tx(&sm.q_full, 2 * QB * D * 4);
+    load_rows(sm.q[0], QB, &q_map, &sm.q_full, h, qt * QB, b);
+    load_rows(sm.d_o[0], QB, &do_map, &sm.q_full, h, qt * QB, b);
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < min(STAGES, my_tiles); ++i) load(i);
+  pn::mbar_wait(&sm.q_full, 0);
+  split_flat(sm.q[0], sm.q[1], QB * D);
+  split_flat(sm.d_o[0], sm.d_o[1], QB * D);
+  pn::tma_store_fence();
+  __syncthreads();
+
+  // both warpgroups own the block's 64 rows; this thread's are r0, r0 + 8
+  const int r0 = qt * QB + warp * 16 + g;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    row_lse[r] = row < sq ? lse[static_cast<long long>(bh) * sq + row] : pos_inf();
+    row_delta[r] = row < sq ? delta[static_cast<long long>(bh) * sq + row] : 0.f;
+  }
+  const uint32_t qb = pn::smem_u32(sm.q[0]), qs = pn::smem_u32(sm.q[1]);
+  const uint32_t ob = pn::smem_u32(sm.d_o[0]), os = pn::smem_u32(sm.d_o[1]);
+  float dq_sum[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_sum[i] = 0.f;
+
+  for (int i = 0; i < my_tiles; ++i) {
+    const int st = i % STAGES, key0 = (group + 2 * i) * T;
+    pn::mbar_wait(&sm.full[group][st], (i / STAGES) & 1);
+    split_tile<true>(w.raw[st][0], w.small[0], w.tr[0], w.tr[1], warp, lane);
+    split_tile<false>(w.raw[st][1], w.small[1], nullptr, nullptr, warp, lane);
+    pn::tma_store_fence();
+    pn::group_sync(group);
+
+    // S = Q K^T and dP = dO V^T (64 rows x 32 keys)
+    float s_sets[SETS][16], dp_sets[SETS][16];
+    pn::wgmma_fence();
+    product_nt(s_sets, qb, qs, QB * 128, pn::smem_u32(w.raw[st][0]), pn::smem_u32(w.small[0]),
+               T * 128);
+    product_nt(dp_sets, ob, os, QB * 128, pn::smem_u32(w.raw[st][1]), pn::smem_u32(w.small[1]),
+               T * 128);
+    pn::wgmma_commit();
+    pn::wgmma_wait<0>();
+    pn::pin(s_sets);
+    pn::pin(dp_sets);
+    float s[16], dp[16];
+    sum_sets(s, s_sets);
+    sum_sets(dp, dp_sets);
+
+    // dS in place; keys from row_len on select the exponent -inf
+    const int limit = row_len - key0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int r = (j >> 1) & 1, col = (j >> 2) * 8 + t * 2 + (j & 1);
+      const float pe =
+          wg::ex2(col < limit ? fmaf(s[j], scale_log2, -row_lse[r]) : wg::neg_inf());
+      dp[j] = pe * (dp[j] - row_delta[r]);
+    }
+    uint32_t ds_big[4][4], ds_small[4][4];
+    to_a(dp, ds_big, ds_small);
+
+    // dQ += dS K, the tile's into a fresh set added to the sums
+    float acc[32];
+    pn::wgmma_fence();
+    product_rs(acc, ds_big, ds_small, pn::smem_u32(w.tr[0]), pn::smem_u32(w.tr[1]));
+    pn::wgmma_commit();
+    pn::wgmma_wait<0>();
+    pn::pin(acc);
+    pn::pin(ds_big);
+    pn::pin(ds_small);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) dq_sum[j] += acc[j];
+    pn::group_sync(group);  // every warp is done with the slot and the derived tiles
+    if (tid == 0 && i + STAGES < my_tiles) load(i + STAGES);
+    __syncwarp();
+  }
+
+  __syncthreads();
+  reduce_write(&sm.wg[0].raw[0][0][0], dq_sum, group, tid,
+               dq + (static_cast<long long>(b) * sq * heads + h) * D,
+               static_cast<long long>(heads) * D, scale, r0, sq, t);
+}
+
+// maps: four specs of 12 values (dims, byte strides, boxes of the 4-D fp32
+// views of q, dO, k and v with 32 x 32 boxes, innermost first), as
+// pn::encode_map takes them
+int launch(const void* q, const void* k, const void* v, const void* o, const void* d_o,
+           const void* lse, void* delta, void* dq, void* dk, void* dv, const void* kv_lens,
+           int batch, int heads, int sq, int skv, const long long* maps, float scale,
+           cudaStream_t stream) {
+  static const cudaError_t attr_kv = cudaFuncSetAttribute(
+      pn_flash_bwd_f32_dkdv_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM_BYTES);
+  static const cudaError_t attr_q = cudaFuncSetAttribute(
+      pn_flash_bwd_f32_dq_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM_BYTES);
+  if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
+  if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
+  if (!maps) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, do_map, k_map, v_map;
+  const void* bases[4] = {q, d_o, k, v};
+  CUtensorMap* out[4] = {&q_map, &do_map, &k_map, &v_map};
+  for (int i = 0; i < 4; ++i) {
+    const int err = pn::encode_map(out[i], bases[i], 4, maps + 12 * i,
+                                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+    if (err) return err;
+  }
+  const long long bh = static_cast<long long>(batch) * heads;
+  const int k_tiles = (skv + KB - 1) / KB, q_tiles = (sq + QB - 1) / QB;
+  if (bh < 1 || bh * k_tiles > 2147483647LL || bh * q_tiles > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const long long rows = bh * sq;
+  f32::pn_flash_bwd_f32_delta<D><<<static_cast<unsigned>((rows * (D / 4) + 255) / 256), 256, 0,
+                                   stream>>>(static_cast<const float*>(o),
+                                             static_cast<const float*>(d_o),
+                                             static_cast<float*>(delta), heads, sq, rows);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  pn_flash_bwd_f32_dkdv_tc<<<static_cast<unsigned>(bh * k_tiles), NTHREADS, KV_SMEM_BYTES,
+                             stream>>>(
+      q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<const int*>(kv_lens), heads, sq, skv, k_tiles, scale, scale_log2);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  pn_flash_bwd_f32_dq_tc<<<static_cast<unsigned>(bh * q_tiles), NTHREADS, Q_SMEM_BYTES,
+                           stream>>>(
+      q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq),
+      static_cast<const int*>(kv_lens), heads, sq, skv, q_tiles, scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, k, v: bf16 (B, S, H, D) views, strides {q_b, q_s, q_h, k_b, k_s, k_h,
@@ -1231,19 +1791,20 @@ extern "C" int pn_flash_attention_bwd_bf16(const void* q, const void* k, const v
   }
 }
 
-// The fp32 entry: the same arguments less the tensor maps; every tensor is
-// fp32, strides in elements of fp32 (multiples of 4, 16 bytes).
+// The fp32 entry: the same arguments; every tensor is fp32, strides in
+// elements of fp32 (multiples of 4, 16 bytes). maps: the tensor-map specs of
+// tc::launch, used at d = 64 (null otherwise).
 extern "C" int pn_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                           const void* o, const void* d_o, const void* lse,
                                           void* delta, void* dq, void* dk, void* dv,
                                           const void* kv_lens, int batch, int heads, int sq,
-                                          int skv, int d, const long long* strides, float scale,
-                                          void* stream) {
+                                          int skv, int d, const long long* strides,
+                                          const long long* maps, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 64: return tc::launch(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, maps, scale, s);
     case 16: return f32::launch<16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
     case 32: return f32::launch<32>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
-    case 64: return f32::launch<64>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
     case 128: return f32::launch<128>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -203,6 +203,12 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+template <int N, int M>
+__device__ __forceinline__ void pin(float (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) pin(r[i]);
+}
+
 // The same for register A operands (bf16 pairs) that an asynchronous wgmma
 // reads: pinned after its wait, they stay live (and unchanged) until then.
 template <int N>
@@ -229,6 +235,24 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
 // Descriptor moved on by `bytes` (a multiple of 16) inside its tile.
 __device__ __forceinline__ uint64_t desc_advance(uint64_t desc, int bytes) {
   return desc + static_cast<uint64_t>(bytes >> 4);
+}
+
+// The keys batch row b of a flash kernel attends to. A row with kv_lens[b]
+// <= 0 is the reference's empty row: every one of its scores is masked alike,
+// so it attends to all Skv keys with equal weight (its output the mean of V,
+// its dq and dk 0). The kernels give it that answer by attending to all Skv
+// keys with the score scale set to 0 (row_scale).
+__device__ __forceinline__ bool empty_row(const int* kv_lens, int b) {
+  return kv_lens && kv_lens[b] <= 0;
+}
+
+__device__ __forceinline__ int row_keys(const int* kv_lens, int b, int skv) {
+  return kv_lens && kv_lens[b] > 0 ? min(kv_lens[b], skv) : skv;
+}
+
+// `scale`, or 0 for an empty row (see row_keys)
+__device__ __forceinline__ float row_scale(const int* kv_lens, int b, float scale) {
+  return empty_row(kv_lens, b) ? 0.f : scale;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -399,6 +423,44 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64], uint64_t
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) = or += A (64 x 8, shared, K-major) * B (32 x 8, shared,
+// K-major), TF32 operands
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t desc_a,
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) = or += A (64 x 8, TF32 in registers) * B (64 x 8, shared,
+// K-major). The A fragment of thread `lane` of warp `w`: a[0] is row
+// 16 w + lane / 4, k = lane % 4; a[1] the row 8 further on; a[2], a[3] the
+// same two rows at k = lane % 4 + 4.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace pn

@@ -23,6 +23,11 @@ FLASH_BQ, FLASH_BK = 128, 128       # query rows per block, keys per tile
 # one v map serve both passes, so the two key counts are equal)
 FLASH_BWD_KB, FLASH_BWD_QT = 128, 64
 FLASH_BWD_QB, FLASH_BWD_KT = 128, FLASH_BWD_KB
+# the fp32 backward on the tensor cores (``tc`` in csrc/flash_attention_bwd.cu):
+# keys per dK/dV block, query rows per dQ block, rows of the tiles each
+# warpgroup streams (the two warpgroups take them in turn), and the box of
+# all four maps (32 fp32 = one swizzled row, by 32 rows)
+FLASH_BWD_F32_KB, FLASH_BWD_F32_QB, FLASH_BWD_F32_T = 64, 64, 32
 GEGLU_BM, GEGLU_BN, GEGLU_BK = 128, 128, 64
 GEGLU_OUT_BOX = (64, 64)            # one consumer warpgroup's rows, half the columns
 # the fp32 (3xTF32) kernel, ``f32`` in csrc/geglu.cu: tile and slot, token
@@ -132,6 +137,32 @@ def flash_bwd_map_specs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (map_spec(q, (1, FLASH_BWD_QT, 1, d)) + map_spec(do, (1, FLASH_BWD_QT, 1, d))
             + map_spec(q, (1, FLASH_BWD_QB, 1, d)) + map_spec(do, (1, FLASH_BWD_QB, 1, d))
             + map_spec(k, (1, FLASH_BWD_KB, 1, d)) + map_spec(v, (1, FLASH_BWD_KB, 1, d)))
+
+
+def flash_bwd_f32_grid(batch: int, heads: int, sq: int, skv: int) -> Tuple[int, int, int, int]:
+    """(key tiles per head, dK/dV blocks, query tiles per head, dQ blocks)
+    of the fp32 tensor-core backward."""
+    k_tiles, q_tiles = -(-skv // FLASH_BWD_F32_KB), -(-sq // FLASH_BWD_F32_QB)
+    return k_tiles, batch * heads * k_tiles, q_tiles, batch * heads * q_tiles
+
+
+def flash_bwd_f32_tiles(n: int, group: int) -> List[int]:
+    """First rows of the streamed tiles warpgroup ``group`` (0 or 1) of the
+    fp32 tensor-core backward takes over ``n`` rows: the two take the
+    32-row tiles in turn. ``n``: Sq in the dK/dV pass (1 for a block whose
+    keys all lie past kv_len: one tile, all masked), the row's valid key
+    count in the dQ pass."""
+    tiles = -(-n // FLASH_BWD_F32_T)
+    return [t * FLASH_BWD_F32_T for t in range(group, tiles, 2)]
+
+
+def flash_bwd_f32_map_specs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor) -> List[int]:
+    """The four maps of the fp32 tensor-core backward, as ``tc::launch``
+    takes them: q, dO, k and v, each with 32-row boxes of one 32-column
+    panel (the tiles are two panels wide)."""
+    box = (1, FLASH_BWD_F32_T, 1, SWIZZLE_BYTES // 4)
+    return map_spec(q, box) + map_spec(do, box) + map_spec(k, box) + map_spec(v, box)
 
 
 def geglu_grid(tokens: int, inner: int, sms: int, fp32: bool = False) -> Tuple[int, int, int]:

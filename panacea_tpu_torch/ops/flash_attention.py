@@ -4,7 +4,11 @@ plain PyTorch version.
 Counterpart of ``panacea_tpu/ops/flash_attention.py`` (the Pallas kernel
 ``_flash_kernel`` and its streamed plain-JAX copy ``_lax_flash``).
 Layout: q (B, Sq, H, D), k and v (B, Skv, H, D) -> (B, Sq, H, D).
-``kv_lens``: optional (B,) int32 valid key counts per batch row (each >= 1).
+``kv_lens``: optional (B,) int32 valid key counts per batch row. A row with
+0 valid keys answers as the reference's (every score masked alike): it
+attends to all Skv keys with equal weight, so its output is the mean of V,
+its dq and dk are 0 and its dv the sum over queries of dO / Skv. Every
+version computes it as a row of Skv keys whose scores are all 0.
 
 On a CPU tensor ``flash_attention`` runs ``flash_attention_plain``. On a
 CUDA tensor it launches a kernel or raises: it never falls back. The
@@ -20,7 +24,8 @@ Gradients: where autograd needs them, ``flash_attention`` goes through a
 ``flash_attention_bwd_plain`` on a CPU tensor, and on a CUDA tensor the
 kernels of ``csrc/flash_attention_bwd.cu``, routed as the forward: bf16 at
 head dim 64 to the wgmma/TMA kernels, at 16, 32 and 128 to the mma.sync
-ones, fp32 to the fp32 kernels (``flash_attention_bwd.launches``,
+ones, fp32 to the fp32 kernels (at head dim 64 on the tensor cores as
+3xTF32, TMA; at the others on the FMA units) (``flash_attention_bwd.launches``,
 ``flash_attention_bwd.route_launches``). The Pallas kernel has no VJP; the
 JAX trainer differentiates its plain form (``_lax_flash``), and that is the
 gradient computed here.
@@ -42,13 +47,26 @@ HEAD_DIMS = (16, 32, 64, 128)
 PLAIN_BLOCK_K = 512  # keys per chunk of the plain version, as _lax_flash
 
 
-def _row_len(b: int, skv: int, kv_lens: Optional[torch.Tensor], device) -> torch.Tensor:
-    """(B, 1, 1, 1) int32 valid key counts."""
+def _row_len(b: int, skv: int, kv_lens: Optional[torch.Tensor], device):
+    """(row_len, empty): (B, 1, 1, 1) int32 valid key counts, and whether
+    the row is empty (no valid key), which then attends to all Skv keys at
+    scale 0."""
     if kv_lens is None:
         row_len = torch.full((b,), skv, dtype=torch.int32, device=device)
     else:
         row_len = kv_lens.to(device=device, dtype=torch.int32)
-    return row_len[:, None, None, None]
+    row_len = row_len[:, None, None, None]
+    empty = row_len <= 0
+    return torch.where(empty, skv, row_len), empty
+
+
+def _scores(qt, ks, j, scale, row_len, empty):
+    """Base-2 scaled scores of one key chunk starting at ``j``, 0 in an
+    empty row, masked (NEG_INF) from ``row_len`` on."""
+    s = torch.matmul(qt, ks.transpose(-1, -2)) * (scale * LOG2E)
+    s = torch.where(empty, torch.zeros_like(s), s)
+    col = torch.arange(j, j + ks.shape[2], device=qt.device)
+    return s, col < row_len
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,15 +85,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qt = q.permute(0, 2, 1, 3).float()                    # (B, H, Sq, D)
     kt = k.permute(0, 2, 1, 3).float()
     vt = v.permute(0, 2, 1, 3)
-    row_len = _row_len(b, skv, kv_lens, q.device)
+    row_len, empty = _row_len(b, skv, kv_lens, q.device)
     m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
     den = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     for j in range(0, skv, PLAIN_BLOCK_K):
         ks, vs = kt[:, :, j:j + PLAIN_BLOCK_K], vt[:, :, j:j + PLAIN_BLOCK_K]
-        s = torch.matmul(qt, ks.transpose(-1, -2)) * (scale * LOG2E)
-        col = torch.arange(j, j + ks.shape[2], device=q.device)
-        s = torch.where(col < row_len, s, torch.full_like(s, NEG_INF))
+        s, valid = _scores(qt, ks, j, scale, row_len, empty)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp2(s - m_new)
         corr = torch.exp2(m - m_new)
@@ -98,30 +115,34 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk of PLAIN_BLOCK_K keys, P = exp2(S scale log2(e) - lse) recomputed
     in fp32, dV = P^T dO with P rounded to v's dtype, dP = dO V^T,
     dS = P (dP - Delta), dQ = scale dS K and dK = scale dS^T Q with dS
-    rounded to q's dtype. Masked keys get zero dk and dv. Computed in fp32;
-    the results have the inputs' dtypes."""
+    rounded to q's dtype. Masked keys get zero dk and dv; an empty row
+    (``kv_lens`` 0) has P = exp2(0 - lse) over all Skv keys and dq = dk =
+    0. Computed in fp32, or in float64 where q is float64 (the reference
+    of the fp32 kernel's check); the results have the inputs' dtypes."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     scale = d**-0.5 if scale is None else scale
-    qt = q.permute(0, 2, 1, 3).float()                    # (B, H, Sq, D)
-    kt = k.permute(0, 2, 1, 3).float()
-    vt = v.permute(0, 2, 1, 3).float()
-    dot = do.permute(0, 2, 1, 3).float()
-    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # (B, H, Sq, 1)
-    lse = lse.float()[..., None]
-    row_len = _row_len(b, skv, kv_lens, q.device)
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qt = q.permute(0, 2, 1, 3).to(ct)                     # (B, H, Sq, D)
+    kt = k.permute(0, 2, 1, 3).to(ct)
+    vt = v.permute(0, 2, 1, 3).to(ct)
+    dot = do.permute(0, 2, 1, 3).to(ct)
+    delta = (do.to(ct) * o.to(ct)).sum(-1).permute(0, 2, 1)[..., None]  # (B, H, Sq, 1)
+    lse = lse.to(ct)[..., None]
+    row_len, empty = _row_len(b, skv, kv_lens, q.device)
     dq = torch.zeros_like(qt)
     dks, dvs = [], []
     for j in range(0, skv, PLAIN_BLOCK_K):
         ks, vs = kt[:, :, j:j + PLAIN_BLOCK_K], vt[:, :, j:j + PLAIN_BLOCK_K]
-        s = torch.matmul(qt, ks.transpose(-1, -2)) * (scale * LOG2E)
-        col = torch.arange(j, j + ks.shape[2], device=q.device)
-        p = torch.where(col < row_len, torch.exp2(s - lse), torch.zeros_like(s))
-        dvs.append(torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dot))
+        s, valid = _scores(qt, ks, j, scale, row_len, empty)
+        p = torch.where(valid, torch.exp2(s - lse), torch.zeros_like(s))
+        dvs.append(torch.matmul(p.to(v.dtype).to(ct).transpose(-1, -2), dot))
         ds = p * (torch.matmul(dot, vs.transpose(-1, -2)) - delta)
-        ds = ds.to(q.dtype).float()
+        ds = ds.to(q.dtype).to(ct)
         dq += torch.matmul(ds, ks)
         dks.append(torch.matmul(ds.transpose(-1, -2), qt))
+    # the scale of dq and dk: 0 in an empty row
+    scale = torch.where(empty, 0.0, scale).to(ct)
     dk = torch.cat(dks, dim=2) * scale
     dv = torch.cat(dvs, dim=2)
     return ((dq * scale).permute(0, 2, 1, 3).to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
@@ -185,9 +206,7 @@ def _bwd_lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
         + [ctypes.POINTER(ctypes.c_longlong)] * 2 + [ctypes.c_float, ctypes.c_void_p])
     lib.pn_flash_attention_bwd_bf16.restype = ctypes.c_int
-    lib.pn_flash_attention_bwd_f32.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
+    lib.pn_flash_attention_bwd_f32.argtypes = lib.pn_flash_attention_bwd_bf16.argtypes
     lib.pn_flash_attention_bwd_f32.restype = ctypes.c_int
     return lib
 
@@ -285,14 +304,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
             strides)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     route = _route(q.dtype, d)
-    if route == "fp32":
-        err = lib.pn_flash_attention_bwd_f32(*args, scale, stream)
-    else:
-        maps = None
-        if route == "wgmma":
-            spec = _tma.flash_bwd_map_specs(q, k, v, do)
-            maps = (ctypes.c_longlong * len(spec))(*spec)
-        err = lib.pn_flash_attention_bwd_bf16(*args, maps, scale, stream)
+    spec = None
+    if d == 64:  # the TMA kernels: bf16 wgmma, fp32 3xTF32
+        spec = (_tma.flash_bwd_f32_map_specs if route == "fp32" else _tma.flash_bwd_map_specs)(
+            q, k, v, do)
+    maps = None if spec is None else (ctypes.c_longlong * len(spec))(*spec)
+    entry = lib.pn_flash_attention_bwd_f32 if route == "fp32" else lib.pn_flash_attention_bwd_bf16
+    err = entry(*args, maps, scale, stream)
     _build.check(lib, err, f"flash_attention_bwd ({route})")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.route_launches[route] += 1

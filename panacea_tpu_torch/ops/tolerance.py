@@ -10,15 +10,17 @@ rule is per element,
 with ``rel`` just above one bf16 step and ``floor`` a small share of the
 output's own scale, so that no limit is larger than what it checks.
 
-fp32 kernels: the flash kernels compute in fp32 on the FMA units from the
-same fp32 inputs as their plain versions and differ from them in the
+fp32 kernels: the flash forward computes in fp32 on the FMA units from the
+same fp32 inputs as its plain version and differs from it in the
 summation order, in the running maxima of the online softmax and in the last
-bits of ``exp2``. The fp32 GEGLU kernel runs its products as 3xTF32 on the
-tensor cores (each operand split into two TF32 parts, the three larger of
-the four products summed in fp32): as close to the exact function as an fp32
-FMA sum, but in another order than the library's fp32 product, so that two
-fp32-accurate answers can lie further apart than either lies from the exact
-one. It is held to its plain version evaluated in float64. The same rule
+bits of ``exp2``. The fp32 GEGLU kernel and the fp32 flash backward at
+head dim 64 run their products as 3xTF32 on the tensor cores (each operand
+split into two TF32 parts, the three larger of the four products summed in
+fp32): as close to the exact function as an fp32 FMA sum, but in another
+order than the library's fp32 product, so that two fp32-accurate answers
+can lie further apart than either lies from the exact one. They are held to
+their plain versions evaluated in float64 (the flash backward at every head
+dim). The same rule
 holds them all, with ``rel`` and ``floor`` some tens to hundreds of fp32
 steps (2**-24 of the value): far below what one TF32 product (2**-11) or a
 bf16 cut (2**-8) of an operand would leave.
@@ -62,17 +64,17 @@ def worst_ratio(got: torch.Tensor, want: torch.Tensor, rel: float, floor: float)
 # fp32 from the same bf16 inputs (erff against torch.erf, a few fp32 steps),
 # one rounding of each result; ``floor`` covers gelu'(g) near its zero.
 FLASH_BWD = {"rel": 1e-2, "floor": 2e-2}
-# the fp32 flash backward (FMA units, no TF32) against its plain version in
-# fp32 (TF32 off): the same arithmetic in another summation order, over up to
-# 4096 keys (dq) or 2048 queries (dk, dv), with exp2f against torch.exp2 (a
-# few fp32 steps) and the cancellation of dP - Delta, whose error scales with
-# dP's rms and not with dS's value, which ``floor`` covers. Stated before its
-# first run on the card as rel = floor = 1e-4; measured on an H100 at the
-# training levels 0.092 of that at worst, but 1.68 in dk of a row with a
+# the fp32 flash backward against its plain version evaluated in float64 (the
+# exact function; the fp32 plain version is itself a rounded answer): over up
+# to 4096 keys (dq) or 2048 queries (dk, dv), with ex2.approx against
+# torch.exp2 and the cancellation of dP - Delta, whose error scales with dP's
+# rms and not with dS's value, which ``floor`` covers. Stated as rel = floor
+# = 1e-4 for the first, FMA kernel, which read 1.68 in dk of a row with a
 # single valid key, where P = 1 and dP = Delta exactly, so that dS, and the
-# key's dk, are rounding noise on both sides. ``floor`` is raised to cover
-# that noise; ``rel`` stays, below what a TF32 cut (2**-11) of an operand
-# would leave
+# key's dk, are rounding noise; ``floor`` was raised to cover that noise.
+# ``rel`` stays below what a TF32 cut (2**-11) of an operand would leave: the
+# head-dim-64 kernel (3xTF32 on the tensor cores) measured on an H100 at most
+# 0.49 of this rule (that row's dk), the fp32 plain version 0.62
 FLASH_BWD_F32 = {"rel": 1e-4, "floor": 5e-4}
 # the forward's row log-sum-exp (base 2, values near log2(Skv)): fp32 sums of
 # the same probabilities in another order, and ex2.approx in the kernel

@@ -33,7 +33,10 @@ def cuda():
     # one row past a tile in Sq and Skv; a single key and one key past a tile
     # edge; a batch whose rows all differ in length
     (129, 4097, 5, 64, None, False), (256, 512, 5, 64, [1, 129, 128, 512], True),
-    (200, 700, 2, 64, [1 + 61 * i for i in range(12)], False)])
+    (200, 700, 2, 64, [1 + 61 * i for i in range(12)], False),
+    # rows with no valid key (the mean of V) on each route
+    (256, 512, 2, 64, [0, 300], True), (256, 512, 2, 16, [300, 0], False),
+    (256, 512, 2, 32, [0, 300], False), (256, 512, 2, 128, [0, 300], False)])
 def test_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
     """``merged``: k and v are the halves of one (B, Skv, 2 H D) projection,
     the strided layout of the cross-view call. Head dim 64 runs the wgmma
@@ -75,7 +78,10 @@ def test_geglu_kernel_matches_plain_on_card(cuda, tokens, c, inner):
     (128, 256, 20, 64, None, True), (300, 650, 2, 32, None, False),
     (256, 512, 2, 128, [512, 200], False), (256, 512, 2, 16, None, False),
     (100, 70, 3, 64, [1, 65], True), (129, 4097, 5, 64, None, False),
-    (200, 700, 2, 64, [1 + 61 * i for i in range(12)], False)])
+    (200, 700, 2, 64, [1 + 61 * i for i in range(12)], False),
+    # rows with no valid key (the mean of V) on each route
+    (256, 512, 2, 64, [0, 300], True), (256, 512, 2, 16, [300, 0], False),
+    (256, 512, 2, 32, [0, 300], False), (256, 512, 2, 128, [0, 300], False)])
 def test_fp32_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
     """fp32 operands go to the fp32 kernel (FMA units, no TF32) at every head dim."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -143,7 +149,10 @@ BWD_CASES = [
     # Sq and Skv below one tile; key blocks with one working warpgroup and
     # blocks wholly past kv_len; Sq off the 64-row tile
     (100, 70, 3, 64, [1, 65], True), (200, 256, 3, 64, [1, 129, 128, 192], True),
-    (300, 650, 2, 64, None, False)]
+    (300, 650, 2, 64, None, False),
+    # rows with no valid key: the mean of V, dq = dk = 0
+    (200, 256, 2, 64, [0, 100], True), (200, 400, 2, 16, [0, 300], False),
+    (200, 400, 2, 32, [300, 0], True), (200, 400, 2, 128, [0, 300], False)]
 
 
 def _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, dtype):
@@ -170,13 +179,18 @@ def _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, dtype):
     got = flash_attention_bwd(q, k, v, o, lse, do, kv_lens=kvl)
     assert (flash_attention_bwd.launches, flash_attention_bwd.route_launches[route]) == (
         before[0] + 1, before[1] + 1)
-    want = flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=kvl)
+    # fp32: against the plain version evaluated in float64 (the exact function)
+    ref = [t.double() if dtype == torch.float32 else t for t in (q, k, v, o, lse, do)]
+    want = flash_attention_bwd_plain(*ref, kv_lens=kvl)
     rule = tolerance.FLASH_BWD_F32 if dtype == torch.float32 else tolerance.FLASH_BWD
     for a, w in zip(got, want):
         assert a.dtype == dtype and tolerance.worst_ratio(a, w, **rule) <= 1.0
     if lens is not None:
-        dead = torch.arange(skv, device=cuda)[None] >= kvl[:, None]
+        # keys past a row's kv_len get no gradient; a row with no valid key
+        # attends to every key alike and gets dq = dk = 0
+        dead = (torch.arange(skv, device=cuda)[None] >= kvl[:, None]) & (kvl[:, None] > 0)
         assert not got[1][dead].any() and not got[2][dead].any()
+        assert not got[0][kvl == 0].any() and not got[1][kvl == 0].any()
 
 
 @pytest.mark.cuda
@@ -189,7 +203,8 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merge
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv,h,d,lens,merged", BWD_CASES)
 def test_fp32_flash_bwd_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
-    """fp32: the fp32 kernels (FMA units, no TF32) at every head dim."""
+    """fp32: the 3xTF32 tensor-core kernels at head dim 64, the FMA ones at
+    the others, held to the plain version in float64."""
     _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, torch.float32)
 
 

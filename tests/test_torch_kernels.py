@@ -45,6 +45,7 @@ def lax_flash(q, k, v, kv_lens=None):
     (256, 512, None),          # multi-block, Skv = 2 Sq (the cross-view shape)
     (200, 650, None),          # Sq and Skv not tile multiples
     (256, 640, [640, 130]),    # ragged per-row kv_lens
+    (256, 512, [0, 300]),      # a row with no valid key: the mean of V
 ])
 def test_flash_plain_matches_pallas_kernel(sq, skv, lens):
     q, k, v = qkv(sq + skv, 2, sq, skv, 2, 16)
@@ -323,11 +324,11 @@ def test_geglu_f32_schedule_covers_every_tile_once_in_reuse_order(tokens, c, inn
         assert len({n for _, n in now}) <= -(-len(now) // rows) + 2
 
 
-def _f32_kernel_constants():
-    """The constants of the fp32 kernel's namespace in csrc/geglu.cu."""
+def _kernel_constants(source, namespace):
+    """The integer constants of one namespace of a CUDA source."""
     import re
-    src = open(os.path.join(_build.CSRC, "geglu.cu")).read()
-    body = src[src.index("namespace f32 {"):src.index("}  // namespace f32")]
+    src = open(os.path.join(_build.CSRC, source)).read()
+    body = src[src.index(f"namespace {namespace} {{"):src.index(f"}}  // namespace {namespace}")]
     return {name: int(value) for decl in re.findall(r"constexpr int ([^;]+);", body)
             for name, value in re.findall(r"(\w+) = (\d+)(?:,|$)", decl)}
 
@@ -339,7 +340,7 @@ def test_geglu_f32_shared_memory_fits_a_block():
     consumer warpgroup; two mbarriers per slot; and the 1,024-byte pad that
     aligns the tiles): they fit the 232,448 bytes an H100 block may have,
     and one slot more would not. The host's tiles are the source's."""
-    k = _f32_kernel_constants()
+    k = _kernel_constants("geglu.cu", "f32")
     assert (k["BM"], k["BN"], k["BKC"], k["GROUP_M"]) == (
         _tma.GEGLU_F32_BM, _tma.GEGLU_F32_BN, _tma.GEGLU_F32_BK, _tma.GEGLU_F32_GROUP_M)
     assert k["BKC"] * 4 == _tma.SWIZZLE_BYTES        # one swizzled row of fp32
@@ -429,6 +430,145 @@ def test_3xtf32_arithmetic_against_float64(c, products, adder, passes):
         assert ratio <= 1.0
     else:
         assert ratio > (100.0 if products == 1 else 1.5)
+
+
+def test_flash_bwd_f32_shared_memory_fits_a_block():
+    """The layouts of the fp32 tensor-core backward (``tc::KvSmem`` and
+    ``tc::QSmem``), from the source's own constants: resident K and V (or Q
+    and dO) with their small parts; per warpgroup a ring of STAGES slots of
+    two streamed tiles, their small parts and the transposed copies (big and
+    small: of Q and dO in the dK/dV pass, of K in the dQ pass); one
+    mbarrier per slot and one for the resident tiles; the 1,024-byte pad.
+    Both fit the 232,448 bytes an H100 block may have; a third slot would
+    not fit the dK/dV pass. The host's tiles are the source's."""
+    k = _kernel_constants("flash_attention_bwd.cu", "tc")
+    assert (k["KB"], k["QB"], k["T"]) == (
+        _tma.FLASH_BWD_F32_KB, _tma.FLASH_BWD_F32_QB, _tma.FLASH_BWD_F32_T)
+    assert k["D"] == 2 * k["PANEL"] and k["PANEL"] * 4 == _tma.SWIZZLE_BYTES
+    tile = k["T"] * k["D"] * 4
+
+    def smem(resident_rows, transposed, stages):
+        group = stages * 2 * tile + 2 * tile + transposed * 2 * tile
+        return (4 * resident_rows * k["D"] * 4 + 2 * group + 8 * (1 + 2 * stages) + 1024)
+
+    kv, q = smem(k["KB"], 2, k["STAGES"]), smem(k["QB"], 1, k["STAGES"])
+    assert (kv, q) == (230440, 197672)
+    assert kv <= 232448 < smem(k["KB"], 2, k["STAGES"] + 1)
+    assert q <= 232448
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 65, 100, 128, 2048, 4096, 4097])
+def test_flash_bwd_f32_tiles_cover_every_row_once(n):
+    """The two warpgroups of either pass take the 32-row tiles in turn:
+    together every row below ``n`` once, neither more than one tile ahead
+    of the other, and no tile past ``n``."""
+    t = _tma.FLASH_BWD_F32_T
+    g0, g1 = _tma.flash_bwd_f32_tiles(n, 0), _tma.flash_bwd_f32_tiles(n, 1)
+    rows = sorted(r for r0 in g0 + g1 for r in range(r0, r0 + t) if r < n)
+    assert rows == list(range(n)) and len(g0) - len(g1) in (0, 1)
+    assert all(r0 < n for r0 in g0 + g1)
+    k_tiles, kv_blocks, q_tiles, q_blocks = _tma.flash_bwd_f32_grid(40, 5, n, 2 * n)
+    assert (k_tiles, q_tiles) == (-(-2 * n // 64), -(-n // 64))
+    assert (kv_blocks, q_blocks) == (200 * k_tiles, 200 * q_tiles)
+
+
+@pytest.mark.parametrize("b,sq,h", [(40, 2048, 5), (2, 129, 20), (1, 100, 1)])
+def test_flash_bwd_f32_tensor_map_specs(b, sq, h):
+    """The fp32 backward's four maps: 32-row boxes of one 32-column panel of
+    q, dO and the strided k and v halves, each addressing what torch does."""
+    d, skv = 64, 2 * sq
+    b = min(b, 2)   # the arithmetic does not depend on the batch
+    q = torch.zeros((b, sq, h, d))
+    do = torch.zeros((b, sq, h, d))
+    kv = torch.zeros((b, skv, 2 * h * d))
+    k, v = (x.unflatten(-1, (h, d)) for x in kv.chunk(2, dim=-1))
+    spec = _tma.flash_bwd_f32_map_specs(q, k, v, do)
+    assert len(spec) == 4 * 12
+    for i, t in enumerate((q, do, k, v)):
+        dims, strides, box = spec[12 * i:12 * i + 4], spec[12 * i + 4:12 * i + 8], \
+            spec[12 * i + 8:12 * i + 12]
+        assert dims == [d, h, t.shape[1], b] and box == [32, 1, 32, 1]
+        assert strides == [4 * s for s in reversed(t.stride())]
+
+
+def _flash_bwd_tf32_emulated(q, k, v, o, lse, do, lens, products):
+    """The fp32 tensor-core backward's arithmetic on one (batch row, head)
+    pair per call: each operand split into TF32 big and small parts, per 8
+    contracted values ``products`` of them (3: small x big, big x small, big
+    x big; 1: the big product alone) added by the tensor cores' adder
+    (``_tc_add``). Each 16 channels of S and dP, and each 32-row tile's dV,
+    dK (per query tile) and dQ (per key tile), go to a fresh accumulator set
+    added to fp32 sums rounded to nearest; the tiles are taken in turn by two
+    warpgroups whose sums are added at the end."""
+    t = _tma.FLASH_BWD_F32_T
+    scale = q.shape[-1] ** -0.5
+
+    def split(x):
+        big = _tf32(x)
+        return big, _tf32(x - big)
+
+    def tc_product(a, b, width=None):
+        """a (M, K) b^T (b: N, K), 8 values of K a step, a fresh accumulator
+        set every ``width`` values (all K in one by default)"""
+        (ab, al), (bb, bl) = split(a), split(b)
+        pairs = [(al, bb), (ab, bl), (ab, bb)] if products == 3 else [(ab, bb)]
+        total = torch.zeros((a.shape[0], b.shape[0]))
+        for c0 in range(0, a.shape[1], width or a.shape[1]):
+            acc = torch.zeros_like(total)
+            for c in range(c0, min(c0 + (width or a.shape[1]), a.shape[1]), 8):
+                for x, y in pairs:
+                    acc = _tc_add(acc, x[:, c:c + 8], y[:, c:c + 8])
+            total = total + acc
+        return total
+
+    def tiled(a, b, rows):  # sum over 32-row tiles of a[:, tile] b[:, tile]^T
+        sums = [torch.zeros((a.shape[0], b.shape[0])) for _ in range(2)]
+        for j, r0 in enumerate(range(0, rows, t)):
+            sums[j % 2] = sums[j % 2] + tc_product(a[:, r0:r0 + t], b[:, r0:r0 + t])
+        return sums[0] + sums[1]
+
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    sq, skv = q.shape[1], k.shape[1]
+    for bi in range(q.shape[0]):
+        n = int(lens[bi])
+        for hi in range(q.shape[2]):
+            qh, kh, vh, oh, doh = (x[bi, :, hi] for x in (q, k, v, o, do))
+            delta = (doh * oh).sum(-1, keepdim=True)
+            s, dp = tc_product(qh, kh, 16), tc_product(doh, vh, 16)   # (Sq, Skv)
+            p = torch.exp2(s * (scale * tolerance_log2e) - lse[bi, hi][:, None])
+            p = torch.where(torch.arange(skv) < n, p, torch.zeros_like(p))
+            ds = p * (dp - delta)
+            dv[bi, :, hi] = tiled(p.T, doh.T, sq)
+            dk[bi, :, hi] = tiled(ds.T, qh.T, sq) * scale
+            dq[bi, :, hi] = tiled(ds[:, :n], kh[:n].T, n) * scale
+    return dq, dk, dv
+
+
+tolerance_log2e = 1.4426950408889634
+
+
+@pytest.mark.parametrize("products,passes", [(3, True), (1, False)], ids=["3xTF32", "1xTF32"])
+def test_flash_bwd_3xtf32_arithmetic_against_float64(products, passes):
+    """Under FLASH_BWD_F32, against the plain backward evaluated in float64
+    (the reference of the card's fp32 check), at head dim 64 with a full
+    row, a row of one valid key (where dS is rounding noise: one set over
+    all 64 channels of dP read 0.67 here, 1.8 on the card at Sq 512) and a
+    ragged row: the kernel's scheme (three products, fresh accumulator sets
+    added to rounded fp32 sums) passes; the TF32 product alone fails, so the
+    rule catches a dropped term."""
+    from panacea_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
+    g = torch.Generator().manual_seed(8)
+    b, sq, skv, h, d = 3, 128, 256, 1, 64
+    q, k, v, do = (torch.randn((b, n, h, d), generator=g) for n in (sq, skv, skv, sq))
+    lens = torch.tensor([256, 1, 200], dtype=torch.int32)
+    o, lse = flash_attention_plain(q, k, v, kv_lens=lens, return_lse=True)
+    got = _flash_bwd_tf32_emulated(q, k, v, o, lse, do, lens, products)
+    want = flash_attention_bwd_plain(*(x.double() for x in (q, k, v, o, lse, do)), kv_lens=lens)
+    ratios = [tolerance.worst_ratio(a, w, **tolerance.FLASH_BWD_F32) for a, w in zip(got, want)]
+    if passes:
+        assert max(ratios) <= 1.0, ratios
+    else:
+        assert max(ratios) > 5.0, ratios
 
 
 @pytest.mark.parametrize("d,route", [(16, "mma"), (32, "mma"), (64, "wgmma"), (128, "mma")])

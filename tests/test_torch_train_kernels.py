@@ -31,6 +31,9 @@ FLASH_CASES = [
     (200, 650, None, True),         # tails; k, v as halves of one merged projection
     (256, 640, [640, 130], True),   # ragged rows, merged k/v
     (128, 1100, [1, 1100], False),  # a row with one key, more than two 512-key chunks
+    # a row with no valid key: every score masked alike, so it attends to all
+    # keys equally (dq = dk = 0, dv = sum of dO / Skv)
+    (128, 512, [0, 300], True),
 ]
 
 
@@ -80,7 +83,7 @@ def test_flash_bwd_plain_matches_jax_grad_of_lax_flash(sq, skv, lens, merged):
 
 @pytest.mark.parametrize("d", [16, 64])
 @pytest.mark.parametrize("sq,skv,lens", [(128, 256, None), (200, 650, [650, 130]),
-                                         (100, 1100, [3, 1100])])
+                                         (100, 1100, [3, 1100]), (100, 512, [0, 300])])
 def test_fp32_flash_bwd_plain_matches_jax_grad_of_lax_flash(d, sq, skv, lens):
     """The plain backward that the fp32 CUDA kernel is held to on the card,
     on fp32 inputs, against ``jax.grad`` of ``_lax_flash`` in fp32 (the

@@ -90,3 +90,48 @@ def test_resblock3d_matches_jax(cin, cout):
     mod = load(layers.ResBlock3D(cin, 64, cout, num_frames=2), params, convert.resblock_map)
     got = mod(torch.from_numpy(x), torch.from_numpy(emb)).detach().numpy()
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+def test_inter_view_block_gradients_match_jax(flash_calls, monkeypatch):
+    """The training path through the flash route: the loss sum(out * w) of
+    the inter-view block (the cross-view call at Sq 128, Skv 256) and the
+    gradients of every parameter and of the input against
+    ``jax.value_and_grad`` of the JAX block, fp32 on the CPU. The JAX block
+    differentiates ``_lax_flash``; the port's autograd Function runs
+    ``flash_attention_bwd``, whose call is recorded. Tolerance: the loss to
+    TOL times sum |w| (what the outputs' TOL allows), each gradient to TOL of
+    its largest entry (fp32 summation order only)."""
+    import jax.numpy as jnp
+
+    from panacea_tpu_torch.ops import flash_attention as fa_mod
+    bwd_calls = []
+    real_bwd = fa_mod.flash_attention_bwd
+    monkeypatch.setattr(fa_mod, "flash_attention_bwd",
+                        lambda q, *a, **kw: bwd_calls.append(q.shape[1]) or real_bwd(q, *a, **kw))
+    x, ctx = inputs(4)
+    w = np.random.default_rng(5).standard_normal(x.shape).astype(np.float32)
+    jmod = jtrans.BasicTransformerBlock(2, 16, 24, mode="inter-view")
+    params = perturbed(jmod.init(jax.random.PRNGKey(2), x, ctx)["params"], 6)
+
+    def loss(p, xx):
+        return jnp.sum(jmod.apply({"params": p}, xx, ctx) * w)
+
+    want_loss, (want_gp, want_gx) = jax.value_and_grad(loss, argnums=(0, 1))(params, x)
+    mod = load(transformer.BasicTransformerBlock(32, 2, 16, 24, "inter-view"), params,
+               convert.basic_block_map)
+    tx = torch.from_numpy(x).requires_grad_()
+    got_loss = (mod(tx, torch.from_numpy(ctx)) * torch.from_numpy(w)).sum()
+    got_loss.backward()
+    assert flash_calls == [(128, 256)] and bwd_calls == [128]
+    # the outputs agree to TOL (the forward test), so the loss to TOL sum |w|
+    assert abs(got_loss.item() - float(want_loss)) <= TOL * np.abs(w).sum()
+    # the JAX gradients in the port's layout, through the same key map
+    want = convert.apply_map(convert.flatten(want_gp), convert.basic_block_map("m", ()))
+    got = {n: p.grad for n, p in mod.named_parameters()}
+    assert set(got) == {k[2:] for k in want}
+    for name, g in got.items():
+        ref = want["m." + name].numpy()
+        np.testing.assert_allclose(g.numpy(), ref, atol=TOL * np.abs(ref).max(), rtol=0,
+                                   err_msg=name)
+    want_gx = np.asarray(want_gx)
+    np.testing.assert_allclose(tx.grad.numpy(), want_gx, atol=TOL * np.abs(want_gx).max(), rtol=0)
