@@ -14,13 +14,14 @@ Phases, in order; any failure exits non-zero:
      ``panacea_tpu_torch/ops/tolerance.py``), and timed beside the plain
      version, a PyTorch yardstick and its bound: the bf16 kernels (tensor
      cores; the flash forward also with its row log-sum-exp), the fp32
-     kernels (flash on the FMA units, GEGLU as 3xTF32 on the tensor cores,
-     held to its plain version in float64; TF32 off in every PyTorch
-     product), then the backward kernels on
-     each route (bf16 wgmma at head dim 64, mma.sync at 16, 32, 128; fp32:
-     3xTF32 wgmma at head dim 64, FMA at the others, held to the plain
-     version in float64), their library time read as the device time of
-     SDPA's backward; every flash route also with rows of no valid key;
+     kernels (flash as 3xTF32 on the tensor cores at head dim 64, on the FMA
+     units at the others; GEGLU as 3xTF32; both held to their plain versions
+     in float64; TF32 off in every PyTorch product), then the backward
+     kernels on each route (bf16 wgmma at head dim 64, mma.sync at 16, 32,
+     128; fp32: 3xTF32 wgmma at head dim 64, FMA at the others, held to the
+     plain version in float64), their library time read as the device time
+     of SDPA's backward; every flash route also with rows of no valid key;
+     the GEGLU backward timed in bf16 and fp32 at the training shapes;
   3. small input: the tiny engine on the card (bf16, kernels) against the
      same weights on the CPU (fp32, plain versions), two sampler steps;
   4. log_images: ``DiffusionEngine3D.log_images`` called directly at full
@@ -160,8 +161,12 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
     """``merged_kv``: k and v are the two halves of one (B, Skv, 2 H D)
     projection, the strided layout the cross-view call gives the kernel.
     ``ragged`` draws the rows' key counts; ``lens`` gives them. ``fp32``:
-    fp32 operands (the fp32 kernel, held to ``tol.FLASH_F32`` and bounded by
-    the fp32 FMA rate); TF32 is off for the plain version and the yardstick."""
+    fp32 operands (the fp32 route, ``tol.FLASH_F32``), held to the plain
+    version evaluated in float64, with the kernel's ratio against the fp32
+    plain version and the fp32 plain version's against float64 beside it;
+    the bound is three products at the TF32 rate at head dim 64 (3xTF32),
+    ``bound_fma_ms`` the fp32 FMA rate's. TF32 is off for the plain version
+    and the yardstick."""
     dtype, rule = (torch.float32, tol.FLASH_F32) if fp32 else (torch.bfloat16, tol.FLASH)
     elem = 4.0 if fp32 else 2.0
     g = torch.Generator(device=dev).manual_seed(sq * 7 + skv + d)
@@ -180,15 +185,24 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
     routes = dict(fa.flash_attention.route_launches)
     got = fa.flash_attention(q, k, v, kv_lens=lens)
     route = next(r for r, n in fa.flash_attention.route_launches.items() if n != routes[r])
-    want = fa.flash_attention_plain(q, k, v, kv_lens=lens)
+    plain = fa.flash_attention_plain(q, k, v, kv_lens=lens)
+    want = (fa.flash_attention_plain(q.double(), k.double(), v.double(), kv_lens=lens)
+            if fp32 else plain)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
+    err = (got.double() - want.double()).abs().max().item()
     ratio = tol.worst_ratio(got, want, **rule)
     rec = {"kernel": "flash_attention", "route": route, "dtype": str(dtype),
            "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "D": d, "ragged": ragged,
                      "kv": "merged" if merged_kv else "contiguous"},
-           "max_abs_err": err, "rms_want": want.float().square().mean().sqrt().item(),
+           "max_abs_err": err, "rms_want": want.double().square().mean().sqrt().item(),
            "worst_ratio": ratio, "tol": rule}
+    if fp32:
+        rec["want"] = "flash_attention_plain in float64"
+        rec["worst_ratio_vs_fp32_plain"] = tol.worst_ratio(got, plain, **rule)
+        rec["fp32_plain_worst_ratio_vs_f64"] = tol.worst_ratio(plain, want, **rule)
+    del want, plain, got
+    if fp32:
+        free(torch)   # the level-0 float64 operands and chunk scores take a few GB
     if timed:
         mask = None
         if lens is not None:
@@ -197,17 +211,23 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
         kv_eff = float(lens.sum().item()) / b if lens is not None else skv  # keys the rows need
         flops = 4.0 * b * h * sq * kv_eff * d
         nbytes = elem * (2 * b * sq * h * d + 2 * b * kv_eff * h * d) + (4 * b if ragged else 0)
-        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, PEAK_FP32 if fp32 else PEAK_BF16)
+        if fp32 and d == 64:
+            rec["bound_ms"], rec["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32)
+            rec["bound_fma_ms"], _ = bound(flops, nbytes, PEAK_FP32)
+        else:
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
+                                                     PEAK_FP32 if fp32 else PEAK_BF16)
         rec["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, kv_lens=lens),
                             5 if fp32 else 20)
+        # the same forward also writing the row log-sum-exp (training only),
+        # timed next to it, so that both find the card in the same state
+        rec["ms_with_lse"] = time_ms(
+            torch, lambda: fa.flash_attention_with_lse(q, k, v, kv_lens=lens), 5 if fp32 else 20)
         rec["plain_ms"] = time_ms(
             torch, lambda: fa.flash_attention_plain(q, k, v, kv_lens=lens), 2)
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask), 5 if fp32 else 20)
         rec["host_us"] = host_us(torch, lambda: fa.flash_attention(q, k, v, kv_lens=lens), 50)
-        # the same forward also writing the row log-sum-exp (training only)
-        rec["ms_with_lse"] = time_ms(
-            torch, lambda: fa.flash_attention_with_lse(q, k, v, kv_lens=lens), 5 if fp32 else 20)
     log(rec)
     if not ratio <= 1.0:
         raise AssertionError(f"flash_attention disagrees with its plain version: {rec}")
@@ -1329,12 +1349,15 @@ def main(kernels_only: bool = False) -> int:
     geglu_bwd = []
     for tokens, c in TRAIN_GEGLU:
         geglu_bwd.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, 4 * c))
-    # the tiny widths, columns that are not a multiple of 8, and fp32
+    # the tiny widths, columns that are not a multiple of 8; then fp32 at the
+    # training shapes (train_fp32's calls) and the same odd widths
     for tokens, inner in ((256, 128), (300, 77), (1, 256)):
         geglu_bwd.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, inner, timed=False))
+    geglu_bwd32 = [check_geglu_bwd(torch, F, gg, tol, dev, tokens, 4 * c, fp32=True)
+                   for tokens, c in TRAIN_GEGLU]
     for tokens, inner in ((3000, 1280), (300, 77)):
-        geglu_bwd.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, inner, timed=False,
-                                         fp32=True))
+        geglu_bwd32.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, inner, timed=False,
+                                           fp32=True))
 
     if kernels_only:
         log({"phase": "kernels_only", "ok": True})
@@ -1387,7 +1410,14 @@ def main(kernels_only: bool = False) -> int:
         summary("flash_attention", "flash_attention", flash_src, flash_tpu, flash, flash[0], "cli"),
         summary("geglu", "geglu", geglu_src, geglu_tpu, geglu, geglu[0], "cli"),
         summary("flash_attention_fp32", "flash_attention", flash_src, flash_tpu, flash32,
-                flash32[0], "fp32_engine"),
+                flash32[0], "fp32_engine", entry="tc::pn_flash_f32_fwd_tc (3xTF32 wgmma, TMA)",
+                bound_fma_ms=flash32[0]["bound_fma_ms"],
+                ms_levels=[r["ms"] for r in flash32[:3]],
+                library_ms_levels=[r["library_ms"] for r in flash32[:3]],
+                worst_ratio_vs_f64=max(r["worst_ratio"] for r in flash32),
+                worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"] for r in flash32),
+                fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
+                                                  for r in flash32)),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
                 "fp32_engine", entry="f32::pn_geglu_3xtf32_fwd (3xTF32 wgmma, TMA)",
                 bound_fma_ms=geglu32[0]["bound_fma_ms"],
@@ -1409,7 +1439,13 @@ def main(kernels_only: bool = False) -> int:
                 fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
                                                   for r in flash_bwd32)),
         summary("geglu_bwd", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd, geglu_bwd[0],
-                "train")]})
+                "train"),
+        summary("geglu_bwd_fp32", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd32,
+                geglu_bwd32[0], "train_fp32",
+                ms_levels=[r["ms"] for r in geglu_bwd32[:4]],
+                plain_ms_levels=[r["plain_ms"] for r in geglu_bwd32[:4]],
+                bound_ms_levels=[r["bound_ms"] for r in geglu_bwd32[:4]],
+                library_ms_levels=[r["library_ms"] for r in geglu_bwd32[:4]])]})
     log(card)
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

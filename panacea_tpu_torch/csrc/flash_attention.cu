@@ -1,5 +1,6 @@
 // Flash attention forward for Hopper (sm_90a): bf16 in / bf16 out on the tensor
-// cores, or fp32 in / fp32 out on the FMA units; fp32 softmax and accumulation.
+// cores, or fp32 in / fp32 out (3xTF32 on the tensor cores at head dim 64,
+// the FMA units at the others); fp32 softmax and accumulation.
 //
 // Replaces the Pallas TPU kernel panacea_tpu/ops/flash_attention.py
 // (_flash_kernel, :33-86; its pallas_call in flash_attention, :236).
@@ -17,7 +18,8 @@
 // overlap.
 //
 // Two hand-written bf16 kernels, chosen by head dim in the C entry (fp32
-// operands go to a third, pn_flash_f32_fwd, described at its namespace):
+// operands go to two others, tc::pn_flash_f32_fwd_tc at head dim 64 and
+// f32::pn_flash_f32_fwd at 16, 32 and 128, described at their namespaces):
 //
 // pn_flash_fwd (D = 64, the production head dim): one block of three
 // warpgroups per (128 query rows, head, batch).
@@ -56,6 +58,7 @@
 // alike.
 
 #include "hopper.cuh"
+#include "flash_f32_tc.cuh"
 
 namespace {
 
@@ -493,11 +496,12 @@ void launch(const void* q, const void* k, const void* v, void* o, void* lse, con
 
 }  // namespace mma
 
-// ------------------------------------------- fp32, D = 16, 32, 64, 128
+// ------------------------------------------------- fp32, D = 16, 32, 128
 //
 // The Pallas kernel keeps its operands' type, so fp32 inputs give fp32
 // products. This kernel does the same on the FMA units: no tensor cores, no
-// TF32, no bf16 cut anywhere. The bound is then the card's fp32 rate outside
+// TF32, no bf16 cut anywhere. Head dim 64 goes to the tc kernel below; no
+// main-path call has the others. The bound is then the card's fp32 rate outside
 // the tensor cores (4 B H Sq Skv D flops at 67 TFLOP/s on an H100 SXM), 15
 // times the bf16 bound, and far above the time to read q, k and v once.
 //
@@ -742,6 +746,252 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
 
 }  // namespace f32
 
+// ------------------------------------------- fp32 on the tensor cores, D = 64
+//
+// The same function as f32, for the production head dim, with both products
+// on the tensor cores as 3xTF32 (pn::tf32_split: each operand a big and a
+// small TF32 part, the three larger of the four products summed), which
+// keeps fp32 accuracy. Bound: 3 x 4 B H Sq Skv D flops at the TF32 rate, 2.5
+// times below the FMA bound of f32; at level 2 (Sq 128) the bytes bound it.
+// The shared pieces (the splits, product_nt, product_rs, to_a) are those of
+// the fp32 backward's tc passes, in flash_f32_tc.cuh.
+//
+// One block of two warpgroups (256 threads, no producer warp: one costs the
+// consumers registers, and these use 231) per (128 query rows, head, batch
+// row); warpgroup g owns rows 64 g .. 64 g + 63, and both walk every key
+// tile below the row's kv_len, so each K and V tile is loaded, split and
+// transposed once for 128 queries (half the L2 traffic and split work per
+// query of a 64-row block, and no merge of two warpgroups' partial sums).
+//  - Loads: thread 0 issues TMA loads (4-D fp32 maps of the strided views,
+//    32 x 32 boxes, 128-byte swizzle): the Q tile once; the 32-key tiles of
+//    K and V into a ring of STAGES slots, a slot refilled at the first block
+//    barrier after every thread has waited for its tile's P V.
+//  - Q: each thread splits its A operands of S = Q K^T into registers once
+//    (load_a), so the product reads only K from shared memory.
+//  - Split: all eight warps split each arrived tile, K in place with its
+//    small part beside (K-major, as S = Q K^T takes it), V into transposed
+//    big and small copies (64 rows of d, keys permuted by perm_col), since
+//    TF32 wgmma takes B K-major and P V contracts over the keys; one block
+//    barrier a tile makes the split visible to both warpgroups.
+//  - Products: S (64 x 32) = Q K^T is wgmma m64n32k8 in S_SETS accumulator
+//    sets; P, in registers, is split into the register A operands (to_a) of
+//    P V, m64n64k8 against the V^T copies, each tile's into a fresh
+//    accumulator set: the tensor cores' adder truncates, so the
+//    threads fold each set into the running output in fp32, rounded to
+//    nearest, O = O corr + set, the step the online softmax takes anyway.
+//  - Overlap: tile j-1's P V runs under the barrier before tile j, its fold
+//    and tile j+1's split under tile j's Q K^T; the two warpgroups'
+//    products and exponentials interleave on the SM.
+//  - Masks select the exponent's argument (-inf) past the row's kv_len; an
+//    empty row takes all Skv keys at scale 0 (pn::row_keys, row_scale); rows
+//    and keys past Sq and Skv arrive as TMA's zeros; rows past Sq are not
+//    written.
+
+namespace tc {
+
+// D, T, NTHREADS, PANEL, TILE and the shared device functions: flash_f32_tc.cuh
+using namespace pn::tc;
+
+constexpr int BQ = 128;     // query rows per block: two warpgroups x 64
+constexpr int STAGES = 4;   // slots of the key ring
+constexpr int S_SETS = 1;   // accumulator sets of S over the 64 channels
+
+struct Smem {
+  float q[BQ * D];  // Q as loaded; each thread splits its A operands into registers
+  struct Slot {
+    float k[TILE];      // K as loaded, split in place into K_big
+    float k_small[TILE];
+    float v[TILE];      // V as loaded
+    float vt[2][TILE];  // V^T big and small: 64 rows of d, keys permuted by perm_col
+  } slot[STAGES];
+  uint64_t q_full;
+  uint64_t full[STAGES];
+};
+constexpr int SMEM_BYTES = sizeof(Smem) + pn::SWIZZLE_ATOM;  // room to align
+static_assert(SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
+
+// a masked score's exponent: ex2 of it is 0
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+pn_flash_f32_fwd_tc(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
+                    float* __restrict__ lse, const int* __restrict__ kv_lens, int heads, int sq,
+                    int skv, int q_tiles, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(pn::align_smem(smem_raw));
+
+  // blockIdx.x = (batch * heads + head) * q_tiles + query tile, as pn_flash_fwd
+  const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
+  const int h = bh % heads, b = bh / heads;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
+  const int n_tiles = (row_len + T - 1) / T;
+  const int group = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  auto load = [&](int j) {  // key tile j into its slot (by thread 0)
+    const int s = j % STAGES;
+    pn::mbar_arrive_expect_tx(&sm.full[s], 2 * TILE * 4);
+    load_rows(sm.slot[s].k, T, &k_map, &sm.full[s], h, j * T, b);
+    load_rows(sm.slot[s].v, T, &v_map, &sm.full[s], h, j * T, b);
+  };
+  if (threadIdx.x == 0) {
+    pn::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < STAGES; ++s) pn::mbar_init(&sm.full[s], 1);
+    pn::mbar_init_fence();
+    pn::mbar_arrive_expect_tx(&sm.q_full, BQ * D * 4);
+    load_rows(sm.q, BQ, &q_map, &sm.q_full, h, qt * BQ, b);
+    for (int j = 0; j < min(STAGES, n_tiles); ++j) load(j);
+  }
+  __syncthreads();
+  // this warpgroup's 64 query rows of the Q tile as the A operands of
+  // S = Q K^T, split into their big and small TF32 parts, held in registers
+  uint32_t qa_big[D / 8][4], qa_small[D / 8][4];
+  pn::mbar_wait(&sm.q_full, 0);
+  load_a(sm.q, BQ, group * 64, warp, lane, qa_big, qa_small);
+
+  // key tile j, once arrived, split by all eight warps; a block barrier
+  // before its first product makes the split visible to both warpgroups
+  auto split = [&](int j) {
+    Smem::Slot& sl = sm.slot[j % STAGES];
+    pn::mbar_wait(&sm.full[j % STAGES], (j / STAGES) & 1);
+    split_tile<false, true, 8>(sl.k, sl.k_small, nullptr, nullptr, threadIdx.x >> 5, lane);
+    split_tile<true, false, 8>(sl.v, nullptr, sl.vt[0], sl.vt[1], threadIdx.x >> 5, lane);
+    pn::tma_store_fence();  // the writes are seen by wgmma (the async proxy)
+  };
+
+  float s_sets[S_SETS][16], acc[32], o_sum[32];
+  uint32_t p_big[4][4], p_small[4][4];
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o_sum[i] = 0.f;
+
+  auto start_s = [&](int j) {  // S = Q K^T of tile j, one committed group
+    const Smem::Slot& sl = sm.slot[j % STAGES];
+    pn::wgmma_fence();
+    product_nt_rs(s_sets, qa_big, qa_small, pn::smem_u32(sl.k), pn::smem_u32(sl.k_small),
+                  T * pn::SWIZZLE_BYTES);
+    pn::wgmma_commit();
+  };
+  auto start_pv = [&](int j) {  // acc = P V of tile j, a fresh set, one committed group
+    const Smem::Slot& sl = sm.slot[j % STAGES];
+    pn::wgmma_fence();
+    product_rs(acc, p_big, p_small, pn::smem_u32(sl.vt[0]), pn::smem_u32(sl.vt[1]));
+    pn::wgmma_commit();
+  };
+  // the online softmax of tile j on this thread's rows g, g + 8 of its
+  // warp's 16 (score i: row g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t +
+  // i % 2), in base 2; corr becomes the factor of the sums so far, and the
+  // probabilities, as A operands, are the tile's P V
+  auto softmax = [&](int j) {
+    pn::pin(s_sets);
+    float s[16];
+    sum_sets(s, s_sets);
+    const int limit = row_len - j * T;
+    float mx[2] = {NEG, NEG}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = (i >> 2) * 8 + t * 2 + (i & 1);
+      s[i] = col < limit ? s[i] * scale_log2 : neg_inf();
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      corr[r] = wg::ex2(m[r] - mn);
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      s[i] = wg::ex2(s[i] - m[(i >> 1) & 1]);
+      sum[(i >> 1) & 1] += s[i];
+    }
+    l[0] = l[0] * corr[0] + sum[0];
+    l[1] = l[1] * corr[1] + sum[1];
+    to_a(s, p_big, p_small);
+  };
+  auto fold = [&]() {  // the finished P V set into the running output
+    pn::pin(acc);
+    pn::pin(p_big);
+    pn::pin(p_small);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o_sum[i] = o_sum[i] * corr[(i >> 1) & 1] + acc[i];
+  };
+
+  split(0);
+  __syncthreads();
+  start_s(0);
+  if (n_tiles > 1) split(1);  // under tile 0's Q K^T
+  pn::wgmma_wait<0>();
+  softmax(0);
+  start_pv(0);
+  for (int j = 1; j < n_tiles; ++j) {
+    // tile j is split, and every thread is done with tile j-2's slot (its
+    // P V was waited for): the slot takes tile j + 2
+    __syncthreads();
+    if (threadIdx.x == 0 && j >= 2 && j + 2 < n_tiles) load(j + 2);
+    __syncwarp();
+    start_s(j);
+    pn::wgmma_wait<1>();  // tile j-1's P V is done; tile j's Q K^T runs on
+    fold();
+    if (j + 1 < n_tiles) split(j + 1);  // under tile j's Q K^T
+    pn::wgmma_wait<0>();
+    softmax(j);
+    start_pv(j);
+  }
+  pn::wgmma_wait<0>();
+  fold();
+
+  // the output, (B, Sq, H, D) contiguous, written once; rows past Sq never
+  const int row0 = qt * BQ + group * 64 + warp * 16 + g;
+  float* ob = o + (static_cast<long long>(b) * sq * heads + h) * D;
+  const long long o_ss = static_cast<long long>(heads) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.f / l[r];
+    const int row = row0 + 8 * r;
+    if (row < sq) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(ob + row * o_ss + n * 8 + t * 2) =
+            make_float2(o_sum[n * 4 + r * 2] * inv, o_sum[n * 4 + r * 2 + 1] * inv);
+      if (lse && t == 0) lse[static_cast<long long>(bh) * sq + row] = m[r] + log2f(l[r]);
+    }
+  }
+}
+
+// maps: three specs of 12 values (dims, byte strides, boxes of the 4-D fp32
+// views of q, k and v with 32 x 32 boxes, innermost first), as
+// pn::encode_map takes them
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
+           int batch, int heads, int sq, int skv, const long long* maps, float scale_log2,
+           cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pn_flash_f32_fwd_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (!maps) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, k_map, v_map;
+  int err = pn::encode_map(&q_map, q, 4, maps, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (!err) err = pn::encode_map(&k_map, k, 4, maps + 12, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (!err) err = pn::encode_map(&v_map, v, 4, maps + 24, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (err) return err;
+  const int q_tiles = (sq + BQ - 1) / BQ;
+  const long long blocks = static_cast<long long>(batch) * heads * q_tiles;
+  if (blocks < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  pn_flash_f32_fwd_tc<<<static_cast<unsigned>(blocks), NTHREADS, SMEM_BYTES, stream>>>(
+      q_map, k_map, v_map, static_cast<float*>(o), static_cast<float*>(lse),
+      static_cast<const int*>(kv_lens), heads, sq, skv, q_tiles, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // strides: {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h} in elements; the
@@ -766,18 +1016,19 @@ extern "C" int pn_flash_attention_bf16(const void* q, const void* k, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fp32 entry: the same arguments less the tensor maps; q, k, v and o are
-// fp32, strides in elements of fp32 (multiples of 4, 16 bytes); lse as above.
+// The fp32 entry: the same arguments; q, k, v and o are fp32, strides in
+// elements of fp32 (multiples of 4, 16 bytes); lse as above. maps: the
+// tensor-map specs of tc::launch, used at d = 64 (null otherwise).
 extern "C" int pn_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                       void* lse, const void* kv_lens, int batch, int heads, int sq,
-                                      int skv, int d, const long long* strides, float scale,
-                                      void* stream) {
+                                      int skv, int d, const long long* strides,
+                                      const long long* maps, float scale, void* stream) {
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 64: return tc::launch(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
     case 16: return f32::launch<16>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
     case 32: return f32::launch<32>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
-    case 64: return f32::launch<64>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
     case 128: return f32::launch<128>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -117,6 +117,7 @@
 // dO / Skv, and dq and dk, scaled by 0, are exactly 0.
 
 #include "hopper.cuh"
+#include "flash_f32_tc.cuh"
 
 namespace {
 
@@ -1255,29 +1256,14 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 namespace tc {
 
-constexpr int D = 64;
+// D, T, NTHREADS, PANEL, TILE and the shared device functions (the split
+// helpers, product_nt, product_rs, to_a, reduce_write): flash_f32_tc.cuh
+using namespace pn::tc;
+
 constexpr int KB = 64;         // keys per dK/dV block
 constexpr int QB = 64;         // query rows per dQ block
-constexpr int T = 32;          // rows per streamed tile: queries (dK/dV) or keys (dQ)
 constexpr int STAGES = 2;      // ring slots of each warpgroup
-constexpr int NTHREADS = 256;  // two consumer warpgroups; thread 0 of each issues its loads
-constexpr int PANEL = 32;      // fp32 values of one 128-byte swizzled row
-constexpr int TILE = T * D;    // floats of a streamed tile, and of a transposed one
-
-// Float offset of (row, col) in a panel of 128-byte rows laid down with the
-// 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r % 8).
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * PANEL + ((((col >> 2) ^ (row & 7)) << 2) | (col & 3));
-}
-
-// The contraction index of the transposed copies is permuted within each 8:
-// the register A operand of a k8 step holds k = t and t + 4 of a row where
-// the accumulator holds columns 2t and 2t + 1, so logical k = 8 n + j holds
-// tile row 8 n + (0 2 4 6 1 3 5 7)[j]. This is the logical k of tile row r.
-__device__ __forceinline__ int perm_col(int r) {
-  const int a = r & 7;
-  return (r & ~7) | (a >> 1) | ((a & 1) << 2);
-}
+constexpr int SETS = D / 16;   // accumulator sets of S and dP: 16 channels each
 
 struct KvSmem {
   float k[2][KB * D];  // K as loaded, split in place into K_big; K_small
@@ -1307,151 +1293,6 @@ constexpr int KV_SMEM_BYTES = sizeof(KvSmem) + pn::SWIZZLE_ATOM;  // room to ali
 constexpr int Q_SMEM_BYTES = sizeof(QSmem) + pn::SWIZZLE_ATOM;
 static_assert(KV_SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
 static_assert(Q_SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
-
-// rows [row0, row0 + rows) of one head of a (B, S, H, 64) fp32 tensor into a
-// tile of two 32-column panels, in 32-row boxes; rows past S arrive as zeros
-__device__ __forceinline__ void load_rows(float* dst, int rows, const CUtensorMap* map,
-                                          uint64_t* bar, int h, int row0, int b) {
-  for (int p = 0; p < 2; ++p)
-    for (int r = 0; r < rows; r += T)
-      pn::tma_load_4d(dst + p * rows * PANEL + r * PANEL, map, bar, p * PANEL, h, row0 + r, b);
-}
-
-__device__ __forceinline__ void split4(const float4 v, float4& hi, float4& lo) {
-  pn::tf32_split(v.x, hi.x, lo.x);
-  pn::tf32_split(v.y, hi.y, lo.y);
-  pn::tf32_split(v.z, hi.z, lo.z);
-  pn::tf32_split(v.w, hi.w, lo.w);
-}
-
-// A resident tile of `n` floats split in place into its big part, the small
-// part beside it at the same offsets (so the swizzle needs no care)
-__device__ __forceinline__ void split_flat(float* big, float* small, int n) {
-  float4* b4 = reinterpret_cast<float4*>(big);
-  float4* s4 = reinterpret_cast<float4*>(small);
-  for (int i = threadIdx.x; i < n / 4; i += NTHREADS) {
-    float4 hi, lo;
-    split4(b4[i], hi, lo);
-    b4[i] = hi;
-    s4[i] = lo;
-  }
-}
-
-// A streamed (32 x 64) tile, by one warpgroup: split in place, the small part
-// beside it and, with TRANSPOSE, the transposed copy (64 rows of d, the tile
-// rows permuted by perm_col), big and small. Lane = tile row, and warp w
-// takes the 16-byte chunks 4 w .. 4 w + 3 of it, so that the reads and the
-// transposed writes of a warp fall on distinct banks.
-template <bool TRANSPOSE>
-__device__ __forceinline__ void split_tile(float* raw, float* small, float* tr_big,
-                                           float* tr_small, int warp, int lane) {
-  const int jj = perm_col(lane);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int c = warp * 4 + e;  // columns 4 c .. 4 c + 3, in panel c / 8
-    const int off = (c >> 3) * T * PANEL + swz(lane, (c & 7) * 4);
-    float4 hi, lo;
-    split4(*reinterpret_cast<const float4*>(raw + off), hi, lo);
-    *reinterpret_cast<float4*>(raw + off) = hi;
-    *reinterpret_cast<float4*>(small + off) = lo;
-    if constexpr (TRANSPOSE) {
-      const float hs[4] = {hi.x, hi.y, hi.z, hi.w}, ls[4] = {lo.x, lo.y, lo.z, lo.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        tr_big[swz(c * 4 + i, jj)] = hs[i];
-        tr_small[swz(c * 4 + i, jj)] = ls[i];
-      }
-    }
-  }
-}
-
-// acc (64 x 32) = A (64 x 64) B^T (B: 32 x 64), both K-major in two 32-column
-// panels (`a_panel`, `b_panel`: bytes from one panel to the next), each as
-// big and small parts: 8 k-steps of three products, every 16 channels into
-// a fresh accumulator set (SETS of them), which sum_sets adds. Not committed.
-constexpr int SETS = D / 16;
-__device__ __forceinline__ void product_nt(float (&acc)[SETS][16], uint32_t a_big,
-                                           uint32_t a_small, int a_panel, uint32_t b_big,
-                                           uint32_t b_small, int b_panel) {
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    float(&set)[16] = acc[kk / 2];
-    const int ao = (kk >> 2) * a_panel + (kk & 3) * 32, bo = (kk >> 2) * b_panel + (kk & 3) * 32;
-    pn::wgmma_m64n32k8_tf32_ss(set, pn::smem_desc(a_small + ao), pn::smem_desc(b_big + bo),
-                               kk & 1);
-    pn::wgmma_m64n32k8_tf32_ss(set, pn::smem_desc(a_big + ao), pn::smem_desc(b_small + bo), 1);
-    pn::wgmma_m64n32k8_tf32_ss(set, pn::smem_desc(a_big + ao), pn::smem_desc(b_big + bo), 1);
-  }
-}
-
-// the sets of product_nt added in order, rounded to nearest
-__device__ __forceinline__ void sum_sets(float (&out)[16], const float (&acc)[SETS][16]) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    out[j] = acc[0][j];
-#pragma unroll
-    for (int c = 1; c < SETS; ++c) out[j] += acc[c][j];
-  }
-}
-
-// acc (64 x 64) = A (64 x 32; big and small parts in registers, four k8
-// steps) times a transposed tile (64 rows x 32, big and small), in a fresh
-// accumulator set. Not committed.
-__device__ __forceinline__ void product_rs(float (&acc)[32], const uint32_t (&a_big)[4][4],
-                                           const uint32_t (&a_small)[4][4], uint32_t b_big,
-                                           uint32_t b_small) {
-#pragma unroll
-  for (int kk = 0; kk < T / 8; ++kk) {
-    pn::wgmma_m64n64k8_tf32_rs(acc, a_small[kk], pn::smem_desc(b_big + kk * 32), kk > 0);
-    pn::wgmma_m64n64k8_tf32_rs(acc, a_big[kk], pn::smem_desc(b_small + kk * 32), 1);
-    pn::wgmma_m64n64k8_tf32_rs(acc, a_big[kk], pn::smem_desc(b_big + kk * 32), 1);
-  }
-}
-
-// x (64 x 32 in the accumulator layout) as the big and small TF32 parts of
-// the register A operands of four k8 steps: a[0], a[1] the rows g, g + 8 at
-// column 2t (logical k = t), a[2], a[3] at column 2t + 1 (k = t + 4)
-__device__ __forceinline__ void to_a(const float (&x)[16], uint32_t (&big)[4][4],
-                                     uint32_t (&small)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float hi, lo;
-      pn::tf32_split(x[kk * 4 + (e == 1 ? 2 : e == 2 ? 1 : e)], hi, lo);
-      big[kk][e] = __float_as_uint(hi);
-      small[kk][e] = __float_as_uint(lo);
-    }
-}
-
-// The (64 x 64) sums of warpgroup 1 go through shared memory (`red`, 32 KB)
-// to warpgroup 0, which adds them to its own, always in this order, and
-// writes its rows r0, r0 + 8 (those below `rows`) of a (B, S, H, 64) fp32
-// tensor, times `scale`.
-__device__ __forceinline__ void reduce_write(float* red, float (&sum)[32], int group, int tid,
-                                             float* base, long long row_stride, float scale,
-                                             int r0, int rows, int t) {
-  if (group == 1) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) red[i * 128 + tid] = sum[i];
-  }
-  __syncthreads();
-  if (group == 0) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sum[i] += red[i * 128 + tid];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + 8 * r;
-      if (row < rows) {
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(base + row * row_stride + n * 8 + t * 2) =
-              make_float2(sum[n * 4 + r * 2] * scale, sum[n * 4 + r * 2 + 1] * scale);
-      }
-    }
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 pn_flash_bwd_f32_dkdv_tc(const __grid_constant__ CUtensorMap q_map,

@@ -18,6 +18,10 @@ MAX_BOX = 256           # TMA's limit on a box dimension
 MAX_RANK = 4
 
 FLASH_BQ, FLASH_BK = 128, 128       # query rows per block, keys per tile
+# the fp32 forward on the tensor cores (``tc`` in csrc/flash_attention.cu):
+# query rows per block (two warpgroups of 64) and keys per tile, which both
+# warpgroups walk; its three maps have the fp32 backward's 32 x 32 boxes
+FLASH_F32_BQ, FLASH_F32_T = 128, 32
 # the wgmma backward: keys per dK/dV block and query rows per tile it
 # streams; query rows per dQ block and keys per tile it streams (one k and
 # one v map serve both passes, so the two key counts are equal)
@@ -70,28 +74,41 @@ def map_spec(t: torch.Tensor, box: Sequence[int]) -> List[int]:
     return dims + strides + boxes
 
 
-def flash_grid(batch: int, heads: int, sq: int) -> Tuple[int, int]:
-    """(query tiles per head, blocks) of the wgmma flash kernel."""
-    q_tiles = -(-sq // FLASH_BQ)
+def flash_grid(batch: int, heads: int, sq: int, rows: int = FLASH_BQ) -> Tuple[int, int]:
+    """(query tiles per head, blocks) of a flash forward with ``rows``
+    query rows a block: the bf16 wgmma kernel's by default, FLASH_F32_BQ
+    for the fp32 one on the tensor cores."""
+    q_tiles = -(-sq // rows)
     return q_tiles, batch * heads * q_tiles
 
 
-def flash_block(block: int, heads: int, q_tiles: int) -> Tuple[int, int, int]:
+def flash_block(block: int, heads: int, q_tiles: int,
+                rows: int = FLASH_BQ) -> Tuple[int, int, int]:
     """(batch row, head, first query row) of a block: the query tiles of one
     (batch row, head) are neighbours, so its K and V are shared in L2."""
     qt, bh = block % q_tiles, block // q_tiles
-    return bh // heads, bh % heads, qt * FLASH_BQ
+    return bh // heads, bh % heads, qt * rows
 
 
-def flash_kv_tiles(row_len: int) -> int:
-    """Key tiles a block visits for a row of ``row_len`` valid keys."""
-    return -(-row_len // FLASH_BK)
+def flash_kv_tiles(row_len: int, keys: int = FLASH_BK) -> int:
+    """Key tiles of ``keys`` keys (FLASH_F32_T for the fp32 forward) a
+    block visits for a row of ``row_len`` valid keys."""
+    return -(-row_len // keys)
 
 
 def flash_route(d: int) -> str:
     """Which of the two hand-written bf16 kernels serves head dim ``d``, in
     the forward and in the backward alike."""
     return "wgmma" if d == 64 else "mma"
+
+
+def flash_f32_map_specs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> List[int]:
+    """The three maps of the fp32 forward on the tensor cores, as
+    ``tc::launch`` in csrc/flash_attention.cu takes them: q, k and v (the
+    strided halves of a merged kv projection load in place), each with
+    32-row boxes of one 32-column panel (the tiles are two panels wide)."""
+    box = (1, FLASH_F32_T, 1, SWIZZLE_BYTES // 4)
+    return map_spec(q, box) + map_spec(k, box) + map_spec(v, box)
 
 
 def flash_bwd_grid(batch: int, heads: int, sq: int, skv: int) -> Tuple[int, int, int, int]:

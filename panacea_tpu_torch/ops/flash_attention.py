@@ -14,8 +14,9 @@ On a CPU tensor ``flash_attention`` runs ``flash_attention_plain``. On a
 CUDA tensor it launches a kernel or raises: it never falls back. The
 operands keep their type, as in the Pallas kernel: bf16 at head dim 64 goes
 to the wgmma/TMA kernel, at 16, 32 and 128 to the mma.sync kernel
-(``_tma.flash_route``); fp32 goes to the fp32 kernel (products on the FMA
-units, no TF32). ``flash_attention.launches`` counts all launches and
+(``_tma.flash_route``); fp32 goes to the fp32 kernels, at head dim 64 on
+the tensor cores as 3xTF32 (TMA, wgmma), at 16, 32 and 128 on the FMA
+units. ``flash_attention.launches`` counts all launches and
 ``flash_attention.route_launches`` each route's.
 
 Gradients: where autograd needs them, ``flash_attention`` goes through a
@@ -77,18 +78,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     accumulator, base-2 exponent with log2(e) folded into the scale,
     probabilities cast to v's dtype before the PV product. Never holds more
     than one (Sq, PLAIN_BLOCK_K) chunk of scores. Inputs of any float dtype are
-    computed in fp32; the result has q's dtype. ``return_lse`` also returns
-    the row log-sum-exp, fp32 (B, H, Sq), base 2 of the scaled scores."""
+    computed in fp32, or in float64 where q is float64 (the reference of the
+    fp32 kernel's check); the result has q's dtype. ``return_lse`` also
+    returns the row log-sum-exp, (B, H, Sq), base 2 of the scaled scores, in
+    the type computed in."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     scale = d**-0.5 if scale is None else scale
-    qt = q.permute(0, 2, 1, 3).float()                    # (B, H, Sq, D)
-    kt = k.permute(0, 2, 1, 3).float()
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qt = q.permute(0, 2, 1, 3).to(ct)                     # (B, H, Sq, D)
+    kt = k.permute(0, 2, 1, 3).to(ct)
     vt = v.permute(0, 2, 1, 3)
     row_len, empty = _row_len(b, skv, kv_lens, q.device)
-    m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    den = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, sq, 1), NEG_INF, dtype=ct, device=q.device)
+    den = torch.zeros((b, h, sq, 1), dtype=ct, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=ct, device=q.device)
     for j in range(0, skv, PLAIN_BLOCK_K):
         ks, vs = kt[:, :, j:j + PLAIN_BLOCK_K], vt[:, :, j:j + PLAIN_BLOCK_K]
         s, valid = _scores(qt, ks, j, scale, row_len, empty)
@@ -97,7 +101,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp2(s - m_new)
         corr = torch.exp2(m - m_new)
         den = den * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.matmul(p.to(vs.dtype).float(), vs.float())
+        acc = acc * corr + torch.matmul(p.to(vs.dtype).to(ct), vs.to(ct))
         m = m_new
     out = (acc / den).permute(0, 2, 1, 3).to(q.dtype)
     if return_lse:
@@ -191,10 +195,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong),
         ctypes.c_float, ctypes.c_void_p]
     lib.pn_flash_attention_bf16.restype = ctypes.c_int
-    lib.pn_flash_attention_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+    lib.pn_flash_attention_f32.argtypes = lib.pn_flash_attention_bf16.argtypes
     lib.pn_flash_attention_f32.restype = ctypes.c_int
     return lib
 
@@ -240,21 +241,18 @@ def _forward(q, k, v, scale: float, kv_lens, with_lse: bool):
     route = _route(q.dtype, d)
     lens_ptr = kv_lens.data_ptr() if kv_lens is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if route == "fp32":
-        err = lib.pn_flash_attention_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, lens_ptr,
-            b, h, sq, k.shape[1], d, strides, scale, stream)
-    else:
-        maps = None
-        if route == "wgmma":
-            # 4-D views (B, S, H, D), loaded as (rows, 64) boxes of one head
+    spec = None
+    if d == 64:  # the TMA kernels: bf16 wgmma, fp32 3xTF32
+        if route == "fp32":
+            spec = _tma.flash_f32_map_specs(q, k, v)
+        else:  # 4-D views (B, S, H, D), loaded as (rows, 64) boxes of one head
             spec = (_tma.map_spec(q, (1, _tma.FLASH_BQ, 1, d))
                     + _tma.map_spec(k, (1, _tma.FLASH_BK, 1, d))
                     + _tma.map_spec(v, (1, _tma.FLASH_BK, 1, d)))
-            maps = (ctypes.c_longlong * len(spec))(*spec)
-        err = lib.pn_flash_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, lens_ptr,
-            b, h, sq, k.shape[1], d, strides, maps, scale, stream)
+    maps = None if spec is None else (ctypes.c_longlong * len(spec))(*spec)
+    entry = lib.pn_flash_attention_f32 if route == "fp32" else lib.pn_flash_attention_bf16
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, lens_ptr,
+                b, h, sq, k.shape[1], d, strides, maps, scale, stream)
     _build.check(lib, err, f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1

@@ -83,7 +83,9 @@ def test_geglu_kernel_matches_plain_on_card(cuda, tokens, c, inner):
     (256, 512, 2, 64, [0, 300], True), (256, 512, 2, 16, [300, 0], False),
     (256, 512, 2, 32, [0, 300], False), (256, 512, 2, 128, [0, 300], False)])
 def test_fp32_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
-    """fp32 operands go to the fp32 kernel (FMA units, no TF32) at every head dim."""
+    """fp32 operands go to the fp32 kernels (3xTF32 on the tensor cores at head
+    dim 64, the FMA units at the others), held to the plain version evaluated
+    in float64 (the exact function), as chip_smoke.py holds them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     b = 2 if lens is None else len(lens)
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -97,7 +99,7 @@ def test_fp32_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merg
     before = flash_attention.route_launches["fp32"]
     got = flash_attention(q, k, v, kv_lens=kvl)
     assert flash_attention.route_launches["fp32"] == before + 1 and got.dtype == torch.float32
-    want = flash_attention_plain(q, k, v, kv_lens=kvl)
+    want = flash_attention_plain(q.double(), k.double(), v.double(), kv_lens=kvl)
     assert tolerance.worst_ratio(got, want, **tolerance.FLASH_F32) <= 1.0
 
 

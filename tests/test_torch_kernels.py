@@ -156,18 +156,18 @@ from panacea_tpu_torch.ops import flash_attention as fa_mod  # noqa: E402
 from panacea_tpu_torch.ops import geglu as gg_mod  # noqa: E402
 
 
-def _views(kind, b, s, h, d):
-    """bf16 (B, S, H, D) views as the model hands them to the flash kernel."""
+def _views(kind, b, s, h, d, dtype=torch.bfloat16):
+    """(B, S, H, D) views as the model hands them to the flash kernel."""
     if kind == "contiguous":
-        return [torch.zeros((b, s, h, d), dtype=torch.bfloat16)]
+        return [torch.zeros((b, s, h, d), dtype=dtype)]
     if kind == "merged_kv":      # the halves of one (B, S, 2 H D) projection
-        kv = torch.zeros((b, s, 2 * h * d), dtype=torch.bfloat16)
+        kv = torch.zeros((b, s, 2 * h * d), dtype=dtype)
         return [t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1)]
     if kind == "merged_qkv":     # the thirds of one (B, S, 3 H D) projection
-        qkv = torch.zeros((b, s, 3 * h * d), dtype=torch.bfloat16)
+        qkv = torch.zeros((b, s, 3 * h * d), dtype=dtype)
         return [t.unflatten(-1, (h, d)) for t in qkv.chunk(3, dim=-1)]
     if kind == "batch_slice":    # views 0-4 of 6, then rows 8.. of the sequence
-        return [torch.zeros((b + 1, s + 8, h, d), dtype=torch.bfloat16)[:b, 8:]]
+        return [torch.zeros((b + 1, s + 8, h, d), dtype=dtype)[:b, 8:]]
     raise AssertionError(kind)
 
 
@@ -441,7 +441,8 @@ def test_flash_bwd_f32_shared_memory_fits_a_block():
     mbarrier per slot and one for the resident tiles; the 1,024-byte pad.
     Both fit the 232,448 bytes an H100 block may have; a third slot would
     not fit the dK/dV pass. The host's tiles are the source's."""
-    k = _kernel_constants("flash_attention_bwd.cu", "tc")
+    k = {**_kernel_constants("flash_f32_tc.cuh", "tc"),    # shared with the forward
+         **_kernel_constants("flash_attention_bwd.cu", "tc")}
     assert (k["KB"], k["QB"], k["T"]) == (
         _tma.FLASH_BWD_F32_KB, _tma.FLASH_BWD_F32_QB, _tma.FLASH_BWD_F32_T)
     assert k["D"] == 2 * k["PANEL"] and k["PANEL"] * 4 == _tma.SWIZZLE_BYTES
@@ -491,35 +492,43 @@ def test_flash_bwd_f32_tensor_map_specs(b, sq, h):
         assert strides == [4 * s for s in reversed(t.stride())]
 
 
+def _tf32_split(x):
+    """x as its big and small TF32 parts (``pn::tf32_split``)."""
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _tc_product(a, b, products, width=None):
+    """a (M, K) b^T (b: N, K) as the fp32 flash kernels on the tensor cores
+    compute it: both operands split into TF32 big and small parts, 8 values
+    of K a step, ``products`` of them a step (3: small x big, big x small,
+    big x big; 1: the big product alone) added by the tensor cores' adder
+    (``_tc_add``), a fresh accumulator set every ``width`` values (all K in
+    one by default), the sets added in fp32 rounded to nearest."""
+    (ab, al), (bb, bl) = _tf32_split(a), _tf32_split(b)
+    pairs = [(al, bb), (ab, bl), (ab, bb)] if products == 3 else [(ab, bb)]
+    total = torch.zeros((a.shape[0], b.shape[0]))
+    for c0 in range(0, a.shape[1], width or a.shape[1]):
+        acc = torch.zeros_like(total)
+        for c in range(c0, min(c0 + (width or a.shape[1]), a.shape[1]), 8):
+            for x, y in pairs:
+                acc = _tc_add(acc, x[:, c:c + 8], y[:, c:c + 8])
+        total = total + acc
+    return total
+
+
 def _flash_bwd_tf32_emulated(q, k, v, o, lse, do, lens, products):
     """The fp32 tensor-core backward's arithmetic on one (batch row, head)
-    pair per call: each operand split into TF32 big and small parts, per 8
-    contracted values ``products`` of them (3: small x big, big x small, big
-    x big; 1: the big product alone) added by the tensor cores' adder
-    (``_tc_add``). Each 16 channels of S and dP, and each 32-row tile's dV,
-    dK (per query tile) and dQ (per key tile), go to a fresh accumulator set
-    added to fp32 sums rounded to nearest; the tiles are taken in turn by two
-    warpgroups whose sums are added at the end."""
+    pair per call: each product as ``_tc_product``. Each 16 channels of S
+    and dP, and each 32-row tile's dV, dK (per query tile) and dQ (per key
+    tile), go to a fresh accumulator set added to fp32 sums rounded to
+    nearest; the tiles are taken in turn by two warpgroups whose sums are
+    added at the end."""
     t = _tma.FLASH_BWD_F32_T
     scale = q.shape[-1] ** -0.5
 
-    def split(x):
-        big = _tf32(x)
-        return big, _tf32(x - big)
-
     def tc_product(a, b, width=None):
-        """a (M, K) b^T (b: N, K), 8 values of K a step, a fresh accumulator
-        set every ``width`` values (all K in one by default)"""
-        (ab, al), (bb, bl) = split(a), split(b)
-        pairs = [(al, bb), (ab, bl), (ab, bb)] if products == 3 else [(ab, bb)]
-        total = torch.zeros((a.shape[0], b.shape[0]))
-        for c0 in range(0, a.shape[1], width or a.shape[1]):
-            acc = torch.zeros_like(total)
-            for c in range(c0, min(c0 + (width or a.shape[1]), a.shape[1]), 8):
-                for x, y in pairs:
-                    acc = _tc_add(acc, x[:, c:c + 8], y[:, c:c + 8])
-            total = total + acc
-        return total
+        return _tc_product(a, b, products, width)
 
     def tiled(a, b, rows):  # sum over 32-row tiles of a[:, tile] b[:, tile]^T
         sums = [torch.zeros((a.shape[0], b.shape[0])) for _ in range(2)]
@@ -800,3 +809,184 @@ def test_flash_bwd_tensor_map_specs_address_every_element(kind, b, sq, h):
         for bi, si, hi, di in picks:
             got = t.data_ptr() + sum(x * st for x, st in zip((di, hi, si, bi), strides))
             assert got == t[bi, si, hi, di].data_ptr()
+
+
+# ---- the fp32 flash forward on the tensor cores (``tc`` in
+# csrc/flash_attention.cu): its arithmetic, shared memory, tile schedule
+# and tensor maps
+
+
+def _flash_fwd_tf32_emulated(q, k, v, lens, products, s_sets):
+    """The fp32 tensor-core forward's arithmetic: per 32-key tile, S = Q K^T
+    as ``_tc_product`` with ``s_sets`` fresh accumulator sets over the 64
+    channels; the online softmax in base 2 in fp32 (keys from the row's
+    length on masked; a row with ``lens`` 0 takes every key at scale 0); the
+    tile's P V (P and V split as the operands) into a fresh set, folded into
+    the running output in fp32 rounded to nearest with the softmax's
+    correction; out = O / l and lse = m + log2(l)."""
+    t = _tma.FLASH_F32_T
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    out, lse = torch.zeros_like(q), torch.zeros((b, h, sq))
+    for bi in range(b):
+        n = int(lens[bi])
+        row_len = skv if n <= 0 else min(n, skv)
+        scale_log2 = 0.0 if n <= 0 else d**-0.5 * tolerance_log2e
+        for hi in range(h):
+            qh = q[bi, :, hi]
+            m, l = torch.full((sq,), -1e30), torch.zeros(sq)
+            o = torch.zeros((sq, d))
+            for key0 in range(0, row_len, t):
+                kt, vt = (torch.zeros((t, d)) for _ in range(2))
+                kt[:skv - key0] = k[bi, key0:key0 + t, hi]   # past Skv: TMA's zeros
+                vt[:skv - key0] = v[bi, key0:key0 + t, hi]
+                s = _tc_product(qh, kt, products, d // s_sets)
+                x = torch.where(torch.arange(t) < row_len - key0, s * scale_log2,
+                                torch.tensor(float("-inf")))
+                m_new = torch.maximum(m, x.amax(-1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(x - m_new[:, None])
+                l = l * corr + p.sum(-1)
+                o = o * corr[:, None] + _tc_product(p, vt.T.contiguous(), products)
+                m = m_new
+            out[bi, :, hi] = o / l[:, None]
+            lse[bi, hi] = m + torch.log2(l)
+    return out, lse
+
+
+@pytest.mark.parametrize("products,s_sets,passes", [(3, 1, True), (3, 4, True), (1, 1, False)],
+                         ids=["3xTF32-one-set", "3xTF32-sets-of-16", "1xTF32"])
+def test_flash_fwd_3xtf32_arithmetic_against_float64(products, s_sets, passes):
+    """Under FLASH_F32, against the plain forward evaluated in float64 (the
+    reference of the card's fp32 check), at head dim 64 with a full row, a
+    row of one valid key and a ragged row: the kernel's scheme (three
+    products, one accumulator set over the 64 channels of S, a fresh set
+    per key tile's P V folded into rounded fp32 sums) passes, as sets of 16
+    channels do (0.030 and 0.014 of the rule here, the fp32 plain version
+    0.014); the TF32 product alone reads 16, so the rule catches a dropped
+    term."""
+    g = torch.Generator().manual_seed(9)
+    b, sq, skv, h, d = 3, 128, 256, 1, 64
+    q, k, v = (torch.randn((b, n, h, d), generator=g) for n in (sq, skv, skv))
+    lens = torch.tensor([256, 1, 200], dtype=torch.int32)
+    got, got_lse = _flash_fwd_tf32_emulated(q, k, v, lens, products, s_sets)
+    want, want_lse = flash_attention_plain(q.double(), k.double(), v.double(), kv_lens=lens,
+                                           return_lse=True)
+    assert want.dtype == want_lse.dtype == torch.float64
+    ratios = (tolerance.worst_ratio(got, want, **tolerance.FLASH_F32),
+              tolerance.worst_ratio(got_lse, want_lse, **tolerance.FLASH_LSE))
+    if passes:
+        assert max(ratios) <= 1.0, ratios
+    else:
+        assert ratios[0] > 5.0, ratios
+
+
+def test_flash_f32_fwd_shared_memory_fits_a_block():
+    """The layout of the fp32 tensor-core forward (``tc::Smem`` in
+    csrc/flash_attention.cu), from the sources' own constants: the 128-row
+    Q tile as loaded (each thread splits its A operands into registers); a
+    ring of STAGES slots, each a 32-key K tile split in place with its small
+    part, the V tile as loaded and its transposed big and small copies; one
+    mbarrier per slot and one for Q; the 1,024-byte pad. It fits the 232,448
+    bytes an H100 block may have and one slot more would not. The host's
+    tiles are the source's."""
+    k = {**_kernel_constants("flash_f32_tc.cuh", "tc"),
+         **_kernel_constants("flash_attention.cu", "tc")}
+    assert (k["BQ"], k["T"]) == (_tma.FLASH_F32_BQ, _tma.FLASH_F32_T)
+    assert k["D"] == 2 * k["PANEL"] and k["PANEL"] * 4 == _tma.SWIZZLE_BYTES
+    assert k["NTHREADS"] == 2 * 128 and k["BQ"] == 2 * 64   # two warpgroups of 64 rows
+    tile = k["T"] * k["D"] * 4
+
+    def smem(stages):
+        return k["BQ"] * k["D"] * 4 + stages * 5 * tile + 8 * (1 + stages) + 1024
+
+    assert smem(k["STAGES"]) == 197672 <= 232448 < smem(k["STAGES"] + 1)
+
+
+@pytest.mark.parametrize("b,h,sq", [(80, 5, 2048), (80, 10, 512), (80, 20, 128), (40, 5, 2048),
+                                    (4, 5, 129), (12, 2, 200), (16, 3, 100)])
+def test_flash_f32_schedule_covers_every_query_tile_once(b, h, sq):
+    """The fp32 forward's grid: one block per 128 query rows of each
+    (batch row, head), the tiles of one pair neighbours in launch order;
+    each warpgroup's 64 rows below Sq, together every row once."""
+    rows = _tma.FLASH_F32_BQ
+    q_tiles, blocks = _tma.flash_grid(b, h, sq, rows)
+    assert blocks == b * h * -(-sq // 128)
+    seen = [_tma.flash_block(i, h, q_tiles, rows) for i in range(blocks)]
+    want = {(bi, hi, q0) for bi in range(b) for hi in range(h) for q0 in range(0, sq, rows)}
+    assert len(seen) == len(set(seen)) and set(seen) == want
+    for i in range(0, blocks, q_tiles):
+        assert len({s[:2] for s in seen[i:i + q_tiles]}) == 1
+    mine = sorted(r for bi, hi, q0 in seen if (bi, hi) == (b - 1, h - 1)
+                  for group in (0, 1) for r in range(q0 + 64 * group, q0 + 64 * group + 64)
+                  if r < sq)
+    assert mine == list(range(sq))
+
+
+@pytest.mark.parametrize("skv,row_len", [(4096, 4096), (1024, 1024), (256, 256), (256, 1),
+                                         (4097, 4097), (70, 65), (700, 300), (650, 33)])
+def test_flash_f32_kv_tiles_cover_the_row_length(skv, row_len):
+    """Both warpgroups walk the same 32-key tiles: every valid key once, no
+    tile of masked keys only, and none starting past Skv; the last tile
+    masks from row_len - (n - 1) 32 on, at least one key staying."""
+    t = _tma.FLASH_F32_T
+    n = _tma.flash_kv_tiles(row_len, t)
+    keys = [key for j in range(n) for key in range(j * t, (j + 1) * t) if key < row_len]
+    assert keys == list(range(row_len)) and (n - 1) * t < skv
+    assert 1 <= row_len - (n - 1) * t <= t
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "merged_kv", "batch_slice"])
+@pytest.mark.parametrize("b,sq,h", [(80, 2048, 5), (3, 512, 10), (2, 129, 20), (1, 100, 1)])
+def test_flash_f32_tensor_map_specs_address_every_element(kind, b, sq, h):
+    """The fp32 forward's three maps: 32-row boxes of one 32-column panel of
+    q and of the k and v views (contiguous, the halves of the merged kv
+    projection, or a slice of a larger batch); each spec addresses the
+    element torch does."""
+    d, skv = 64, 2 * sq
+    if b * skv * h * d * 2 > 2**25:
+        b = 2   # the arithmetic does not depend on the batch; keep the host copy small
+    q = _views(kind, b, sq, h, d, torch.float32)[0]
+    k, v = (_views(kind, b, skv, h, d, torch.float32) * 2)[:2]
+    spec = _tma.flash_f32_map_specs(q, k, v)
+    assert len(spec) == 3 * 12
+    rng = np.random.default_rng(sq + h)
+    for i, t in enumerate((q, k, v)):
+        dims, strides, box = spec[12 * i:12 * i + 4], spec[12 * i + 4:12 * i + 8], \
+            spec[12 * i + 8:12 * i + 12]
+        n = t.shape[1]
+        assert dims == [d, h, n, b] and box == [32, 1, _tma.FLASH_F32_T, 1]
+        assert strides[0] == 4 and all(x % 16 == 0 for x in strides[1:])
+        picks = [(0, 0, 0, 0), (b - 1, n - 1, h - 1, d - 1)]
+        picks += [tuple(int(rng.integers(m)) for m in (b, n, h, d)) for _ in range(30)]
+        for bi, si, hi, di in picks:
+            got = t.data_ptr() + sum(x * st for x, st in zip((di, hi, si, bi), strides))
+            assert got == t[bi, si, hi, di].data_ptr()
+
+
+@pytest.mark.parametrize("lens", [None, [0, 300], [1, 77]], ids=["full", "empty-row", "ragged"])
+def test_flash_plain_in_float64_is_the_exact_softmax(lens):
+    """float64 inputs are computed in float64 (the reference of the fp32
+    kernels' checks on the card): the chunked online softmax equals a direct
+    float64 softmax(q k^T scale) v, a row with no valid key the mean of V;
+    its lse is log2 of the direct sum of exp2 of the scaled scores."""
+    g = torch.Generator().manual_seed(64)
+    b, sq, skv, h, d = 2, 100, 650, 3, 64
+    q, k, v = (torch.randn((b, n, h, d), generator=g, dtype=torch.float64)
+               for n in (sq, skv, skv))
+    kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    out, lse = flash_attention_plain(q, k, v, kv_lens=kvl, return_lse=True)
+    assert out.dtype == lse.dtype == torch.float64
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5 * tolerance_log2e
+    n = torch.full((b,), skv) if kvl is None else kvl.long()
+    valid = torch.arange(skv)[None, :] < n[:, None]
+    s = torch.where(n[:, None, None, None] == 0, torch.zeros_like(s),   # the empty row
+                    torch.where(valid[:, None, None, :], s, torch.full_like(s, float("-inf"))))
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s * np.log(2), -1), v)
+    torch.testing.assert_close(out, want, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(lse, torch.logsumexp(s * np.log(2), -1) / np.log(2),
+                               rtol=1e-12, atol=1e-12)
+    if lens is not None and 0 in lens:
+        row = lens.index(0)
+        torch.testing.assert_close(out[row], v[row].mean(0).expand(sq, h, d), rtol=1e-12,
+                                   atol=1e-12)
