@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``panacea_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py             # every phase
-    python3 chip_smoke.py --kernels   # phases 1 and 2 only
+    python3 chip_smoke.py                # every phase
+    python3 chip_smoke.py --kernels      # phases 1 and 2 only
+    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phase 11
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -21,7 +22,9 @@ Phases, in order; any failure exits non-zero:
      128; fp32: 3xTF32 wgmma at head dim 64, FMA at the others, held to the
      plain version in float64), their library time read as the device time
      of SDPA's backward; every flash route also with rows of no valid key;
-     the GEGLU backward timed in bf16 and fp32 at the training shapes;
+     the GEGLU backward timed in bf16 and fp32 at the training shapes; the
+     fp32 flash forward at the perception eval's shape (B 1, Sq 900, Skv
+     1668, 8 heads of dim 32: the FMA route) beside fp32 SDPA;
   3. small input: the tiny engine on the card (bf16, kernels) against the
      same weights on the CPU (fp32, plain versions), two sampler steps;
   4. log_images: ``DiffusionEngine3D.log_images`` called directly at full
@@ -57,7 +60,17 @@ Phases, in order; any failure exits non-zero:
      2 --use_ema`` on the card, resumed from iter_2 (parameters and EMA equal
      to the uninterrupted run's within ``RESUME_TOL``, bit-equal so far), and
      its ``engine_final.ckpt`` loaded with strict=True into the inference CLI,
-     2 steps.
+     2 steps;
+ 11. perception: (a) ``StreamPETRWindow`` at the eval recipe's full width
+     (ResNet-50, 5-level FPN, SparseHead: 644 queries, 1024 memory slots, 6
+     layers; 6 cameras at 256 x 512) with random weights from a seed, one
+     window of 8 frames: s/window, its split (backbone + FPN, head), peak
+     memory and 48 fp32 flash launches; its first two frames on the card
+     and on the CPU with the same weights, within ``PERCEPTION_TOL``; (b)
+     ``panacea_tpu_torch.perception.eval.main --synthetic`` in process, every
+     window (5 of 4 frames), metrics printed; (c) the round trip on the card:
+     the tiny generation CLI, then the tiny eval CLI on its Gen-nuScenes
+     tree, with no generated frame missing.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -114,6 +127,15 @@ TINY_GRAD_FACTOR = 2.0
 RESUME_TOL = 5 * TRAIN_LR
 # (tokens, channels) of the GEGLU calls of one training clip: levels 0 / 1 / 2 / mid
 TRAIN_GEGLU = ((98304, 320), (24576, 640), (6144, 1280), (1536, 1280))
+# the perception eval recipe: a window of 8 frames (the recipe's
+# --queue_length) of 6 cameras at 256 x 512; its self-attention has B 1,
+# Sq 644 + 256, Skv 900 + 768, 8 heads of dim 32 (the fp32 FMA flash route)
+PERCEPTION_T, PERCEPTION_HW = 8, (256, 512)
+PERCEPTION_FLASH = (1, 900, 1668, 8, 32)
+# the detector in fp32 on the card (cuDNN, cuBLAS, the fp32 flash kernel;
+# TF32 off) against the CPU (the plain versions): each output's largest
+# difference over its largest value, after a randomly drawn ResNet-50
+PERCEPTION_TOL = 1e-3
 
 
 def log(obj) -> None:
@@ -214,9 +236,11 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
         if fp32 and d == 64:
             rec["bound_ms"], rec["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32)
             rec["bound_fma_ms"], _ = bound(flops, nbytes, PEAK_FP32)
+        elif fp32:   # the FMA kernel: its own bound, and a 3xTF32 design's beside it
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, PEAK_FP32)
+            rec["bound_3xtf32_ms"], _ = bound(3 * flops, nbytes, PEAK_TF32)
         else:
-            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
-                                                     PEAK_FP32 if fp32 else PEAK_BF16)
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, PEAK_BF16)
         rec["ms"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, kv_lens=lens),
                             5 if fp32 else 20)
         # the same forward also writing the row log-sum-exp (training only),
@@ -1159,6 +1183,152 @@ def train_cli_phase(torch, np, dev, fa, gg, card: str):
         raise AssertionError(f"the tiny trainer did not reach the GEGLU kernels: {counts}")
 
 
+def perception_window(torch, np, dev, t: int, seed: int = SEED):
+    """A window of the eval recipe: t frames of random 256 x 512 images
+    (uniform in [0, 255], normalised) of the synthetic scene's 6 cameras,
+    with its calibration and poses, as tensors on ``dev``."""
+    from panacea_tpu_torch.data.nuscenes.synthetic import make_synthetic_infos
+    from panacea_tpu_torch.perception.eval_dataset import GenNuScenesEvalDataset
+
+    rng = np.random.default_rng(seed)
+    infos = make_synthetic_infos(num_frames=t, num_boxes=6, seed=seed)
+    ds = GenNuScenesEvalDataset(infos=infos, queue_length=t, final_dim=PERCEPTION_HW,
+                                image_loader=lambda path: rng.uniform(
+                                    0, 255, PERCEPTION_HW + (3,)).astype(np.float32))
+    window = {k: torch.as_tensor(v, device=dev) for k, v in ds.sliding_window(t - 1).items()}
+    return window.pop("imgs"), window
+
+
+def perception_phase(torch, np, dev, fa, gg, card: str):
+    """(a) ``StreamPETRWindow`` at the eval recipe's full width on one window
+    of PERCEPTION_T frames: s/window with its split, peak memory, the fp32
+    flash launches; the same weights on the first two frames on the card
+    and on the CPU. Returns the window's launch counts."""
+    from panacea_tpu_torch.perception.detector import StreamPETRWindow
+    from panacea_tpu_torch.perception.head import init_memory
+
+    model = StreamPETRWindow().to(dev).eval()
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
+    imgs, data = perception_window(torch, np, dev, PERCEPTION_T)
+    split = {"backbone_fpn_s": 0.0, "head_s": 0.0}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[name] += time.perf_counter() - s
+            return out
+        return wrapper
+
+    model.extract_feats = timed("backbone_fpn_s", model.extract_feats)
+    model.pts_bbox_head.forward = timed("head_s", model.pts_bbox_head.forward)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        model(imgs, data)    # first use: cuDNN's choice of algorithms, the kernel's load
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        split.update(dict.fromkeys(split, 0.0))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, gg)
+        t0 = time.perf_counter()
+        outs, memory = model(imgs, data)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        counts = read_counts(fa, gg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    window_split = dict(split)   # the timed window's; the comparison below adds to split
+    q = 644 + 256
+    shapes_ok = (tuple(outs["all_cls_scores"].shape) == (6, 1, q, 10)
+                 and tuple(outs["all_bbox_preds"].shape) == (6, 1, q, 10)
+                 and tuple(memory.embedding.shape) == (1, 1024, 256))
+    finite = all(bool(torch.isfinite(v).all()) for v in outs.values())
+
+    # the first two frames on the card and on the CPU, frame by frame; the
+    # second frame starts on both from the card's memory, since the top-256
+    # selection orders near-equal scores by rounding noise
+    cpu = StreamPETRWindow().eval()
+    cpu.load_state_dict(model.state_dict())
+    worst = {}
+    mem_card = init_memory(1, 1024, 256, device=dev)
+    mem_cpu = init_memory(1, 1024, 256)
+    slots_agree = []
+    with torch.inference_mode():
+        for fi in range(2):
+            frame = {k: v[:, fi] for k, v in data.items()}
+            got, mem_card_next = model.forward_frame(imgs[:, fi], mem_card, frame)
+            want, mem_cpu = cpu.forward_frame(imgs[:, fi].cpu(), mem_cpu,
+                                              {k: v.cpu() for k, v in frame.items()})
+            for key in ("all_cls_scores", "all_bbox_preds"):
+                err = (got[key].cpu() - want[key]).abs().max().item()
+                worst[f"{key}_frame{fi}"] = err / want[key].abs().max().item()
+            # the same slots in the same order, or reference points metres apart
+            slots_agree.append((mem_card_next.reference_point.cpu()
+                                - mem_cpu.reference_point).abs().max().item() < 1e-2)
+            mem_card = mem_card_next
+            mem_cpu = type(mem_card)(*(m.cpu() for m in mem_card))
+    flash32 = counts["flash_routes"]["fp32"]
+    rec = {"phase": "perception", "card": card, "frames": PERCEPTION_T,
+           "image_hw": list(PERCEPTION_HW), "cams": 6, "queries": q, "memory": 1024,
+           "params": sum(p.numel() for p in model.parameters()),
+           "first_window_s": first_s, "s_per_window": window_s,
+           "split_s": window_split, "peak_mem_gb": peak, "launches": counts,
+           "expected_fp32_flash": 6 * PERCEPTION_T, "finite": finite, "shapes_ok": shapes_ok,
+           "card_vs_cpu_t2": worst, "tol": PERCEPTION_TOL,
+           "memory_slots_agree_card_cpu": slots_agree}
+    log(rec)
+    if not (finite and shapes_ok):
+        raise AssertionError(f"the detector's output is wrong: {rec}")
+    if flash32 != 6 * PERCEPTION_T or counts["flash_attention"] != flash32:
+        raise AssertionError(f"a window launched {counts['flash_routes']} flash kernels, "
+                             f"not {6 * PERCEPTION_T} on the fp32 route: {rec}")
+    if not max(worst.values()) <= PERCEPTION_TOL:
+        raise AssertionError(f"the detector on the card disagrees with the CPU: {rec}")
+    del model.extract_feats, model.pts_bbox_head.forward   # the timers off
+    profile_step(torch, lambda: model(imgs, data), name="profile_perception_window")
+    return counts
+
+
+def perception_cli_phase(torch, np, dev, fa, gg, card: str):
+    """(b) ``perception.eval.main --synthetic`` at full width, every window;
+    (c) the round trip on the card: the tiny generation CLI, then the tiny
+    eval CLI reading its Gen-nuScenes tree. Returns (b)'s launch counts."""
+    from panacea_tpu_torch import inference
+    from panacea_tpu_torch.perception import eval as peval
+
+    reset_counts(fa, gg)
+    t0 = time.perf_counter()
+    metrics = peval.main(["--synthetic"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = read_counts(fa, gg)
+    windows = counts["flash_routes"]["fp32"] // (6 * 4)
+    rec = {"phase": "perception_cli", "card": card, "seconds": cli_s, "windows": windows,
+           "frames_per_window": 4, "launches": counts, "metrics": metrics}
+    log(rec)
+    if not (all(np.isfinite(v) for v in metrics.values()) and windows == 5
+            and counts["flash_attention"] == counts["flash_routes"]["fp32"]):
+        raise AssertionError(f"the synthetic eval went wrong: {rec}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        gen = inference.main(["--synthetic", "--tiny", "--num_batches", "1", "--outdir", tmp,
+                              "--name", "e2e", "--seed", "0"])
+        rt = peval.main(["--synthetic", "--tiny", "--gen_root",
+                         os.path.join(tmp, "e2e", "val", "gen-nuscenes"), "--gen_clip_len", "2",
+                         "--queue_length", "2", "--final_dim", "16", "32", "--num_levels", "3",
+                         "--num_samples", "1"])
+        rt_s = time.perf_counter() - t0
+    rec = {"phase": "perception_round_trip", "card": card, "seconds": rt_s,
+           "clips_generated": gen["done"], "gen_frames_loaded": rt["gen_frames_loaded"],
+           "gen_frames_missing": rt["gen_frames_missing"], "NDS": rt["NDS"], "mAP": rt["mAP"]}
+    log(rec)
+    if not (rt["gen_frames_missing"] == 0 and rt["gen_frames_loaded"] > 0
+            and np.isfinite(rt["NDS"])):
+        raise AssertionError(f"the generation -> eval round trip lost frames: {rec}")
+    return counts
+
+
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
 BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
            ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
@@ -1166,6 +1336,7 @@ BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_
            ("conv", ("conv", "cudnn", "implicit", "dgrad", "wgrad", "nhwc")),
            ("matmul", ("gemm", "xmma", "cutlass", "gemv", "matmul", "sm90")),
            ("norm_reduce", ("reduce", "norm", "welford")),
+           ("grid_sample", ("grid_sampler",)),
            ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "cat")))
 
 
@@ -1205,7 +1376,10 @@ def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
         [name[:120], ms] for name, ms in sorted(other.items(), key=lambda kv: -kv[1])[:10]]})
 
 
-def main(kernels_only: bool = False) -> int:
+def main(mode: str = "all") -> int:
+    """``mode``: "all" (every phase), "kernels" (phases 1 and 2) or
+    "perception" (phase 1, the flash check at the perception shape and
+    phase 11)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1247,6 +1421,15 @@ def main(kernels_only: bool = False) -> int:
             raise AssertionError(f"{src}: ptxas ignored setmaxnreg, so the consumer "
                                  "warpgroups do not get the producer's registers")
 
+    if mode == "perception":
+        rec = check_flash(torch, F, fa, tol, dev, *PERCEPTION_FLASH, fp32=True)
+        if rec["route"] != "fp32":
+            raise AssertionError(f"fp32 operands took route {rec['route']}: {rec}")
+        perception_phase(torch, np, dev, fa, gg, card)
+        free(torch)
+        perception_cli_phase(torch, np, dev, fa, gg, card)
+        log({"phase": "perception_only", "ok": True})
+        return 0
     b = 16 * 5   # CFG batch of 16 frames x views 0-4
     levels = ((2048, 4096, 5), (512, 1024, 10), (128, 256, 20))
     # the main path's layout (k, v halves of the merged kv projection); then
@@ -1314,6 +1497,11 @@ def main(kernels_only: bool = False) -> int:
                              (100, 36, 100)):
         geglu32.append(check_geglu(torch, F, gg, tol, dev, tokens, c, timed=False, inner=inner,
                                    fp32=True))
+    # the perception eval's self-attention (SparseHead, head dim 32: the FMA kernel)
+    t0 = time.perf_counter()
+    flash32_perception = check_flash(torch, F, fa, tol, dev, *PERCEPTION_FLASH, fp32=True)
+    flash32_perception_s = time.perf_counter() - t0
+    flash32.append(flash32_perception)
     for rec in flash32 + geglu32:
         if rec["route"] != "fp32":
             raise AssertionError(f"fp32 operands took route {rec['route']}: {rec}")
@@ -1359,7 +1547,7 @@ def main(kernels_only: bool = False) -> int:
         geglu_bwd32.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, inner, timed=False,
                                            fp32=True))
 
-    if kernels_only:
+    if mode == "kernels":
         log({"phase": "kernels_only", "ok": True})
         return 0
     small_input_agreement(torch, np, dev)
@@ -1379,6 +1567,13 @@ def main(kernels_only: bool = False) -> int:
     train_tiny_card_vs_cpu(torch, np, dev)
     free(torch)
     train_cli_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    t0 = time.perf_counter()
+    paths["perception"] = perception_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    paths["perception_cli"] = perception_cli_phase(torch, np, dev, fa, gg, card)
+    log({"phase": "perception_total", "seconds": time.perf_counter() - t0,
+         "kernel_check_s": flash32_perception_s})
 
     def count(c, kernel, fp32):
         """Launches of one kernel on one type's routes, from a path's counts
@@ -1389,14 +1584,21 @@ def main(kernels_only: bool = False) -> int:
                     "geglu": "geglu_routes"}[kernel]]
         return routes["fp32"] if fp32 else c[kernel] - routes["fp32"]
 
-    def summary(name, kernel, source, replaces, recs, main, path, **extra):
+    # the fp32 route's count covers both fp32 flash kernels, which the head
+    # dim selects: 64 on the generation paths (3xTF32), 32 on the perception
+    # paths (FMA)
+    perception_paths = ("perception", "perception_cli")
+    generation_paths = tuple(p for p in paths if p not in perception_paths)
+
+    def summary(name, kernel, source, replaces, recs, main, path, paths_of=tuple(paths),
+                **extra):
         """``launches``: the count of the path that drives this kernel at full
         depth (the CLI for the bf16 kernels, the fp32 engine for the fp32
-        ones); ``launches_by_path`` has every path's."""
+        ones); ``launches_by_path`` has the count of each path of ``paths_of``."""
         fp32 = main["dtype"] == "torch.float32"
         return {"name": name, **extra, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": count(paths[path], kernel, fp32),
-                "launches_by_path": {p: count(c, kernel, fp32) for p, c in paths.items()},
+                "launches_by_path": {p: count(paths[p], kernel, fp32) for p in paths_of},
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1410,7 +1612,8 @@ def main(kernels_only: bool = False) -> int:
         summary("flash_attention", "flash_attention", flash_src, flash_tpu, flash, flash[0], "cli"),
         summary("geglu", "geglu", geglu_src, geglu_tpu, geglu, geglu[0], "cli"),
         summary("flash_attention_fp32", "flash_attention", flash_src, flash_tpu, flash32,
-                flash32[0], "fp32_engine", entry="tc::pn_flash_f32_fwd_tc (3xTF32 wgmma, TMA)",
+                flash32[0], "fp32_engine", paths_of=generation_paths,
+                entry="tc::pn_flash_f32_fwd_tc (3xTF32 wgmma, TMA)",
                 bound_fma_ms=flash32[0]["bound_fma_ms"],
                 ms_levels=[r["ms"] for r in flash32[:3]],
                 library_ms_levels=[r["library_ms"] for r in flash32[:3]],
@@ -1418,6 +1621,12 @@ def main(kernels_only: bool = False) -> int:
                 worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"] for r in flash32),
                 fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
                                                   for r in flash32)),
+        summary("flash_attention_fp32_d32", "flash_attention", flash_src, flash_tpu,
+                [flash32_perception], flash32_perception, "perception", paths_of=perception_paths,
+                entry="f32::pn_flash_f32_fwd (FMA units), the perception eval's self-attention",
+                bound_3xtf32_ms=flash32_perception["bound_3xtf32_ms"],
+                worst_ratio_vs_f64=flash32_perception["worst_ratio"],
+                worst_ratio_vs_fp32_plain=flash32_perception["worst_ratio_vs_fp32_plain"]),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
                 "fp32_engine", entry="f32::pn_geglu_3xtf32_fwd (3xTF32 wgmma, TMA)",
                 bound_fma_ms=geglu32[0]["bound_fma_ms"],
@@ -1453,6 +1662,7 @@ def main(kernels_only: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--kernels"]):
-        sys.exit(f"usage: {sys.argv[0]} [--kernels]")
-    sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels"]))
+    if sys.argv[1:] not in ([], ["--kernels"], ["--perception"]):
+        sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception]")
+    sys.exit(main({"--kernels": "kernels", "--perception": "perception"}.get(
+        (sys.argv[1:] or [""])[0], "all")))

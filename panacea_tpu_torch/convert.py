@@ -6,7 +6,8 @@ with no converter. This module carries weights the other way, from the JAX
 package's flax trees, for the parity tests: its own copy of the UNet,
 ControlNet, VAE and CLIP parts of the key map of
 ``panacea_tpu/utils/convert.py:29-360``, applied with the inverse layout
-transforms and the CLIP q/k/v re-packing of ``:630-705``.
+transforms and the CLIP q/k/v re-packing of ``:630-705``, and of the
+StreamPETR detector's (``:910-1178``).
 
   flax Dense (I, O)        -> torch Linear (O, I)
   flax Conv (kh, kw, I, O) -> torch Conv2d (O, I, kh, kw)
@@ -250,17 +251,21 @@ def apply_map(flat: Dict[Path, np.ndarray], mapping: Dict[str, Entry]) -> Dict[s
             for ref, (p, t) in mapping.items() if p in flat}
 
 
+def _packed_qkv(flat: Dict[Path, np.ndarray], base: Path, ref: str) -> Dict[str, torch.Tensor]:
+    """The q/k/v Dense layers under ``base`` -> torch MultiheadAttention's
+    ``{ref}.in_proj_weight`` and ``in_proj_bias``, rows [q; k; v]."""
+    names = ("q_proj", "k_proj", "v_proj")
+    return {f"{ref}.in_proj_weight": torch.from_numpy(np.concatenate(
+                [flat[base + (n, "kernel")].T for n in names])),
+            f"{ref}.in_proj_bias": torch.from_numpy(np.concatenate(
+                [flat[base + (n, "bias")] for n in names]))}
+
+
 def _clip_qkv(flat: Dict[Path, np.ndarray], prefix: str, path: Path, layers: int):
-    """Per-layer q/k/v Dense -> torch MultiheadAttention ``in_proj_*`` rows [q; k; v]."""
     sd = {}
     for i in range(layers):
-        base = path + (f"resblock_{i}", "attn")
-        names = ("q_proj", "k_proj", "v_proj")
-        ref = f"{prefix}.transformer.resblocks.{i}.attn"
-        sd[f"{ref}.in_proj_weight"] = torch.from_numpy(np.concatenate(
-            [flat[base + (n, "kernel")].T for n in names]))
-        sd[f"{ref}.in_proj_bias"] = torch.from_numpy(np.concatenate(
-            [flat[base + (n, "bias")] for n in names]))
+        sd.update(_packed_qkv(flat, path + (f"resblock_{i}", "attn"),
+                              f"{prefix}.transformer.resblocks.{i}.attn"))
     return sd
 
 
@@ -294,4 +299,102 @@ def state_dict_from_jax(params: Mapping[str, Any], config: Mapping[str, Any]
             cflat = flatten(params["clip"], ("clip",))
             sd.update(apply_map(cflat, clip_map(prefix, ("clip",), layers)))
             sd.update(_clip_qkv(cflat, prefix, ("clip",), layers))
+    return sd
+
+
+# --------------------------------------------------------------------------
+# StreamPETR detector (mmdet names): the inverse of
+# panacea_tpu/utils/convert.py:910-1178 and of its q/k/v split (:1482-1496)
+# --------------------------------------------------------------------------
+
+def _bn(ref: str, path: Path) -> Dict[str, Entry]:
+    return {f"{ref}.weight": (path + ("scale",), _none), f"{ref}.bias": (path + ("bias",), _none),
+            f"{ref}.running_mean": (path + ("mean",), _none),
+            f"{ref}.running_var": (path + ("var",), _none)}
+
+
+def _mln(ref: str, path: Path) -> Dict[str, Entry]:
+    m = _dense(f"{ref}.reduce.0", path + ("reduce",))
+    m.update(_dense(f"{ref}.gamma", path + ("gamma",)))
+    m.update(_dense(f"{ref}.beta", path + ("beta",)))
+    return m
+
+
+def resnet50_map(prefix: str, path: Path, stage_blocks) -> Dict[str, Entry]:
+    m = {f"{prefix}.conv1.weight": (path + ("conv1", "kernel"), _conv2d)}
+    m.update(_bn(f"{prefix}.bn1", path + ("bn1",)))
+    for s, n in enumerate(stage_blocks):
+        for i in range(n):
+            ref, p = f"{prefix}.layer{s + 1}.{i}", path + (f"layer{s + 1}_{i}",)
+            for ci in (1, 2, 3):
+                m[f"{ref}.conv{ci}.weight"] = (p + (f"conv{ci}", "kernel"), _conv2d)
+                m.update(_bn(f"{ref}.bn{ci}", p + (f"bn{ci}",)))
+            if i == 0:
+                m[f"{ref}.downsample.0.weight"] = (p + ("ds_conv", "kernel"), _conv2d)
+                m.update(_bn(f"{ref}.downsample.1", p + ("ds_bn",)))
+    return m
+
+
+def fpn_map(prefix: str, path: Path, num_laterals: int, num_outs: int) -> Dict[str, Entry]:
+    m = {}
+    for i in range(num_laterals):
+        m.update(_conv(f"{prefix}.lateral_convs.{i}.conv", path + (f"lateral_{i}",)))
+    for i in range(num_outs):
+        m.update(_conv(f"{prefix}.fpn_convs.{i}.conv", path + (f"fpn_{i}",)))
+    return m
+
+
+def sparse_head_map(prefix: str, path: Path, num_layers: int) -> Dict[str, Entry]:
+    m = {f"{prefix}.reference_points.weight": (path + ("reference_points",), _none),
+         f"{prefix}.pseudo_reference_points.weight": (path + ("pseudo_reference_points",),
+                                                      _none)}
+    for ref, p in (("query_embedding.0", "query_embedding/layers_0"),
+                   ("query_embedding.2", "query_embedding/layers_2"),
+                   ("time_embedding.0", "time_embedding/layers_0"),
+                   ("cls_branches.0.0", "cls_branch/layers_0"),
+                   ("cls_branches.0.3", "cls_branch/layers_3"),
+                   ("cls_branches.0.6", "cls_branch/layers_6"),
+                   ("reg_branches.0.0", "reg_branch/layers_0"),
+                   ("reg_branches.0.2", "reg_branch/layers_2"),
+                   ("reg_branches.0.4", "reg_branch/layers_4")):
+        m.update(_dense(f"{prefix}.{ref}", path + tuple(p.split("/"))))
+    for ref, p in (("time_embedding.1", "time_embedding/layers_1"),
+                   ("cls_branches.0.1", "cls_branch/layers_1"),
+                   ("cls_branches.0.4", "cls_branch/layers_4")):
+        m.update(_norm_flat(f"{prefix}.{ref}", path + tuple(p.split("/"))))
+    for ref, p in (("ego_pose_pe", "ego_pose_pe"), ("ego_pose_memory", "ego_pose_memory"),
+                   ("transformer.spatial_alignment", "spatial_alignment")):
+        m.update(_mln(f"{prefix}.{ref}", path + (p,)))
+    for i in range(num_layers):
+        ref = f"{prefix}.transformer.decoder.layers.{i}"
+        d = path + (f"cross_attn_{i}",)
+        m.update(_dense(f"{ref}.attentions.0.attn.out_proj", path + (f"self_attn_{i}", "out_proj")))
+        for name, p in (("weights_fc", "weights_fc"), ("output_proj", "output_proj"),
+                        ("learnable_fc", "learnable_fc"), ("cam_embed.0", "cam_embed_fc1"),
+                        ("cam_embed.2", "cam_embed_fc2")):
+            m.update(_dense(f"{ref}.attentions.1.{name}", d + (p,)))
+        m.update(_norm_flat(f"{ref}.attentions.1.cam_embed.4", d + ("cam_embed_ln",)))
+        m.update(_dense(f"{ref}.ffns.0.layers.0.0", path + (f"ffn_{i}", "fc1")))
+        m.update(_dense(f"{ref}.ffns.0.layers.1", path + (f"ffn_{i}", "fc2")))
+        for ni in range(3):
+            m.update(_norm_flat(f"{ref}.norms.{ni}", path + (f"norm_{3 * i + ni}",)))
+    return m
+
+
+def streampetr_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 6,
+                                   stage_blocks=(3, 4, 6, 3), num_outs: int = 5
+                                   ) -> Dict[str, torch.Tensor]:
+    """The JAX ``StreamPETRWindow``'s parameter tree (r50 backbone, sparse
+    head; nested dicts of numpy arrays) -> the port detector's state dict,
+    fp32, under the reference's mmdet names. The self-attention's q/k/v
+    Dense layers become ``attentions.0.attn.in_proj_weight`` and
+    ``in_proj_bias``, rows [q; k; v]."""
+    mapping = resnet50_map("img_backbone", ("backbone",), stage_blocks)
+    mapping.update(fpn_map("img_neck", ("neck",), 3, num_outs))
+    mapping.update(sparse_head_map("pts_bbox_head", ("head",), num_layers))
+    flat = flatten(params)
+    sd = apply_map(flat, mapping)
+    for i in range(num_layers):
+        sd.update(_packed_qkv(flat, ("head", f"self_attn_{i}"),
+                              f"pts_bbox_head.transformer.decoder.layers.{i}.attentions.0.attn"))
     return sd

@@ -1,0 +1,148 @@
+"""StreamPETRWindow: sliding-window multi-view 3D detection, inference.
+
+Counterpart of ``panacea_tpu/perception/detector.py`` (reference
+streampetrwindow.py:312-389) at the eval recipe: ResNet-50 and a 5-level
+FPN per frame, the SparseHead with its query memory. A window of T frames
+runs every frame through backbone and head, warming the memory, and returns
+the last frame's outputs. The memory is reset on a scene change through
+``prev_exists``.
+
+Images come in the JAX package's layout, (B, T, N, H, W, 3) normalised;
+the backbone runs NCHW. Submodules carry mmdet's names (``img_backbone``,
+``img_neck``, ``pts_bbox_head``), so a StreamPETR ``.pth`` loads directly.
+Only ``backbone_type="r50"`` and ``head_type="sparse"`` without the ATSS
+auxiliary head are ported; the other detectors of the JAX package, and
+its training forwards, wait for ROADMAP Queue A item 6.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from panacea_tpu_torch.models.engine import _no_tf32
+from panacea_tpu_torch.perception.fpn import FPN
+from panacea_tpu_torch.perception.head import PC_RANGE, MemoryState, SparseHead, init_memory
+from panacea_tpu_torch.perception.resnet import FrozenBatchNorm, ResNet50
+
+IMG_MEAN = (123.675, 116.28, 103.53)
+IMG_STD = (58.395, 57.12, 57.375)
+NOT_PORTED = "is not ported; it waits for the perception zoo (ROADMAP Queue A item 6)"
+
+
+class StreamPETRWindow(nn.Module):
+    def __init__(self, num_classes: int = 10, embed_dims: int = 256, num_query: int = 644,
+                 memory_len: int = 1024, topk_proposals: int = 256, num_propagated: int = 256,
+                 num_decoder_layers: int = 6, num_levels: int = 5, num_cams: int = 6,
+                 pc_range: Sequence[float] = PC_RANGE, with_atss: bool = False,
+                 backbone_type: str = "r50", backbone_cfg: Optional[dict] = None,
+                 neck_start_level: int = 1, head_type: str = "sparse"):
+        super().__init__()
+        if backbone_type != "r50":
+            raise NotImplementedError(f"backbone_type {backbone_type!r} {NOT_PORTED}")
+        if head_type != "sparse":
+            raise NotImplementedError(f"head_type {head_type!r} {NOT_PORTED}")
+        if with_atss:
+            raise NotImplementedError(f"the ATSS auxiliary head (with_atss) {NOT_PORTED}")
+        self.embed_dims, self.memory_len, self.num_levels = embed_dims, memory_len, num_levels
+        self.img_backbone = ResNet50(**dict(backbone_cfg or {}))
+        self.img_neck = FPN(out_channels=embed_dims, start_level=neck_start_level,
+                            num_outs=num_levels)
+        self.pts_bbox_head = SparseHead(
+            num_classes=num_classes, embed_dims=embed_dims, num_query=num_query,
+            memory_len=memory_len, topk_proposals=topk_proposals,
+            num_propagated=num_propagated, num_decoder_layers=num_decoder_layers,
+            num_levels=num_levels, num_cams=num_cams, pc_range=pc_range)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator, zero_init_std: Optional[float] = None):
+        """Random weights from ``generator``, as the JAX modules initialise
+        them: conv and linear weights normal with std 1/sqrt(fan_in), biases
+        0, norms at weight 1 and bias 0, batch-norm statistics 0 and 1, the
+        reference points uniform in [0, 1], the MLN gammas at weight 0 and
+        bias 1, ``weights_fc`` at 0, the ``learnable_fc`` bias uniform in
+        [-2, 2] and the class bias at -4.595. With ``zero_init_std`` every
+        tensor that this leaves at a constant gets normal noise of that std
+        added, so that every branch computes."""
+        dev = next(self.parameters()).device
+
+        def normal(t, std):
+            t.copy_(torch.randn(t.shape, generator=generator, device=dev) * std)
+
+        def uniform(t, lo, hi):
+            t.copy_(torch.rand(t.shape, generator=generator, device=dev) * (hi - lo) + lo)
+
+        constant = []
+        for name, mod in self.named_modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                normal(mod.weight, 1.0 / math.sqrt(mod.weight[0].numel()))
+                if mod.bias is not None:
+                    constant.append(mod.bias.zero_())
+            elif isinstance(mod, (nn.LayerNorm, FrozenBatchNorm)):
+                constant += [mod.weight.fill_(1.0), mod.bias.zero_()]
+                if isinstance(mod, FrozenBatchNorm):
+                    constant += [mod.running_mean.zero_(), mod.running_var.fill_(1.0)]
+            elif isinstance(mod, nn.Embedding):
+                uniform(mod.weight, 0.0, 1.0)
+        # then what differs from that, children already set
+        for name, mod in self.named_modules():
+            if name.endswith("attn") and hasattr(mod, "in_proj_weight"):
+                normal(mod.in_proj_weight, 1.0 / math.sqrt(mod.in_proj_weight.shape[1]))
+                constant.append(mod.in_proj_bias.zero_())
+            if name.endswith(("ego_pose_pe", "ego_pose_memory", "spatial_alignment")):
+                constant += [mod.gamma.weight.zero_(), mod.gamma.bias.fill_(1.0),
+                             mod.beta.weight.zero_(), mod.beta.bias.zero_()]
+            if name.endswith("attentions.1"):
+                constant.append(mod.weights_fc.weight.zero_())
+                uniform(mod.learnable_fc.bias, -2.0, 2.0)
+        for branch in self.pts_bbox_head.cls_branches:
+            constant.append(branch[-1].bias.fill_(-4.595))
+        if zero_init_std is not None:
+            seen = set()
+            for t in constant:
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    t.add_(torch.randn(t.shape, generator=generator, device=dev) * zero_init_std)
+
+    def extract_feats(self, imgs: torch.Tensor) -> List[torch.Tensor]:
+        """imgs (B, N, H, W, 3), normalised -> the FPN levels, each (B N, C, h, w)."""
+        b, n, h, w, c = imgs.shape
+        x = imgs.reshape(b * n, h, w, c).permute(0, 3, 1, 2).contiguous()
+        feats = self.img_neck(self.img_backbone(x))
+        if len(feats) != self.num_levels:
+            raise ValueError(f"the neck gave {len(feats)} levels, the head takes "
+                             f"{self.num_levels}")
+        return list(feats)
+
+    @_no_tf32()
+    def forward_frame(self, imgs: torch.Tensor, memory: MemoryState,
+                      data: Dict[str, torch.Tensor]):
+        """One frame: features and head. Returns (outs, new_memory). TF32 is
+        off inside, as the JAX detector computes in fp32."""
+        feats = self.extract_feats(imgs)
+        return self.pts_bbox_head(feats, memory, data, (imgs.shape[2], imgs.shape[3]))
+
+    def forward(self, imgs_seq: torch.Tensor, data_seq: Dict[str, torch.Tensor],
+                memory: Optional[MemoryState] = None) -> Tuple[Dict[str, torch.Tensor],
+                                                               MemoryState]:
+        """Sliding-window inference (streampetrwindow.py:312-369): imgs_seq
+        (B, T, N, H, W, 3), data_seq values with leading (B, T). Runs all T
+        frames and returns the last frame's outputs and the final memory."""
+        b, t = imgs_seq.shape[:2]
+        if memory is None:
+            memory = init_memory(b, self.memory_len, self.embed_dims, device=imgs_seq.device)
+        outs = None
+        for fi in range(t):
+            data = {k: v[:, fi] for k, v in data_seq.items()}
+            outs, memory = self.forward_frame(imgs_seq[:, fi], memory, data)
+        return outs, memory
+
+
+def normalize_images(imgs: torch.Tensor) -> torch.Tensor:
+    """RGB in [0, 255] -> ImageNet-normalised (config img_norm_cfg)."""
+    mean = torch.tensor(IMG_MEAN, dtype=imgs.dtype, device=imgs.device)
+    std = torch.tensor(IMG_STD, dtype=imgs.dtype, device=imgs.device)
+    return (imgs - mean) / std

@@ -19,6 +19,7 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "panacea_tpu")
 # the port's scripts outside its package
 ROOT_SCRIPTS = ("chip_smoke.py", "inference_torch.py", "train_torch.py",
+                "eval_perception_torch.py",
                 os.path.join("scripts", "compare_latents_torch.py"),
                 os.path.join("scripts", "probe_torch_kernels.py"),
                 os.path.join("scripts", "sampling_step_torch.py"),
@@ -50,7 +51,11 @@ def test_port_source_imports_no_jax():
             os.path.join("panacea_tpu_torch", "diffusion", "sigma_sampling.py"),
             os.path.join("panacea_tpu_torch", "utils", "ema.py"),
             os.path.join("panacea_tpu_torch", "utils", "optim.py"),
-            os.path.join("panacea_tpu_torch", "utils", "lr_schedule.py")} <= names
+            os.path.join("panacea_tpu_torch", "utils", "lr_schedule.py"),
+            "eval_perception_torch.py"} <= names
+    assert {os.path.join("panacea_tpu_torch", "perception", f"{m}.py")
+            for m in ("encoding", "resnet", "fpn", "deformable", "head", "detector", "coder",
+                      "metrics", "eval_dataset", "collect", "eval")} <= names
     for path in port_files():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -71,7 +76,7 @@ def test_port_imports_with_jax_blocked():
         "import panacea_tpu_torch\n"
         "for info in pkgutil.walk_packages(panacea_tpu_torch.__path__, 'panacea_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
-        "import chip_smoke, inference_torch, train_torch\n"
+        "import chip_smoke, inference_torch, train_torch, eval_perception_torch\n"
         "sys.path.insert(0, 'scripts')\n"
         "import compare_latents_torch, probe_torch_kernels\n"
         "print('ok')\n")
