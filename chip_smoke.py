@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --kernels      # phases 1 and 2 only
     python3 chip_smoke.py --perception   # phase 1, the perception flash check, phase 11
+    python3 chip_smoke.py --metrics      # phase 1, phase 12
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -71,6 +72,18 @@ Phases, in order; any failure exits non-zero:
      window (5 of 4 frames), metrics printed; (c) the round trip on the card:
      the tiny generation CLI, then the tiny eval CLI on its Gen-nuScenes
      tree, with no generated frame missing.
+ 12. generation metrics and samplers: (a) InceptionV3 at 8 x 3 x 299 x 299
+     and I3D at 2 x 3 x 8 x 224 x 224 (the FID CLI's batches), fp32, random
+     weights from a seed: frames/s, clips/s, peak memory, card against CPU
+     within ``TOWER_TOL``; (b) ``metrics_gen.eval.main --synthetic`` in
+     process; (c) the FID CLI with ``--allow_random_towers`` on phase 5's
+     Gen-nuScenes tree (6 clips of 8 frames) against itself (FID and FVD
+     within ``FD_SELF_TOL`` of 0) and against a copy with its pixels shifted
+     (above it); (d) Heun, Euler ancestral, DPM++2S ancestral, DPM++2M, LMS
+     and Euler with churn on the tiny engine, card against CPU with the same
+     injected noise, 3 steps, within ``SMALL_TOL``; then DPM++2M through
+     ``log_images`` at full width, 4 steps: 21 flash and 69 GEGLU launches
+     per network evaluation, s/step beside the Euler phase's.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -83,9 +96,11 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -136,6 +151,25 @@ PERCEPTION_FLASH = (1, 900, 1668, 8, 32)
 # TF32 off) against the CPU (the plain versions): each output's largest
 # difference over its largest value, after a randomly drawn ResNet-50
 PERCEPTION_TOL = 1e-3
+# phase 12: the FID CLI's towers at its full width (Inception: --batch 8 at
+# 299 x 299; I3D: 2 clips of 8 frames at 224 x 224), fp32 with TF32 off,
+# card against CPU as PERCEPTION_TOL; timed over TOWER_CALLS calls
+TOWER_FRAMES, TOWER_CLIPS = 8, 2
+TOWER_HW = {"inception": (299, 299), "i3d": (224, 224)}
+TOWER_CALLS = 11
+TOWER_TOL = 1e-3
+# the Gen-nuScenes tree scored against itself: the same features, so FID and
+# FVD are 0 up to the rounding of two eigendecompositions of rank-deficient
+# covariances; against a copy with every pixel raised by GEN_SHIFT, above it
+FD_SELF_TOL = 1e-3
+GEN_SHIFT = 40
+# the new samplers on the tiny engine (card against CPU, SMALL_TOL) and
+# DPM++2M through log_images at full width
+NEW_SAMPLERS = (("HeunEDMSampler", {}), ("EulerAncestralSampler", {}),
+                ("DPMPP2SAncestralSampler", {}), ("DPMPP2MSampler", {}),
+                ("LinearMultistepSampler", {}), ("EulerEDMSampler", {"s_churn": 2.0}))
+SAMPLER_STEPS, DPMPP_STEPS = 3, 4
+FULL_HW = (256, 3072)   # the production panorama
 
 
 def log(obj) -> None:
@@ -483,35 +517,53 @@ def check_geglu(torch, F, gg, tol, dev, tokens, c, timed=True, inner=None, fp32=
     return rec
 
 
-def small_input_agreement(torch, np, dev):
-    """Tiny engine: card (bf16, CUDA kernels) vs CPU (fp32, plain versions)."""
+TINY_LATENT = (2, 8, 96, 4)   # t, lh, lw, c: 128 tokens per view, the flash route
+
+
+def tiny_pair(torch, dev):
+    """The tiny engine on the CPU (fp32) and on the card (bf16), same weights."""
     from panacea_tpu_torch.configs import TINY_CPU
     from panacea_tpu_torch.registry import instantiate_from_config
 
-    t, lh, lw, ih, iw = 2, 8, 96, 64, 768   # 128 tokens per view: the flash route
     cpu = instantiate_from_config(TINY_CPU["model"], device="cpu")
     cpu.init_weights(torch.Generator().manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
     card = instantiate_from_config(TINY_CPU["model"], device=dev)
     card.load_state_dict(cpu.state_dict(), strict=True)
+    return cpu, card
+
+
+def tiny_card_vs_cpu(torch, np, cpu, card, steps: int, sampler_noise=None) -> float:
+    """Both engines sample from the same conditioning and injected noise;
+    the card's largest difference from the CPU over the CPU's largest value."""
+    t, lh, lw, ch = TINY_LATENT
+    ih, iw = 8 * lh, 8 * lw
     rng = np.random.default_rng(SEED)
     cond = {"crossattn": rng.standard_normal((1, 77, 64)),
-            "concat": rng.standard_normal((t, lh, lw, 4)) * 0.5,
+            "concat": rng.standard_normal((t, lh, lw, ch)) * 0.5,
             "cond_feat": rng.uniform(0, 1, (t, ih, iw, 19))}
     uc = dict(cond, crossattn=np.zeros((1, 77, 64)))
-    noise = rng.standard_normal((t, lh, lw, 4))
+    noise = rng.standard_normal((t, lh, lw, ch))
     out = []
     for eng in (cpu, card):
         def tens(c):
             return {k: torch.as_tensor(v, dtype=torch.float32, device=eng.device)
                     for k, v in c.items()}
-        z = eng.sample(tens(cond), uc=tens(uc), batch_size=t, shape=(lh, lw, 4),
-                       noise=torch.as_tensor(noise, dtype=torch.float32), num_steps=2)
+        z = eng.sample(tens(cond), uc=tens(uc), batch_size=t, shape=(lh, lw, ch),
+                       noise=torch.as_tensor(noise, dtype=torch.float32), num_steps=steps,
+                       sampler_noise=sampler_noise)
         out.append(z.float().cpu())
     ref, got = out
-    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def small_input_agreement(torch, np, dev):
+    """Tiny engine: card (bf16, CUDA kernels) vs CPU (fp32, plain versions)."""
+    rel = tiny_card_vs_cpu(torch, np, *tiny_pair(torch, dev), steps=2)
+    t, lh, lw, _ = TINY_LATENT
     rec = {"phase": "small_input", "config": "TINY_CPU", "latent": [t, lh, lw, 4],
-           "steps": 2, "max_rel_err": rel, "tol": SMALL_TOL,
-           "finite": bool(torch.isfinite(got).all())}
+           "steps": 2, "max_rel_err": rel, "tol": SMALL_TOL, "finite": rel != float("inf")}
     log(rec)
     if not (rec["finite"] and rel <= SMALL_TOL):
         raise AssertionError(f"tiny engine on the card disagrees with the CPU: {rec}")
@@ -630,7 +682,7 @@ def main_path(torch, np, dev, fa, gg, steps: int, card: str):
     if rec["flash_routes"]["wgmma"] != launches["flash_attention"]:
         raise AssertionError(f"the main path (head dim 64) left the wgmma route: {rec}")
     profile_step(torch, lambda: network_fn(*last_call[0], **last_call[1]))
-    return counts
+    return counts, steady
 
 
 def tree_of(root: str):
@@ -649,8 +701,9 @@ def image_info(path: str):
         return im.size[0], im.size[1], frames, float(first.std())
 
 
-def cli_phase(torch, np, dev, fa, gg, card: str):
-    """The inference CLI at full width, one synthetic clip, 25 steps."""
+def cli_phase(torch, np, dev, fa, gg, card: str, keep_gen: str = None):
+    """The inference CLI at full width, one synthetic clip, 25 steps; its
+    Gen-nuScenes tree is copied to ``keep_gen`` when given."""
     from panacea_tpu_torch import inference
     from panacea_tpu_torch.data.nuscenes.dataset import PANORAMA_VIEWS
 
@@ -716,6 +769,8 @@ def cli_phase(torch, np, dev, fa, gg, card: str):
                  "gif": image_info(os.path.join(out["outdir"], "samples", stem + ".gif"))}
         jpg_ok = all(image_info(os.path.join(out["outdir"], rel))[:3] == (512, 256, 1)
                      for rel in want if rel.endswith(".jpg"))
+        if keep_gen:
+            shutil.copytree(os.path.join(out["outdir"], "gen-nuscenes"), keep_gen)
     tm = out["timer"].totals
     clip_wall = tm["dataset"] + tm["clip"] + tm["to_host"] + tm["write"]
     waited = tm["dataset"] + copies["seconds"] + tm["to_host"] + tm["write"]
@@ -1329,6 +1384,241 @@ def perception_cli_phase(torch, np, dev, fa, gg, card: str):
     return counts
 
 
+def median_after_first(torch, fn, calls: int):
+    """(median seconds of the calls after the first, the first's), each call
+    between two synchronisations."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    steady = sorted(times[1:])
+    return steady[len(steady) // 2], times[0]
+
+
+def metric_towers_phase(torch, np, dev, card: str):
+    """(a) InceptionV3 and I3D at the FID CLI's full width, fp32, random
+    weights from a seed: frames/s and clips/s, peak memory, card against CPU."""
+    from panacea_tpu_torch.metrics_gen import eval as geval
+
+    inception, i3d = geval.build_towers(dev, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    inputs = {"inception": rng.uniform(-1, 1, (TOWER_FRAMES, 3) + TOWER_HW["inception"]),
+              "i3d": rng.uniform(-1, 1, (TOWER_CLIPS, 3, 8) + TOWER_HW["i3d"])}
+    rec = {"phase": "metric_towers", "card": card, "tol": TOWER_TOL, "dtype": "torch.float32"}
+    for name, model in (("inception", inception), ("i3d", i3d)):
+        x = torch.as_tensor(inputs[name], dtype=torch.float32, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            s, first = median_after_first(torch, lambda: model(x), TOWER_CALLS)
+            got = model(x).cpu()
+            cpu = type(model)().eval()
+            cpu.load_state_dict(model.state_dict())
+            want = cpu(x.cpu())
+        per = TOWER_FRAMES if name == "inception" else TOWER_CLIPS
+        rec[name] = {"input": list(x.shape), "s_per_batch": s, "first_call_s": first,
+                     ("frames_per_s" if name == "inception" else "clips_per_s"): per / s,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "out": list(got.shape), "finite": bool(torch.isfinite(got).all()),
+                     "card_vs_cpu": ((got - want).abs().max() / want.abs().max()).item()}
+    log(rec)
+    for name in ("inception", "i3d"):
+        r = rec[name]
+        if not (r["finite"] and r["card_vs_cpu"] <= TOWER_TOL):
+            raise AssertionError(f"the {name} tower on the card disagrees with the CPU: {rec}")
+    if rec["inception"]["out"] != [TOWER_FRAMES, 2048] or rec["i3d"]["out"] != [TOWER_CLIPS, 1024]:
+        raise AssertionError(f"the towers' features have the wrong shapes: {rec}")
+
+
+def write_gen_tree(dst: str) -> None:
+    """One clip through the generation CLI at full width (2 steps), its
+    Gen-nuScenes tree copied to ``dst``: the --metrics mode's input."""
+    from panacea_tpu_torch import inference
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = inference.main(["--synthetic", "--num_batches", "1", "--outdir", tmp,
+                              "--name", "metrics", "--seed", str(CLI_SEED), "--num_steps", "2"])
+        shutil.copytree(os.path.join(out["outdir"], "gen-nuscenes"), dst)
+
+
+def shifted_copy(np, src: str, dst: str) -> None:
+    """Every frame of ``src`` with its pixels raised by GEN_SHIFT (clipped)."""
+    from PIL import Image
+
+    for rel in tree_of(src):
+        os.makedirs(os.path.join(dst, os.path.dirname(rel)), exist_ok=True)
+        with Image.open(os.path.join(src, rel)) as im:
+            px = np.asarray(im.convert("RGB"), dtype=np.int16) + GEN_SHIFT
+        Image.fromarray(px.clip(0, 255).astype(np.uint8)).save(os.path.join(dst, rel))
+
+
+@contextlib.contextmanager
+def timed_metrics_cli(torch):
+    """The FID CLI's parts timed while it runs: the towers' construction, the
+    image loading (JPEG decode and resize on the host), the towers' calls
+    (between two synchronisations) and the Frechet distances (host)."""
+    from panacea_tpu_torch.metrics_gen import eval as geval
+    from panacea_tpu_torch.metrics_gen import fid
+
+    split = dict.fromkeys(("build_towers", "load_image", "towers", "frechet_distance"), 0.0)
+    real = {"build_towers": geval.build_towers, "load_image": geval.load_image,
+            "frechet_distance": fid.frechet_distance}
+
+    def timer(name, fn, sync=False):
+        def wrapper(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                split[name] += time.perf_counter() - t0
+        return wrapper
+
+    def build_towers(*a, **kw):
+        towers = timer("build_towers", real["build_towers"], sync=True)(*a, **kw)
+        for m in towers:
+            m.forward = timer("towers", m.forward, sync=True)
+        return towers
+
+    geval.build_towers, geval.load_image = build_towers, timer("load_image", geval.load_image)
+    fid.frechet_distance = timer("frechet_distance", fid.frechet_distance)
+    try:
+        yield split
+    finally:
+        geval.build_towers, geval.load_image = real["build_towers"], real["load_image"]
+        fid.frechet_distance = real["frechet_distance"]
+
+
+def metrics_cli_phase(torch, np, dev, card: str, gen_tree: str):
+    """(b) the FID CLI's ``--synthetic`` in process; (c) the CLI on the
+    Gen-nuScenes tree of a full-width generation run: against itself, and
+    against a copy with its pixels shifted."""
+    from panacea_tpu_torch.metrics_gen import eval as geval
+
+    t0 = time.perf_counter()
+    synth = geval.main(["--synthetic"])
+    rec = {"phase": "metrics_cli_synthetic", "card": card, "seconds": time.perf_counter() - t0,
+           "result": synth}
+    log(rec)
+    if not (np.isfinite(synth["fid"]) and np.isfinite(synth["fvd"])):
+        raise AssertionError(f"the synthetic FID/FVD is not finite: {rec}")
+
+    frames = {d: len(os.listdir(os.path.join(gen_tree, d))) for d in sorted(os.listdir(gen_tree))}
+    with tempfile.TemporaryDirectory() as shifted:
+        shifted_copy(np, gen_tree, shifted)
+        runs = {}
+        for name, other in (("self", gen_tree), ("shifted", shifted)):
+            with timed_metrics_cli(torch) as split:
+                t0 = time.perf_counter()
+                runs[name] = geval.main(["--real_root", gen_tree, "--gen_root", other,
+                                         "--allow_random_towers"])
+                runs[name]["seconds"] = time.perf_counter() - t0
+            runs[name]["split_s"] = split
+    rec = {"phase": "metrics_round_trip", "card": card, "clip_frames": frames,
+           "self": runs["self"], "shifted": runs["shifted"], "shift": GEN_SHIFT,
+           "self_tol": FD_SELF_TOL}
+    log(rec)
+    if not (len(frames) == 6 and set(frames.values()) == {8}
+            and all(r["real_clips"] == r["gen_clips"] == 6 for r in runs.values())):
+        raise AssertionError(f"the CLI did not find the 6 clips of 8 frames: {rec}")
+    for k in ("fid", "fvd"):
+        if not abs(runs["self"][k]) <= FD_SELF_TOL:
+            raise AssertionError(f"the tree against itself gives {k} {runs['self'][k]}: {rec}")
+        if not (np.isfinite(runs["shifted"][k]) and runs["shifted"][k] > FD_SELF_TOL):
+            raise AssertionError(f"the shifted tree gives {k} {runs['shifted'][k]}: {rec}")
+
+
+def sampler_config(name: str, steps: int, **params) -> dict:
+    """An sgm sampler over the production schedule and guidance."""
+    return {"target": f"sgm.modules.diffusionmodules.sampling.{name}",
+            "params": dict(params, num_steps=steps, discretization_config={
+                "target": "sgm.modules.diffusionmodules.discretizer.LegacyDDPMDiscretization"},
+                guider_config={"target": "sgm.modules.diffusionmodules.guiders.VanillaCFG",
+                               "params": {"scale": 5.0}})}
+
+
+def samplers_phase(torch, np, dev, fa, gg, card: str, euler_s_per_step):
+    """(d) each new sampler on the tiny engine, card against CPU with the
+    same injected noise; DPM++2M through ``log_images`` at full width.
+    Returns that run's launch counts."""
+    from panacea_tpu_torch.registry import instantiate_from_config
+
+    cpu, card_eng = tiny_pair(torch, dev)
+    noise = np.random.default_rng(SEED + 2).standard_normal(
+        (SAMPLER_STEPS,) + TINY_LATENT).astype(np.float32)
+    tiny = {}
+    for name, params in NEW_SAMPLERS:
+        key = name + ("_churn" if params else "")
+        for eng in (cpu, card_eng):
+            eng.sampler = instantiate_from_config(sampler_config(name, SAMPLER_STEPS, **params))
+        tiny[key] = tiny_card_vs_cpu(torch, np, cpu, card_eng, SAMPLER_STEPS, sampler_noise=noise)
+    rec = {"phase": "samplers_tiny_card_vs_cpu", "card": card, "config": "TINY_CPU",
+           "steps": SAMPLER_STEPS, "max_rel_err": tiny, "tol": SMALL_TOL}
+    log(rec)
+    if not all(v <= SMALL_TOL for v in tiny.values()):
+        raise AssertionError(f"a sampler on the card disagrees with the CPU: {rec}")
+    del cpu, card_eng
+    free(torch)
+
+    from panacea_tpu_torch.configs import INFERENCE_NUSCENES
+
+    eng = instantiate_from_config(INFERENCE_NUSCENES["model"], device=dev)
+    eng.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
+    eng.sampler = instantiate_from_config(sampler_config("DPMPP2MSampler", DPMPP_STEPS))
+    batch = synthetic_clip(np, np.random.default_rng(SEED), eng.num_frames, *FULL_HW)
+    step_s = []
+    network_fn = eng.network_fn
+
+    def timed_network(*a, **kw):
+        t0 = time.perf_counter()
+        out = network_fn(*a, **kw)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    eng.network_fn = timed_network
+    torch.cuda.synchronize()
+    reset_counts(fa, gg)
+    t0 = time.perf_counter()
+    logd = eng.log_images(batch, N=1, generator=torch.Generator(device=dev).manual_seed(SEED),
+                          num_steps=DPMPP_STEPS)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts(fa, gg)
+    evals = len(step_s)
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    expected = {"flash_attention": FLASH_PER_EVAL * evals, "geglu": GEGLU_PER_EVAL * evals}
+    rec = {"phase": "sampler_dpmpp2m_log_images", "card": card, "steps": DPMPP_STEPS,
+           "network_evals": evals, "log_images_s": total_s, "step_s": step_s,
+           "s_per_step": steady, "euler_s_per_step": euler_s_per_step,
+           "launches": {k: counts[k] for k in expected}, "expected": expected,
+           "finite": bool(torch.isfinite(logd["samples"]).all()),
+           "samples_shape": list(logd["samples"].shape)}
+    log(rec)
+    if not (rec["finite"] and rec["samples_shape"] == [eng.num_frames, *FULL_HW, 3]):
+        raise AssertionError(f"DPM++2M's samples are wrong: {rec}")
+    if evals != DPMPP_STEPS or rec["launches"] != expected:
+        raise AssertionError(f"DPM++2M's launches {counts} != {expected}")
+    return counts
+
+
+def metrics_phase(torch, np, dev, fa, gg, card: str, gen_tree: str, euler_s_per_step=None):
+    """Phase 12: the generation metrics, then the new samplers."""
+    t0 = time.perf_counter()
+    metric_towers_phase(torch, np, dev, card)
+    free(torch)
+    metrics_cli_phase(torch, np, dev, card, gen_tree)
+    free(torch)
+    counts = samplers_phase(torch, np, dev, fa, gg, card, euler_s_per_step)
+    log({"phase": "metrics_total", "seconds": time.perf_counter() - t0})
+    return counts
+
+
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
 BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
            ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
@@ -1377,9 +1667,10 @@ def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
 
 
 def main(mode: str = "all") -> int:
-    """``mode``: "all" (every phase), "kernels" (phases 1 and 2) or
+    """``mode``: "all" (every phase), "kernels" (phases 1 and 2),
     "perception" (phase 1, the flash check at the perception shape and
-    phase 11)."""
+    phase 11) or "metrics" (phase 1 and phase 12, on the tree of a 2-step
+    full-width generation run)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1429,6 +1720,14 @@ def main(mode: str = "all") -> int:
         free(torch)
         perception_cli_phase(torch, np, dev, fa, gg, card)
         log({"phase": "perception_only", "ok": True})
+        return 0
+    if mode == "metrics":
+        with tempfile.TemporaryDirectory() as tmp:
+            gen_tree = os.path.join(tmp, "gen-nuscenes")
+            write_gen_tree(gen_tree)
+            free(torch)
+            metrics_phase(torch, np, dev, fa, gg, card, gen_tree)
+        log({"phase": "metrics_only", "ok": True})
         return 0
     b = 16 * 5   # CFG batch of 16 frames x views 0-4
     levels = ((2048, 4096, 5), (512, 1024, 10), (128, 256, 20))
@@ -1551,9 +1850,12 @@ def main(mode: str = "all") -> int:
         log({"phase": "kernels_only", "ok": True})
         return 0
     small_input_agreement(torch, np, dev)
-    paths = {"log_images": main_path(torch, np, dev, fa, gg, DIRECT_STEPS, card)}
+    paths = {}
+    paths["log_images"], euler_s_per_step = main_path(torch, np, dev, fa, gg, DIRECT_STEPS, card)
     free(torch)
-    paths["cli"] = cli_phase(torch, np, dev, fa, gg, card)
+    gen_dir = tempfile.TemporaryDirectory()   # phase 5's Gen-nuScenes tree, for phase 12
+    gen_tree = os.path.join(gen_dir.name, "gen-nuscenes")
+    paths["cli"] = cli_phase(torch, np, dev, fa, gg, card, keep_gen=gen_tree)
     free(torch)
     paths["rollout"] = rollout_phase(torch, np, dev, fa, gg, card)
     free(torch)
@@ -1574,6 +1876,10 @@ def main(mode: str = "all") -> int:
     paths["perception_cli"] = perception_cli_phase(torch, np, dev, fa, gg, card)
     log({"phase": "perception_total", "seconds": time.perf_counter() - t0,
          "kernel_check_s": flash32_perception_s})
+    free(torch)
+    paths["sampler_dpmpp2m"] = metrics_phase(torch, np, dev, fa, gg, card, gen_tree,
+                                             euler_s_per_step)
+    gen_dir.cleanup()
 
     def count(c, kernel, fp32):
         """Launches of one kernel on one type's routes, from a path's counts
@@ -1662,7 +1968,7 @@ def main(mode: str = "all") -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--kernels"], ["--perception"]):
-        sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception]")
-    sys.exit(main({"--kernels": "kernels", "--perception": "perception"}.get(
-        (sys.argv[1:] or [""])[0], "all")))
+    if sys.argv[1:] not in ([], ["--kernels"], ["--perception"], ["--metrics"]):
+        sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception | --metrics]")
+    sys.exit(main({"--kernels": "kernels", "--perception": "perception",
+                   "--metrics": "metrics"}.get((sys.argv[1:] or [""])[0], "all")))

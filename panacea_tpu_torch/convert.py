@@ -6,12 +6,14 @@ with no converter. This module carries weights the other way, from the JAX
 package's flax trees, for the parity tests: its own copy of the UNet,
 ControlNet, VAE and CLIP parts of the key map of
 ``panacea_tpu/utils/convert.py:29-360``, applied with the inverse layout
-transforms and the CLIP q/k/v re-packing of ``:630-705``, and of the
-StreamPETR detector's (``:910-1178``).
+transforms and the CLIP q/k/v re-packing of ``:630-705``, of the
+StreamPETR detector's (``:910-1178``), and of the metric towers'
+(InceptionV3 and I3D, ``:766-903``).
 
   flax Dense (I, O)        -> torch Linear (O, I)
   flax Conv (kh, kw, I, O) -> torch Conv2d (O, I, kh, kw)
   flax (k, I, O)           -> torch Conv1d (O, I, k)
+  flax (kt, kh, kw, I, O)  -> torch Conv3d (O, I, kt, kh, kw)
   LayerNorm/GroupNorm scale -> weight
 """
 
@@ -398,3 +400,90 @@ def streampetr_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 
         sd.update(_packed_qkv(flat, ("head", f"self_attn_{i}"),
                               f"pts_bbox_head.transformer.decoder.layers.{i}.attentions.0.attn"))
     return sd
+
+
+# --------------------------------------------------------------------------
+# Metric towers: InceptionV3 (FID) and I3D (FVD), the inverse of
+# panacea_tpu/utils/convert.py:766-903
+# --------------------------------------------------------------------------
+
+def _conv3d(w):
+    return np.transpose(w, (4, 3, 0, 1, 2))
+
+
+def _bn_stats(ref: str, path: Path) -> Dict[str, Entry]:
+    return {f"{ref}.bn.weight": (path + ("bn_scale",), _none),
+            f"{ref}.bn.bias": (path + ("bn_bias",), _none),
+            f"{ref}.bn.running_mean": (path + ("bn_mean",), _none),
+            f"{ref}.bn.running_var": (path + ("bn_var",), _none)}
+
+
+# torchvision branch name -> the JAX module's, per Inception block kind
+_INCEPTION_BRANCHES = {
+    "A": {"branch1x1": "b1x1", "branch5x5_1": "b5_1", "branch5x5_2": "b5_2",
+          "branch3x3dbl_1": "b3_1", "branch3x3dbl_2": "b3_2",
+          "branch3x3dbl_3": "b3_3", "branch_pool": "bpool"},
+    "B": {"branch3x3": "b3", "branch3x3dbl_1": "bd_1", "branch3x3dbl_2": "bd_2",
+          "branch3x3dbl_3": "bd_3"},
+    "C": {"branch1x1": "b1x1", "branch7x7_1": "b7_1", "branch7x7_2": "b7_2",
+          "branch7x7_3": "b7_3", "branch7x7dbl_1": "bd_1", "branch7x7dbl_2": "bd_2",
+          "branch7x7dbl_3": "bd_3", "branch7x7dbl_4": "bd_4", "branch7x7dbl_5": "bd_5",
+          "branch_pool": "bpool"},
+    "D": {"branch3x3_1": "b3_1", "branch3x3_2": "b3_2", "branch7x7x3_1": "b7_1",
+          "branch7x7x3_2": "b7_2", "branch7x7x3_3": "b7_3", "branch7x7x3_4": "b7_4"},
+    "E": {"branch1x1": "b1x1", "branch3x3_1": "b3_1", "branch3x3_2a": "b3_2a",
+          "branch3x3_2b": "b3_2b", "branch3x3dbl_1": "bd_1", "branch3x3dbl_2": "bd_2",
+          "branch3x3dbl_3a": "bd_3a", "branch3x3dbl_3b": "bd_3b", "branch_pool": "bpool"},
+}
+_INCEPTION_BLOCKS = (("Mixed_5b", "A"), ("Mixed_5c", "A"), ("Mixed_5d", "A"), ("Mixed_6a", "B"),
+                     ("Mixed_6b", "C"), ("Mixed_6c", "C"), ("Mixed_6d", "C"), ("Mixed_6e", "C"),
+                     ("Mixed_7a", "D"), ("Mixed_7b", "E"), ("Mixed_7c", "E"))
+
+
+def inception_map() -> Dict[str, Entry]:
+    m: Dict[str, Entry] = {}
+
+    def convbn(ref, path):
+        m[f"{ref}.conv.weight"] = (path + ("conv", "kernel"), _conv2d)
+        m.update(_bn_stats(ref, path))
+
+    for ref in ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1",
+                "Conv2d_4a_3x3"):
+        convbn(ref, (ref.rsplit("_", 1)[0],))
+    for block, kind in _INCEPTION_BLOCKS:
+        for ref, ours in _INCEPTION_BRANCHES[kind].items():
+            convbn(f"{block}.{ref}", (block, ours))
+    return m
+
+
+def i3d_map() -> Dict[str, Entry]:
+    from panacea_tpu_torch.metrics_gen.i3d import MIXED
+
+    m: Dict[str, Entry] = {}
+
+    def unit(ref, path):
+        m[f"{ref}.conv3d.weight"] = (path + ("conv", "kernel"), _conv3d)
+        m.update(_bn_stats(ref, path))
+
+    for ref in ("Conv3d_1a_7x7", "Conv3d_2b_1x1", "Conv3d_2c_3x3"):
+        unit(ref, (ref.rsplit("_", 1)[0],))
+    for block, *_ in MIXED:
+        for ref in ("b0", "b1a", "b1b", "b2a", "b2b", "b3b"):
+            # pytorch-i3d's b3b is the JAX module's b3
+            unit(f"{block}.{ref}", (block, "b3" if ref == "b3b" else ref))
+    m["logits.conv3d.weight"] = (("logits", "conv", "kernel"), _conv3d)
+    m["logits.conv3d.bias"] = (("logits", "conv", "bias"), _none)
+    return m
+
+
+def inception_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``InceptionV3``'s parameter tree (nested dicts of arrays) ->
+    the port's state dict under torchvision's names, fp32."""
+    return apply_map(flatten(params), inception_map())
+
+
+def i3d_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``I3D``'s parameter tree -> the port's state dict under
+    pytorch-i3d's names, fp32. A tree without ``logits`` (the JAX module
+    initialised without ``return_logits``) gives no ``logits.*`` entries."""
+    return apply_map(flatten(params), i3d_map())

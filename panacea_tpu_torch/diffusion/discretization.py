@@ -1,6 +1,7 @@
-"""Sigma schedules (counterpart of ``panacea_tpu/diffusion/discretization.py``).
+"""Sigma schedules (counterpart of ``panacea_tpu/diffusion/discretization.py``,
+reference discretizer.py:11-69).
 
-Schedules are float32 numpy arrays: static data of the sampler loop.
+Schedules are numpy arrays: static data of the sampler loop.
 """
 
 from __future__ import annotations
@@ -13,6 +14,21 @@ from panacea_tpu_torch.diffusion.util import make_beta_schedule
 def generate_roughly_equally_spaced_steps(num_substeps: int, max_step: int) -> np.ndarray:
     """Timestep subset selection (discretizer.py:11-14)."""
     return np.linspace(max_step - 1, 0, num_substeps, endpoint=False).astype(int)[::-1]
+
+
+class EDMDiscretization:
+    """Karras rho-schedule (discretizer.py:28-39)."""
+
+    def __init__(self, sigma_min: float = 0.02, sigma_max: float = 80.0, rho: float = 7.0):
+        self.sigma_min = sigma_min
+        self.sigma_max = sigma_max
+        self.rho = rho
+
+    def get_sigmas(self, n: int) -> np.ndarray:
+        ramp = np.linspace(0, 1, n)
+        min_inv_rho = self.sigma_min ** (1 / self.rho)
+        max_inv_rho = self.sigma_max ** (1 / self.rho)
+        return (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** self.rho
 
 
 class LegacyDDPMDiscretization:

@@ -72,7 +72,7 @@ def resolve_device(device) -> torch.device:
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """fp32 matmuls and convolutions in full fp32 within the block; the
     caller's TF32 settings are restored after it."""
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -175,7 +175,7 @@ class DiffusionEngine3D(nn.Module):
 
     # -------------------------------------------------------- first stage
     @torch.no_grad()
-    @_no_tf32()
+    @no_tf32()
     def encode_first_stage(self, x, generator: Optional[torch.Generator] = None,
                            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (N, H, W, 3) in [-1, 1] -> scaled latents, one frame at a time
@@ -194,7 +194,7 @@ class DiffusionEngine3D(nn.Module):
         return self.scale_factor * torch.cat(z)
 
     @torch.no_grad()
-    @_no_tf32()
+    @no_tf32()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latents -> images, fp32, one frame at a time (engine.py:218-227)."""
         z = z.float() / self.scale_factor
@@ -218,18 +218,20 @@ class DiffusionEngine3D(nn.Module):
 
     # ----------------------------------------------------------- sampling
     @torch.no_grad()
-    @_no_tf32()
+    @no_tf32()
     def sample(self, cond: Dict[str, torch.Tensor], uc: Optional[Dict[str, torch.Tensor]] = None,
                batch_size: int = 16, shape=(32, 384, 4),
                generator: Optional[torch.Generator] = None, num_steps: Optional[int] = None,
                noise: Optional[torch.Tensor] = None, share_noise_frame: int = -1,
-               return_trajectory: bool = False):
+               sampler_noise=None, return_trajectory: bool = False):
         """Shared-noise init (diffusion.py:244-249) and the sampler loop.
 
         ``noise`` injects the base gaussian noise (before the shared-noise
-        bias). ``share_noise_frame`` picks the flattened concat frame that
-        anchors the bias; -1 is the reference's choice. The ControlNet hint
-        stack runs once here, outside the step loop."""
+        bias); ``sampler_noise`` the sampler's per-step noise (churn,
+        ancestral steps), which it otherwise draws from ``generator`` after
+        the base noise. ``share_noise_frame`` picks the flattened concat
+        frame that anchors the bias; -1 is the reference's choice. The
+        ControlNet hint stack runs once here, outside the step loop."""
         def prepare(c):
             if c is None:
                 return None
@@ -257,12 +259,13 @@ class DiffusionEngine3D(nn.Module):
         def denoiser(x, sigma, c):
             return self.denoiser(self.network_fn, x, sigma, c)
 
+        kw = {"return_trajectory": True} if return_trajectory else {}
         return self.sampler(denoiser, randn, cond, uc=uc, num_steps=num_steps,
-                            return_trajectory=return_trajectory)
+                            generator=generator, noise=sampler_noise, **kw)
 
     # --------------------------------------------------------- log_images
     @torch.no_grad()
-    @_no_tf32()
+    @no_tf32()
     def log_images(self, batch: Dict[str, Any], N: int = 8,
                    generator: Optional[torch.Generator] = None, **kwargs) -> Dict[str, torch.Tensor]:
         """Mirror of diffusion.py:302-377: c/uc (empty prompts for uc),
@@ -319,7 +322,7 @@ class DiffusionEngine3D(nn.Module):
                 out[f"model.{n}"] = p
         return out
 
-    @_no_tf32()
+    @no_tf32()
     def diffusion_loss(self, z: torch.Tensor, cond: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator] = None, **inject) -> torch.Tensor:
         """The mean loss of the clean latents ``z`` under ``loss_fn``, with

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from panacea_tpu_torch.models.engine import _no_tf32
+from panacea_tpu_torch.models.engine import no_tf32
 from panacea_tpu_torch.perception.fpn import FPN
 from panacea_tpu_torch.perception.head import PC_RANGE, MemoryState, SparseHead, init_memory
 from panacea_tpu_torch.perception.resnet import FrozenBatchNorm, ResNet50
@@ -117,7 +117,7 @@ class StreamPETRWindow(nn.Module):
                              f"{self.num_levels}")
         return list(feats)
 
-    @_no_tf32()
+    @no_tf32()
     def forward_frame(self, imgs: torch.Tensor, memory: MemoryState,
                       data: Dict[str, torch.Tensor]):
         """One frame: features and head. Returns (outs, new_memory). TF32 is

@@ -18,7 +18,8 @@ from torch import nn
 
 class FrozenBatchNorm(nn.Module):
     """Batch norm on stored statistics: (x - running_mean) weight /
-    sqrt(running_var + eps) + bias, per channel of dim 1."""
+    sqrt(running_var + eps) + bias, per channel of dim 1, for any number of
+    trailing dims."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -29,8 +30,10 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (-1,) + (1,) * (x.ndim - 2)
         inv = self.weight / torch.sqrt(self.running_var + self.eps)
-        return (x - self.running_mean[:, None, None]) * inv[:, None, None] + self.bias[:, None, None]
+        return ((x - self.running_mean.view(shape)) * inv.view(shape)
+                + self.bias.view(shape))
 
 
 class Bottleneck(nn.Module):

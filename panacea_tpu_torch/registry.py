@@ -15,17 +15,27 @@ _P = "panacea_tpu_torch"
 
 _SGM_TO_LOCAL = {
     "sgm.models.diffusion.DiffusionEngine3D": f"{_P}.models.engine.DiffusionEngine3D",
+    "sgm.modules.diffusionmodules.denoiser.Denoiser": f"{_P}.diffusion.denoiser.Denoiser",
     "sgm.modules.diffusionmodules.denoiser.DiscreteDenoiser":
         f"{_P}.diffusion.denoiser.DiscreteDenoiser",
-    "sgm.modules.diffusionmodules.denoiser_weighting.EpsWeighting":
-        f"{_P}.diffusion.weighting.EpsWeighting",
-    "sgm.modules.diffusionmodules.denoiser_scaling.EpsScaling":
-        f"{_P}.diffusion.scaling.EpsScaling",
-    "sgm.modules.diffusionmodules.discretizer.LegacyDDPMDiscretization":
-        f"{_P}.diffusion.discretization.LegacyDDPMDiscretization",
+    **{f"sgm.modules.diffusionmodules.denoiser_weighting.{n}": f"{_P}.diffusion.weighting.{n}"
+       for n in ("UnitWeighting", "EDMWeighting", "VWeighting", "EpsWeighting")},
+    **{f"sgm.modules.diffusionmodules.denoiser_scaling.{n}": f"{_P}.diffusion.scaling.{n}"
+       for n in ("EDMScaling", "EpsScaling", "VScaling")},
+    **{f"sgm.modules.diffusionmodules.discretizer.{n}": f"{_P}.diffusion.discretization.{n}"
+       for n in ("LegacyDDPMDiscretization", "EDMDiscretization")},
     "sgm.modules.diffusionmodules.guiders.VanillaCFG": f"{_P}.diffusion.guiders.VanillaCFG",
-    "sgm.modules.diffusionmodules.sampling.EulerEDMSampler":
-        f"{_P}.diffusion.samplers.EulerEDMSampler",
+    "sgm.modules.diffusionmodules.guiders.IdentityGuider":
+        f"{_P}.diffusion.guiders.IdentityGuider",
+    "sgm.modules.diffusionmodules.sampling_utils.NoDynamicThresholding":
+        f"{_P}.diffusion.guiders.NoDynamicThresholding",
+    **{f"sgm.modules.diffusionmodules.sampling.{n}": f"{_P}.diffusion.samplers.{n}"
+       for n in ("EulerEDMSampler", "HeunEDMSampler", "EulerAncestralSampler",
+                 "DPMPP2SAncestralSampler", "DPMPP2MSampler", "LinearMultistepSampler")},
+    **{f"sgm.modules.distributions.distributions.{n}": f"{_P}.diffusion.distributions.{n}"
+       for n in ("DiagonalGaussianDistribution", "DiracDistribution")},
+    "sgm.modules.autoencoding.regularizers.DiagonalGaussianRegularizer":
+        f"{_P}.diffusion.distributions.DiagonalGaussianRegularizer",
     "sgm.modules.diffusionmodules.controlmodel.ControlledUNetModel3D":
         f"{_P}.models.controlnet.ControlledUNetModel3D",
     "sgm.modules.diffusionmodules.controlmodel.ControlNet3D":

@@ -31,7 +31,7 @@ TINY_FINAL_DIM, FULL_FINAL_DIM = (16, 32), (256, 512)
 TINY_LATENT_HW, FULL_LATENT_HW = (2, 24), (32, 384)
 GRAD_CLIP = 1.0
 MAX_KEEP = 3
-MULTI_DEVICE = ("multi-device training is not ported (ROADMAP.md, Queue A item 8); "
+MULTI_DEVICE = ("multi-device training is not ported (ROADMAP.md, Queue A item 7); "
                 "run on one device without --fsdp and --dp")
 
 

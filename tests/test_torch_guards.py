@@ -19,7 +19,7 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "panacea_tpu")
 # the port's scripts outside its package
 ROOT_SCRIPTS = ("chip_smoke.py", "inference_torch.py", "train_torch.py",
-                "eval_perception_torch.py",
+                "eval_perception_torch.py", "eval_generation_torch.py",
                 os.path.join("scripts", "compare_latents_torch.py"),
                 os.path.join("scripts", "probe_torch_kernels.py"),
                 os.path.join("scripts", "sampling_step_torch.py"),
@@ -56,6 +56,10 @@ def test_port_source_imports_no_jax():
     assert {os.path.join("panacea_tpu_torch", "perception", f"{m}.py")
             for m in ("encoding", "resnet", "fpn", "deformable", "head", "detector", "coder",
                       "metrics", "eval_dataset", "collect", "eval")} <= names
+    assert {os.path.join("panacea_tpu_torch", "metrics_gen", f"{m}.py")
+            for m in ("__init__", "fid", "inception", "i3d", "eval")} <= names
+    assert {"eval_generation_torch.py",
+            os.path.join("panacea_tpu_torch", "diffusion", "distributions.py")} <= names
     for path in port_files():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -77,6 +81,7 @@ def test_port_imports_with_jax_blocked():
         "for info in pkgutil.walk_packages(panacea_tpu_torch.__path__, 'panacea_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
         "import chip_smoke, inference_torch, train_torch, eval_perception_torch\n"
+        "import eval_generation_torch\n"
         "sys.path.insert(0, 'scripts')\n"
         "import compare_latents_torch, probe_torch_kernels\n"
         "print('ok')\n")

@@ -425,7 +425,7 @@ def test_checkpoint_rotation_keeps_the_newest(tmp_path, setup):
 
 def test_cli_refuses_multi_device_options():
     for argv in (["--fsdp"], ["--dp", "2"]):
-        with pytest.raises(SystemExit, match="Queue A item 8"):
+        with pytest.raises(SystemExit, match="Queue A item 7"):
             train.main(["--tiny", "--synthetic", "--device", "cpu"] + argv)
 
 
