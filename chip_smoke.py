@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels      # phases 1 and 2 only
     python3 chip_smoke.py --perception   # phase 1, the perception flash check, phase 11
     python3 chip_smoke.py --metrics      # phase 1, phase 12
+    python3 chip_smoke.py --variants     # phase 1, phase 13
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -84,6 +85,21 @@ Phases, in order; any failure exits non-zero:
      injected noise, 3 steps, within ``SMALL_TOL``; then DPM++2M through
      ``log_images`` at full width, 4 steps: 21 flash and 69 GEGLU launches
      per network evaluation, s/step beside the Euler phase's.
+ 13. stage 1 and the variants: (a) stage 1, single-frame six-view generation:
+     INFERENCE_NUSCENES with one frame in the network and the ControlNet,
+     ``log_images`` at full width (a 32 x 384 latent, the 19-channel
+     256 x 3072 hint, bf16, 25 Euler-EDM steps at CFG 5.0), random weights:
+     s/step, 21 flash and 69 GEGLU launches per network evaluation, peak
+     memory, finite outputs; (b) its 'full' spatial mode without the
+     cross-view stage (BASELINE config 1), 4 steps: 46 GEGLU launches an
+     evaluation and no flash launch; (c) TINY_STAGE1 card against CPU with
+     the same injected noise, 128 tokens a view (the flash route), within
+     ``SMALL_TOL``; (d) each off-path variant (the label embeddings, the
+     legacy attention, the VAE encoder's attention, the temporal VAE blocks,
+     CLIP-L, the vision tower and image embedder, the image-space embedders)
+     at small widths in fp32 on the card against the CPU, within
+     ``PERCEPTION_TOL``. Phase 2 (and ``--variants`` before phase 13) also
+     holds the bf16 kernels to their plain versions at stage 1's shapes.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -520,22 +536,25 @@ def check_geglu(torch, F, gg, tol, dev, tokens, c, timed=True, inner=None, fp32=
 TINY_LATENT = (2, 8, 96, 4)   # t, lh, lw, c: 128 tokens per view, the flash route
 
 
-def tiny_pair(torch, dev):
-    """The tiny engine on the CPU (fp32) and on the card (bf16), same weights."""
-    from panacea_tpu_torch.configs import TINY_CPU
+def tiny_pair(torch, dev, config: str = "TINY_CPU"):
+    """A tiny engine (``configs.<config>``) on the CPU (fp32) and on the card
+    (bf16), same weights."""
+    from panacea_tpu_torch import configs
     from panacea_tpu_torch.registry import instantiate_from_config
 
-    cpu = instantiate_from_config(TINY_CPU["model"], device="cpu")
+    cfg = getattr(configs, config)["model"]
+    cpu = instantiate_from_config(cfg, device="cpu")
     cpu.init_weights(torch.Generator().manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
-    card = instantiate_from_config(TINY_CPU["model"], device=dev)
+    card = instantiate_from_config(cfg, device=dev)
     card.load_state_dict(cpu.state_dict(), strict=True)
     return cpu, card
 
 
-def tiny_card_vs_cpu(torch, np, cpu, card, steps: int, sampler_noise=None) -> float:
+def tiny_card_vs_cpu(torch, np, cpu, card, steps: int, sampler_noise=None,
+                     latent=TINY_LATENT) -> float:
     """Both engines sample from the same conditioning and injected noise;
     the card's largest difference from the CPU over the CPU's largest value."""
-    t, lh, lw, ch = TINY_LATENT
+    t, lh, lw, ch = latent
     ih, iw = 8 * lh, 8 * lw
     rng = np.random.default_rng(SEED)
     cond = {"crossattn": rng.standard_normal((1, 77, 64)),
@@ -1619,6 +1638,287 @@ def metrics_phase(torch, np, dev, fa, gg, card: str, gen_tree: str, euler_s_per_
     return counts
 
 
+# phase 13: stage 1 (single-frame six-view generation) of the production
+# config, its 'full' spatial mode (BASELINE config 1), the tiny stage-1
+# engine and the off-path variants, the last two card against CPU
+STAGE1 = [f"model.params.network_config.params.{p}num_frames=1"
+          for p in ("", "controlnet_config.params.")]
+FULL_MODE = [f"model.params.network_config.params.{p}{k}"
+             for p in ("", "controlnet_config.params.")
+             for k in ("spatial_only_attn_type=full", "insert_crossview=False")]
+# launches a network evaluation, from the network's blocks: 23 transformers
+# (UNet 6 + 1 + 9, ControlNet 6 + 1), one GEGLU feed-forward per stage (3, or
+# 2 without the cross-view stage); one flash call per cross-view stage whose
+# views hold >= 128 tokens (levels 0-2; the middle's 32 go to SDPA). Frames
+# do not enter either count
+STAGE1_PER_EVAL = {"flash_attention": 21, "geglu": 69}
+FULL_PER_EVAL = {"flash_attention": 0, "geglu": 46}
+FULL_STEPS = 4
+STAGE1_TINY_LATENT = (1, 8, 96, 4)   # one frame of TINY_LATENT's 128 tokens a view
+# stage 1's kernel shapes: the cross-view call of the CFG batch's 2 frames x
+# views 0-4 at the three flash levels (B, Sq, Skv, H), and the GEGLU calls
+# of 2 frames at levels 0 / 1 / 2 / mid (tokens, C)
+STAGE1_FLASH = ((10, 2048, 4096, 5), (10, 512, 1024, 10), (10, 128, 256, 20))
+STAGE1_GEGLU = ((24576, 320), (6144, 640), (1536, 1280), (384, 1280))
+
+
+def stage1_kernel_checks(torch, F, fa, gg, tol, dev):
+    """The bf16 kernels at stage 1's shapes against their plain versions,
+    timed beside them, their bound and their library call."""
+    flash = [check_flash(torch, F, fa, tol, dev, b, sq, skv, h, 64, merged_kv=True)
+             for b, sq, skv, h in STAGE1_FLASH]
+    if any(rec["route"] != "wgmma" for rec in flash):
+        raise AssertionError(f"stage 1's flash calls left the wgmma route: {flash}")
+    return flash, [check_geglu(torch, F, gg, tol, dev, tokens, c) for tokens, c in STAGE1_GEGLU]
+
+
+def stage1_engine(torch, dev, overrides=()):
+    """INFERENCE_NUSCENES with one frame in the network and the ControlNet
+    (the dotlist both packages' CLIs accept), random weights from SEED."""
+    import copy
+
+    from panacea_tpu_torch.config import apply_dotlist
+    from panacea_tpu_torch.configs import INFERENCE_NUSCENES
+    from panacea_tpu_torch.registry import instantiate_from_config
+
+    cfg = apply_dotlist(copy.deepcopy(INFERENCE_NUSCENES), STAGE1 + list(overrides))
+    eng = instantiate_from_config(cfg["model"], device=dev)
+    eng.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
+    if eng.num_frames != 1:
+        raise AssertionError(f"the stage-1 engine has {eng.num_frames} frames")
+    return eng
+
+
+def stage1_run(torch, np, dev, fa, gg, card: str, eng, steps: int, per_eval: dict, name: str,
+               profile: bool = False):
+    """``log_images`` on one random single-frame clip at full width (6
+    views, 256 x 3072, bf16, CFG 5.0): s/step, launches per network
+    evaluation, peak memory, finite outputs of the right shapes; with
+    ``profile``, one more step under torch.profiler after the run. Returns
+    the run's launch counts."""
+    ih, iw = FULL_HW
+    batch = synthetic_clip(np, np.random.default_rng(SEED), 1, ih, iw)
+    step_s = []
+    last_call = []
+    network_fn = eng.network_fn
+
+    def timed_network(*a, **kw):
+        t0 = time.perf_counter()
+        out = network_fn(*a, **kw)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        last_call[:] = [a, kw]
+        return out
+
+    eng.network_fn = timed_network
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, gg)
+    t0 = time.perf_counter()
+    logd = eng.log_images(batch, N=1, generator=torch.Generator(device=dev).manual_seed(SEED),
+                          num_steps=steps)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts(fa, gg)
+    evals = len(step_s)
+    launches = {k: counts[k] for k in per_eval}
+    shapes = {"inputs": (1, ih, iw, 3), "reconstructions": (1, ih, iw, 3),
+              "samples": (1, ih, iw, 3), "control": (1, ih, iw, 19)}
+    rec = {"phase": name, "card": card, "dtype": str(eng.dtype), "frames": eng.num_frames,
+           "steps": steps, "network_evals": evals, "log_images_s": total_s, "step_s": step_s,
+           "s_per_step": sorted(step_s[1:])[len(step_s[1:]) // 2],
+           "outside_steps_s": total_s - sum(step_s),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_per_eval": {k: v / evals for k, v in launches.items()},
+           "flash_routes": dict(fa.flash_attention.route_launches),
+           "finite": {k: bool(torch.isfinite(logd[k]).all()) for k in shapes},
+           "shapes_ok": {k: tuple(logd[k].shape) == v for k, v in shapes.items()}}
+    log(rec)
+    if not (all(rec["finite"].values()) and all(rec["shapes_ok"].values())):
+        raise AssertionError(f"{name}: the outputs are wrong: {rec}")
+    if evals != steps or launches != {k: v * evals for k, v in per_eval.items()}:
+        raise AssertionError(f"{name}: launches {launches} in {evals} evaluations, "
+                             f"not {per_eval} each")
+    if rec["flash_routes"]["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"{name}: the flash calls (head dim 64) left the wgmma route: {rec}")
+    if profile:
+        profile_step(torch, lambda: network_fn(*last_call[0], **last_call[1]), f"profile_{name}")
+    return counts
+
+
+def stage1_tiny_phase(torch, np, dev, fa, gg, card: str) -> None:
+    """(c) TINY_STAGE1 on the card (bf16, kernels) against the CPU (fp32,
+    plain versions), same weights and injected noise, 2 steps; 128 tokens a
+    view send the cross-view call down the flash route."""
+    cpu, card_eng = tiny_pair(torch, dev, "TINY_STAGE1")
+    reset_counts(fa, gg)
+    rel = tiny_card_vs_cpu(torch, np, cpu, card_eng, 2, latent=STAGE1_TINY_LATENT)
+    rec = {"phase": "stage1_tiny_card_vs_cpu", "card": card, "config": "TINY_STAGE1",
+           "latent": list(STAGE1_TINY_LATENT), "steps": 2, "max_rel_err": rel, "tol": SMALL_TOL,
+           "flash_launches": fa.flash_attention.launches, "geglu_launches": gg.geglu.launches}
+    log(rec)
+    if not (rel <= SMALL_TOL and rec["flash_launches"] > 0 and rec["geglu_launches"] > 0):
+        raise AssertionError(f"the tiny stage-1 engine on the card disagrees with the CPU: {rec}")
+
+
+def draw_weights(torch, module, seed: int):
+    """Every parameter drawn on the CPU from ``seed``: matrices and kernels
+    at 1/sqrt(fan-in), norm scales 1 + 0.05 n, vectors 0.05 n (zero-init
+    layers included, so that every branch computes)."""
+    import math
+
+    from panacea_tpu_torch.models.layers import GroupNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    scales = {f"{n}.weight" for n, m in module.named_modules()
+              if isinstance(m, (torch.nn.LayerNorm, GroupNorm))}
+    with torch.no_grad():
+        for k, p in module.named_parameters():
+            n = torch.randn(p.shape, generator=gen)
+            if p.ndim >= 2:
+                n /= math.sqrt(p[0].numel())
+            elif k in scales:
+                n = 1.0 + 0.05 * n
+            else:
+                n *= 0.05
+            p.copy_(n)
+    return module.eval()
+
+
+def tensors_of(out):
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in tensors_of(v)]
+    if isinstance(out, (list, tuple)):
+        return [t for v in out for t in tensors_of(v)]
+    return [out] if hasattr(out, "shape") and out.dtype.is_floating_point else []
+
+
+def variants(torch, np):
+    """(name, module factory, inputs, call) of each off-path variant, at
+    small widths; inputs are numpy arrays or prompts, made from SEED."""
+    from panacea_tpu_torch.models import clip, conditioner, vae_temporal
+    from panacea_tpu_torch.models.controlnet import ControlledUNetModel3D
+    from panacea_tpu_torch.models.unet import UNetModel3D
+    from panacea_tpu_torch.models.vae import AutoencoderKL
+
+    rng = np.random.default_rng(SEED)
+
+    def f32(*shape, lo=None):
+        return (rng.uniform(lo, 1, shape) if lo is not None else rng.standard_normal(shape)
+                ).astype(np.float32)
+
+    # two clips of three frames (a GroupNorm of one channel over two frames
+    # normalises pairs of numbers: ill-conditioned in any backend)
+    net = dict(in_channels=8, model_channels=32, num_res_blocks=1, attention_resolutions=(2, 1),
+               channel_mult=(1, 2), num_head_channels=16, context_dim=64, num_frames=3,
+               use_checkpoint=False)
+    x, ts, ctx = f32(6, 8, 48, 8), rng.uniform(0, 999, 6).astype(np.float32), f32(2, 77, 64)
+    hint = f32(6, 64, 384, 19, lo=0)
+    out = []
+    for form, extra, y in (("int", dict(num_classes=10), rng.integers(0, 10, 2)),
+                           ("continuous", dict(num_classes="continuous"), f32(2, lo=0) * 5),
+                           ("sequential", dict(num_classes="sequential", adm_in_channels=12),
+                            f32(2, 12))):
+        cn = {"params": dict(net, hint_channels=19, **extra)}
+        out.append((f"unet_controlnet_label_{form}",
+                    lambda e=extra, c=cn: ControlledUNetModel3D(controlnet_config=c,
+                                                                out_channels=4, **net, **e),
+                    (x, ts, ctx, hint, y), lambda m, a, b, c, h, yy: m(a, b, c, hint=h, y=yy)))
+    out.append(("unet_legacy_attention",
+                lambda: UNetModel3D(out_channels=4, **dict(net, model_channels=64),
+                                    use_spatial_transformer=False),
+                (x, ts, ctx), lambda m, *a: m(*a)))
+    dd = dict(double_z=True, z_channels=4, resolution=64, in_channels=3, out_ch=3, ch=32,
+              ch_mult=[1, 2, 2], num_res_blocks=1, attn_resolutions=[64, 32])
+    out.append(("vae_encoder_attention", lambda: AutoencoderKL(embed_dim=4, ddconfig=dd),
+                (f32(2, 64, 64, 3, lo=-1),), lambda m, a: m.decode(m.encode(a))))
+    tx = f32(8, 16, 24, 32)
+    for name, make in (("Upsample1D", lambda: vae_temporal.Upsample1D(32, num_frames=4)),
+                       ("Downsample1D", lambda: vae_temporal.Downsample1D(32, num_frames=4)),
+                       ("ResnetBlock1D", lambda: vae_temporal.ResnetBlock1D(32, 48, num_frames=4)),
+                       ("ResnetBlock3D", lambda: vae_temporal.ResnetBlock3D(32, 48, True)),
+                       ("AttnBlockTemporal",
+                        lambda: vae_temporal.AttnBlockTemporal(32, num_frames=4))):
+        out.append((f"vae_temporal_{name}", make, (tx,), lambda m, a: m(a)))
+    texts = ["a driving scene. daytime. sunny.", "", "night, rain"]
+    vision = dict(width=64, heads=4, layers=2, output_dim=32)
+    out += [("clip_l_text", clip.FrozenCLIPEmbedder, (texts,), lambda m, t: m(t)),
+            ("clip_vision_tower", lambda: clip.CLIPVisionTransformer(**vision),
+             (f32(2, 224, 224, 3),), lambda m, a: m(a, output_tokens=True)),
+            ("clip_image_embedder",
+             lambda: clip.FrozenOpenCLIPImageEmbedder(**vision, unsqueeze_dim=True),
+             (f32(2, 96, 160, 3, lo=-1),), lambda m, a: m(a)),
+            ("downsampler", conditioner.DownSampler, (f32(2, 64, 96, 13, lo=0),),
+             lambda m, a: m(a)),
+            ("spatial_rescaler",
+             lambda: conditioner.SpatialRescaler(n_stages=1, method="bicubic", multiplier=1.5,
+                                                 out_channels=5, bias=True, kernel_size=3),
+             (f32(2, 16, 24, 3),), lambda m, a: m(a)),
+            ("concat_timestep", lambda: conditioner.ConcatTimestepEmbedderND(64),
+             (np.array([[256, 512], [64, 32]], np.float32),), lambda m, a: m(a))]
+    vae_cfg = {"target": "sgm.models.autoencoder.AutoencoderKL",
+               "params": {"embed_dim": 4, "ddconfig": dict(dd, attn_resolutions=[])}}
+    out += [("low_scale_encoder",
+             lambda: conditioner.LowScaleEncoder(vae_cfg, 1e-4, 2e-2, output_size=16),
+             (f32(2, 64, 64, 3, lo=-1), np.array([3, 200]), f32(2, 16, 16, 4)),
+             lambda m, a, t, n: m(a, t=t, noise=n)),
+            ("gaussian_encoder",
+             lambda: conditioner.GaussianEncoder(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                                                 z_channels=4, resolution=32),
+             (f32(2, 32, 32, 3, lo=-1), f32(2, 16, 16, 4)), lambda m, a, n: m(a, noise=n))]
+    return out
+
+
+def variants_phase(torch, np, dev, card: str) -> None:
+    """(d) each off-path variant in fp32 (TF32 off) on the card against the
+    same weights and inputs on the CPU: every output's largest difference
+    over its largest value, within PERCEPTION_TOL."""
+    import copy
+
+    errs = {}
+    t0 = time.perf_counter()
+    for i, (name, make, inputs, call) in enumerate(variants(torch, np)):
+        cpu = draw_weights(torch, make(), SEED + i)
+        on_card = copy.deepcopy(cpu).to(dev)
+
+        def args(d):
+            return [torch.as_tensor(a, device=d) if isinstance(a, np.ndarray) else a
+                    for a in inputs]
+
+        with torch.no_grad():
+            want, got = tensors_of(call(cpu, *args("cpu"))), tensors_of(call(on_card, *args(dev)))
+        if len(want) != len(got) or not want:
+            raise AssertionError(f"{name}: {len(got)} outputs on the card, {len(want)} on the CPU")
+        errs[name] = max(((g.float().cpu() - w).abs().max() / w.abs().max()).item()
+                         if bool(torch.isfinite(g).all()) else float("inf")
+                         for g, w in zip(got, want))
+    rec = {"phase": "variants_card_vs_cpu", "card": card, "dtype": "torch.float32",
+           "seconds": time.perf_counter() - t0, "max_rel_err": errs, "tol": PERCEPTION_TOL}
+    log(rec)
+    if not all(e <= PERCEPTION_TOL for e in errs.values()):
+        raise AssertionError(f"a variant on the card disagrees with the CPU: {rec}")
+
+
+def stage1_phase(torch, np, dev, fa, gg, card: str) -> dict:
+    """Phase 13. Returns the launch counts of (a) and (b) by path."""
+    t0 = time.perf_counter()
+    eng = stage1_engine(torch, dev)
+    paths = {"stage1": stage1_run(torch, np, dev, fa, gg, card, eng, MAIN_STEPS,
+                                  STAGE1_PER_EVAL, "stage1_log_images", profile=True)}
+    del eng
+    free(torch)
+    eng = stage1_engine(torch, dev, FULL_MODE)
+    paths["stage1_full"] = stage1_run(torch, np, dev, fa, gg, card, eng, FULL_STEPS,
+                                      FULL_PER_EVAL, "stage1_full_attention")
+    del eng
+    free(torch)
+    stage1_tiny_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    variants_phase(torch, np, dev, card)
+    log({"phase": "stage1_total", "seconds": time.perf_counter() - t0})
+    return paths
+
+
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
 BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
            ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
@@ -1669,8 +1969,8 @@ def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
 def main(mode: str = "all") -> int:
     """``mode``: "all" (every phase), "kernels" (phases 1 and 2),
     "perception" (phase 1, the flash check at the perception shape and
-    phase 11) or "metrics" (phase 1 and phase 12, on the tree of a 2-step
-    full-width generation run)."""
+    phase 11), "metrics" (phase 1 and phase 12, on the tree of a 2-step
+    full-width generation run) or "variants" (phase 1 and phase 13)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1721,6 +2021,11 @@ def main(mode: str = "all") -> int:
         perception_cli_phase(torch, np, dev, fa, gg, card)
         log({"phase": "perception_only", "ok": True})
         return 0
+    if mode == "variants":
+        stage1_kernel_checks(torch, F, fa, gg, tol, dev)
+        stage1_phase(torch, np, dev, fa, gg, card)
+        log({"phase": "variants_only", "ok": True})
+        return 0
     if mode == "metrics":
         with tempfile.TemporaryDirectory() as tmp:
             gen_tree = os.path.join(tmp, "gen-nuscenes")
@@ -1766,6 +2071,8 @@ def main(mode: str = "all") -> int:
     for tokens, c, inner in ((1000, 72, 288), (5000, 328, 1312), (300, 64, 200), (300, 64, 77),
                              (50, 320, 1280), (1, 64, 256), (256, 32, 128), (256, 64, 256)):
         geglu.append(check_geglu(torch, F, gg, tol, dev, tokens, c, timed=False, inner=inner))
+
+    flash_s1, geglu_s1 = stage1_kernel_checks(torch, F, fa, gg, tol, dev)
 
     # the fp32 kernels at the same shapes: the three levels in both layouts,
     # the ragged case, the tails and the tiny widths
@@ -1880,6 +2187,8 @@ def main(mode: str = "all") -> int:
     paths["sampler_dpmpp2m"] = metrics_phase(torch, np, dev, fa, gg, card, gen_tree,
                                              euler_s_per_step)
     gen_dir.cleanup()
+    free(torch)
+    paths.update(stage1_phase(torch, np, dev, fa, gg, card))
 
     def count(c, kernel, fp32):
         """Launches of one kernel on one type's routes, from a path's counts
@@ -1910,13 +2219,20 @@ def main(mode: str = "all") -> int:
                 "bound_by": main["bound_by"], "library_ms": main["library_ms"],
                 "dtype": main["dtype"], "shape": main["shape"]}
 
+    def stage1_levels(recs):
+        """The bf16 kernel's numbers at stage 1's shapes, level by level."""
+        return {f"stage1_{k}_levels": [r[k] for r in recs]
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+
     flash_src, geglu_src = ("panacea_tpu_torch/csrc/flash_attention.cu",
                             "panacea_tpu_torch/csrc/geglu.cu")
     flash_bwd_src = "panacea_tpu_torch/csrc/flash_attention_bwd.cu"
     flash_tpu, geglu_tpu = "panacea_tpu/ops/flash_attention.py:33", "panacea_tpu/ops/geglu.py:64"
     log({"kernels": [
-        summary("flash_attention", "flash_attention", flash_src, flash_tpu, flash, flash[0], "cli"),
-        summary("geglu", "geglu", geglu_src, geglu_tpu, geglu, geglu[0], "cli"),
+        summary("flash_attention", "flash_attention", flash_src, flash_tpu, flash + flash_s1,
+                flash[0], "cli", **stage1_levels(flash_s1)),
+        summary("geglu", "geglu", geglu_src, geglu_tpu, geglu + geglu_s1, geglu[0], "cli",
+                **stage1_levels(geglu_s1)),
         summary("flash_attention_fp32", "flash_attention", flash_src, flash_tpu, flash32,
                 flash32[0], "fp32_engine", paths_of=generation_paths,
                 entry="tc::pn_flash_f32_fwd_tc (3xTF32 wgmma, TMA)",
@@ -1968,7 +2284,8 @@ def main(mode: str = "all") -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--kernels"], ["--perception"], ["--metrics"]):
-        sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception | --metrics]")
+    if sys.argv[1:] not in ([], ["--kernels"], ["--perception"], ["--metrics"], ["--variants"]):
+        sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception | --metrics | --variants]")
     sys.exit(main({"--kernels": "kernels", "--perception": "perception",
-                   "--metrics": "metrics"}.get((sys.argv[1:] or [""])[0], "all")))
+                   "--metrics": "metrics", "--variants": "variants"}.get(
+                       (sys.argv[1:] or [""])[0], "all")))

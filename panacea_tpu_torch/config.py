@@ -2,7 +2,7 @@
 ``panacea_tpu/config.py``).
 
 The port's configs are Python data (``configs.py``), so ``--base`` names one
-of them, ``inference_nuscenes`` or ``tiny_cpu``. Anything else is read as a
+of them, ``inference_nuscenes``, ``tiny_cpu`` or ``tiny_stage1``. Anything else is read as a
 YAML path, where PyYAML is installed. ``apply_dotlist`` keeps the
 reference's ``--base cfg key.sub=value`` surface.
 """
@@ -16,7 +16,8 @@ from typing import Any, Dict, List, Sequence
 
 from panacea_tpu_torch import configs
 
-NAMED = {"inference_nuscenes": configs.INFERENCE_NUSCENES, "tiny_cpu": configs.TINY_CPU}
+NAMED = {"inference_nuscenes": configs.INFERENCE_NUSCENES, "tiny_cpu": configs.TINY_CPU,
+         "tiny_stage1": configs.TINY_STAGE1}
 
 
 def load_config(name_or_path: str) -> Dict[str, Any]:

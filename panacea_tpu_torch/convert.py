@@ -3,12 +3,15 @@
 The port's parameter names and layouts are those of the reference torch
 checkpoint (``panaceaplus_40k_deepspeed.ckpt``), so that checkpoint loads
 with no converter. This module carries weights the other way, from the JAX
-package's flax trees, for the parity tests: its own copy of the UNet,
-ControlNet, VAE and CLIP parts of the key map of
-``panacea_tpu/utils/convert.py:29-360``, applied with the inverse layout
+package's flax trees, for the parity tests: its own copy of the UNet (with
+its ``label_emb`` variants), ControlNet, VAE and CLIP parts of the key map
+of ``panacea_tpu/utils/convert.py:29-360``, applied with the inverse layout
 transforms and the CLIP q/k/v re-packing of ``:630-705``, of the
 StreamPETR detector's (``:910-1178``), and of the metric towers'
-(InceptionV3 and I3D, ``:766-903``).
+(InceptionV3 and I3D, ``:766-903``). Where the JAX package has no torch
+mapping (the legacy attention block, the VAE encoder's attention, the
+temporal VAE blocks, the CLIP vision tower, ``DownSampler``), the flax names
+are mapped to the reference's here alone.
 
   flax Dense (I, O)        -> torch Linear (O, I)
   flax Conv (kh, kw, I, O) -> torch Conv2d (O, I, kh, kw)
@@ -46,6 +49,10 @@ def _conv2d(w):
     return np.transpose(w, (3, 2, 0, 1))
 
 
+def _conv3d(w):
+    return np.transpose(w, (4, 3, 0, 1, 2))
+
+
 def _gn(ref: str, path: Path) -> Dict[str, Entry]:
     return {f"{ref}.weight": (path + ("GroupNorm_0", "scale"), _none),
             f"{ref}.bias": (path + ("GroupNorm_0", "bias"), _none)}
@@ -57,8 +64,8 @@ def _norm_flat(ref: str, path: Path) -> Dict[str, Entry]:
             f"{ref}.bias": (path + ("bias",), _none)}
 
 
-def _conv(ref: str, path: Path) -> Dict[str, Entry]:
-    return {f"{ref}.weight": (path + ("kernel",), _conv2d),
+def _conv(ref: str, path: Path, t=_conv2d) -> Dict[str, Entry]:
+    return {f"{ref}.weight": (path + ("kernel",), t),
             f"{ref}.bias": (path + ("bias",), _none)}
 
 
@@ -106,6 +113,36 @@ def _temporal_conv(ref: str, path: Path) -> Dict[str, Entry]:
             f"{ref}.bias": (path + ("conv_bias",), _none)}
 
 
+def _conv1x1d(w):
+    """flax Dense (I, O) -> torch Conv1d with k=1 (O, I, 1)."""
+    return np.transpose(w)[:, :, None]
+
+
+def legacy_attention_map(ref: str, path: Path) -> Dict[str, Entry]:
+    """``LegacyAttentionBlock3D``: its norms and k=1 Conv1d projections,
+    the dead ``qkv_temporal`` included."""
+    m = {}
+    for suffix in ("", "_temporal"):
+        m.update(_gn(f"{ref}.norm{suffix}", path + (f"norm{suffix}",)))
+        for n in ("qkv", "proj_out"):
+            m[f"{ref}.{n}{suffix}.weight"] = (path + (f"{n}{suffix}", "kernel"), _conv1x1d)
+            m[f"{ref}.{n}{suffix}.bias"] = (path + (f"{n}{suffix}", "bias"), _none)
+    return m
+
+
+def label_emb_map(prefix: str, path: Path, num_classes) -> Dict[str, Entry]:
+    """The ``label_emb`` variants (panacea_tpu/utils/convert.py:178-201)."""
+    if num_classes is None:
+        return {}
+    if num_classes == "continuous":
+        return _dense(f"{prefix}.label_emb", path + ("label_emb",))
+    if num_classes == "sequential":
+        m = _dense(f"{prefix}.label_emb.0.0", path + ("label_emb_0",))
+        m.update(_dense(f"{prefix}.label_emb.0.2", path + ("label_emb_2",)))
+        return m
+    return {f"{prefix}.label_emb.weight": (path + ("label_emb", "embedding"), _none)}
+
+
 def resblock_map(ref: str, path: Path) -> Dict[str, Entry]:
     m = {}
     m.update(_gn(f"{ref}.in_layers.0", path + ("in_norm",)))
@@ -123,12 +160,22 @@ def resblock_map(ref: str, path: Path) -> Dict[str, Entry]:
 
 def unet_map(prefix: str, path: Path, model_channels: int, channel_mult,
              num_res_blocks: int, attention_resolutions, transformer_depth: int = 1,
-             insert_crossview: bool = True, encoder_only: bool = False) -> Dict[str, Entry]:
+             insert_crossview: bool = True, encoder_only: bool = False, num_classes=None,
+             legacy: bool = False) -> Dict[str, Entry]:
+    """``legacy``: ``LegacyAttentionBlock3D``s where the transformers would be
+    (``use_spatial_transformer=False``)."""
     input_plan, output_plan, _ = plan_blocks(model_channels, tuple(channel_mult),
                                              num_res_blocks, tuple(attention_resolutions))
+
+    def attn_map(ref, p):
+        if legacy:
+            return legacy_attention_map(ref, p)
+        return st_transformer_map(ref, p, transformer_depth, insert_crossview)
+
     m = {}
     m.update(_dense(f"{prefix}.time_embed.0", path + ("time_embed", "dense0")))
     m.update(_dense(f"{prefix}.time_embed.2", path + ("time_embed", "dense1")))
+    m.update(label_emb_map(prefix, path, num_classes))
     for bi, item in enumerate(input_plan):
         ref = f"{prefix}.input_blocks.{bi}"
         if item[0] == "conv":
@@ -138,11 +185,9 @@ def unet_map(prefix: str, path: Path, model_channels: int, channel_mult,
         else:
             m.update(resblock_map(f"{ref}.0", path + (f"in_{bi}_res",)))
             if item[2]:
-                m.update(st_transformer_map(f"{ref}.1", path + (f"in_{bi}_attn",),
-                                            transformer_depth, insert_crossview))
+                m.update(attn_map(f"{ref}.1", path + (f"in_{bi}_attn",)))
     m.update(resblock_map(f"{prefix}.middle_block.0", path + ("mid_res1",)))
-    m.update(st_transformer_map(f"{prefix}.middle_block.1", path + ("mid_attn",),
-                                transformer_depth, insert_crossview))
+    m.update(attn_map(f"{prefix}.middle_block.1", path + ("mid_attn",)))
     m.update(resblock_map(f"{prefix}.middle_block.2", path + ("mid_res2",)))
     if encoder_only:
         return m
@@ -151,8 +196,7 @@ def unet_map(prefix: str, path: Path, model_channels: int, channel_mult,
         m.update(resblock_map(f"{ref}.0", path + (f"out_{bi}_res",)))
         sub = 1
         if attn:
-            m.update(st_transformer_map(f"{ref}.{sub}", path + (f"out_{bi}_attn",),
-                                        transformer_depth, insert_crossview))
+            m.update(attn_map(f"{ref}.{sub}", path + (f"out_{bi}_attn",)))
             sub += 1
         if up:
             m.update(_conv(f"{ref}.{sub}.conv", path + (f"out_{bi}_up", "conv")))
@@ -192,23 +236,36 @@ def _vae_attn(ref: str, path: Path) -> Dict[str, Entry]:
     return m
 
 
-def vae_map(prefix: str, path: Path, ch_mult, num_res_blocks: int) -> Dict[str, Entry]:
-    enc, dec = path + ("encoder",), path + ("decoder",)
-    m = {}
-    m.update(_conv(f"{prefix}.encoder.conv_in", enc + ("conv_in",)))
+def vae_encoder_map(prefix: str, path: Path, ch_mult, num_res_blocks: int
+                    ) -> Dict[str, Entry]:
+    """The VAE encoder under ``prefix`` (with ``prefix`` '', the names of a
+    ``GaussianEncoder``), its attention at ``attn_resolutions`` included
+    (JAX ``down_{l}_attn_{i}``; left out where the encoder has none)."""
+    pre = f"{prefix}." if prefix else ""
+    m = _conv(f"{pre}conv_in", path + ("conv_in",))
     for lv in range(len(ch_mult)):
         for i in range(num_res_blocks):
-            m.update(_vae_resblock(f"{prefix}.encoder.down.{lv}.block.{i}",
-                                   enc + (f"down_{lv}_block_{i}",)))
+            m.update(_vae_resblock(f"{pre}down.{lv}.block.{i}", path + (f"down_{lv}_block_{i}",)))
+            m.update(_vae_attn(f"{pre}down.{lv}.attn.{i}", path + (f"down_{lv}_attn_{i}",)))
         if lv != len(ch_mult) - 1:
-            m.update(_conv(f"{prefix}.encoder.down.{lv}.downsample.conv",
-                           enc + (f"down_{lv}_downsample",)))
-    for part, p in (("encoder", enc), ("decoder", dec)):
-        m.update(_vae_resblock(f"{prefix}.{part}.mid.block_1", p + ("mid_block_1",)))
-        m.update(_vae_attn(f"{prefix}.{part}.mid.attn_1", p + ("mid_attn_1",)))
-        m.update(_vae_resblock(f"{prefix}.{part}.mid.block_2", p + ("mid_block_2",)))
-        m.update(_gn(f"{prefix}.{part}.norm_out", p + ("norm_out",)))
-        m.update(_conv(f"{prefix}.{part}.conv_out", p + ("conv_out",)))
+            m.update(_conv(f"{pre}down.{lv}.downsample.conv", path + (f"down_{lv}_downsample",)))
+    m.update(_vae_mid_out(pre, path))
+    return m
+
+
+def _vae_mid_out(pre: str, path: Path) -> Dict[str, Entry]:
+    m = _vae_resblock(f"{pre}mid.block_1", path + ("mid_block_1",))
+    m.update(_vae_attn(f"{pre}mid.attn_1", path + ("mid_attn_1",)))
+    m.update(_vae_resblock(f"{pre}mid.block_2", path + ("mid_block_2",)))
+    m.update(_gn(f"{pre}norm_out", path + ("norm_out",)))
+    m.update(_conv(f"{pre}conv_out", path + ("conv_out",)))
+    return m
+
+
+def vae_map(prefix: str, path: Path, ch_mult, num_res_blocks: int) -> Dict[str, Entry]:
+    dec = path + ("decoder",)
+    m = vae_encoder_map(f"{prefix}.encoder", path + ("encoder",), ch_mult, num_res_blocks)
+    m.update(_vae_mid_out(f"{prefix}.decoder.", dec))
     m.update(_conv(f"{prefix}.decoder.conv_in", dec + ("conv_in",)))
     for lv in range(len(ch_mult)):
         for i in range(num_res_blocks + 1):
@@ -222,10 +279,8 @@ def vae_map(prefix: str, path: Path, ch_mult, num_res_blocks: int) -> Dict[str, 
     return m
 
 
-def clip_map(prefix: str, path: Path, layers: int) -> Dict[str, Entry]:
-    m = {f"{prefix}.token_embedding.weight": (path + ("token_embedding", "embedding"), _none),
-         f"{prefix}.positional_embedding": (path + ("positional_embedding",), _none)}
-    m.update(_norm_flat(f"{prefix}.ln_final", path + ("ln_final",)))
+def _clip_blocks(prefix: str, path: Path, layers: int) -> Dict[str, Entry]:
+    m = {}
     for i in range(layers):
         ref, p = f"{prefix}.transformer.resblocks.{i}", path + (f"resblock_{i}",)
         m.update(_norm_flat(f"{ref}.ln_1", p + ("ln_1",)))
@@ -233,6 +288,72 @@ def clip_map(prefix: str, path: Path, layers: int) -> Dict[str, Entry]:
         m.update(_dense(f"{ref}.attn.out_proj", p + ("attn", "out_proj")))
         m.update(_dense(f"{ref}.mlp.c_fc", p + ("mlp_fc",)))
         m.update(_dense(f"{ref}.mlp.c_proj", p + ("mlp_proj",)))
+    return m
+
+
+def clip_map(prefix: str, path: Path, layers: int) -> Dict[str, Entry]:
+    m = {f"{prefix}.token_embedding.weight": (path + ("token_embedding", "embedding"), _none),
+         f"{prefix}.positional_embedding": (path + ("positional_embedding",), _none)}
+    m.update(_norm_flat(f"{prefix}.ln_final", path + ("ln_final",)))
+    m.update(_clip_blocks(prefix, path, layers))
+    return m
+
+
+def clip_vision_map(prefix: str, path: Path, layers: int) -> Dict[str, Entry]:
+    """``CLIPVisionTransformer`` under open_clip's names (the q/k/v packing
+    is ``clip_state_dict_from_jax``'s)."""
+    m = {f"{prefix}.conv1.weight": (path + ("patch_embed", "kernel"), _conv2d)}
+    for n in ("class_embedding", "positional_embedding", "proj"):
+        m[f"{prefix}.{n}"] = (path + (n,), _none)
+    m.update(_norm_flat(f"{prefix}.ln_pre", path + ("ln_pre",)))
+    m.update(_norm_flat(f"{prefix}.ln_post", path + ("ln_post",)))
+    m.update(_clip_blocks(prefix, path, layers))
+    return m
+
+
+def downsampler_map(prefix: str, path: Path) -> Dict[str, Entry]:
+    """``DownSampler``: the JAX module's conv0..conv5 and conv_out at the
+    ``net`` Sequential's indices 0, 2, ..., 12."""
+    m = {}
+    for i in range(6):
+        m.update(_conv(f"{prefix}.net.{2 * i}", path + (f"conv{i}",)))
+    m.update(_conv(f"{prefix}.net.12", path + ("conv_out",)))
+    return m
+
+
+def _conv3d_flat(ref: str, path: Path, name: str) -> Dict[str, Entry]:
+    """A temporal Conv3d ``ref`` that the JAX module keeps as two flat
+    params, ``{name}_kernel`` and ``{name}_bias``."""
+    return {f"{ref}.weight": (path + (f"{name}_kernel",), _conv3d),
+            f"{ref}.bias": (path + (f"{name}_bias",), _none)}
+
+
+def vae_temporal_map(ref: str, path: Path, block: str) -> Dict[str, Entry]:
+    """The block of ``models/vae_temporal.py`` named ``block`` (entries of
+    the params it lacks, such as an absent shortcut, are left out by
+    ``apply_map``)."""
+    pre = f"{ref}." if ref else ""
+    m = {}
+    if block in ("Upsample1D", "Downsample1D"):
+        return _conv(f"{pre}conv", path + ("conv",), _conv1d)
+    if block == "AttnBlockTemporal":
+        m.update(_gn(f"{pre}norm", path + ("norm",)))
+        for n in ("q", "k", "v", "proj_out"):
+            m.update(_conv(f"{pre}{n}", path + (n,), _conv1d))
+        return m
+    t = _conv1d if block == "ResnetBlock1D" else _conv2d
+    for n in ("norm1", "norm2"):
+        m.update(_gn(f"{pre}{n}", path + (n,)))
+    for n in ("conv1", "conv2"):
+        m.update(_conv(f"{pre}{n}", path + (n,), t))
+    for n in ("conv_shortcut", "nin_shortcut"):
+        m.update(_conv(f"{pre}{n}", path + (n,)))
+        if block == "ResnetBlock3D":
+            m.update(_conv3d_flat(f"{pre}{n}_temporal", path, f"{n}_temporal"))
+    if block == "ResnetBlock3D":
+        for i in (1, 2):
+            m.update(_gn(f"{pre}conv{i}_temporal_norm", path + (f"conv{i}_temporal_norm",)))
+            m.update(_conv3d_flat(f"{pre}conv{i}_temporal", path, f"conv{i}_temporal"))
     return m
 
 
@@ -264,6 +385,7 @@ def _packed_qkv(flat: Dict[Path, np.ndarray], base: Path, ref: str) -> Dict[str,
 
 
 def _clip_qkv(flat: Dict[Path, np.ndarray], prefix: str, path: Path, layers: int):
+    """Each block's q/k/v -> ``in_proj`` (``_packed_qkv``)."""
     sd = {}
     for i in range(layers):
         sd.update(_packed_qkv(flat, path + (f"resblock_{i}", "attn"),
@@ -271,36 +393,57 @@ def _clip_qkv(flat: Dict[Path, np.ndarray], prefix: str, path: Path, layers: int
     return sd
 
 
+def clip_state_dict_from_jax(params: Mapping[str, Any], prefix: str, layers: int,
+                             vision: bool = False) -> Dict[str, torch.Tensor]:
+    """A JAX CLIP text tower's tree (``CLIPTextTransformer``; with ``vision``
+    a ``CLIPVisionTransformer``'s) -> the port's entries under ``prefix``,
+    the q/k/v Dense layers packed as open_clip's ``in_proj``."""
+    flat = flatten(params)
+    mapping = (clip_vision_map if vision else clip_map)(prefix, (), layers)
+    return {**apply_map(flat, mapping), **_clip_qkv(flat, prefix, (), layers)}
+
+
+# the text towers whose trees the JAX engine keeps under "clip", with their
+# default depth
+_TEXT_TOWERS = {"FrozenOpenCLIPEmbedder": 24, "FrozenOpenCLIPEmbedder2": 24,
+                "FrozenCLIPEmbedder": 12}
+
+
 def state_dict_from_jax(params: Mapping[str, Any], config: Mapping[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """``params``: the JAX engine's trees as nested dicts of numpy arrays,
     ``{"model": ..., "first_stage": ..., "clip": ...}``; ``config``: the
     engine config (``configs.TINY_CPU["model"]`` and the like), which fixes
-    the block plan. Returns the port's state dict, fp32, keyed by the
-    reference checkpoint's names."""
+    the block plan, the ``label_emb`` variant and the attention form. Returns
+    the port's state dict, fp32, keyed by the reference checkpoint's names."""
     p = config["params"]
     net = p["network_config"]["params"]
-    unet_kw = dict(model_channels=net["model_channels"], channel_mult=net["channel_mult"],
-                   num_res_blocks=net["num_res_blocks"],
-                   attention_resolutions=net["attention_resolutions"],
-                   transformer_depth=net.get("transformer_depth", 1),
-                   insert_crossview=net.get("insert_crossview", True))
+    cnet = (net.get("controlnet_config") or {}).get("params") or net
+
+    def kwargs(c):
+        return dict(model_channels=c["model_channels"], channel_mult=c["channel_mult"],
+                    num_res_blocks=c["num_res_blocks"],
+                    attention_resolutions=c["attention_resolutions"],
+                    transformer_depth=c.get("transformer_depth", 1),
+                    insert_crossview=c.get("insert_crossview", True),
+                    num_classes=c.get("num_classes"),
+                    legacy=not c.get("use_spatial_transformer", True))
+
     dd = p["first_stage_config"]["params"]["ddconfig"]
     mapping = {}
-    mapping.update(unet_map("model.diffusion_model", ("model", "unet"), **unet_kw))
+    mapping.update(unet_map("model.diffusion_model", ("model", "unet"), **kwargs(net)))
     mapping.update(controlnet_map("model.diffusion_model.controlnet",
-                                  ("model", "controlnet"), **unet_kw))
+                                  ("model", "controlnet"), **kwargs(cnet)))
     mapping.update(vae_map("first_stage_model", ("first_stage",),
                            dd.get("ch_mult", (1, 2, 4, 4)), dd.get("num_res_blocks", 2)))
     flat = flatten({k: v for k, v in params.items() if k in ("model", "first_stage")})
     sd = apply_map(flat, mapping)
     for i, emb in enumerate(p["conditioner_config"]["params"]["emb_models"]):
-        if emb["target"].endswith("FrozenOpenCLIPEmbedder"):
-            layers = (emb.get("params") or {}).get("layers", 24)
-            prefix = f"conditioner.embedders.{i}.model"
-            cflat = flatten(params["clip"], ("clip",))
-            sd.update(apply_map(cflat, clip_map(prefix, ("clip",), layers)))
-            sd.update(_clip_qkv(cflat, prefix, ("clip",), layers))
+        name = emb["target"].rsplit(".", 1)[-1]
+        if name in _TEXT_TOWERS:
+            layers = (emb.get("params") or {}).get("layers", _TEXT_TOWERS[name])
+            sd.update(clip_state_dict_from_jax(params["clip"], f"conditioner.embedders.{i}.model",
+                                               layers))
     return sd
 
 
@@ -406,10 +549,6 @@ def streampetr_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 
 # Metric towers: InceptionV3 (FID) and I3D (FVD), the inverse of
 # panacea_tpu/utils/convert.py:766-903
 # --------------------------------------------------------------------------
-
-def _conv3d(w):
-    return np.transpose(w, (4, 3, 0, 1, 2))
-
 
 def _bn_stats(ref: str, path: Path) -> Dict[str, Entry]:
     return {f"{ref}.bn.weight": (path + ("bn_scale",), _none),

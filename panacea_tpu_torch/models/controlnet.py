@@ -41,13 +41,13 @@ class ControlNet3D(_Torso):
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_head_channels: int = 64,
                  transformer_depth: int = 1, context_dim: int = 1024, num_frames: int = 8,
                  spatial_only_attn_type: str = "intra-view", insert_crossview: bool = True,
-                 use_spatial_transformer: bool = True, use_linear_in_transformer: bool = True,
-                 use_checkpoint: bool = True, **compat):
-        check_compat(type(self).__name__, compat, use_spatial_transformer,
-                     use_linear_in_transformer)
+                 use_spatial_transformer: bool = True, use_checkpoint: bool = True,
+                 num_classes=None, adm_in_channels: Optional[int] = None, **compat):
+        check_compat(type(self).__name__, compat)
         super().__init__(in_channels, model_channels, num_res_blocks, attention_resolutions,
                          channel_mult, num_head_channels, transformer_depth, context_dim,
-                         num_frames, spatial_only_attn_type, insert_crossview, use_checkpoint)
+                         num_frames, spatial_only_attn_type, insert_crossview, use_checkpoint,
+                         use_spatial_transformer, num_classes, adm_in_channels)
         self.hint_channels = hint_channels
         self.control_scales = control_scales
         self.input_hint_block = HintEncoder(hint_channels, model_channels)
@@ -77,9 +77,10 @@ class ControlNet3D(_Torso):
         return self.input_hint_block(self._fold_hint_frames(hint.to(self.dtype)))
 
     def forward(self, x, timesteps, context, hint=None,
-                guided_hint: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+                guided_hint: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """Scaled residuals, one per UNet input block and one for the middle."""
-        emb = self.embed_time(timesteps)
+        emb = self.embed_time(timesteps, y)
         if guided_hint is None:
             guided_hint = self.encode_hint(hint)
         guided_hint = guided_hint.to(self.dtype)
@@ -106,12 +107,12 @@ class ControlledUNetModel3D(UNetModel3D):
             params.pop("out_channels", None)
             self.controlnet = ControlNet3D(**params)
 
-    def forward(self, x, timesteps, context, hint=None, guided_hint=None):
+    def forward(self, x, timesteps, context, hint=None, guided_hint=None, y=None):
         control = None
         if self.controlnet is not None and (hint is not None or guided_hint is not None):
             control = self.controlnet(x, timesteps, context, hint=hint,
-                                      guided_hint=guided_hint)
-        return super().forward(x, timesteps, context, control=control)
+                                      guided_hint=guided_hint, y=y)
+        return super().forward(x, timesteps, context, control=control, y=y)
 
     def encode_hint(self, hint: torch.Tensor) -> torch.Tensor:
         if self.controlnet is None:

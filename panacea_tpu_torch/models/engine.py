@@ -43,7 +43,8 @@ from torch import nn
 
 from panacea_tpu_torch.models.conditioner import VAEEmbedder
 from panacea_tpu_torch.models.layers import GroupNorm
-from panacea_tpu_torch.models.clip import CLIPAttention, CLIPTextTransformer
+from panacea_tpu_torch.models.clip import (CLIPAttention, CLIPTextTransformer,
+                                           CLIPVisionTransformer)
 from panacea_tpu_torch.registry import instantiate_from_config, resolve_target
 
 # engine config keys of the reference yaml that the port does not use (the
@@ -148,7 +149,7 @@ class DiffusionEngine3D(nn.Module):
             t.copy_(torch.randn(t.shape, generator=generator, device=t.device) * std)
 
         for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
                 if getattr(m, "zero_init", False):
                     normal(m.weight, zero_init_std)
                 else:
@@ -165,6 +166,9 @@ class DiffusionEngine3D(nn.Module):
                 m.in_proj_bias.zero_()
             elif isinstance(m, CLIPTextTransformer):
                 normal(m.positional_embedding, 0.01)
+            elif isinstance(m, CLIPVisionTransformer):
+                for t in (m.class_embedding, m.positional_embedding, m.proj):
+                    normal(t, 0.02)
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         """Takes the reference checkpoint's names; its known non-weights
@@ -204,7 +208,8 @@ class DiffusionEngine3D(nn.Module):
     def network_fn(self, x: torch.Tensor, c_noise: torch.Tensor,
                    cond: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Concat the cond-frame latent onto the noisy latent, run the
-        ControlNet and the UNet (wrappers.py:37-70); fp32 out."""
+        ControlNet and the UNet (wrappers.py:37-70) with ``cond["vector"]``,
+        per clip, as the class or vector condition; fp32 out."""
         if "concat" in cond:
             x = torch.cat([x, cond["concat"].to(x.dtype)], dim=-1)
         net = self.model.diffusion_model
@@ -214,6 +219,8 @@ class DiffusionEngine3D(nn.Module):
                 kwargs["guided_hint"] = cond["guided_hint"]
             else:
                 kwargs["hint"] = cond.get("cond_feat")
+        if "vector" in cond:
+            kwargs["y"] = cond["vector"]
         return net(x, c_noise, cond["crossattn"].to(self.dtype), **kwargs).float()
 
     # ----------------------------------------------------------- sampling

@@ -95,6 +95,16 @@ class TemporalConv(nn.Conv1d):
         return out.permute(0, 2, 3, 1).reshape(n, h, w, c)
 
 
+def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsample of (N, H, W, C), each pixel repeated."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def downsample_avg(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool of (N, H, W, C), stride 2 (flax ``nn.avg_pool``)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
 class Upsample(nn.Module):
     """Nearest 2x upsample + 3x3 conv (openaimodel.py:106-142)."""
 
@@ -120,8 +130,10 @@ class Downsample(nn.Module):
 
 class ResBlock3D(nn.Module):
     """Residual block with a zero-init temporal conv after each spatial conv
-    (layers.py:235-291, openaimodel.py:356-542). The in-block up/down
-    variant is not ported: no configuration of the generation path uses it.
+    (layers.py:235-291, openaimodel.py:356-542). With ``up`` or ``down``
+    (the reference's in-block resampling) the normalised ``h`` and the skip
+    input ``x`` are resampled without a conv (nearest 2x, or a 2x2 average)
+    before the first conv, and the first temporal sub-block is left out.
 
     The ``nn.SiLU``/``nn.Dropout`` entries only keep the reference's indices
     (``in_layers.2``, ``out_layers.3``, ...); the norms apply SiLU themselves.
@@ -129,13 +141,15 @@ class ResBlock3D(nn.Module):
 
     def __init__(self, channels: int, emb_channels: int,
                  out_channels: Optional[int] = None, num_frames: int = 8,
-                 use_conv: bool = False):
+                 use_conv: bool = False, up: bool = False, down: bool = False):
         super().__init__()
         out = out_channels or channels
+        self.resample = upsample_nearest if up else downsample_avg if down else None
         self.in_layers = nn.ModuleList(
             [GroupNorm(channels), nn.SiLU(), Conv2d(channels, out, 3, padding=1)])
-        self.in_layers_temporal = nn.ModuleList(
-            [TemporalGroupNorm(out, num_frames), nn.SiLU(), TemporalConv(out, num_frames)])
+        if self.resample is None:
+            self.in_layers_temporal = nn.ModuleList(
+                [TemporalGroupNorm(out, num_frames), nn.SiLU(), TemporalConv(out, num_frames)])
         self.emb_layers = nn.ModuleList([nn.SiLU(), nn.Linear(emb_channels, out)])
         self.out_layers = nn.ModuleList(
             [GroupNorm(out), nn.SiLU(), nn.Dropout(0.0),
@@ -151,8 +165,13 @@ class ResBlock3D(nn.Module):
             self.skip_connection = Conv2d(channels, out, 1)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self.in_layers[2](self.in_layers[0](x, silu=True))
-        h = h + self.in_layers_temporal[2](self.in_layers_temporal[0](h, silu=True))
+        h = self.in_layers[0](x, silu=True)
+        if self.resample is not None:
+            h, x = self.resample(h), self.resample(x)
+            h = self.in_layers[2](h)
+        else:
+            h = self.in_layers[2](h)
+            h = h + self.in_layers_temporal[2](self.in_layers_temporal[0](h, silu=True))
         h = h + self.emb_layers[1](F.silu(emb))[:, None, None, :].to(h.dtype)
         h = self.out_layers[3](self.out_layers[0](h, silu=True))
         h = h + self.out_layers_temporal[3](self.out_layers_temporal[0](h, silu=True))

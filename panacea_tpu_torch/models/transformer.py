@@ -4,6 +4,8 @@
 
   * intra-view: self-attention within each of the 6 camera views, the view
     axis folded into the batch (one attention call).
+  * full: self-attention over every token of the panorama (stage 1's
+    single-view mode; Skv == Sq, so the dispatch hands it to SDPA).
   * inter-view: view i attends to the K/V of its neighbours [i-1, i+1] with
     wraparound, except the last view (FL), which sees its left neighbour
     only (reference quirk, attention.py:545-559). Views 0-4 make one call
@@ -93,13 +95,13 @@ class BasicTransformerBlock(nn.Module):
     """attn1 (self or a spatial variant) + attn2 (text cross) + GEGLU FF,
     each pre-LayerNorm with a residual (transformer.py:175-331).
 
-    mode: 'intra-view' | 'inter-view' | 'temporal'. Spatial modes take
-    x (N, H, W, C); 'temporal' takes (B*H*W, T, C).
+    mode: 'full' | 'intra-view' | 'inter-view' | 'temporal'. Spatial modes
+    take x (N, H, W, C); 'temporal' takes (B*H*W, T, C).
     """
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int, mode: str):
         super().__init__()
-        if mode not in ("intra-view", "inter-view", "temporal"):
+        if mode not in ("full", "intra-view", "inter-view", "temporal"):
             raise ValueError(f"unknown attention mode {mode!r}")
         self.mode = mode
         self.attn1 = MultiHeadAttention(dim, heads, dim_head)
@@ -123,9 +125,9 @@ class BasicTransformerBlock(nn.Module):
             return x + self.ff(self.norm3(x))
 
         n, hh, ww, c = x.shape
+        h = self.norm1(x)
         wv = ww // NUM_VIEWS
         s = hh * wv
-        h = self.norm1(x)
         if self.mode == "intra-view":
             tokens = split_views(h).reshape(n * NUM_VIEWS, s, c)
             out = merge_views(self.attn1(tokens).reshape(n, NUM_VIEWS, hh, wv, c))
@@ -138,6 +140,8 @@ class BasicTransformerBlock(nn.Module):
                               context=kv_both[:, NUM_VIEWS - 1, :s])
             out = torch.cat([out04.reshape(n, NUM_VIEWS - 1, s, c), out5[:, None]], dim=1)
             out = merge_views(out.reshape(n, NUM_VIEWS, hh, wv, c))
+        else:  # full: every token of the panorama (transformer.py:307-309)
+            out = self.attn1(h.reshape(n, hh * ww, c)).reshape(n, hh, ww, c)
         x = x + out
         h = self.norm2(x).reshape(n, hh * ww, c)
         x = x + self.attn2(h, context=context).reshape(n, hh, ww, c)

@@ -6,8 +6,16 @@ SD2.1 topology with decomposed 4D attention: 320 base channels, mult
 the downsample rate is in ``attention_resolutions``. Activations are
 channels-last (B*T, H, W, C); the text context stays per clip (B, L, D).
 
+``num_classes`` adds a class or vector embedding to the timestep embedding
+(an int: ``nn.Embedding``; ``"continuous"``: a Linear on a scalar;
+``"sequential"``: an MLP on ``adm_in_channels``; openaimodel.py:945-968).
+``use_spatial_transformer=False`` puts the context-free
+``LegacyAttentionBlock3D`` where the transformers would be (unet.py:122-133
+of the JAX package). ``use_linear_in_transformer`` is accepted and, as in
+the JAX package, changes nothing: the projections are always linear.
+
 ``use_checkpoint`` (default True, as the JAX modules') recomputes each
-ResBlock3D and each SpatialTemporalTransformer in the backward pass
+ResBlock3D and each attention block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant) where the JAX modules apply
 ``nn.remat`` (panacea_tpu/models/unet.py:78-81, 127-137): only while the
 module trains and autograd records. Sampling under ``no_grad`` is unaffected.
@@ -24,20 +32,34 @@ from torch.utils.checkpoint import checkpoint
 from panacea_tpu_torch.diffusion.util import timestep_embedding
 from panacea_tpu_torch.models.layers import (Conv2d, Downsample, GroupNorm, ResBlock3D,
                                              Upsample, zero_init)
+from panacea_tpu_torch.models.legacy_attention import LegacyAttentionBlock3D
 from panacea_tpu_torch.models.transformer import SpatialTemporalTransformer
 
 # config keys the reference yaml carries that change nothing here
-COMPAT_KEYS = frozenset({"use_fp16", "legacy", "alpha"})
+COMPAT_KEYS = frozenset({"use_fp16", "legacy", "alpha", "use_linear_in_transformer"})
+# the blocks that take a second argument (the time embedding or the context)
+# and that use_checkpoint recomputes
+_BLOCKS = (ResBlock3D, SpatialTemporalTransformer, LegacyAttentionBlock3D)
 
 
-def check_compat(name: str, extra: dict, use_spatial_transformer: bool,
-                 use_linear_in_transformer: bool) -> None:
+def check_compat(name: str, extra: dict) -> None:
     unknown = set(extra) - COMPAT_KEYS
     if unknown:
         raise TypeError(f"{name}: unknown config keys {sorted(unknown)}")
-    if not (use_spatial_transformer and use_linear_in_transformer):
-        raise NotImplementedError(f"{name}: only spatial transformers with linear "
-                                  "projections (the production form) are ported")
+
+
+def make_label_emb(num_classes, width: int, adm_in_channels: Optional[int]):
+    """The ``label_emb`` module of the reference (openaimodel.py:945-968)."""
+    if isinstance(num_classes, int) and not isinstance(num_classes, bool):
+        return nn.Embedding(num_classes, width)
+    if num_classes == "continuous":
+        return nn.Linear(1, width)
+    if num_classes == "sequential":
+        if adm_in_channels is None:
+            raise ValueError("num_classes='sequential' needs adm_in_channels")
+        return nn.Sequential(nn.Sequential(nn.Linear(adm_in_channels, width), nn.SiLU(),
+                                           nn.Linear(width, width)))
+    raise ValueError(f"unsupported num_classes {num_classes!r}")
 
 
 def plan_blocks(model_channels: int, channel_mult: Sequence[int], num_res_blocks: int,
@@ -76,16 +98,21 @@ class _Torso(nn.Module):
 
     def __init__(self, in_channels, model_channels, num_res_blocks, attention_resolutions,
                  channel_mult, num_head_channels, transformer_depth, context_dim,
-                 num_frames, spatial_only_attn_type, insert_crossview, use_checkpoint):
+                 num_frames, spatial_only_attn_type, insert_crossview, use_checkpoint,
+                 use_spatial_transformer=True, num_classes=None, adm_in_channels=None):
         super().__init__()
         self.model_channels = model_channels
         self.use_checkpoint = use_checkpoint
         self.num_frames = num_frames
+        self.num_classes = num_classes
         emb = 4 * model_channels
         self.plan = plan_blocks(model_channels, tuple(channel_mult), num_res_blocks,
                                 tuple(attention_resolutions))
 
         def transformer(ch):
+            if not use_spatial_transformer:
+                return LegacyAttentionBlock3D(ch, ch // num_head_channels, num_head_channels,
+                                              num_frames=num_frames)
             return SpatialTemporalTransformer(
                 ch, ch // num_head_channels, num_head_channels, context_dim,
                 depth=transformer_depth, num_frames=num_frames,
@@ -95,6 +122,8 @@ class _Torso(nn.Module):
         self.make_resblock = lambda i, o: ResBlock3D(i, emb, o, num_frames=num_frames)
         self.time_embed = nn.Sequential(nn.Linear(model_channels, emb), nn.SiLU(),
                                         nn.Linear(emb, emb))
+        if num_classes is not None:
+            self.label_emb = make_label_emb(num_classes, emb, adm_in_channels)
         self.input_blocks = nn.ModuleList()
         for item in self.plan[0]:
             if item[0] == "conv":
@@ -113,14 +142,30 @@ class _Torso(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.time_embed[0].weight.dtype
 
-    def embed_time(self, timesteps: torch.Tensor) -> torch.Tensor:
+    def embed_time(self, timesteps: torch.Tensor, y: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """The timestep embedding, plus the label embedding of ``y`` where
+        the network has ``num_classes`` (unet.py:95-117 of the JAX package).
+        A per-clip ``y`` is repeated over its frames, each clip's rows
+        together (``jnp.repeat``)."""
         t_emb = timestep_embedding(timesteps, self.model_channels).to(self.dtype)
-        return self.time_embed(t_emb)
+        emb = self.time_embed(t_emb)
+        if self.num_classes is None:
+            return emb
+        if y is None:
+            raise ValueError("a class-conditional network needs y")
+        if y.shape[0] != emb.shape[0]:
+            y = y.repeat_interleave(emb.shape[0] // y.shape[0], dim=0)
+        if isinstance(self.label_emb, nn.Embedding):
+            return emb + self.label_emb(y.long())
+        if self.num_classes == "continuous":
+            y = y.reshape(-1, 1)
+        return emb + self.label_emb(y.to(self.dtype))
 
     def run_block(self, layers, h, emb, context):
         remat = self.use_checkpoint and self.training and torch.is_grad_enabled()
         for layer in layers:
-            if isinstance(layer, (ResBlock3D, SpatialTemporalTransformer)):
+            if isinstance(layer, _BLOCKS):
                 arg = emb if isinstance(layer, ResBlock3D) else context
                 h = checkpoint(layer, h, arg, use_reentrant=False) if remat else layer(h, arg)
             else:
@@ -134,13 +179,13 @@ class UNetModel3D(_Torso):
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_head_channels: int = 64,
                  transformer_depth: int = 1, context_dim: int = 1024, num_frames: int = 8,
                  spatial_only_attn_type: str = "intra-view", insert_crossview: bool = True,
-                 use_spatial_transformer: bool = True, use_linear_in_transformer: bool = True,
-                 use_checkpoint: bool = True, **compat):
-        check_compat(type(self).__name__, compat, use_spatial_transformer,
-                     use_linear_in_transformer)
+                 use_spatial_transformer: bool = True, use_checkpoint: bool = True,
+                 num_classes=None, adm_in_channels: Optional[int] = None, **compat):
+        check_compat(type(self).__name__, compat)
         super().__init__(in_channels, model_channels, num_res_blocks, attention_resolutions,
                          channel_mult, num_head_channels, transformer_depth, context_dim,
-                         num_frames, spatial_only_attn_type, insert_crossview, use_checkpoint)
+                         num_frames, spatial_only_attn_type, insert_crossview, use_checkpoint,
+                         use_spatial_transformer, num_classes, adm_in_channels)
         self.output_blocks = nn.ModuleList()
         for _, (i, o), attn, up in self.plan[1]:
             layers = [self.make_resblock(i, o)]
@@ -154,11 +199,13 @@ class UNetModel3D(_Torso):
                                   zero_init(Conv2d(ch, out_channels, 3, padding=1))])
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
-                control: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                control: Optional[List[torch.Tensor]] = None,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B*T, H, W, in_channels); timesteps: (B*T,); context: (B, L, D);
-        control: ControlNet residuals (one per input block + middle).
-        Returns (B*T, H, W, out_channels)."""
-        emb = self.embed_time(timesteps)
+        control: ControlNet residuals (one per input block + middle); y: the
+        class or vector condition, per frame or per clip, where the network
+        has ``num_classes``. Returns (B*T, H, W, out_channels)."""
+        emb = self.embed_time(timesteps, y)
         hs = []
         h = x.to(self.dtype)
         for layers in self.input_blocks:

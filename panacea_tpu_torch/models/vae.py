@@ -3,8 +3,10 @@
 and sgm/modules/diffusionmodules/model.py:479-1010).
 
 Channels-last (N, H, W, C). It runs in fp32 whatever the UNet's dtype
-(the reference disables autocast for the first stage). Attention only in the
-middle blocks, through the port's attention dispatch.
+(the reference disables autocast for the first stage). Attention in the
+middle blocks and, in the encoder, after each block of a level whose
+resolution is in ``attn_resolutions`` (the JAX decoder has none there),
+through the port's attention dispatch.
 """
 
 from __future__ import annotations
@@ -58,13 +60,13 @@ class AttnBlock(nn.Module):
 
 
 class _Level(nn.Module):
-    """One resolution level: ``block``, ``attn`` (empty: attn_resolutions is
-    [] in every config) and the resampling conv."""
+    """One resolution level: ``block``, ``attn`` (one per block at the
+    encoder's ``attn_resolutions``, else empty) and the resampling conv."""
 
-    def __init__(self, blocks, resample: Optional[str], channels: int):
+    def __init__(self, blocks, resample: Optional[str], channels: int, attn: bool = False):
         super().__init__()
         self.block = nn.ModuleList(blocks)
-        self.attn = nn.ModuleList()
+        self.attn = nn.ModuleList([AttnBlock(channels) for _ in blocks] if attn else [])
         if resample is not None:
             setattr(self, resample, nn.Module())
             getattr(self, resample).conv = Conv2d(
@@ -85,18 +87,21 @@ class _Mid(nn.Module):
 
 class Encoder(nn.Module):
     def __init__(self, ch=128, ch_mult=(1, 2, 4, 4), num_res_blocks=2, z_channels=4,
-                 double_z=True, in_channels=3):
+                 double_z=True, in_channels=3, attn_resolutions=(), resolution=256):
         super().__init__()
         self.conv_in = Conv2d(in_channels, ch, 3, padding=1)
         self.down = nn.ModuleList()
         cin = ch
+        res = resolution
         for lv, mult in enumerate(ch_mult):
             blocks = []
             for _ in range(num_res_blocks):
                 blocks.append(ResnetBlock(cin, ch * mult))
                 cin = ch * mult
             last = lv == len(ch_mult) - 1
-            self.down.append(_Level(blocks, None if last else "downsample", cin))
+            self.down.append(_Level(blocks, None if last else "downsample", cin,
+                                    attn=res in attn_resolutions))
+            res //= 2
         self.mid = _Mid(cin)
         self.norm_out = GroupNorm(cin, eps=1e-6)
         self.conv_out = Conv2d(cin, 2 * z_channels if double_z else z_channels, 3, padding=1)
@@ -104,8 +109,10 @@ class Encoder(nn.Module):
     def forward(self, x):
         h = self.conv_in(x)
         for level in self.down:
-            for blk in level.block:
+            for i, blk in enumerate(level.block):
                 h = blk(h)
+                if len(level.attn):
+                    h = level.attn[i](h)
             if hasattr(level, "downsample"):
                 # asymmetric (0, 1) pad, then a stride-2 conv (model.py:727-739)
                 h = level.downsample.conv(F.pad(h, (0, 0, 0, 1, 0, 1)))
@@ -148,13 +155,13 @@ class AutoencoderKL(nn.Module):
     def __init__(self, embed_dim: int = 4, ddconfig: Optional[dict] = None, monitor=None):
         super().__init__()
         dd = dict(ddconfig or {})
-        if dd.get("attn_resolutions"):
-            raise NotImplementedError("VAE attention outside the middle block is not ported")
         z = dd.get("z_channels", 4)
         common = dict(ch=dd.get("ch", 128), ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
                       num_res_blocks=dd.get("num_res_blocks", 2), z_channels=z)
         self.encoder = Encoder(double_z=dd.get("double_z", True),
-                               in_channels=dd.get("in_channels", 3), **common)
+                               in_channels=dd.get("in_channels", 3),
+                               attn_resolutions=tuple(dd.get("attn_resolutions", ())),
+                               resolution=dd.get("resolution", 256), **common)
         self.decoder = Decoder(out_ch=dd.get("out_ch", 3), **common)
         self.quant_conv = Conv2d((2 if dd.get("double_z", True) else 1) * z, 2 * embed_dim, 1)
         self.post_quant_conv = Conv2d(embed_dim, z, 1)

@@ -2,8 +2,11 @@
 
 Config blocks have the reference's form ``{target: <dotted.path>, params:
 {...}}``. The alias table maps the reference ``sgm.*`` targets that this
-port implements onto its own classes, so ``configs.INFERENCE_NUSCENES`` and
-``configs.TINY_CPU`` instantiate unchanged. An unknown target raises.
+port implements onto its own classes, so ``configs.INFERENCE_NUSCENES``,
+``configs.TINY_CPU`` and ``configs.TINY_STAGE1`` instantiate unchanged. An
+unknown target raises; the JAX package's targets that the port lacks are
+those of the VAE's training side (LPIPS, the discriminator and its losses)
+and the data module (``DataModuleFromConfig``).
 """
 
 from __future__ import annotations
@@ -46,8 +49,14 @@ _SGM_TO_LOCAL = {
         f"{_P}.models.conditioner.GeneralConditioner",
     "sgm.modules.encoders.modules.FrozenOpenCLIPEmbedder":
         f"{_P}.models.clip.FrozenOpenCLIPEmbedder",
-    "sgm.modules.encoders.modules.IdentityEncoder": f"{_P}.models.conditioner.IdentityEncoder",
-    "sgm.modules.encoders.modules.VAEEmbedder": f"{_P}.models.conditioner.VAEEmbedder",
+    **{f"sgm.modules.encoders.modules.{n}": f"{_P}.models.clip.{n}"
+       for n in ("FrozenCLIPEmbedder", "FrozenOpenCLIPImageEmbedder")},
+    **{f"sgm.modules.encoders.modules.{n}": f"{_P}.models.conditioner.{n}"
+       for n in ("IdentityEncoder", "VAEEmbedder", "FrozenT5Embedder",
+                 "ConcatTimestepEmbedderND", "ClassEmbedder", "DownSampler",
+                 "FrozenByT5Embedder", "FrozenOpenCLIPEmbedder2", "ClassEmbedderForMultiCond",
+                 "FrozenCLIPT5Encoder", "SpatialRescaler", "LowScaleEncoder",
+                 "GaussianEncoder")},
     "sgm.models.autoencoder.AutoencoderKL": f"{_P}.models.vae.AutoencoderKL",
     "sgm.models.autoencoder.AutoencoderKLInferenceWrapper":
         f"{_P}.models.vae.AutoencoderKLInferenceWrapper",
@@ -57,6 +66,8 @@ _SGM_TO_LOCAL = {
         f"{_P}.diffusion.sigma_sampling.DiscreteSampling",
     "sgm.modules.diffusionmodules.loss.StandardDiffusionLoss":
         f"{_P}.diffusion.loss.StandardDiffusionLoss",
+    "sgm.data.nuscenes_video.nuscenes_datasets_video.MyDataset":
+        f"{_P}.data.nuscenes.dataset.NuScenesVideoDataset",
     "sgm.lr_scheduler.LambdaLinearScheduler": f"{_P}.utils.lr_schedule.LambdaLinearScheduler",
     "sgm.lr_scheduler.LambdaWarmUpCosineScheduler":
         f"{_P}.utils.lr_schedule.LambdaWarmUpCosineScheduler",

@@ -66,7 +66,8 @@ def test_apply_dotlist_equal(dotlist):
 
 
 @pytest.mark.parametrize("name,const", [("inference_nuscenes", "INFERENCE_NUSCENES"),
-                                        ("tiny_cpu", "TINY_CPU")])
+                                        ("tiny_cpu", "TINY_CPU"),
+                                        ("tiny_stage1", "TINY_STAGE1")])
 def test_named_configs_equal_the_yaml_and_are_copies(name, const):
     path = os.path.join(JAX_CONFIGS, f"{name}.yaml")
     want = jconfig.load_config(path)

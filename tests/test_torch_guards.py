@@ -60,6 +60,9 @@ def test_port_source_imports_no_jax():
             for m in ("__init__", "fid", "inception", "i3d", "eval")} <= names
     assert {"eval_generation_torch.py",
             os.path.join("panacea_tpu_torch", "diffusion", "distributions.py")} <= names
+    assert {os.path.join("panacea_tpu_torch", "models", f"{m}.py")
+            for m in ("legacy_attention", "vae_temporal", "clip", "conditioner")} | {
+        os.path.join("panacea_tpu_torch", "ops", "resize.py")} <= names
     for path in port_files():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
