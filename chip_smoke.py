@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --kernels      # phases 1 and 2 only
-    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phase 11
+    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phases 11 and 14
     python3 chip_smoke.py --metrics      # phase 1, phase 12
     python3 chip_smoke.py --variants     # phase 1, phase 13
 
@@ -100,6 +100,25 @@ Phases, in order; any failure exits non-zero:
      at small widths in fp32 on the card against the CPU, within
      ``PERCEPTION_TOL``. Phase 2 (and ``--variants`` before phase 13) also
      holds the bf16 kernels to their plain versions at stage 1's shapes.
+ 14. perception training (run after phase 11): (a) the window recipe
+     (streampetr_r50_atss_512x256_window: ``StreamPETRWindow`` with the ATSS
+     head, bs 2 windows of 8 frames of 6 cameras at 256 x 512, 644 queries,
+     DN at scalar 10 with max_gt 64, GridMask, the recipe's augmentations on
+     synthetic infos) through ``perception.train.DetectorTrainer.step``, 3
+     steps: s/step and its split (host data and targets, history frames,
+     grad-frame forward, loss with the Hungarian matching, backward,
+     optimizer), peak memory, every loss term finite, 42 fp32 flash
+     launches a step and no other, the frozen stem and layer1 and every
+     batch-norm statistic bit-equal; one profiled step; (b) one step's loss
+     terms at bs 1 over 2 frames on the card and on the CPU from the same
+     weights, window, memory and draws, the CPU's assignment given to both,
+     within ``PERCEPTION_TOL``; (c) one step without DN, where the grad
+     frame takes the fp32 flash forward and backward (6 backward
+     launches), then the FMA backward at (2, 900, 1668, 8, 32) against the
+     float64 plain version and fp32 SDPA's backward, and the forward at
+     B 2; (d) the streaming recipe (``StreamPETR``), 2 steps with the
+     memory carried; (e) ``train_perception_torch.py --synthetic --tiny
+     --steps 2 --ckpt_every 2`` on the card and its ``--resume`` to step 3.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -186,6 +205,14 @@ NEW_SAMPLERS = (("HeunEDMSampler", {}), ("EulerAncestralSampler", {}),
                 ("LinearMultistepSampler", {}), ("EulerEDMSampler", {"s_churn": 2.0}))
 SAMPLER_STEPS, DPMPP_STEPS = 3, 4
 FULL_HW = (256, 3072)   # the production panorama
+# phase 14: perception training at the window recipe
+# (streampetr_r50_atss_512x256_window: bs 2, 8 frames, 6 cameras at 256 x 512,
+# DN at scalar 10 with max_gt 64, ATSS, GridMask); the history frames' 6
+# self-attention calls each on the fp32 flash forward, 7 history frames
+PTRAIN_RECIPE = "streampetr_r50_atss_512x256_window"
+PTRAIN_B, PTRAIN_STEPS, PTRAIN_MAX_GT = 2, 3, 64
+PTRAIN_FLASH_PER_STEP = 6 * (PERCEPTION_T - 1)
+PTRAIN_FLASH = (PTRAIN_B, 900, 1668, 8, 32)   # B, Sq, Skv, H, D of the grad frame without DN
 
 
 def log(obj) -> None:
@@ -337,7 +364,8 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
     ``bound_fma_ms`` the fp32 FMA rate's. A row with ``lens`` 0 attends to
     every key alike: its dq and dk must be exactly 0. ``library_ms`` is
     SDPA's backward alone on the device (the kernels' time under
-    torch.profiler); ``library_ms_loop`` the same calls
+    torch.profiler; the events' reading where the profiler missed the
+    port's kernel); ``library_ms_loop`` the same calls
     timed with CUDA events, and ``library_ms_fwd_bwd_less_fwd`` the older
     reading, which carries autograd's host time."""
     dtype, rule = (torch.float32, tol.FLASH_BWD_F32) if fp32 else (torch.bfloat16, tol.FLASH_BWD)
@@ -397,9 +425,11 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
         if fp32 and d == 64:
             rec["bound_ms"], rec["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32)
             rec["bound_fma_ms"], _ = bound(flops, nbytes, PEAK_FP32)
+        elif fp32:   # the FMA kernels: their own bound, and a 3xTF32 design's beside it
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, PEAK_FP32)
+            rec["bound_3xtf32_ms"], _ = bound(3 * flops, nbytes, PEAK_TF32)
         else:
-            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
-                                                     PEAK_FP32 if fp32 else PEAK_BF16)
+            rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, PEAK_BF16)
 
         def kernel():
             return fa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=lens)
@@ -428,7 +458,9 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
         rec["library_ms_loop"] = time_ms(torch, sdpa_bwd, 10)
         rec["library_ms_fwd_bwd_less_fwd"] = (time_ms(torch, sdpa_fwd_bwd, 10)
                                               - time_ms(torch, sdpa_fwd, 10))
-        lib_device = device_ms(torch, sdpa_bwd, 5)
+        # a profiler session that missed the port's kernel is not trusted
+        # with SDPA's either: then both readings are the events'
+        lib_device = device_ms(torch, sdpa_bwd, 5) if rec["ms_device"] is not None else None
         rec["library_ms"] = lib_device if lib_device is not None else rec["library_ms_loop"]
         rec["library_ms_from"] = "profiler" if lib_device is not None else "events"
         del out
@@ -1919,6 +1951,330 @@ def stage1_phase(torch, np, dev, fa, gg, card: str) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------------
+# phase 14: perception training (the window and the streaming recipes)
+# --------------------------------------------------------------------------
+
+
+def ptrain_setup(torch, np, dev, recipe: str = PTRAIN_RECIPE, queue_length=None, bs=PTRAIN_B,
+                 seed: int = SEED):
+    """The recipe's detector on ``dev`` with random weights from ``seed``,
+    its optimizer (stem and layer1 frozen, backbone at 0.1 x lr, clip 35,
+    the cosine schedule), the trainer, and its dataset on synthetic infos
+    with random 256 x 512 images and the recipe's augmentations (history
+    jitter, IDA resize and flip, global rotation and scale)."""
+    from panacea_tpu_torch.config import load_perception_config
+    from panacea_tpu_torch.data.nuscenes.synthetic import make_synthetic_infos, path_seed
+    from panacea_tpu_torch.perception.atss import fpn_shapes, grid_anchors
+    from panacea_tpu_torch.perception.train import (DetectorOptimizer, DetectorTrainer,
+                                                    DetTrainState, cosine_schedule)
+    from panacea_tpu_torch.perception.train_dataset import PerceptionTrainDataset
+    from panacea_tpu_torch.registry import instantiate_from_config
+
+    cfg = load_perception_config(recipe)["perception"]
+    tcfg, ocfg, dcfg = cfg["train"], cfg["optimizer"], cfg["data"]
+    model = instantiate_from_config(cfg["detector"]).to(dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed), zero_init_std=ZERO_INIT_STD)
+    sch = ocfg["schedule"]
+    opt = DetectorOptimizer(
+        dict(model.named_parameters()), weight_decay=ocfg["weight_decay"],
+        backbone_lr_mult=ocfg["backbone_lr_mult"], grad_clip_norm=ocfg["grad_clip_norm"],
+        schedule=cosine_schedule(ocfg["lr"], sch["warmup_iters"], sch["warmup_ratio"], 42192,
+                                 sch["min_lr_ratio"]),
+        backbone_frozen_stages=cfg["backbone_frozen_stages"],
+        backbone_bn_trainable=cfg.get("backbone_bn_trainable", True))
+    seq_mode = bool(tcfg.get("seq_mode", False))
+    ql = queue_length or tcfg["queue_length"]
+    infos = make_synthetic_infos(num_frames=24, num_boxes=12, seed=seed)
+    for info in infos:
+        info["ego2global_rotation"] = [1.0, 0.0, 0.0, 0.0]
+        info["ego2global_translation"] = [2.0 * info["frame_idx"], 0, 0]
+
+    def loader(path):
+        return np.random.RandomState(path_seed(path)).uniform(
+            0, 255, PERCEPTION_HW + (3,)).astype(np.float32)
+
+    ds = PerceptionTrainDataset(
+        infos=infos, queue_length=ql, final_dim=PERCEPTION_HW, image_loader=loader,
+        random_length=tcfg["random_length"] if queue_length is None else 0,
+        ida_aug=dcfg["ida"], rot_range=tuple(dcfg["rot_range"]),
+        scale_ratio_range=tuple(dcfg["scale_ratio_range"]),
+        seq_split_num=tcfg.get("seq_split_num", 2) if seq_mode else 0, seed=seed)
+    anchors = grid_anchors(fpn_shapes(PERCEPTION_HW, 5))
+    trainer = DetectorTrainer(
+        tuple(cfg["detector"]["params"]["pc_range"]), cls_weight=tcfg["cls_weight"],
+        bbox_weight=tcfg["bbox_weight"], use_grid_mask=tcfg["use_grid_mask"],
+        with_dn=tcfg["with_dn"], dn_scalar=tcfg["dn_scalar"],
+        dn_noise_scale=tcfg["dn_noise_scale"], dn_split=tcfg["dn_split"],
+        dn_weight=tcfg["dn_weight"], anchors_per_level=anchors,
+        num_frame_losses=tcfg["num_frame_losses"], streaming=seq_mode)
+    return {"model": model, "state": DetTrainState(model, opt), "trainer": trainer, "ds": ds,
+            "anchors": anchors, "bs": bs, "ql": ql, "detector_cfg": cfg["detector"],
+            "generator": torch.Generator().manual_seed(seed + 1)}
+
+
+def ptrain_batch(setup, dev, start: int):
+    """bs windows ending at the keys from ``start`` on (a window without
+    its history is passed over), collated onto ``dev``."""
+    from panacea_tpu_torch.perception.train_cli import collate
+
+    ds, items, key = setup["ds"], [], start
+    while len(items) < setup["bs"]:
+        it = ds.window_with_gt(key % len(ds), max_gt=PTRAIN_MAX_GT)
+        key += 1
+        if it is not None:
+            items.append(it)
+    return collate(items, setup["anchors"], dev)
+
+
+def ptrain_timers(torch, setup, split: dict):
+    """Synchronised timers around the parts of a step, into ``split``: the
+    history frames (no grad) and the grad frame's forward, told apart by
+    the grad mode, the loss with the Hungarian matching, the backward and
+    the optimizer. Returns a function that takes them off."""
+    model, trainer, opt = setup["model"], setup["trainer"], setup["state"].optimizer
+
+    def wrap(obj, attr, name=None):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            key = name or ("grad_frame_fwd_s" if torch.is_grad_enabled() else "history_s")
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(obj, attr, timed)
+        return obj, attr
+
+    wrapped = [wrap(model, "extract_feats"), wrap(model.pts_bbox_head, "forward"),
+               wrap(model.img_roi_head, "forward"), wrap(trainer, "loss", "loss_hungarian_s"),
+               wrap(trainer, "backward", "backward_s"), wrap(opt, "step", "optimizer_s")]
+
+    def off():
+        for obj, attr in wrapped:
+            delattr(obj, attr)
+    return off
+
+
+def ptrain_window_phase(torch, np, dev, fa, gg, card: str):
+    """(a) The window recipe at full width, PTRAIN_STEPS steps of bs 2:
+    s/step with its split, peak memory, every loss term, the launches of
+    each step (42 fp32 flash forward, nothing else), the frozen stages and
+    every batch-norm statistic bit-equal after the steps; then one
+    profiled step. Returns (setup, the counts of one step)."""
+    setup = ptrain_setup(torch, np, dev)
+    state, trainer, model = setup["state"], setup["trainer"], setup["model"]
+    frozen = {k: v.detach().clone() for k, v in model.named_parameters() if not v.requires_grad}
+    frozen.update({k: v.clone() for k, v in model.named_buffers()})
+    splits, times, metrics, counts = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(PTRAIN_STEPS):
+        split = {}
+        off = ptrain_timers(torch, setup, split)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = ptrain_batch(setup, dev, PERCEPTION_T + 2 * i)
+        split["host_data_targets_s"] = time.perf_counter() - t0
+        reset_counts(fa, gg)
+        out = trainer.step(state, *batch, generator=setup["generator"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(read_counts(fa, gg))
+        off()
+        splits.append(split)
+        metrics.append(out.metrics)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    same = {k: bool(torch.equal(v, dict(list(model.named_parameters())
+                                        + list(model.named_buffers()))[k]))
+            for k, v in frozen.items()}
+    steady = sorted(times[1:])
+    rec = {"phase": "perception_train", "card": card, "recipe": PTRAIN_RECIPE,
+           "batch": PTRAIN_B, "frames": PERCEPTION_T, "image_hw": list(PERCEPTION_HW),
+           "cams": 6, "queries": 644, "dn_queries": PTRAIN_MAX_GT * 10, "memory": 1024,
+           "params": sum(p.numel() for p in model.parameters()),
+           "trained_params": sum(p.numel() for p in state.params.values()),
+           "first_step_s": times[0], "s_per_step": steady[len(steady) // 2], "step_s": times,
+           "split_s_median_step": splits[1 + times[1:].index(steady[len(steady) // 2])],
+           "split_s_first_step": splits[0], "peak_mem_gb": peak, "losses": metrics,
+           "launches_per_step": counts, "expected_fp32_flash": PTRAIN_FLASH_PER_STEP,
+           "frozen_tensors": len(frozen), "frozen_bit_equal": all(same.values())}
+    log(rec)
+    finite = all(np.isfinite(v) for m in metrics for v in m.values())
+    if not (finite and rec["frozen_bit_equal"]):
+        raise AssertionError(f"perception training went wrong: {rec}")
+    for c in counts:
+        if not (c["flash_attention"] == c["flash_routes"]["fp32"] == PTRAIN_FLASH_PER_STEP
+                and c["flash_attention_bwd"] == 0 and c["geglu"] == 0):
+            raise AssertionError(f"a training step launched {c}, not {PTRAIN_FLASH_PER_STEP} "
+                                 f"fp32 flash forwards and nothing else: {rec}")
+    batch = ptrain_batch(setup, dev, PERCEPTION_T)
+    profile_step(torch, lambda: trainer.step(state, *batch, generator=setup["generator"]),
+                 name="profile_perception_train_step", grad=True)
+    return setup, counts[-1]
+
+
+def ptrain_card_vs_cpu(torch, np, dev, card: str):
+    """(b) One step's loss terms at full width, bs 1 and 2 frames, on the
+    card and on the CPU from the same weights, window and draws: the first
+    frame on the card, its memory handed to both (the top-256 selection
+    orders near-equal scores by rounding noise), then the grad frame's
+    forward and loss on each, with the CPU's Hungarian assignment (and the
+    host's ATSS targets) given to both."""
+    import copy
+
+    from panacea_tpu_torch.perception.head import MemoryState, init_memory
+    from panacea_tpu_torch.registry import instantiate_from_config
+
+    small = ptrain_setup(torch, np, dev, queue_length=2, bs=1, seed=SEED + 2)
+    model = small["model"]
+    cpu_model = instantiate_from_config(small["detector_cfg"])
+    cpu_model.load_state_dict(model.state_dict())
+    imgs, data, boxes, labels, tgt2d = ptrain_batch(small, dev, 1)
+    frame = copy.copy(small["trainer"])
+    frame.streaming = True            # the grad frame alone, from a given memory
+    draws = frame.draw(small["generator"], imgs.shape[-3], 1, PTRAIN_MAX_GT)
+    with torch.no_grad():
+        _, memory = model.forward_frame(imgs[:, 0], init_memory(1, model.memory_len,
+                                                                model.embed_dims, device=dev),
+                                        {k: v[:, 0] for k, v in data.items()})
+        t0 = time.perf_counter()
+        cpu_in = (imgs[:, 1].cpu(), {k: v[:, 1].cpu() for k, v in data.items()}, boxes.cpu(),
+                  labels.cpu())
+        outs, atss_outs, _, dn = frame.forward(cpu_model, *cpu_in, draws,
+                                               MemoryState(*(m.cpu() for m in memory)))
+        _, want, assignment = frame.loss(outs, atss_outs, dn, cpu_in[2], cpu_in[3], tgt2d)
+        cpu_s = time.perf_counter() - t0
+        outs, atss_outs, _, dn = frame.forward(model, imgs[:, 1],
+                                               {k: v[:, 1] for k, v in data.items()}, boxes,
+                                               labels, draws, memory)
+        _, got, _ = frame.loss(outs, atss_outs, dn, boxes, labels, tgt2d, assignment)
+    terms = {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
+             for k in want}
+    rec = {"phase": "perception_train_card_vs_cpu", "card": card, "batch": 1, "frames": 2,
+           "loss_cpu": {k: float(v) for k, v in want.items()},
+           "loss_card": {k: float(v) for k, v in got.items()}, "rel_diff": terms,
+           "tol": PERCEPTION_TOL, "cpu_grad_frame_s": cpu_s}
+    log(rec)
+    if not max(terms.values()) <= PERCEPTION_TOL:
+        raise AssertionError(f"perception training: the card's loss terms disagree with the "
+                             f"CPU's: {rec}")
+
+
+def ptrain_nodn_phase(torch, F, np, dev, fa, gg, tol, card: str, setup):
+    """(c) With ``with_dn`` False, one step of the window recipe: the grad
+    frame's self-attention takes the fp32 flash forward and backward
+    kernels (6 of each beside the 42 history forwards). Then the FMA
+    backward at (2, 900, 1668, 8, 32) against the float64 plain version,
+    timed beside fp32 SDPA's backward, and the forward at B 2. Returns
+    (the step's counts, the backward's record, the forward's)."""
+    import copy
+
+    trainer = copy.copy(setup["trainer"])
+    trainer.with_dn = False
+    batch = ptrain_batch(setup, dev, PERCEPTION_T + 4)
+    reset_counts(fa, gg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.step(setup["state"], *batch, generator=setup["generator"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = read_counts(fa, gg)
+    rec = {"phase": "perception_train_no_dn", "card": card, "s_per_step": step_s,
+           "losses": out.metrics, "launches": counts}
+    log(rec)
+    layers = 6
+    if not (counts["flash_routes"]["fp32"] == PTRAIN_FLASH_PER_STEP + layers
+            and counts["flash_bwd_routes"]["fp32"] == layers == counts["flash_attention_bwd"]
+            and all(np.isfinite(v) for v in out.metrics.values())):
+        raise AssertionError(f"without DN the grad frame did not take the flash kernels: {rec}")
+    free(torch)
+    bwd = check_flash_bwd(torch, F, fa, tol, dev, *PTRAIN_FLASH, merged_kv=False, fp32=True)
+    fwd = check_flash(torch, F, fa, tol, dev, *PTRAIN_FLASH, fp32=True)
+    return counts, bwd, fwd
+
+
+def ptrain_stream_phase(torch, np, dev, fa, gg, card: str):
+    """(d) The streaming recipe (``StreamPETR``, one frame a step with the
+    memory carried across steps), 2 steps at bs 2."""
+    from panacea_tpu_torch.perception.head import init_memory
+    from panacea_tpu_torch.perception.train_cli import collate
+    from panacea_tpu_torch.perception.train_dataset import StreamingSampler
+
+    setup = ptrain_setup(torch, np, dev, recipe="streampetr_r50_atss_512x256_nopretrain")
+    ds, model, state = setup["ds"], setup["model"], setup["state"]
+    sampler = StreamingSampler(ds.seq_flags, batch_size=PTRAIN_B, seed=SEED)
+    memory = init_memory(PTRAIN_B, model.memory_len, model.embed_dims, device=dev)
+    times, metrics, filled = [], [], []
+    reset_counts(fa, gg)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items = [ds.window_with_gt(i, max_gt=PTRAIN_MAX_GT) for i in sampler.next_batch()]
+        imgs, data, boxes, labels, tgt2d = collate(items, setup["anchors"], dev)
+        out = setup["trainer"].step(state, imgs[:, 0], {k: v[:, 0] for k, v in data.items()},
+                                    boxes, labels, tgt2d, generator=setup["generator"],
+                                    memory=memory)
+        memory = out.memory
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(out.metrics)
+        filled.append(int((memory.embedding.abs().sum(-1) > 0).sum()))
+    counts = read_counts(fa, gg)
+    rec = {"phase": "perception_train_streaming", "card": card, "batch": PTRAIN_B,
+           "step_s": times, "losses": metrics, "memory_slots_filled": filled,
+           "launches": counts, "model": type(model).__name__}
+    log(rec)
+    if not (all(np.isfinite(v) for m in metrics for v in m.values())
+            and filled[0] == PTRAIN_B * model.pts_bbox_head.topk_proposals
+            and filled[1] >= filled[0]):
+        raise AssertionError(f"streaming training went wrong: {rec}")
+    return counts
+
+
+def ptrain_cli_phase(torch, np, card: str):
+    """(e) ``train_perception_torch.py --synthetic --tiny --steps 2
+    --ckpt_every 2`` on the card, then ``--resume`` for one more step."""
+    from panacea_tpu_torch.perception import train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        flags = ["--synthetic", "--tiny", "--ckpt_every", "2", "--workdir", tmp]
+        first = train_cli.main(flags + ["--steps", "2"])
+        resumed = train_cli.main(flags + ["--steps", "3", "--resume",
+                                          os.path.join(tmp, PTRAIN_RECIPE)])
+        cli_s = time.perf_counter() - t0
+        kept = sorted(os.listdir(os.path.join(tmp, PTRAIN_RECIPE)))
+    rec = {"phase": "perception_train_cli", "card": card, "seconds": cli_s,
+           "steps": [first["steps"], resumed["steps"]], "files": kept,
+           "final_metrics": resumed["final_metrics"]}
+    log(rec)
+    if not (first["steps"] == 2 and resumed["steps"] == resumed["state"].step == 3
+            and "iter_2" in kept and all(np.isfinite(v)
+                                         for v in resumed["final_metrics"].values())):
+        raise AssertionError(f"the perception training CLI or its resume went wrong: {rec}")
+
+
+def perception_train_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
+    """Phase 14 (a) to (e). Returns the counts of its paths and the
+    records of the FMA backward and forward at the training shape."""
+    t0 = time.perf_counter()
+    setup, counts = ptrain_window_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    ptrain_card_vs_cpu(torch, np, dev, card)
+    free(torch)
+    nodn, bwd, fwd = ptrain_nodn_phase(torch, F, np, dev, fa, gg, tol, card, setup)
+    del setup
+    free(torch)
+    stream = ptrain_stream_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    ptrain_cli_phase(torch, np, card)
+    log({"phase": "perception_train_total", "seconds": time.perf_counter() - t0})
+    return {"paths": {"perception_train": counts, "perception_train_no_dn": nodn,
+                      "perception_train_streaming": stream}, "bwd": bwd, "fwd": fwd}
+
+
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
 BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
            ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
@@ -2019,6 +2375,8 @@ def main(mode: str = "all") -> int:
         perception_phase(torch, np, dev, fa, gg, card)
         free(torch)
         perception_cli_phase(torch, np, dev, fa, gg, card)
+        free(torch)
+        perception_train_phase(torch, F, np, dev, fa, gg, tol, card)
         log({"phase": "perception_only", "ok": True})
         return 0
     if mode == "variants":
@@ -2184,6 +2542,9 @@ def main(mode: str = "all") -> int:
     log({"phase": "perception_total", "seconds": time.perf_counter() - t0,
          "kernel_check_s": flash32_perception_s})
     free(torch)
+    ptrain = perception_train_phase(torch, F, np, dev, fa, gg, tol, card)
+    paths.update(ptrain["paths"])
+    free(torch)
     paths["sampler_dpmpp2m"] = metrics_phase(torch, np, dev, fa, gg, card, gen_tree,
                                              euler_s_per_step)
     gen_dir.cleanup()
@@ -2202,7 +2563,8 @@ def main(mode: str = "all") -> int:
     # the fp32 route's count covers both fp32 flash kernels, which the head
     # dim selects: 64 on the generation paths (3xTF32), 32 on the perception
     # paths (FMA)
-    perception_paths = ("perception", "perception_cli")
+    perception_paths = ("perception", "perception_cli", "perception_train",
+                        "perception_train_no_dn", "perception_train_streaming")
     generation_paths = tuple(p for p in paths if p not in perception_paths)
 
     def summary(name, kernel, source, replaces, recs, main, path, paths_of=tuple(paths),
@@ -2245,10 +2607,16 @@ def main(mode: str = "all") -> int:
                                                   for r in flash32)),
         summary("flash_attention_fp32_d32", "flash_attention", flash_src, flash_tpu,
                 [flash32_perception], flash32_perception, "perception", paths_of=perception_paths,
-                entry="f32::pn_flash_f32_fwd (FMA units), the perception eval's self-attention",
+                entry="f32::pn_flash_f32_fwd (FMA units), the perception eval's and the "
+                      "perception training's history frames' self-attention",
                 bound_3xtf32_ms=flash32_perception["bound_3xtf32_ms"],
-                worst_ratio_vs_f64=flash32_perception["worst_ratio"],
-                worst_ratio_vs_fp32_plain=flash32_perception["worst_ratio_vs_fp32_plain"]),
+                worst_ratio_vs_f64=max(r["worst_ratio"] for r in (flash32_perception,
+                                                                 ptrain["fwd"])),
+                worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"]
+                                              for r in (flash32_perception, ptrain["fwd"])),
+                train_shape=ptrain["fwd"]["shape"],
+                **{f"train_shape_{k}": ptrain["fwd"][k]
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_3xtf32_ms")}),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
                 "fp32_engine", entry="f32::pn_geglu_3xtf32_fwd (3xTF32 wgmma, TMA)",
                 bound_fma_ms=geglu32[0]["bound_fma_ms"],
@@ -2259,7 +2627,7 @@ def main(mode: str = "all") -> int:
         summary("flash_attention_bwd", "flash_attention_bwd", flash_bwd_src, flash_tpu, flash_bwd,
                 flash_bwd[0], "train"),
         summary("flash_attention_bwd_fp32", "flash_attention_bwd", flash_bwd_src, flash_tpu,
-                flash_bwd32, flash_bwd32[0], "train_fp32",
+                flash_bwd32, flash_bwd32[0], "train_fp32", paths_of=generation_paths,
                 entry="tc::pn_flash_bwd_f32_{dkdv,dq}_tc (3xTF32 wgmma, TMA)",
                 bound_fma_ms=flash_bwd32[0]["bound_fma_ms"],
                 ms_levels=[r["ms"] for r in flash_bwd32[:3]],
@@ -2269,6 +2637,17 @@ def main(mode: str = "all") -> int:
                                               for r in flash_bwd32),
                 fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
                                                   for r in flash_bwd32)),
+        summary("flash_attention_bwd_fp32_d32", "flash_attention_bwd", flash_bwd_src,
+                flash_tpu, [ptrain["bwd"]], ptrain["bwd"], "perception_train_no_dn",
+                paths_of=perception_paths,
+                entry="f32::pn_flash_bwd_f32_* (FMA units), the perception training's grad "
+                      "frame without DN",
+                bound_3xtf32_ms=ptrain["bwd"]["bound_3xtf32_ms"],
+                ms_device=ptrain["bwd"]["ms_device"],
+                ms_levels=[ptrain["bwd"]["ms"]], library_ms_levels=[ptrain["bwd"]["library_ms"]],
+                worst_ratio_vs_f64=max(ptrain["bwd"]["worst_ratio"].values()),
+                worst_ratio_vs_fp32_plain=ptrain["bwd"]["worst_ratio_vs_fp32_plain"],
+                fp32_plain_worst_ratio_vs_f64=ptrain["bwd"]["fp32_plain_worst_ratio_vs_f64"]),
         summary("geglu_bwd", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd, geglu_bwd[0],
                 "train"),
         summary("geglu_bwd_fp32", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd32,

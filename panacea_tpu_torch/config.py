@@ -37,6 +37,25 @@ def load_config(name_or_path: str) -> Dict[str, Any]:
         return yaml.safe_load(f)
 
 
+PERCEPTION_DIR = os.path.join("panacea_tpu", "configs", "perception")
+
+
+def load_perception_config(name_or_path: str) -> Dict[str, Any]:
+    """A deep copy of a recipe of ``configs.PERCEPTION``, named by its file
+    name, bare or as the JAX package's path
+    (``panacea_tpu/configs/perception/<name>.yaml``); anything else is read
+    as a YAML path, where PyYAML is installed."""
+    stem, ext = os.path.splitext(os.path.basename(name_or_path))
+    where = os.path.dirname(os.path.normpath(name_or_path))
+    if stem in configs.PERCEPTION and (name_or_path == stem or (
+            ext == ".yaml" and where.endswith(PERCEPTION_DIR))):
+        return copy.deepcopy(configs.PERCEPTION[stem])
+    if not os.path.isfile(name_or_path):
+        raise FileNotFoundError(f"no perception recipe {name_or_path!r}: not one of "
+                                f"{sorted(configs.PERCEPTION)} and not a file")
+    return load_config(name_or_path)
+
+
 def merge_configs(base: Dict[str, Any], *others: Dict[str, Any]) -> Dict[str, Any]:
     out = dict(base)
     for other in others:

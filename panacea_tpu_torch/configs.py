@@ -1,8 +1,9 @@
-"""Engine configurations as Python data.
+"""Engine configurations and perception recipes as Python data.
 
 Equal to the JAX package's `configs/inference_nuscenes.yaml`,
 `configs/tiny_cpu.yaml` and `configs/tiny_stage1.yaml` as `yaml.safe_load`
-reads them (YAML anchors expanded).
+reads them (YAML anchors expanded), and, in `PERCEPTION`, to its four
+`configs/perception/*.yaml` training recipes.
 They are Python dicts because the port does not depend on PyYAML.
 """
 
@@ -217,3 +218,71 @@ def _single_frame(cfg):
 
 # stage 1: single-frame six-view generation at the tiny config's widths
 TINY_STAGE1 = _single_frame(TINY_CPU)
+
+
+# --------------------------------------------------------------------------
+# the perception recipes of panacea_tpu/configs/perception/*.yaml, by their
+# file names; the detector targets resolve to the port's (registry.py)
+# --------------------------------------------------------------------------
+
+def _perception_window():
+    return {'perception': {
+        'detector': {'target': 'panacea_tpu.perception.detector.StreamPETRWindow',
+                     'params': {'num_classes': 10, 'embed_dims': 256, 'num_query': 644,
+                                'memory_len': 1024, 'topk_proposals': 256,
+                                'num_propagated': 256, 'num_decoder_layers': 6,
+                                'num_levels': 5, 'num_cams': 6,
+                                'pc_range': [-51.2, -51.2, -5.0, 51.2, 51.2, 3.0],
+                                'with_atss': True, 'atss_stacked_convs': 4}},
+        'train': {'queue_length': 8, 'num_frame_losses': 1, 'random_length': 1,
+                  'use_grid_mask': True, 'with_dn': True, 'dn_scalar': 10,
+                  'dn_noise_scale': 1.0, 'dn_split': 0.75, 'dn_weight': 1.0,
+                  'cls_weight': 2.0, 'bbox_weight': 0.25, 'batch_size': 2, 'dp_devices': 8,
+                  'num_epochs': 24, 'samples_per_epoch': 28130},
+        'optimizer': {'lr': 0.0004, 'weight_decay': 0.01, 'backbone_lr_mult': 0.1,
+                      'grad_clip_norm': 35.0,
+                      'schedule': {'policy': 'cosine', 'warmup_iters': 500,
+                                   'warmup_ratio': 0.333333, 'min_lr_ratio': 0.001}},
+        'data': {'data_root': 'data/nuscenes/',
+                 'ann_file': 'data/nuscenes/nuscenes2d_temporal_infos_train.pkl',
+                 'val_ann_file': 'data/nuscenes/nuscenes2d_temporal_infos_val.pkl',
+                 'gen_root': None,
+                 'test_gen_root': 'data/nuscenes/gen-nuscenes-val/',
+                 'test_filter_file': 'data/nuscenes/gen-nuscenes-val-infos.pkl',
+                 'ida': {'resize_lim': [0.3, 0.36], 'final_dim': [256, 512], 'rand_flip': True},
+                 'rot_range': [-0.3925, 0.3925], 'scale_ratio_range': [0.95, 1.05]},
+        'load_from': 'ckpts/atss_r50_fpn_20epoch_nuim_sgd_remapped.pth',
+        'backbone_frozen_stages': 1}}
+
+
+def _perception_pseudo_pretrain():
+    cfg = _perception_window()
+    p = cfg['perception']
+    p['train']['random_length'] = 0
+    data = p['data']
+    del data['test_gen_root'], data['test_filter_file']
+    data.update(ann_file='data/nuscenes/gen-nuscenes-train-infos.pkl',
+                gen_root='data/nuscenes/gen-nuscenes-train/',
+                train_filter_file='data/nuscenes/gen-nuscenes-train-infos.pkl')
+    data['ida'] = {'resize_lim': [0.32, 0.32], 'final_dim': [256, 512], 'rand_flip': False}
+    p.update(load_from=None, backbone_frozen_stages=-1, backbone_bn_trainable=False)
+    return cfg
+
+
+def _perception_streaming(load_from):
+    cfg = _perception_window()
+    p = cfg['perception']
+    p['detector']['target'] = 'panacea_tpu.perception.detector.StreamPETR'
+    p['train'].update(queue_length=1, seq_mode=True, seq_split_num=2, random_length=0)
+    del p['data']['test_gen_root'], p['data']['test_filter_file']
+    p['load_from'] = load_from
+    return cfg
+
+
+PERCEPTION = {
+    'streampetr_r50_atss_512x256_window': _perception_window(),
+    'streampetr_r50_atss_512x256_window_pseudo_pretrain': _perception_pseudo_pretrain(),
+    'streampetr_r50_atss_512x256_nopretrain': _perception_streaming(None),
+    'streampetr_r50_atss_512x256_withpretrain_real_finetune': _perception_streaming(
+        'work_dirs/streampetr_r50_atss_512x256_window_pseudo_pretrain/final'),
+}

@@ -526,22 +526,43 @@ def sparse_head_map(prefix: str, path: Path, num_layers: int) -> Dict[str, Entry
     return m
 
 
+def atss_head_map(prefix: str, path: Path, stacked_convs: int = 4) -> Dict[str, Entry]:
+    """The ATSS head's convolutions (the inverse of
+    ``panacea_tpu/utils/convert.py:1299`` ``build_atss_head_mapping``); the
+    per-level ``scales`` vector is carried by ``streampetr_state_dict_from_jax``."""
+    m = {}
+    for i in range(stacked_convs):
+        m.update(_conv(f"{prefix}.cls_convs.{i}.conv", path + (f"cls_conv{i}",)))
+        m.update(_conv(f"{prefix}.reg_convs.{i}.conv", path + (f"reg_conv{i}",)))
+    for ref, p in (("atss_cls", "cls_out"), ("atss_reg", "reg_out"),
+                   ("atss_centerness", "ctr_out")):
+        m.update(_conv(f"{prefix}.{ref}", path + (p,)))
+    return m
+
+
 def streampetr_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 6,
-                                   stage_blocks=(3, 4, 6, 3), num_outs: int = 5
-                                   ) -> Dict[str, torch.Tensor]:
+                                   stage_blocks=(3, 4, 6, 3), num_outs: int = 5,
+                                   atss_stacked_convs: int = 4) -> Dict[str, torch.Tensor]:
     """The JAX ``StreamPETRWindow``'s parameter tree (r50 backbone, sparse
-    head; nested dicts of numpy arrays) -> the port detector's state dict,
-    fp32, under the reference's mmdet names. The self-attention's q/k/v
-    Dense layers become ``attentions.0.attn.in_proj_weight`` and
-    ``in_proj_bias``, rows [q; k; v]."""
+    head, and the ATSS head where the tree has ``roi_head``; nested dicts of
+    numpy arrays) -> the port detector's state dict, fp32, under the
+    reference's mmdet names. The self-attention's q/k/v Dense layers become
+    ``attentions.0.attn.in_proj_weight`` and ``in_proj_bias``, rows [q; k;
+    v]; the ATSS ``scales`` vector becomes mmcv's ``scales.{i}.scale``
+    scalars."""
     mapping = resnet50_map("img_backbone", ("backbone",), stage_blocks)
     mapping.update(fpn_map("img_neck", ("neck",), 3, num_outs))
     mapping.update(sparse_head_map("pts_bbox_head", ("head",), num_layers))
+    mapping.update(atss_head_map("img_roi_head", ("roi_head",), atss_stacked_convs))
     flat = flatten(params)
     sd = apply_map(flat, mapping)
     for i in range(num_layers):
         sd.update(_packed_qkv(flat, ("head", f"self_attn_{i}"),
                               f"pts_bbox_head.transformer.decoder.layers.{i}.attentions.0.attn"))
+    scales = flat.get(("roi_head", "scales"))
+    if scales is not None:
+        sd.update({f"img_roi_head.scales.{i}.scale": torch.tensor(float(v))
+                   for i, v in enumerate(scales)})
     return sd
 
 

@@ -1,18 +1,22 @@
-"""StreamPETRWindow: sliding-window multi-view 3D detection, inference.
+"""StreamPETRWindow and StreamPETR: multi-view 3D detection over a sliding
+window or a stream, inference and training.
 
 Counterpart of ``panacea_tpu/perception/detector.py`` (reference
-streampetrwindow.py:312-389) at the eval recipe: ResNet-50 and a 5-level
-FPN per frame, the SparseHead with its query memory. A window of T frames
-runs every frame through backbone and head, warming the memory, and returns
-the last frame's outputs. The memory is reset on a scene change through
-``prev_exists``.
+streampetrwindow.py:312-389, streampetr.py) at the recipes' detector:
+ResNet-50 and a 5-level FPN per frame, the SparseHead with its query
+memory, and with ``with_atss`` the ATSS 2D auxiliary head of training
+(``img_roi_head``). A window of T frames runs every frame through backbone
+and head, warming the memory, and returns the last frame's outputs. The
+memory is reset on a scene change through ``prev_exists``. In training
+(``train_window``) the first T - 1 frames run without gradients; the
+streaming recipes (``train_frame``) carry the memory across steps.
 
 Images come in the JAX package's layout, (B, T, N, H, W, 3) normalised;
 the backbone runs NCHW. Submodules carry mmdet's names (``img_backbone``,
-``img_neck``, ``pts_bbox_head``), so a StreamPETR ``.pth`` loads directly.
-Only ``backbone_type="r50"`` and ``head_type="sparse"`` without the ATSS
-auxiliary head are ported; the other detectors of the JAX package, and
-its training forwards, wait for ROADMAP Queue A item 6.
+``img_neck``, ``pts_bbox_head``, ``img_roi_head``), so a StreamPETR
+``.pth`` loads directly. Only ``backbone_type="r50"`` and
+``head_type="sparse"`` are ported; the other detectors of the JAX package
+wait for the perception zoo (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from torch import nn
 
 from panacea_tpu_torch.models.engine import no_tf32
+from panacea_tpu_torch.perception.atss import CLS_BIAS, ATSSHead, Scale
 from panacea_tpu_torch.perception.fpn import FPN
 from panacea_tpu_torch.perception.head import PC_RANGE, MemoryState, SparseHead, init_memory
 from panacea_tpu_torch.perception.resnet import FrozenBatchNorm, ResNet50
@@ -39,14 +44,15 @@ class StreamPETRWindow(nn.Module):
                  num_decoder_layers: int = 6, num_levels: int = 5, num_cams: int = 6,
                  pc_range: Sequence[float] = PC_RANGE, with_atss: bool = False,
                  backbone_type: str = "r50", backbone_cfg: Optional[dict] = None,
-                 neck_start_level: int = 1, head_type: str = "sparse"):
+                 neck_start_level: int = 1, head_type: str = "sparse",
+                 atss_stacked_convs: int = 4):
         super().__init__()
         if backbone_type != "r50":
             raise NotImplementedError(f"backbone_type {backbone_type!r} {NOT_PORTED}")
         if head_type != "sparse":
             raise NotImplementedError(f"head_type {head_type!r} {NOT_PORTED}")
-        if with_atss:
-            raise NotImplementedError(f"the ATSS auxiliary head (with_atss) {NOT_PORTED}")
+        self.num_query, self.num_propagated = num_query, num_propagated
+        self.pc_range = tuple(pc_range)
         self.embed_dims, self.memory_len, self.num_levels = embed_dims, memory_len, num_levels
         self.img_backbone = ResNet50(**dict(backbone_cfg or {}))
         self.img_neck = FPN(out_channels=embed_dims, start_level=neck_start_level,
@@ -56,6 +62,11 @@ class StreamPETRWindow(nn.Module):
             memory_len=memory_len, topk_proposals=topk_proposals,
             num_propagated=num_propagated, num_decoder_layers=num_decoder_layers,
             num_levels=num_levels, num_cams=num_cams, pc_range=pc_range)
+        self.with_atss = with_atss
+        if with_atss:
+            self.img_roi_head = ATSSHead(num_classes=num_classes, in_channels=embed_dims,
+                                         feat_channels=embed_dims,
+                                         stacked_convs=atss_stacked_convs, num_levels=num_levels)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, zero_init_std: Optional[float] = None):
@@ -64,7 +75,8 @@ class StreamPETRWindow(nn.Module):
         0, norms at weight 1 and bias 0, batch-norm statistics 0 and 1, the
         reference points uniform in [0, 1], the MLN gammas at weight 0 and
         bias 1, ``weights_fc`` at 0, the ``learnable_fc`` bias uniform in
-        [-2, 2] and the class bias at -4.595. With ``zero_init_std`` every
+        [-2, 2], the class biases (head and ATSS) at -4.595 and the ATSS
+        scales at 1. With ``zero_init_std`` every
         tensor that this leaves at a constant gets normal noise of that std
         added, so that every branch computes."""
         dev = next(self.parameters()).device
@@ -87,6 +99,8 @@ class StreamPETRWindow(nn.Module):
                     constant += [mod.running_mean.zero_(), mod.running_var.fill_(1.0)]
             elif isinstance(mod, nn.Embedding):
                 uniform(mod.weight, 0.0, 1.0)
+            elif isinstance(mod, Scale):
+                constant.append(mod.scale.fill_(1.0))
         # then what differs from that, children already set
         for name, mod in self.named_modules():
             if name.endswith("attn") and hasattr(mod, "in_proj_weight"):
@@ -99,7 +113,9 @@ class StreamPETRWindow(nn.Module):
                 constant.append(mod.weights_fc.weight.zero_())
                 uniform(mod.learnable_fc.bias, -2.0, 2.0)
         for branch in self.pts_bbox_head.cls_branches:
-            constant.append(branch[-1].bias.fill_(-4.595))
+            constant.append(branch[-1].bias.fill_(CLS_BIAS))
+        if self.with_atss:
+            constant.append(self.img_roi_head.atss_cls.bias.fill_(CLS_BIAS))
         if zero_init_std is not None:
             seen = set()
             for t in constant:
@@ -139,6 +155,54 @@ class StreamPETRWindow(nn.Module):
             data = {k: v[:, fi] for k, v in data_seq.items()}
             outs, memory = self.forward_frame(imgs_seq[:, fi], memory, data)
         return outs, memory
+
+    @no_tf32()
+    def train_frame(self, imgs: torch.Tensor, memory: MemoryState, data: Dict[str, torch.Tensor],
+                    dn=None):
+        """Streaming training forward (streampetr.py:209-252, seq_mode): one
+        frame with the memory carried in from the previous step. Returns
+        (outs, atss_outs, new_memory); ``atss_outs`` the roi head's
+        per-level outputs on this frame's FPN features, or None without
+        ``with_atss``. The caller detaches new_memory before the next
+        step, as the reference's post_update_memory does."""
+        feats = self.extract_feats(imgs)
+        outs, memory = self.pts_bbox_head(feats, memory, data, (imgs.shape[2], imgs.shape[3]),
+                                          dn=dn)
+        return outs, (self.img_roi_head(feats) if self.with_atss else None), memory
+
+    @no_tf32()
+    def train_window(self, imgs_seq: torch.Tensor, data_seq: Dict[str, torch.Tensor], dn=None,
+                     num_frame_losses: int = 1):
+        """Training forward over a window (streampetrwindow.py's training
+        path): the first T - 1 frames warm the memory under no_grad, the
+        last frame runs with gradients and ``dn``. Returns (outs,
+        atss_outs, memory) of the last frame. Only num_frame_losses 1, the
+        value of every reference recipe (window.py:26)."""
+        if num_frame_losses != 1:
+            raise NotImplementedError("num_frame_losses other than 1: no reference recipe "
+                                      "uses it")
+        b, t = imgs_seq.shape[:2]
+        memory = init_memory(b, self.memory_len, self.embed_dims, device=imgs_seq.device)
+        with torch.no_grad():
+            for fi in range(t - 1):
+                data = {k: v[:, fi] for k, v in data_seq.items()}
+                _, memory = self.forward_frame(imgs_seq[:, fi], memory, data)
+        return self.train_frame(imgs_seq[:, t - 1], memory,
+                                {k: v[:, t - 1] for k, v in data_seq.items()}, dn=dn)
+
+
+class StreamPETR(StreamPETRWindow):
+    """The streaming variant (reference detectors/streampetr.py:30): the
+    memory persists across calls instead of being warmed per window.
+    Drive it frame by frame and thread the returned memory;
+    ``prev_exists`` 0 resets it on a scene change."""
+
+    def stream(self, imgs: torch.Tensor, data: Dict[str, torch.Tensor],
+               memory: Optional[MemoryState] = None):
+        if memory is None:
+            memory = init_memory(imgs.shape[0], self.memory_len, self.embed_dims,
+                                 device=imgs.device)
+        return self.forward_frame(imgs, memory, data)
 
 
 def normalize_images(imgs: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from panacea_tpu_torch.data.nuscenes.augment import horizontal_flip_image
 from panacea_tpu_torch.data.nuscenes.calib import (
     build_lidar2img,
     pose_to_matrix,
@@ -142,9 +143,10 @@ class GenNuScenesEvalDataset:
                 l2i, viewpad, resize, crop
             )
             if flip:
-                raise NotImplementedError(
-                    "flip is a training augmentation; data/nuscenes/augment.py is "
-                    "not ported (ROADMAP Queue A item 6)")
+                img, l2i = horizontal_flip_image(img, l2i)
+                post = np.eye(4)
+                post[0, 0], post[0, 2] = -1.0, img.shape[1] - 1.0
+                viewpad = post @ viewpad
             imgs.append((img - np.asarray(IMG_MEAN)) / np.asarray(IMG_STD))
             l2is.append(l2i)
             intrs.append(viewpad)

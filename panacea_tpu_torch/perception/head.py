@@ -1,4 +1,4 @@
-"""StreamPETR SparseHead: the query-propagation detection head, inference.
+"""StreamPETR SparseHead: the query-propagation detection head.
 
 Counterpart of ``panacea_tpu/perception/head.py`` (reference
 sparse_head.py:20-997) at the eval config
@@ -19,8 +19,12 @@ Keys are mmdet's (``transformer.decoder.layers.{i}.attentions.0.attn.in_proj_wei
 branches are one module repeated per layer; like the JAX converter, the
 port holds it once, as ``cls_branches.0`` and ``reg_branches.0``.
 
-Only inference: the denoising queries of training (``dn``) wait for the
-perception trainer (ROADMAP Queue A item 6).
+Training adds the denoising queries (``dn``, a ``denoise.DNPack``): the
+noised ground truth goes before the match queries, and the self-attention
+takes the pack's additive mask. That masked call is plain PyTorch (fp32
+logits, softmax, product), as the JAX package computes it with XLA einsums
+outside its Pallas kernel (``panacea_tpu/perception/head.py:92-101``); the
+unmasked call stays on ``ops.attention.attention``.
 """
 
 from __future__ import annotations
@@ -93,14 +97,21 @@ class PackedAttention(nn.Module):
         self.out_proj = nn.Linear(embed_dims, embed_dims)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q_in: torch.Tensor, k_in: torch.Tensor, v_in: torch.Tensor) -> torch.Tensor:
+    def forward(self, q_in: torch.Tensor, k_in: torch.Tensor, v_in: torch.Tensor,
+                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
         # each projection is a fresh contiguous (B, S, C) tensor: unit
         # head-dim stride and 16-byte aligned rows, as the flash kernel needs
         q, k, v = (split_heads(F.linear(x, w, bias).contiguous(), self.num_heads)
                    for x, w, bias in ((q_in, wq, bq), (k_in, wk, bk), (v_in, wv, bv)))
-        return self.out_proj(merge_heads(attention(q, k, v)))
+        if attn_bias is None:
+            out = attention(q, k, v)
+        else:   # the DN mask (Sq, Skv), added to every batch row and head
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+            probs = torch.softmax(logits + attn_bias, dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return self.out_proj(merge_heads(out))
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -111,8 +122,8 @@ class MultiheadSelfAttention(nn.Module):
         super().__init__()
         self.attn = PackedAttention(embed_dims, num_heads)
 
-    def forward(self, query, key, value, query_pos, key_pos):
-        return query + self.attn(query + query_pos, key + key_pos, value)
+    def forward(self, query, key, value, query_pos, key_pos, attn_bias=None):
+        return query + self.attn(query + query_pos, key + key_pos, value, attn_bias)
 
 
 class FFN(nn.Module):
@@ -143,10 +154,11 @@ class DecoderLayer(nn.Module):
         self.norms = nn.ModuleList(nn.LayerNorm(embed_dims, eps=1e-5) for _ in range(3))
 
     def forward(self, query, query_pos, temp_memory, temp_pos, feats, ref_lidar, lidar2img,
-                pad_hw):
+                pad_hw, attn_bias=None):
         key = torch.cat([query, temp_memory], dim=1)
         key_pos = torch.cat([query_pos, temp_pos], dim=1)
-        query = self.norms[0](self.attentions[0](query, key, key, query_pos, key_pos))
+        query = self.norms[0](self.attentions[0](query, key, key, query_pos, key_pos,
+                                                 attn_bias))
         query = self.norms[1](self.attentions[1](query, query_pos, feats, ref_lidar, lidar2img,
                                                  pad_hw))
         return self.norms[2](self.ffns[0](query))
@@ -239,18 +251,24 @@ class SparseHead(nn.Module):
         return (tgt, query_pos, reference_points, temp_memory[:, np_:], temp_pos[:, np_:],
                 rec_ego_pose)
 
+    def make_queries(self, b: int, dn=None) -> torch.Tensor:
+        """The reference points (B, [pad +] Q, 3) in [0, 1]: the DN queries'
+        noised centres first (sparse_head.py:439), then the learned ones."""
+        ref = self.reference_points.weight[None].expand(b, self.num_query, 3)
+        if dn is not None:
+            ref = torch.cat([dn.ref, ref], dim=1)
+        return ref
+
     def forward(self, mlvl_feats: Sequence[torch.Tensor], memory: MemoryState,
                 data: Dict[str, torch.Tensor], pad_hw: Tuple[int, int],
                 dn: Optional[Any] = None):
         """mlvl_feats: per level (B N, C, h, w); data: prev_exists (B,),
         timestamp (B,), ego_pose and ego_pose_inv (B, 4, 4), lidar2img,
-        intrinsics and extrinsics (B, N, 4, 4). Returns (outs, new_memory),
-        outs with ``all_cls_scores`` and ``all_bbox_preds`` of shape (L, B,
-        Q, ...)."""
-        if dn is not None:
-            raise NotImplementedError(
-                "SparseHead: the denoising queries are training, which is not ported "
-                "(ROADMAP Queue A item 6)")
+        intrinsics and extrinsics (B, N, 4, 4); ``dn`` an optional
+        ``denoise.DNPack``. Returns (outs, new_memory), outs with
+        ``all_cls_scores`` and ``all_bbox_preds`` of shape (L, B, Q, ...),
+        and with ``dn`` also ``dn_cls_scores`` and ``dn_bbox_preds`` (L, B,
+        pad, ...). The memory takes no DN row."""
         memory = self.pre_update_memory(memory, data)
         b = data["lidar2img"].shape[0]
         n = data["lidar2img"].shape[1]
@@ -262,7 +280,7 @@ class SparseHead(nn.Module):
         gamma, beta = self.transformer.spatial_alignment.gamma_beta(mln_in.reshape(b * n, 14))
         feats = [f * gamma[:, :, None, None] + beta[:, :, None, None] for f in mlvl_feats]
 
-        ref = self.reference_points.weight[None].expand(b, self.num_query, 3)
+        ref = self.make_queries(b, dn)
         query_pos = self.query_embedding(pos2posemb3d(ref))
         tgt, query_pos, ref, temp_memory, temp_pos, rec_ego_pose = self.temporal_alignment(
             query_pos, torch.zeros_like(query_pos), ref, memory)
@@ -272,15 +290,22 @@ class SparseHead(nn.Module):
         ref_lidar = self._to_range(ref)
         ref_logit = inverse_sigmoid(ref)
         cls_branch, reg_branch = self.cls_branches[0], self.reg_branches[0]
+        attn_bias = dn.attn_mask if dn is not None else None
         for layer in self.transformer.decoder.layers:
             query = layer(query, query_pos, temp_memory, temp_pos, feats, ref_lidar,
-                          data["lidar2img"], pad_hw)
+                          data["lidar2img"], pad_hw, attn_bias)
             reg_out = reg_branch(query)
             xyz = self._to_range(torch.sigmoid(reg_out[..., 0:3] + ref_logit))
             cls_list.append(cls_branch(query))
             reg_list.append(torch.cat([xyz, reg_out[..., 3:]], dim=-1))
-        outs = {"all_cls_scores": torch.stack(cls_list), "all_bbox_preds": torch.stack(reg_list)}
-        return outs, self.post_update_memory(memory, data, rec_ego_pose, outs, query)
+        all_cls, all_reg = torch.stack(cls_list), torch.stack(reg_list)
+        outs = {}
+        pad = dn.pad_size if dn is not None else 0
+        if pad:
+            outs = {"dn_cls_scores": all_cls[:, :, :pad], "dn_bbox_preds": all_reg[:, :, :pad]}
+        outs.update(all_cls_scores=all_cls[:, :, pad:], all_bbox_preds=all_reg[:, :, pad:])
+        return outs, self.post_update_memory(memory, data, rec_ego_pose[:, pad:], outs,
+                                             query[:, pad:])
 
     def post_update_memory(self, memory: MemoryState, data, rec_ego_pose, outs,
                            last_query: torch.Tensor) -> MemoryState:

@@ -3,7 +3,9 @@
 Config blocks have the reference's form ``{target: <dotted.path>, params:
 {...}}``. The alias table maps the reference ``sgm.*`` targets that this
 port implements onto its own classes, so ``configs.INFERENCE_NUSCENES``,
-``configs.TINY_CPU`` and ``configs.TINY_STAGE1`` instantiate unchanged. An
+``configs.TINY_CPU`` and ``configs.TINY_STAGE1`` instantiate unchanged, and
+the JAX package's two perception detector targets onto the port's, so the
+perception recipes of ``configs.PERCEPTION`` do too. An
 unknown target raises; the JAX package's targets that the port lacks are
 those of the VAE's training side (LPIPS, the discriminator and its losses)
 and the data module (``DataModuleFromConfig``).
@@ -68,6 +70,8 @@ _SGM_TO_LOCAL = {
         f"{_P}.diffusion.loss.StandardDiffusionLoss",
     "sgm.data.nuscenes_video.nuscenes_datasets_video.MyDataset":
         f"{_P}.data.nuscenes.dataset.NuScenesVideoDataset",
+    **{f"panacea_tpu.perception.detector.{n}": f"{_P}.perception.detector.{n}"
+       for n in ("StreamPETRWindow", "StreamPETR")},
     "sgm.lr_scheduler.LambdaLinearScheduler": f"{_P}.utils.lr_schedule.LambdaLinearScheduler",
     "sgm.lr_scheduler.LambdaWarmUpCosineScheduler":
         f"{_P}.utils.lr_schedule.LambdaWarmUpCosineScheduler",

@@ -9,7 +9,10 @@ under the mask of ``optax.multi_transform``. With ``spatial_lr_rate`` the
 parameters split into two groups, those with ``temporal`` in their name at
 ``lr`` and the rest at ``lr * spatial_lr_rate``, and each group is clipped by
 its own global norm, as each ``multi_transform`` branch carries its own
-clip. The arithmetic is optax's, in fp32, in place on the parameters:
+clip. With ``lr_mults`` (name -> multiplier; the perception trainer's
+backbone at 0.1) each parameter's learning rate is ``lr`` times its
+multiplier and one global norm over every trained gradient is clipped, as
+a chain whose clip comes before a per-parameter scale. The arithmetic is optax's, in fp32, in place on the parameters:
 
     mu = (1 - b1) g + b1 mu,    nu = (1 - b2) g^2 + b2 nu,    n += 1
     u = mu / (1 - b1^n) / (sqrt(nu / (1 - b2^n)) + eps) + weight_decay p
@@ -37,14 +40,21 @@ class AdamW:
     def __init__(self, params: Mapping[str, torch.Tensor], lr: float = 1e-4,
                  betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 1e-2,
                  grad_clip: Optional[float] = None, spatial_lr_rate: Optional[float] = None,
-                 lr_schedule: Optional[Callable[[int], float]] = None):
+                 lr_schedule: Optional[Callable[[int], float]] = None,
+                 lr_mults: Optional[Mapping[str, float]] = None):
         self.b1, self.b2 = betas
         self.eps = eps
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.lr_schedule = lr_schedule
         names = list(params)
-        if spatial_lr_rate is not None and spatial_lr_rate != 1.0:
+        self.joint_clip = lr_mults is not None
+        if lr_mults is not None:
+            mults = sorted({float(lr_mults.get(n, 1.0)) for n in names}, reverse=True)
+            self.groups = [{"lr": lr * m, "names": [n for n in names
+                                                    if float(lr_mults.get(n, 1.0)) == m]}
+                           for m in mults]
+        elif spatial_lr_rate is not None and spatial_lr_rate != 1.0:
             self.groups = [
                 {"lr": lr * spatial_lr_rate, "names": [n for n in names if not _is_temporal(n)]},
                 {"lr": lr, "names": [n for n in names if _is_temporal(n)]}]
@@ -74,11 +84,16 @@ class AdamW:
         clipped = {}
         n = self.count + 1
         c1, c2 = 1.0 - self.b1 ** n, 1.0 - self.b2 ** n
+        if self.joint_clip:
+            norm = self._clip_scale([grads[k] for g in self.groups for k in g["names"]])
+            if norm is not None:
+                clipped["all"] = norm
         for gi, group in enumerate(self.groups):
             names: List[str] = group["names"]
-            norm = self._clip_scale([grads[k] for k in names])
-            if norm is not None:
-                clipped[f"group{gi}"] = norm
+            if not self.joint_clip:
+                norm = self._clip_scale([grads[k] for k in names])
+                if norm is not None:
+                    clipped[f"group{gi}"] = norm
             lr = group["lr"] * (self.lr_schedule(self.count) if self.lr_schedule else 1.0)
             for i in range(0, len(names), CHUNK):
                 chunk = names[i:i + CHUNK]

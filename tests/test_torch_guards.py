@@ -20,6 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "panacea_tpu")
 # the port's scripts outside its package
 ROOT_SCRIPTS = ("chip_smoke.py", "inference_torch.py", "train_torch.py",
                 "eval_perception_torch.py", "eval_generation_torch.py",
+                "train_perception_torch.py",
                 os.path.join("scripts", "compare_latents_torch.py"),
                 os.path.join("scripts", "probe_torch_kernels.py"),
                 os.path.join("scripts", "sampling_step_torch.py"),
@@ -55,7 +56,10 @@ def test_port_source_imports_no_jax():
             "eval_perception_torch.py"} <= names
     assert {os.path.join("panacea_tpu_torch", "perception", f"{m}.py")
             for m in ("encoding", "resnet", "fpn", "deformable", "head", "detector", "coder",
-                      "metrics", "eval_dataset", "collect", "eval")} <= names
+                      "metrics", "eval_dataset", "collect", "eval", "train_losses", "atss",
+                      "gridmask", "denoise", "train_dataset", "train", "train_cli")} <= names
+    assert {"train_perception_torch.py",
+            os.path.join("panacea_tpu_torch", "data", "nuscenes", "augment.py")} <= names
     assert {os.path.join("panacea_tpu_torch", "metrics_gen", f"{m}.py")
             for m in ("__init__", "fid", "inception", "i3d", "eval")} <= names
     assert {"eval_generation_torch.py",
@@ -84,7 +88,7 @@ def test_port_imports_with_jax_blocked():
         "for info in pkgutil.walk_packages(panacea_tpu_torch.__path__, 'panacea_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
         "import chip_smoke, inference_torch, train_torch, eval_perception_torch\n"
-        "import eval_generation_torch\n"
+        "import eval_generation_torch, train_perception_torch\n"
         "sys.path.insert(0, 'scripts')\n"
         "import compare_latents_torch, probe_torch_kernels\n"
         "print('ok')\n")

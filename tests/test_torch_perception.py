@@ -324,10 +324,6 @@ def test_state_dict_round_trips_through_the_jax_converter():
 
 def test_detector_refuses_what_is_not_ported():
     for kw in ({"backbone_type": "vovnet"}, {"backbone_type": "eva"}, {"head_type": "petr"},
-               {"with_atss": True}):
+               {"head_type": "motion"}):
         with pytest.raises(NotImplementedError, match="Queue A item 6"):
             detector.StreamPETRWindow(**TINY, **kw)
-    head = SparseHead(embed_dims=32, num_query=4, memory_len=8, topk_proposals=2,
-                      num_propagated=2, num_decoder_layers=1, num_levels=1, num_cams=1)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        head([], init_memory(1, 8, 32), {}, (8, 8), dn=object())

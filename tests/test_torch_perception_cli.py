@@ -24,6 +24,7 @@ from panacea_tpu_torch.perception import eval as peval
 from panacea_tpu_torch.perception.collect import collect_results_cpu
 from panacea_tpu_torch.perception.detector import StreamPETRWindow
 from panacea_tpu_torch.perception.eval_dataset import GenNuScenesEvalDataset
+from torch_parity import two_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TINY_CLI = ["--synthetic", "--tiny", "--device", "cpu"]
@@ -47,7 +48,7 @@ def test_parser_has_the_jax_clis_flags_and_defaults():
         assert choices(peval.get_parser()) == choices(jcli.get_parser())
 
 
-def test_tiny_cli_prints_the_jax_clis_metric_keys(capsys):
+def test_tiny_cli_prints_the_jax_clis_metric_keys(capsys, two_threads):
     metrics = peval.main(TINY_CLI)
     printed = printed_metrics(capsys.readouterr().out)
     assert printed.keys() == metrics.keys() == jax_evaluate([], []).keys()
