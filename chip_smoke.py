@@ -154,6 +154,7 @@ PEAK_BF16 = 989e12     # H100 SXM dense bf16 flop/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12      # H100 SXM fp32 flop/s outside the tensor cores (same data sheet)
 PEAK_TF32 = 495e12     # H100 SXM dense TF32 flop/s on the tensor cores (same data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
+QUEUE_CYCLES = 400_000  # a sleep of 0.2 ms a call (at 1.98 GHz), past any call's host time
 SMALL_TOL = 5e-2       # tiny engine, bf16 card vs fp32 CPU, relative to the latent's scale
 FLASH_PER_EVAL, GEGLU_PER_EVAL = 21, 69
 TRAIN_B = 8 * 5        # the training batch of one clip: 8 frames x views 0-4
@@ -238,6 +239,23 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(torch, fn, iters: int) -> float:
+    """Device time of one call with the host's time kept out: the calls are
+    queued behind a kernel that sleeps for longer than the host takes to
+    issue them, so the card runs them back to back; CUDA events over
+    ``iters`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(QUEUE_CYCLES * iters)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def host_us(torch, fn, iters: int) -> float:
     """Host time of one call, not waiting for the card: checks, tensor-map
     specs and their encoding, and the launch."""
@@ -263,9 +281,14 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
     fp32 operands (the fp32 route, ``tol.FLASH_F32``), held to the plain
     version evaluated in float64, with the kernel's ratio against the fp32
     plain version and the fp32 plain version's against float64 beside it;
-    the bound is three products at the TF32 rate at head dim 64 (3xTF32),
-    ``bound_fma_ms`` the fp32 FMA rate's. TF32 is off for the plain version
-    and the yardstick."""
+    ``fp32_kernel`` names the fp32 kernel that ran; the bound is three
+    products at the TF32 rate at head dims 64 and 32 (3xTF32),
+    ``bound_fma_ms`` the fp32 FMA rate's. At head dim 32 in fp32 (the
+    perception self-attention) the row log-sum-exp is held to float64's
+    under ``FLASH_LSE`` too, and ``ms_device`` and ``library_ms_device``
+    are device times with the host's time kept out (``queued_ms``): a call
+    there takes about as long on the host as on the card. TF32 is off for
+    the plain version and the yardstick."""
     dtype, rule = (torch.float32, tol.FLASH_F32) if fp32 else (torch.bfloat16, tol.FLASH)
     elem = 4.0 if fp32 else 2.0
     g = torch.Generator(device=dev).manual_seed(sq * 7 + skv + d)
@@ -282,11 +305,16 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
     elif ragged:
         lens = torch.randint(1, skv + 1, (b,), generator=g, device=dev, dtype=torch.int32)
     routes = dict(fa.flash_attention.route_launches)
+    kernels = dict(fa.flash_attention.fp32_kernel_launches)
     got = fa.flash_attention(q, k, v, kv_lens=lens)
     route = next(r for r, n in fa.flash_attention.route_launches.items() if n != routes[r])
     plain = fa.flash_attention_plain(q, k, v, kv_lens=lens)
-    want = (fa.flash_attention_plain(q.double(), k.double(), v.double(), kv_lens=lens)
+    want = (fa.flash_attention_plain(q.double(), k.double(), v.double(), kv_lens=lens,
+                                     return_lse=fp32 and d == 32)
             if fp32 else plain)
+    if fp32 and d == 32:
+        want, want_lse = want
+        got_with_lse, got_lse = fa.flash_attention_with_lse(q, k, v, kv_lens=lens)
     torch.cuda.synchronize()
     err = (got.double() - want.double()).abs().max().item()
     ratio = tol.worst_ratio(got, want, **rule)
@@ -296,9 +324,17 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
            "max_abs_err": err, "rms_want": want.double().square().mean().sqrt().item(),
            "worst_ratio": ratio, "tol": rule}
     if fp32:
+        rec["fp32_kernel"] = next(n for n, c in fa.flash_attention.fp32_kernel_launches.items()
+                                  if c != kernels[n])
         rec["want"] = "flash_attention_plain in float64"
         rec["worst_ratio_vs_fp32_plain"] = tol.worst_ratio(got, plain, **rule)
         rec["fp32_plain_worst_ratio_vs_f64"] = tol.worst_ratio(plain, want, **rule)
+    if fp32 and d == 32:
+        rec["lse_worst_ratio"] = tol.worst_ratio(got_lse, want_lse, **tol.FLASH_LSE)
+        rec["lse_tol"] = tol.FLASH_LSE
+        rec["out_with_lse_equal"] = bool(torch.equal(got_with_lse, got))
+        ratio = max(ratio, rec["lse_worst_ratio"]) if rec["out_with_lse_equal"] else float("inf")
+        del got_with_lse, got_lse, want_lse
     del want, plain, got
     if fp32:
         free(torch)   # the level-0 float64 operands and chunk scores take a few GB
@@ -310,7 +346,7 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
         kv_eff = float(lens.sum().item()) / b if lens is not None else skv  # keys the rows need
         flops = 4.0 * b * h * sq * kv_eff * d
         nbytes = elem * (2 * b * sq * h * d + 2 * b * kv_eff * h * d) + (4 * b if ragged else 0)
-        if fp32 and d == 64:
+        if fp32 and d in (32, 64):
             rec["bound_ms"], rec["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32)
             rec["bound_fma_ms"], _ = bound(flops, nbytes, PEAK_FP32)
         elif fp32:   # the FMA kernel: its own bound, and a 3xTF32 design's beside it
@@ -329,6 +365,11 @@ def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_k
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask), 5 if fp32 else 20)
         rec["host_us"] = host_us(torch, lambda: fa.flash_attention(q, k, v, kv_lens=lens), 50)
+        if fp32 and d == 32:
+            rec["ms_device"] = queued_ms(torch, lambda: fa.flash_attention(q, k, v, kv_lens=lens),
+                                         20)
+            rec["library_ms_device"] = queued_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask), 20)
     log(rec)
     if not ratio <= 1.0:
         raise AssertionError(f"flash_attention disagrees with its plain version: {rec}")
@@ -624,7 +665,7 @@ def reset_counts(fa, gg) -> None:
     fa.flash_attention.launches = gg.geglu.launches = 0
     fa.flash_attention_bwd.launches = gg.geglu_bwd.launches = 0
     for counts in (fa.flash_attention.route_launches, fa.flash_attention_bwd.route_launches,
-                   gg.geglu.route_launches):
+                   gg.geglu.route_launches, fa.flash_attention.fp32_kernel_launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -633,6 +674,7 @@ def read_counts(fa, gg) -> dict:
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "geglu_bwd": gg.geglu_bwd.launches,
             "flash_routes": dict(fa.flash_attention.route_launches),
+            "flash_fp32_kernels": dict(fa.flash_attention.fp32_kernel_launches),
             "flash_bwd_routes": dict(fa.flash_attention_bwd.route_launches),
             "geglu_routes": dict(gg.geglu.route_launches)}
 
@@ -963,8 +1005,9 @@ def fp32_engine_phase(torch, np, dev, fa, gg, card: str):
     log(rec)
     if not rec["finite"]:
         raise AssertionError(f"non-finite latents: {rec}")
-    if (counts32["flash_routes"]["fp32"], counts32["geglu_routes"]["fp32"]) != (
-            expected["flash"], expected["geglu"]):
+    if (counts32["flash_routes"]["fp32"], counts32["flash_fp32_kernels"]["tc"],
+            counts32["geglu_routes"]["fp32"]) != (expected["flash"], expected["flash"],
+                                                  expected["geglu"]):
         raise AssertionError(f"the fp32 engine's launches {counts32} != {expected} on the fp32 routes")
     if counts32["flash_attention"] != expected["flash"] or counts32["geglu"] != expected["geglu"]:
         raise AssertionError(f"the fp32 engine launched a kernel of another type: {counts32}")
@@ -1386,9 +1429,11 @@ def perception_phase(torch, np, dev, fa, gg, card: str):
     log(rec)
     if not (finite and shapes_ok):
         raise AssertionError(f"the detector's output is wrong: {rec}")
-    if flash32 != 6 * PERCEPTION_T or counts["flash_attention"] != flash32:
-        raise AssertionError(f"a window launched {counts['flash_routes']} flash kernels, "
-                             f"not {6 * PERCEPTION_T} on the fp32 route: {rec}")
+    if (flash32 != 6 * PERCEPTION_T or counts["flash_attention"] != flash32
+            or counts["flash_fp32_kernels"]["tc32"] != flash32):
+        raise AssertionError(f"a window launched {counts['flash_routes']} flash kernels "
+                             f"({counts['flash_fp32_kernels']}), not {6 * PERCEPTION_T} on the "
+                             f"fp32 route's head-dim-32 tensor-core kernel: {rec}")
     if not max(worst.values()) <= PERCEPTION_TOL:
         raise AssertionError(f"the detector on the card disagrees with the CPU: {rec}")
     del model.extract_feats, model.pts_bbox_head.forward   # the timers off
@@ -1414,7 +1459,8 @@ def perception_cli_phase(torch, np, dev, fa, gg, card: str):
            "frames_per_window": 4, "launches": counts, "metrics": metrics}
     log(rec)
     if not (all(np.isfinite(v) for v in metrics.values()) and windows == 5
-            and counts["flash_attention"] == counts["flash_routes"]["fp32"]):
+            and counts["flash_attention"] == counts["flash_routes"]["fp32"]
+            == counts["flash_fp32_kernels"]["tc32"]):
         raise AssertionError(f"the synthetic eval went wrong: {rec}")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -2106,6 +2152,7 @@ def ptrain_window_phase(torch, np, dev, fa, gg, card: str):
         raise AssertionError(f"perception training went wrong: {rec}")
     for c in counts:
         if not (c["flash_attention"] == c["flash_routes"]["fp32"] == PTRAIN_FLASH_PER_STEP
+                == c["flash_fp32_kernels"]["tc32"]
                 and c["flash_attention_bwd"] == 0 and c["geglu"] == 0):
             raise AssertionError(f"a training step launched {c}, not {PTRAIN_FLASH_PER_STEP} "
                                  f"fp32 flash forwards and nothing else: {rec}")
@@ -2186,6 +2233,7 @@ def ptrain_nodn_phase(torch, F, np, dev, fa, gg, tol, card: str, setup):
     log(rec)
     layers = 6
     if not (counts["flash_routes"]["fp32"] == PTRAIN_FLASH_PER_STEP + layers
+            == counts["flash_fp32_kernels"]["tc32"]
             and counts["flash_bwd_routes"]["fp32"] == layers == counts["flash_attention_bwd"]
             and all(np.isfinite(v) for v in out.metrics.values())):
         raise AssertionError(f"without DN the grad frame did not take the flash kernels: {rec}")
@@ -2370,8 +2418,9 @@ def main(mode: str = "all") -> int:
 
     if mode == "perception":
         rec = check_flash(torch, F, fa, tol, dev, *PERCEPTION_FLASH, fp32=True)
-        if rec["route"] != "fp32":
-            raise AssertionError(f"fp32 operands took route {rec['route']}: {rec}")
+        if (rec["route"], rec["fp32_kernel"]) != ("fp32", "tc32"):
+            raise AssertionError(f"fp32 operands at head dim 32 took route {rec['route']}, "
+                                 f"kernel {rec['fp32_kernel']}: {rec}")
         perception_phase(torch, np, dev, fa, gg, card)
         free(torch)
         perception_cli_phase(torch, np, dev, fa, gg, card)
@@ -2451,6 +2500,16 @@ def main(mode: str = "all") -> int:
     flash32 += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d, timed=False, fp32=True,
                             lens=lens)
                 for d in (16, 32, 128) for lens in (None, [0, 300])]
+    # head dim 32 (the tensor-core kernel): Sq and Skv off every tile
+    # multiple, rows of 1 and 2 keys and an empty one, with the keys split
+    # over a cluster (few blocks) and not (many); the perception shape with
+    # a ragged row
+    flash32 += [check_flash(torch, F, fa, tol, dev, 3, 129, 1667, 2, 32, timed=False, fp32=True,
+                            lens=[1, 2, 1667]),
+                check_flash(torch, F, fa, tol, dev, 20, 130, 97, 8, 32, timed=False, fp32=True,
+                            merged_kv=True, lens=[0, 1, 2, 31, 33, 65, 96, 97] * 2 + [97] * 4),
+                check_flash(torch, F, fa, tol, dev, 1, 900, 1668, 8, 32, timed=False, fp32=True,
+                            lens=[833])]
     geglu32 = []
     for tokens, c in ((196608, 320), (49152, 640), (12288, 1280), (3072, 1280)):
         geglu32.append(check_geglu(torch, F, gg, tol, dev, tokens, c, fp32=True))
@@ -2461,7 +2520,7 @@ def main(mode: str = "all") -> int:
                              (100, 36, 100)):
         geglu32.append(check_geglu(torch, F, gg, tol, dev, tokens, c, timed=False, inner=inner,
                                    fp32=True))
-    # the perception eval's self-attention (SparseHead, head dim 32: the FMA kernel)
+    # the perception eval's self-attention (SparseHead, head dim 32: tc32)
     t0 = time.perf_counter()
     flash32_perception = check_flash(torch, F, fa, tol, dev, *PERCEPTION_FLASH, fp32=True)
     flash32_perception_s = time.perf_counter() - t0
@@ -2469,6 +2528,12 @@ def main(mode: str = "all") -> int:
     for rec in flash32 + geglu32:
         if rec["route"] != "fp32":
             raise AssertionError(f"fp32 operands took route {rec['route']}: {rec}")
+    # the tensor cores at head dims 64 and 32, the FMA units only at 16 and 128
+    for rec in flash32:
+        want = {64: "tc", 32: "tc32"}.get(rec["shape"]["D"], "fma")
+        if rec["fp32_kernel"] != want:
+            raise AssertionError(f"fp32 flash at head dim {rec['shape']['D']} took "
+                                 f"{rec['fp32_kernel']}, not {want}: {rec}")
 
     # the backward kernels at the training path's shapes (bs 1: 8 frames x
     # views 0-4, k and v the halves of the merged kv projection), ragged
@@ -2551,31 +2616,36 @@ def main(mode: str = "all") -> int:
     free(torch)
     paths.update(stage1_phase(torch, np, dev, fa, gg, card))
 
-    def count(c, kernel, fp32):
+    def count(c, kernel, fp32, fp32_kernel=None):
         """Launches of one kernel on one type's routes, from a path's counts
-        (the GEGLU backward's one kernel serves both types)."""
+        (the GEGLU backward's one kernel serves both types); with
+        ``fp32_kernel``, of that fp32 flash forward kernel alone."""
         if kernel == "geglu_bwd":
             return c[kernel]
+        if fp32_kernel:
+            return c["flash_fp32_kernels"][fp32_kernel]
         routes = c[{"flash_attention": "flash_routes", "flash_attention_bwd": "flash_bwd_routes",
                     "geglu": "geglu_routes"}[kernel]]
         return routes["fp32"] if fp32 else c[kernel] - routes["fp32"]
 
-    # the fp32 route's count covers both fp32 flash kernels, which the head
-    # dim selects: 64 on the generation paths (3xTF32), 32 on the perception
-    # paths (FMA)
+    # the fp32 flash forward kernels, which the head dim selects: tc at 64 on
+    # the generation paths, tc32 at 32 on the perception paths (both 3xTF32)
+    flash32_d32 = [r for r in flash32 if r["shape"]["D"] == 32]
+    flash32 = [r for r in flash32 if r["shape"]["D"] != 32]
     perception_paths = ("perception", "perception_cli", "perception_train",
                         "perception_train_no_dn", "perception_train_streaming")
     generation_paths = tuple(p for p in paths if p not in perception_paths)
 
     def summary(name, kernel, source, replaces, recs, main, path, paths_of=tuple(paths),
-                **extra):
+                fp32_kernel=None, **extra):
         """``launches``: the count of the path that drives this kernel at full
         depth (the CLI for the bf16 kernels, the fp32 engine for the fp32
         ones); ``launches_by_path`` has the count of each path of ``paths_of``."""
         fp32 = main["dtype"] == "torch.float32"
         return {"name": name, **extra, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": count(paths[path], kernel, fp32),
-                "launches_by_path": {p: count(paths[p], kernel, fp32) for p in paths_of},
+                "launches": count(paths[path], kernel, fp32, fp32_kernel),
+                "launches_by_path": {p: count(paths[p], kernel, fp32, fp32_kernel)
+                                     for p in paths_of},
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -2586,6 +2656,7 @@ def main(mode: str = "all") -> int:
         return {f"stage1_{k}_levels": [r[k] for r in recs]
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
+    d32, d32_train = flash32_perception, ptrain["fwd"]
     flash_src, geglu_src = ("panacea_tpu_torch/csrc/flash_attention.cu",
                             "panacea_tpu_torch/csrc/geglu.cu")
     flash_bwd_src = "panacea_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -2596,7 +2667,7 @@ def main(mode: str = "all") -> int:
         summary("geglu", "geglu", geglu_src, geglu_tpu, geglu + geglu_s1, geglu[0], "cli",
                 **stage1_levels(geglu_s1)),
         summary("flash_attention_fp32", "flash_attention", flash_src, flash_tpu, flash32,
-                flash32[0], "fp32_engine", paths_of=generation_paths,
+                flash32[0], "fp32_engine", paths_of=generation_paths, fp32_kernel="tc",
                 entry="tc::pn_flash_f32_fwd_tc (3xTF32 wgmma, TMA)",
                 bound_fma_ms=flash32[0]["bound_fma_ms"],
                 ms_levels=[r["ms"] for r in flash32[:3]],
@@ -2606,17 +2677,21 @@ def main(mode: str = "all") -> int:
                 fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
                                                   for r in flash32)),
         summary("flash_attention_fp32_d32", "flash_attention", flash_src, flash_tpu,
-                [flash32_perception], flash32_perception, "perception", paths_of=perception_paths,
-                entry="f32::pn_flash_f32_fwd (FMA units), the perception eval's and the "
+                flash32_d32 + [ptrain["fwd"]], d32, "perception", paths_of=perception_paths,
+                fp32_kernel="tc32",
+                entry="tc32::pn_flash_f32_fwd_tc32 (3xTF32 wgmma, cp.async, the keys split "
+                      "over a 2-block cluster at B 1), the perception eval's and the "
                       "perception training's history frames' self-attention",
-                bound_3xtf32_ms=flash32_perception["bound_3xtf32_ms"],
-                worst_ratio_vs_f64=max(r["worst_ratio"] for r in (flash32_perception,
-                                                                 ptrain["fwd"])),
+                bound_fma_ms=d32["bound_fma_ms"], ms_device=d32["ms_device"],
+                library_ms_device=d32["library_ms_device"], host_us=d32["host_us"],
+                worst_ratio_vs_f64=max(r["worst_ratio"] for r in flash32_d32 + [ptrain["fwd"]]),
+                lse_worst_ratio=max(r["lse_worst_ratio"] for r in flash32_d32 + [ptrain["fwd"]]),
                 worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"]
-                                              for r in (flash32_perception, ptrain["fwd"])),
-                train_shape=ptrain["fwd"]["shape"],
-                **{f"train_shape_{k}": ptrain["fwd"][k]
-                   for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_3xtf32_ms")}),
+                                              for r in flash32_d32 + [ptrain["fwd"]]),
+                train_shape=d32_train["shape"],
+                **{f"train_shape_{k}": d32_train[k]
+                   for k in ("ms", "ms_device", "plain_ms", "library_ms", "library_ms_device",
+                             "bound_ms", "bound_fma_ms", "host_us")}),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
                 "fp32_engine", entry="f32::pn_geglu_3xtf32_fwd (3xTF32 wgmma, TMA)",
                 bound_fma_ms=geglu32[0]["bound_fma_ms"],

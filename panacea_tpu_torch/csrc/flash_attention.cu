@@ -1,6 +1,6 @@
 // Flash attention forward for Hopper (sm_90a): bf16 in / bf16 out on the tensor
-// cores, or fp32 in / fp32 out (3xTF32 on the tensor cores at head dim 64,
-// the FMA units at the others); fp32 softmax and accumulation.
+// cores, or fp32 in / fp32 out (3xTF32 on the tensor cores at head dims 64
+// and 32, the FMA units at 16 and 128); fp32 softmax and accumulation.
 //
 // Replaces the Pallas TPU kernel panacea_tpu/ops/flash_attention.py
 // (_flash_kernel, :33-86; its pallas_call in flash_attention, :236).
@@ -18,8 +18,9 @@
 // overlap.
 //
 // Two hand-written bf16 kernels, chosen by head dim in the C entry (fp32
-// operands go to two others, tc::pn_flash_f32_fwd_tc at head dim 64 and
-// f32::pn_flash_f32_fwd at 16, 32 and 128, described at their namespaces):
+// operands go to three others, tc::pn_flash_f32_fwd_tc at head dim 64,
+// tc32::pn_flash_f32_fwd_tc32 at 32, the perception self-attention's, and
+// f32::pn_flash_f32_fwd at 16 and 128, described at their namespaces):
 //
 // pn_flash_fwd (D = 64, the production head dim): one block of three
 // warpgroups per (128 query rows, head, batch).
@@ -59,10 +60,14 @@
 
 #include "hopper.cuh"
 #include "flash_f32_tc.cuh"
+#include "flash_f32_tc32_schedule.h"
 
 namespace {
 
 constexpr float NEG = -1e30f;
+
+// a masked score's exponent in the fp32 tensor-core kernels: ex2 of it is 0
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // ------------------------------------------------------------ wgmma, D = 64
 
@@ -496,12 +501,12 @@ void launch(const void* q, const void* k, const void* v, void* o, void* lse, con
 
 }  // namespace mma
 
-// ------------------------------------------------- fp32, D = 16, 32, 128
+// ------------------------------------------------------ fp32, D = 16, 128
 //
 // The Pallas kernel keeps its operands' type, so fp32 inputs give fp32
 // products. This kernel does the same on the FMA units: no tensor cores, no
-// TF32, no bf16 cut anywhere. Head dim 64 goes to the tc kernel below; no
-// main-path call has the others. The bound is then the card's fp32 rate outside
+// TF32, no bf16 cut anywhere. Head dims 64 and 32 go to the tc and tc32
+// kernels below; no path calls the others. The bound is then the card's fp32 rate outside
 // the tensor cores (4 B H Sq Skv D flops at 67 TFLOP/s on an H100 SXM), 15
 // times the bf16 bound, and far above the time to read q, k and v once.
 //
@@ -789,9 +794,11 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
 
 namespace tc {
 
-// D, T, NTHREADS, PANEL, TILE and the shared device functions: flash_f32_tc.cuh
+// T, NTHREADS, PANEL and the shared device functions: flash_f32_tc.cuh
 using namespace pn::tc;
 
+constexpr int D = 64;
+constexpr int TILE = T * D;  // floats of a streamed tile, and of a transposed one
 constexpr int BQ = 128;     // query rows per block: two warpgroups x 64
 constexpr int STAGES = 4;   // slots of the key ring
 constexpr int S_SETS = 1;   // accumulator sets of S over the 64 channels
@@ -809,9 +816,6 @@ struct Smem {
 };
 constexpr int SMEM_BYTES = sizeof(Smem) + pn::SWIZZLE_ATOM;  // room to align
 static_assert(SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
-
-// a masked score's exponent: ex2 of it is 0
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 pn_flash_f32_fwd_tc(const __grid_constant__ CUtensorMap q_map,
@@ -834,15 +838,15 @@ pn_flash_f32_fwd_tc(const __grid_constant__ CUtensorMap q_map,
   auto load = [&](int j) {  // key tile j into its slot (by thread 0)
     const int s = j % STAGES;
     pn::mbar_arrive_expect_tx(&sm.full[s], 2 * TILE * 4);
-    load_rows(sm.slot[s].k, T, &k_map, &sm.full[s], h, j * T, b);
-    load_rows(sm.slot[s].v, T, &v_map, &sm.full[s], h, j * T, b);
+    load_rows<D>(sm.slot[s].k, T, &k_map, &sm.full[s], h, j * T, b);
+    load_rows<D>(sm.slot[s].v, T, &v_map, &sm.full[s], h, j * T, b);
   };
   if (threadIdx.x == 0) {
     pn::mbar_init(&sm.q_full, 1);
     for (int s = 0; s < STAGES; ++s) pn::mbar_init(&sm.full[s], 1);
     pn::mbar_init_fence();
     pn::mbar_arrive_expect_tx(&sm.q_full, BQ * D * 4);
-    load_rows(sm.q, BQ, &q_map, &sm.q_full, h, qt * BQ, b);
+    load_rows<D>(sm.q, BQ, &q_map, &sm.q_full, h, qt * BQ, b);
     for (int j = 0; j < min(STAGES, n_tiles); ++j) load(j);
   }
   __syncthreads();
@@ -857,8 +861,8 @@ pn_flash_f32_fwd_tc(const __grid_constant__ CUtensorMap q_map,
   auto split = [&](int j) {
     Smem::Slot& sl = sm.slot[j % STAGES];
     pn::mbar_wait(&sm.full[j % STAGES], (j / STAGES) & 1);
-    split_tile<false, true, 8>(sl.k, sl.k_small, nullptr, nullptr, threadIdx.x >> 5, lane);
-    split_tile<true, false, 8>(sl.v, nullptr, sl.vt[0], sl.vt[1], threadIdx.x >> 5, lane);
+    split_tile<D, T, false, true, 8>(sl.k, sl.k_small, nullptr, nullptr, threadIdx.x >> 5, lane);
+    split_tile<D, T, true, false, 8>(sl.v, nullptr, sl.vt[0], sl.vt[1], threadIdx.x >> 5, lane);
     pn::tma_store_fence();  // the writes are seen by wgmma (the async proxy)
   };
 
@@ -992,6 +996,352 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
 
 }  // namespace tc
 
+// ------------------------------------------- fp32 on the tensor cores, D = 32
+//
+// The same function as tc at head dim 32, the perception self-attention's
+// (SparseHead: B 1 or 2, Sq 900, Skv 1668, H 8). Its arithmetic is tc's:
+// 3xTF32 wgmma with each warpgroup's Q operands split into registers once;
+// the online softmax in base 2 with fp32 statistics; each key tile's P V in
+// a fresh accumulator set folded into the running output in rounded fp32
+// (the tensor cores' adder truncates); the kv_lens mask, an empty row's
+// Skv keys at scale 0, and lse for the backward. Bound: 3 x 4 B H Sq Skv D
+// flops at the TF32 rate (0.0093 ms at B 1 on an H100 SXM); the bytes take
+// a sixth of that. At D 32 a score costs half the tensor-core work it costs
+// at D 64 but the same softmax and P split, so the CUDA cores' share of
+// each tile is twice tc's. What differs from tc, and why:
+//  - Tiles: a row of D 32 is one 128-byte swizzled panel. A tile of KT 32
+//    keys: S = Q K^T is m64n32k8 x 4 k-steps, P V m64n32k8 x 4 against the
+//    V^T copy (32 rows of d). 64-key tiles measured slower: their two S
+//    sets, P operands and the rest take 239 registers, and ptxas serialises
+//    the wgmma (C7512).
+//  - Pipeline: tile j + 1's Q K^T is started before tile j's softmax, in a
+//    second accumulator set, so the exponentials and the P split of one
+//    tile run under the products of the next; tile j's P V, tile j + 2's
+//    split and tile j + 3's load follow, in a ring of STAGES slots (tiles
+//    j - 1 .. j + 3).
+//  - Filling the card: at B 1 the 128-row blocks (900 queries x 8 heads)
+//    number 64, half of the H100's 132 SMs. Where twice the blocks still
+//    fit one wave (key_split), the launch pairs the blocks of a query tile
+//    as a cluster of two that splits the row's keys (key_begin: whole
+//    tiles, block 0 no more of them than block 1; both, and the block
+//    order, in flash_f32_tc32_schedule.h, which the CPU tests build with a
+//    host compiler). Each block keeps its own
+//    running max, sum and output; block 1 hands them to block 0 through
+//    distributed shared memory, and block 0 merges them and stores once.
+//    Otherwise (B 2: 128 blocks) a block walks all the row's keys.
+//  - Loads: every thread copies its share of a tile from the strides into
+//    the swizzled layout with cp.async (zero-filled past Sq and Skv), each
+//    thread's copies arriving on the slot's mbarrier when they land, so the
+//    host passes strides and encodes no tensor map (the perception head is
+//    bound by host time).
+//  - The split of each tile by all eight warps and the output are tc's;
+//    the mask is applied on a part's last tile only.
+// What holds it below the bound is instruction issue, not the tensor cores:
+// a 32-key tile costs each thread about 560 instructions (the softmax, the
+// P split, the K and V split, the wgmma descriptors), more issue slots on
+// the SM's four schedulers than the tile's products take on the tensor
+// cores (scripts/compare_sass.py counts them; PERF.md has the times).
+
+namespace tc32 {
+
+// T, NTHREADS, PANEL and the shared device functions: flash_f32_tc.cuh;
+// BQ, KT, SPLIT, key_split, key_begin and block_of: flash_f32_tc32_schedule.h
+using namespace pn::tc;
+using namespace pn::tc32_schedule;
+
+constexpr int D = 32;
+constexpr int STAGES = 5;      // slots of the key ring
+constexpr int KTILE = KT * D;  // floats of a key tile, and of a transposed one
+
+struct Smem {
+  float q[BQ * D];  // Q as loaded; each thread splits its A operands into registers
+  struct Slot {
+    float k[KTILE];      // K as loaded, split in place into K_big
+    float k_small[KTILE];
+    float v[KTILE];      // V as loaded
+    float vt[2][KTILE];  // V^T big and small: KT / 32 panels of D rows, keys permuted by perm_col
+  } slot[STAGES];
+  uint64_t q_full;
+  uint64_t full[STAGES];
+};
+constexpr int SMEM_BYTES = sizeof(Smem) + pn::SWIZZLE_ATOM;  // room to align
+static_assert(SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
+// block 1's running max, sum and output (D / 2 + 4 values a thread) go to
+// block 0 through the slots
+static_assert(sizeof(Smem::slot) >= (D / 2 + 4) * NTHREADS * 4, "the slots hold the hand-over");
+
+// rows [row0, row0 + ROWS) of a strided (rows, 32) fp32 view into a tile of
+// 128-byte swizzled rows, by every thread with cp.async; rows from `limit`
+// on arrive as zeros
+template <int ROWS>
+__device__ __forceinline__ void load_async(float* dst, const float* src, long long stride,
+                                           int row0, int limit) {
+  static_assert(ROWS * 8 % NTHREADS == 0, "the threads divide the tile's 16-byte chunks");
+#pragma unroll
+  for (int i = 0; i < ROWS * 8 / NTHREADS; ++i) {
+    const int c = threadIdx.x + i * NTHREADS, r = c >> 3, ch = c & 7;
+    const bool in = row0 + r < limit;
+    pn::cp_async16(dst + swz(r, ch * 4), in ? src + (row0 + r) * stride + ch * 4 : src,
+                   in ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+pn_flash_f32_fwd_tc32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, const int* __restrict__ kv_lens, int heads,
+                      int sq, int skv, int q_tiles, int split, long long q_sb, long long q_ss,
+                      long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+                      long long v_sb, long long v_ss, long long v_sh, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(pn::align_smem(smem_raw));
+
+  // the `split` blocks of a query tile are one cluster, part its rank
+  const Block blk = block_of(blockIdx.x, heads, q_tiles, split);
+  const int b = blk.b, h = blk.h, qt = blk.qt, part = blk.part, bh = b * heads + h;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
+  const int key0 = key_begin(row_len, part, split), key1 = key_begin(row_len, part + 1, split);
+  const int n_tiles = (key1 - key0 + KT - 1) / KT;
+  const int group = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+
+  if (threadIdx.x == 0) {
+    pn::mbar_init(&sm.q_full, NTHREADS);
+    for (int s = 0; s < STAGES; ++s) pn::mbar_init(&sm.full[s], NTHREADS);
+    pn::mbar_init_fence();
+  }
+  __syncthreads();
+
+  float o_sum[D / 2], m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_sum[i] = 0.f;
+
+  if (n_tiles > 0) {  // a part with no key (a row of one key) keeps m, l and o_sum
+    auto load = [&](int j) {  // key tile j into its slot, by every thread
+      Smem::Slot& sl = sm.slot[j % STAGES];
+      load_async<KT>(sl.k, kb, k_ss, key0 + j * KT, skv);
+      load_async<KT>(sl.v, vb, v_ss, key0 + j * KT, skv);
+      pn::cp_async_arrive(&sm.full[j % STAGES]);
+    };
+    load_async<BQ>(sm.q, q + b * q_sb + h * q_sh, q_ss, qt * BQ, sq);
+    pn::cp_async_arrive(&sm.q_full);
+    for (int j = 0; j < min(STAGES - 1, n_tiles); ++j) load(j);
+    // this warpgroup's 64 query rows of the Q tile as the A operands of
+    // S = Q K^T, split into their big and small TF32 parts, held in registers
+    uint32_t qa_big[D / 8][4], qa_small[D / 8][4];
+    pn::mbar_wait(&sm.q_full, 0);
+    load_a(sm.q, BQ, group * 64, warp, lane, qa_big, qa_small);
+
+    // key tile j, once arrived, split by all eight warps; a block barrier
+    // before its first product makes the split visible to both warpgroups
+    auto split_kv = [&](int j) {
+      Smem::Slot& sl = sm.slot[j % STAGES];
+      pn::mbar_wait(&sm.full[j % STAGES], (j / STAGES) & 1);
+      split_tile<D, KT, false, true, 8>(sl.k, sl.k_small, nullptr, nullptr, threadIdx.x >> 5,
+                                        lane);
+      split_tile<D, KT, true, false, 8>(sl.v, nullptr, sl.vt[0], sl.vt[1], threadIdx.x >> 5,
+                                        lane);
+      pn::tma_store_fence();  // the writes are seen by wgmma (the async proxy)
+    };
+
+    // S of tiles j and j + 1 in flight together: two accumulator sets,
+    // s_even for the even tiles and s_odd for the odd ones
+    float s_even[1][KT / 2], s_odd[1][KT / 2], acc[D / 2], corr[2];
+    uint32_t p_big[KT / 8][4], p_small[KT / 8][4];
+
+    auto start_s = [&](int j, float(&s_sets)[1][KT / 2]) {  // S = Q K^T of tile j, one group
+      const Smem::Slot& sl = sm.slot[j % STAGES];
+      pn::wgmma_fence();
+      product_nt_rs(s_sets, qa_big, qa_small, pn::smem_u32(sl.k), pn::smem_u32(sl.k_small),
+                    KT * pn::SWIZZLE_BYTES);
+      pn::wgmma_commit();
+    };
+    auto start_pv = [&](int j) {  // acc = P V of tile j, a fresh set, one committed group
+      const Smem::Slot& sl = sm.slot[j % STAGES];
+      pn::wgmma_fence();
+      product_rs(acc, p_big, p_small, pn::smem_u32(sl.vt[0]), pn::smem_u32(sl.vt[1]));
+      pn::wgmma_commit();
+    };
+    // the online softmax of tile j on this thread's rows g, g + 8 of its
+    // warp's 16 (score i: row g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t +
+    // i % 2), in base 2; corr becomes the factor of the sums so far, and
+    // the probabilities, as A operands, are the tile's P V
+    auto softmax = [&](int j, float(&s_sets)[1][KT / 2]) {
+      pn::pin(s_sets);
+      float s[KT / 2];
+      sum_sets(s, s_sets);
+      const int limit = key1 - key0 - j * KT;
+      float mx[2] = {NEG, NEG}, sum[2] = {0.f, 0.f};
+      if (limit < KT) {  // the part's last tile: keys from `limit` on are masked
+#pragma unroll
+        for (int i = 0; i < KT / 2; ++i) {
+          const int col = (i >> 2) * 8 + t * 2 + (i & 1);
+          s[i] = col < limit ? s[i] * scale_log2 : neg_inf();
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < KT / 2; ++i) s[i] *= scale_log2;
+      }
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float mn = fmaxf(m[r], mx[r]);
+        corr[r] = wg::ex2(m[r] - mn);
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) {
+        s[i] = wg::ex2(s[i] - m[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += s[i];
+      }
+      l[0] = l[0] * corr[0] + sum[0];
+      l[1] = l[1] * corr[1] + sum[1];
+      to_a(s, p_big, p_small);
+    };
+    auto fold = [&]() {  // the finished P V set into the running output
+      pn::pin(acc);
+      pn::pin(p_big);
+      pn::pin(p_small);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o_sum[i] = o_sum[i] * corr[(i >> 1) & 1] + acc[i];
+    };
+    // one tile of the pipeline: tile j + 1's Q K^T is started before tile
+    // j's softmax, so the exponentials of one tile run under the products of
+    // the next; `mine` holds tile j's S, `next` takes tile j + 1's
+    auto step = [&](int j, float(&mine)[1][KT / 2], float(&next)[1][KT / 2]) {
+      // tile j + 1 is split, and every thread is done with tile j-2's slot
+      // (its P V was waited for): the slot takes tile j + 3
+      __syncthreads();
+      if (j >= 1 && j + 3 < n_tiles) load(j + 3);
+      if (j + 1 < n_tiles) {
+        start_s(j + 1, next);
+        pn::wgmma_wait<1>();  // tile j's Q K^T and tile j-1's P V are done
+      } else {
+        pn::wgmma_wait<0>();
+      }
+      if (j >= 1) fold();
+      if (j + 2 < n_tiles) split_kv(j + 2);  // under tile j + 1's Q K^T
+      softmax(j, mine);
+      start_pv(j);
+    };
+
+    split_kv(0);
+    __syncthreads();
+    start_s(0, s_even);
+    if (n_tiles > 1) split_kv(1);  // under tile 0's Q K^T
+    for (int j = 0; j < n_tiles; j += 2) {
+      step(j, s_even, s_odd);
+      if (j + 1 < n_tiles) step(j + 1, s_odd, s_even);
+    }
+    pn::wgmma_wait<0>();
+    fold();
+  }
+
+  if (split > 1) {
+    // block 1's running max, sums and output go to block 0 through block
+    // 1's slots (free once both its warpgroups are done); block 0 merges
+    // them into its own: m = max(m0, m1), each part's sums times
+    // exp2(m_part - m), the part with no key weighing 0
+    float* red = sm.slot[0].k;
+    __syncthreads();
+    if (part == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) red[i * NTHREADS + threadIdx.x] = o_sum[i];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        red[(D / 2 + r) * NTHREADS + threadIdx.x] = m[r];
+        red[(D / 2 + 2 + r) * NTHREADS + threadIdx.x] = l[r];
+      }
+    }
+    pn::cluster_sync();
+    if (part == 0) {
+      const uint32_t peer = pn::cluster_map(pn::smem_u32(red + threadIdx.x), 1);
+      float w0[2], w1[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m1 = pn::cluster_load(peer + (D / 2 + r) * NTHREADS * 4);
+        const float l1 = pn::cluster_load(peer + (D / 2 + 2 + r) * NTHREADS * 4);
+        const float mn = fmaxf(m[r], m1);
+        w0[r] = wg::ex2(m[r] - mn);
+        w1[r] = wg::ex2(m1 - mn);
+        l[r] = l[r] * w0[r] + l1 * w1[r];
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        o_sum[i] = o_sum[i] * w0[(i >> 1) & 1] +
+                   pn::cluster_load(peer + i * NTHREADS * 4) * w1[(i >> 1) & 1];
+    }
+    pn::cluster_sync();  // block 1's shared memory stays until block 0 has read it
+    if (part != 0) return;
+  }
+
+  // the output, (B, Sq, H, D) contiguous, written once; rows past Sq never
+  const int row0 = qt * BQ + group * 64 + warp * 16 + g;
+  float* ob = o + (static_cast<long long>(b) * sq * heads + h) * D;
+  const long long o_ss = static_cast<long long>(heads) * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.f / l[r];
+    const int row = row0 + 8 * r;
+    if (row < sq) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(ob + row * o_ss + n * 8 + t * 2) =
+            make_float2(o_sum[n * 4 + r * 2] * inv, o_sum[n * 4 + r * 2 + 1] * inv);
+      if (lse && t == 0) lse[static_cast<long long>(bh) * sq + row] = m[r] + log2f(l[r]);
+    }
+  }
+}
+
+// st: the strides of q, k and v as the C entry takes them. The blocks of a
+// query tile form a cluster of key_split(...) blocks.
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
+           int batch, int heads, int sq, int skv, const long long* st, float scale_log2,
+           cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pn_flash_f32_fwd_tc32, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int q_tiles = (sq + BQ - 1) / BQ;
+  const long long tiles = static_cast<long long>(batch) * heads * q_tiles;
+  const int split = key_split(tiles, sms);
+  if (tiles < 1 || tiles * split > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * split));
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pn_flash_f32_fwd_tc32, static_cast<const float*>(q),
+                           static_cast<const float*>(k), static_cast<const float*>(v),
+                           static_cast<float*>(o), static_cast<float*>(lse),
+                           static_cast<const int*>(kv_lens), heads, sq, skv, q_tiles, split,
+                           st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+                           scale_log2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc32
+
 }  // namespace
 
 // strides: {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h} in elements; the
@@ -1028,7 +1378,7 @@ extern "C" int pn_flash_attention_f32(const void* q, const void* k, const void* 
   switch (d) {
     case 64: return tc::launch(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
     case 16: return f32::launch<16>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
-    case 32: return f32::launch<32>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
+    case 32: return tc32::launch(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
     case 128: return f32::launch<128>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1256,10 +1256,12 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 namespace tc {
 
-// D, T, NTHREADS, PANEL, TILE and the shared device functions (the split
-// helpers, product_nt, product_rs, to_a, reduce_write): flash_f32_tc.cuh
+// T, NTHREADS, PANEL and the shared device functions (the split helpers,
+// product_nt, product_rs, to_a, reduce_write): flash_f32_tc.cuh
 using namespace pn::tc;
 
+constexpr int D = 64;
+constexpr int TILE = T * D;    // floats of a streamed tile, and of a transposed one
 constexpr int KB = 64;         // keys per dK/dV block
 constexpr int QB = 64;         // query rows per dQ block
 constexpr int STAGES = 2;      // ring slots of each warpgroup
@@ -1323,8 +1325,8 @@ pn_flash_bwd_f32_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
   auto load = [&](int i) {  // this warpgroup's tile i (by its thread 0)
     const int s = i % STAGES, row0 = (group + 2 * i) * T;
     pn::mbar_arrive_expect_tx(&sm.full[group][s], 2 * TILE * 4);
-    load_rows(w.raw[s][0], T, &q_map, &sm.full[group][s], h, row0, b);
-    load_rows(w.raw[s][1], T, &do_map, &sm.full[group][s], h, row0, b);
+    load_rows<D>(w.raw[s][0], T, &q_map, &sm.full[group][s], h, row0, b);
+    load_rows<D>(w.raw[s][1], T, &do_map, &sm.full[group][s], h, row0, b);
   };
   if (threadIdx.x == 0) {
     pn::mbar_init(&sm.kv_full, 1);
@@ -1334,8 +1336,8 @@ pn_flash_bwd_f32_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
     }
     pn::mbar_init_fence();
     pn::mbar_arrive_expect_tx(&sm.kv_full, 2 * KB * D * 4);
-    load_rows(sm.k[0], KB, &k_map, &sm.kv_full, h, key0, b);
-    load_rows(sm.v[0], KB, &v_map, &sm.kv_full, h, key0, b);
+    load_rows<D>(sm.k[0], KB, &k_map, &sm.kv_full, h, key0, b);
+    load_rows<D>(sm.v[0], KB, &v_map, &sm.kv_full, h, key0, b);
   }
   __syncthreads();
   if (tid == 0)
@@ -1360,17 +1362,17 @@ pn_flash_bwd_f32_dkdv_tc(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < my_tiles; ++i) {
     const int st = i % STAGES, q0 = (group + 2 * i) * T;
     pn::mbar_wait(&sm.full[group][st], (i / STAGES) & 1);
-    split_tile<true>(w.raw[st][0], w.small[0], w.tr[0][0], w.tr[0][1], warp, lane);
-    split_tile<true>(w.raw[st][1], w.small[1], w.tr[1][0], w.tr[1][1], warp, lane);
+    split_tile<D, T, true>(w.raw[st][0], w.small[0], w.tr[0][0], w.tr[0][1], warp, lane);
+    split_tile<D, T, true>(w.raw[st][1], w.small[1], w.tr[1][0], w.tr[1][1], warp, lane);
     pn::tma_store_fence();
     pn::group_sync(group);
 
     // S^T = K Q^T and dP^T = V dO^T (64 keys x 32 queries)
     float s_sets[SETS][16], dp_sets[SETS][16];
     pn::wgmma_fence();
-    product_nt(s_sets, kb, ks, KB * 128, pn::smem_u32(w.raw[st][0]), pn::smem_u32(w.small[0]),
+    product_nt<D>(s_sets, kb, ks, KB * 128, pn::smem_u32(w.raw[st][0]), pn::smem_u32(w.small[0]),
                T * 128);
-    product_nt(dp_sets, vb, vs, KB * 128, pn::smem_u32(w.raw[st][1]), pn::smem_u32(w.small[1]),
+    product_nt<D>(dp_sets, vb, vs, KB * 128, pn::smem_u32(w.raw[st][1]), pn::smem_u32(w.small[1]),
                T * 128);
     pn::wgmma_commit();
     // the lse (+inf past Sq) and Delta of this thread's queries q0 + 8 n + 2 t + e
@@ -1461,8 +1463,8 @@ pn_flash_bwd_f32_dq_tc(const __grid_constant__ CUtensorMap q_map,
   auto load = [&](int i) {  // this warpgroup's key tile i (by its thread 0)
     const int s = i % STAGES, row0 = (group + 2 * i) * T;
     pn::mbar_arrive_expect_tx(&sm.full[group][s], 2 * TILE * 4);
-    load_rows(w.raw[s][0], T, &k_map, &sm.full[group][s], h, row0, b);
-    load_rows(w.raw[s][1], T, &v_map, &sm.full[group][s], h, row0, b);
+    load_rows<D>(w.raw[s][0], T, &k_map, &sm.full[group][s], h, row0, b);
+    load_rows<D>(w.raw[s][1], T, &v_map, &sm.full[group][s], h, row0, b);
   };
   if (threadIdx.x == 0) {
     pn::mbar_init(&sm.q_full, 1);
@@ -1472,8 +1474,8 @@ pn_flash_bwd_f32_dq_tc(const __grid_constant__ CUtensorMap q_map,
     }
     pn::mbar_init_fence();
     pn::mbar_arrive_expect_tx(&sm.q_full, 2 * QB * D * 4);
-    load_rows(sm.q[0], QB, &q_map, &sm.q_full, h, qt * QB, b);
-    load_rows(sm.d_o[0], QB, &do_map, &sm.q_full, h, qt * QB, b);
+    load_rows<D>(sm.q[0], QB, &q_map, &sm.q_full, h, qt * QB, b);
+    load_rows<D>(sm.d_o[0], QB, &do_map, &sm.q_full, h, qt * QB, b);
   }
   __syncthreads();
   if (tid == 0)
@@ -1502,17 +1504,17 @@ pn_flash_bwd_f32_dq_tc(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < my_tiles; ++i) {
     const int st = i % STAGES, key0 = (group + 2 * i) * T;
     pn::mbar_wait(&sm.full[group][st], (i / STAGES) & 1);
-    split_tile<true>(w.raw[st][0], w.small[0], w.tr[0], w.tr[1], warp, lane);
-    split_tile<false>(w.raw[st][1], w.small[1], nullptr, nullptr, warp, lane);
+    split_tile<D, T, true>(w.raw[st][0], w.small[0], w.tr[0], w.tr[1], warp, lane);
+    split_tile<D, T, false>(w.raw[st][1], w.small[1], nullptr, nullptr, warp, lane);
     pn::tma_store_fence();
     pn::group_sync(group);
 
     // S = Q K^T and dP = dO V^T (64 rows x 32 keys)
     float s_sets[SETS][16], dp_sets[SETS][16];
     pn::wgmma_fence();
-    product_nt(s_sets, qb, qs, QB * 128, pn::smem_u32(w.raw[st][0]), pn::smem_u32(w.small[0]),
+    product_nt<D>(s_sets, qb, qs, QB * 128, pn::smem_u32(w.raw[st][0]), pn::smem_u32(w.small[0]),
                T * 128);
-    product_nt(dp_sets, ob, os, QB * 128, pn::smem_u32(w.raw[st][1]), pn::smem_u32(w.small[1]),
+    product_nt<D>(dp_sets, ob, os, QB * 128, pn::smem_u32(w.raw[st][1]), pn::smem_u32(w.small[1]),
                T * 128);
     pn::wgmma_commit();
     pn::wgmma_wait<0>();

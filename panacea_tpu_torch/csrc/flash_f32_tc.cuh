@@ -1,11 +1,14 @@
 // The building blocks of the fp32 flash kernels on the tensor cores: the
-// forward (tc::pn_flash_f32_fwd_tc, flash_attention.cu) and both passes of
-// the backward (tc::pn_flash_bwd_f32_{dkdv,dq}_tc, flash_attention_bwd.cu).
+// forwards (tc::pn_flash_f32_fwd_tc at head dim 64, tc32::pn_flash_f32_fwd_tc32
+// at head dim 32, flash_attention.cu) and both passes of the backward
+// (tc::pn_flash_bwd_f32_{dkdv,dq}_tc, flash_attention_bwd.cu, head dim 64).
 // Each product is 3xTF32 on wgmma (pn::tf32_split: each operand a big and a
 // small TF32 part, the three larger of the four products summed); the
-// operands are fp32 tiles of 64 channels laid down by TMA as two 32-column
-// panels of 128-byte rows with the 128-byte swizzle, split in shared memory
-// or, for a register A operand, as they are read into registers.
+// operands are fp32 tiles of D channels (D / 32 panels of 128-byte rows with
+// the 128-byte swizzle: two at D 64, one at D 32), laid down by TMA or
+// cp.async, split in shared memory or, for a register A operand, as they
+// are read into registers. The head dim and the tile shapes are template
+// arguments, deduced from the register arrays where a function has them.
 
 #pragma once
 
@@ -14,11 +17,9 @@
 namespace pn {
 namespace tc {
 
-constexpr int D = 64;
-constexpr int T = 32;          // rows per streamed tile
+constexpr int T = 32;          // rows per streamed tile of the head-dim-64 kernels
 constexpr int NTHREADS = 256;  // two consumer warpgroups
 constexpr int PANEL = 32;      // fp32 values of one 128-byte swizzled row
-constexpr int TILE = T * D;    // floats of a streamed tile, and of a transposed one
 
 // Float offset of (row, col) in a panel of 128-byte rows laid down with the
 // 128-byte swizzle: the 16-byte chunk c of row r lies at chunk c ^ (r % 8).
@@ -35,11 +36,12 @@ __device__ __forceinline__ int perm_col(int r) {
   return (r & ~7) | (a >> 1) | ((a & 1) << 2);
 }
 
-// rows [row0, row0 + rows) of one head of a (B, S, H, 64) fp32 tensor into a
-// tile of two 32-column panels, in 32-row boxes; rows past S arrive as zeros
+// rows [row0, row0 + rows) of one head of a (B, S, H, D) fp32 tensor into a
+// tile of D / 32 panels, in 32-row boxes; rows past S arrive as zeros
+template <int D>
 __device__ __forceinline__ void load_rows(float* dst, int rows, const CUtensorMap* map,
                                           uint64_t* bar, int h, int row0, int b) {
-  for (int p = 0; p < 2; ++p)
+  for (int p = 0; p < D / PANEL; ++p)
     for (int r = 0; r < rows; r += T)
       tma_load_4d(dst + p * rows * PANEL + r * PANEL, map, bar, p * PANEL, h, row0 + r, b);
 }
@@ -64,20 +66,26 @@ __device__ __forceinline__ void split_flat(float* big, float* small, int n) {
   }
 }
 
-// A streamed (32 x 64) tile, by WARPS warps: with DIRECT split in place, the
-// small part beside it; with TRANSPOSE the transposed copy (64 rows of d, the
-// tile rows permuted by perm_col), big and small. Lane = tile row, and warp w
-// takes 16 / WARPS of the tile's 16 columns of 16-byte chunks, so that the
-// reads and the transposed writes of a warp fall on distinct banks.
-template <bool TRANSPOSE, bool DIRECT = true, int WARPS = 4>
+// A streamed (ROWS x D) tile, by WARPS warps: with DIRECT split in place, the
+// small part beside it; with TRANSPOSE the transposed copy (D rows of d; the
+// tile rows permuted by perm_col, each band of 32 rows a panel of its own),
+// big and small. Lane = row within a band of 32, and the tile's (band,
+// 16-byte chunk) pairs are dealt to the warps in order, so that the reads and
+// the transposed writes of a warp fall on distinct banks.
+template <int D, int ROWS, bool TRANSPOSE, bool DIRECT = true, int WARPS = 4>
 __device__ __forceinline__ void split_tile(float* raw, float* small, float* tr_big,
                                            float* tr_small, int warp, int lane) {
-  constexpr int CHUNKS = 16 / WARPS;
+  constexpr int CH = D / 4;                    // 16-byte chunks of a row
+  constexpr int PER = ROWS / 32 * CH / WARPS;  // (band, chunk) pairs of a warp
+  static_assert(PER * WARPS * 32 == ROWS * CH, "the warps divide the tile");
   const int jj = perm_col(lane);
 #pragma unroll
-  for (int e = 0; e < CHUNKS; ++e) {
-    const int c = warp * CHUNKS + e;  // columns 4 c .. 4 c + 3, in panel c / 8
-    const int off = (c >> 3) * T * PANEL + swz(lane, (c & 7) * 4);
+  for (int e = 0; e < PER; ++e) {
+    // columns 4 c .. 4 c + 3 of rows 32 band .. 32 band + 31 (a tile of 32
+    // rows is one band: its chunk index needs no division)
+    const int pair = warp * PER + e, band = ROWS == 32 ? 0 : pair / CH;
+    const int c = ROWS == 32 ? pair : pair % CH;
+    const int off = (c >> 3) * ROWS * PANEL + swz(band * 32 + lane, (c & 7) * 4);
     float4 hi, lo;
     split4(*reinterpret_cast<const float4*>(raw + off), hi, lo);
     if constexpr (DIRECT) {
@@ -88,18 +96,28 @@ __device__ __forceinline__ void split_tile(float* raw, float* small, float* tr_b
       const float hs[4] = {hi.x, hi.y, hi.z, hi.w}, ls[4] = {lo.x, lo.y, lo.z, lo.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        tr_big[swz(c * 4 + i, jj)] = hs[i];
-        tr_small[swz(c * 4 + i, jj)] = ls[i];
+        tr_big[band * D * PANEL + swz(c * 4 + i, jj)] = hs[i];
+        tr_small[band * D * PANEL + swz(c * 4 + i, jj)] = ls[i];
       }
     }
   }
 }
 
-// acc (64 x 32) = A (64 x 64) B^T (B: 32 x 64), both K-major in two 32-column
-// panels (`a_panel`, `b_panel`: bytes from one panel to the next), each as
-// big and small parts: 8 k-steps of three products, every D / SETS channels
-// into a fresh accumulator set, which sum_sets adds. Not committed.
-template <int SETS>
+// d (64 x N) = or += A (64 x 8, TF32 in registers) B^T (B: N x 8, shared,
+// K-major), N = 2 M: 32 or 64
+template <int M>
+__device__ __forceinline__ void mma_rs(float (&d)[M], const uint32_t (&a)[4], uint64_t desc_b,
+                                       int accumulate) {
+  static_assert(M == 16 || M == 32, "N is 32 or 64");
+  if constexpr (M == 32) wgmma_m64n64k8_tf32_rs(d, a, desc_b, accumulate);
+  else wgmma_m64n32k8_tf32_rs(d, a, desc_b, accumulate);
+}
+
+// acc (64 x 32) = A (64 x D) B^T (B: 32 x D), both K-major in D / 32 panels
+// (`a_panel`, `b_panel`: bytes from one panel to the next), each as big and
+// small parts: D / 8 k-steps of three products, every D / SETS channels into
+// a fresh accumulator set, which sum_sets adds. Not committed.
+template <int D, int SETS>
 __device__ __forceinline__ void product_nt(float (&acc)[SETS][16], uint32_t a_big,
                                            uint32_t a_small, int a_panel, uint32_t b_big,
                                            uint32_t b_small, int b_panel) {
@@ -116,37 +134,40 @@ __device__ __forceinline__ void product_nt(float (&acc)[SETS][16], uint32_t a_bi
   }
 }
 
-// The same product with A (64 x 64) in registers, as the big and small TF32
-// parts of the A operands of its 8 k-steps (`a_big`, `a_small`, the fragment
-// layout of wgmma_m64n32k8_tf32_rs): only B is read from shared memory.
-template <int SETS>
-__device__ __forceinline__ void product_nt_rs(float (&acc)[SETS][16],
-                                              const uint32_t (&a_big)[D / 8][4],
-                                              const uint32_t (&a_small)[D / 8][4],
+// acc (64 x 2 M) = A (64 x D, D = 8 KS) B^T (B: 2 M x D, K-major in D / 32
+// panels `b_panel` bytes apart) with A in registers, as the big and small
+// TF32 parts of the A operands of its KS k-steps (`a_big`, `a_small`, the
+// fragment layout of wgmma_m64n64k8_tf32_rs): only B is read from shared
+// memory. Every D / SETS channels go into a fresh accumulator set.
+template <int SETS, int M, int KS>
+__device__ __forceinline__ void product_nt_rs(float (&acc)[SETS][M],
+                                              const uint32_t (&a_big)[KS][4],
+                                              const uint32_t (&a_small)[KS][4],
                                               uint32_t b_big, uint32_t b_small, int b_panel) {
-  constexpr int PER_SET = D / 8 / SETS;  // k-steps of one set
-  static_assert(PER_SET * SETS * 8 == D, "the sets divide the channels");
+  constexpr int PER_SET = KS / SETS;  // k-steps of one set
+  static_assert(PER_SET * SETS == KS, "the sets divide the channels");
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    float(&set)[16] = acc[kk / PER_SET];
+  for (int kk = 0; kk < KS; ++kk) {
+    float(&set)[M] = acc[kk / PER_SET];
     const int bo = (kk >> 2) * b_panel + (kk & 3) * 32;
-    wgmma_m64n32k8_tf32_rs(set, a_small[kk], smem_desc(b_big + bo), kk % PER_SET != 0);
-    wgmma_m64n32k8_tf32_rs(set, a_big[kk], smem_desc(b_small + bo), 1);
-    wgmma_m64n32k8_tf32_rs(set, a_big[kk], smem_desc(b_big + bo), 1);
+    mma_rs(set, a_small[kk], smem_desc(b_big + bo), kk % PER_SET != 0);
+    mma_rs(set, a_big[kk], smem_desc(b_small + bo), 1);
+    mma_rs(set, a_big[kk], smem_desc(b_big + bo), 1);
   }
 }
 
 // The register A operands of product_nt_rs for this thread (lane `lane` of
 // warp `warp` of its warpgroup) from rows [row0, row0 + 64) of a resident
-// fp32 tile of `rows` rows in two 32-column panels, as TMA laid it down:
-// a[kk][0], a[kk][1] rows 16 warp + lane / 4 and 8 further on at channel
-// 8 kk + lane % 4, a[kk][2], a[kk][3] the same rows 4 channels further on;
-// each value split into its big and small TF32 parts.
+// fp32 tile of `rows` rows in D / 32 panels (D = 8 KS), as TMA laid it
+// down: a[kk][0], a[kk][1] rows 16 warp + lane / 4 and 8 further on at
+// channel 8 kk + lane % 4, a[kk][2], a[kk][3] the same rows 4 channels
+// further on; each value split into its big and small TF32 parts.
+template <int KS>
 __device__ __forceinline__ void load_a(const float* tile, int rows, int row0, int warp, int lane,
-                                       uint32_t (&big)[D / 8][4], uint32_t (&small)[D / 8][4]) {
+                                       uint32_t (&big)[KS][4], uint32_t (&small)[KS][4]) {
   const int r = row0 + warp * 16 + (lane >> 2), t = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r + (e & 1) * 8, col = (kk & 3) * 8 + t + (e >> 1) * 4;
@@ -158,37 +179,41 @@ __device__ __forceinline__ void load_a(const float* tile, int rows, int row0, in
 }
 
 // the sets of product_nt added in order, rounded to nearest
-template <int SETS>
-__device__ __forceinline__ void sum_sets(float (&out)[16], const float (&acc)[SETS][16]) {
+template <int SETS, int M>
+__device__ __forceinline__ void sum_sets(float (&out)[M], const float (&acc)[SETS][M]) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < M; ++j) {
     out[j] = acc[0][j];
 #pragma unroll
     for (int c = 1; c < SETS; ++c) out[j] += acc[c][j];
   }
 }
 
-// acc (64 x 64) = A (64 x 32; big and small parts in registers, four k8
-// steps) times a transposed tile (64 rows x 32, big and small), in a fresh
-// accumulator set. Not committed.
-__device__ __forceinline__ void product_rs(float (&acc)[32], const uint32_t (&a_big)[4][4],
-                                           const uint32_t (&a_small)[4][4], uint32_t b_big,
+// acc (64 x D, D = 2 M) = A (64 x 8 KS; big and small parts in registers,
+// KS k8 steps) times a transposed tile (D rows x 8 KS, big and small; each
+// 32 of the contraction a panel of D rows), in a fresh accumulator set. Not
+// committed.
+template <int M, int KS>
+__device__ __forceinline__ void product_rs(float (&acc)[M], const uint32_t (&a_big)[KS][4],
+                                           const uint32_t (&a_small)[KS][4], uint32_t b_big,
                                            uint32_t b_small) {
 #pragma unroll
-  for (int kk = 0; kk < T / 8; ++kk) {
-    wgmma_m64n64k8_tf32_rs(acc, a_small[kk], smem_desc(b_big + kk * 32), kk > 0);
-    wgmma_m64n64k8_tf32_rs(acc, a_big[kk], smem_desc(b_small + kk * 32), 1);
-    wgmma_m64n64k8_tf32_rs(acc, a_big[kk], smem_desc(b_big + kk * 32), 1);
+  for (int kk = 0; kk < KS; ++kk) {
+    const int bo = (kk >> 2) * 2 * M * SWIZZLE_BYTES + (kk & 3) * 32;
+    mma_rs(acc, a_small[kk], smem_desc(b_big + bo), kk > 0);
+    mma_rs(acc, a_big[kk], smem_desc(b_small + bo), 1);
+    mma_rs(acc, a_big[kk], smem_desc(b_big + bo), 1);
   }
 }
 
-// x (64 x 32 in the accumulator layout) as the big and small TF32 parts of
-// the register A operands of four k8 steps: a[0], a[1] the rows g, g + 8 at
+// x (64 x 2 M in the accumulator layout) as the big and small TF32 parts of
+// the register A operands of M / 4 k8 steps: a[0], a[1] the rows g, g + 8 at
 // column 2t (logical k = t), a[2], a[3] at column 2t + 1 (k = t + 4)
-__device__ __forceinline__ void to_a(const float (&x)[16], uint32_t (&big)[4][4],
-                                     uint32_t (&small)[4][4]) {
+template <int M>
+__device__ __forceinline__ void to_a(const float (&x)[M], uint32_t (&big)[M / 4][4],
+                                     uint32_t (&small)[M / 4][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < M / 4; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float hi, lo;
@@ -198,27 +223,28 @@ __device__ __forceinline__ void to_a(const float (&x)[16], uint32_t (&big)[4][4]
     }
 }
 
-// The (64 x 64) sums of warpgroup 1 go through shared memory (`red`, 32 KB)
-// to warpgroup 0, which adds them to its own, always in this order, and
-// writes its rows r0, r0 + 8 (those below `rows`) of a (B, S, H, 64) fp32
-// tensor, times `scale`.
-__device__ __forceinline__ void reduce_write(float* red, float (&sum)[32], int group, int tid,
+// The (64 x D, D = 2 M) sums of warpgroup 1 go through shared memory
+// (`red`, 128 M floats) to warpgroup 0, which adds them to its own, always in
+// this order, and writes its rows r0, r0 + 8 (those below `rows`) of a
+// (B, S, H, D) fp32 tensor, times `scale`.
+template <int M>
+__device__ __forceinline__ void reduce_write(float* red, float (&sum)[M], int group, int tid,
                                              float* base, long long row_stride, float scale,
                                              int r0, int rows, int t) {
   if (group == 1) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) red[i * 128 + tid] = sum[i];
+    for (int i = 0; i < M; ++i) red[i * 128 + tid] = sum[i];
   }
   __syncthreads();
   if (group == 0) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sum[i] += red[i * 128 + tid];
+    for (int i = 0; i < M; ++i) sum[i] += red[i * 128 + tid];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
       if (row < rows) {
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
+        for (int n = 0; n < M / 4; ++n)
           *reinterpret_cast<float2*>(base + row * row_stride + n * 8 + t * 2) =
               make_float2(sum[n * 4 + r * 2] * scale, sum[n * 4 + r * 2 + 1] * scale);
       }

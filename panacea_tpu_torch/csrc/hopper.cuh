@@ -159,6 +159,44 @@ __device__ __forceinline__ void tma_store_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// 16 bytes from device memory to shared memory without registers
+// (cp.async); with `bytes` 0 the 16 bytes are zeros and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// One arrival on `bar` once this thread's cp.async copies so far have
+// landed; the barrier counts it among the arrivals it was initialised with
+// (.noinc), and its completion makes the copies visible to the threads that
+// wait on it.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Barrier over every thread of the cluster; the shared-memory writes before
+// it are seen by the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// The address in block `rank` of this cluster of this block's shared-memory
+// address `addr`, and a float read from such an address.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float cluster_load(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // Makes this thread's shared-memory writes visible to the async proxy: to TMA
 // stores and to wgmma's shared-memory operands.
 __device__ __forceinline__ void tma_store_fence() {

@@ -102,6 +102,23 @@ def flash_route(d: int) -> str:
     return "wgmma" if d == 64 else "mma"
 
 
+def flash_strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> List[int]:
+    """The element strides (batch, sequence, head) of q, k and v, as the C
+    entries of the flash kernels take them (the head dim's is 1): the
+    kernels that read through strides (mma.sync, FMA, and cp.async at head
+    dim 32 in fp32) address element (b, s, h, c) of each at its pointer plus
+    b, s and h times these plus c."""
+    return [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
+
+
+def flash_f32_kernel(d: int) -> str:
+    """Which fp32 forward kernel of csrc/flash_attention.cu serves head dim
+    ``d`` (``pn_flash_attention_f32``'s switch): ``tc`` (3xTF32 wgmma, TMA)
+    at 64, ``tc32`` (3xTF32 wgmma, cp.async) at 32, ``fma`` (the FMA units)
+    at 16 and 128."""
+    return {64: "tc", 32: "tc32"}.get(d, "fma")
+
+
 def flash_f32_map_specs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> List[int]:
     """The three maps of the fp32 forward on the tensor cores, as
     ``tc::launch`` in csrc/flash_attention.cu takes them: q, k and v (the

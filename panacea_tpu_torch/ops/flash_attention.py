@@ -14,10 +14,13 @@ On a CPU tensor ``flash_attention`` runs ``flash_attention_plain``. On a
 CUDA tensor it launches a kernel or raises: it never falls back. The
 operands keep their type, as in the Pallas kernel: bf16 at head dim 64 goes
 to the wgmma/TMA kernel, at 16, 32 and 128 to the mma.sync kernel
-(``_tma.flash_route``); fp32 goes to the fp32 kernels, at head dim 64 on
-the tensor cores as 3xTF32 (TMA, wgmma), at 16, 32 and 128 on the FMA
-units. ``flash_attention.launches`` counts all launches and
-``flash_attention.route_launches`` each route's.
+(``_tma.flash_route``); fp32 goes to the fp32 kernels
+(``_tma.flash_f32_kernel``), at head dims 64 and 32 on the tensor cores as
+3xTF32 (wgmma; TMA at 64, cp.async from the strides at 32, the perception
+self-attention's), at 16 and 128 on the FMA units.
+``flash_attention.launches`` counts all launches,
+``flash_attention.route_launches`` each route's and
+``flash_attention.fp32_kernel_launches`` each fp32 kernel's.
 
 Gradients: where autograd needs them, ``flash_attention`` goes through a
 ``torch.autograd.Function`` whose forward also writes the row log-sum-exp
@@ -237,7 +240,7 @@ def _forward(q, k, v, scale: float, kv_lens, with_lse: bool):
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     lse_ptr = lse.data_ptr() if with_lse else None
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    strides = (ctypes.c_longlong * 9)(*_tma.flash_strides(q, k, v))
     route = _route(q.dtype, d)
     lens_ptr = kv_lens.data_ptr() if kv_lens is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -256,6 +259,8 @@ def _forward(q, k, v, scale: float, kv_lens, with_lse: bool):
     _build.check(lib, err, f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
+    if route == "fp32":
+        flash_attention.fp32_kernel_launches[_tma.flash_f32_kernel(d)] += 1
     return out, lse
 
 
@@ -295,7 +300,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    strides = (ctypes.c_longlong * 9)(*_tma.flash_strides(q, k, v))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             kv_lens.data_ptr() if kv_lens is not None else None, b, h, sq, k.shape[1], d,
@@ -352,4 +357,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention.launches = 0
 flash_attention.route_launches = {"wgmma": 0, "mma": 0, "fp32": 0}
+flash_attention.fp32_kernel_launches = {"tc": 0, "tc32": 0, "fma": 0}
 

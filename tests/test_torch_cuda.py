@@ -81,11 +81,15 @@ def test_geglu_kernel_matches_plain_on_card(cuda, tokens, c, inner):
     (200, 700, 2, 64, [1 + 61 * i for i in range(12)], False),
     # rows with no valid key (the mean of V) on each route
     (256, 512, 2, 64, [0, 300], True), (256, 512, 2, 16, [300, 0], False),
-    (256, 512, 2, 32, [0, 300], False), (256, 512, 2, 128, [0, 300], False)])
+    (256, 512, 2, 32, [0, 300], False), (256, 512, 2, 128, [0, 300], False),
+    # head dim 32: the perception shape (its keys split over a cluster),
+    # tails off every tile multiple with rows of 1 and 2 keys
+    (900, 1668, 8, 32, [1668], False), (129, 1667, 2, 32, [1, 2, 1667], True),
+    (130, 97, 8, 32, [0, 1, 2, 33, 97] * 4, False)])
 def test_fp32_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
     """fp32 operands go to the fp32 kernels (3xTF32 on the tensor cores at head
-    dim 64, the FMA units at the others), held to the plain version evaluated
-    in float64 (the exact function), as chip_smoke.py holds them."""
+    dims 64 and 32, the FMA units at 16 and 128), held to the plain version
+    evaluated in float64 (the exact function), as chip_smoke.py holds them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     b = 2 if lens is None else len(lens)
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -97,8 +101,11 @@ def test_fp32_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merg
         k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda) for _ in range(2))
     kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
     before = flash_attention.route_launches["fp32"]
+    kernel = {64: "tc", 32: "tc32"}.get(d, "fma")
+    before_kernel = flash_attention.fp32_kernel_launches[kernel]
     got = flash_attention(q, k, v, kv_lens=kvl)
     assert flash_attention.route_launches["fp32"] == before + 1 and got.dtype == torch.float32
+    assert flash_attention.fp32_kernel_launches[kernel] == before_kernel + 1
     want = flash_attention_plain(q.double(), k.double(), v.double(), kv_lens=kvl)
     assert tolerance.worst_ratio(got, want, **tolerance.FLASH_F32) <= 1.0
 

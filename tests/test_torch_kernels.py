@@ -811,20 +811,74 @@ def test_flash_bwd_tensor_map_specs_address_every_element(kind, b, sq, h):
             assert got == t[bi, si, hi, di].data_ptr()
 
 
-# ---- the fp32 flash forward on the tensor cores (``tc`` in
-# csrc/flash_attention.cu): its arithmetic, shared memory, tile schedule
-# and tensor maps
+# ---- the fp32 flash forwards on the tensor cores (``tc`` at head dim 64,
+# ``tc32`` at 32, in csrc/flash_attention.cu): their arithmetic, shared
+# memory, tile schedules, tensor maps and strides, and which head dim takes
+# which kernel
 
 
-def _flash_fwd_tf32_emulated(q, k, v, lens, products, s_sets):
-    """The fp32 tensor-core forward's arithmetic: per 32-key tile, S = Q K^T
-    as ``_tc_product`` with ``s_sets`` fresh accumulator sets over the 64
-    channels; the online softmax in base 2 in fp32 (keys from the row's
-    length on masked; a row with ``lens`` 0 takes every key at scale 0); the
-    tile's P V (P and V split as the operands) into a fresh set, folded into
-    the running output in fp32 rounded to nearest with the softmax's
-    correction; out = O / l and lse = m + log2(l)."""
-    t = _tma.FLASH_F32_T
+_TC32_SCHEDULE_SHIM = r"""
+#include "flash_f32_tc32_schedule.h"
+using namespace pn::tc32_schedule;
+extern "C" {
+int tc32_constant(int i) { return i == 0 ? BQ : i == 1 ? KT : SPLIT; }
+int tc32_key_split(long long blocks, int sms) { return key_split(blocks, sms); }
+int tc32_key_begin(int len, int part, int split) { return key_begin(len, part, split); }
+void tc32_block_of(int block, int heads, int q_tiles, int split, int* out) {
+  const Block blk = block_of(block, heads, q_tiles, split);
+  out[0] = blk.b;
+  out[1] = blk.h;
+  out[2] = blk.qt;
+  out[3] = blk.part;
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def tc32_schedule(tmp_path_factory):
+    """The head-dim-32 kernel's schedule as the kernel has it: the header it
+    includes (csrc/flash_f32_tc32_schedule.h) built for the host with g++
+    and loaded with ctypes. BQ, KT and SPLIT; key_split(blocks, sms);
+    key_begin(row_len, part, split); block_of(block, heads, q_tiles, split)
+    -> (batch row, head, query tile, part)."""
+    import ctypes
+    import subprocess
+    from types import SimpleNamespace
+
+    out = tmp_path_factory.mktemp("tc32_schedule")
+    src, lib_path = out / "shim.cpp", out / "shim.so"
+    src.write_text(_TC32_SCHEDULE_SHIM)
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", _build.CSRC,
+                    str(src), "-o", str(lib_path)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.tc32_key_split.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    lib.tc32_block_of.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+
+    def block_of(block, heads, q_tiles, split):
+        got = (ctypes.c_int * 4)()
+        lib.tc32_block_of(block, heads, q_tiles, split, got)
+        return tuple(got)
+
+    return SimpleNamespace(BQ=lib.tc32_constant(0), KT=lib.tc32_constant(1),
+                           SPLIT=lib.tc32_constant(2), key_split=lib.tc32_key_split,
+                           key_begin=lib.tc32_key_begin, block_of=block_of)
+
+
+def _flash_fwd_tf32_emulated(q, k, v, lens, products, s_sets, tile=_tma.FLASH_F32_T,
+                             key_begin=None, split=1):
+    """The fp32 tensor-core forwards' arithmetic: per ``tile``-key tile,
+    S = Q K^T as ``_tc_product`` with ``s_sets`` fresh accumulator sets over
+    the head dim's channels; the online softmax in base 2 in fp32 (keys from
+    the row's length on masked; a row with ``lens`` 0 takes every key at
+    scale 0); the tile's P V (P and V split as the operands) into a fresh
+    set, folded into the running output in fp32 rounded to nearest with the
+    softmax's correction. With ``split`` 2 (the head-dim-32 kernel's
+    cluster) the row's keys are cut at ``key_begin`` (the kernel's),
+    each part keeps its own m, l and O, and the parts are merged with the
+    weights exp2(m_part - max m), a part with no key weighing 0. out = O / l
+    and lse = m + log2(l)."""
+    t = tile
     b, sq, h, d = q.shape
     skv = k.shape[1]
     out, lse = torch.zeros_like(q), torch.zeros((b, h, sq))
@@ -832,44 +886,64 @@ def _flash_fwd_tf32_emulated(q, k, v, lens, products, s_sets):
         n = int(lens[bi])
         row_len = skv if n <= 0 else min(n, skv)
         scale_log2 = 0.0 if n <= 0 else d**-0.5 * tolerance_log2e
+        cuts = ([0, row_len] if split == 1 else
+                [key_begin(row_len, p, split) for p in range(split + 1)])
         for hi in range(h):
             qh = q[bi, :, hi]
-            m, l = torch.full((sq,), -1e30), torch.zeros(sq)
-            o = torch.zeros((sq, d))
-            for key0 in range(0, row_len, t):
-                kt, vt = (torch.zeros((t, d)) for _ in range(2))
-                kt[:skv - key0] = k[bi, key0:key0 + t, hi]   # past Skv: TMA's zeros
-                vt[:skv - key0] = v[bi, key0:key0 + t, hi]
-                s = _tc_product(qh, kt, products, d // s_sets)
-                x = torch.where(torch.arange(t) < row_len - key0, s * scale_log2,
-                                torch.tensor(float("-inf")))
-                m_new = torch.maximum(m, x.amax(-1))
-                corr = torch.exp2(m - m_new)
-                p = torch.exp2(x - m_new[:, None])
-                l = l * corr + p.sum(-1)
-                o = o * corr[:, None] + _tc_product(p, vt.T.contiguous(), products)
-                m = m_new
+            parts = []
+            for first, last in zip(cuts[:-1], cuts[1:]):
+                m, l = torch.full((sq,), -1e30), torch.zeros(sq)
+                o = torch.zeros((sq, d))
+                for key0 in range(first, last, t):
+                    kt, vt = (torch.zeros((t, d)) for _ in range(2))
+                    kt[:skv - key0] = k[bi, key0:key0 + t, hi]   # past Skv: zeros
+                    vt[:skv - key0] = v[bi, key0:key0 + t, hi]
+                    s = _tc_product(qh, kt, products, d // s_sets)
+                    x = torch.where(torch.arange(t) < last - key0, s * scale_log2,
+                                    torch.tensor(float("-inf")))
+                    m_new = torch.maximum(m, x.amax(-1))
+                    corr = torch.exp2(m - m_new)
+                    p = torch.exp2(x - m_new[:, None])
+                    l = l * corr + p.sum(-1)
+                    o = o * corr[:, None] + _tc_product(p, vt.T.contiguous(), products)
+                    m = m_new
+                parts.append((m, l, o))
+            m = torch.stack([pm for pm, _, _ in parts]).amax(0)
+            w = [torch.exp2(pm - m) for pm, _, _ in parts]
+            l = sum(pl * wi for (_, pl, _), wi in zip(parts, w))
+            o = sum(po * wi[:, None] for (_, _, po), wi in zip(parts, w))
             out[bi, :, hi] = o / l[:, None]
             lse[bi, hi] = m + torch.log2(l)
     return out, lse
 
 
-@pytest.mark.parametrize("products,s_sets,passes", [(3, 1, True), (3, 4, True), (1, 1, False)],
-                         ids=["3xTF32-one-set", "3xTF32-sets-of-16", "1xTF32"])
-def test_flash_fwd_3xtf32_arithmetic_against_float64(products, s_sets, passes):
-    """Under FLASH_F32, against the plain forward evaluated in float64 (the
-    reference of the card's fp32 check), at head dim 64 with a full row, a
-    row of one valid key and a ragged row: the kernel's scheme (three
-    products, one accumulator set over the 64 channels of S, a fresh set
-    per key tile's P V folded into rounded fp32 sums) passes, as sets of 16
-    channels do (0.030 and 0.014 of the rule here, the fp32 plain version
-    0.014); the TF32 product alone reads 16, so the rule catches a dropped
-    term."""
+@pytest.mark.parametrize("products,s_sets,passes,d,split", [
+    pytest.param(3, 1, True, 64, 1, id="3xTF32-one-set"),
+    pytest.param(3, 4, True, 64, 1, id="3xTF32-sets-of-16"),
+    pytest.param(1, 1, False, 64, 1, id="1xTF32"),
+    pytest.param(3, 1, True, 32, 1, id="d32-3xTF32-one-set"),
+    pytest.param(3, 1, True, 32, 2, id="d32-3xTF32-split-keys"),
+    pytest.param(1, 1, False, 32, 2, id="d32-1xTF32-split-keys")])
+def test_flash_fwd_3xtf32_arithmetic_against_float64(products, s_sets, passes, d, split,
+                                                     tc32_schedule):
+    """Under FLASH_F32 and FLASH_LSE, against the plain forward evaluated in
+    float64 (the reference of the card's fp32 check), at head dims 64 and
+    32 with a full row, a row of one valid key and a ragged row, each at
+    the kernel's tile width (32 keys at both): the kernel's scheme (three
+    products, one accumulator set over the channels of S, a fresh set per
+    key tile's P V folded into rounded fp32 sums) passes, as sets of 16
+    channels do (0.030 and 0.014 of the rule here at head dim 64, the fp32
+    plain version 0.014), and at head dim 32 with the keys split over the
+    cluster's two blocks and merged (the row of one key leaves one part
+    empty; the cut is the kernel's ``key_begin``); the TF32 product alone
+    reads 16, so the rule catches a dropped term."""
     g = torch.Generator().manual_seed(9)
-    b, sq, skv, h, d = 3, 128, 256, 1, 64
+    b, sq, skv, h = 3, 128, 256, 1
     q, k, v = (torch.randn((b, n, h, d), generator=g) for n in (sq, skv, skv))
     lens = torch.tensor([256, 1, 200], dtype=torch.int32)
-    got, got_lse = _flash_fwd_tf32_emulated(q, k, v, lens, products, s_sets)
+    tile = _tma.FLASH_F32_T if d == 64 else tc32_schedule.KT
+    got, got_lse = _flash_fwd_tf32_emulated(q, k, v, lens, products, s_sets, tile,
+                                            tc32_schedule.key_begin, split)
     want, want_lse = flash_attention_plain(q.double(), k.double(), v.double(), kv_lens=lens,
                                            return_lse=True)
     assert want.dtype == want_lse.dtype == torch.float64
@@ -962,6 +1036,123 @@ def test_flash_f32_tensor_map_specs_address_every_element(kind, b, sq, h):
         for bi, si, hi, di in picks:
             got = t.data_ptr() + sum(x * st for x, st in zip((di, hi, si, bi), strides))
             assert got == t[bi, si, hi, di].data_ptr()
+
+
+def test_flash_f32_d32_shared_memory_fits_a_block(tc32_schedule):
+    """The layout of the fp32 tensor-core forward at head dim 32
+    (``tc32::Smem`` in csrc/flash_attention.cu), from the sources' own
+    constants: the 128-row Q tile as loaded (one 128-byte panel a row); a
+    ring of STAGES slots, each a KT-key K tile split in place with its small
+    part, the V tile as loaded and its transposed big and small copies; one
+    mbarrier per slot and one for Q; the 1,024-byte pad. It fits the 232,448
+    bytes an H100 block may have, and the slots hold the hand-over of a
+    cluster's second block (D / 2 + 4 values a thread). The tiles of the
+    compiled schedule are the source's."""
+    k = {**_kernel_constants("flash_f32_tc.cuh", "tc"),
+         **_kernel_constants("flash_f32_tc32_schedule.h", "tc32_schedule"),
+         **_kernel_constants("flash_attention.cu", "tc32")}
+    assert (k["BQ"], k["KT"], k["SPLIT"]) == (
+        tc32_schedule.BQ, tc32_schedule.KT, tc32_schedule.SPLIT)
+    assert k["D"] == k["PANEL"] == _tma.SWIZZLE_BYTES // 4   # one swizzled panel a row
+    assert k["NTHREADS"] == 2 * 128 and k["BQ"] == 2 * 64   # two warpgroups of 64 rows
+    assert k["KT"] % 32 == 0 and k["STAGES"] >= 5   # the pipeline holds tiles j-1 .. j+3
+    tile = k["KT"] * k["D"] * 4
+    slots = k["STAGES"] * 5 * tile
+    smem = k["BQ"] * k["D"] * 4 + slots + 8 * (1 + k["STAGES"]) + 1024
+    assert smem == 119856 <= 232448
+    assert (k["D"] // 2 + 4) * k["NTHREADS"] * 4 <= slots
+
+
+@pytest.mark.parametrize("b,h,sq", [(1, 8, 900), (2, 8, 900), (1, 1, 1), (3, 2, 129),
+                                    (1, 8, 128), (4, 5, 200)])
+def test_flash_f32_d32_schedule_writes_every_row_once(b, h, sq, tc32_schedule):
+    """The head-dim-32 kernel's grid on 132 SMs, from its compiled schedule:
+    the blocks of a query tile form a cluster of ``key_split`` blocks (2
+    where twice the 128-row blocks fit one wave: (1, 900, 8) gives 64
+    clusters of 2, (2, 900, 8) 128 single blocks); only part 0 of a cluster
+    writes, and every row of every (batch row, head) is written once."""
+    bq = tc32_schedule.BQ
+    q_tiles, tiles = _tma.flash_grid(b, h, sq, bq)
+    split = tc32_schedule.key_split(tiles, 132)
+    assert split == (2 if 2 * tiles <= 132 else 1)
+    if (b, h, sq) == (1, 8, 900):
+        assert (tiles, split) == (64, 2)
+    if (b, h, sq) == (2, 8, 900):
+        assert (tiles, split) == (128, 1)
+    blocks = [tc32_schedule.block_of(i, h, q_tiles, split) for i in range(tiles * split)]
+    assert len(set(blocks)) == len(blocks)
+    for i in range(0, len(blocks), split):   # one cluster: one query tile, parts 0 ..
+        assert {x[:3] for x in blocks[i:i + split]} == {blocks[i][:3]}
+        assert [x[3] for x in blocks[i:i + split]] == list(range(split))
+    written = sorted((bi, hi, r) for bi, hi, qt, part in blocks if part == 0
+                     for r in range(qt * bq, min(qt * bq + bq, sq)))
+    assert written == [(bi, hi, r) for bi in range(b) for hi in range(h) for r in range(sq)]
+
+
+@pytest.mark.parametrize("row_len", [1668, 1, 2, 31, 32, 33, 64, 65, 833, 1667, 4097])
+@pytest.mark.parametrize("split", [1, 2])
+def test_flash_f32_d32_key_parts_cover_the_row_once(row_len, split, tc32_schedule):
+    """The keys of a row, cut over the ``split`` blocks of a cluster by the
+    kernel's compiled ``key_begin``: every valid key once, in order; whole
+    tiles of KT keys, the first part no more tiles than the last (it
+    merges); no part empty unless the row has fewer keys than parts (a row
+    of one key: the second part is empty and weighs 0 in the merge); each
+    part's last tile keeps at least one key."""
+    kt = tc32_schedule.KT
+    cuts = [tc32_schedule.key_begin(row_len, p, split) for p in range(split + 1)]
+    assert cuts[0] == 0 and cuts[-1] == row_len and cuts == sorted(cuts)
+    sizes = [b - a for a, b in zip(cuts[:-1], cuts[1:])]
+    assert all(n >= 1 for n in sizes) or row_len < split
+    if -(-row_len // kt) >= split:
+        assert all(c % kt == 0 for c in cuts[:-1])
+        assert -(-sizes[0] // kt) <= -(-sizes[-1] // kt)
+    for first, last in zip(cuts[:-1], cuts[1:]):
+        n = -(-(last - first) // kt)
+        assert n * kt >= last - first and (n == 0 or last - first - (n - 1) * kt >= 1)
+    if row_len == 1668 and split == 2:   # the perception row: 26 and 27 tiles of 32
+        assert cuts == [0, 832, 1668]
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "merged_kv", "batch_slice"])
+@pytest.mark.parametrize("b,sq,skv,h", [(1, 900, 1668, 8), (2, 900, 1668, 8), (3, 129, 65, 2)])
+def test_flash_f32_d32_strides_address_every_element(kind, b, sq, skv, h):
+    """The head-dim-32 kernel copies each row of q, k and v in four 16-byte
+    chunks with cp.async from the strides the wrapper passes
+    (``_tma.flash_strides``): for contiguous views, the halves of a merged
+    kv projection and a slice of a larger batch, each (b, s, h) row starts
+    16-byte aligned and element c of it lies where torch has it."""
+    d = 32
+    q = _views(kind, b, sq, h, d, torch.float32)[0]
+    k, v = (_views(kind, b, skv, h, d, torch.float32) * 2)[:2]
+    st = _tma.flash_strides(q, k, v)
+    assert len(st) == 9 and all(x % 4 == 0 for x in st)
+    rng = np.random.default_rng(sq + h)
+    for i, t in enumerate((q, k, v)):
+        assert t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+        n = t.shape[1]
+        picks = [(0, 0, 0, 0), (b - 1, n - 1, h - 1, d - 1)]
+        picks += [tuple(int(rng.integers(m)) for m in (b, n, h, d)) for _ in range(30)]
+        for bi, si, hi, di in picks:
+            row = t.data_ptr() + 4 * (bi * st[3 * i] + si * st[3 * i + 1] + hi * st[3 * i + 2])
+            assert row % 16 == 0 and row + 4 * di == t[bi, si, hi, di].data_ptr()
+
+
+@pytest.mark.parametrize("d,kernel,namespace", [(16, "fma", "f32::launch<16>"),
+                                                (32, "tc32", "tc32::launch"),
+                                                (64, "tc", "tc::launch"),
+                                                (128, "fma", "f32::launch<128>")])
+def test_flash_f32_kernel_by_head_dim(d, kernel, namespace):
+    """Which fp32 forward kernel each head dim takes: the tensor cores
+    (3xTF32) at 64 and 32, the FMA units at 16 and 128, as the wrapper
+    counts them (``flash_attention.fp32_kernel_launches``) and as the C
+    entry's switch dispatches them."""
+    import re
+    assert _tma.flash_f32_kernel(d) == kernel
+    assert set(fa_mod.flash_attention.fp32_kernel_launches) == {"tc", "tc32", "fma"}
+    src = open(os.path.join(_build.CSRC, "flash_attention.cu")).read()
+    entry = src[src.index('extern "C" int pn_flash_attention_f32'):]
+    entry = entry[:entry.index("\n}\n")]
+    assert re.search(rf"case {d}: return {re.escape(namespace)}\(", entry)
 
 
 @pytest.mark.parametrize("lens", [None, [0, 300], [1, 77]], ids=["full", "empty-row", "ragged"])
