@@ -17,16 +17,20 @@ Phases, in order; any failure exits non-zero:
      ``panacea_tpu_torch/ops/tolerance.py``), and timed beside the plain
      version, a PyTorch yardstick and its bound: the bf16 kernels (tensor
      cores; the flash forward also with its row log-sum-exp), the fp32
-     kernels (flash as 3xTF32 on the tensor cores at head dim 64, on the FMA
-     units at the others; GEGLU as 3xTF32; both held to their plain versions
-     in float64; TF32 off in every PyTorch product), then the backward
-     kernels on each route (bf16 wgmma at head dim 64, mma.sync at 16, 32,
-     128; fp32: 3xTF32 wgmma at head dim 64, FMA at the others, held to the
-     plain version in float64), their library time read as the device time
-     of SDPA's backward; every flash route also with rows of no valid key;
-     the GEGLU backward timed in bf16 and fp32 at the training shapes; the
-     fp32 flash forward at the perception eval's shape (B 1, Sq 900, Skv
-     1668, 8 heads of dim 32: the FMA route) beside fp32 SDPA;
+     kernels (flash as 3xTF32 on the tensor cores at head dims 64 and 32,
+     on the FMA units at 16 and 128; GEGLU as 3xTF32; both held to their
+     plain versions in float64; TF32 off in every PyTorch product), then the
+     backward kernels on each route (bf16 wgmma at head dim 64, mma.sync at
+     16, 32, 128; fp32: 3xTF32 wgmma at head dims 64 and 32, FMA at 16 and
+     128, held to the plain version in float64), their library time read as
+     the device time of SDPA's backward; every flash route also with rows of
+     no valid key; the off-path routes (bf16 mma.sync, fp32 FMA) timed at
+     their small check shapes; the fp32 backward at head dim 32 (``tc32``)
+     at the perception training's shape, at B 1, with ragged rows and an
+     empty one, and off the tiles; the GEGLU backward timed in bf16 and fp32
+     at the training shapes; the fp32 flash forward at the perception eval's
+     shape (B 1, Sq 900, Skv 1668, 8 heads of dim 32: ``tc32``) beside fp32
+     SDPA;
   3. small input: the tiny engine on the card (bf16, kernels) against the
      same weights on the CPU (fp32, plain versions), two sampler steps;
   4. log_images: ``DiffusionEngine3D.log_images`` called directly at full
@@ -114,9 +118,9 @@ Phases, in order; any failure exits non-zero:
      weights, window, memory and draws, the CPU's assignment given to both,
      within ``PERCEPTION_TOL``; (c) one step without DN, where the grad
      frame takes the fp32 flash forward and backward (6 backward
-     launches), then the FMA backward at (2, 900, 1668, 8, 32) against the
-     float64 plain version and fp32 SDPA's backward, and the forward at
-     B 2; (d) the streaming recipe (``StreamPETR``), 2 steps with the
+     launches, all on ``tc32``), then that backward at (2, 900, 1668, 8,
+     32) against the float64 plain version and fp32 SDPA's backward, and
+     the forward at B 2; (d) the streaming recipe (``StreamPETR``), 2 steps with the
      memory carried; (e) ``train_perception_torch.py --synthetic --tiny
      --steps 2 --ckpt_every 2`` on the card and its ``--resume`` to step 3.
 
@@ -401,14 +405,21 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
     operands (the fp32 route, ``tol.FLASH_BWD_F32``), held to the plain
     version evaluated in float64, with the kernel's ratio against the fp32
     plain version and the fp32 plain version's against float64 beside it;
-    the bound is three products at the TF32 rate (3xTF32 at head dim 64),
+    ``fp32_kernel`` names the fp32 kernels that ran; the bound is three
+    products at the TF32 rate (3xTF32 at head dims 64 and 32),
     ``bound_fma_ms`` the fp32 FMA rate's. A row with ``lens`` 0 attends to
     every key alike: its dq and dk must be exactly 0. ``library_ms`` is
     SDPA's backward alone on the device (the kernels' time under
     torch.profiler; the events' reading where the profiler missed the
     port's kernel); ``library_ms_loop`` the same calls
     timed with CUDA events, and ``library_ms_fwd_bwd_less_fwd`` the older
-    reading, which carries autograd's host time."""
+    reading, which carries autograd's host time. At head dim 32 in fp32
+    (the perception self-attention) ``ms`` and ``library_ms`` are CUDA
+    events over calls issued back to back, ``ms_device`` and
+    ``library_ms_device`` device times with the host's time kept out
+    (``queued_ms``), ``host_us`` the host's time a call, and
+    ``ms_profiler`` the kernels' time under torch.profiler (None where it
+    saw none)."""
     dtype, rule = (torch.float32, tol.FLASH_BWD_F32) if fp32 else (torch.bfloat16, tol.FLASH_BWD)
     elem = 4.0 if fp32 else 2.0
     g = torch.Generator(device=dev).manual_seed(sq * 5 + skv + d)
@@ -425,10 +436,12 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
     o, lse = fa.flash_attention_with_lse(q, k, v, kv_lens=lens)
     _, lse_plain = fa.flash_attention_plain(q, k, v, kv_lens=lens, return_lse=True)
     n0, routes = fa.flash_attention_bwd.launches, dict(fa.flash_attention_bwd.route_launches)
+    kernels = dict(fa.flash_attention_bwd.fp32_kernel_launches)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=lens)
     if fa.flash_attention_bwd.launches != n0 + 1:
         raise AssertionError("flash_attention_bwd did not launch its kernel")
     route = next(r for r, n in fa.flash_attention_bwd.route_launches.items() if n != routes[r])
+    perception = fp32 and d == 32
     plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=lens)
     want = (fa.flash_attention_bwd_plain(*(t.double() for t in (q, k, v, o, lse, do)),
                                          kv_lens=lens) if fp32 else plain)
@@ -443,6 +456,8 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
            "lse_worst_ratio": tol.worst_ratio(lse, lse_plain, **tol.FLASH_LSE),
            "lse_tol": tol.FLASH_LSE}
     if fp32:
+        rec["fp32_kernel"] = next(
+            n for n, c in fa.flash_attention_bwd.fp32_kernel_launches.items() if c != kernels[n])
         rec["want"] = "flash_attention_bwd_plain in float64"
         rec["worst_ratio_vs_fp32_plain"] = max(tol.worst_ratio(a, p, **rule)
                                                for a, p in zip(got, plain))
@@ -463,7 +478,7 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
         flops = 10.0 * b * h * sq * kv_eff * d
         nbytes = elem * b * h * d * (3 * sq + 2 * kv_eff) + 4.0 * b * h * sq \
             + elem * b * h * d * (sq + 2 * skv)
-        if fp32 and d == 64:
+        if fp32 and d in (32, 64):
             rec["bound_ms"], rec["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32)
             rec["bound_fma_ms"], _ = bound(flops, nbytes, PEAK_FP32)
         elif fp32:   # the FMA kernels: their own bound, and a 3xTF32 design's beside it
@@ -476,7 +491,13 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
             return fa.flash_attention_bwd(q, k, v, o, lse, do, kv_lens=lens)
 
         rec["ms"] = time_ms(torch, kernel, 10)
-        rec["ms_device"] = device_ms(torch, kernel, 5)
+        if perception:
+            rec["ms_device"] = queued_ms(torch, kernel, 20)
+            rec["host_us"] = host_us(torch, kernel, 50)
+            # whether torch.profiler sees the kernels at this point of the run
+            rec["ms_profiler"] = device_ms(torch, kernel, 5)
+        else:
+            rec["ms_device"] = device_ms(torch, kernel, 5)
         rec["plain_ms"] = time_ms(
             torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, kv_lens=lens), 1)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -499,11 +520,15 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
         rec["library_ms_loop"] = time_ms(torch, sdpa_bwd, 10)
         rec["library_ms_fwd_bwd_less_fwd"] = (time_ms(torch, sdpa_fwd_bwd, 10)
                                               - time_ms(torch, sdpa_fwd, 10))
-        # a profiler session that missed the port's kernel is not trusted
-        # with SDPA's either: then both readings are the events'
-        lib_device = device_ms(torch, sdpa_bwd, 5) if rec["ms_device"] is not None else None
-        rec["library_ms"] = lib_device if lib_device is not None else rec["library_ms_loop"]
-        rec["library_ms_from"] = "profiler" if lib_device is not None else "events"
+        if perception:
+            rec["library_ms"], rec["library_ms_from"] = rec["library_ms_loop"], "events"
+            rec["library_ms_device"] = queued_ms(torch, sdpa_bwd, 20)
+        else:
+            # a profiler session that missed the port's kernel is not
+            # trusted with SDPA's either: then both readings are the events'
+            lib_device = device_ms(torch, sdpa_bwd, 5) if rec["ms_device"] is not None else None
+            rec["library_ms"] = lib_device if lib_device is not None else rec["library_ms_loop"]
+            rec["library_ms_from"] = "profiler" if lib_device is not None else "events"
         del out
     log(rec)
     if not (max(ratios.values()) <= 1.0 and rec["lse_worst_ratio"] <= 1.0
@@ -511,8 +536,9 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
             and rec.get("empty_rows_dq_dk_max", 0.0) == 0.0):
         raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {rec}")
     want_route = "fp32" if fp32 else ("wgmma" if d == 64 else "mma")
-    if route != want_route:
-        raise AssertionError(f"flash_attention_bwd took route {route}, not {want_route}: {rec}")
+    if route != want_route or (fp32 and rec["fp32_kernel"] != {64: "tc", 32: "tc32"}.get(d, "fma")):
+        raise AssertionError(f"flash_attention_bwd took route {route}, not {want_route}, or "
+                             f"the wrong fp32 kernel: {rec}")
     return rec
 
 
@@ -665,7 +691,8 @@ def reset_counts(fa, gg) -> None:
     fa.flash_attention.launches = gg.geglu.launches = 0
     fa.flash_attention_bwd.launches = gg.geglu_bwd.launches = 0
     for counts in (fa.flash_attention.route_launches, fa.flash_attention_bwd.route_launches,
-                   gg.geglu.route_launches, fa.flash_attention.fp32_kernel_launches):
+                   gg.geglu.route_launches, fa.flash_attention.fp32_kernel_launches,
+                   fa.flash_attention_bwd.fp32_kernel_launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -676,6 +703,7 @@ def read_counts(fa, gg) -> dict:
             "flash_routes": dict(fa.flash_attention.route_launches),
             "flash_fp32_kernels": dict(fa.flash_attention.fp32_kernel_launches),
             "flash_bwd_routes": dict(fa.flash_attention_bwd.route_launches),
+            "flash_bwd_fp32_kernels": dict(fa.flash_attention_bwd.fp32_kernel_launches),
             "geglu_routes": dict(gg.geglu.route_launches)}
 
 
@@ -2212,10 +2240,11 @@ def ptrain_card_vs_cpu(torch, np, dev, card: str):
 def ptrain_nodn_phase(torch, F, np, dev, fa, gg, tol, card: str, setup):
     """(c) With ``with_dn`` False, one step of the window recipe: the grad
     frame's self-attention takes the fp32 flash forward and backward
-    kernels (6 of each beside the 42 history forwards). Then the FMA
-    backward at (2, 900, 1668, 8, 32) against the float64 plain version,
-    timed beside fp32 SDPA's backward, and the forward at B 2. Returns
-    (the step's counts, the backward's record, the forward's)."""
+    kernels (6 of each beside the 42 history forwards, the backward's on
+    ``tc32``). Then that backward at (2, 900, 1668, 8, 32) against the
+    float64 plain version, timed beside fp32 SDPA's backward, and the
+    forward at B 2. Returns (the step's counts, the backward's record, the
+    forward's)."""
     import copy
 
     trainer = copy.copy(setup["trainer"])
@@ -2235,6 +2264,7 @@ def ptrain_nodn_phase(torch, F, np, dev, fa, gg, tol, card: str, setup):
     if not (counts["flash_routes"]["fp32"] == PTRAIN_FLASH_PER_STEP + layers
             == counts["flash_fp32_kernels"]["tc32"]
             and counts["flash_bwd_routes"]["fp32"] == layers == counts["flash_attention_bwd"]
+            == counts["flash_bwd_fp32_kernels"]["tc32"]
             and all(np.isfinite(v) for v in out.metrics.values())):
         raise AssertionError(f"without DN the grad frame did not take the flash kernels: {rec}")
     free(torch)
@@ -2497,8 +2527,9 @@ def main(mode: str = "all") -> int:
                             lens=[1 + 61 * i for i in range(12)]),
                 check_flash(torch, F, fa, tol, dev, 4, 256, 512, 5, 64, timed=False, fp32=True,
                             merged_kv=True, lens=[0, 129, 0, 512])]
-    flash32 += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d, timed=False, fp32=True,
-                            lens=lens)
+    # the FMA kernels (off every path) timed at their check shape
+    flash32 += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d,
+                            timed=lens is None and d != 32, fp32=True, lens=lens)
                 for d in (16, 32, 128) for lens in (None, [0, 300])]
     # head dim 32 (the tensor-core kernel): Sq and Skv off every tile
     # multiple, rows of 1 and 2 keys and an empty one, with the keys split
@@ -2552,8 +2583,10 @@ def main(mode: str = "all") -> int:
                                  lens=[1, 65], fp32=fp32),
                  check_flash_bwd(torch, F, fa, tol, dev, 4, 200, 256, 3, 64, timed=False,
                                  lens=[1, 129, 128, 192], fp32=fp32)]
+        # the routes off every path (bf16 mma.sync, fp32 FMA) timed here
         recs += [check_flash_bwd(torch, F, fa, tol, dev, 2, 200, 400, 2, d, merged_kv=False,
-                                 timed=False, fp32=fp32) for d in (16, 32, 64, 128)]
+                                 timed=d != 64 and not (fp32 and d == 32), fp32=fp32)
+                 for d in (16, 32, 64, 128)]
         # rows with no valid key on each route: dq = dk = 0, dv = sum dO / Skv
         recs += [check_flash_bwd(torch, F, fa, tol, dev, 2, 100, 70, 3, 64, timed=False,
                                  lens=[0, 65], fp32=fp32)]
@@ -2563,6 +2596,21 @@ def main(mode: str = "all") -> int:
 
     flash_bwd = bwd_checks(False)
     flash_bwd32 = bwd_checks(True)
+    # the fp32 backward at head dim 32 (tc32): the perception training's
+    # shape at B 2 (again in phase 14) and at B 1; ragged rows with an empty
+    # one, a row of one key and key blocks wholly past kv_len; Sq and Skv
+    # off the 64-row blocks and the 32-row tiles, fewer than one tile
+    flash_bwd32_d32 = [
+        check_flash_bwd(torch, F, fa, tol, dev, *PTRAIN_FLASH, merged_kv=False, fp32=True),
+        check_flash_bwd(torch, F, fa, tol, dev, 1, *PTRAIN_FLASH[1:], merged_kv=False,
+                        fp32=True),
+        check_flash_bwd(torch, F, fa, tol, dev, 4, *PTRAIN_FLASH[1:], timed=False, fp32=True,
+                        lens=[0, 1, 833, 1668]),
+        check_flash_bwd(torch, F, fa, tol, dev, 3, 129, 1667, 2, 32, merged_kv=False,
+                        timed=False, fp32=True, lens=[1667, 0, 65]),
+        check_flash_bwd(torch, F, fa, tol, dev, 2, 100, 70, 3, 32, timed=False, fp32=True,
+                        lens=[1, 65]),
+        check_flash_bwd(torch, F, fa, tol, dev, 3, 31, 33, 2, 32, timed=False, fp32=True)]
     geglu_bwd = []
     for tokens, c in TRAIN_GEGLU:
         geglu_bwd.append(check_geglu_bwd(torch, F, gg, tol, dev, tokens, 4 * c))
@@ -2619,11 +2667,12 @@ def main(mode: str = "all") -> int:
     def count(c, kernel, fp32, fp32_kernel=None):
         """Launches of one kernel on one type's routes, from a path's counts
         (the GEGLU backward's one kernel serves both types); with
-        ``fp32_kernel``, of that fp32 flash forward kernel alone."""
+        ``fp32_kernel``, of that fp32 flash kernel alone."""
         if kernel == "geglu_bwd":
             return c[kernel]
         if fp32_kernel:
-            return c["flash_fp32_kernels"][fp32_kernel]
+            return c["flash_bwd_fp32_kernels" if kernel == "flash_attention_bwd"
+                     else "flash_fp32_kernels"][fp32_kernel]
         routes = c[{"flash_attention": "flash_routes", "flash_attention_bwd": "flash_bwd_routes",
                     "geglu": "geglu_routes"}[kernel]]
         return routes["fp32"] if fp32 else c[kernel] - routes["fp32"]
@@ -2657,6 +2706,7 @@ def main(mode: str = "all") -> int:
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
     d32, d32_train = flash32_perception, ptrain["fwd"]
+    bwd, bwd_b1, bwd32_d32 = ptrain["bwd"], flash_bwd32_d32[1], flash_bwd32_d32 + [ptrain["bwd"]]
     flash_src, geglu_src = ("panacea_tpu_torch/csrc/flash_attention.cu",
                             "panacea_tpu_torch/csrc/geglu.cu")
     flash_bwd_src = "panacea_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -2713,16 +2763,21 @@ def main(mode: str = "all") -> int:
                 fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
                                                   for r in flash_bwd32)),
         summary("flash_attention_bwd_fp32_d32", "flash_attention_bwd", flash_bwd_src,
-                flash_tpu, [ptrain["bwd"]], ptrain["bwd"], "perception_train_no_dn",
-                paths_of=perception_paths,
-                entry="f32::pn_flash_bwd_f32_* (FMA units), the perception training's grad "
-                      "frame without DN",
-                bound_3xtf32_ms=ptrain["bwd"]["bound_3xtf32_ms"],
-                ms_device=ptrain["bwd"]["ms_device"],
-                ms_levels=[ptrain["bwd"]["ms"]], library_ms_levels=[ptrain["bwd"]["library_ms"]],
-                worst_ratio_vs_f64=max(ptrain["bwd"]["worst_ratio"].values()),
-                worst_ratio_vs_fp32_plain=ptrain["bwd"]["worst_ratio_vs_fp32_plain"],
-                fp32_plain_worst_ratio_vs_f64=ptrain["bwd"]["fp32_plain_worst_ratio_vs_f64"]),
+                flash_tpu, bwd32_d32, bwd, "perception_train_no_dn",
+                paths_of=perception_paths, fp32_kernel="tc32",
+                entry="tc32::pn_flash_bwd_f32_{dkdv,dq}_tc32 (3xTF32 wgmma, cp.async), the "
+                      "perception training's grad frame without DN",
+                bound_fma_ms=bwd["bound_fma_ms"], ms_device=bwd["ms_device"],
+                library_ms_device=bwd["library_ms_device"], host_us=bwd["host_us"],
+                ms_levels=[bwd["ms"]], library_ms_levels=[bwd["library_ms"]],
+                worst_ratio_vs_f64=max(max(r["worst_ratio"].values()) for r in bwd32_d32),
+                worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"] for r in bwd32_d32),
+                fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
+                                                  for r in bwd32_d32),
+                b1_shape=bwd_b1["shape"],
+                **{f"b1_{k}": bwd_b1[k]
+                   for k in ("ms", "ms_device", "plain_ms", "library_ms", "library_ms_device",
+                             "bound_ms", "bound_fma_ms", "host_us")}),
         summary("geglu_bwd", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd, geglu_bwd[0],
                 "train"),
         summary("geglu_bwd_fp32", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd32,

@@ -1070,22 +1070,6 @@ static_assert(SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory
 // block 0 through the slots
 static_assert(sizeof(Smem::slot) >= (D / 2 + 4) * NTHREADS * 4, "the slots hold the hand-over");
 
-// rows [row0, row0 + ROWS) of a strided (rows, 32) fp32 view into a tile of
-// 128-byte swizzled rows, by every thread with cp.async; rows from `limit`
-// on arrive as zeros
-template <int ROWS>
-__device__ __forceinline__ void load_async(float* dst, const float* src, long long stride,
-                                           int row0, int limit) {
-  static_assert(ROWS * 8 % NTHREADS == 0, "the threads divide the tile's 16-byte chunks");
-#pragma unroll
-  for (int i = 0; i < ROWS * 8 / NTHREADS; ++i) {
-    const int c = threadIdx.x + i * NTHREADS, r = c >> 3, ch = c & 7;
-    const bool in = row0 + r < limit;
-    pn::cp_async16(dst + swz(r, ch * 4), in ? src + (row0 + r) * stride + ch * 4 : src,
-                   in ? 16 : 0);
-  }
-}
-
 __global__ void __launch_bounds__(NTHREADS, 1)
 pn_flash_f32_fwd_tc32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
@@ -1122,11 +1106,11 @@ pn_flash_f32_fwd_tc32(const float* __restrict__ q, const float* __restrict__ k,
   if (n_tiles > 0) {  // a part with no key (a row of one key) keeps m, l and o_sum
     auto load = [&](int j) {  // key tile j into its slot, by every thread
       Smem::Slot& sl = sm.slot[j % STAGES];
-      load_async<KT>(sl.k, kb, k_ss, key0 + j * KT, skv);
-      load_async<KT>(sl.v, vb, v_ss, key0 + j * KT, skv);
+      load_async<KT>(sl.k, kb, k_ss, key0 + j * KT, skv, threadIdx.x);
+      load_async<KT>(sl.v, vb, v_ss, key0 + j * KT, skv, threadIdx.x);
       pn::cp_async_arrive(&sm.full[j % STAGES]);
     };
-    load_async<BQ>(sm.q, q + b * q_sb + h * q_sh, q_ss, qt * BQ, sq);
+    load_async<BQ>(sm.q, q + b * q_sb + h * q_sh, q_ss, qt * BQ, sq, threadIdx.x);
     pn::cp_async_arrive(&sm.q_full);
     for (int j = 0; j < min(STAGES - 1, n_tiles); ++j) load(j);
     // this warpgroup's 64 query rows of the Q tile as the A operands of

@@ -1,7 +1,7 @@
 // Flash attention backward for Hopper (sm_90a): dq, dk, dv of
 // softmax(q k^T * scale) v, in the operands' type: bf16 on the tensor cores
-// (fp32 accumulation), or fp32: 3xTF32 on the tensor cores at head dim 64,
-// the FMA units at the others.
+// (fp32 accumulation), or fp32: 3xTF32 on the tensor cores at head dims 64
+// and 32, the FMA units at 16 and 128.
 //
 // The gradient of the Pallas TPU kernel panacea_tpu/ops/flash_attention.py
 // (_flash_kernel, :33-86; its pallas_call in flash_attention, :236). That
@@ -27,7 +27,7 @@
 // Every route keeps FA2's deterministic form, with no atomics: Delta in a
 // pre-pass, dk and dv from blocks over key tiles, dq from blocks over query
 // tiles (S and dP are computed in both passes), so the same inputs give the
-// same bits. Four routes, chosen by the wrapper (ops/flash_attention.py) by
+// same bits. Five routes, chosen by the wrapper (ops/flash_attention.py) by
 // type and head dim:
 //
 // wg (bf16, D = 64, the production head dim): TMA + wgmma, two passes.
@@ -102,12 +102,57 @@
 //    batch row) over the 32-key tiles below kv_len. No atomics: the same
 //    inputs give the same bits.
 //
-// f32 (fp32, D = 16, 32, 128): the layout of the fp32 forward
+// tc32 (fp32, D = 32, the perception self-attention's: SparseHead's grad
+// frame without DN, B 2, Sq 900, Skv 1668, H 8): tc's arithmetic and two
+// passes at head dim 32. Bound: 3 x 14 B H Sq Skv D flops at the TF32 rate
+// for the two passes (0.065 ms at that shape on an H100 SXM); the bytes take
+// a tenth of that. What differs from tc, and why:
+//  - A row of D 32 is one 128-byte swizzled panel: S^T, dP^T, S and dP are
+//    m64n32k8 x 4 k-steps, dV, dK and dQ m64n32k8 x 4 (32 rows a tile)
+//    against the transposed copies (D rows of 32), whose sums are 16
+//    registers a thread. The descriptors of a tile are made once
+//    (desc_lo): a k-step only moves their low word.
+//  - S goes to one accumulator set; dP to four of 8 channels (one k-step's
+//    three products each) in the dK/dV pass: in a row with one valid key
+//    dP equals Delta, so dS = P (dP - Delta) is the noise of dP, and over
+//    Sq 900 rows that key's dk read 1.30 of FLASH_BWD_F32 against float64
+//    with sets of 16 (the fp32 plain version 0.73; the model of the adder in
+//    the CPU tests 1.21, and 0.80 with sets of 8). The dQ pass keeps sets of
+//    16: a row's dq takes that noise from its one key, not summed over Sq
+//    rows, and fewer sets cost fewer additions.
+//  - dK/dV pass: one block per (64 keys, head, batch row) of one warpgroup,
+//    two blocks an SM (228 registers), two ring slots (three ran 5 to 8 %
+//    slower, PERF.md section 6); K and V are loaded once and held
+//    split in registers as the A operands of S^T = K Q^T and dP^T = V dO^T,
+//    so those products read only Q and dO from shared memory. Blocks of two
+//    warpgroups that take the query tiles in turn started them in step and
+//    ran 7 to 12 % slower (PERF.md, section 6). Each query tile's lse and
+//    Delta arrive in shared memory with its Q and dO (cp.async of 4 bytes:
+//    a row's start need not be 16-byte aligned).
+//  - dQ pass: one block per (64 query rows, head, batch row) of two
+//    warpgroups that take the 32-key tiles below kv_len in turn and add
+//    their sums at the end (in that order), two blocks an SM: 480
+//    warpgroups at B 2 instead of 240 of one. It follows the dK/dV pass on
+//    the caller's stream.
+//  - Loads: each warpgroup's 128 threads copy its tiles from the strides
+//    into the swizzled layout with cp.async (zero-filled past Sq and Skv),
+//    each thread's copies arriving on the slot's mbarrier when they land;
+//    the resident tiles by every thread. The host passes strides and
+//    encodes no tensor map: the perception step is bound by host time.
+//  - The block and tile arithmetic is in flash_f32_tc32_bwd_schedule.h,
+//    which the CPU tests build with a host compiler.
+// What holds it at a quarter of its bound: issue slots and latency, as the
+// forward at head dim 32. scripts/compare_sass.py counts about 850
+// instructions a thread for a 32-query tile of the dK/dV pass (48 wgmma,
+// 768 tensor-core clocks), and two warpgroups an SM do not hide each
+// other's waits; PERF.md has the times.
+//
+// f32 (fp32, D = 16, 128): the layout of the fp32 forward
 // (pn_flash_f32_fwd): 64 x 64 tiles, 256 threads as 16 x 16, each owning a
 // 4 x 4 tile of scores, rows padded by 4 floats so that the 16-byte reads
 // fall on distinct banks. No tensor cores, no TF32, no bf16 anywhere; P and
-// dS pass through shared memory in fp32 between the products. No main-path
-// call has these head dims.
+// dS pass through shared memory in fp32 between the products. No user path
+// calls these head dims.
 //
 // Masking, the same in every route: a padded query row (past Sq) has lse =
 // +inf, so P = exp2(x - inf) = 0 whatever its zero-filled operands give; a
@@ -118,6 +163,7 @@
 
 #include "hopper.cuh"
 #include "flash_f32_tc.cuh"
+#include "flash_f32_tc32_bwd_schedule.h"
 
 namespace {
 
@@ -909,7 +955,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 }  // namespace wg
 
-// ------------------------------------------------- fp32, D = 16, 32, 128
+// ------------------------------------------------------- fp32, D = 16, 128
 
 namespace f32 {
 
@@ -1609,6 +1655,430 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 }  // namespace tc
 
+// ------------------------------------------- fp32 on the tensor cores, D = 32
+
+namespace tc32 {
+
+// PANEL and the shared device functions (the split helpers, load_async,
+// to_a, write_rows, reduce_write): flash_f32_tc.cuh; KB, QB, ROWS, the
+// warpgroups of the dQ pass and the block and tile arithmetic:
+// flash_f32_tc32_bwd_schedule.h
+using namespace pn::tc;
+using namespace pn::tc32_bwd_schedule;
+
+constexpr int D = 32;
+constexpr int TILE = ROWS * D;  // floats of a streamed tile, and of a transposed one
+// threads of a block (its consumer warpgroups: one in the dK/dV pass; no
+// producer warp) and ring slots of each warpgroup, per pass
+constexpr int KV_THREADS = 128, Q_THREADS = Q_GROUPS * 128;
+constexpr int KV_STAGES = 2, Q_STAGES = 2;
+// accumulator sets of dP: 8 channels each in the dK/dV pass, 16 in the dQ
+// pass (see tc32's note above); S takes all D channels in one set
+constexpr int KV_DP_SETS = D / 8, Q_DP_SETS = D / 16;
+
+struct KvSmem {
+  float k[KB * D];  // K and V as loaded; the warpgroup holds them split in registers
+  float v[KB * D];
+  float raw[KV_STAGES][2][TILE];  // per slot Q and dO as loaded, split in place into big parts
+  float small[2][TILE];           // Q_small, dO_small
+  float tr[2][2][TILE];           // Q^T and dO^T (D rows of ROWS queries), each big and small
+  float rows[KV_STAGES][2][ROWS];  // per slot the tile's lse and Delta
+  uint64_t kv_full;
+  uint64_t full[KV_STAGES];
+};
+
+struct QSmem {
+  float q[2][QB * D];  // Q as loaded, split in place into Q_big; Q_small
+  float d_o[2][QB * D];
+  struct Group {
+    float raw[Q_STAGES][2][TILE];  // per slot K and V as loaded, split in place
+    float small[2][TILE];          // K_small, V_small
+    float tr[2][TILE];             // K^T big and small
+  } wg[Q_GROUPS];
+  uint64_t q_full;
+  uint64_t full[Q_GROUPS][Q_STAGES];
+};
+
+constexpr int KV_SMEM_BYTES = sizeof(KvSmem) + pn::SWIZZLE_ATOM;  // room to align
+constexpr int Q_SMEM_BYTES = sizeof(QSmem) + pn::SWIZZLE_ATOM;
+static_assert(KV_SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
+static_assert(Q_SMEM_BYTES <= 232448, "a block has at most 227 KB of shared memory");
+// two dK/dV blocks an SM: at most 228 KB, 1 KB of it per block kept by the
+// hardware
+static_assert(2 * (KV_SMEM_BYTES + 1024) <= 233472, "two blocks an SM");
+// every tile starts on a swizzle atom
+static_assert(KB * D * 4 % pn::SWIZZLE_ATOM == 0 && TILE * 4 % pn::SWIZZLE_ATOM == 0, "");
+static_assert(sizeof(QSmem::Group) % pn::SWIZZLE_ATOM == 0, "");
+// the dQ pass's warpgroup 1's sums reach warpgroup 0 through its first slots
+static_assert(sizeof(QSmem::Group::raw) >= D / 2 * 128 * 4, "the slots hold the hand-over");
+static_assert(Q_GROUPS == 2, "reduce_write adds the sums of two warpgroups");
+
+// The wgmma descriptor (pn::smem_desc) of a tile of one 128-byte panel
+// starts as the low word of its first k-step's, computed once a tile:
+// k-step kk lies 32 bytes (2 units of 16) on, and the high word is the same
+// for every tile.
+__device__ __forceinline__ uint32_t desc_lo(const float* tile) {
+  return static_cast<uint32_t>(pn::smem_desc(pn::smem_u32(tile)));
+}
+__device__ __forceinline__ uint64_t desc_at(uint32_t lo, int kk) {
+  return pn::smem_desc(0) >> 32 << 32 | (lo + 2 * kk);
+}
+
+// acc (64 x 32, in SETS sets) = A B^T (B: 32 x D), both K-major tiles of one
+// panel given by desc_lo of their big and small parts: pn::tc::product_nt
+// with the descriptors made once. Not committed.
+template <int SETS>
+__device__ __forceinline__ void product_nt32(float (&acc)[SETS][16], uint32_t a_big,
+                                             uint32_t a_small, uint32_t b_big, uint32_t b_small) {
+  constexpr int PER_SET = D / 8 / SETS;  // k-steps of one set
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    float(&set)[16] = acc[kk / PER_SET];
+    pn::wgmma_m64n32k8_tf32_ss(set, desc_at(a_small, kk), desc_at(b_big, kk), kk % PER_SET != 0);
+    pn::wgmma_m64n32k8_tf32_ss(set, desc_at(a_big, kk), desc_at(b_small, kk), 1);
+    pn::wgmma_m64n32k8_tf32_ss(set, desc_at(a_big, kk), desc_at(b_big, kk), 1);
+  }
+}
+
+// acc (64 x 32, in SETS sets) = A B^T (B: 32 x D, K-major, one panel given
+// by desc_lo of its big and small parts) with A (64 x D) in registers as the
+// big and small TF32 parts of its D / 8 k-steps: pn::tc::product_nt_rs with
+// the descriptors made once. Not committed.
+template <int SETS>
+__device__ __forceinline__ void product_nt_rs32(float (&acc)[SETS][16],
+                                                const uint32_t (&a_big)[D / 8][4],
+                                                const uint32_t (&a_small)[D / 8][4],
+                                                uint32_t b_big, uint32_t b_small) {
+  constexpr int PER_SET = D / 8 / SETS;  // k-steps of one set
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    float(&set)[16] = acc[kk / PER_SET];
+    pn::wgmma_m64n32k8_tf32_rs(set, a_small[kk], desc_at(b_big, kk), kk % PER_SET != 0);
+    pn::wgmma_m64n32k8_tf32_rs(set, a_big[kk], desc_at(b_small, kk), 1);
+    pn::wgmma_m64n32k8_tf32_rs(set, a_big[kk], desc_at(b_big, kk), 1);
+  }
+}
+
+// acc (64 x D) = A (64 x 32 rows of a streamed tile; big and small parts in
+// registers) times a transposed tile (D rows x 32, given by desc_lo of its
+// big and small parts), in a fresh set: pn::tc::product_rs with the
+// descriptors made once. Not committed.
+__device__ __forceinline__ void product_rs32(float (&acc)[D / 2], const uint32_t (&a_big)[4][4],
+                                             const uint32_t (&a_small)[4][4], uint32_t b_big,
+                                             uint32_t b_small) {
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 8; ++kk) {
+    pn::wgmma_m64n32k8_tf32_rs(acc, a_small[kk], desc_at(b_big, kk), kk > 0);
+    pn::wgmma_m64n32k8_tf32_rs(acc, a_big[kk], desc_at(b_small, kk), 1);
+    pn::wgmma_m64n32k8_tf32_rs(acc, a_big[kk], desc_at(b_big, kk), 1);
+  }
+}
+
+__global__ void __launch_bounds__(KV_THREADS, KV_BLOCKS_PER_SM)
+pn_flash_bwd_f32_dkdv_tc32(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ d_o,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           const int* __restrict__ kv_lens, int heads, int sq, int skv,
+                           int k_tiles, long long q_sb, long long q_ss, long long q_sh,
+                           long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                           long long v_ss, long long v_sh, float scale, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  KvSmem& sm = *reinterpret_cast<KvSmem*>(pn::align_smem(smem_raw));
+
+  const Block blk = block_of(blockIdx.x, heads, k_tiles);
+  const int b = blk.b, h = blk.h, bh = b * heads + h;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
+  const int key0 = blk.tile * KB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // a block whose keys all lie past kv_len streams one tile, all masked
+  const int tiles = kv_block_tiles(sq, key0, row_len);
+  const long long o_ss = static_cast<long long>(heads) * D;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* dob = d_o + (static_cast<long long>(b) * sq * heads + h) * D;
+  const float* lse_b = lse + static_cast<long long>(bh) * sq;
+  const float* delta_b = delta + static_cast<long long>(bh) * sq;
+
+  auto load = [&](int i) {  // query tile i
+    const int s = i % KV_STAGES, row0 = i * ROWS;
+    load_async<ROWS, KV_THREADS>(sm.raw[s][0], qb, q_ss, row0, sq, tid);
+    load_async<ROWS, KV_THREADS>(sm.raw[s][1], dob, o_ss, row0, sq, tid);
+    if (tid < 2 * ROWS) {  // the rows' lse and Delta, zeros past Sq
+      const int r = tid % ROWS;
+      const bool in = row0 + r < sq;
+      pn::cp_async4(&sm.rows[s][tid / ROWS][r],
+                    (tid < ROWS ? lse_b : delta_b) + (in ? row0 + r : 0), in ? 4 : 0);
+    }
+    pn::cp_async_arrive(&sm.full[s]);
+  };
+  if (tid == 0) {
+    pn::mbar_init(&sm.kv_full, KV_THREADS);
+    for (int s = 0; s < KV_STAGES; ++s) pn::mbar_init(&sm.full[s], KV_THREADS);
+    pn::mbar_init_fence();
+  }
+  __syncthreads();
+  load_async<KB, KV_THREADS>(sm.k, k + b * k_sb + h * k_sh, k_ss, key0, skv, tid);
+  load_async<KB, KV_THREADS>(sm.v, v + b * v_sb + h * v_sh, v_ss, key0, skv, tid);
+  pn::cp_async_arrive(&sm.kv_full);
+  for (int i = 0; i < min(KV_STAGES, tiles); ++i) load(i);
+  pn::mbar_wait(&sm.kv_full, 0);
+  // the block's 64 keys as the register A operands of S^T = K Q^T and dP^T = V dO^T, split into their big and
+  // small TF32 parts once: the products read only Q and dO from shared
+  // memory
+  uint32_t k_big[D / 8][4], k_small[D / 8][4], v_big[D / 8][4], v_small[D / 8][4];
+  load_a(sm.k, KB, 0, warp, lane, k_big, k_small);
+  load_a(sm.v, KB, 0, warp, lane, v_big, v_small);
+
+  // this thread's keys are kr0, kr0 + 8
+  const int kr0 = key0 + warp * 16 + g;
+  const bool key_ok[2] = {kr0 < row_len, kr0 + 8 < row_len};
+  float dk_sum[D / 2], dv_sum[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_sum[i] = dv_sum[i] = 0.f;
+
+  for (int i = 0; i < tiles; ++i) {
+    const int st = i % KV_STAGES, q0 = i * ROWS;
+    pn::mbar_wait(&sm.full[st], (i / KV_STAGES) & 1);
+    split_tile<D, ROWS, true>(sm.raw[st][0], sm.small[0], sm.tr[0][0], sm.tr[0][1], warp, lane);
+    split_tile<D, ROWS, true>(sm.raw[st][1], sm.small[1], sm.tr[1][0], sm.tr[1][1], warp, lane);
+    pn::tma_store_fence();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x 32 queries)
+    float s_set[1][16], dp_sets[KV_DP_SETS][16];
+    pn::wgmma_fence();
+    product_nt_rs32(s_set, k_big, k_small, desc_lo(sm.raw[st][0]), desc_lo(sm.small[0]));
+    product_nt_rs32(dp_sets, v_big, v_small, desc_lo(sm.raw[st][1]), desc_lo(sm.small[1]));
+    pn::wgmma_commit();
+    // the lse (+inf past Sq) and Delta of this thread's queries q0 + 8 n + 2 t + e
+    float ls[8], dl[8];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(&sm.rows[st][0][n * 8 + t * 2]);
+      const float2 d2 = *reinterpret_cast<const float2*>(&sm.rows[st][1][n * 8 + t * 2]);
+      const int qr = q0 + n * 8 + t * 2;
+      ls[2 * n] = qr < sq ? l2.x : pos_inf();
+      ls[2 * n + 1] = qr + 1 < sq ? l2.y : pos_inf();
+      dl[2 * n] = d2.x;
+      dl[2 * n + 1] = d2.y;
+    }
+    pn::wgmma_wait<0>();
+    pn::pin(s_set);
+    pn::pin(dp_sets);
+    float s[16], dp[16];
+    sum_sets(s, s_set);  // S's one set
+    sum_sets(dp, dp_sets);
+
+    // P^T and dS^T in place; a masked key selects the exponent -inf
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = (j >> 2) * 2 + (j & 1);
+      const float pe = wg::ex2(key_ok[(j >> 1) & 1] ? fmaf(s[j], scale_log2, -ls[c])
+                                                     : wg::neg_inf());
+      s[j] = pe;
+      dp[j] = pe * (dp[j] - dl[c]);
+    }
+    uint32_t p_big[4][4], p_small[4][4], ds_big[4][4], ds_small[4][4];
+    to_a(s, p_big, p_small);
+    to_a(dp, ds_big, ds_small);
+
+    // dV += P^T dO and dK += dS^T Q, each tile's into a fresh set that the
+    // threads add to the sums, rounded to nearest
+    float acc_v[D / 2], acc_k[D / 2];
+    pn::wgmma_fence();
+    product_rs32(acc_v, p_big, p_small, desc_lo(sm.tr[1][0]), desc_lo(sm.tr[1][1]));
+    product_rs32(acc_k, ds_big, ds_small, desc_lo(sm.tr[0][0]), desc_lo(sm.tr[0][1]));
+    pn::wgmma_commit();
+    pn::wgmma_wait<0>();
+    pn::pin(acc_v);
+    pn::pin(acc_k);
+    pn::pin(p_big);
+    pn::pin(p_small);
+    pn::pin(ds_big);
+    pn::pin(ds_small);
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) {
+      dv_sum[j] += acc_v[j];
+      dk_sum[j] += acc_k[j];
+    }
+    __syncthreads();  // every warp is done with the slot and the derived tiles
+    if (i + KV_STAGES < tiles) load(i + KV_STAGES);
+  }
+
+  // keys past the row's length get zeros; rows past Skv are not written
+  const long long base = (static_cast<long long>(b) * skv * heads + h) * D;
+  write_rows(dv_sum, dv + base, o_ss, 1.f, kr0, skv, t);
+  write_rows(dk_sum, dk + base, o_ss, scale, kr0, skv, t);
+}
+
+__global__ void __launch_bounds__(Q_THREADS, 2)
+pn_flash_bwd_f32_dq_tc32(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ d_o,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, const int* __restrict__ kv_lens, int heads,
+                         int sq, int skv, int q_tiles, long long q_sb, long long q_ss,
+                         long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+                         long long v_sb, long long v_ss, long long v_sh, float scale,
+                         float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  QSmem& sm = *reinterpret_cast<QSmem*>(pn::align_smem(smem_raw));
+
+  const Block blk = block_of(blockIdx.x, heads, q_tiles);
+  const int b = blk.b, h = blk.h, bh = b * heads + h;
+  const int row_len = pn::row_keys(kv_lens, b, skv);
+  scale = pn::row_scale(kv_lens, b, scale);
+  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
+  const int row0 = blk.tile * QB;
+  const int group = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // the key tiles below kv_len, taken in turn by the warpgroups
+  const int my_tiles = group_tiles(q_block_tiles(row_len), group, Q_GROUPS);
+  QSmem::Group& w = sm.wg[group];
+  const long long o_ss = static_cast<long long>(heads) * D;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+
+  auto load = [&](int i) {  // this warpgroup's key tile i, by its 128 threads
+    const int s = i % Q_STAGES, key0 = tile_row(i, group, Q_GROUPS);
+    load_async<ROWS, 128>(w.raw[s][0], kb, k_ss, key0, skv, tid);
+    load_async<ROWS, 128>(w.raw[s][1], vb, v_ss, key0, skv, tid);
+    pn::cp_async_arrive(&sm.full[group][s]);
+  };
+  if (threadIdx.x == 0) {
+    pn::mbar_init(&sm.q_full, Q_THREADS);
+    for (int gr = 0; gr < Q_GROUPS; ++gr)
+      for (int s = 0; s < Q_STAGES; ++s) pn::mbar_init(&sm.full[gr][s], 128);
+    pn::mbar_init_fence();
+  }
+  __syncthreads();
+  load_async<QB, Q_THREADS>(sm.q[0], q + b * q_sb + h * q_sh, q_ss, row0, sq, threadIdx.x);
+  load_async<QB, Q_THREADS>(sm.d_o[0], d_o + (static_cast<long long>(b) * sq * heads + h) * D,
+                            o_ss, row0, sq, threadIdx.x);
+  pn::cp_async_arrive(&sm.q_full);
+  for (int i = 0; i < min(Q_STAGES, my_tiles); ++i) load(i);
+  pn::mbar_wait(&sm.q_full, 0);
+  split_tile<D, QB, false, true, 4 * Q_GROUPS>(sm.q[0], sm.q[1], nullptr, nullptr,
+                                               threadIdx.x >> 5, lane);
+  split_tile<D, QB, false, true, 4 * Q_GROUPS>(sm.d_o[0], sm.d_o[1], nullptr, nullptr,
+                                               threadIdx.x >> 5, lane);
+  pn::tma_store_fence();
+  __syncthreads();
+
+  // every warpgroup owns the block's 64 rows; this thread's are r0, r0 + 8
+  const int r0 = row0 + warp * 16 + g;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    row_lse[r] = row < sq ? lse[static_cast<long long>(bh) * sq + row] : pos_inf();
+    row_delta[r] = row < sq ? delta[static_cast<long long>(bh) * sq + row] : 0.f;
+  }
+  const uint32_t qbig = desc_lo(sm.q[0]), qsmall = desc_lo(sm.q[1]);
+  const uint32_t obig = desc_lo(sm.d_o[0]), osmall = desc_lo(sm.d_o[1]);
+  float dq_sum[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_sum[i] = 0.f;
+
+  for (int i = 0; i < my_tiles; ++i) {
+    const int st = i % Q_STAGES, key0 = tile_row(i, group, Q_GROUPS);
+    pn::mbar_wait(&sm.full[group][st], (i / Q_STAGES) & 1);
+    split_tile<D, ROWS, true>(w.raw[st][0], w.small[0], w.tr[0], w.tr[1], warp, lane);
+    split_tile<D, ROWS, false>(w.raw[st][1], w.small[1], nullptr, nullptr, warp, lane);
+    pn::tma_store_fence();
+    pn::group_sync(group);
+
+    // S = Q K^T and dP = dO V^T (64 rows x 32 keys)
+    float s_set[1][16], dp_sets[Q_DP_SETS][16];
+    pn::wgmma_fence();
+    product_nt32(s_set, qbig, qsmall, desc_lo(w.raw[st][0]), desc_lo(w.small[0]));
+    product_nt32(dp_sets, obig, osmall, desc_lo(w.raw[st][1]), desc_lo(w.small[1]));
+    pn::wgmma_commit();
+    pn::wgmma_wait<0>();
+    pn::pin(s_set);
+    pn::pin(dp_sets);
+    float s[16], dp[16];
+    sum_sets(s, s_set);  // S's one set
+    sum_sets(dp, dp_sets);
+
+    // dS in place; keys from row_len on select the exponent -inf
+    const int limit = row_len - key0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int r = (j >> 1) & 1, col = (j >> 2) * 8 + t * 2 + (j & 1);
+      const float pe =
+          wg::ex2(col < limit ? fmaf(s[j], scale_log2, -row_lse[r]) : wg::neg_inf());
+      dp[j] = pe * (dp[j] - row_delta[r]);
+    }
+    uint32_t ds_big[4][4], ds_small[4][4];
+    to_a(dp, ds_big, ds_small);
+
+    // dQ += dS K, the tile's into a fresh set added to the sums
+    float acc[D / 2];
+    pn::wgmma_fence();
+    product_rs32(acc, ds_big, ds_small, desc_lo(w.tr[0]), desc_lo(w.tr[1]));
+    pn::wgmma_commit();
+    pn::wgmma_wait<0>();
+    pn::pin(acc);
+    pn::pin(ds_big);
+    pn::pin(ds_small);
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dq_sum[j] += acc[j];
+    pn::group_sync(group);  // every warp is done with the slot and the derived tiles
+    if (i + Q_STAGES < my_tiles) load(i + Q_STAGES);
+  }
+
+  __syncthreads();
+  reduce_write(&sm.wg[0].raw[0][0][0], dq_sum, group, tid,
+               dq + (static_cast<long long>(b) * sq * heads + h) * D, o_ss, scale, r0, sq, t);
+}
+
+// st: the strides of q, k and v as the C entry takes them; o, d_o, dq, dk
+// and dv contiguous
+int launch(const void* q, const void* k, const void* v, const void* o, const void* d_o,
+           const void* lse, void* delta, void* dq, void* dk, void* dv, const void* kv_lens,
+           int batch, int heads, int sq, int skv, const long long* st, float scale,
+           cudaStream_t stream) {
+  static const cudaError_t attr_kv = cudaFuncSetAttribute(
+      pn_flash_bwd_f32_dkdv_tc32, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM_BYTES);
+  static const cudaError_t attr_q = cudaFuncSetAttribute(
+      pn_flash_bwd_f32_dq_tc32, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM_BYTES);
+  if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
+  if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
+  const long long bh = static_cast<long long>(batch) * heads;
+  const int k_tiles = (skv + KB - 1) / KB, q_tiles = (sq + QB - 1) / QB;
+  if (bh < 1 || bh * k_tiles > 2147483647LL || bh * q_tiles > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  const auto* dop = static_cast<const float*>(d_o);
+  const auto* lens = static_cast<const int*>(kv_lens);
+  const long long rows = bh * sq;
+  f32::pn_flash_bwd_f32_delta<D><<<static_cast<unsigned>((rows * (D / 4) + 255) / 256), 256, 0,
+                                   stream>>>(static_cast<const float*>(o), dop,
+                                             static_cast<float*>(delta), heads, sq, rows);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  pn_flash_bwd_f32_dkdv_tc32<<<static_cast<unsigned>(bh * k_tiles), KV_THREADS, KV_SMEM_BYTES,
+                               stream>>>(
+      qp, kp, vp, dop, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), lens, heads, sq, skv, k_tiles, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, scale_log2);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  pn_flash_bwd_f32_dq_tc32<<<static_cast<unsigned>(bh * q_tiles), Q_THREADS, Q_SMEM_BYTES,
+                             stream>>>(
+      qp, kp, vp, dop, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), lens, heads, sq, skv, q_tiles, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc32
+
 }  // namespace
 
 // q, k, v: bf16 (B, S, H, D) views, strides {q_b, q_s, q_h, k_b, k_s, k_h,
@@ -1636,7 +2106,8 @@ extern "C" int pn_flash_attention_bwd_bf16(const void* q, const void* k, const v
 
 // The fp32 entry: the same arguments; every tensor is fp32, strides in
 // elements of fp32 (multiples of 4, 16 bytes). maps: the tensor-map specs of
-// tc::launch, used at d = 64 (null otherwise).
+// tc::launch, used at d = 64 (null otherwise); tc32 (d = 32) reads through
+// the strides.
 extern "C" int pn_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                           const void* o, const void* d_o, const void* lse,
                                           void* delta, void* dq, void* dk, void* dv,
@@ -1647,7 +2118,7 @@ extern "C" int pn_flash_attention_bwd_f32(const void* q, const void* k, const vo
   switch (d) {
     case 64: return tc::launch(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, maps, scale, s);
     case 16: return f32::launch<16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
-    case 32: return f32::launch<32>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
+    case 32: return tc32::launch(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
     case 128: return f32::launch<128>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,14 +1,16 @@
 // The building blocks of the fp32 flash kernels on the tensor cores: the
 // forwards (tc::pn_flash_f32_fwd_tc at head dim 64, tc32::pn_flash_f32_fwd_tc32
 // at head dim 32, flash_attention.cu) and both passes of the backward
-// (tc::pn_flash_bwd_f32_{dkdv,dq}_tc, flash_attention_bwd.cu, head dim 64).
-// Each product is 3xTF32 on wgmma (pn::tf32_split: each operand a big and a
-// small TF32 part, the three larger of the four products summed); the
-// operands are fp32 tiles of D channels (D / 32 panels of 128-byte rows with
-// the 128-byte swizzle: two at D 64, one at D 32), laid down by TMA or
-// cp.async, split in shared memory or, for a register A operand, as they
-// are read into registers. The head dim and the tile shapes are template
-// arguments, deduced from the register arrays where a function has them.
+// (tc::pn_flash_bwd_f32_{dkdv,dq}_tc at head dim 64,
+// tc32::pn_flash_bwd_f32_{dkdv,dq}_tc32 at head dim 32,
+// flash_attention_bwd.cu). Each product is 3xTF32 on wgmma (pn::tf32_split:
+// each operand a big and a small TF32 part, the three larger of the four
+// products summed); the operands are fp32 tiles of D channels (D / 32
+// panels of 128-byte rows with the 128-byte swizzle: two at D 64, one at
+// D 32), laid down by TMA or cp.async, split in shared memory or, for a
+// register A operand, as they are read into registers. The head dim and the
+// tile shapes are template arguments, deduced from the register arrays where
+// a function has them.
 
 #pragma once
 
@@ -44,6 +46,21 @@ __device__ __forceinline__ void load_rows(float* dst, int rows, const CUtensorMa
   for (int p = 0; p < D / PANEL; ++p)
     for (int r = 0; r < rows; r += T)
       tma_load_4d(dst + p * rows * PANEL + r * PANEL, map, bar, p * PANEL, h, row0 + r, b);
+}
+
+// rows [row0, row0 + ROWS) of a strided (rows, 32) fp32 view into a tile of
+// 128-byte swizzled rows (head dim 32: one panel), by THREADS threads, this
+// one `tid`, with cp.async; rows from `limit` on arrive as zeros
+template <int ROWS, int THREADS = NTHREADS>
+__device__ __forceinline__ void load_async(float* dst, const float* src, long long stride,
+                                           int row0, int limit, int tid) {
+  static_assert(ROWS * 8 % THREADS == 0, "the threads divide the tile's 16-byte chunks");
+#pragma unroll
+  for (int i = 0; i < ROWS * 8 / THREADS; ++i) {
+    const int c = tid + i * THREADS, r = c >> 3, ch = c & 7;
+    const bool in = row0 + r < limit;
+    cp_async16(dst + swz(r, ch * 4), in ? src + (row0 + r) * stride + ch * 4 : src, in ? 16 : 0);
+  }
 }
 
 __device__ __forceinline__ void split4(const float4 v, float4& hi, float4& lo) {
@@ -223,10 +240,27 @@ __device__ __forceinline__ void to_a(const float (&x)[M], uint32_t (&big)[M / 4]
     }
 }
 
+// A warpgroup's (64 x D, D = 2 M) sums: this thread's rows r0, r0 + 8 (those
+// below `rows`) of a (B, S, H, D) fp32 tensor, times `scale`.
+template <int M>
+__device__ __forceinline__ void write_rows(const float (&sum)[M], float* base,
+                                           long long row_stride, float scale, int r0, int rows,
+                                           int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row < rows) {
+#pragma unroll
+      for (int n = 0; n < M / 4; ++n)
+        *reinterpret_cast<float2*>(base + row * row_stride + n * 8 + t * 2) =
+            make_float2(sum[n * 4 + r * 2] * scale, sum[n * 4 + r * 2 + 1] * scale);
+    }
+  }
+}
+
 // The (64 x D, D = 2 M) sums of warpgroup 1 go through shared memory
 // (`red`, 128 M floats) to warpgroup 0, which adds them to its own, always in
-// this order, and writes its rows r0, r0 + 8 (those below `rows`) of a
-// (B, S, H, D) fp32 tensor, times `scale`.
+// this order, and writes them (write_rows).
 template <int M>
 __device__ __forceinline__ void reduce_write(float* red, float (&sum)[M], int group, int tid,
                                              float* base, long long row_stride, float scale,
@@ -239,16 +273,7 @@ __device__ __forceinline__ void reduce_write(float* red, float (&sum)[M], int gr
   if (group == 0) {
 #pragma unroll
     for (int i = 0; i < M; ++i) sum[i] += red[i * 128 + tid];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + 8 * r;
-      if (row < rows) {
-#pragma unroll
-        for (int n = 0; n < M / 4; ++n)
-          *reinterpret_cast<float2*>(base + row * row_stride + n * 8 + t * 2) =
-              make_float2(sum[n * 4 + r * 2] * scale, sum[n * 4 + r * 2 + 1] * scale);
-      }
-    }
+    write_rows(sum, base, row_stride, scale, r0, rows, t);
   }
   __syncthreads();
 }

@@ -167,6 +167,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
                : "memory");
 }
 
+// 4 bytes the same way (cp.async.ca: the only form that copies fewer than
+// 16), for a source that need not be 16-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
 // One arrival on `bar` once this thread's cp.async copies so far have
 // landed; the barrier counts it among the arrivals it was initialised with
 // (.noinc), and its completion makes the copies visible to the threads that

@@ -112,10 +112,12 @@ def flash_strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> List[int
 
 
 def flash_f32_kernel(d: int) -> str:
-    """Which fp32 forward kernel of csrc/flash_attention.cu serves head dim
-    ``d`` (``pn_flash_attention_f32``'s switch): ``tc`` (3xTF32 wgmma, TMA)
-    at 64, ``tc32`` (3xTF32 wgmma, cp.async) at 32, ``fma`` (the FMA units)
-    at 16 and 128."""
+    """Which fp32 kernels serve head dim ``d``, in the forward
+    (csrc/flash_attention.cu, ``pn_flash_attention_f32``'s switch) and in
+    the backward alike (csrc/flash_attention_bwd.cu,
+    ``pn_flash_attention_bwd_f32``'s): ``tc`` (3xTF32 wgmma, TMA) at 64,
+    ``tc32`` (3xTF32 wgmma, cp.async) at 32, ``fma`` (the FMA units) at 16
+    and 128."""
     return {64: "tc", 32: "tc32"}.get(d, "fma")
 
 

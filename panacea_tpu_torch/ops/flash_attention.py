@@ -28,9 +28,11 @@ Gradients: where autograd needs them, ``flash_attention`` goes through a
 ``flash_attention_bwd_plain`` on a CPU tensor, and on a CUDA tensor the
 kernels of ``csrc/flash_attention_bwd.cu``, routed as the forward: bf16 at
 head dim 64 to the wgmma/TMA kernels, at 16, 32 and 128 to the mma.sync
-ones, fp32 to the fp32 kernels (at head dim 64 on the tensor cores as
-3xTF32, TMA; at the others on the FMA units) (``flash_attention_bwd.launches``,
-``flash_attention_bwd.route_launches``). The Pallas kernel has no VJP; the
+ones, fp32 to the fp32 kernels (at head dims 64 and 32 on the tensor cores
+as 3xTF32: TMA at 64, cp.async from the strides at 32, the perception
+self-attention's; at 16 and 128 on the FMA units)
+(``flash_attention_bwd.launches``, ``flash_attention_bwd.route_launches``,
+``flash_attention_bwd.fp32_kernel_launches``). The Pallas kernel has no VJP; the
 JAX trainer differentiates its plain form (``_lax_flash``), and that is the
 gradient computed here.
 """
@@ -317,11 +319,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     _build.check(lib, err, f"flash_attention_bwd ({route})")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.route_launches[route] += 1
+    if route == "fp32":
+        flash_attention_bwd.fp32_kernel_launches[_tma.flash_f32_kernel(d)] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.route_launches = {"wgmma": 0, "mma": 0, "fp32": 0}
+flash_attention_bwd.fp32_kernel_launches = {"tc": 0, "tc32": 0, "fma": 0}
 
 
 class _FlashAttention(torch.autograd.Function):

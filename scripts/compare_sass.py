@@ -2,7 +2,7 @@
 """The machine code of the fp32 flash kernels, on a machine with the CUDA
 toolkit.
 
-    python3 scripts/compare_sass.py [--other DIR] [--kernel NAME]
+    python3 scripts/compare_sass.py [--other DIR] [--kernel NAME ...]
 
 Builds ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` of
 this tree with nvcc (the flags of ``ops/_build.py``), dumps their SASS with
@@ -12,11 +12,12 @@ cuobjdump and:
   commit unpacked with ``git archive``): builds its two sources the same
   way and says, for every fp32 kernel (``f32`` in its name), whether
   its SASS is the same instruction for instruction in both trees;
-- for the kernel whose name contains ``--kernel`` (default ``tc32``, the
-  fp32 forward at head dim 32), finds its main loop (the longest backward
-  branch; the mbarrier waits are loops of a few instructions) and prints
-  the loop's instruction count and the count of each opcode. The tc32
-  kernel's loop is unrolled by two: its body runs two key tiles.
+- for the first kernel whose name contains each ``--kernel`` (default
+  ``tc32``, the fp32 forward at head dim 32; ``dkdv_tc32`` and ``dq_tc32``
+  are the passes of its backward), finds its main loop (the longest
+  backward branch; the mbarrier waits are loops of a few instructions) and
+  prints the loop's instruction count and the count of each opcode. The
+  tc32 forward's loop is unrolled by two: its body runs two key tiles.
 
 The last line is one JSON object.
 """
@@ -87,7 +88,7 @@ def main_loop(code: list) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", help="root of another checkout to compare with")
-    parser.add_argument("--kernel", default="tc32")
+    parser.add_argument("--kernel", nargs="+", default=["tc32"])
     args = parser.parse_args()
     out = tempfile.mkdtemp(prefix="compare_sass_")
     result: dict = {}
@@ -107,15 +108,16 @@ def main() -> int:
                     same[name] = "only in " + ("this tree" if name in mine else "the other")
                 print(f"{name}: {same[name]}", flush=True)
             result["same_sass"] = same
-        name = next((n for n in mine if args.kernel in n), None)
-        if name:
+        for pattern in args.kernel:
+            name = next((n for n in mine if pattern in n), None)
+            if not name:
+                continue
             loop = main_loop(mine[name])
             ops = collections.Counter(re.sub(r"^@!?U?P[T0-9]+\s+", "", i).split()[0].split(".")[0]
                                       for i in loop)
-            result["kernel"] = name
-            result["instructions"] = len(mine[name])
-            result["main_loop_instructions"] = len(loop)
-            result["main_loop_opcodes"] = dict(ops.most_common())
+            result.setdefault("kernels", {})[name] = {
+                "instructions": len(mine[name]), "main_loop_instructions": len(loop),
+                "main_loop_opcodes": dict(ops.most_common())}
             print(f"{name}: {len(mine[name])} instructions, main loop {len(loop)}", flush=True)
             for op, n in ops.most_common():
                 print(f"  {op:12s}{n}", flush=True)

@@ -161,7 +161,12 @@ BWD_CASES = [
     (300, 650, 2, 64, None, False),
     # rows with no valid key: the mean of V, dq = dk = 0
     (200, 256, 2, 64, [0, 100], True), (200, 400, 2, 16, [0, 300], False),
-    (200, 400, 2, 32, [300, 0], True), (200, 400, 2, 128, [0, 300], False)]
+    (200, 400, 2, 32, [300, 0], True), (200, 400, 2, 128, [0, 300], False),
+    # the perception training's self-attention at head dim 32 (B 2 and B 1);
+    # ragged rows with an empty one, a row of one key and key blocks wholly
+    # past kv_len; Sq and Skv off the 64-row blocks and the 32-row tiles
+    (900, 1668, 8, 32, None, False), (900, 1668, 8, 32, [1668], False),
+    (900, 1668, 8, 32, [0, 1, 833, 1668], True), (129, 1667, 2, 32, [1667, 0, 65], False)]
 
 
 def _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, dtype):
@@ -185,9 +190,15 @@ def _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, dtype):
     assert tolerance.worst_ratio(lse, lse_plain, **tolerance.FLASH_LSE) <= 1.0
     route = "fp32" if dtype == torch.float32 else ("wgmma" if d == 64 else "mma")
     before = (flash_attention_bwd.launches, flash_attention_bwd.route_launches[route])
+    kernels = dict(flash_attention_bwd.fp32_kernel_launches)
     got = flash_attention_bwd(q, k, v, o, lse, do, kv_lens=kvl)
     assert (flash_attention_bwd.launches, flash_attention_bwd.route_launches[route]) == (
         before[0] + 1, before[1] + 1)
+    # fp32: the tensor cores (3xTF32) at head dims 64 and 32, the FMA units
+    # at 16 and 128
+    kernel = {64: "tc", 32: "tc32"}.get(d, "fma")
+    assert flash_attention_bwd.fp32_kernel_launches == (
+        {**kernels, kernel: kernels[kernel] + 1} if dtype == torch.float32 else kernels)
     # fp32: against the plain version evaluated in float64 (the exact function)
     ref = [t.double() if dtype == torch.float32 else t for t in (q, k, v, o, lse, do)]
     want = flash_attention_bwd_plain(*ref, kv_lens=kvl)
@@ -212,8 +223,9 @@ def test_flash_bwd_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merge
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv,h,d,lens,merged", BWD_CASES)
 def test_fp32_flash_bwd_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
-    """fp32: the 3xTF32 tensor-core kernels at head dim 64, the FMA ones at
-    the others, held to the plain version in float64."""
+    """fp32: the 3xTF32 tensor-core kernels at head dims 64 (tc) and 32
+    (tc32), the FMA ones at 16 and 128, held to the plain version in
+    float64."""
     _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, torch.float32)
 
 

@@ -8,6 +8,7 @@ plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 
 import importlib
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -517,67 +518,138 @@ def _tc_product(a, b, products, width=None):
     return total
 
 
-def _flash_bwd_tf32_emulated(q, k, v, o, lse, do, lens, products):
-    """The fp32 tensor-core backward's arithmetic on one (batch row, head)
-    pair per call: each product as ``_tc_product``. Each 16 channels of S
-    and dP, and each 32-row tile's dV, dK (per query tile) and dQ (per key
-    tile), go to a fresh accumulator set added to fp32 sums rounded to
-    nearest; the tiles are taken in turn by two warpgroups whose sums are
-    added at the end."""
+def _flash_bwd_tf32_emulated(q, k, v, o, lse, do, lens, products, s_width=16, kv_dp_width=16,
+                             q_dp_width=16, kv_groups=2, q_groups=2):
+    """The fp32 tensor-core backwards' arithmetic on one (batch row, head)
+    pair per call: each product as ``_tc_product``. S goes to fresh
+    accumulator sets of ``s_width`` channels, dP to sets of ``kv_dp_width``
+    channels in the dK/dV pass and of ``q_dp_width`` in the dQ pass (the
+    head-dim-64 kernels: 16 everywhere; head dim 32: S in one set, dP in
+    sets of 8 and 16), and each 32-row tile's dV, dK (per query tile) and
+    dQ (per key tile) to a fresh set added to fp32 sums rounded to nearest;
+    the tiles of a pass are taken in turn by ``kv_groups`` or ``q_groups``
+    warpgroups whose sums are added at the end, in order."""
     t = _tma.FLASH_BWD_F32_T
     scale = q.shape[-1] ** -0.5
 
     def tc_product(a, b, width=None):
         return _tc_product(a, b, products, width)
 
-    def tiled(a, b, rows):  # sum over 32-row tiles of a[:, tile] b[:, tile]^T
-        sums = [torch.zeros((a.shape[0], b.shape[0])) for _ in range(2)]
+    def tiled(a, b, rows, groups):  # sum over 32-row tiles of a[:, tile] b[:, tile]^T
+        sums = [torch.zeros((a.shape[0], b.shape[0])) for _ in range(groups)]
         for j, r0 in enumerate(range(0, rows, t)):
-            sums[j % 2] = sums[j % 2] + tc_product(a[:, r0:r0 + t], b[:, r0:r0 + t])
-        return sums[0] + sums[1]
+            sums[j % groups] = sums[j % groups] + tc_product(a[:, r0:r0 + t], b[:, r0:r0 + t])
+        return sum(sums[1:], sums[0])
+
+    def probabilities(qh, kh, n, lse_row):
+        s = tc_product(qh, kh, s_width)   # (Sq, Skv)
+        p = torch.exp2(s * (scale * tolerance_log2e) - lse_row[:, None])
+        return torch.where(torch.arange(kh.shape[0]) < n, p, torch.zeros_like(p))
 
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    sq, skv = q.shape[1], k.shape[1]
+    sq = q.shape[1]
     for bi in range(q.shape[0]):
         n = int(lens[bi])
         for hi in range(q.shape[2]):
             qh, kh, vh, oh, doh = (x[bi, :, hi] for x in (q, k, v, o, do))
             delta = (doh * oh).sum(-1, keepdim=True)
-            s, dp = tc_product(qh, kh, 16), tc_product(doh, vh, 16)   # (Sq, Skv)
-            p = torch.exp2(s * (scale * tolerance_log2e) - lse[bi, hi][:, None])
-            p = torch.where(torch.arange(skv) < n, p, torch.zeros_like(p))
-            ds = p * (dp - delta)
-            dv[bi, :, hi] = tiled(p.T, doh.T, sq)
-            dk[bi, :, hi] = tiled(ds.T, qh.T, sq) * scale
-            dq[bi, :, hi] = tiled(ds[:, :n], kh[:n].T, n) * scale
+            p = probabilities(qh, kh, n, lse[bi, hi])
+            ds = p * (tc_product(doh, vh, kv_dp_width) - delta)   # the dK/dV pass's
+            dv[bi, :, hi] = tiled(p.T, doh.T, sq, kv_groups)
+            dk[bi, :, hi] = tiled(ds.T, qh.T, sq, kv_groups) * scale
+            ds = p * (tc_product(doh, vh, q_dp_width) - delta)    # the dQ pass's
+            dq[bi, :, hi] = tiled(ds[:, :n], kh[:n].T, n, q_groups) * scale
     return dq, dk, dv
 
 
 tolerance_log2e = 1.4426950408889634
 
 
-@pytest.mark.parametrize("products,passes", [(3, True), (1, False)], ids=["3xTF32", "1xTF32"])
-def test_flash_bwd_3xtf32_arithmetic_against_float64(products, passes):
+@pytest.mark.parametrize("products,passes,d", [(3, True, 64), (1, False, 64), (3, True, 32),
+                                               (1, False, 32)],
+                         ids=["3xTF32", "1xTF32", "d32-3xTF32", "d32-1xTF32"])
+def test_flash_bwd_3xtf32_arithmetic_against_float64(products, passes, d, tc32_schedule):
     """Under FLASH_BWD_F32, against the plain backward evaluated in float64
-    (the reference of the card's fp32 check), at head dim 64 with a full
-    row, a row of one valid key (where dS is rounding noise: one set over
-    all 64 channels of dP read 0.67 here, 1.8 on the card at Sq 512) and a
-    ragged row: the kernel's scheme (three products, fresh accumulator sets
-    added to rounded fp32 sums) passes; the TF32 product alone fails, so the
-    rule catches a dropped term."""
+    (the reference of the card's fp32 check), with a full row, a row of one
+    valid key (where dS is rounding noise: one set over all 64 channels of
+    dP read 0.67 here, 1.8 on the card at Sq 512) and a ragged row, at head
+    dim 64 (sets of 16 channels, two warpgroups in each pass) and 32 (the
+    tc32 kernels' sets and warpgroups, from their compiled schedule): the
+    kernels' scheme (three products, fresh accumulator sets added to
+    rounded fp32 sums) passes; the TF32 product alone fails, so the rule
+    catches a dropped term."""
     from panacea_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
     g = torch.Generator().manual_seed(8)
-    b, sq, skv, h, d = 3, 128, 256, 1, 64
+    b, sq, skv, h = 3, 128, 256, 1
     q, k, v, do = (torch.randn((b, n, h, d), generator=g) for n in (sq, skv, skv, sq))
     lens = torch.tensor([256, 1, 200], dtype=torch.int32)
     o, lse = flash_attention_plain(q, k, v, kv_lens=lens, return_lse=True)
-    got = _flash_bwd_tf32_emulated(q, k, v, o, lse, do, lens, products)
+    shape = {} if d == 64 else _tc32_bwd_shape(tc32_schedule)
+    got = _flash_bwd_tf32_emulated(q, k, v, o, lse, do, lens, products, **shape)
     want = flash_attention_bwd_plain(*(x.double() for x in (q, k, v, o, lse, do)), kv_lens=lens)
     ratios = [tolerance.worst_ratio(a, w, **tolerance.FLASH_BWD_F32) for a, w in zip(got, want)]
     if passes:
         assert max(ratios) <= 1.0, ratios
     else:
         assert max(ratios) > 5.0, ratios
+
+
+def _tc32_bwd_shape(sched):
+    """The arithmetic of the head-dim-32 backward (tc32 in
+    csrc/flash_attention_bwd.cu) as ``_flash_bwd_tf32_emulated`` takes it:
+    S in one accumulator set of all D channels, dP's sets and the dK/dV
+    block's warpgroups (KV_THREADS / 128) from the source's constants, the
+    dQ block's warpgroups from the compiled schedule."""
+    k = _kernel_constants("flash_attention_bwd.cu", "tc32")
+    dp = re.search(r"KV_DP_SETS = D / (\d+), Q_DP_SETS = D / (\d+);",
+                   open(os.path.join(_build.CSRC, "flash_attention_bwd.cu")).read())
+    return {"s_width": k["D"], "kv_dp_width": int(dp.group(1)),
+            "q_dp_width": int(dp.group(2)), "kv_groups": k["KV_THREADS"] // 128,
+            "q_groups": sched.bwd.Q_GROUPS}
+
+
+def test_flash_bwd_d32_one_key_row_takes_dp_in_sets_of_8(tc32_schedule):
+    """The row of one valid key at the perception training's shape (Sq 900,
+    Skv 1668): dP equals Delta there, so dk of that key sums the noise of dP
+    over 900 rows. Modelled as the kernel computes it (S in one set, dP in
+    sets of 8 channels, 32-row tiles), it holds FLASH_BWD_F32 against
+    float64 as the fp32 plain version does (0.80 and 0.81 of the rule in
+    the model with the card's inputs drawn here, 0.64 on an H100 against
+    the plain version's 0.73), and by a clear margin over dP in sets of 16
+    (1.21 in the model, 1.30 on the card), which is why the dK/dV pass uses
+    sets of 8. Only that key's dk is modelled; the rule's floor is the whole
+    tensor's rms."""
+    from panacea_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
+    shape = _tc32_bwd_shape(tc32_schedule)
+    assert (shape["s_width"], shape["kv_dp_width"]) == (32, 8)
+    g = torch.Generator().manual_seed(3)
+    b, sq, skv, h, d = 4, 900, 1668, 2, 32
+    q, k, v, do = (torch.randn((b, n, h, d), generator=g) for n in (sq, skv, skv, sq))
+    lens = torch.tensor([0, 1, 833, 1668], dtype=torch.int32)
+    o, lse = flash_attention_plain(q, k, v, kv_lens=lens, return_lse=True)
+    want = flash_attention_bwd_plain(*(x.double() for x in (q, k, v, o, lse, do)),
+                                     kv_lens=lens)[1]
+    rule = tolerance.FLASH_BWD_F32
+    floor = rule["floor"] * want.square().mean().sqrt()
+    ratio = {}
+    for width in (8, 16):
+        worst = 0.0
+        for hi in range(h):
+            qh, kh, vh, oh, doh = (x[1, :, hi] for x in (q, k, v, o, do))
+            s = _tc_product(qh, kh[:1], 3, shape["s_width"])
+            p = torch.exp2(s * (d**-0.5 * tolerance_log2e) - lse[1, hi][:, None])
+            ds = p * (_tc_product(doh, vh[:1], 3, width) - (doh * oh).sum(-1, keepdim=True))
+            sums = [torch.zeros((1, d)) for _ in range(shape["kv_groups"])]
+            for j, r0 in enumerate(range(0, sq, tc32_schedule.bwd.ROWS)):
+                r1 = r0 + tc32_schedule.bwd.ROWS
+                sums[j % len(sums)] += _tc_product(ds[r0:r1].T.contiguous(),
+                                                   qh[r0:r1].T.contiguous(), 3)
+            dk0 = sum(sums[1:], sums[0]) * d**-0.5
+            w0 = want[1, 0, hi]
+            worst = max(worst, ((dk0.double() - w0).abs() / (rule["rel"] * w0.abs() + floor))
+                        .max().item())
+        ratio[width] = worst
+    assert ratio[8] <= 1.0 and ratio[16] > 1.2 * ratio[8], ratio
 
 
 @pytest.mark.parametrize("d,route", [(16, "mma"), (32, "mma"), (64, "wgmma"), (128, "mma")])
@@ -716,9 +788,11 @@ def test_fp32_geglu_plain_matches_pallas_kernel_on_fp32_inputs(tokens, c, inner)
 def test_flash_bwd_route_by_type_and_head_dim(dtype, d, route):
     """The backward takes the forward's route: bf16 at head dim 64 the wgmma
     kernels, at 16/32/128 the mma.sync ones, fp32 the fp32 kernels; each
-    route has its own launch counter."""
+    route has its own launch counter, and each fp32 kernel too (tc at head
+    dim 64, tc32 at 32, fma at 16 and 128, as the forward's)."""
     assert fa_mod._route(dtype, d) == route
     assert set(fa_mod.flash_attention_bwd.route_launches) == {"wgmma", "mma", "fp32"}
+    assert set(fa_mod.flash_attention_bwd.fp32_kernel_launches) == {"tc", "tc32", "fma"}
 
 
 @pytest.mark.parametrize("b,h,skv", [(40, 5, 4096), (40, 10, 1024), (40, 20, 256), (3, 2, 4097),
@@ -819,7 +893,9 @@ def test_flash_bwd_tensor_map_specs_address_every_element(kind, b, sq, h):
 
 _TC32_SCHEDULE_SHIM = r"""
 #include "flash_f32_tc32_schedule.h"
+#include "flash_f32_tc32_bwd_schedule.h"
 using namespace pn::tc32_schedule;
+namespace bwd = pn::tc32_bwd_schedule;
 extern "C" {
 int tc32_constant(int i) { return i == 0 ? BQ : i == 1 ? KT : SPLIT; }
 int tc32_key_split(long long blocks, int sms) { return key_split(blocks, sms); }
@@ -831,17 +907,38 @@ void tc32_block_of(int block, int heads, int q_tiles, int split, int* out) {
   out[2] = blk.qt;
   out[3] = blk.part;
 }
+int bwd_constant(int i) {
+  const int c[] = {bwd::KB, bwd::QB, bwd::ROWS, bwd::Q_GROUPS, bwd::KV_BLOCKS_PER_SM};
+  return c[i];
+}
+void bwd_block_of(int block, int heads, int tiles, int* out) {
+  const bwd::Block blk = bwd::block_of(block, heads, tiles);
+  out[0] = blk.b;
+  out[1] = blk.h;
+  out[2] = blk.tile;
+}
+int bwd_kv_block_tiles(int sq, int key0, int row_len) {
+  return bwd::kv_block_tiles(sq, key0, row_len);
+}
+int bwd_q_block_tiles(int row_len) { return bwd::q_block_tiles(row_len); }
+int bwd_group_tiles(int n, int group, int groups) { return bwd::group_tiles(n, group, groups); }
+int bwd_tile_row(int i, int group, int groups) { return bwd::tile_row(i, group, groups); }
 }
 """
 
 
 @pytest.fixture(scope="module")
 def tc32_schedule(tmp_path_factory):
-    """The head-dim-32 kernel's schedule as the kernel has it: the header it
-    includes (csrc/flash_f32_tc32_schedule.h) built for the host with g++
-    and loaded with ctypes. BQ, KT and SPLIT; key_split(blocks, sms);
-    key_begin(row_len, part, split); block_of(block, heads, q_tiles, split)
-    -> (batch row, head, query tile, part)."""
+    """The head-dim-32 kernels' schedules as the kernels have them: the
+    headers they include (csrc/flash_f32_tc32_schedule.h, the forward's,
+    and csrc/flash_f32_tc32_bwd_schedule.h, the backward's) built for the
+    host with g++ and loaded with ctypes. The forward's: BQ, KT and SPLIT;
+    key_split(blocks, sms); key_begin(row_len, part, split);
+    block_of(block, heads, q_tiles, split) -> (batch row, head, query tile,
+    part). The backward's, under ``bwd``: KB, QB, ROWS, Q_GROUPS and
+    KV_BLOCKS_PER_SM; block_of(block, heads, tiles) -> (batch row, head, tile);
+    kv_block_tiles(sq, key0, row_len); q_block_tiles(row_len);
+    group_tiles(n, group, groups); tile_row(i, group, groups)."""
     import ctypes
     import subprocess
     from types import SimpleNamespace
@@ -860,9 +957,19 @@ def tc32_schedule(tmp_path_factory):
         lib.tc32_block_of(block, heads, q_tiles, split, got)
         return tuple(got)
 
+    def bwd_block_of(block, heads, tiles):
+        got = (ctypes.c_int * 3)()
+        lib.bwd_block_of(block, heads, tiles, got)
+        return tuple(got)
+
+    kb, qb, rows, q_groups, kv_per_sm = (lib.bwd_constant(i) for i in range(5))
+    bwd = SimpleNamespace(KB=kb, QB=qb, ROWS=rows, Q_GROUPS=q_groups,
+                          KV_BLOCKS_PER_SM=kv_per_sm, block_of=bwd_block_of, kv_block_tiles=lib.bwd_kv_block_tiles,
+                          q_block_tiles=lib.bwd_q_block_tiles,
+                          group_tiles=lib.bwd_group_tiles, tile_row=lib.bwd_tile_row)
     return SimpleNamespace(BQ=lib.tc32_constant(0), KT=lib.tc32_constant(1),
                            SPLIT=lib.tc32_constant(2), key_split=lib.tc32_key_split,
-                           key_begin=lib.tc32_key_begin, block_of=block_of)
+                           key_begin=lib.tc32_key_begin, block_of=block_of, bwd=bwd)
 
 
 def _flash_fwd_tf32_emulated(q, k, v, lens, products, s_sets, tile=_tma.FLASH_F32_T,
@@ -1137,22 +1244,97 @@ def test_flash_f32_d32_strides_address_every_element(kind, b, sq, skv, h):
             assert row % 16 == 0 and row + 4 * di == t[bi, si, hi, di].data_ptr()
 
 
+@pytest.mark.parametrize("b,h,sq,skv,lens", [
+    (2, 8, 900, 1668, [1668, 1668]), (1, 8, 900, 1668, [1668]),
+    (4, 8, 900, 1668, [0, 1, 833, 1668]), (3, 2, 129, 1667, [1667, 0, 65]),
+    (2, 3, 100, 70, [1, 65]), (3, 2, 31, 33, [33, 33, 33])])
+def test_flash_bwd_f32_d32_schedule_visits_every_tile_once(b, h, sq, skv, lens, tc32_schedule):
+    """The head-dim-32 backward's grids from their compiled schedule
+    (csrc/flash_f32_tc32_bwd_schedule.h), brute force over every key and
+    query row: each (batch row, head, key tile of KB) is one dK/dV block,
+    which streams every query tile once (ROWS rows each), so every valid key
+    meets every query row once; a block whose keys all lie past kv_len
+    streams one tile, all masked, and so writes zeros. Each (batch row,
+    head, query tile of QB) is one dQ block, whose warpgroups stream the key
+    tiles below kv_len once between them; a row of kv_lens 0 takes every
+    key. Launch order keeps a (batch row, head)'s blocks together."""
+    s = tc32_schedule.bwd
+    k_tiles, q_tiles = -(-skv // s.KB), -(-sq // s.QB)
+    kv_blocks = [s.block_of(i, h, k_tiles) for i in range(b * h * k_tiles)]
+    assert kv_blocks == [(bi, hi, kt) for bi in range(b) for hi in range(h)
+                         for kt in range(k_tiles)]
+    for bi, hi, kt in kv_blocks:
+        row_len = lens[bi] if lens[bi] > 0 else skv
+        key0 = kt * s.KB
+        n = s.kv_block_tiles(sq, key0, row_len)
+        firsts = [i * s.ROWS for i in range(n)]
+        streamed = sorted(r for r0 in firsts for r in range(r0, r0 + s.ROWS) if r < sq)
+        if key0 < row_len:   # every query row once
+            assert streamed == list(range(sq))
+        else:                # one tile, every key of the block masked: zeros
+            assert n == 1 and all(k >= row_len for k in range(key0, key0 + s.KB))
+    q_blocks = [s.block_of(i, h, q_tiles) for i in range(b * h * q_tiles)]
+    assert q_blocks == [(bi, hi, qt) for bi in range(b) for hi in range(h)
+                        for qt in range(q_tiles)]
+    for bi, _, _ in q_blocks:
+        row_len = lens[bi] if lens[bi] > 0 else skv
+        n = s.q_block_tiles(row_len)
+        firsts = [s.tile_row(i, g, s.Q_GROUPS) for g in range(s.Q_GROUPS)
+                  for i in range(s.group_tiles(n, g, s.Q_GROUPS))]
+        keys = sorted(k for k0 in firsts for k in range(k0, k0 + s.ROWS) if k < row_len)
+        assert keys == list(range(row_len)) and (n - 1) * s.ROWS < row_len
+
+
+def test_flash_bwd_f32_d32_shared_memory_fits(tc32_schedule):
+    """The layouts of the head-dim-32 backward (``tc32::KvSmem`` and
+    ``tc32::QSmem`` in csrc/flash_attention_bwd.cu), from the sources' own
+    constants: the dK/dV block's (one warpgroup of KV_THREADS) K and V as
+    loaded (the warpgroup splits its A operands into registers), a ring of
+    KV_STAGES slots of a Q and a dO tile, their small parts and their
+    transposed copies (big and small), the tiles' lse and Delta and the
+    mbarriers; the
+    dQ block's Q and dO with their small parts, and per warpgroup a ring of
+    Q_STAGES slots of a K and a V tile, their small parts and K's
+    transposed copy. Two blocks of each fit an SM's 228 KB (1 KB a block
+    kept by the hardware), and every tile starts on a 1,024-byte swizzle
+    atom. The compiled schedule's tiles are the source's."""
+    k = {**_kernel_constants("flash_f32_tc.cuh", "tc"),
+         **_kernel_constants("flash_f32_tc32_bwd_schedule.h", "tc32_bwd_schedule"),
+         **_kernel_constants("flash_attention_bwd.cu", "tc32")}
+    s = tc32_schedule.bwd
+    assert (k["KB"], k["QB"], k["ROWS"], k["Q_GROUPS"], k["KV_THREADS"]) == (
+        s.KB, s.QB, s.ROWS, s.Q_GROUPS, 128)
+    assert k["D"] == k["PANEL"] == _tma.SWIZZLE_BYTES // 4   # one swizzled panel a row
+    tile = s.ROWS * k["D"] * 4
+    kv_tiles = (k["KV_STAGES"] * 2 + 2 + 4) * tile
+    q_group = (k["Q_STAGES"] * 2 + 2 + 2) * tile
+    assert tile % 1024 == 0 and s.KB * k["D"] * 4 % 1024 == 0 and q_group % 1024 == 0
+    kv = (2 * s.KB * k["D"] * 4 + kv_tiles + k["KV_STAGES"] * 2 * s.ROWS * 4
+          + 8 * (1 + k["KV_STAGES"]) + 1024)
+    q = 4 * s.QB * k["D"] * 4 + s.Q_GROUPS * q_group + 8 * (1 + s.Q_GROUPS * k["Q_STAGES"]) + 1024
+    assert (kv, q) == (58904, 99368)
+    assert 2 * (kv + 1024) <= 233472 and 2 * (q + 1024) <= 233472
+
+
 @pytest.mark.parametrize("d,kernel,namespace", [(16, "fma", "f32::launch<16>"),
                                                 (32, "tc32", "tc32::launch"),
                                                 (64, "tc", "tc::launch"),
                                                 (128, "fma", "f32::launch<128>")])
 def test_flash_f32_kernel_by_head_dim(d, kernel, namespace):
-    """Which fp32 forward kernel each head dim takes: the tensor cores
-    (3xTF32) at 64 and 32, the FMA units at 16 and 128, as the wrapper
-    counts them (``flash_attention.fp32_kernel_launches``) and as the C
-    entry's switch dispatches them."""
-    import re
+    """Which fp32 kernel each head dim takes, in the forward and in the
+    backward: the tensor cores (3xTF32) at 64 and 32, the FMA units at 16
+    and 128, as the wrappers count them (``fp32_kernel_launches`` of
+    ``flash_attention`` and of ``flash_attention_bwd``) and as both C
+    entries' switches dispatch them."""
     assert _tma.flash_f32_kernel(d) == kernel
     assert set(fa_mod.flash_attention.fp32_kernel_launches) == {"tc", "tc32", "fma"}
-    src = open(os.path.join(_build.CSRC, "flash_attention.cu")).read()
-    entry = src[src.index('extern "C" int pn_flash_attention_f32'):]
-    entry = entry[:entry.index("\n}\n")]
-    assert re.search(rf"case {d}: return {re.escape(namespace)}\(", entry)
+    assert set(fa_mod.flash_attention_bwd.fp32_kernel_launches) == {"tc", "tc32", "fma"}
+    for source, name in (("flash_attention.cu", "pn_flash_attention_f32"),
+                         ("flash_attention_bwd.cu", "pn_flash_attention_bwd_f32")):
+        src = open(os.path.join(_build.CSRC, source)).read()
+        entry = src[src.index(f'extern "C" int {name}'):]
+        entry = entry[:entry.index("\n}\n")]
+        assert re.search(rf"case {d}: return {re.escape(namespace)}\(", entry)
 
 
 @pytest.mark.parametrize("lens", [None, [0, 300], [1, 77]], ids=["full", "empty-row", "ragged"])

@@ -81,15 +81,16 @@ def test_flash_bwd_plain_matches_jax_grad_of_lax_flash(sq, skv, lens, merged):
             assert not g[1, lens[1]:].any()
 
 
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("sq,skv,lens", [(128, 256, None), (200, 650, [650, 130]),
                                          (100, 1100, [3, 1100]), (100, 512, [0, 300])])
 def test_fp32_flash_bwd_plain_matches_jax_grad_of_lax_flash(d, sq, skv, lens):
     """The plain backward that the fp32 CUDA kernel is held to on the card,
     on fp32 inputs, against ``jax.grad`` of ``_lax_flash`` in fp32 (the
     gradient the JAX trainer takes of an fp32 engine): each of dq, dk, dv to
-    1e-5 of its largest entry, at the production head dim and a small one,
-    with ragged rows and Sq off the 64-row tile. (A row of a single key has
+    1e-5 of its largest entry, at the production head dim, the perception
+    self-attention's (32) and a small one, with ragged rows and Sq off the
+    64-row tile. (A row of a single key has
     dk = 0 exactly in JAX and rounding noise from dP - Delta here; the test
     above covers it with an absolute bound.)"""
     b, h = 2, 2
