@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --kernels      # phases 1 and 2 only
-    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phases 11 and 14
+    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phases 11, 14, 15
     python3 chip_smoke.py --metrics      # phase 1, phase 12
     python3 chip_smoke.py --variants     # phase 1, phase 13
+    python3 chip_smoke.py --zoo          # phase 1, phase 15
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -123,6 +124,25 @@ Phases, in order; any failure exits non-zero:
      the forward at B 2; (d) the streaming recipe (``StreamPETR``), 2 steps with the
      memory carried; (e) ``train_perception_torch.py --synthetic --tiny
      --steps 2 --ckpt_every 2`` on the card and its ``--resume`` to step 3.
+ 15. the perception zoo's dense-attention PETR family (run after phase
+     14): (a) the fp32 flash forward (``tc32``) at the dense
+     cross-attention's shapes, (1, 900, 12288, 8, 32) (r50, stride 8),
+     (1, 900, 3072, 8, 32) (VoVNet-99, stride 16) and (1, 644, 12288, 8,
+     32) (PETRHeadDN), and with ragged rows off the key tiles, each against
+     the float64 plain version and timed beside fp32 SDPA; (b)
+     ``PetrWindow3D`` (r50 + StreamPETRHead, 644 queries, 1024 memory
+     slots, 6 layers) on one window of 8 frames of 6 cameras at 256 x 512:
+     s/window and its split, peak memory, the flash calls by shape (48
+     cross-attention at Skv 12,288 and 48 self-attention at Skv 1,668, all
+     launched on ``tc32``), card against CPU over two frames, one profiled
+     window; (c) VoVNet-99 + PETRHeadDN on a window (card against CPU on
+     one frame) and ``Petr3DP`` (PETRMotionHead) streaming two frames with
+     its trajectories, card against CPU, decoded with ``decode_with_traj``;
+     (d) ``perception.eval.main --synthetic --tiny --backbone vovnet
+     --head petr``; (e) LPIPS (VGG16) on 4 image pairs at 256 x 512, the
+     PatchGAN (ndf 64, 3 layers) and LatentLPIPS with the production VAE
+     decoder on a (1, 4, 32, 64) latent pair, each card against CPU within
+     ``LOSS_TOL`` and timed.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -218,6 +238,15 @@ PTRAIN_RECIPE = "streampetr_r50_atss_512x256_window"
 PTRAIN_B, PTRAIN_STEPS, PTRAIN_MAX_GT = 2, 3, 64
 PTRAIN_FLASH_PER_STEP = 6 * (PERCEPTION_T - 1)
 PTRAIN_FLASH = (PTRAIN_B, 900, 1668, 8, 32)   # B, Sq, Skv, H, D of the grad frame without DN
+# phase 15: the dense-attention PETR family at the eval recipe's geometry.
+# The cross-attention from the 644 + 256 queries to the tokens of 6 cameras
+# at stride 8 (r50, the FPN's first level) or 16 (VoVNet-99 from its third
+# stage), and PETRHeadDN's 644 queries; B 1, 8 heads of dim 32, fp32 (tc32)
+ZOO_FLASH = ((1, 900, 12288, 8, 32), (1, 900, 3072, 8, 32), (1, 644, 12288, 8, 32))
+LPIPS_PAIRS = 4
+# the VAE's losses in fp32, card against CPU: the largest difference over the
+# largest value (a scalar's relative difference)
+LOSS_TOL = 1e-3
 
 
 def log(obj) -> None:
@@ -1388,19 +1417,9 @@ def perception_phase(torch, np, dev, fa, gg, card: str):
     model.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
     imgs, data = perception_window(torch, np, dev, PERCEPTION_T)
     split = {"backbone_fpn_s": 0.0, "head_s": 0.0}
-
-    def timed(name, fn):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            s = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            split[name] += time.perf_counter() - s
-            return out
-        return wrapper
-
-    model.extract_feats = timed("backbone_fpn_s", model.extract_feats)
-    model.pts_bbox_head.forward = timed("head_s", model.pts_bbox_head.forward)
+    model.extract_feats = split_timer(torch, split, "backbone_fpn_s", model.extract_feats)
+    model.pts_bbox_head.forward = split_timer(torch, split, "head_s",
+                                              model.pts_bbox_head.forward)
     with torch.inference_mode():
         t0 = time.perf_counter()
         model(imgs, data)    # first use: cuDNN's choice of algorithms, the kernel's load
@@ -2353,6 +2372,315 @@ def perception_train_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
                       "perception_train_streaming": stream}, "bwd": bwd, "fwd": fwd}
 
 
+# --------------------------------------------------------------------------
+# phase 15: the perception zoo's dense-attention PETR family
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def flash_shapes():
+    """Counts the router's calls of ``flash_attention`` by (Sq, Skv) while
+    the block runs (the launch counters count the launches themselves)."""
+    from collections import Counter
+
+    from panacea_tpu_torch.ops import attention as pattn
+
+    shapes, flash = Counter(), pattn.flash_attention
+
+    def counted(q, k, v, **kw):
+        shapes[f"{q.shape[1]}x{k.shape[1]}"] += 1
+        return flash(q, k, v, **kw)
+
+    pattn.flash_attention = counted
+    try:
+        yield shapes
+    finally:
+        pattn.flash_attention = flash
+
+
+def split_timer(torch, split: dict, name: str, fn):
+    """``fn`` that adds its synchronised wall time to ``split[name]``."""
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        split[name] += time.perf_counter() - s
+        return out
+    return wrapper
+
+
+def frames_card_vs_cpu(torch, model, cpu, imgs, data, frames: int, keys):
+    """``frames`` frames through ``forward_frame`` on the card and on the
+    CPU, each frame's CPU run starting from the card's memory: the worst
+    relative difference of each output in ``keys`` (over its largest
+    value), and the last card outputs."""
+    from panacea_tpu_torch.perception.head import init_memory
+
+    worst = {}
+    mem = init_memory(1, model.memory_len, model.embed_dims, device=imgs.device)
+    with torch.inference_mode():
+        for fi in range(frames):
+            frame = {k: v[:, fi] for k, v in data.items()}
+            got, mem_next = model.forward_frame(imgs[:, fi], mem, frame)
+            want, _ = cpu.forward_frame(imgs[:, fi].cpu(), type(mem)(*(m.cpu() for m in mem)),
+                                        {k: v.cpu() for k, v in frame.items()})
+            for key in keys:
+                err = (got[key].cpu() - want[key]).abs().max().item()
+                worst[f"{key}_frame{fi}"] = err / want[key].abs().max().item()
+            mem = mem_next
+    return worst, got
+
+
+def zoo_model(torch, dev, cls_name: str, **kw):
+    """A detector of ``perception.detector`` at full width on the card, its
+    weights drawn from the seed, and the same weights on the CPU."""
+    from panacea_tpu_torch.perception import detector
+
+    model = getattr(detector, cls_name)(**kw).to(dev).eval()
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
+    cpu = getattr(detector, cls_name)(**kw).eval()
+    cpu.load_state_dict(model.state_dict())
+    return model, cpu
+
+
+def zoo_geometry(model, stride: int):
+    """(decoder layers, queries, image tokens at ``stride``, self-attention
+    keys) of a PETR detector on a window of PERCEPTION_HW."""
+    q = model.num_query + (model.num_propagated if model.head_type != "petr_dn" else 0)
+    tokens = 6 * (PERCEPTION_HW[0] // stride) * (PERCEPTION_HW[1] // stride)
+    return (len(model.pts_bbox_head.transformer.decoder.layers), q, tokens,
+            q + model.memory_len - model.num_propagated)
+
+
+def zoo_window_phase(torch, np, dev, fa, gg, card: str):
+    """(b) ``PetrWindow3D`` (r50 + StreamPETRHead) on one window of
+    PERCEPTION_T frames: s/window and its split, peak memory, the fp32
+    flash launches by shape (cross-attention and self-attention 6 a frame,
+    all on ``tc32``), card against CPU over two frames, one profiled
+    window. Returns the window's launch counts."""
+    model, cpu = zoo_model(torch, dev, "PetrWindow3D")
+    imgs, data = perception_window(torch, np, dev, PERCEPTION_T)
+    split = {"backbone_fpn_s": 0.0, "head_s": 0.0}
+    model.extract_feats = split_timer(torch, split, "backbone_fpn_s", model.extract_feats)
+    model.pts_bbox_head.forward = split_timer(torch, split, "head_s",
+                                              model.pts_bbox_head.forward)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        model(imgs, data)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        split.update(dict.fromkeys(split, 0.0))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, gg)
+        with flash_shapes() as shapes:
+            t0 = time.perf_counter()
+            outs, memory = model(imgs, data)
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
+        counts = read_counts(fa, gg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    window_split = dict(split)
+    del model.extract_feats, model.pts_bbox_head.forward
+    layers, q, tokens, keys = zoo_geometry(model, 8)
+    shapes_ok = (tuple(outs["all_cls_scores"].shape) == (layers, 1, q, 10)
+                 and tuple(memory.embedding.shape) == (1, model.memory_len, model.embed_dims))
+    finite = all(bool(torch.isfinite(v).all()) for v in outs.values())
+    worst, _ = frames_card_vs_cpu(torch, model, cpu, imgs, data, 2,
+                                  ("all_cls_scores", "all_bbox_preds"))
+    want_shapes = {f"{q}x{tokens}": layers * PERCEPTION_T, f"{q}x{keys}": layers * PERCEPTION_T}
+    rec = {"phase": "perception_petr_window", "card": card, "detector": "PetrWindow3D",
+           "frames": PERCEPTION_T, "image_hw": list(PERCEPTION_HW), "cams": 6, "queries": q,
+           "tokens": tokens, "params": sum(p.numel() for p in model.parameters()),
+           "first_window_s": first_s,
+           "s_per_window": window_s, "split_s": window_split, "peak_mem_gb": peak,
+           "launches": counts, "flash_calls_by_shape": dict(shapes),
+           "expected_flash_calls_by_shape": want_shapes, "finite": finite,
+           "shapes_ok": shapes_ok, "card_vs_cpu_t2": worst, "tol": PERCEPTION_TOL}
+    log(rec)
+    n = 2 * layers * PERCEPTION_T
+    if not (finite and shapes_ok):
+        raise AssertionError(f"the PETR detector's output is wrong: {rec}")
+    if (dict(shapes) != want_shapes or counts["flash_attention"] != n
+            or counts["flash_routes"]["fp32"] != n or counts["flash_fp32_kernels"]["tc32"] != n):
+        raise AssertionError(f"a PETR window did not make {n} fp32 flash launches on tc32 "
+                             f"at the expected shapes: {rec}")
+    if not max(worst.values()) <= PERCEPTION_TOL:
+        raise AssertionError(f"the PETR detector on the card disagrees with the CPU: {rec}")
+    profile_step(torch, lambda: model(imgs, data), name="profile_petr_window")
+    return counts
+
+
+def zoo_dn_motion_phase(torch, np, dev, fa, gg, card: str):
+    """(c) VoVNet-99 + PETRHeadDN on one window (its cross-attention at Skv
+    3,072, its self-attention over the 644 queries on SDPA), card against
+    CPU on one frame; then ``Petr3DP`` (r50 + PETRMotionHead) streaming two
+    frames, card against CPU with the trajectories, decoded with
+    ``decode_with_traj``. Returns the launch counts of the two paths."""
+    from panacea_tpu_torch.perception.coder import NMSFreeCoder
+    from panacea_tpu_torch.perception.head import init_memory
+    from panacea_tpu_torch.perception.motion_head import decode_with_traj
+
+    paths = {}
+    imgs, data = perception_window(torch, np, dev, PERCEPTION_T)
+    model, cpu = zoo_model(torch, dev, "StreamPETRWindow", backbone_type="vovnet",
+                           neck_start_level=2, head_type="petr_dn")
+    with torch.inference_mode():
+        model(imgs, data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, gg)
+        with flash_shapes() as shapes:
+            t0 = time.perf_counter()
+            outs, _ = model(imgs, data)
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
+        paths["perception_vovnet_petr_dn"] = counts = read_counts(fa, gg)
+    worst, _ = frames_card_vs_cpu(torch, model, cpu, imgs, data, 1,
+                                  ("all_cls_scores", "all_bbox_preds"))
+    layers, q, tokens, _ = zoo_geometry(model, 16)
+    want_shapes = {f"{q}x{tokens}": layers * PERCEPTION_T}
+    rec = {"phase": "perception_vovnet_petr_dn", "card": card, "backbone": "vovnet",
+           "head": "petr_dn", "frames": PERCEPTION_T,
+           "params": sum(p.numel() for p in model.parameters()), "s_per_window": window_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+           "flash_calls_by_shape": dict(shapes), "expected_flash_calls_by_shape": want_shapes,
+           "finite": all(bool(torch.isfinite(v).all()) for v in outs.values()),
+           "card_vs_cpu_t1": worst, "tol": PERCEPTION_TOL}
+    log(rec)
+    if not (rec["finite"] and dict(shapes) == want_shapes
+            and counts["flash_fp32_kernels"]["tc32"] == layers * PERCEPTION_T
+            and max(worst.values()) <= PERCEPTION_TOL):
+        raise AssertionError(f"VoVNet-99 + PETRHeadDN went wrong: {rec}")
+    del model, cpu
+    free(torch)
+
+    model, cpu = zoo_model(torch, dev, "Petr3DP")
+    mem = init_memory(1, model.memory_len, model.embed_dims, device=dev)
+    frame_s = []
+    with torch.inference_mode():
+        model.stream(imgs[:, 0], {k: v[:, 0] for k, v in data.items()})   # first use
+        torch.cuda.synchronize()
+        reset_counts(fa, gg)
+        with flash_shapes() as shapes:
+            for fi in range(2):
+                t0 = time.perf_counter()
+                outs, mem = model.stream(imgs[:, fi], {k: v[:, fi] for k, v in data.items()},
+                                         mem)
+                torch.cuda.synchronize()
+                frame_s.append(time.perf_counter() - t0)
+        paths["perception_petr3dp_stream"] = counts = read_counts(fa, gg)
+    keys = ("all_cls_scores", "all_bbox_preds", "all_traj_preds", "all_traj_scores")
+    worst, got = frames_card_vs_cpu(torch, model, cpu, imgs, data, 2, keys)
+    dets = decode_with_traj(NMSFreeCoder(pc_range=model.pc_range, max_num=300), got)[0]
+    rec = {"phase": "perception_petr3dp_stream", "card": card, "detector": "Petr3DP",
+           "frames": 2, "s_per_frame": frame_s, "launches": counts,
+           "flash_calls_by_shape": dict(shapes),
+           "traj_shape": list(outs["all_traj_preds"].shape),
+           "decoded": len(dets["labels"]), "decoded_trajs_shape": list(dets["trajs"].shape),
+           "finite": all(bool(torch.isfinite(v).all()) for v in outs.values())
+           and bool(np.isfinite(dets["trajs"]).all()),
+           "card_vs_cpu_t2": worst, "tol": PERCEPTION_TOL}
+    log(rec)
+    layers, q, tokens, keys = zoo_geometry(model, 8)
+    if not (rec["finite"] and rec["traj_shape"] == [layers, 1, q, 6, 12, 2]
+            and rec["decoded_trajs_shape"][1:] == [6, 12, 2]
+            and dict(shapes) == {f"{q}x{tokens}": 2 * layers, f"{q}x{keys}": 2 * layers}
+            and counts["flash_fp32_kernels"]["tc32"] == 4 * layers
+            and max(worst.values()) <= PERCEPTION_TOL):
+        raise AssertionError(f"Petr3DP's streaming with trajectories went wrong: {rec}")
+    return paths
+
+
+def zoo_cli_phase(torch, np, fa, gg, card: str):
+    """(d) ``perception.eval.main --synthetic --tiny --backbone vovnet
+    --head petr`` on the card (VoVNet-99 at full width, the tiny head)."""
+    from panacea_tpu_torch.perception import eval as peval
+
+    reset_counts(fa, gg)
+    t0 = time.perf_counter()
+    metrics = peval.main(["--synthetic", "--tiny", "--backbone", "vovnet", "--head", "petr"])
+    torch.cuda.synchronize()
+    rec = {"phase": "perception_zoo_cli", "card": card, "seconds": time.perf_counter() - t0,
+           "launches": read_counts(fa, gg), "metrics": metrics}
+    log(rec)
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"the VoVNet + PETR eval CLI went wrong: {rec}")
+    return rec["launches"]
+
+
+def zoo_losses_phase(torch, np, dev, card: str):
+    """(e) The VAE's losses at full width, card against CPU within
+    LOSS_TOL: LPIPS (VGG16) on LPIPS_PAIRS image pairs at 256 x 512, the
+    PatchGAN (ndf 64, 3 layers) on the same images, and LatentLPIPS with
+    the production VAE decoder (INFERENCE_NUSCENES' first stage) on one
+    (1, 4, 32, 64) latent pair; random weights from the seed, each timed."""
+    from panacea_tpu_torch.configs import INFERENCE_NUSCENES
+    from panacea_tpu_torch.losses.lpips import LPIPS
+    from panacea_tpu_torch.losses.vae_losses import LatentLPIPS, NLayerDiscriminator
+
+    g = torch.Generator().manual_seed(SEED)
+    x, y = (torch.rand((LPIPS_PAIRS, 3) + PERCEPTION_HW, generator=g) * 2 - 1 for _ in range(2))
+    latent = (1, 4, PERCEPTION_HW[0] // 8, PERCEPTION_HW[1] // 8)
+    z_in, z_pred = (torch.randn(latent, generator=g) for _ in range(2))
+    lp_cpu = draw_weights(torch, LPIPS(), SEED)
+    disc_cpu = draw_weights(torch, NLayerDiscriminator(ndf=64, n_layers=3), SEED + 1)
+    lat_cpu = LatentLPIPS(decoder_config=INFERENCE_NUSCENES["model"]["params"][
+        "first_stage_config"], lpips_apply=lp_cpu)
+    draw_weights(torch, lat_cpu.decoder, SEED + 2)
+    lp, disc = copy_to(lp_cpu, dev), copy_to(disc_cpu, dev)
+    lat = LatentLPIPS(decoder_config=INFERENCE_NUSCENES["model"]["params"]["first_stage_config"],
+                      lpips_apply=lp)
+    lat.decoder.load_state_dict(lat_cpu.decoder.state_dict())
+    lat = lat.to(dev).eval()
+    cases = {"lpips": (lp, lp_cpu, (x, y)), "discriminator": (disc, disc_cpu, (x,)),
+             "latent_lpips": (lambda a, b: lat(a, b)[0], lambda a, b: lat_cpu(a, b)[0],
+                              (z_in, z_pred))}
+    rec = {"phase": "vae_losses", "card": card, "tol": LOSS_TOL, "pairs": LPIPS_PAIRS,
+           "image_hw": list(PERCEPTION_HW), "latent": list(latent)}
+    with torch.inference_mode():
+        for name, (fn, fn_cpu, args) in cases.items():
+            dargs = [a.to(dev) for a in args]
+            got = fn(*dargs)
+            want = fn_cpu(*args)
+            rec[f"{name}_rel_err"] = ((got.cpu() - want).abs().max()
+                                      / want.abs().max()).item()
+            rec[f"{name}_ms"] = time_ms(torch, lambda: fn(*dargs), 3)
+    log(rec)
+    if not max(v for k, v in rec.items() if k.endswith("rel_err")) <= LOSS_TOL:
+        raise AssertionError(f"the VAE's losses on the card disagree with the CPU: {rec}")
+
+
+def copy_to(module, dev):
+    """A copy of ``module`` on ``dev`` (the CPU original stays)."""
+    import copy
+
+    return copy.deepcopy(module).to(dev).eval()
+
+
+def zoo_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
+    """Phase 15 (a) to (e). Returns the counts of its paths and the fp32
+    flash records at the dense shapes."""
+    t0 = time.perf_counter()
+    recs = [check_flash(torch, F, fa, tol, dev, *shape, fp32=True) for shape in ZOO_FLASH]
+    recs.append(check_flash(torch, F, fa, tol, dev, 3, 900, 12288 + 17, 8, 32, timed=False,
+                            fp32=True, lens=[12288 + 17, 1, 6001]))
+    for rec in recs:
+        if (rec["route"], rec["fp32_kernel"]) != ("fp32", "tc32"):
+            raise AssertionError(f"the dense cross-attention took route {rec['route']}, "
+                                 f"kernel {rec['fp32_kernel']}: {rec}")
+    free(torch)
+    paths = {"perception_petr_window": zoo_window_phase(torch, np, dev, fa, gg, card)}
+    free(torch)
+    paths.update(zoo_dn_motion_phase(torch, np, dev, fa, gg, card))
+    free(torch)
+    paths["perception_zoo_cli"] = zoo_cli_phase(torch, np, fa, gg, card)
+    free(torch)
+    zoo_losses_phase(torch, np, dev, card)
+    free(torch)
+    log({"phase": "perception_zoo_total", "seconds": time.perf_counter() - t0})
+    return {"paths": paths, "flash": recs}
+
+
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
 BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
            ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
@@ -2403,8 +2731,9 @@ def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
 def main(mode: str = "all") -> int:
     """``mode``: "all" (every phase), "kernels" (phases 1 and 2),
     "perception" (phase 1, the flash check at the perception shape and
-    phase 11), "metrics" (phase 1 and phase 12, on the tree of a 2-step
-    full-width generation run) or "variants" (phase 1 and phase 13)."""
+    phases 11, 14 and 15), "metrics" (phase 1 and phase 12, on the tree of
+    a 2-step full-width generation run), "variants" (phase 1 and phase 13)
+    or "zoo" (phase 1 and phase 15)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2456,7 +2785,13 @@ def main(mode: str = "all") -> int:
         perception_cli_phase(torch, np, dev, fa, gg, card)
         free(torch)
         perception_train_phase(torch, F, np, dev, fa, gg, tol, card)
+        free(torch)
+        zoo_phase(torch, F, np, dev, fa, gg, tol, card)
         log({"phase": "perception_only", "ok": True})
+        return 0
+    if mode == "zoo":
+        zoo_phase(torch, F, np, dev, fa, gg, tol, card)
+        log({"phase": "zoo_only", "ok": True})
         return 0
     if mode == "variants":
         stage1_kernel_checks(torch, F, fa, gg, tol, dev)
@@ -2658,6 +2993,9 @@ def main(mode: str = "all") -> int:
     ptrain = perception_train_phase(torch, F, np, dev, fa, gg, tol, card)
     paths.update(ptrain["paths"])
     free(torch)
+    zoo = zoo_phase(torch, F, np, dev, fa, gg, tol, card)
+    paths.update(zoo["paths"])
+    free(torch)
     paths["sampler_dpmpp2m"] = metrics_phase(torch, np, dev, fa, gg, card, gen_tree,
                                              euler_s_per_step)
     gen_dir.cleanup()
@@ -2682,7 +3020,8 @@ def main(mode: str = "all") -> int:
     flash32_d32 = [r for r in flash32 if r["shape"]["D"] == 32]
     flash32 = [r for r in flash32 if r["shape"]["D"] != 32]
     perception_paths = ("perception", "perception_cli", "perception_train",
-                        "perception_train_no_dn", "perception_train_streaming")
+                        "perception_train_no_dn", "perception_train_streaming") + tuple(
+        zoo["paths"])
     generation_paths = tuple(p for p in paths if p not in perception_paths)
 
     def summary(name, kernel, source, replaces, recs, main, path, paths_of=tuple(paths),
@@ -2706,6 +3045,7 @@ def main(mode: str = "all") -> int:
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
     d32, d32_train = flash32_perception, ptrain["fwd"]
+    d32_recs = flash32_d32 + [ptrain["fwd"]] + zoo["flash"]
     bwd, bwd_b1, bwd32_d32 = ptrain["bwd"], flash_bwd32_d32[1], flash_bwd32_d32 + [ptrain["bwd"]]
     flash_src, geglu_src = ("panacea_tpu_torch/csrc/flash_attention.cu",
                             "panacea_tpu_torch/csrc/geglu.cu")
@@ -2727,21 +3067,25 @@ def main(mode: str = "all") -> int:
                 fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
                                                   for r in flash32)),
         summary("flash_attention_fp32_d32", "flash_attention", flash_src, flash_tpu,
-                flash32_d32 + [ptrain["fwd"]], d32, "perception", paths_of=perception_paths,
+                d32_recs, d32, "perception",
+                paths_of=perception_paths,
                 fp32_kernel="tc32",
                 entry="tc32::pn_flash_f32_fwd_tc32 (3xTF32 wgmma, cp.async, the keys split "
                       "over a 2-block cluster at B 1), the perception eval's and the "
                       "perception training's history frames' self-attention",
                 bound_fma_ms=d32["bound_fma_ms"], ms_device=d32["ms_device"],
                 library_ms_device=d32["library_ms_device"], host_us=d32["host_us"],
-                worst_ratio_vs_f64=max(r["worst_ratio"] for r in flash32_d32 + [ptrain["fwd"]]),
-                lse_worst_ratio=max(r["lse_worst_ratio"] for r in flash32_d32 + [ptrain["fwd"]]),
-                worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"]
-                                              for r in flash32_d32 + [ptrain["fwd"]]),
+                worst_ratio_vs_f64=max(r["worst_ratio"] for r in d32_recs),
+                lse_worst_ratio=max(r["lse_worst_ratio"] for r in d32_recs),
+                worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"] for r in d32_recs),
                 train_shape=d32_train["shape"],
                 **{f"train_shape_{k}": d32_train[k]
                    for k in ("ms", "ms_device", "plain_ms", "library_ms", "library_ms_device",
-                             "bound_ms", "bound_fma_ms", "host_us")}),
+                             "bound_ms", "bound_fma_ms", "host_us")},
+                dense_shapes=[{k: r[k] for k in ("shape", "ms", "ms_device", "plain_ms",
+                                                 "library_ms", "library_ms_device", "bound_ms",
+                                                 "bound_fma_ms", "host_us", "worst_ratio")}
+                              for r in zoo["flash"][:len(ZOO_FLASH)]]),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
                 "fp32_engine", entry="f32::pn_geglu_3xtf32_fwd (3xTF32 wgmma, TMA)",
                 bound_fma_ms=geglu32[0]["bound_fma_ms"],
@@ -2793,8 +3137,10 @@ def main(mode: str = "all") -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--kernels"], ["--perception"], ["--metrics"], ["--variants"]):
-        sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception | --metrics | --variants]")
+    if sys.argv[1:] not in ([], ["--kernels"], ["--perception"], ["--metrics"], ["--variants"],
+                            ["--zoo"]):
+        sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception | --metrics | --variants | "
+                 "--zoo]")
     sys.exit(main({"--kernels": "kernels", "--perception": "perception",
-                   "--metrics": "metrics", "--variants": "variants"}.get(
+                   "--metrics": "metrics", "--variants": "variants", "--zoo": "zoo"}.get(
                        (sys.argv[1:] or [""])[0], "all")))

@@ -540,30 +540,167 @@ def atss_head_map(prefix: str, path: Path, stacked_convs: int = 4) -> Dict[str, 
     return m
 
 
+def vovnet_map(prefix: str, path: Path, num_blocks, num_layers: int) -> Dict[str, Entry]:
+    """VoVNet's mmdet names (the inverse of ``build_vovnet_mapping``,
+    ``panacea_tpu/utils/convert.py:963-1002``)."""
+    m = {}
+    for k in (1, 2, 3):
+        ref, p = f"{prefix}.stem.stem_{k}", path + (f"stem{k}",)
+        m[f"{ref}/conv.weight"] = (p + ("conv", "kernel"), _conv2d)
+        m.update(_bn(f"{ref}/norm", p + ("bn",)))
+    for si, nb in enumerate(num_blocks):
+        s = si + 2
+        for bi in range(nb):
+            ref, p = f"{prefix}.stage{s}.OSA{s}_{bi + 1}", path + (f"stage{s}_block{bi}",)
+            for li in range(num_layers):
+                lref = f"{ref}.layers.{li}.OSA{s}_{bi + 1}_{li}"
+                m[f"{lref}/conv.weight"] = (p + (f"conv{li}", "conv", "kernel"), _conv2d)
+                m.update(_bn(f"{lref}/norm", p + (f"conv{li}", "bn")))
+            cref = f"{ref}.concat.OSA{s}_{bi + 1}_concat"
+            m[f"{cref}/conv.weight"] = (p + ("concat_conv", "conv", "kernel"), _conv2d)
+            m.update(_bn(f"{cref}/norm", p + ("concat_conv", "bn")))
+            m.update(_conv(f"{ref}.ese.fc", p + ("ese", "fc")))
+    return m
+
+
+def petr_head_map(prefix: str, path: Path, num_layers: int,
+                  with_traj: bool = False) -> Dict[str, Entry]:
+    """StreamPETRHead's names (the inverse of ``build_petr_head_mapping``,
+    ``panacea_tpu/utils/convert.py:1181-1254``; with ``with_traj``
+    PETRMotionHead's trajectory branch). The packed ``in_proj`` of both
+    attentions is carried by ``streampetr_state_dict_from_jax``."""
+    m = {f"{prefix}.reference_points.weight": (path + ("reference_points",), _none),
+         f"{prefix}.pseudo_reference_points.weight": (path + ("pseudo_reference_points",),
+                                                      _none)}
+    dense = [("query_embedding.0", "query_embedding/layers_0"),
+             ("query_embedding.2", "query_embedding/layers_2"),
+             ("time_embedding.0", "time_embedding/layers_0"),
+             ("position_encoder.0", "position_encoder/layers_0"),
+             ("position_encoder.2", "position_encoder/layers_2"),
+             ("memory_embed.0", "memory_embed/layers_0"),
+             ("memory_embed.2", "memory_embed/layers_2"),
+             ("featurized_pe.conv_reduce", "featurized_pe/conv_reduce"),
+             ("featurized_pe.conv_expand", "featurized_pe/conv_expand"),
+             ("cls_branches.0.0", "cls_branch/layers_0"),
+             ("cls_branches.0.3", "cls_branch/layers_3"),
+             ("cls_branches.0.6", "cls_branch/layers_6"),
+             ("reg_branches.0.0", "reg_branch/layers_0"),
+             ("reg_branches.0.2", "reg_branch/layers_2"),
+             ("reg_branches.0.4", "reg_branch/layers_4")]
+    if with_traj:
+        dense += [(f"traj_branches.0.{j}", f"traj_branch/layers_{j}") for j in (0, 2, 4)]
+        m[f"{prefix}.traj_embedding.weight"] = (path + ("traj_embedding",), _none)
+    for ref, p in dense:
+        m.update(_dense(f"{prefix}.{ref}", path + tuple(p.split("/"))))
+    for ref, p in (("time_embedding.1", "time_embedding/layers_1"),
+                   ("cls_branches.0.1", "cls_branch/layers_1"),
+                   ("cls_branches.0.4", "cls_branch/layers_4"),
+                   ("transformer.decoder.post_norm", "post_norm")):
+        m.update(_norm_flat(f"{prefix}.{ref}", path + tuple(p.split("/"))))
+    for name in ("ego_pose_pe", "ego_pose_memory", "spatial_alignment"):
+        m.update(_mln(f"{prefix}.{name}", path + (name,)))
+    for i in range(num_layers):
+        ref = f"{prefix}.transformer.decoder.layers.{i}"
+        m.update(_dense(f"{ref}.attentions.0.attn.out_proj", path + (f"self_attn_{i}", "out_proj")))
+        m.update(_dense(f"{ref}.attentions.1.attn.out_proj",
+                        path + (f"cross_attn_{i}", "out_proj")))
+        m.update(_dense(f"{ref}.ffns.0.layers.0.0", path + (f"ffn_{i}", "fc1")))
+        m.update(_dense(f"{ref}.ffns.0.layers.1", path + (f"ffn_{i}", "fc2")))
+        for ni in range(3):
+            m.update(_norm_flat(f"{ref}.norms.{ni}", path + (f"norm_{3 * i + ni}",)))
+    return m
+
+
+def _vovnet_plan(flat: Dict[Path, np.ndarray]):
+    """(blocks a stage, convolutions a block) of the VoVNet in ``flat``."""
+    blocks = [len({p[1] for p in flat if p[0] == "backbone" and p[1].startswith(f"stage{s}_")})
+              for s in range(2, 6)]
+    layers = len({p[2] for p in flat if p[:2] == ("backbone", "stage2_block0")
+                  and p[2].startswith("conv")})
+    return blocks, layers
+
+
 def streampetr_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 6,
                                    stage_blocks=(3, 4, 6, 3), num_outs: int = 5,
-                                   atss_stacked_convs: int = 4) -> Dict[str, torch.Tensor]:
-    """The JAX ``StreamPETRWindow``'s parameter tree (r50 backbone, sparse
-    head, and the ATSS head where the tree has ``roi_head``; nested dicts of
-    numpy arrays) -> the port detector's state dict, fp32, under the
-    reference's mmdet names. The self-attention's q/k/v Dense layers become
-    ``attentions.0.attn.in_proj_weight`` and ``in_proj_bias``, rows [q; k;
-    v]; the ATSS ``scales`` vector becomes mmcv's ``scales.{i}.scale``
-    scalars."""
-    mapping = resnet50_map("img_backbone", ("backbone",), stage_blocks)
-    mapping.update(fpn_map("img_neck", ("neck",), 3, num_outs))
-    mapping.update(sparse_head_map("pts_bbox_head", ("head",), num_layers))
-    mapping.update(atss_head_map("img_roi_head", ("roi_head",), atss_stacked_convs))
+                                   atss_stacked_convs: int = 4, backbone: str = "r50",
+                                   head: str = "sparse") -> Dict[str, torch.Tensor]:
+    """The JAX ``StreamPETRWindow``'s parameter tree (nested dicts of numpy
+    arrays; the ATSS head where the tree has ``roi_head``) -> the port
+    detector's state dict, fp32, under the reference's mmdet names, as
+    ``convert_streampetr_checkpoint`` takes them (``backbone`` 'r50' or
+    'vovnet', whose blocks are read off the tree; ``head`` 'sparse',
+    'petr', 'petr_dn' or 'motion'). Each packed attention's q/k/v Dense
+    layers become ``attentions.{0,1}.attn.in_proj_weight`` and
+    ``in_proj_bias``, rows [q; k; v] (the sparse head's self-attention,
+    both attentions of the PETR heads); the ATSS ``scales`` vector becomes
+    mmcv's ``scales.{i}.scale`` scalars."""
     flat = flatten(params)
+    if backbone == "r50":
+        mapping = resnet50_map("img_backbone", ("backbone",), stage_blocks)
+        laterals = 3
+    elif backbone == "vovnet":
+        mapping = vovnet_map("img_backbone", ("backbone",), *_vovnet_plan(flat))
+        laterals = 2
+    else:
+        raise ValueError(f"no port of backbone {backbone!r}")
+    mapping.update(fpn_map("img_neck", ("neck",), laterals, num_outs))
+    if head == "sparse":
+        mapping.update(sparse_head_map("pts_bbox_head", ("head",), num_layers))
+        packed = (("attentions.0", "self_attn"),)
+    elif head in ("petr", "petr_dn", "motion"):
+        mapping.update(petr_head_map("pts_bbox_head", ("head",), num_layers,
+                                     with_traj=head == "motion"))
+        packed = (("attentions.0", "self_attn"), ("attentions.1", "cross_attn"))
+    else:
+        raise ValueError(f"no port of head {head!r}")
+    mapping.update(atss_head_map("img_roi_head", ("roi_head",), atss_stacked_convs))
     sd = apply_map(flat, mapping)
     for i in range(num_layers):
-        sd.update(_packed_qkv(flat, ("head", f"self_attn_{i}"),
-                              f"pts_bbox_head.transformer.decoder.layers.{i}.attentions.0.attn"))
+        for ref, name in packed:
+            sd.update(_packed_qkv(
+                flat, ("head", f"{name}_{i}"),
+                f"pts_bbox_head.transformer.decoder.layers.{i}.{ref}.attn"))
     scales = flat.get(("roi_head", "scales"))
     if scales is not None:
         sd.update({f"img_roi_head.scales.{i}.scale": torch.tensor(float(v))
                    for i, v in enumerate(scales)})
     return sd
+
+
+# --------------------------------------------------------------------------
+# The VAE's losses: LPIPS (the inverse of panacea_tpu/utils/convert.py:837-887,
+# build_vgg16_lpips_mapping(naming="lpips")) and the PatchGAN discriminator
+# (no JAX mapping: flax's own names)
+# --------------------------------------------------------------------------
+
+# torchvision vgg16.features index of each of the 13 convolutions, and the
+# lpips slice that holds it
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_VGG16_SLICE_OF_CONV = (1, 1, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5)
+
+
+def lpips_map(prefix: str = "", path: Path = ()) -> Dict[str, Entry]:
+    """``losses.lpips.LPIPS`` (reference lpips names) -> the JAX ``LPIPS`` tree."""
+    p = f"{prefix}." if prefix else ""
+    m = {}
+    for li, (fi, si) in enumerate(zip(_VGG16_CONV_IDX, _VGG16_SLICE_OF_CONV)):
+        m.update(_conv(f"{p}net.slice{si}.{fi}", path + ("vgg", f"conv{li}")))
+    for k in range(5):
+        m[f"{p}lin{k}.model.1.weight"] = (path + (f"lin{k}", "kernel"), _conv2d)
+    return m
+
+
+def nlayer_discriminator_map(prefix: str = "", path: Path = (),
+                             n_layers: int = 3) -> Dict[str, Entry]:
+    """``losses.vae_losses.NLayerDiscriminator`` (``main.{i}``) -> the JAX
+    module's ``conv0``, ``conv{i}`` + ``GroupNorm_{i-1}``, ``conv_out``."""
+    p = f"{prefix}." if prefix else ""
+    m = _conv(f"{p}main.0", path + ("conv0",))
+    for i in range(1, n_layers + 1):
+        m[f"{p}main.{3 * i - 1}.weight"] = (path + (f"conv{i}", "kernel"), _conv2d)
+        m.update(_norm_flat(f"{p}main.{3 * i}", path + (f"GroupNorm_{i - 1}",)))
+    m.update(_conv(f"{p}main.{3 * n_layers + 2}", path + ("conv_out",)))
+    return m
 
 
 # --------------------------------------------------------------------------

@@ -4,11 +4,14 @@ frames -> NDS/mAP.
 Counterpart of the JAX package's root ``eval_perception.py``, with its
 flags, choices and defaults, and ``--device``. One process drives one card;
 it runs on CUDA and raises without a card, ``--device cpu`` is for tests.
-Only the eval recipe's detector is ported (``--backbone r50 --head
-sparse``); the other choices raise and name ROADMAP Queue A item 6.
+The eval recipe's detector (``--backbone r50 --head sparse``) and the
+dense-attention PETR family (``--backbone vovnet``, ``--head petr``,
+``petr_dn`` or ``motion``) are ported; ``--backbone eva`` and ``--head
+sparse_v3|sparse_v4`` raise and name ROADMAP Queue A item 6.
 ``--torch_ckpt`` loads a reference mmdet ``.pth`` straight into the port
-(the names are the same), leaving what it does not cover at the random
-init, as the JAX CLI merges its converted tree.
+(the names are the same, VoVNet's and the PETR heads' included), leaving
+what it does not cover at the random init, as the JAX CLI merges its
+converted tree.
 
   python eval_perception_torch.py --ann data/nuscenes/nuscenes2d_ego_temporal_infos_val.pkl \\
       --gen_root outputs/panacea_tpu/val/gen-nuscenes --torch_ckpt streampetr.pth
@@ -36,10 +39,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--queue_length", type=int, default=8)
     p.add_argument("--out", default=None, help="write metrics json here")
     p.add_argument("--backbone", default="r50", choices=["r50", "vovnet", "eva"],
-                   help="img_backbone family; only r50 is ported")
+                   help="img_backbone family; eva is not ported")
     p.add_argument("--head", default="sparse",
                    choices=["sparse", "petr", "sparse_v3", "sparse_v4", "motion", "petr_dn"],
-                   help="detection head family; only sparse is ported")
+                   help="detection head family; sparse_v3 and sparse_v4 are not ported")
     p.add_argument("--torch_ckpt", default=None,
                    help="reference mmdet .pth (a 'state_dict' inside, or bare), "
                         "loaded non-strictly under its own names")

@@ -174,24 +174,20 @@ class SparseHead(nn.Module):
         c = embed_dims
         self.embed_dims, self.num_query, self.memory_len = c, num_query, memory_len
         self.topk_proposals, self.num_propagated = topk_proposals, num_propagated
+        self.num_reg_fcs = num_reg_fcs
         self.register_buffer("pc_range", torch.tensor(pc_range, dtype=torch.float32),
                              persistent=False)
         self.reference_points = nn.Embedding(num_query, 3)
-        self.pseudo_reference_points = nn.Embedding(num_propagated, 3)
+        if self._uses_memory():
+            self.pseudo_reference_points = nn.Embedding(num_propagated, 3)
         self.query_embedding = nn.Sequential(nn.Linear(3 * 128, c), nn.ReLU(), nn.Linear(c, c))
-        self.time_embedding = nn.Sequential(nn.Linear(c, c), nn.LayerNorm(c, eps=1e-5))
-        motion_dim = 2 * 6 * 15   # NeRF bands of (velocity or zeros, time, 3x4 pose)
-        self.ego_pose_pe = MLN(motion_dim, c)
-        self.ego_pose_memory = MLN(motion_dim, c)
-        # containers under the reference's names: transformer.spatial_alignment
-        # (MLNv2, no LayerNorm: the sparse transformer modulates the raw
-        # features, detr3d_transformer.py:79) and transformer.decoder.layers
-        self.transformer = nn.Module()
-        self.transformer.spatial_alignment = MLNv2(14, c)
-        self.transformer.decoder = nn.Module()
-        self.transformer.decoder.layers = nn.ModuleList(
-            DecoderLayer(c, num_groups, num_levels, num_cams, num_pts)
-            for _ in range(num_decoder_layers))
+        if self._uses_memory():
+            self.time_embedding = nn.Sequential(nn.Linear(c, c), nn.LayerNorm(c, eps=1e-5))
+            motion_dim = 2 * 6 * 15   # NeRF bands of (velocity or zeros, time, 3x4 pose)
+            self.ego_pose_pe = MLN(motion_dim, c)
+            self.ego_pose_memory = MLN(motion_dim, c)
+        self.transformer = self._build_transformer(c, num_decoder_layers, num_groups, num_levels,
+                                                   num_cams, num_pts)
         cls = []
         for _ in range(num_reg_fcs):
             cls += [nn.Linear(c, c), nn.LayerNorm(c, eps=1e-5), nn.ReLU()]
@@ -200,6 +196,24 @@ class SparseHead(nn.Module):
         for _ in range(num_reg_fcs):
             reg += [nn.Linear(c, c), nn.ReLU()]
         self.reg_branches = nn.ModuleList([nn.Sequential(*reg, nn.Linear(c, code_size))])
+
+    def _uses_memory(self) -> bool:
+        """Whether the head carries the streaming memory's parameters (the
+        pseudo reference points, the time embedding, the ego-motion MLNs);
+        the non-streaming ``PETRHeadDN`` has none."""
+        return True
+
+    def _build_transformer(self, c: int, num_layers: int, num_groups: int, num_levels: int,
+                           num_cams: int, num_pts: int) -> nn.Module:
+        """Containers under the reference's names: transformer.spatial_alignment
+        (MLNv2, no LayerNorm: the sparse transformer modulates the raw
+        features, detr3d_transformer.py:79) and transformer.decoder.layers."""
+        transformer = nn.Module()
+        transformer.spatial_alignment = MLNv2(14, c)
+        transformer.decoder = nn.Module()
+        transformer.decoder.layers = nn.ModuleList(
+            DecoderLayer(c, num_groups, num_levels, num_cams, num_pts) for _ in range(num_layers))
+        return transformer
 
     def _to_range(self, x: torch.Tensor) -> torch.Tensor:
         pc = self.pc_range

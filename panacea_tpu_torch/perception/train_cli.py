@@ -9,6 +9,8 @@ file name, or by the JAX package's path), or a YAML file where PyYAML
 imports. The window recipes train ``StreamPETRWindow`` on sliding windows;
 the streaming ones (``seq_mode``) train ``StreamPETR`` one frame a step,
 the memory carried across steps through scene-continuous sample streams.
+Only the recipes' detector (r50 + SparseHead) trains: a config naming
+VoVNet or a PETR head raises and names ROADMAP Queue A item 6 (6b).
 
 Checkpoints are ``<workdir>/<recipe>/iter_N/state.pt`` (the newest 3 kept):
 the detector's state, the optimizer, the step, the draw generator's state,
@@ -38,6 +40,8 @@ from typing import Any, Dict, Optional, Sequence
 
 NOT_QUEUED = ("is a JAX orbax tree, which needs JAX to read; the port does not use JAX "
               "(ROADMAP 'Not queued')")
+NOT_TRAINED = ("is ported for the eval only; its training waits for ROADMAP Queue A item 6 "
+               "(6b: the trajectory data and loss, and the dense cross-attention's backward)")
 DATA_PARALLEL = ("data-parallel perception training (the JAX CLI's 'dp' mesh) is not "
                  "ported: ROADMAP Queue A item 7")
 MAX_KEEP = 3
@@ -203,7 +207,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     det_cfg["params"] = dict(det_cfg.get("params", {}), **(TINY if args.tiny else {}))
     if args.num_levels:
         det_cfg["params"]["num_levels"] = args.num_levels
-    model = instantiate_from_config(det_cfg).to(device)
+    model = instantiate_from_config(det_cfg)
+    if model.backbone_type != "r50" or model.head_type != "sparse":
+        raise NotImplementedError(f"the detector {model.backbone_type} + {model.head_type} "
+                                  f"{NOT_TRAINED}")
+    model = model.to(device)
     model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
 
     queue_length = int(args.queue_length or tcfg["queue_length"])

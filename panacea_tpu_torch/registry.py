@@ -4,11 +4,14 @@ Config blocks have the reference's form ``{target: <dotted.path>, params:
 {...}}``. The alias table maps the reference ``sgm.*`` targets that this
 port implements onto its own classes, so ``configs.INFERENCE_NUSCENES``,
 ``configs.TINY_CPU`` and ``configs.TINY_STAGE1`` instantiate unchanged, and
-the JAX package's two perception detector targets onto the port's, so the
-perception recipes of ``configs.PERCEPTION`` do too. An
-unknown target raises; the JAX package's targets that the port lacks are
-those of the VAE's training side (LPIPS, the discriminator and its losses)
-and the data module (``DataModuleFromConfig``).
+the JAX package's perception detector targets (``StreamPETRWindow``,
+``StreamPETR`` and the PETR drivers) onto the port's, so the perception
+recipes of ``configs.PERCEPTION`` do too, and the VAE's
+training losses (LPIPS, the discriminator and its losses) and the data
+module (``DataModuleFromConfig``). Of the JAX package's aliases only
+``torch.nn.Identity`` and ``torch.optim.AdamW`` have none: the engine
+drops the autoencoder's ``lossconfig`` and builds its optimiser itself. An
+unknown target raises.
 """
 
 from __future__ import annotations
@@ -70,8 +73,15 @@ _SGM_TO_LOCAL = {
         f"{_P}.diffusion.loss.StandardDiffusionLoss",
     "sgm.data.nuscenes_video.nuscenes_datasets_video.MyDataset":
         f"{_P}.data.nuscenes.dataset.NuScenesVideoDataset",
+    "sgm.data.dataset.DataModuleFromConfig": f"{_P}.data.loader.DataModuleFromConfig",
+    **{f"sgm.modules.autoencoding.losses.{n}": f"{_P}.losses.vae_losses.{n}"
+       for n in ("LatentLPIPS", "GeneralLPIPSWithDiscriminator")},
+    "sgm.modules.autoencoding.lpips.loss.lpips.LPIPS": f"{_P}.losses.lpips.LPIPS",
+    "sgm.modules.autoencoding.lpips.model.model.NLayerDiscriminator":
+        f"{_P}.losses.vae_losses.NLayerDiscriminator",
     **{f"panacea_tpu.perception.detector.{n}": f"{_P}.perception.detector.{n}"
-       for n in ("StreamPETRWindow", "StreamPETR")},
+       for n in ("StreamPETRWindow", "StreamPETR", "PetrWindow3D", "Petr3D", "Petr3DM",
+                 "Petr3DP")},
     "sgm.lr_scheduler.LambdaLinearScheduler": f"{_P}.utils.lr_schedule.LambdaLinearScheduler",
     "sgm.lr_scheduler.LambdaWarmUpCosineScheduler":
         f"{_P}.utils.lr_schedule.LambdaWarmUpCosineScheduler",

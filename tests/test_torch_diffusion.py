@@ -47,7 +47,7 @@ def test_registry_resolves_every_config_target_and_refuses_unknown():
         for t in targets(cfg["model"]):
             assert resolve_target(t).__module__.startswith("panacea_tpu_torch.")
     with pytest.raises(KeyError, match="no port"):
-        resolve_target("sgm.modules.autoencoding.lpips.loss.lpips.LPIPS")
+        resolve_target("torch.nn.Identity")
 
 
 def test_tokenizer_hash_fallback_matches_jax():

@@ -40,13 +40,6 @@ pytestmark = pytest.mark.usefixtures("two_threads")
 NET_TOL = 1e-4
 ELEM_TOL = 1e-5
 TEXTS = ["a driving scene with cars", "", "night. rain, trucks & buses"]
-# the JAX package's sgm targets that the port does not have yet (ROADMAP
-# Queue A item 5: the VAE's training side and the data module)
-UNPORTED = {"sgm.modules.autoencoding.losses.LatentLPIPS",
-            "sgm.modules.autoencoding.losses.GeneralLPIPSWithDiscriminator",
-            "sgm.modules.autoencoding.lpips.loss.lpips.LPIPS",
-            "sgm.modules.autoencoding.lpips.model.model.NLayerDiscriminator",
-            "sgm.data.dataset.DataModuleFromConfig"}
 TINY_VAE = {"target": "sgm.models.autoencoder.AutoencoderKL",
             "params": {"embed_dim": 4, "ddconfig": {
                 "double_z": True, "z_channels": 4, "resolution": 32, "in_channels": 3,
@@ -399,7 +392,7 @@ def test_t5_wrappers_raise_without_local_weights(name, monkeypatch):
 
 def test_registry_resolves_every_sgm_target_of_the_jax_package():
     """Every sgm.* alias of panacea_tpu/registry.py resolves to the port,
-    except the VAE's training side and the data module."""
+    the VAE's training side and the data module included."""
     missing = set()
     for target in _SGM_TO_LOCAL:
         if not target.startswith("sgm."):
@@ -408,4 +401,4 @@ def test_registry_resolves_every_sgm_target_of_the_jax_package():
             assert resolve_target(target).__module__.startswith("panacea_tpu_torch.")
         except KeyError:
             missing.add(target)
-    assert missing == UNPORTED
+    assert not missing, sorted(missing)

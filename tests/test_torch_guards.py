@@ -57,7 +57,11 @@ def test_port_source_imports_no_jax():
     assert {os.path.join("panacea_tpu_torch", "perception", f"{m}.py")
             for m in ("encoding", "resnet", "fpn", "deformable", "head", "detector", "coder",
                       "metrics", "eval_dataset", "collect", "eval", "train_losses", "atss",
-                      "gridmask", "denoise", "train_dataset", "train", "train_cli")} <= names
+                      "gridmask", "denoise", "train_dataset", "train", "train_cli", "vovnet",
+                      "petr_head", "petr_head_dn", "motion_head")} <= names
+    assert {os.path.join("panacea_tpu_torch", "losses", f"{m}.py")
+            for m in ("__init__", "lpips", "vae_losses")} | {
+        os.path.join("panacea_tpu_torch", "data", "loader.py")} <= names
     assert {"train_perception_torch.py",
             os.path.join("panacea_tpu_torch", "data", "nuscenes", "augment.py")} <= names
     assert {os.path.join("panacea_tpu_torch", "metrics_gen", f"{m}.py")

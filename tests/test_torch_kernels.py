@@ -1171,7 +1171,7 @@ def test_flash_f32_d32_shared_memory_fits_a_block(tc32_schedule):
 
 
 @pytest.mark.parametrize("b,h,sq", [(1, 8, 900), (2, 8, 900), (1, 1, 1), (3, 2, 129),
-                                    (1, 8, 128), (4, 5, 200)])
+                                    (1, 8, 128), (4, 5, 200), (1, 8, 644)])
 def test_flash_f32_d32_schedule_writes_every_row_once(b, h, sq, tc32_schedule):
     """The head-dim-32 kernel's grid on 132 SMs, from its compiled schedule:
     the blocks of a query tile form a cluster of ``key_split`` blocks (2
@@ -1196,7 +1196,8 @@ def test_flash_f32_d32_schedule_writes_every_row_once(b, h, sq, tc32_schedule):
     assert written == [(bi, hi, r) for bi in range(b) for hi in range(h) for r in range(sq)]
 
 
-@pytest.mark.parametrize("row_len", [1668, 1, 2, 31, 32, 33, 64, 65, 833, 1667, 4097])
+@pytest.mark.parametrize("row_len", [1668, 1, 2, 31, 32, 33, 64, 65, 833, 1667, 4097, 3072,
+                                     6001, 12288, 12305])
 @pytest.mark.parametrize("split", [1, 2])
 def test_flash_f32_d32_key_parts_cover_the_row_once(row_len, split, tc32_schedule):
     """The keys of a row, cut over the ``split`` blocks of a cluster by the
@@ -1218,6 +1219,8 @@ def test_flash_f32_d32_key_parts_cover_the_row_once(row_len, split, tc32_schedul
         assert n * kt >= last - first and (n == 0 or last - first - (n - 1) * kt >= 1)
     if row_len == 1668 and split == 2:   # the perception row: 26 and 27 tiles of 32
         assert cuts == [0, 832, 1668]
+    if row_len == 12288 and split == 2:  # the dense cross-attention's row: 192 tiles each
+        assert cuts == [0, 6144, 12288]
 
 
 @pytest.mark.parametrize("kind", ["contiguous", "merged_kv", "batch_slice"])

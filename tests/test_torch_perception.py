@@ -323,7 +323,6 @@ def test_state_dict_round_trips_through_the_jax_converter():
 
 
 def test_detector_refuses_what_is_not_ported():
-    for kw in ({"backbone_type": "vovnet"}, {"backbone_type": "eva"}, {"head_type": "petr"},
-               {"head_type": "motion"}):
+    for kw in ({"backbone_type": "eva"}, {"head_type": "sparse_v3"}, {"head_type": "sparse_v4"}):
         with pytest.raises(NotImplementedError, match="Queue A item 6"):
             detector.StreamPETRWindow(**TINY, **kw)

@@ -1,7 +1,7 @@
 """The port's perception eval CLI and its host side, against the JAX package.
 
-The parser, the metric keys the CLI prints, the ``--torch_ckpt`` load, the
-refusals of what is not ported, the eval dataset's windows and the result
+The parser, the metric keys the CLI prints, the VoVNet and PETR heads on
+one window, the ``--torch_ckpt`` load, the refusals of what is not ported, the eval dataset's windows and the result
 collection. The CLIs are not run side by side (the JAX one compiles the
 whole ResNet-50); ``tests/test_torch_perception.py`` compares the modules.
 """
@@ -55,6 +55,17 @@ def test_tiny_cli_prints_the_jax_clis_metric_keys(capsys, two_threads):
     assert all(math.isfinite(v) for v in printed.values())
 
 
+@pytest.mark.parametrize("head", ["petr", "petr_dn", "motion"])
+def test_tiny_cli_runs_the_vovnet_petr_family(capsys, two_threads, head):
+    """``--backbone vovnet --head petr|petr_dn|motion``: the full VoVNet-99
+    and the tiny dense-attention head on one window of 2 frames at 32 x 64,
+    finite metrics."""
+    metrics = peval.main(TINY_CLI + ["--backbone", "vovnet", "--head", head, "--num_samples",
+                                     "1", "--queue_length", "2", "--final_dim", "32", "64"])
+    assert printed_metrics(capsys.readouterr().out).keys() == metrics.keys()
+    assert math.isfinite(metrics["NDS"]) and math.isfinite(metrics["mAP"])
+
+
 def test_torch_ckpt_loads_mmdet_names_non_strictly(tmp_path, capsys):
     """A reference-style .pth (a ``state_dict`` inside, with BN counters the
     port has no use for and a tensor of another shape): what fits is
@@ -80,9 +91,9 @@ def test_torch_ckpt_loads_mmdet_names_non_strictly(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags, error, match", [
-    (["--backbone", "vovnet"], NotImplementedError, "Queue A item 6"),
+    (["--head", "sparse_v4"], NotImplementedError, "Queue A item 6"),
     (["--backbone", "eva"], NotImplementedError, "Queue A item 6"),
-    (["--head", "petr"], NotImplementedError, "Queue A item 6"),
+    (["--backbone", "eva", "--head", "petr"], NotImplementedError, "Queue A item 6"),
     (["--head", "sparse_v3"], NotImplementedError, "Queue A item 6"),
     (["--ckpt", "orbax_tree"], SystemExit, "Not queued"),
 ])

@@ -114,6 +114,66 @@ def test_load_from_takes_a_pth_non_strictly_and_freezes_the_stem(tmp_path, capsy
                            sd["img_backbone.layer2.0.conv1.weight"])
 
 
+def write_gen_tree(root, infos, clip_len: int, hw=(64, 128)):
+    """A Gen-nuScenes frame tree as ``inference_torch.py`` writes it: for
+    every sample and camera a directory ``{CAM}_{stem}`` (the stem of the
+    clip's last frame) holding ``_{offset:06d}.jpg`` for each of the
+    clip's frames, each image one grey level."""
+    import cv2
+    import numpy as np
+
+    for info in infos:
+        for cinfo in info["cams"].values():
+            stem = os.path.basename(cinfo["data_path"]).rsplit(".", 1)[0]
+            d = os.path.join(root, f"{stem.split('__')[-2]}_{stem}")
+            os.makedirs(d, exist_ok=True)
+            for off in range(clip_len):
+                level = (len(stem) * 7 + int(stem[-4:]) * 13 + off * 29) % 256
+                cv2.imwrite(os.path.join(d, f"_{off:06d}.jpg"),
+                            np.full(hw + (3,), level, np.uint8))
+
+
+def test_generated_clips_train_the_detector_and_read_as_jax(tmp_path, monkeypatch):
+    """``--gen_root`` (the pseudo-pretrain recipe's generated training set):
+    one step of the tiny window recipe on a tree of the CLI's synthetic
+    infos reads every frame of its window (``gen_frames_missing`` 0); and
+    the port's ``PerceptionTrainDataset`` reads the generated frames in the
+    JAX dataset's order, the same files for the same windows, with equal
+    images (random history jitter on)."""
+    import cv2
+    import numpy as np
+
+    from panacea_tpu.data.nuscenes.synthetic import make_synthetic_infos as jax_infos
+    from panacea_tpu.perception.train_dataset import PerceptionTrainDataset as JTrainDataset
+    from panacea_tpu_torch.data.nuscenes.synthetic import make_synthetic_infos
+    from panacea_tpu_torch.perception.train_dataset import PerceptionTrainDataset
+
+    tree = str(tmp_path / "gen-nuscenes")
+    write_gen_tree(tree, make_synthetic_infos(num_frames=8, num_boxes=6, seed=0), 2)
+    log = run(tmp_path, "--steps", "1", "--queue_length", "2", "--gen_root", tree)
+    assert log["gen_frames_missing"] == 0 and log["gen_frames_loaded"] >= 12
+    with open(tmp_path / WINDOW / "train_log.json") as f:
+        assert json.load(f)["gen_frames_missing"] == 0
+
+    reads, imread = [], cv2.imread
+    monkeypatch.setattr(cv2, "imread", lambda path, *a: reads.append(path) or imread(path, *a))
+    kw = dict(gen_root=tree, queue_length=2, final_dim=(64, 128), random_length=1, seed=3)
+    ours = PerceptionTrainDataset(infos=make_synthetic_infos(num_frames=8, num_boxes=6, seed=0),
+                                  **kw)
+    ref = JTrainDataset(infos=jax_infos(num_frames=8, num_boxes=6, seed=0), **kw)
+    for key in list(range(8)) * 2:
+        got = ours.train_window(key)
+        ours_reads, reads[:] = list(reads), []
+        want = ref.train_window(key)
+        assert ours_reads == reads and (got is None) == (want is None)
+        reads.clear()
+        if got is not None:
+            for k in want[0]:
+                np.testing.assert_array_equal(got[0][k], want[0][k], err_msg=k)
+    assert ours.gen_misses == ref.gen_misses == 0
+    assert ours.gen_hits == ref.gen_hits == 16 * 2 * 6   # 16 windows of 2 frames of 6 cameras
+
+
 def test_cli_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
