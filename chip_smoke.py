@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --kernels      # phases 1 and 2 only
-    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phases 11, 14, 15
+    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phases 11, 14-16
     python3 chip_smoke.py --metrics      # phase 1, phase 12
     python3 chip_smoke.py --variants     # phase 1, phase 13
-    python3 chip_smoke.py --zoo          # phase 1, phase 15
+    python3 chip_smoke.py --zoo          # phase 1, phases 15 and 16
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -143,6 +143,26 @@ Phases, in order; any failure exits non-zero:
      PatchGAN (ndf 64, 3 layers) and LatentLPIPS with the production VAE
      decoder on a (1, 4, 32, 64) latent pair, each card against CPU within
      ``LOSS_TOL`` and timed.
+ 16. training the dense-attention PETR family (run after phase 15): (a)
+     the fp32 flash backward (``tc32``) at the dense cross-attention's
+     training shapes, (2, 900 + 640, 12288, 8, 32) (r50, 64 boxes' DN
+     queries), (2, 900 + 230, 12288, 8, 32), (2, 644 + 640, 3072, 8, 32)
+     (VoVNet-99 + PETRHeadDN) and at B 1, each against the float64 plain
+     version and timed beside fp32 SDPA's backward; (b) ``PetrWindow3D``
+     (r50 + StreamPETRHead) at the window recipe through
+     ``DetectorTrainer.step``, 3 steps: s/step and its split, peak memory,
+     every loss term finite, the frozen stem and layer1 and every
+     batch-norm statistic bit-equal, the fp32 flash calls by shape (84
+     history-frame forwards, the grad frame's 6 cross-attention calls
+     forward and backward), every launch on ``tc32``; one profiled step;
+     (c) one step's loss terms at bs 1 over 2 frames, card against CPU,
+     the CPU's assignment given to both, within ``PERCEPTION_TOL``; (d)
+     VoVNet-99 (each OSA block recomputed in the backward) + PETRHeadDN, 2
+     steps, the same records; (e) ``Petr3DP`` (PETRMotionHead) at the
+     streaming recipe with the ground truth's futures, 2 steps:
+     ``loss_traj`` finite, the trajectory branch moved; (f)
+     ``train_perception_torch.py --synthetic --tiny --steps 2`` on the
+     card from a written YAML with the motion head.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -235,6 +255,7 @@ FULL_HW = (256, 3072)   # the production panorama
 # DN at scalar 10 with max_gt 64, ATSS, GridMask); the history frames' 6
 # self-attention calls each on the fp32 flash forward, 7 history frames
 PTRAIN_RECIPE = "streampetr_r50_atss_512x256_window"
+PTRAIN_STREAM_RECIPE = "streampetr_r50_atss_512x256_nopretrain"
 PTRAIN_B, PTRAIN_STEPS, PTRAIN_MAX_GT = 2, 3, 64
 PTRAIN_FLASH_PER_STEP = 6 * (PERCEPTION_T - 1)
 PTRAIN_FLASH = (PTRAIN_B, 900, 1668, 8, 32)   # B, Sq, Skv, H, D of the grad frame without DN
@@ -243,6 +264,17 @@ PTRAIN_FLASH = (PTRAIN_B, 900, 1668, 8, 32)   # B, Sq, Skv, H, D of the grad fra
 # at stride 8 (r50, the FPN's first level) or 16 (VoVNet-99 from its third
 # stage), and PETRHeadDN's 644 queries; B 1, 8 heads of dim 32, fp32 (tc32)
 ZOO_FLASH = ((1, 900, 12288, 8, 32), (1, 900, 3072, 8, 32), (1, 644, 12288, 8, 32))
+# phase 16: the dense family in training at the window recipe's geometry
+# (bs 2, DN at scalar 10 with max_gt 64: 640 DN queries). The grad frame's
+# cross-attention backward on tc32: r50's (2, 900 + 640, 12288), at 23 boxes
+# (2, 900 + 230, 12288), PETRHeadDN's (2, 644 + 640, 3072) on VoVNet-99, B 1
+ZTRAIN_BWD = ((2, 1540, 12288, 8, 32), (2, 1130, 12288, 8, 32), (2, 1284, 3072, 8, 32),
+              (1, 1540, 12288, 8, 32))
+ZTRAIN_STEPS = 3
+ZTRAIN_PETR = {"head_type": "petr"}
+ZTRAIN_VOVNET = {"backbone_type": "vovnet", "neck_start_level": 2, "head_type": "petr_dn",
+                 "backbone_cfg": {"use_checkpoint": True}}
+ZTRAIN_MOTION = {"head_type": "motion"}
 LPIPS_PAIRS = 4
 # the VAE's losses in fp32, card against CPU: the largest difference over the
 # largest value (a scalar's relative difference)
@@ -2050,12 +2082,15 @@ def stage1_phase(torch, np, dev, fa, gg, card: str) -> dict:
 
 
 def ptrain_setup(torch, np, dev, recipe: str = PTRAIN_RECIPE, queue_length=None, bs=PTRAIN_B,
-                 seed: int = SEED):
-    """The recipe's detector on ``dev`` with random weights from ``seed``,
-    its optimizer (stem and layer1 frozen, backbone at 0.1 x lr, clip 35,
-    the cosine schedule), the trainer, and its dataset on synthetic infos
-    with random 256 x 512 images and the recipe's augmentations (history
-    jitter, IDA resize and flip, global rotation and scale)."""
+                 seed: int = SEED, params=None):
+    """The recipe's detector on ``dev`` (``params`` overriding its
+    ``perception.detector.params``, as a YAML would) with random weights
+    from ``seed``, its optimizer (stem and the first stage frozen,
+    backbone at 0.1 x lr, clip 35, the cosine schedule), the trainer, and
+    its dataset on synthetic infos with random 256 x 512 images and the
+    recipe's augmentations (history jitter, IDA resize and flip, global
+    rotation and scale); with the motion head the windows carry the
+    ground truth's futures (``pred_steps``)."""
     from panacea_tpu_torch.config import load_perception_config
     from panacea_tpu_torch.data.nuscenes.synthetic import make_synthetic_infos, path_seed
     from panacea_tpu_torch.perception.atss import fpn_shapes, grid_anchors
@@ -2065,6 +2100,8 @@ def ptrain_setup(torch, np, dev, recipe: str = PTRAIN_RECIPE, queue_length=None,
     from panacea_tpu_torch.registry import instantiate_from_config
 
     cfg = load_perception_config(recipe)["perception"]
+    if params:
+        cfg["detector"] = dict(cfg["detector"], params=dict(cfg["detector"]["params"], **params))
     tcfg, ocfg, dcfg = cfg["train"], cfg["optimizer"], cfg["data"]
     model = instantiate_from_config(cfg["detector"]).to(dev)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed), zero_init_std=ZERO_INIT_STD)
@@ -2093,7 +2130,8 @@ def ptrain_setup(torch, np, dev, recipe: str = PTRAIN_RECIPE, queue_length=None,
         ida_aug=dcfg["ida"], rot_range=tuple(dcfg["rot_range"]),
         scale_ratio_range=tuple(dcfg["scale_ratio_range"]),
         seq_split_num=tcfg.get("seq_split_num", 2) if seq_mode else 0, seed=seed)
-    anchors = grid_anchors(fpn_shapes(PERCEPTION_HW, 5))
+    anchors = grid_anchors(fpn_shapes(PERCEPTION_HW, 5, model.feat_strides[0]),
+                           strides=model.feat_strides)
     trainer = DetectorTrainer(
         tuple(cfg["detector"]["params"]["pc_range"]), cls_weight=tcfg["cls_weight"],
         bbox_weight=tcfg["bbox_weight"], use_grid_mask=tcfg["use_grid_mask"],
@@ -2103,7 +2141,8 @@ def ptrain_setup(torch, np, dev, recipe: str = PTRAIN_RECIPE, queue_length=None,
         num_frame_losses=tcfg["num_frame_losses"], streaming=seq_mode)
     return {"model": model, "state": DetTrainState(model, opt), "trainer": trainer, "ds": ds,
             "anchors": anchors, "bs": bs, "ql": ql, "detector_cfg": cfg["detector"],
-            "generator": torch.Generator().manual_seed(seed + 1)}
+            "generator": torch.Generator().manual_seed(seed + 1),
+            "pred_steps": getattr(model.pts_bbox_head, "pred_steps", 0)}
 
 
 def ptrain_batch(setup, dev, start: int):
@@ -2113,7 +2152,8 @@ def ptrain_batch(setup, dev, start: int):
 
     ds, items, key = setup["ds"], [], start
     while len(items) < setup["bs"]:
-        it = ds.window_with_gt(key % len(ds), max_gt=PTRAIN_MAX_GT)
+        it = ds.window_with_gt(key % len(ds), max_gt=PTRAIN_MAX_GT,
+                               pred_steps=setup["pred_steps"])
         key += 1
         if it is not None:
             items.append(it)
@@ -2209,23 +2249,27 @@ def ptrain_window_phase(torch, np, dev, fa, gg, card: str):
     return setup, counts[-1]
 
 
-def ptrain_card_vs_cpu(torch, np, dev, card: str):
+def ptrain_card_vs_cpu(torch, np, dev, card: str, params=None,
+                       name: str = "perception_train_card_vs_cpu"):
     """(b) One step's loss terms at full width, bs 1 and 2 frames, on the
     card and on the CPU from the same weights, window and draws: the first
     frame on the card, its memory handed to both (the top-256 selection
     orders near-equal scores by rounding noise), then the grad frame's
     forward and loss on each, with the CPU's Hungarian assignment (and the
-    host's ATSS targets) given to both."""
+    host's ATSS targets) given to both. ``params``: the detector's, as in
+    ``ptrain_setup``."""
     import copy
 
     from panacea_tpu_torch.perception.head import MemoryState, init_memory
     from panacea_tpu_torch.registry import instantiate_from_config
 
-    small = ptrain_setup(torch, np, dev, queue_length=2, bs=1, seed=SEED + 2)
+    small = ptrain_setup(torch, np, dev, queue_length=2, bs=1, seed=SEED + 2, params=params)
     model = small["model"]
     cpu_model = instantiate_from_config(small["detector_cfg"])
     cpu_model.load_state_dict(model.state_dict())
-    imgs, data, boxes, labels, tgt2d = ptrain_batch(small, dev, 1)
+    imgs, data, boxes, labels, tgt2d, trajs, traj_mask = ptrain_batch(small, dev, 1)
+    cpu_trajs = {} if trajs is None else {"gt_trajs": trajs.cpu(), "gt_traj_mask": traj_mask.cpu()}
+    trajs = {} if trajs is None else {"gt_trajs": trajs, "gt_traj_mask": traj_mask}
     frame = copy.copy(small["trainer"])
     frame.streaming = True            # the grad frame alone, from a given memory
     draws = frame.draw(small["generator"], imgs.shape[-3], 1, PTRAIN_MAX_GT)
@@ -2238,15 +2282,16 @@ def ptrain_card_vs_cpu(torch, np, dev, card: str):
                   labels.cpu())
         outs, atss_outs, _, dn = frame.forward(cpu_model, *cpu_in, draws,
                                                MemoryState(*(m.cpu() for m in memory)))
-        _, want, assignment = frame.loss(outs, atss_outs, dn, cpu_in[2], cpu_in[3], tgt2d)
+        _, want, assignment = frame.loss(outs, atss_outs, dn, cpu_in[2], cpu_in[3], tgt2d,
+                                         **cpu_trajs)
         cpu_s = time.perf_counter() - t0
         outs, atss_outs, _, dn = frame.forward(model, imgs[:, 1],
                                                {k: v[:, 1] for k, v in data.items()}, boxes,
                                                labels, draws, memory)
-        _, got, _ = frame.loss(outs, atss_outs, dn, boxes, labels, tgt2d, assignment)
+        _, got, _ = frame.loss(outs, atss_outs, dn, boxes, labels, tgt2d, assignment, **trajs)
     terms = {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
              for k in want}
-    rec = {"phase": "perception_train_card_vs_cpu", "card": card, "batch": 1, "frames": 2,
+    rec = {"phase": name, "card": card, "batch": 1, "frames": 2,
            "loss_cpu": {k: float(v) for k, v in want.items()},
            "loss_card": {k: float(v) for k, v in got.items()}, "rel_diff": terms,
            "tol": PERCEPTION_TOL, "cpu_grad_frame_s": cpu_s}
@@ -2292,42 +2337,53 @@ def ptrain_nodn_phase(torch, F, np, dev, fa, gg, tol, card: str, setup):
     return counts, bwd, fwd
 
 
-def ptrain_stream_phase(torch, np, dev, fa, gg, card: str):
-    """(d) The streaming recipe (``StreamPETR``, one frame a step with the
-    memory carried across steps), 2 steps at bs 2."""
+def ptrain_stream_steps(torch, np, dev, fa, gg, card: str, setup, name: str):
+    """2 steps of the streaming recipe's ``setup`` (one frame a step with
+    the memory carried across steps, bs 2; with the motion head the frames
+    carry the ground truth's futures), the counts zeroed before each step
+    and read after it: every loss term finite and the memory filling.
+    Returns the record and the last step's counts."""
     from panacea_tpu_torch.perception.head import init_memory
     from panacea_tpu_torch.perception.train_cli import collate
     from panacea_tpu_torch.perception.train_dataset import StreamingSampler
 
-    setup = ptrain_setup(torch, np, dev, recipe="streampetr_r50_atss_512x256_nopretrain")
     ds, model, state = setup["ds"], setup["model"], setup["state"]
     sampler = StreamingSampler(ds.seq_flags, batch_size=PTRAIN_B, seed=SEED)
     memory = init_memory(PTRAIN_B, model.memory_len, model.embed_dims, device=dev)
-    times, metrics, filled = [], [], []
-    reset_counts(fa, gg)
+    times, metrics, filled, counts, valid = [], [], [], [], []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        items = [ds.window_with_gt(i, max_gt=PTRAIN_MAX_GT) for i in sampler.next_batch()]
-        imgs, data, boxes, labels, tgt2d = collate(items, setup["anchors"], dev)
+        items = [ds.window_with_gt(i, max_gt=PTRAIN_MAX_GT, pred_steps=setup["pred_steps"])
+                 for i in sampler.next_batch()]
+        imgs, data, *targets = collate(items, setup["anchors"], dev)
+        if targets[-1] is not None:
+            valid.append(int(targets[-1][..., 0].sum().item()))
+        reset_counts(fa, gg)
         out = setup["trainer"].step(state, imgs[:, 0], {k: v[:, 0] for k, v in data.items()},
-                                    boxes, labels, tgt2d, generator=setup["generator"],
-                                    memory=memory)
+                                    *targets, generator=setup["generator"], memory=memory)
         memory = out.memory
         torch.cuda.synchronize()
+        counts.append(read_counts(fa, gg))
         times.append(time.perf_counter() - t0)
         metrics.append(out.metrics)
         filled.append(int((memory.embedding.abs().sum(-1) > 0).sum()))
-    counts = read_counts(fa, gg)
-    rec = {"phase": "perception_train_streaming", "card": card, "batch": PTRAIN_B,
+    rec = {"phase": name, "card": card, "batch": PTRAIN_B, "pred_steps": setup["pred_steps"],
            "step_s": times, "losses": metrics, "memory_slots_filled": filled,
-           "launches": counts, "model": type(model).__name__}
+           "future_steps_valid": valid, "launches": counts, "model": type(model).__name__}
     log(rec)
     if not (all(np.isfinite(v) for m in metrics for v in m.values())
             and filled[0] == PTRAIN_B * model.pts_bbox_head.topk_proposals
             and filled[1] >= filled[0]):
-        raise AssertionError(f"streaming training went wrong: {rec}")
-    return counts
+        raise AssertionError(f"{name}: streaming training went wrong: {rec}")
+    return rec, counts[-1]
+
+
+def ptrain_stream_phase(torch, np, dev, fa, gg, card: str):
+    """(d) The streaming recipe (``StreamPETR``), 2 steps at bs 2."""
+    setup = ptrain_setup(torch, np, dev, recipe=PTRAIN_STREAM_RECIPE)
+    return ptrain_stream_steps(torch, np, dev, fa, gg, card, setup,
+                               "perception_train_streaming")[1]
 
 
 def ptrain_cli_phase(torch, np, card: str):
@@ -2681,6 +2737,197 @@ def zoo_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
     return {"paths": paths, "flash": recs}
 
 
+# --------------------------------------------------------------------------
+# phase 16: training the dense-attention PETR family
+# --------------------------------------------------------------------------
+
+
+def ztrain_counts_ok(c, fwd: int, bwd: int) -> bool:
+    """``fwd`` fp32 flash forwards and ``bwd`` backwards, all on ``tc32``,
+    none on the FMA kernels, and nothing else launched."""
+    return (c["flash_attention"] == c["flash_routes"]["fp32"] == c["flash_fp32_kernels"]["tc32"]
+            == fwd and c["flash_attention_bwd"] == c["flash_bwd_routes"]["fp32"]
+            == c["flash_bwd_fp32_kernels"]["tc32"] == bwd
+            and c["flash_fp32_kernels"]["fma"] == c["flash_bwd_fp32_kernels"]["fma"] == 0
+            and c["geglu"] == c["geglu_bwd"] == 0)
+
+
+def ztrain_steps(torch, np, dev, fa, gg, card: str, name: str, setup, steps: int,
+                 want_shapes: dict, want_bwd: int, profile: bool = False):
+    """``steps`` training steps of ``setup`` (the window recipe, bs 2):
+    s/step with its split, peak memory, every loss term, the fp32 flash
+    calls by shape and the launches of each step (all on ``tc32``; the
+    counts zeroed before the step and read after it), the frozen stem and
+    first stage and every batch-norm statistic bit-equal after the steps;
+    with ``profile`` one profiled step. Returns one step's counts."""
+    state, trainer, model = setup["state"], setup["trainer"], setup["model"]
+    frozen = {k: v.detach().clone() for k, v in model.named_parameters() if not v.requires_grad}
+    frozen.update({k: v.clone() for k, v in model.named_buffers()})
+    splits, times, metrics, counts, shapes = [], [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        split = {}
+        off = ptrain_timers(torch, setup, split)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = ptrain_batch(setup, dev, PERCEPTION_T + 2 * i)
+        split["host_data_targets_s"] = time.perf_counter() - t0
+        reset_counts(fa, gg)
+        with flash_shapes() as calls:
+            out = trainer.step(state, *batch, generator=setup["generator"])
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(read_counts(fa, gg))
+        shapes.append(dict(calls))
+        off()
+        splits.append(split)
+        metrics.append(out.metrics)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    now = dict(list(model.named_parameters()) + list(model.named_buffers()))
+    same = all(bool(torch.equal(v, now[k])) for k, v in frozen.items())
+    steady = sorted(times[1:])
+    median = steady[len(steady) // 2]
+    want_fwd = sum(want_shapes.values())
+    rec = {"phase": name, "card": card, "backbone": model.backbone_type,
+           "head": model.head_type, "batch": setup["bs"], "frames": setup["ql"],
+           "image_hw": list(PERCEPTION_HW), "cams": 6, "dn_queries": PTRAIN_MAX_GT * 10,
+           "params": sum(p.numel() for p in model.parameters()),
+           "trained_params": sum(p.numel() for p in state.params.values()),
+           "first_step_s": times[0], "s_per_step": median, "step_s": times,
+           "split_s_median_step": splits[1 + times[1:].index(median)],
+           "split_s_first_step": splits[0], "peak_mem_gb": peak, "losses": metrics,
+           "flash_calls_by_shape": shapes, "expected_flash_calls_by_shape": want_shapes,
+           "launches_per_step": counts, "expected_flash_fwd": want_fwd,
+           "expected_flash_bwd": want_bwd, "frozen_tensors": len(frozen),
+           "frozen_bit_equal": same}
+    log(rec)
+    if not (all(np.isfinite(v) for m in metrics for v in m.values()) and same):
+        raise AssertionError(f"{name}: a loss term is not finite or a frozen tensor moved: {rec}")
+    for c, sh in zip(counts, shapes):
+        if sh != want_shapes or not ztrain_counts_ok(c, want_fwd, want_bwd):
+            raise AssertionError(f"{name}: a step made {sh} / {c}, not {want_shapes} with "
+                                 f"{want_bwd} backward launches, all on tc32: {rec}")
+    if profile:
+        batch = ptrain_batch(setup, dev, PERCEPTION_T)
+        profile_step(torch, lambda: trainer.step(state, *batch, generator=setup["generator"]),
+                     name=f"profile_{name}_step", grad=True)
+    return counts[-1]
+
+
+def ztrain_window_phase(torch, np, dev, fa, gg, card: str):
+    """(b) PetrWindow3D (r50 + StreamPETRHead) at the window recipe,
+    ZTRAIN_STEPS steps and one profiled: each history frame's 6
+    self-attention (Sq 900, Skv 1,668) and 6 cross-attention (Skv 12,288)
+    calls, the grad frame's 6 cross-attention calls with the DN queries
+    (Sq 900 + 640) forward and backward; its self-attention with the DN
+    mask stays plain fp32."""
+    setup = ptrain_setup(torch, np, dev, params=ZTRAIN_PETR)
+    layers, q, tokens, keys = zoo_geometry(setup["model"], 8)
+    hist = layers * (PERCEPTION_T - 1)
+    want = {f"{q}x{tokens}": hist, f"{q}x{keys}": hist,
+            f"{q + PTRAIN_MAX_GT * 10}x{tokens}": layers}
+    return ztrain_steps(torch, np, dev, fa, gg, card, "perception_zoo_train", setup,
+                        ZTRAIN_STEPS, want, layers, profile=True)
+
+
+def ztrain_vovnet_phase(torch, np, dev, fa, gg, card: str):
+    """(d) VoVNet-99 (each OSA block recomputed in the backward) +
+    PETRHeadDN at the window recipe, 2 steps: the history frames' 6
+    cross-attention calls to the 3,072 stride-16 tokens (the self-attention
+    over the 644 queries on SDPA), the grad frame's with the DN queries
+    (644 + 640) forward and backward."""
+    setup = ptrain_setup(torch, np, dev, params=ZTRAIN_VOVNET)
+    layers, q, tokens, _ = zoo_geometry(setup["model"], 16)
+    want = {f"{q}x{tokens}": layers * (PERCEPTION_T - 1),
+            f"{q + PTRAIN_MAX_GT * 10}x{tokens}": layers}
+    return ztrain_steps(torch, np, dev, fa, gg, card, "perception_zoo_train_vovnet_petr_dn",
+                        setup, 2, want, layers)
+
+
+def ztrain_motion_phase(torch, np, dev, fa, gg, card: str):
+    """(e) Petr3DP (r50 + PETRMotionHead) at the streaming recipe with the
+    ground truth's futures, 2 steps at bs 2 with the memory carried: every
+    loss term finite, ``loss_traj`` among them, the trajectory branch's
+    weights moved, the grad frame's 6 cross-attention calls forward and
+    backward on ``tc32``."""
+    setup = ptrain_setup(torch, np, dev, recipe=PTRAIN_STREAM_RECIPE, params=ZTRAIN_MOTION)
+    model = setup["model"]
+    traj = {k: v.detach().clone() for k, v in model.named_parameters()
+            if k.startswith("pts_bbox_head.traj_branches.")}
+    rec, counts = ptrain_stream_steps(torch, np, dev, fa, gg, card, setup,
+                                      "perception_zoo_train_petr3dp")
+    now = dict(model.named_parameters())
+    moved = {k: not bool(torch.equal(v, now[k])) for k, v in traj.items()}
+    layers = len(model.pts_bbox_head.transformer.decoder.layers)
+    log({"phase": "perception_zoo_train_petr3dp_traj", "card": card,
+         "traj_branch_moved": moved})
+    if not (all("loss_traj" in m for m in rec["losses"]) and moved and all(moved.values())
+            and min(rec["future_steps_valid"]) > 0
+            and all(ztrain_counts_ok(c, layers, layers) for c in rec["launches"])):
+        raise AssertionError(f"Petr3DP's training with trajectories went wrong: {rec}, "
+                             f"the trajectory branch moved: {moved}")
+    return counts
+
+
+def ztrain_cli_phase(torch, np, fa, gg, card: str):
+    """(f) ``train_perception_torch.py --synthetic --steps 2`` on the card
+    from a written YAML: the streaming recipe with the motion head at full
+    width (bs 2, 256 x 512), each step's 6 cross-attention calls with the
+    640 DN queries forward and backward on ``tc32``. (``--tiny``'s heads
+    of dim 4 have no kernel route, so its DN cross-attention runs on the
+    CPU only, as the JAX CLI's ``--tiny`` does.)"""
+    import yaml
+
+    from panacea_tpu_torch.configs import PERCEPTION
+    from panacea_tpu_torch.perception import train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = json.loads(json.dumps(PERCEPTION[PTRAIN_STREAM_RECIPE]))
+        cfg["perception"]["detector"]["params"].update(ZTRAIN_MOTION)
+        config = os.path.join(tmp, "motion.yaml")
+        with open(config, "w") as f:
+            yaml.safe_dump(cfg, f)
+        reset_counts(fa, gg)
+        t0 = time.perf_counter()
+        run = train_cli.main(["--synthetic", "--steps", "2", "--config", config,
+                              "--workdir", tmp])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    counts = read_counts(fa, gg)
+    calls = 2 * len(run["state"].model.pts_bbox_head.transformer.decoder.layers)
+    rec = {"phase": "perception_zoo_train_cli", "card": card, "seconds": cli_s,
+           "steps": run["steps"], "final_metrics": run["final_metrics"], "launches": counts,
+           "expected_flash_fwd_bwd": calls}
+    log(rec)
+    if not (run["steps"] == 2 and "loss_traj" in run["final_metrics"]
+            and all(np.isfinite(v) for v in run["final_metrics"].values())
+            and ztrain_counts_ok(counts, calls, calls)):
+        raise AssertionError(f"the training CLI with the motion head went wrong: {rec}")
+    return counts
+
+
+def ztrain_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
+    """Phase 16 (a) to (f). Returns the counts of its paths and the
+    records of the ``tc32`` backward at the dense shapes."""
+    t0 = time.perf_counter()
+    recs = [check_flash_bwd(torch, F, fa, tol, dev, *shape, merged_kv=False, fp32=True)
+            for shape in ZTRAIN_BWD]
+    free(torch)
+    paths = {"perception_zoo_train": ztrain_window_phase(torch, np, dev, fa, gg, card)}
+    free(torch)
+    ptrain_card_vs_cpu(torch, np, dev, card, params=ZTRAIN_PETR,
+                       name="perception_zoo_train_card_vs_cpu")
+    free(torch)
+    paths["perception_zoo_train_vovnet_petr_dn"] = ztrain_vovnet_phase(torch, np, dev, fa, gg,
+                                                                       card)
+    free(torch)
+    paths["perception_zoo_train_petr3dp"] = ztrain_motion_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    paths["perception_zoo_train_cli"] = ztrain_cli_phase(torch, np, fa, gg, card)
+    log({"phase": "perception_zoo_train_total", "seconds": time.perf_counter() - t0})
+    return {"paths": paths, "bwd": recs}
+
+
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
 BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
            ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
@@ -2787,10 +3034,14 @@ def main(mode: str = "all") -> int:
         perception_train_phase(torch, F, np, dev, fa, gg, tol, card)
         free(torch)
         zoo_phase(torch, F, np, dev, fa, gg, tol, card)
+        free(torch)
+        ztrain_phase(torch, F, np, dev, fa, gg, tol, card)
         log({"phase": "perception_only", "ok": True})
         return 0
     if mode == "zoo":
         zoo_phase(torch, F, np, dev, fa, gg, tol, card)
+        free(torch)
+        ztrain_phase(torch, F, np, dev, fa, gg, tol, card)
         log({"phase": "zoo_only", "ok": True})
         return 0
     if mode == "variants":
@@ -2996,6 +3247,9 @@ def main(mode: str = "all") -> int:
     zoo = zoo_phase(torch, F, np, dev, fa, gg, tol, card)
     paths.update(zoo["paths"])
     free(torch)
+    ztrain = ztrain_phase(torch, F, np, dev, fa, gg, tol, card)
+    paths.update(ztrain["paths"])
+    free(torch)
     paths["sampler_dpmpp2m"] = metrics_phase(torch, np, dev, fa, gg, card, gen_tree,
                                              euler_s_per_step)
     gen_dir.cleanup()
@@ -3021,7 +3275,7 @@ def main(mode: str = "all") -> int:
     flash32 = [r for r in flash32 if r["shape"]["D"] != 32]
     perception_paths = ("perception", "perception_cli", "perception_train",
                         "perception_train_no_dn", "perception_train_streaming") + tuple(
-        zoo["paths"])
+        zoo["paths"]) + tuple(ztrain["paths"])
     generation_paths = tuple(p for p in paths if p not in perception_paths)
 
     def summary(name, kernel, source, replaces, recs, main, path, paths_of=tuple(paths),
@@ -3046,7 +3300,12 @@ def main(mode: str = "all") -> int:
 
     d32, d32_train = flash32_perception, ptrain["fwd"]
     d32_recs = flash32_d32 + [ptrain["fwd"]] + zoo["flash"]
-    bwd, bwd_b1, bwd32_d32 = ptrain["bwd"], flash_bwd32_d32[1], flash_bwd32_d32 + [ptrain["bwd"]]
+    bwd, bwd_b1 = ztrain["bwd"][0], flash_bwd32_d32[1]
+    bwd32_d32 = flash_bwd32_d32 + [ptrain["bwd"]] + ztrain["bwd"]
+    bwd_keys = ("ms", "ms_device", "plain_ms", "library_ms", "library_ms_device", "bound_ms",
+                "bound_fma_ms", "host_us")
+    dense_bwd = [{"worst_ratio": max(r["worst_ratio"].values()), "shape": r["shape"],
+                  **{k: r[k] for k in bwd_keys}} for r in ztrain["bwd"]]
     flash_src, geglu_src = ("panacea_tpu_torch/csrc/flash_attention.cu",
                             "panacea_tpu_torch/csrc/geglu.cu")
     flash_bwd_src = "panacea_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -3085,7 +3344,8 @@ def main(mode: str = "all") -> int:
                 dense_shapes=[{k: r[k] for k in ("shape", "ms", "ms_device", "plain_ms",
                                                  "library_ms", "library_ms_device", "bound_ms",
                                                  "bound_fma_ms", "host_us", "worst_ratio")}
-                              for r in zoo["flash"][:len(ZOO_FLASH)]]),
+                              for r in zoo["flash"][:len(ZOO_FLASH)]],
+                dense_bwd_shapes=dense_bwd),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
                 "fp32_engine", entry="f32::pn_geglu_3xtf32_fwd (3xTF32 wgmma, TMA)",
                 bound_fma_ms=geglu32[0]["bound_fma_ms"],
@@ -3107,10 +3367,12 @@ def main(mode: str = "all") -> int:
                 fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
                                                   for r in flash_bwd32)),
         summary("flash_attention_bwd_fp32_d32", "flash_attention_bwd", flash_bwd_src,
-                flash_tpu, bwd32_d32, bwd, "perception_train_no_dn",
+                flash_tpu, bwd32_d32, bwd, "perception_zoo_train",
                 paths_of=perception_paths, fp32_kernel="tc32",
                 entry="tc32::pn_flash_bwd_f32_{dkdv,dq}_tc32 (3xTF32 wgmma, cp.async), the "
-                      "perception training's grad frame without DN",
+                      "dense PETR heads' cross-attention in training (the main path's "
+                      "shape, 900 + 640 DN queries to 12,288 tokens) and the SparseHead "
+                      "grad frame's self-attention without DN",
                 bound_fma_ms=bwd["bound_fma_ms"], ms_device=bwd["ms_device"],
                 library_ms_device=bwd["library_ms_device"], host_us=bwd["host_us"],
                 ms_levels=[bwd["ms"]], library_ms_levels=[bwd["library_ms"]],
@@ -3118,10 +3380,10 @@ def main(mode: str = "all") -> int:
                 worst_ratio_vs_fp32_plain=max(r["worst_ratio_vs_fp32_plain"] for r in bwd32_d32),
                 fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
                                                   for r in bwd32_d32),
-                b1_shape=bwd_b1["shape"],
-                **{f"b1_{k}": bwd_b1[k]
-                   for k in ("ms", "ms_device", "plain_ms", "library_ms", "library_ms_device",
-                             "bound_ms", "bound_fma_ms", "host_us")}),
+                b1_shape=bwd_b1["shape"], **{f"b1_{k}": bwd_b1[k] for k in bwd_keys},
+                no_dn_shape=ptrain["bwd"]["shape"],
+                **{f"no_dn_{k}": ptrain["bwd"][k] for k in bwd_keys},
+                dense_shapes=dense_bwd),
         summary("geglu_bwd", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd, geglu_bwd[0],
                 "train"),
         summary("geglu_bwd_fp32", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd32,

@@ -74,11 +74,13 @@ class ATSSHead(nn.Module):
         return outs
 
 
-def fpn_shapes(img_hw: Tuple[int, int], num_levels: int = 5) -> List[Tuple[int, int]]:
-    """The FPN's per-level shapes: stride 8 first, then halving with the
+def fpn_shapes(img_hw: Tuple[int, int], num_levels: int = 5,
+               stride: int = 8) -> List[Tuple[int, int]]:
+    """The FPN's per-level shapes: ``stride`` first (8 for ResNet-50's
+    neck, 16 for VoVNet-99's from its third stage), then halving with the
     ceiling (a 1 x 2 map halves to 1 x 1)."""
-    h = -(-img_hw[0] // 8)
-    w = -(-img_hw[1] // 8)
+    h = -(-img_hw[0] // stride)
+    w = -(-img_hw[1] // stride)
     out = []
     for _ in range(num_levels):
         out.append((h, w))

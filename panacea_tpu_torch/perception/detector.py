@@ -21,7 +21,7 @@ the backbone runs NCHW. Submodules carry mmdet's names (``img_backbone``,
 ``img_neck``, ``pts_bbox_head``, ``img_roi_head``), so a StreamPETR
 ``.pth`` loads directly. The EVA backbone and the proposal-query heads
 (``sparse_v3``, ``sparse_v4``) wait for the rest of the perception zoo
-(ROADMAP Queue A item 6).
+(ROADMAP Queue A item 6c).
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ from panacea_tpu_torch.perception.vovnet import VoVNet
 
 IMG_MEAN = (123.675, 116.28, 103.53)
 IMG_STD = (58.395, 57.12, 57.375)
-NOT_PORTED = "is not ported; it waits for the perception zoo (ROADMAP Queue A item 6)"
+NOT_PORTED = ("is not ported; it waits for the rest of the perception zoo "
+              "(ROADMAP Queue A item 6c)")
 HEADS = {"sparse": SparseHead, "petr": StreamPETRHead, "petr_dn": PETRHeadDN,
          "motion": PETRMotionHead}
 R50_CHANNELS = (256, 512, 1024, 2048)
@@ -89,6 +90,8 @@ class StreamPETRWindow(nn.Module):
             in_channels = self.img_backbone.out_channels
         self.img_neck = FPN(in_channels=in_channels, out_channels=embed_dims,
                             start_level=neck_start_level, num_outs=num_levels)
+        # both backbones' stages have strides 4, 8, 16, 32
+        self.feat_strides = tuple(4 * 2 ** (neck_start_level + i) for i in range(num_levels))
         self.pts_bbox_head = HEADS[head_type](
             num_classes=num_classes, embed_dims=embed_dims, num_query=num_query,
             memory_len=memory_len, topk_proposals=topk_proposals,

@@ -7,7 +7,7 @@ it runs on CUDA and raises without a card, ``--device cpu`` is for tests.
 The eval recipe's detector (``--backbone r50 --head sparse``) and the
 dense-attention PETR family (``--backbone vovnet``, ``--head petr``,
 ``petr_dn`` or ``motion``) are ported; ``--backbone eva`` and ``--head
-sparse_v3|sparse_v4`` raise and name ROADMAP Queue A item 6.
+sparse_v3|sparse_v4`` raise and name ROADMAP Queue A item 6c.
 ``--torch_ckpt`` loads a reference mmdet ``.pth`` straight into the port
 (the names are the same, VoVNet's and the PETR heads' included), leaving
 what it does not cover at the random init, as the JAX CLI merges its

@@ -3,10 +3,12 @@
 Counterpart of ``panacea_tpu/perception/train.py`` (``make_detector_train``,
 :215; reference streampetr_r50_atss_512x256_window.py:36-276 and the mmdet
 runner): GridMask on the input images, the history frames without
-gradients, the SparseHead with its denoising (DN) queries, Hungarian
-matching run per decoder layer with the layer losses summed, and the ATSS
-2D auxiliary head on the last frame's FPN features. AdamW with the
-backbone at 0.1 times the learning rate, its stem and first stage frozen,
+gradients, the head (SparseHead or a dense PETR head) with its denoising
+(DN) queries, Hungarian matching run per decoder layer with the layer
+losses summed, with the motion head the trajectory loss on the matched
+queries, and the ATSS 2D auxiliary head on the last frame's FPN features.
+AdamW with the backbone (ResNet-50 or VoVNet) at 0.1 times the learning
+rate, its stem and first stage frozen,
 the gradients clipped at a global norm of 35, and a cosine schedule after
 a linear warmup.
 
@@ -37,6 +39,7 @@ from panacea_tpu_torch.perception.coder import normalize_bbox
 from panacea_tpu_torch.perception.denoise import DNPack, draw_dn_noise, dn_loss, prepare_dn
 from panacea_tpu_torch.perception.gridmask import GridDraws, draw_grid, grid_mask
 from panacea_tpu_torch.perception.head import MemoryState
+from panacea_tpu_torch.perception.motion_head import traj_loss_v1, traj_targets_from_assignment
 from panacea_tpu_torch.perception.train_losses import CODE_WEIGHTS, masked_l1, sigmoid_focal_loss
 from panacea_tpu_torch.utils.optim import AdamW
 
@@ -109,6 +112,7 @@ class HungarianTargets(NamedTuple):
     labels: np.ndarray    # int32, num_classes where unmatched
     gt_norm: np.ndarray   # (L, B, Q, 10) the matched gt's code, 0 where unmatched
     mask: np.ndarray      # 1.0 where matched
+    assigned: np.ndarray  # int32, the matched gt's index in G, 0 where unmatched
 
 
 def hungarian_targets(assign, cls_all: torch.Tensor, bbox_all: torch.Tensor,
@@ -120,13 +124,14 @@ def hungarian_targets(assign, cls_all: torch.Tensor, bbox_all: torch.Tensor,
     g = gt_norm.shape[1]
     host = [t.detach().float().cpu().numpy() for t in (cls_all, bbox_all, gt_norm)]
     labels = gt_labels.detach().cpu().numpy()
-    labels_q, gt_norm_q, mask_q, _, _ = assign(
+    labels_q, gt_norm_q, mask_q, asg_q, _ = assign(
         host[0].reshape(n_layers * b, q, -1), host[1].reshape(n_layers * b, q, -1),
         np.broadcast_to(host[2][None], (n_layers, b, g, host[2].shape[-1])).reshape(
             n_layers * b, g, -1),
         np.broadcast_to(labels[None], (n_layers, b, g)).reshape(n_layers * b, g))
     return HungarianTargets(labels_q.reshape(n_layers, b, q),
-                            gt_norm_q.reshape(n_layers, b, q, -1), mask_q.reshape(n_layers, b, q))
+                            gt_norm_q.reshape(n_layers, b, q, -1), mask_q.reshape(n_layers, b, q),
+                            asg_q.reshape(n_layers, b, q))
 
 
 def detection_loss(cls_all: torch.Tensor, bbox_all: torch.Tensor, tgt: HungarianTargets,
@@ -143,6 +148,32 @@ def detection_loss(cls_all: torch.Tensor, bbox_all: torch.Tensor, tgt: Hungarian
     diff = masked_l1(bbox_all, gt_norm_q, CODE_WEIGHTS)
     bbox_l = (diff.sum(-1) * mask_q).sum((1, 2)) / n_pos
     return {"loss_cls": cls_weight * cls_l.sum(), "loss_bbox": bbox_weight * bbox_l.sum()}
+
+
+def trajectory_loss(traj_all: torch.Tensor, score_all: torch.Tensor, tgt: HungarianTargets,
+                    gt_trajs: torch.Tensor, gt_traj_mask: torch.Tensor) -> torch.Tensor:
+    """The motion head's term (petr_motion_head.py loss: loss_traj and
+    d{i}.loss_traj summed; JAX ``loss_fn``, :367-398): each layer's matched
+    ground-truth futures broadcast over the modes, the layers folded into
+    the batch of one ``traj_loss_v1``, whose avg factor is the matched
+    count averaged over the layers. traj_all (L, B, Q, M, S, 2), score_all
+    (L, B, Q, M), gt_trajs and gt_traj_mask (B, G, S, 2)."""
+    n_layers, b, q, m, s = traj_all.shape[:5]
+    dev = traj_all.device
+    mask_q = torch.as_tensor(tgt.mask, device=dev)
+    assigned = torch.as_tensor(tgt.assigned, device=dev)
+    n_pos = mask_q.sum((1, 2)).clamp(min=1.0)
+    targets, weights = [], []
+    for li in range(n_layers):
+        for bi in range(b):
+            t, w = traj_targets_from_assignment((q, m, s, 2), mask_q[li, bi] > 0,
+                                                assigned[li, bi], gt_trajs[bi], gt_traj_mask[bi])
+            targets.append(t)
+            weights.append(w)
+    lb = n_layers * b
+    return traj_loss_v1(score_all.reshape(lb, q, m), traj_all.reshape(lb, q, m, s, 2),
+                        torch.stack(targets).reshape(lb * q, m, s, 2),
+                        torch.stack(weights).reshape(lb * q, m, s, 2), avg_factor=n_pos.mean())
 
 
 # --------------------------------------------------------------------------
@@ -223,24 +254,28 @@ def atss_loss(atss_outs, anchors_per_level: List[np.ndarray], tgt: ATSSTargets,
 
 
 def _is_backbone_bn(sub: Sequence[str]) -> bool:
-    """mmdet ResNet's norm layers: bn1..bn3 and downsample.1."""
-    return any(p.startswith("bn") or (p == "1" and i > 0 and sub[i - 1] == "downsample")
+    """mmdet's backbone norm layers: ResNet's bn1..bn3 and downsample.1,
+    VoVNet's ``{name}/norm``."""
+    return any(p.startswith("bn") or p.endswith("/norm")
+               or (p == "1" and i > 0 and sub[i - 1] == "downsample")
                for i, p in enumerate(sub))
 
 
 def backbone_frozen(name: str, frozen_stages: int = -1, bn_trainable: bool = True) -> bool:
-    """Whether the parameter ``name`` is frozen: mmdet ResNet._freeze_stages
-    (``frozen_stages`` 0 the stem, s also layer1..layer{s}) and, with
-    ``bn_trainable`` False, every backbone norm's affine (norm_cfg
-    requires_grad False)."""
+    """Whether the parameter ``name`` is frozen: mmdet's ``_freeze_stages``
+    (``frozen_stages`` 0 the stem: ResNet's conv1 and bn1, VoVNet's
+    ``stem``; s also ResNet's layer1..layer{s} or VoVNet's
+    stage2..stage{s+1}) and, with ``bn_trainable`` False, every backbone
+    norm's affine (norm_cfg requires_grad False). The JAX package's mask
+    (JAX ``make_detector_optimizer``, :536-548) in the port's names."""
     parts = name.split(".")
     if parts[0] != "img_backbone":
         return False
     sub = parts[1:-1]
     first = sub[0] if sub else parts[-1]
-    if frozen_stages >= 0 and first in ("conv1", "bn1"):
+    if frozen_stages >= 0 and first in ("conv1", "bn1", "stem"):
         return True
-    if any(first == f"layer{s}" for s in range(1, frozen_stages + 1)):
+    if any(first in (f"layer{s}", f"stage{s + 1}") for s in range(1, frozen_stages + 1)):
         return True
     return not bn_trainable and _is_backbone_bn(sub)
 
@@ -370,8 +405,13 @@ class DetectorTrainer:
             imgs = grid_mask(imgs, draws=draws.grid)
         dn = None
         if self.with_dn:
+            # a head without the streaming memory (PETRHeadDN) self-attends
+            # over its current queries alone: the reference's mask there is
+            # (pad + Q) square (petr_head_dn.py prepare_for_dn)
+            memory_free = not model.pts_bbox_head._uses_memory()
             dn = prepare_dn(gt_boxes, gt_labels, num_query=model.num_query,
-                            num_propagated=model.num_propagated, memory_len=model.memory_len,
+                            num_propagated=0 if memory_free else model.num_propagated,
+                            memory_len=0 if memory_free else model.memory_len,
                             pc_range=self.pc_range, num_classes=self.num_classes,
                             scalar=self.dn_scalar, noise_scale=self.dn_noise_scale,
                             split=self.dn_split, rand_prob=draws.dn_noise)
@@ -385,16 +425,25 @@ class DetectorTrainer:
     def loss(self, outs: Dict[str, torch.Tensor], atss_outs, dn: Optional[DNPack],
              gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
              atss_tgt: Optional[ATSSTargets] = None,
-             assignment: Optional[HungarianTargets] = None):
+             assignment: Optional[HungarianTargets] = None,
+             gt_trajs: Optional[torch.Tensor] = None,
+             gt_traj_mask: Optional[torch.Tensor] = None):
         """(total, metrics, assignment): the Hungarian matching of every
         layer on the host (or ``assignment`` as given), the layer losses,
-        the DN loss and the ATSS losses (JAX ``loss_fn``, :267-419)."""
+        the trajectory loss where the head gives ``all_traj_preds`` and
+        ``gt_trajs`` is given, the DN loss and the ATSS losses (JAX
+        ``loss_fn``, :267-419)."""
         cls_all, bbox_all = outs["all_cls_scores"], outs["all_bbox_preds"]
         if assignment is None:
             assignment = hungarian_targets(self.assign, cls_all, bbox_all,
                                            normalize_bbox(gt_boxes), gt_labels)
         metrics = detection_loss(cls_all, bbox_all, assignment, self.num_classes,
                                  self.cls_weight, self.bbox_weight)
+        if "all_traj_preds" in outs and gt_trajs is not None:
+            metrics["loss_traj"] = trajectory_loss(
+                outs["all_traj_preds"], outs["all_traj_scores"], assignment,
+                gt_trajs.to(cls_all.device, torch.float32),
+                gt_traj_mask.to(cls_all.device, torch.float32))
         if self.with_dn:
             metrics["loss_dn"] = dn_loss(outs["dn_cls_scores"], outs["dn_bbox_preds"], dn,
                                          self.pc_range, self.num_classes,
@@ -418,16 +467,19 @@ class DetectorTrainer:
 
     def step(self, state: DetTrainState, imgs: torch.Tensor, data: Dict[str, torch.Tensor],
              gt_boxes: torch.Tensor, gt_labels: torch.Tensor, atss_tgt: Optional[ATSSTargets],
-             generator: torch.Generator, memory: Optional[MemoryState] = None) -> StepOut:
+             gt_trajs: Optional[torch.Tensor] = None, gt_traj_mask: Optional[torch.Tensor] = None,
+             *, generator: torch.Generator, memory: Optional[MemoryState] = None) -> StepOut:
         """One optimizer step. imgs (B, T, N, H, W, 3) normalised and data
         with leading (B, T), or in the streaming recipes one frame, (B, N,
         H, W, 3) and (B, ...), with ``memory``. gt_boxes (B, G, 9)
-        zero-padded, gt_labels (B, G) -1-padded. The draws come from
+        zero-padded, gt_labels (B, G) -1-padded; with the motion head
+        gt_trajs and gt_traj_mask (B, G, S, 2). The draws come from
         ``generator``."""
         draws = self.draw(generator, imgs.shape[-3], gt_labels.shape[0], gt_labels.shape[1])
         outs, atss_outs, new_memory, dn = self.forward(state.model, imgs, data, gt_boxes,
                                                        gt_labels, draws, memory)
-        total, metrics, _ = self.loss(outs, atss_outs, dn, gt_boxes, gt_labels, atss_tgt)
+        total, metrics, _ = self.loss(outs, atss_outs, dn, gt_boxes, gt_labels, atss_tgt,
+                                      gt_trajs=gt_trajs, gt_traj_mask=gt_traj_mask)
         grads = self.backward(state, total)
         state.optimizer.step(grads)
         state.step += 1

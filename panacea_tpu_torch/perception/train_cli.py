@@ -9,8 +9,13 @@ file name, or by the JAX package's path), or a YAML file where PyYAML
 imports. The window recipes train ``StreamPETRWindow`` on sliding windows;
 the streaming ones (``seq_mode``) train ``StreamPETR`` one frame a step,
 the memory carried across steps through scene-continuous sample streams.
-Only the recipes' detector (r50 + SparseHead) trains: a config naming
-VoVNet or a PETR head raises and names ROADMAP Queue A item 6 (6b).
+The detector is the recipe's (r50 + SparseHead), or what a YAML's
+``perception.detector.params`` name: VoVNet-99 (``backbone_type: vovnet``,
+``neck_start_level: 2``) and the dense PETR heads (``head_type: petr``,
+``petr_dn`` or ``motion``); with the motion head the windows carry the
+ground truth's future trajectories (``head_cfg.pred_steps``, 12 by
+default) and the loss its trajectory term. The EVA backbone and the
+proposal-query heads raise in ``detector.py`` (ROADMAP Queue A item 6c).
 
 Checkpoints are ``<workdir>/<recipe>/iter_N/state.pt`` (the newest 3 kept):
 the detector's state, the optimizer, the step, the draw generator's state,
@@ -40,8 +45,6 @@ from typing import Any, Dict, Optional, Sequence
 
 NOT_QUEUED = ("is a JAX orbax tree, which needs JAX to read; the port does not use JAX "
               "(ROADMAP 'Not queued')")
-NOT_TRAINED = ("is ported for the eval only; its training waits for ROADMAP Queue A item 6 "
-               "(6b: the trajectory data and loss, and the dense cross-attention's backward)")
 DATA_PARALLEL = ("data-parallel perception training (the JAX CLI's 'dp' mesh) is not "
                  "ported: ROADMAP Queue A item 7")
 MAX_KEEP = 3
@@ -104,8 +107,10 @@ def _refuse_data_parallel() -> None:
 def load_init(model, path: str) -> Optional[Dict[str, Any]]:
     """``load_from``: an mmdet ``.pth`` / ``.ckpt`` or the port's ``.pt``
     state dict, strict=False (tensors whose name and shape the detector has
-    are copied). Returns the JAX CLI's report, or None where nothing is
-    found (a warning; training starts from the random init)."""
+    are copied: the port's names are mmdet's, so the detector built with
+    its backbone and head picks what the JAX CLI's converter picks).
+    Returns the JAX CLI's report, or None where nothing is found (a
+    warning; training starts from the random init)."""
     from panacea_tpu_torch.perception.eval import load_reference_checkpoint
 
     if not os.path.exists(path) and os.path.isfile(path + ".pt"):
@@ -163,7 +168,8 @@ def save_checkpoint(outdir: str, state, meta: Dict[str, Any]) -> str:
 def collate(items, anchors, device):
     """``window_with_gt`` items -> one batch on ``device``: (imgs (B, T, N,
     H, W, 3), data with leading (B, T), gt_boxes (B, G, 9), gt_labels (B,
-    G), the ATSS targets of the last frames' B N images)."""
+    G), the ATSS targets of the last frames' B N images, gt_trajs and
+    gt_traj_mask (B, G, S, 2) where the items carry them, else None)."""
     import numpy as np
     import torch
 
@@ -177,7 +183,11 @@ def collate(items, anchors, device):
     gt_labels = torch.as_tensor(np.concatenate([it[2] for it in items], 0), device=device)
     tgt2d = atss_targets(anchors, sum((list(it[3]) for it in items), []),
                          sum((list(it[4]) for it in items), []))
-    return imgs, data, gt_boxes, gt_labels, tgt2d
+    trajs = [None, None]
+    if len(items[0]) > 5:
+        trajs = [torch.as_tensor(np.concatenate([it[i] for it in items], 0), device=device)
+                 for i in (5, 6)]
+    return (imgs, data, gt_boxes, gt_labels, tgt2d, *trajs)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -207,11 +217,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     det_cfg["params"] = dict(det_cfg.get("params", {}), **(TINY if args.tiny else {}))
     if args.num_levels:
         det_cfg["params"]["num_levels"] = args.num_levels
-    model = instantiate_from_config(det_cfg)
-    if model.backbone_type != "r50" or model.head_type != "sparse":
-        raise NotImplementedError(f"the detector {model.backbone_type} + {model.head_type} "
-                                  f"{NOT_TRAINED}")
-    model = model.to(device)
+    model = instantiate_from_config(det_cfg).to(device)
     model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
 
     queue_length = int(args.queue_length or tcfg["queue_length"])
@@ -280,7 +286,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         backbone_frozen_stages=int(cfg.get("backbone_frozen_stages", -1)),
         backbone_bn_trainable=bool(cfg.get("backbone_bn_trainable", True)))
     nl = int(det_cfg["params"].get("num_levels", 5))
-    anchors = grid_anchors(fpn_shapes(final_dim, nl))
+    # the ATSS anchors at the neck's strides: VoVNet's neck starts at 16
+    anchors = grid_anchors(fpn_shapes(final_dim, nl, model.feat_strides[0]),
+                           strides=model.feat_strides)
     pc_range = tuple(det_cfg["params"]["pc_range"])
     trainer = DetectorTrainer(
         pc_range, num_classes=int(det_cfg["params"].get("num_classes", 10)),
@@ -307,6 +315,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         k = min(args.eval_samples, max(len(valid_idx) - 1, 0))
         if k > 0:
             eval_idx, valid_idx = valid_idx[-k:], valid_idx[:-k]
+    # the motion head's recipe: the ground truth's futures ride the windows
+    # and feed the loss's trajectory term (JAX CLI :355-360)
+    pred_steps = getattr(model.pts_bbox_head, "pred_steps", 0)
     sampler = memory = None
     if seq_mode:
         # held-out eval: whole sequence groups leave the sampler's pool
@@ -356,7 +367,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         if sampler is not None:
             idxs = sampler.next_batch()
             draws += 1
-            items = [ds.window_with_gt(i, max_gt=args.max_gt) for i in idxs]
+            items = [ds.window_with_gt(i, max_gt=args.max_gt, pred_steps=pred_steps)
+                     for i in idxs]
             if any(it is None for it in items):
                 # a window without its history skips the draw: the streams
                 # stay consumed, so the memory never meets another scene
@@ -368,7 +380,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         else:
             items, misses = [], 0
             while len(items) < bs and misses < 2 * len(valid_idx):
-                it = ds.window_with_gt(valid_idx[ptr % len(valid_idx)], max_gt=args.max_gt)
+                it = ds.window_with_gt(valid_idx[ptr % len(valid_idx)], max_gt=args.max_gt,
+                                       pred_steps=pred_steps)
                 ptr += 1
                 if it is None:
                     misses += 1
@@ -376,15 +389,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     items.append(it)
             if len(items) < bs:
                 raise RuntimeError("no full training windows in the dataset")
-        imgs, data, gt_boxes, gt_labels, tgt2d = collate(items, anchors, device)
+        imgs, data, *targets = collate(items, anchors, device)
         if seq_mode:
             # one frame a step: the window's axis of length 1 dropped
             out = trainer.step(state, imgs[:, 0], {k: v[:, 0] for k, v in data.items()},
-                               gt_boxes, gt_labels, tgt2d, generator=generator, memory=memory)
+                               *targets, generator=generator, memory=memory)
             memory = out.memory
         else:
-            out = trainer.step(state, imgs, data, gt_boxes, gt_labels, tgt2d,
-                               generator=generator)
+            out = trainer.step(state, imgs, data, *targets, generator=generator)
         metrics = out.metrics
         step = state.step
         if step % 10 == 0 or step == total_iters:

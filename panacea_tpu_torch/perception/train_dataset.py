@@ -3,8 +3,8 @@
 The port's own copy of ``panacea_tpu/perception/train_dataset.py`` (NumPy
 and cv2); its draws come from ``np.random.RandomState(seed)`` as there, so
 windows, augmentations and ground truth equal the JAX dataset's array for
-array. The motion head's future trajectories (``pred_steps > 0``) are not
-ported. Wraps GenNuScenesEvalDataset (same window/calibration machinery the eval
+array, the motion head's future trajectories (``pred_steps > 0``) included.
+Wraps GenNuScenesEvalDataset (same window/calibration machinery the eval
 path uses) and adds the training annotations the reference's
 CustomNuScenesDataset collects (nuscenes_dataset.py:439-449): per-key-frame
 3D boxes/labels/velocity and per-camera 2D boxes/labels for the ATSS aux
@@ -274,12 +274,11 @@ class PerceptionTrainDataset(GenNuScenesEvalDataset):
     def window_with_gt(self, key_idx: int, max_gt: int = 64,
                        class_names: Optional[Sequence[str]] = None,
                        pred_steps: int = 0):
-        """``pred_steps > 0`` (the motion head's future trajectories, the
-        Petr3DP recipe) raises: the motion head is not ported."""
-        if pred_steps > 0:
-            raise NotImplementedError(
-                "pred_steps > 0: the motion head's future trajectories wait for the "
-                "perception zoo (ROADMAP Queue A item 6)")
+        """``pred_steps > 0`` (the motion head's recipe) also returns the
+        ground truth's future trajectories, gt_trajs (1, max_gt, S, 2) and
+        gt_traj_mask (1, max_gt, S, 2) (data/nuscenes/trajectory.py), their
+        rows aligned with the filtered boxes through gt_for's ``keep`` and
+        rotated by the global rot/scale augmentation that moves the boxes."""
         item = self.train_window(key_idx)
         if item is None:
             return None
@@ -291,6 +290,16 @@ class PerceptionTrainDataset(GenNuScenesEvalDataset):
                          bev_range=self.pc_range)
         boxes, labels = gt["boxes"], gt["labels"]
         g = min(len(labels), max_gt)
+        gt_trajs = gt_traj_mask = None
+        if pred_steps > 0:
+            from panacea_tpu_torch.data.nuscenes.trajectory import future_trajectories
+
+            fut, fmask = future_trajectories(self.infos, key_idx, pred_steps=pred_steps)
+            gt_trajs = np.zeros((1, max_gt, pred_steps, 2), np.float32)
+            gt_traj_mask = np.zeros((1, max_gt, pred_steps, 2), np.float32)
+            keep = gt["keep"][:g]
+            gt_trajs[0, :g] = fut[keep]
+            gt_traj_mask[0, :g] = fmask[keep]
         gt_boxes = np.zeros((1, max_gt, 9), np.float32)
         gt_labels = np.full((1, max_gt), -1, np.int64)
         if g:
@@ -311,6 +320,10 @@ class PerceptionTrainDataset(GenNuScenesEvalDataset):
                 scale_range=self.scale_ratio_range or (1.0, 1.0),
             )
             gt_boxes[0, :g] = aug_boxes
+            if gt_trajs is not None and g:
+                # the futures turn with the boxes: the forward rotation
+                gt_trajs[0, :g] = np.einsum("ij,gsj->gsi", np.linalg.inv(inv)[:2, :2],
+                                            gt_trajs[0, :g])
             window["lidar2img"] = l2i_all.reshape(
                 window["lidar2img"].shape).astype(np.float32)
             # the reference folds the same inverse transform into every pose
@@ -363,4 +376,7 @@ class PerceptionTrainDataset(GenNuScenesEvalDataset):
             l2i = window["lidar2img"][0, -1]            # last frame (N,4,4)
             gt2d_boxes, gt2d_labels = project_boxes_2d(
                 gt_boxes[0, :g], gt_labels[0, :g], l2i, self.final_dim)
+        if pred_steps > 0:
+            return (window, gt_boxes, gt_labels, gt2d_boxes, gt2d_labels, gt_trajs,
+                    gt_traj_mask)
         return window, gt_boxes, gt_labels, gt2d_boxes, gt2d_labels

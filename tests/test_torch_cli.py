@@ -18,6 +18,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_parity import two_threads  # noqa: F401
 
 from panacea_tpu import config as jconfig
 from panacea_tpu import rollout as jrollout
@@ -30,6 +31,8 @@ from panacea_tpu_torch.convert import state_dict_from_jax
 from panacea_tpu_torch.data.nuscenes import dataset, synthetic
 from panacea_tpu_torch.registry import instantiate_from_config
 from panacea_tpu_torch.utils.profiling import Timer
+
+pytestmark = pytest.mark.usefixtures("two_threads")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 JAX_CONFIGS = os.path.join(ROOT, "panacea_tpu", "configs")

@@ -58,7 +58,8 @@ def test_port_source_imports_no_jax():
             for m in ("encoding", "resnet", "fpn", "deformable", "head", "detector", "coder",
                       "metrics", "eval_dataset", "collect", "eval", "train_losses", "atss",
                       "gridmask", "denoise", "train_dataset", "train", "train_cli", "vovnet",
-                      "petr_head", "petr_head_dn", "motion_head")} <= names
+                      "petr_head", "petr_head_dn", "motion_head", "motion_metrics")} <= names
+    assert os.path.join("panacea_tpu_torch", "data", "nuscenes", "trajectory.py") in names
     assert {os.path.join("panacea_tpu_torch", "losses", f"{m}.py")
             for m in ("__init__", "lpips", "vae_losses")} | {
         os.path.join("panacea_tpu_torch", "data", "loader.py")} <= names

@@ -14,12 +14,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_parity import two_threads  # noqa: F401
 
 from panacea_tpu.ops.flash_attention import _lax_flash, flash_attention as jax_flash
 from panacea_tpu.ops.geglu import geglu_matmul, geglu_reference
 from panacea_tpu_torch.ops import _build, tolerance
 from panacea_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from panacea_tpu_torch.ops.geglu import geglu, geglu_plain
+
+pytestmark = pytest.mark.usefixtures("two_threads")
 
 ATOL = 1e-5  # fp32 on both sides; only the summation order differs
 
@@ -1250,7 +1253,11 @@ def test_flash_f32_d32_strides_address_every_element(kind, b, sq, skv, h):
 @pytest.mark.parametrize("b,h,sq,skv,lens", [
     (2, 8, 900, 1668, [1668, 1668]), (1, 8, 900, 1668, [1668]),
     (4, 8, 900, 1668, [0, 1, 833, 1668]), (3, 2, 129, 1667, [1667, 0, 65]),
-    (2, 3, 100, 70, [1, 65]), (3, 2, 31, 33, [33, 33, 33])])
+    (2, 3, 100, 70, [1, 65]), (3, 2, 31, 33, [33, 33, 33]),
+    # the dense cross-attention in training: 900 + 10 x the batch's most
+    # boxes (64, 23) queries to r50's 12,288 tokens, 644 + ... to VoVNet's 3,072
+    (2, 8, 1540, 12288, [12288, 12288]), (2, 8, 1130, 12288, [12288, 12288]),
+    (2, 8, 1284, 3072, [3072, 3072]), (2, 8, 874, 3072, [3072, 3072])])
 def test_flash_bwd_f32_d32_schedule_visits_every_tile_once(b, h, sq, skv, lens, tc32_schedule):
     """The head-dim-32 backward's grids from their compiled schedule
     (csrc/flash_f32_tc32_bwd_schedule.h), brute force over every key and

@@ -642,8 +642,12 @@ def test_train_dataset_windows_and_gt_equal_jax_with_flip_and_rotation():
                 np.testing.assert_array_equal(a, b)
     assert {flip for _, flip in draws} == {True, False}
     assert ours.rng.randint(1 << 30) == ref.rng.randint(1 << 30)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        ours.window_with_gt(5, pred_steps=6)
+    # the motion head's futures (pred_steps > 0), refused until the dense
+    # family's training was ported: the same window with its trajectories
+    got, want = ours.window_with_gt(5, pred_steps=6), ref.window_with_gt(5, pred_steps=6)
+    assert len(got) == len(want) == 7 and got[5].shape == (1, 64, 6, 2)
+    for a, b in zip(got[1:3] + got[5:], want[1:3] + want[5:]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
 
 
 def test_eval_dataset_flip_equals_jax():

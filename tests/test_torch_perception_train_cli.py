@@ -2,7 +2,8 @@
 CPU: the JAX CLI's flags and defaults, the train log's keys, a bit-exact
 resume in the window and the streaming recipes, the non-strict
 ``--load_from``, the refusal without a card and the refusals of what is not
-ported. Torch and BLAS run on two threads. The CLIs are not run side by
+ported (the dense PETR family's runs are in
+``tests/test_torch_perception_zoo_train.py``). Torch and BLAS run on two threads. The CLIs are not run side by
 side (the JAX one compiles the whole ResNet-50);
 ``tests/test_torch_perception_train.py`` compares the modules.
 """
@@ -190,15 +191,18 @@ def zoo_recipe(tmp_path, **params):
     return str(path)
 
 
-@pytest.mark.parametrize("case", ["head_motion", "backbone_vovnet", "dp_env", "world_size",
+@pytest.mark.parametrize("case", ["head_sparse_v4", "backbone_eva", "dp_env", "world_size",
                                   "orbax_resume", "orbax_load_from"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, case):
+    """The EVA backbone and the proposal-query heads (ROADMAP Queue A item
+    6c), data parallelism (item 7) and the JAX CLI's orbax trees. VoVNet
+    and the PETR heads train (tests/test_torch_perception_zoo_train.py)."""
     flags = ["--steps", "1"]
-    error, match = NotImplementedError, "Queue A item 6"
-    if case == "head_motion":
-        flags += ["--config", zoo_recipe(tmp_path, head_type="motion")]
-    elif case == "backbone_vovnet":
-        flags += ["--config", zoo_recipe(tmp_path, backbone_type="vovnet")]
+    error, match = NotImplementedError, "Queue A item 6c"
+    if case == "head_sparse_v4":
+        flags += ["--config", zoo_recipe(tmp_path, head_type="sparse_v4")]
+    elif case == "backbone_eva":
+        flags += ["--config", zoo_recipe(tmp_path, backbone_type="eva")]
     elif case in ("dp_env", "world_size"):
         monkeypatch.setenv(*(("PANACEA_PERCEPTION_DP", "1") if case == "dp_env"
                              else ("WORLD_SIZE", "2")))

@@ -21,6 +21,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_parity import two_threads  # noqa: F401
 
 from panacea_tpu.config import load_config
 from panacea_tpu.diffusion import sigma_sampling as jax_sigma
@@ -37,6 +38,8 @@ from panacea_tpu_torch.registry import instantiate_from_config
 from panacea_tpu_torch.utils import lr_schedule
 from panacea_tpu_torch.utils.ema import LitEma
 from panacea_tpu_torch.utils.optim import AdamW
+
+pytestmark = pytest.mark.usefixtures("two_threads")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CFG = os.path.join(ROOT, "panacea_tpu", "configs", "tiny_cpu.yaml")
