@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --kernels      # phases 1 and 2 only
-    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phases 11, 14-16
+    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phases 11, 14-17
     python3 chip_smoke.py --metrics      # phase 1, phase 12
     python3 chip_smoke.py --variants     # phase 1, phase 13
-    python3 chip_smoke.py --zoo          # phase 1, phases 15 and 16
+    python3 chip_smoke.py --zoo          # phase 1, phases 15 to 17
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -163,6 +163,27 @@ Phases, in order; any failure exits non-zero:
      ``loss_traj`` finite, the trajectory branch moved; (f)
      ``train_perception_torch.py --synthetic --tiny --steps 2`` on the
      card from a written YAML with the motion head.
+ 17. EVA-02, the proposal-query heads and FocalHead (run after phase 16):
+     (a) the fp32 flash forward (``tc32``) at the new shapes, (1, 900,
+     49152, 8, 32) (EVA + StreamPETRHead, EVA's stride-4 level), (1, 900,
+     6144, 8, 32) (the same on FocalHead's top half), (1, 556, 1324, 8,
+     32) (Sparse4Dv3's 300 proposals), and each at B 2, against the float64
+     plain version and timed beside fp32 SDPA; (b) the eval CLI's EVAViT
+     (width 768, 12 blocks) + SparseHead, 4 levels, on one window of 8
+     frames of 6 cameras at 256 x 512: s/window and its split, EVA's
+     attention (``attention_sdpa``) timed apart, peak memory, the flash
+     calls by shape (48, all on ``tc32``), card against CPU over two
+     frames, one profiled window; (c) EVA-02-L's widths (1024, 24 blocks,
+     16 heads, blocks 5, 11, 17, 23 global) + StreamPETRHead on a window:
+     48 cross-attention launches at Skv 49,152 and 48 at 1,668, all on
+     ``tc32``; (d) ``Sparse4Dv3`` and a ``sparse_v4`` head streaming two
+     frames with 300 random proposals, card against CPU; ``PetrWindow3D``'s
+     head on one frame restricted to FocalHead's ``topk_indexes``, card
+     against CPU with the CPU's indices; (e) EVA + SparseHeadv3 at the
+     window recipe through ``DetectorTrainer.step``, 2 steps, and one
+     step's loss terms card against CPU; (f) ``perception.eval.main
+     --synthetic --tiny --backbone eva --num_levels 4 --head sparse_v3``
+     and the training CLI for 2 steps from a written EVA + sparse_v3 YAML.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -275,6 +296,24 @@ ZTRAIN_PETR = {"head_type": "petr"}
 ZTRAIN_VOVNET = {"backbone_type": "vovnet", "neck_start_level": 2, "head_type": "petr_dn",
                  "backbone_cfg": {"use_checkpoint": True}}
 ZTRAIN_MOTION = {"head_type": "motion"}
+# phase 17: EVA-02, the proposal-query heads and FocalHead's token selection.
+# New tc32 shapes: EVA + StreamPETRHead's cross-attention to EVA's stride-4
+# level (6 x 64 x 128 tokens), the same restricted to FocalHead's top half
+# (6,144 tokens), Sparse4Dv3's 300 proposal queries + 256 propagated to 556
+# + 768 memory keys; each at B 1 and in the (2, ...) training form
+EVA_FLASH = ((1, 900, 49152, 8, 32), (1, 900, 6144, 8, 32), (1, 556, 1324, 8, 32),
+             (2, 900, 49152, 8, 32), (2, 900, 6144, 8, 32), (2, 556, 1324, 8, 32))
+# the eval CLI's EVAViT (the JAX package's defaults: width 768, 12 blocks of
+# 12 heads, windows of 16, blocks 2, 5, 8 and 11 global), its adapter's 4
+# levels; and EVA-02-L's widths, as StreamPETR's EVA-02-L config (width
+# 1024, 24 blocks of 16 heads, blocks 5, 11, 17 and 23 global)
+EVA_B = {"backbone_type": "eva", "num_levels": 4, "neck_start_level": 0,
+         "backbone_cfg": {"img_size": PERCEPTION_HW}}
+EVA_L = dict(EVA_B, backbone_cfg={"img_size": PERCEPTION_HW, "width": 1024, "layers": 24,
+                                  "heads": 16, "window_size": 16,
+                                  "window_block_indexes": [i for i in range(24) if i % 6 != 5]})
+PROPOSALS = 300
+FOCAL_RATIO = 0.5
 LPIPS_PAIRS = 4
 # the VAE's losses in fp32, card against CPU: the largest difference over the
 # largest value (a scalar's relative difference)
@@ -2130,8 +2169,8 @@ def ptrain_setup(torch, np, dev, recipe: str = PTRAIN_RECIPE, queue_length=None,
         ida_aug=dcfg["ida"], rot_range=tuple(dcfg["rot_range"]),
         scale_ratio_range=tuple(dcfg["scale_ratio_range"]),
         seq_split_num=tcfg.get("seq_split_num", 2) if seq_mode else 0, seed=seed)
-    anchors = grid_anchors(fpn_shapes(PERCEPTION_HW, 5, model.feat_strides[0]),
-                           strides=model.feat_strides)
+    anchors = grid_anchors(fpn_shapes(PERCEPTION_HW, len(model.feat_strides),
+                                      model.feat_strides[0]), strides=model.feat_strides)
     trainer = DetectorTrainer(
         tuple(cfg["detector"]["params"]["pc_range"]), cls_weight=tcfg["cls_weight"],
         bbox_weight=tcfg["bbox_weight"], use_grid_mask=tcfg["use_grid_mask"],
@@ -2928,6 +2967,336 @@ def ztrain_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
     return {"paths": paths, "bwd": recs}
 
 
+# --------------------------------------------------------------------------
+# phase 17: EVA-02, the proposal-query heads and FocalHead's token selection
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def sdpa_seconds(torch):
+    """Adds the synchronised wall time of every ``attention_sdpa`` call the
+    router makes (EVA's self-attention) to ``out["s"]`` while the block
+    runs, and counts the calls."""
+    from panacea_tpu_torch.ops import attention as pattn
+
+    out, sdpa = {"s": 0.0, "calls": 0}, pattn.attention_sdpa
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sdpa(*a, **kw)
+        torch.cuda.synchronize()
+        out["s"] += time.perf_counter() - t0
+        out["calls"] += 1
+        return res
+
+    pattn.attention_sdpa = timed
+    try:
+        yield out
+    finally:
+        pattn.attention_sdpa = sdpa
+
+
+def timed_window(torch, fa, gg, model, imgs, data):
+    """One window after a first one: (outs, memory, s/window, its split
+    into backbone and head, peak memory, launch counts, flash calls by
+    shape); then the split of a third window with EVA's ``attention_sdpa``
+    calls timed apart."""
+    split = {"backbone_s": 0.0, "head_s": 0.0}
+    model.extract_feats = split_timer(torch, split, "backbone_s", model.extract_feats)
+    model.pts_bbox_head.forward = split_timer(torch, split, "head_s",
+                                              model.pts_bbox_head.forward)
+    with torch.inference_mode():
+        model(imgs, data)
+        torch.cuda.synchronize()
+        split.update(dict.fromkeys(split, 0.0))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, gg)
+        with flash_shapes() as shapes:
+            t0 = time.perf_counter()
+            outs, memory = model(imgs, data)
+            torch.cuda.synchronize()
+            window_s = time.perf_counter() - t0
+        counts = read_counts(fa, gg)
+        window_split = dict(split)
+        with sdpa_seconds(torch) as sdpa:
+            model(imgs, data)
+    del model.extract_feats, model.pts_bbox_head.forward
+    return {"outs": outs, "memory": memory, "s_per_window": window_s, "split_s": window_split,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+            "flash_calls_by_shape": dict(shapes), "eva_sdpa_s_synced": sdpa["s"],
+            "eva_sdpa_calls": sdpa["calls"]}
+
+
+def eva_window_phase(torch, np, dev, fa, gg, card: str):
+    """(b) The eval CLI's EVAViT (num_levels 4) + SparseHead on one window of
+    PERCEPTION_T frames: s/window and its split, peak memory, the flash
+    calls by shape (the head's self-attention, all on ``tc32``; EVA's on
+    SDPA), card against CPU over two frames; EVA's attention timed apart
+    and one profiled window. Returns the window's counts."""
+    model, cpu = zoo_model(torch, dev, "StreamPETRWindow", **EVA_B)
+    imgs, data = perception_window(torch, np, dev, PERCEPTION_T)
+    run = timed_window(torch, fa, gg, model, imgs, data)
+    outs = run.pop("outs")
+    layers, q, _, keys = zoo_geometry(model, 8)
+    want_shapes = {f"{q}x{keys}": layers * PERCEPTION_T}
+    worst, _ = frames_card_vs_cpu(torch, model, cpu, imgs, data, 2,
+                                  ("all_cls_scores", "all_bbox_preds"))
+    prof = profile_step(torch, lambda: model(imgs, data), name="profile_eva_window")
+    rec = {"phase": "perception_eva_sparse_window", "card": card, "backbone": "eva",
+           "head": "sparse", "frames": PERCEPTION_T, "image_hw": list(PERCEPTION_HW),
+           "eva_params": sum(p.numel() for p in model.img_backbone.parameters()),
+           "params": sum(p.numel() for p in model.parameters()),
+           **{k: v for k, v in run.items() if k != "memory"},
+           "eva_sdpa_share_synced": run["eva_sdpa_s_synced"] / run["s_per_window"],
+           "profile_sdpa_ms": prof["bucket_ms"].get("sdpa", "not measured"),
+           "profile_device_ms": prof["device_ms"],
+           "expected_flash_calls_by_shape": want_shapes,
+           "finite": all(bool(torch.isfinite(v).all()) for v in outs.values()),
+           "card_vs_cpu_t2": worst, "tol": PERCEPTION_TOL}
+    log(rec)
+    if not (rec["finite"] and run["flash_calls_by_shape"] == want_shapes
+            and ztrain_counts_ok(run["launches"], layers * PERCEPTION_T, 0)
+            and run["eva_sdpa_calls"] == 12 * PERCEPTION_T
+            and max(worst.values()) <= PERCEPTION_TOL):
+        raise AssertionError(f"EVA + SparseHead went wrong: {rec}")
+    return run["launches"]
+
+
+def eva_large_phase(torch, np, dev, fa, gg, card: str):
+    """(c) EVA-02-L's widths + StreamPETRHead on one window: s/window,
+    peak memory, the cross-attention to the 49,152 stride-4 tokens and the
+    self-attention (Skv 1,668), 48 launches each, all on ``tc32``; outputs
+    finite."""
+    from panacea_tpu_torch.perception import detector
+
+    model = detector.PetrWindow3D(**EVA_L).to(dev).eval()
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
+    imgs, data = perception_window(torch, np, dev, PERCEPTION_T)
+    run = timed_window(torch, fa, gg, model, imgs, data)
+    outs = run.pop("outs")
+    layers, q, tokens, keys = zoo_geometry(model, 4)
+    n = layers * PERCEPTION_T
+    want_shapes = {f"{q}x{tokens}": n, f"{q}x{keys}": n}
+    rec = {"phase": "perception_eva_l_petr_window", "card": card, "backbone": "eva (EVA-02-L)",
+           "head": "petr", "frames": PERCEPTION_T,
+           "eva_params": sum(p.numel() for p in model.img_backbone.parameters()),
+           "params": sum(p.numel() for p in model.parameters()),
+           **{k: v for k, v in run.items() if k != "memory"},
+           "eva_sdpa_share_synced": run["eva_sdpa_s_synced"] / run["s_per_window"],
+           "expected_flash_calls_by_shape": want_shapes,
+           "finite": all(bool(torch.isfinite(v).all()) for v in outs.values())}
+    log(rec)
+    if not (rec["finite"] and run["flash_calls_by_shape"] == want_shapes
+            and ztrain_counts_ok(run["launches"], 2 * n, 0)):
+        raise AssertionError(f"EVA-02-L + StreamPETRHead went wrong: {rec}")
+    return run["launches"]
+
+
+def proposal_data(torch, data, dev, frames: int, c: int = 256, seed: int = SEED):
+    """``data`` with PROPOSALS random proposals a frame: positions in the
+    point-cloud range, features (B, T, P, 2C); drawn on the host."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand((1, frames, PROPOSALS, 3), generator=g) * 80.0 - 40.0
+    pos[..., 2] = pos[..., 2] / 40.0 * 2.0 - 1.0
+    feats = torch.randn((1, frames, PROPOSALS, 2 * c), generator=g)
+    return dict(data, proposal_positions=pos.to(dev), proposal_features=feats.to(dev))
+
+
+def proposal_phase(torch, np, dev, fa, gg, card: str):
+    """(d) ``Sparse4Dv3`` (r50 + SparseHeadv3) and a ``sparse_v4`` head
+    streaming two frames with PROPOSALS proposals, card against CPU (each
+    frame's CPU run from the card's memory); then ``PetrWindow3D``'s head
+    on one frame restricted to FocalHead's top half of its 12,288 stride-8
+    tokens, card against CPU with the CPU's indices given to both. Returns
+    the counts of the three paths."""
+    from panacea_tpu_torch.perception.focal_head import FocalHead
+    from panacea_tpu_torch.perception.head import init_memory
+
+    paths = {}
+    imgs, data = perception_window(torch, np, dev, 2)
+    data = proposal_data(torch, data, dev, 2)
+    keys = ("all_cls_scores", "all_bbox_preds")
+    for name, cls_name, kw, q in (
+            ("perception_sparse4dv3_stream", "Sparse4Dv3", {}, PROPOSALS + 256),
+            ("perception_sparse_v4_stream", "Sparse4D", {"head_type": "sparse_v4"}, 644 + 256)):
+        model, cpu = zoo_model(torch, dev, cls_name, **kw)
+        with torch.inference_mode():
+            model.stream(imgs[:, 0], {k: v[:, 0] for k, v in data.items()})   # first use
+            torch.cuda.synchronize()
+            reset_counts(fa, gg)
+            frame_s, mem = [], None
+            with flash_shapes() as shapes:
+                for fi in range(2):
+                    t0 = time.perf_counter()
+                    outs, mem = model.stream(imgs[:, fi], {k: v[:, fi] for k, v in data.items()},
+                                             mem)
+                    torch.cuda.synchronize()
+                    frame_s.append(time.perf_counter() - t0)
+            paths[name] = counts = read_counts(fa, gg)
+        worst, _ = frames_card_vs_cpu(torch, model, cpu, imgs, data, 2, keys)
+        layers = len(model.pts_bbox_head.transformer.decoder.layers)
+        want_shapes = {f"{q}x{q + model.memory_len - model.num_propagated}": 2 * layers}
+        rec = {"phase": name, "card": card, "detector": cls_name, "head": model.head_type,
+               "proposals": PROPOSALS, "frames": 2, "s_per_frame": frame_s, "launches": counts,
+               "flash_calls_by_shape": dict(shapes),
+               "expected_flash_calls_by_shape": want_shapes,
+               "scores_shape": list(outs["all_cls_scores"].shape),
+               "finite": all(bool(torch.isfinite(v).all()) for v in outs.values()),
+               "card_vs_cpu_t2": worst, "tol": PERCEPTION_TOL}
+        log(rec)
+        if not (rec["finite"] and dict(shapes) == want_shapes
+                and ztrain_counts_ok(counts, 2 * layers, 0)
+                and max(worst.values()) <= PERCEPTION_TOL):
+            raise AssertionError(f"{cls_name} with {PROPOSALS} proposals went wrong: {rec}")
+        del model, cpu
+        free(torch)
+
+    model, cpu = zoo_model(torch, dev, "PetrWindow3D")
+    g = torch.Generator().manual_seed(SEED + 3)
+    focal_cpu = FocalHead(in_channels=model.embed_dims, infer_ratio=FOCAL_RATIO)
+    with torch.no_grad():
+        for prm in focal_cpu.parameters():
+            prm.add_(torch.randn(prm.shape, generator=g) * 0.02)
+    focal = copy_to(focal_cpu, dev)
+    d0 = {k: v[:, 0] for k, v in data.items() if not k.startswith("proposal_")}
+    level = model.pts_bbox_head.feat_level
+    with torch.inference_mode():
+        feats = model.extract_feats(imgs[:, 0])
+        got_f = focal(feats[level], 6)
+        feats_cpu = cpu.extract_feats(imgs[:, 0].cpu())
+        want_f = focal_cpu(feats_cpu[level], 6)
+        topk = want_f["topk_indexes"]
+        mem = init_memory(1, model.memory_len, model.embed_dims, device=dev)
+        reset_counts(fa, gg)
+        with flash_shapes() as shapes:
+            outs, _ = model.pts_bbox_head(feats, mem, d0, PERCEPTION_HW,
+                                          topk_indexes=topk.to(dev))
+            torch.cuda.synchronize()
+        paths["perception_petr_focal_topk"] = counts = read_counts(fa, gg)
+        want, _ = cpu.pts_bbox_head(feats_cpu, type(mem)(*(m.cpu() for m in mem)),
+                                    {k: v.cpu() for k, v in d0.items()}, PERCEPTION_HW,
+                                    topk_indexes=topk)
+    worst = {k: ((outs[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+             for k in keys}
+    worst.update({f"focal_{k}": ((got_f[k].cpu() - want_f[k]).abs().max()
+                                 / want_f[k].abs().max()).item()
+                  for k in ("enc_cls_scores", "enc_bbox_preds", "pred_centers2d", "centerness")})
+    same_idx = (got_f["topk_indexes"].cpu() == topk).float().mean().item()
+    layers, q, tokens, _ = zoo_geometry(model, 8)
+    k = int(tokens * FOCAL_RATIO)
+    want_shapes = {f"{q}x{k}": layers, f"{q}x{q + model.memory_len - model.num_propagated}": layers}
+    rec = {"phase": "perception_petr_focal_topk", "card": card, "tokens": tokens, "kept": k,
+           "topk_shape": list(topk.shape), "topk_same_position_share_card_cpu": same_idx,
+           "launches": counts, "flash_calls_by_shape": dict(shapes),
+           "expected_flash_calls_by_shape": want_shapes, "card_vs_cpu": worst,
+           "tol": PERCEPTION_TOL}
+    log(rec)
+    if not (list(topk.shape) == [1, k, 1] and dict(shapes) == want_shapes
+            and ztrain_counts_ok(counts, 2 * layers, 0) and max(worst.values()) <= PERCEPTION_TOL):
+        raise AssertionError(f"the PETR head on FocalHead's tokens went wrong: {rec}")
+    return paths
+
+
+def eva_train_phase(torch, np, dev, fa, gg, card: str):
+    """(e) EVA (the CLI's widths) + SparseHeadv3 at the window recipe
+    through ``DetectorTrainer.step``, 2 steps: s/step and its split, peak
+    memory, every loss term finite, the fp32 flash calls by shape (the
+    history frames' self-attention on ``tc32``; the grad frame's with the
+    DN mask plain fp32, EVA's on SDPA); then one step's loss terms at bs 1
+    over 2 frames, card against CPU with the CPU's assignment."""
+    params = dict(EVA_B, head_type="sparse_v3")
+    setup = ptrain_setup(torch, np, dev, params=params)
+    layers, q, _, keys = zoo_geometry(setup["model"], 8)
+    counts = ztrain_steps(torch, np, dev, fa, gg, card, "perception_eva_train", setup, 2,
+                          {f"{q}x{keys}": layers * (PERCEPTION_T - 1)}, 0)
+    del setup
+    free(torch)
+    ptrain_card_vs_cpu(torch, np, dev, card, params=params,
+                       name="perception_eva_train_card_vs_cpu")
+    return counts
+
+
+def eva_cli_phase(torch, np, fa, gg, card: str):
+    """(f) The training CLI for 2 steps at full width from a written YAML
+    with EVA (the CLI's widths) and SparseHeadv3 at the window recipe: each
+    step's history frames' self-attention on ``tc32`` (the grad frame's,
+    with the DN mask, plain fp32); then ``perception.eval.main --synthetic
+    --backbone eva --num_levels 4 --head sparse_v3 --num_samples 2`` at
+    full width: every frame's self-attention on ``tc32``. The counts are
+    zeroed before each CLI and read after it."""
+    import yaml
+
+    from panacea_tpu_torch.configs import PERCEPTION
+    from panacea_tpu_torch.perception import eval as peval
+    from panacea_tpu_torch.perception import train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = json.loads(json.dumps(PERCEPTION[PTRAIN_RECIPE]))
+        cfg["perception"]["detector"]["params"].update(
+            {k: v for k, v in EVA_B.items() if k != "backbone_cfg"}, head_type="sparse_v3")
+        config = os.path.join(tmp, "eva_v3.yaml")
+        with open(config, "w") as f:
+            yaml.safe_dump(cfg, f)
+        reset_counts(fa, gg)
+        t0 = time.perf_counter()
+        with flash_shapes() as train_shapes:
+            run = train_cli.main(["--synthetic", "--steps", "2", "--config", config,
+                                  "--workdir", tmp])
+            torch.cuda.synchronize()
+        train_s, train_counts = time.perf_counter() - t0, read_counts(fa, gg)
+    layers, q, _, keys = zoo_geometry(run["state"].model, 8)
+    train_want = {f"{q}x{keys}": 2 * layers * (PERCEPTION_T - 1)}
+    windows, eval_frames = 2, 4
+    eval_want = {f"{q}x{keys}": windows * eval_frames * layers}
+    reset_counts(fa, gg)
+    t0 = time.perf_counter()
+    with flash_shapes() as eval_shapes:
+        metrics = peval.main(["--synthetic", "--backbone", "eva", "--num_levels", "4",
+                              "--head", "sparse_v3", "--num_samples", str(windows)])
+        torch.cuda.synchronize()
+    eval_s, eval_counts = time.perf_counter() - t0, read_counts(fa, gg)
+    rec = {"phase": "perception_eva_cli", "card": card, "image_hw": list(PERCEPTION_HW),
+           "train_seconds": train_s, "train_steps": run["steps"],
+           "train_final_metrics": run["final_metrics"], "train_launches": train_counts,
+           "train_flash_calls_by_shape": dict(train_shapes),
+           "expected_train_flash_calls_by_shape": train_want, "eval_seconds": eval_s,
+           "eval_windows": windows, "eval_metrics": metrics, "eval_launches": eval_counts,
+           "eval_flash_calls_by_shape": dict(eval_shapes),
+           "expected_eval_flash_calls_by_shape": eval_want}
+    log(rec)
+    if not (run["steps"] == 2 and all(np.isfinite(v) for v in run["final_metrics"].values())
+            and all(np.isfinite(v) for v in metrics.values())
+            and dict(train_shapes) == train_want and dict(eval_shapes) == eval_want
+            and ztrain_counts_ok(train_counts, sum(train_want.values()), 0)
+            and ztrain_counts_ok(eval_counts, sum(eval_want.values()), 0)):
+        raise AssertionError(f"the CLIs with EVA and SparseHeadv3 went wrong: {rec}")
+    return train_counts
+
+
+def eva_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
+    """Phase 17 (a) to (f). Returns the counts of its paths and the fp32
+    flash records at its new shapes."""
+    t0 = time.perf_counter()
+    recs = [check_flash(torch, F, fa, tol, dev, *shape, fp32=True) for shape in EVA_FLASH]
+    for rec in recs:
+        if (rec["route"], rec["fp32_kernel"]) != ("fp32", "tc32"):
+            raise AssertionError(f"a new shape took route {rec['route']}, kernel "
+                                 f"{rec['fp32_kernel']}: {rec}")
+    free(torch)
+    paths = {"perception_eva_sparse_window": eva_window_phase(torch, np, dev, fa, gg, card)}
+    free(torch)
+    paths["perception_eva_l_petr_window"] = eva_large_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    paths.update(proposal_phase(torch, np, dev, fa, gg, card))
+    free(torch)
+    paths["perception_eva_train"] = eva_train_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    paths["perception_eva_cli"] = eva_cli_phase(torch, np, fa, gg, card)
+    log({"phase": "perception_eva_total", "seconds": time.perf_counter() - t0})
+    return {"paths": paths, "flash": recs}
+
+
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
 BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
            ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
@@ -2973,6 +3342,7 @@ def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
     log(rec)
     log({"phase": f"{name}_other", "top10_ms": [
         [name[:120], ms] for name, ms in sorted(other.items(), key=lambda kv: -kv[1])[:10]]})
+    return rec
 
 
 def main(mode: str = "all") -> int:
@@ -2980,7 +3350,7 @@ def main(mode: str = "all") -> int:
     "perception" (phase 1, the flash check at the perception shape and
     phases 11, 14 and 15), "metrics" (phase 1 and phase 12, on the tree of
     a 2-step full-width generation run), "variants" (phase 1 and phase 13)
-    or "zoo" (phase 1 and phase 15)."""
+    or "zoo" (phase 1 and phases 15 to 17)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3036,12 +3406,16 @@ def main(mode: str = "all") -> int:
         zoo_phase(torch, F, np, dev, fa, gg, tol, card)
         free(torch)
         ztrain_phase(torch, F, np, dev, fa, gg, tol, card)
+        free(torch)
+        eva_phase(torch, F, np, dev, fa, gg, tol, card)
         log({"phase": "perception_only", "ok": True})
         return 0
     if mode == "zoo":
         zoo_phase(torch, F, np, dev, fa, gg, tol, card)
         free(torch)
         ztrain_phase(torch, F, np, dev, fa, gg, tol, card)
+        free(torch)
+        eva_phase(torch, F, np, dev, fa, gg, tol, card)
         log({"phase": "zoo_only", "ok": True})
         return 0
     if mode == "variants":
@@ -3250,6 +3624,9 @@ def main(mode: str = "all") -> int:
     ztrain = ztrain_phase(torch, F, np, dev, fa, gg, tol, card)
     paths.update(ztrain["paths"])
     free(torch)
+    eva = eva_phase(torch, F, np, dev, fa, gg, tol, card)
+    paths.update(eva["paths"])
+    free(torch)
     paths["sampler_dpmpp2m"] = metrics_phase(torch, np, dev, fa, gg, card, gen_tree,
                                              euler_s_per_step)
     gen_dir.cleanup()
@@ -3275,7 +3652,7 @@ def main(mode: str = "all") -> int:
     flash32 = [r for r in flash32 if r["shape"]["D"] != 32]
     perception_paths = ("perception", "perception_cli", "perception_train",
                         "perception_train_no_dn", "perception_train_streaming") + tuple(
-        zoo["paths"]) + tuple(ztrain["paths"])
+        zoo["paths"]) + tuple(ztrain["paths"]) + tuple(eva["paths"])
     generation_paths = tuple(p for p in paths if p not in perception_paths)
 
     def summary(name, kernel, source, replaces, recs, main, path, paths_of=tuple(paths),
@@ -3299,7 +3676,7 @@ def main(mode: str = "all") -> int:
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
     d32, d32_train = flash32_perception, ptrain["fwd"]
-    d32_recs = flash32_d32 + [ptrain["fwd"]] + zoo["flash"]
+    d32_recs = flash32_d32 + [ptrain["fwd"]] + zoo["flash"] + eva["flash"]
     bwd, bwd_b1 = ztrain["bwd"][0], flash_bwd32_d32[1]
     bwd32_d32 = flash_bwd32_d32 + [ptrain["bwd"]] + ztrain["bwd"]
     bwd_keys = ("ms", "ms_device", "plain_ms", "library_ms", "library_ms_device", "bound_ms",
@@ -3345,6 +3722,11 @@ def main(mode: str = "all") -> int:
                                                  "library_ms", "library_ms_device", "bound_ms",
                                                  "bound_fma_ms", "host_us", "worst_ratio")}
                               for r in zoo["flash"][:len(ZOO_FLASH)]],
+                eva_proposal_shapes=[{k: r[k] for k in ("shape", "ms", "ms_device", "plain_ms",
+                                                        "library_ms", "library_ms_device",
+                                                        "bound_ms", "bound_fma_ms", "host_us",
+                                                        "worst_ratio")}
+                                     for r in eva["flash"]],
                 dense_bwd_shapes=dense_bwd),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
                 "fp32_engine", entry="f32::pn_geglu_3xtf32_fwd (3xTF32 wgmma, TMA)",

@@ -53,6 +53,12 @@ def _conv3d(w):
     return np.transpose(w, (4, 3, 0, 1, 2))
 
 
+def _deconv2d(w):
+    """flax ConvTranspose (kh, kw, I, O), a mirrored filter -> torch
+    ConvTranspose2d (I, O, kh, kw): the inverse of JAX ``_t_deconv2d``."""
+    return np.ascontiguousarray(np.transpose(w[::-1, ::-1], (2, 3, 0, 1)))
+
+
 def _gn(ref: str, path: Path) -> Dict[str, Entry]:
     return {f"{ref}.weight": (path + ("GroupNorm_0", "scale"), _none),
             f"{ref}.bias": (path + ("GroupNorm_0", "bias"), _none)}
@@ -489,10 +495,22 @@ def fpn_map(prefix: str, path: Path, num_laterals: int, num_outs: int) -> Dict[s
     return m
 
 
-def sparse_head_map(prefix: str, path: Path, num_layers: int) -> Dict[str, Entry]:
+def sparse_head_map(prefix: str, path: Path, num_layers: int,
+                    proposal_queries: bool = False) -> Dict[str, Entry]:
+    """SparseHead's names; with ``proposal_queries`` also SparseHeadv3's
+    ``input_proj`` and ``context_embedding`` (the inverse of
+    ``build_sparse_head_mapping``, ``panacea_tpu/utils/convert.py:1099-1130``)."""
     m = {f"{prefix}.reference_points.weight": (path + ("reference_points",), _none),
          f"{prefix}.pseudo_reference_points.weight": (path + ("pseudo_reference_points",),
                                                       _none)}
+    if proposal_queries:
+        for i in (0, 3):
+            m.update(_dense(f"{prefix}.input_proj.{i}", path + ("input_proj", f"layers_{i}")))
+        for i in (1, 4):
+            m.update(_norm_flat(f"{prefix}.input_proj.{i}", path + ("input_proj", f"layers_{i}")))
+        for i in (0, 2):
+            m.update(_dense(f"{prefix}.context_embedding.{i}",
+                            path + ("context_embedding", f"layers_{i}")))
     for ref, p in (("query_embedding.0", "query_embedding/layers_0"),
                    ("query_embedding.2", "query_embedding/layers_2"),
                    ("time_embedding.0", "time_embedding/layers_0"),
@@ -611,6 +629,73 @@ def petr_head_map(prefix: str, path: Path, num_layers: int,
     return m
 
 
+def eva_map(prefix: str, path: Path, depth: int, residual_block_indexes=(),
+            scale_factors=(4.0, 2.0, 1.0, 0.5)) -> Dict[str, Entry]:
+    """EVA-02's reference names (the inverse of ``build_eva_mapping``,
+    ``panacea_tpu/utils/convert.py:1004-1066``, with ``pos_embed`` at the
+    working grid in both packages)."""
+    m = _conv(f"{prefix}.patch_embed.proj", path + ("patch_embed",))
+    m[f"{prefix}.pos_embed"] = (path + ("pos_embed",), _none)
+    for i in range(depth):
+        ref, p = f"{prefix}.blocks.{i}", path + (f"block_{i}",)
+        for n in ("norm1", "norm2"):
+            m.update(_norm_flat(f"{ref}.{n}", p + (n,)))
+        for n in ("q_proj", "k_proj", "v_proj"):
+            m.update(_dense(f"{ref}.attn.{n}", p + ("attn", n), bias=False))
+        for n in ("q_bias", "v_bias"):
+            m[f"{ref}.attn.{n}"] = (p + ("attn", n), _none)
+        m.update(_dense(f"{ref}.attn.proj", p + ("attn", "proj")))
+        for n in ("w1", "w2", "w3"):
+            m.update(_dense(f"{ref}.mlp.{n}", p + (n,)))
+        m.update(_norm_flat(f"{ref}.mlp.ffn_ln", p + ("ffn_ln",)))
+        if i in residual_block_indexes:
+            for ci in (1, 2, 3):
+                m[f"{ref}.residual.conv{ci}.weight"] = (p + ("residual", f"conv{ci}", "kernel"),
+                                                        _conv2d)
+                m.update(_norm_flat(f"{ref}.residual.norm{ci}", p + ("residual", f"norm{ci}")))
+    ad = path + ("adapter",)
+    for scale in scale_factors:
+        st = int(np.log2(16 / scale))
+        ref, nm = f"{prefix}.adapter.simfp_{st}", f"simfp_{st}"
+        # the Sequential indices of each scale (eva.py:741-781)
+        if scale == 4.0:
+            m.update(_conv(f"{ref}.0", ad + (f"{nm}_up1",), _deconv2d))
+            m.update(_norm_flat(f"{ref}.1", ad + (f"{nm}_upln",)))
+            m.update(_conv(f"{ref}.3", ad + (f"{nm}_up2",), _deconv2d))
+            lat = 4
+        elif scale == 2.0:
+            m.update(_conv(f"{ref}.0", ad + (f"{nm}_up1",), _deconv2d))
+            lat = 1
+        else:
+            lat = 0 if scale == 1.0 else 1
+        for idx, name in ((lat, "lateral"), (lat + 1, "out")):
+            m[f"{ref}.{idx}.weight"] = (ad + (f"{nm}_{name}", "kernel"), _conv2d)
+            m.update(_norm_flat(f"{ref}.{idx}.norm", ad + (f"{nm}_{name}_ln",)))
+    return m
+
+
+def _eva_plan(flat: Dict[Path, np.ndarray]):
+    """(depth, residual block indexes, scale factors) of the EVAViT in ``flat``."""
+    blocks = {int(p[1][len("block_"):]) for p in flat
+              if p[0] == "backbone" and p[1].startswith("block_")}
+    residual = tuple(sorted(i for i in blocks if ("backbone", f"block_{i}", "residual", "conv1",
+                                                  "kernel") in flat))
+    stages = sorted({int(p[2].split("_")[1]) for p in flat if p[:2] == ("backbone", "adapter")})
+    return len(blocks), residual, tuple(16.0 / 2 ** st for st in stages)
+
+
+def focal_head_map(prefix: str, path: Path) -> Dict[str, Entry]:
+    """FocalHead's reference names (the inverse of ``build_focal_head_mapping``,
+    ``panacea_tpu/utils/convert.py:1256-1275``)."""
+    m = {}
+    for tower in ("shared_cls", "shared_reg"):
+        m.update(_conv(f"{prefix}.{tower}.0", path + (f"{tower}_conv",)))
+        m.update(_norm_flat(f"{prefix}.{tower}.1", path + (f"{tower}_gn",)))
+    for head in ("cls", "centerness", "ltrb", "center2d"):
+        m.update(_conv(f"{prefix}.{head}", path + (head,)))
+    return m
+
+
 def _vovnet_plan(flat: Dict[Path, np.ndarray]):
     """(blocks a stage, convolutions a block) of the VoVNet in ``flat``."""
     blocks = [len({p[1] for p in flat if p[0] == "backbone" and p[1].startswith(f"stage{s}_")})
@@ -627,9 +712,10 @@ def streampetr_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 
     """The JAX ``StreamPETRWindow``'s parameter tree (nested dicts of numpy
     arrays; the ATSS head where the tree has ``roi_head``) -> the port
     detector's state dict, fp32, under the reference's mmdet names, as
-    ``convert_streampetr_checkpoint`` takes them (``backbone`` 'r50' or
-    'vovnet', whose blocks are read off the tree; ``head`` 'sparse',
-    'petr', 'petr_dn' or 'motion'). Each packed attention's q/k/v Dense
+    ``convert_streampetr_checkpoint`` takes them (``backbone`` 'r50',
+    'vovnet' or 'eva', whose blocks are read off the tree; ``head``
+    'sparse', 'sparse_v3', 'sparse_v4', 'petr', 'petr_dn' or 'motion').
+    Each packed attention's q/k/v Dense
     layers become ``attentions.{0,1}.attn.in_proj_weight`` and
     ``in_proj_bias``, rows [q; k; v] (the sparse head's self-attention,
     both attentions of the PETR heads); the ATSS ``scales`` vector becomes
@@ -637,15 +723,20 @@ def streampetr_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 
     flat = flatten(params)
     if backbone == "r50":
         mapping = resnet50_map("img_backbone", ("backbone",), stage_blocks)
-        laterals = 3
+        mapping.update(fpn_map("img_neck", ("neck",), 3, num_outs))
     elif backbone == "vovnet":
         mapping = vovnet_map("img_backbone", ("backbone",), *_vovnet_plan(flat))
-        laterals = 2
+        mapping.update(fpn_map("img_neck", ("neck",), 2, num_outs))
+    elif backbone == "eva":   # its adapter is the neck
+        mapping = eva_map("img_backbone", ("backbone",), *_eva_plan(flat))
     else:
         raise ValueError(f"no port of backbone {backbone!r}")
-    mapping.update(fpn_map("img_neck", ("neck",), laterals, num_outs))
-    if head == "sparse":
-        mapping.update(sparse_head_map("pts_bbox_head", ("head",), num_layers))
+    if head in ("sparse", "sparse_v3", "sparse_v4"):
+        # v4 has SparseHead's tree; v3 adds its context-query modules, which
+        # the JAX tree holds once the head has seen proposals
+        mapping.update(sparse_head_map("pts_bbox_head", ("head",), num_layers,
+                                       proposal_queries=("head", "input_proj", "layers_0",
+                                                         "kernel") in flat))
         packed = (("attentions.0", "self_attn"),)
     elif head in ("petr", "petr_dn", "motion"):
         mapping.update(petr_head_map("pts_bbox_head", ("head",), num_layers,

@@ -4,11 +4,13 @@ drivers.
 
 Counterpart of ``panacea_tpu/perception/detector.py`` (reference
 streampetrwindow.py:312-389, streampetr.py, petrwindow3d.py, petr3d.py and
-the generation side's petr3dm.py and petr3dp.py): a backbone (ResNet-50, or
-VoVNet-99 with the neck from its third stage) and a 5-level FPN per frame,
-then a head with its query memory: the SparseHead of the recipes, the
-dense-attention ``StreamPETRHead``, the non-streaming ``PETRHeadDN`` or
-the trajectory head ``PETRMotionHead``; with ``with_atss`` the ATSS 2D
+the generation side's petr3dm.py and petr3dp.py, and sparse4d.py,
+sparse4dv2.py, sparse4dv3.py): a backbone (ResNet-50, or VoVNet-99 with
+the neck from its third stage) and a 5-level FPN per frame, or EVA-02 with
+its own 4-level adapter and no FPN, then a head with its query memory: the
+SparseHead of the recipes, its proposal-query variants (``sparse_v3``,
+``sparse_v4``), the dense-attention ``StreamPETRHead``, the non-streaming
+``PETRHeadDN`` or the trajectory head ``PETRMotionHead``; with ``with_atss`` the ATSS 2D
 auxiliary head of training (``img_roi_head``). A window of T frames runs
 every frame through backbone and head, warming the memory, and returns the
 last frame's outputs. The memory is reset on a scene change through
@@ -19,9 +21,7 @@ memory across steps.
 Images come in the JAX package's layout, (B, T, N, H, W, 3) normalised;
 the backbone runs NCHW. Submodules carry mmdet's names (``img_backbone``,
 ``img_neck``, ``pts_bbox_head``, ``img_roi_head``), so a StreamPETR
-``.pth`` loads directly. The EVA backbone and the proposal-query heads
-(``sparse_v3``, ``sparse_v4``) wait for the rest of the perception zoo
-(ROADMAP Queue A item 6c).
+``.pth`` loads directly.
 """
 
 from __future__ import annotations
@@ -34,29 +34,31 @@ from torch import nn
 
 from panacea_tpu_torch.models.engine import no_tf32
 from panacea_tpu_torch.perception.atss import CLS_BIAS, ATSSHead, Scale
+from panacea_tpu_torch.perception.eva import EVAAttention, EVAViT, ResBottleneckBlock
 from panacea_tpu_torch.perception.fpn import FPN
 from panacea_tpu_torch.perception.head import PC_RANGE, MemoryState, SparseHead, init_memory
 from panacea_tpu_torch.perception.motion_head import PETRMotionHead
 from panacea_tpu_torch.perception.petr_head import StreamPETRHead
 from panacea_tpu_torch.perception.petr_head_dn import PETRHeadDN
 from panacea_tpu_torch.perception.resnet import FrozenBatchNorm, ResNet50
+from panacea_tpu_torch.perception.sparse_head_v3 import SparseHeadv3, SparseHeadv4
 from panacea_tpu_torch.perception.vovnet import VoVNet
 
 IMG_MEAN = (123.675, 116.28, 103.53)
 IMG_STD = (58.395, 57.12, 57.375)
-NOT_PORTED = ("is not ported; it waits for the rest of the perception zoo "
-              "(ROADMAP Queue A item 6c)")
 HEADS = {"sparse": SparseHead, "petr": StreamPETRHead, "petr_dn": PETRHeadDN,
-         "motion": PETRMotionHead}
+         "motion": PETRMotionHead, "sparse_v3": SparseHeadv3, "sparse_v4": SparseHeadv4}
 R50_CHANNELS = (256, 512, 1024, 2048)
 
 
 class StreamPETRWindow(nn.Module):
-    """``backbone_type`` 'r50' or 'vovnet' (``backbone_cfg`` its extra
-    arguments; ``neck_start_level`` the first stage the FPN takes: 1 for
-    r50, 2 for VoVNet-99, as the reference's CPFPN in_channels); ``head_type``
-    'sparse', 'petr', 'petr_dn' or 'motion' (``head_cfg`` the head's extra
-    arguments), by default the class's ``HEAD_TYPE``."""
+    """``backbone_type`` 'r50', 'vovnet' or 'eva' (``backbone_cfg`` its extra
+    arguments, EVA's ``img_size`` among them; ``neck_start_level`` the
+    first stage the FPN takes: 1 for r50, 2 for VoVNet-99, as the
+    reference's CPFPN in_channels; EVA's adapter is its neck and gives 4
+    levels, so it takes ``num_levels`` 4); ``head_type`` 'sparse',
+    'sparse_v3', 'sparse_v4', 'petr', 'petr_dn' or 'motion' (``head_cfg``
+    the head's extra arguments), by default the class's ``HEAD_TYPE``."""
 
     HEAD_TYPE = "sparse"
 
@@ -70,28 +72,29 @@ class StreamPETRWindow(nn.Module):
         super().__init__()
         head_type = head_type or self.HEAD_TYPE
         for kind, name, known in (("backbone_type", backbone_type, ("r50", "vovnet", "eva")),
-                                  ("head_type", head_type,
-                                   tuple(HEADS) + ("sparse_v3", "sparse_v4"))):
+                                  ("head_type", head_type, tuple(HEADS))):
             if name not in known:
                 raise ValueError(f"unknown {kind} {name!r}")
-        if backbone_type == "eva":
-            raise NotImplementedError(f"backbone_type 'eva' {NOT_PORTED}")
-        if head_type not in HEADS:
-            raise NotImplementedError(f"head_type {head_type!r} {NOT_PORTED}")
         self.backbone_type, self.head_type = backbone_type, head_type
         self.num_query, self.num_propagated = num_query, num_propagated
         self.pc_range = tuple(pc_range)
         self.embed_dims, self.memory_len, self.num_levels = embed_dims, memory_len, num_levels
-        if backbone_type == "r50":
-            self.img_backbone = ResNet50(**dict(backbone_cfg or {}))
-            in_channels = R50_CHANNELS
+        if backbone_type == "eva":
+            # the adapter is the neck (the reference's sim_fpn, eva.py:698-804)
+            self.img_backbone = EVAViT(out_channels=embed_dims, **dict(backbone_cfg or {}))
+            self.img_neck = None
+            self.feat_strides = self.img_backbone.strides[:num_levels]
         else:
-            self.img_backbone = VoVNet(**dict(backbone_cfg or {}))
-            in_channels = self.img_backbone.out_channels
-        self.img_neck = FPN(in_channels=in_channels, out_channels=embed_dims,
-                            start_level=neck_start_level, num_outs=num_levels)
-        # both backbones' stages have strides 4, 8, 16, 32
-        self.feat_strides = tuple(4 * 2 ** (neck_start_level + i) for i in range(num_levels))
+            if backbone_type == "r50":
+                self.img_backbone = ResNet50(**dict(backbone_cfg or {}))
+                in_channels = R50_CHANNELS
+            else:
+                self.img_backbone = VoVNet(**dict(backbone_cfg or {}))
+                in_channels = self.img_backbone.out_channels
+            self.img_neck = FPN(in_channels=in_channels, out_channels=embed_dims,
+                                start_level=neck_start_level, num_outs=num_levels)
+            # both backbones' stages have strides 4, 8, 16, 32
+            self.feat_strides = tuple(4 * 2 ** (neck_start_level + i) for i in range(num_levels))
         self.pts_bbox_head = HEADS[head_type](
             num_classes=num_classes, embed_dims=embed_dims, num_query=num_query,
             memory_len=memory_len, topk_proposals=topk_proposals,
@@ -126,8 +129,11 @@ class StreamPETRWindow(nn.Module):
 
         constant = []
         for name, mod in self.named_modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                normal(mod.weight, 1.0 / math.sqrt(mod.weight[0].numel()))
+            if isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+                # a transposed convolution's fan-in: its input channels and taps
+                fan_in = (mod.weight[:, 0].numel() if isinstance(mod, nn.ConvTranspose2d)
+                          else mod.weight[0].numel())
+                normal(mod.weight, 1.0 / math.sqrt(fan_in))
                 if mod.bias is not None:
                     constant.append(mod.bias.zero_())
             elif isinstance(mod, (nn.LayerNorm, FrozenBatchNorm)):
@@ -152,6 +158,12 @@ class StreamPETRWindow(nn.Module):
             if name.endswith("attentions.1") and hasattr(mod, "weights_fc"):
                 constant.append(mod.weights_fc.weight.zero_())
                 uniform(mod.learnable_fc.bias, -2.0, 2.0)
+            if isinstance(mod, EVAViT):
+                normal(mod.pos_embed, 0.02)
+            if isinstance(mod, EVAAttention):
+                constant += [mod.q_bias.zero_(), mod.v_bias.zero_()]
+            if isinstance(mod, ResBottleneckBlock):
+                constant.append(mod.norm3.weight.zero_())
         for branch in self.pts_bbox_head.cls_branches:
             constant.append(branch[-1].bias.fill_(CLS_BIAS))
         if self.with_atss:
@@ -164,13 +176,15 @@ class StreamPETRWindow(nn.Module):
                     t.add_(torch.randn(t.shape, generator=generator, device=dev) * zero_init_std)
 
     def extract_feats(self, imgs: torch.Tensor) -> List[torch.Tensor]:
-        """imgs (B, N, H, W, 3), normalised -> the FPN levels, each (B N, C, h, w)."""
+        """imgs (B, N, H, W, 3), normalised -> the neck's levels, each (B N, C, h, w)."""
         b, n, h, w, c = imgs.shape
         x = imgs.reshape(b * n, h, w, c).permute(0, 3, 1, 2).contiguous()
-        feats = self.img_neck(self.img_backbone(x))
+        feats = self.img_backbone(x)
+        if self.img_neck is not None:
+            feats = self.img_neck(feats)
         if len(feats) != self.num_levels:
-            raise ValueError(f"the neck gave {len(feats)} levels, the head takes "
-                             f"{self.num_levels}")
+            raise ValueError(f"the {self.backbone_type} neck gave {len(feats)} levels, the head "
+                             f"takes num_levels {self.num_levels}")
         return list(feats)
 
     @no_tf32()
@@ -279,3 +293,21 @@ class Petr3DP(StreamPETR):
     its ``traj`` and ``traj_scores`` (petr3dp.py:309-316)."""
 
     HEAD_TYPE = "motion"
+
+
+class Sparse4D(StreamPETR):
+    """Reference detectors/sparse4d.py:22: the streaming driver with the
+    sparse (deformable-aggregation) head."""
+
+
+class Sparse4Dv2(StreamPETR):
+    """Reference detectors/sparse4dv2.py:33: the streaming driver whose head
+    carries the recurrent instance memory."""
+
+
+class Sparse4Dv3(StreamPETR):
+    """Reference detectors/sparse4dv3.py:33: Sparse4Dv2 with the
+    proposal-query head (SparseHeadv3); the proposals come in ``data``'s
+    ``proposal_positions`` and ``proposal_features`` (sparse4dv3.py:315)."""
+
+    HEAD_TYPE = "sparse_v3"

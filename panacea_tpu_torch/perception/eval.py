@@ -4,18 +4,21 @@ frames -> NDS/mAP.
 Counterpart of the JAX package's root ``eval_perception.py``, with its
 flags, choices and defaults, and ``--device``. One process drives one card;
 it runs on CUDA and raises without a card, ``--device cpu`` is for tests.
-The eval recipe's detector (``--backbone r50 --head sparse``) and the
-dense-attention PETR family (``--backbone vovnet``, ``--head petr``,
-``petr_dn`` or ``motion``) are ported; ``--backbone eva`` and ``--head
-sparse_v3|sparse_v4`` raise and name ROADMAP Queue A item 6c.
-``--torch_ckpt`` loads a reference mmdet ``.pth`` straight into the port
-(the names are the same, VoVNet's and the PETR heads' included), leaving
+Every backbone (``--backbone r50``, ``vovnet``, or ``eva`` with
+``--num_levels 4``: EVA-02's adapter gives four levels) runs with every
+head (``--head sparse``, the eval recipe's; ``sparse_v3`` and
+``sparse_v4``, which fall back to the learned queries without proposals;
+``petr``, ``petr_dn`` or ``motion``). ``--torch_ckpt`` loads a reference
+mmdet ``.pth`` straight into the port (the names are the same), leaving
 what it does not cover at the random init, as the JAX CLI merges its
-converted tree.
+converted tree; EVA's pretrain position table is first resized to the
+working grid as the reference's ``get_abs_pos`` resizes it.
 
   python eval_perception_torch.py --ann data/nuscenes/nuscenes2d_ego_temporal_infos_val.pkl \\
       --gen_root outputs/panacea_tpu/val/gen-nuscenes --torch_ckpt streampetr.pth
   python eval_perception_torch.py --synthetic --tiny --device cpu
+  python eval_perception_torch.py --synthetic --tiny --device cpu --backbone eva \\
+      --num_levels 4 --head sparse_v3
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--queue_length", type=int, default=8)
     p.add_argument("--out", default=None, help="write metrics json here")
     p.add_argument("--backbone", default="r50", choices=["r50", "vovnet", "eva"],
-                   help="img_backbone family; eva is not ported")
+                   help="img_backbone family (eva gives 4 levels: --num_levels 4)")
     p.add_argument("--head", default="sparse",
                    choices=["sparse", "petr", "sparse_v3", "sparse_v4", "motion", "petr_dn"],
-                   help="detection head family; sparse_v3 and sparse_v4 are not ported")
+                   help="detection head family (sparse_v3/v4 are the proposal-query "
+                        "Sparse4D decoders; without proposals they fall back to learned "
+                        "queries)")
     p.add_argument("--torch_ckpt", default=None,
                    help="reference mmdet .pth (a 'state_dict' inside, or bare), "
                         "loaded non-strictly under its own names")
@@ -78,12 +83,22 @@ def get_parser() -> argparse.ArgumentParser:
 
 def load_reference_checkpoint(model, path: str) -> Dict[str, int]:
     """A StreamPETR ``.pth`` into ``model``, strict=False: tensors whose name
-    and shape the model has are copied, the rest stay at init. Returns the
-    counts of restored, missing and unexpected tensors."""
+    and shape the model has are copied, the rest stay at init. An EVA
+    pretrain position table (1, [1 +] n, C) is first resized to the
+    model's grid (``eva.pos_embed_from_reference``). Returns the counts of
+    restored, missing and unexpected tensors."""
+    import math
+
     from panacea_tpu_torch.checkpoint import load_torch_checkpoint
+    from panacea_tpu_torch.perception.eva import pos_embed_from_reference
 
     sd = load_torch_checkpoint(path)
     own = model.state_dict()
+    pos = "img_backbone.pos_embed"
+    if pos in sd and pos in own and sd[pos].dim() == 3:
+        n = sd[pos].shape[1]
+        sd[pos] = pos_embed_from_reference(sd[pos], own[pos].shape[1:3],
+                                           use_cls_token=math.isqrt(n - 1) ** 2 == n - 1)
     fit = {k: v for k, v in sd.items() if k in own and own[k].shape == v.shape}
     model.load_state_dict(fit, strict=False)
     report = {"restored": len(fit), "missing": sum(k not in fit for k in own),
@@ -159,6 +174,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
             **({"final_dim": tuple(args.final_dim)} if args.final_dim else {}))
     zoo = dict(backbone_type=args.backbone, head_type=args.head,
                neck_start_level={"r50": 1, "vovnet": 2, "eva": 0}[args.backbone])
+    if args.backbone == "eva":
+        zoo["backbone_cfg"] = {"img_size": tuple(ds.final_dim)}   # pos_embed's grid
     if args.num_levels:
         zoo["num_levels"] = args.num_levels
     if args.tiny:

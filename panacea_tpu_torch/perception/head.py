@@ -265,13 +265,17 @@ class SparseHead(nn.Module):
         return (tgt, query_pos, reference_points, temp_memory[:, np_:], temp_pos[:, np_:],
                 rec_ego_pose)
 
-    def make_queries(self, b: int, dn=None) -> torch.Tensor:
-        """The reference points (B, [pad +] Q, 3) in [0, 1]: the DN queries'
-        noised centres first (sparse_head.py:439), then the learned ones."""
+    def make_queries(self, b: int, dn=None, data: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ref, tgt): the reference points (B, [pad +] Q, 3) in [0, 1], the DN
+        queries' noised centres first (sparse_head.py:439), then the learned
+        ones; and the queries' content (B, [pad +] Q, C), zeros here. The
+        proposal-query heads (``sparse_head_v3.SparseHeadProposal``) make both
+        from ``data``'s proposals."""
         ref = self.reference_points.weight[None].expand(b, self.num_query, 3)
         if dn is not None:
             ref = torch.cat([dn.ref, ref], dim=1)
-        return ref
+        return ref, ref.new_zeros((b, ref.shape[1], self.embed_dims))
 
     def forward(self, mlvl_feats: Sequence[torch.Tensor], memory: MemoryState,
                 data: Dict[str, torch.Tensor], pad_hw: Tuple[int, int],
@@ -294,10 +298,10 @@ class SparseHead(nn.Module):
         gamma, beta = self.transformer.spatial_alignment.gamma_beta(mln_in.reshape(b * n, 14))
         feats = [f * gamma[:, :, None, None] + beta[:, :, None, None] for f in mlvl_feats]
 
-        ref = self.make_queries(b, dn)
+        ref, tgt = self.make_queries(b, dn, data)
         query_pos = self.query_embedding(pos2posemb3d(ref))
         tgt, query_pos, ref, temp_memory, temp_pos, rec_ego_pose = self.temporal_alignment(
-            query_pos, torch.zeros_like(query_pos), ref, memory)
+            query_pos, tgt, ref, memory)
 
         cls_list, reg_list = [], []
         query = tgt

@@ -222,10 +222,10 @@ class StreamPETRHead(SparseHead):
         tokens, pos_embed = self.encode_tokens(mlvl_feats[self.feat_level], data, pad_hw,
                                                topk_indexes)
         b = tokens.shape[0]
-        ref = self.make_queries(b, dn)
+        ref, tgt = self.make_queries(b, dn, data)
         query_pos = self.query_embedding(pos2posemb3d(ref))
         tgt, query_pos, ref, temp_memory, temp_pos, rec_ego_pose = self.temporal_alignment(
-            query_pos, torch.zeros_like(query_pos), ref, memory)
+            query_pos, tgt, ref, memory)
         all_cls, all_reg, outs_dec = self.decode(
             tgt, query_pos, ref, tokens, pos_embed, temp_memory, temp_pos,
             dn.attn_mask if dn is not None else None)

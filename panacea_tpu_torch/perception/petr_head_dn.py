@@ -39,9 +39,8 @@ class PETRHeadDN(StreamPETRHead):
         """One frame (petr_head_dn.py:437-512). Returns (outs, memory)."""
         tokens, pos_embed = self.encode_tokens(mlvl_feats[self.feat_level], data, pad_hw,
                                                topk_indexes)
-        ref = self.make_queries(tokens.shape[0], dn)
+        ref, tgt = self.make_queries(tokens.shape[0], dn, data)
         query_pos = self.query_embedding(pos2posemb3d(ref))
-        all_cls, all_reg, _ = self.decode(torch.zeros_like(query_pos), query_pos, ref, tokens,
-                                          pos_embed,
+        all_cls, all_reg, _ = self.decode(tgt, query_pos, ref, tokens, pos_embed,
                                           attn_bias=dn.attn_mask if dn is not None else None)
         return self.split_dn(all_cls, all_reg, dn.pad_size if dn is not None else 0), memory

@@ -409,7 +409,15 @@ class DetectorTrainer:
             # over its current queries alone: the reference's mask there is
             # (pad + Q) square (petr_head_dn.py prepare_for_dn)
             memory_free = not model.pts_bbox_head._uses_memory()
-            dn = prepare_dn(gt_boxes, gt_labels, num_query=model.num_query,
+            # the proposal-query heads make one query a proposal (v3) or at
+            # least num_query (v4): the mask takes that count (JAX
+            # train.py:288-299; the reference sets num_query to the
+            # proposal count, sparse_head_v3.py:375)
+            num_query = model.num_query
+            proposals = data.get("proposal_positions")
+            if proposals is not None and hasattr(model.pts_bbox_head, "query_count"):
+                num_query = model.pts_bbox_head.query_count(proposals.shape[-2])
+            dn = prepare_dn(gt_boxes, gt_labels, num_query=num_query,
                             num_propagated=0 if memory_free else model.num_propagated,
                             memory_len=0 if memory_free else model.memory_len,
                             pc_range=self.pc_range, num_classes=self.num_classes,

@@ -12,10 +12,12 @@ the memory carried across steps through scene-continuous sample streams.
 The detector is the recipe's (r50 + SparseHead), or what a YAML's
 ``perception.detector.params`` name: VoVNet-99 (``backbone_type: vovnet``,
 ``neck_start_level: 2``) and the dense PETR heads (``head_type: petr``,
-``petr_dn`` or ``motion``); with the motion head the windows carry the
-ground truth's future trajectories (``head_cfg.pred_steps``, 12 by
-default) and the loss its trajectory term. The EVA backbone and the
-proposal-query heads raise in ``detector.py`` (ROADMAP Queue A item 6c).
+``petr_dn`` or ``motion``), EVA-02 (``backbone_type: eva``, ``num_levels:
+4``, its position table at the training images' grid; nothing of it is
+frozen, and it takes the backbone's learning-rate multiplier) and the
+proposal-query heads (``head_type: sparse_v3`` or ``sparse_v4``); with the
+motion head the windows carry the ground truth's future trajectories
+(``head_cfg.pred_steps``, 12 by default) and the loss its trajectory term.
 
 Checkpoints are ``<workdir>/<recipe>/iter_N/state.pt`` (the newest 3 kept):
 the detector's state, the optimizer, the step, the draw generator's state,
@@ -217,6 +219,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     det_cfg["params"] = dict(det_cfg.get("params", {}), **(TINY if args.tiny else {}))
     if args.num_levels:
         det_cfg["params"]["num_levels"] = args.num_levels
+    final_dim = (tuple(args.final_dim) if args.final_dim
+                 else ((64, 128) if args.tiny else tuple(dcfg["ida"]["final_dim"])))
+    if det_cfg["params"].get("backbone_type") == "eva":
+        # EVA's position table sits at the images' token grid
+        det_cfg["params"]["backbone_cfg"] = dict(det_cfg["params"].get("backbone_cfg") or {},
+                                                 img_size=final_dim)
     model = instantiate_from_config(det_cfg).to(device)
     model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
 
@@ -224,8 +232,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     seq_mode = bool(tcfg.get("seq_mode", False))
     seq_split_num = tcfg.get("seq_split_num", 2) if seq_mode else 0
     bs = args.batch if args.batch > 0 else (1 if args.tiny else int(tcfg.get("batch_size", 1)))
-    final_dim = (tuple(args.final_dim) if args.final_dim
-                 else ((64, 128) if args.tiny else tuple(dcfg["ida"]["final_dim"])))
     filter_tokens = None
     if args.filter_file:
         import pickle

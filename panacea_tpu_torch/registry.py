@@ -81,7 +81,7 @@ _SGM_TO_LOCAL = {
         f"{_P}.losses.vae_losses.NLayerDiscriminator",
     **{f"panacea_tpu.perception.detector.{n}": f"{_P}.perception.detector.{n}"
        for n in ("StreamPETRWindow", "StreamPETR", "PetrWindow3D", "Petr3D", "Petr3DM",
-                 "Petr3DP")},
+                 "Petr3DP", "Sparse4D", "Sparse4Dv2", "Sparse4Dv3")},
     "sgm.lr_scheduler.LambdaLinearScheduler": f"{_P}.utils.lr_schedule.LambdaLinearScheduler",
     "sgm.lr_scheduler.LambdaWarmUpCosineScheduler":
         f"{_P}.utils.lr_schedule.LambdaWarmUpCosineScheduler",

@@ -323,6 +323,15 @@ def test_state_dict_round_trips_through_the_jax_converter():
 
 
 def test_detector_refuses_what_is_not_ported():
-    for kw in ({"backbone_type": "eva"}, {"head_type": "sparse_v3"}, {"head_type": "sparse_v4"}):
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    """Names outside the JAX package's zoo raise; EVA, whose adapter gives 4
+    levels, refuses a head of 5 where the JAX detector asserts (its
+    ``extract_feats``). The proposal-query heads build."""
+    for kw in ({"backbone_type": "swin"}, {"head_type": "simmod"}):
+        with pytest.raises(ValueError, match="unknown"):
             detector.StreamPETRWindow(**TINY, **kw)
+    eva = detector.StreamPETRWindow(**TINY, backbone_type="eva",
+                                    backbone_cfg={"img_size": (32, 64), "layers": 1})
+    with pytest.raises(ValueError, match="eva neck gave 4 levels, the head takes num_levels 5"):
+        eva.extract_feats(torch.zeros(1, 6, 32, 64, 3))
+    for head, mode in (("sparse_v3", "context"), ("sparse_v4", "seed")):
+        assert detector.StreamPETRWindow(**TINY, head_type=head).pts_bbox_head.mode == mode

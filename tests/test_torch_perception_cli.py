@@ -1,9 +1,11 @@
 """The port's perception eval CLI and its host side, against the JAX package.
 
 The parser, the metric keys the CLI prints, the VoVNet and PETR heads on
-one window, the ``--torch_ckpt`` load, the refusals of what is not ported, the eval dataset's windows and the result
-collection. The CLIs are not run side by side (the JAX one compiles the
-whole ResNet-50); ``tests/test_torch_perception.py`` compares the modules.
+one window, EVA-02 and the proposal-query heads on one window, the
+``--torch_ckpt`` load, the refusal of the JAX package's orbax trees, the
+eval dataset's windows and the result collection. The CLIs are not run
+side by side (the JAX one compiles the whole ResNet-50);
+``tests/test_torch_perception.py`` compares the modules.
 """
 
 import importlib.util
@@ -90,11 +92,24 @@ def test_torch_ckpt_loads_mmdet_names_non_strictly(tmp_path, capsys):
     assert not torch.equal(got[wrong], want[wrong])
 
 
+@pytest.mark.parametrize("backbone, head", [("eva", "sparse"), ("eva", "petr"),
+                                           ("eva", "sparse_v3"), ("r50", "sparse_v3"),
+                                           ("vovnet", "sparse_v4")])
+def test_tiny_cli_runs_eva_and_the_proposal_query_heads(backbone, head, capsys, two_threads):
+    """``--backbone eva --num_levels 4`` (EVA-02 at the CLI's widths, its
+    adapter the neck) with the sparse, PETR and v3 heads, and ``--head
+    sparse_v3|sparse_v4`` (no proposals: the learned queries) on the other
+    backbones: one window of 2 frames at 32 x 64, finite metrics."""
+    flags = ["--num_levels", "4"] if backbone == "eva" else []
+    metrics = peval.main(TINY_CLI + flags + ["--backbone", backbone, "--head", head,
+                                             "--num_samples", "1", "--queue_length", "2",
+                                             "--final_dim", "32", "64"])
+    assert printed_metrics(capsys.readouterr().out).keys() == metrics.keys()
+    assert math.isfinite(metrics["NDS"]) and math.isfinite(metrics["mAP"])
+
+
 @pytest.mark.parametrize("flags, error, match", [
-    (["--head", "sparse_v4"], NotImplementedError, "Queue A item 6"),
-    (["--backbone", "eva"], NotImplementedError, "Queue A item 6"),
-    (["--backbone", "eva", "--head", "petr"], NotImplementedError, "Queue A item 6"),
-    (["--head", "sparse_v3"], NotImplementedError, "Queue A item 6"),
+    (["--backbone", "eva"], ValueError, "eva neck gave 4 levels, the head takes num_levels 5"),
     (["--ckpt", "orbax_tree"], SystemExit, "Not queued"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, error, match):

@@ -191,19 +191,21 @@ def zoo_recipe(tmp_path, **params):
     return str(path)
 
 
-@pytest.mark.parametrize("case", ["head_sparse_v4", "backbone_eva", "dp_env", "world_size",
-                                  "orbax_resume", "orbax_load_from"])
+@pytest.mark.parametrize("case", ["backbone_eva", "dp_env", "world_size", "orbax_resume",
+                                  "orbax_load_from"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, case):
-    """The EVA backbone and the proposal-query heads (ROADMAP Queue A item
-    6c), data parallelism (item 7) and the JAX CLI's orbax trees. VoVNet
-    and the PETR heads train (tests/test_torch_perception_zoo_train.py)."""
+    """EVA with the recipe's 5 levels (its adapter gives 4), data
+    parallelism (ROADMAP Queue A item 7) and the JAX CLI's orbax trees.
+    VoVNet and the PETR heads train (tests/test_torch_perception_zoo_train.py),
+    EVA and the proposal-query heads too
+    (tests/test_torch_perception_focal_detectors.py)."""
     flags = ["--steps", "1"]
-    error, match = NotImplementedError, "Queue A item 6c"
-    if case == "head_sparse_v4":
-        flags += ["--config", zoo_recipe(tmp_path, head_type="sparse_v4")]
-    elif case == "backbone_eva":
-        flags += ["--config", zoo_recipe(tmp_path, backbone_type="eva")]
+    if case == "backbone_eva":
+        error, match = ValueError, "eva neck gave 4 levels, the head takes num_levels 5"
+        flags += ["--config", zoo_recipe(tmp_path, backbone_type="eva",
+                                         backbone_cfg={"layers": 1})]
     elif case in ("dp_env", "world_size"):
+        error = NotImplementedError
         monkeypatch.setenv(*(("PANACEA_PERCEPTION_DP", "1") if case == "dp_env"
                              else ("WORLD_SIZE", "2")))
         match = "Queue A item 7"

@@ -27,6 +27,7 @@ _INVERSE = {
     convert._conv2d: lambda w: np.transpose(w, (2, 3, 1, 0)),
     convert._conv1x1d: lambda w: np.transpose(w[:, :, 0]),
     convert._conv3d: lambda w: np.transpose(w, (2, 3, 4, 1, 0)),
+    convert._deconv2d: lambda w: np.transpose(w, (2, 3, 0, 1))[::-1, ::-1],
 }
 
 
