@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --kernels      # phases 1 and 2 only
-    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phases 11, 14-17
+    python3 chip_smoke.py --perception   # phase 1, the perception flash check, phases 11, 14-18
     python3 chip_smoke.py --metrics      # phase 1, phase 12
     python3 chip_smoke.py --variants     # phase 1, phase 13
-    python3 chip_smoke.py --zoo          # phase 1, phases 15 to 17
+    python3 chip_smoke.py --zoo          # phase 1, phases 15 to 18
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -184,6 +184,35 @@ Phases, in order; any failure exits non-zero:
      step's loss terms card against CPU; (f) ``perception.eval.main
      --synthetic --tiny --backbone eva --num_levels 4 --head sparse_v3``
      and the training CLI for 2 steps from a written EVA + sparse_v3 YAML.
+ 18. the rest of the perception zoo (run after phase 17): (a) the fp32
+     flash forward (``tc32``) at the joint heads' shapes, (1, 856, 12288, 8,
+     32) (JointStreamPETRHead's 6 x 100 lifted proposals + 256 propagated
+     to the stride-8 tokens), (1, 856, 1624, 8, 32) (its self-attention
+     over queries and memory) and each at B 2, and the ``tc32`` backward at
+     (1 | 2, 320 + 856, 12288, 8, 32) (the same with 320 DN rows), against
+     the float64 plain version and timed beside fp32 SDPA; (b) ``SimMOD``
+     (r50, FPN from C3, FCOS with 600 proposals, the 6-layer decoder) on
+     one frame of 6 cameras, with the deformable and the two-stage
+     cross-attention: s/frame and its split (backbone + FPN, FCOS head,
+     proposal generation, decoder), peak memory, no flash launch (the
+     self-attention over 600 proposals is SDPA's), card against CPU (at
+     most 4 proposal indices differ, the scores at every rank within
+     PERCEPTION_TOL; each piece of the decoder on the CPU's inputs of that
+     piece; the deformable decoder chained on the CPU's proposals; the
+     two-stage chain, which amplifies rounding, reported beside the CPU's
+     own move under 1e-6 nudges);
+     (c) ``JointStreamPETRHead`` with QueryRoIHead at its defaults (1024
+     wide, 7 x 7 RoIAlign on the stride-16 level) streaming two frames with
+     100 random proposals a camera, then ``JointHead``: the flash calls by
+     shape, all on ``tc32``, card against CPU from one shared memory; (d)
+     ``CascadeRoIHead`` and ``YOLOXHead`` at their defaults on the FPN of
+     the six cameras with 100 boxes a camera, card against CPU; (e) one
+     backward at B 1 of ``simmod_loss`` with the IoU3D branch (code size
+     11) plus ``fcos_loss``, ``joint_family_loss`` with 32 boxes of DN
+     queries through JointStreamPETRHead (6 ``tc32`` forward and backward
+     launches), ``cascade_roi_loss`` and ``yolox_loss`` after SimOTA: each
+     loss term card against CPU (``LOSS_TOL``, the CPU's host assignments
+     given to the card), every gradient finite.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -314,6 +343,21 @@ EVA_L = dict(EVA_B, backbone_cfg={"img_size": PERCEPTION_HW, "width": 1024, "lay
                                   "window_block_indexes": [i for i in range(24) if i % 6 != 5]})
 PROPOSALS = 300
 FOCAL_RATIO = 0.5
+# phase 18: the rest of the perception zoo. SimMOD's FCOS proposals; the
+# joint heads on JOINT_PROPOSALS random 2D proposals a camera, so
+# JointStreamPETRHead has 6 x 100 + 256 = 856 queries: its cross-attention
+# to the 12,288 stride-8 tokens and its self-attention to 856 + 768 memory
+# keys on tc32, at B 1 and in the (2, ...) training form; in training
+# JOINT_MAX_GT boxes of DN queries at scalar 10 (320 rows) before them.
+# CascadeRoIHead and YOLOX with ROI_BOXES boxes a camera
+SIMMOD_PROPOSALS, JOINT_PROPOSALS, JOINT_MAX_GT, ROI_BOXES = 600, 100, 32, 100
+# SimMOD card against CPU: the proposal ranks whose index may differ (scores
+# that tie within rounding), and the draws of the 1e-6 nudge of the CPU's
+# proposal features that measure how far its chained decoder moves
+SIMMOD_INDEX_SLACK, SIMMOD_NUDGE_SEEDS = 4, 3
+JOINT_FLASH = ((1, 856, 12288, 8, 32), (1, 856, 1624, 8, 32), (2, 856, 12288, 8, 32),
+               (2, 856, 1624, 8, 32))
+JOINT_BWD = ((1, 320 + 856, 12288, 8, 32), (2, 320 + 856, 12288, 8, 32))
 LPIPS_PAIRS = 4
 # the VAE's losses in fp32, card against CPU: the largest difference over the
 # largest value (a scalar's relative difference)
@@ -3297,6 +3341,579 @@ def eva_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
     return {"paths": paths, "flash": recs}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the rest of the perception zoo (SimMOD, the joint heads,
+# cascade RoI, YOLOX and their losses)
+# --------------------------------------------------------------------------
+
+
+def draw_zoo(torch, module, seed: int):
+    """``draw_weights``, then every stored-statistics batch norm's scale at 1
+    + 0.05 n (not 0.05 n), so that the deep towers keep their scale."""
+    from panacea_tpu_torch.perception.resnet import FrozenBatchNorm
+
+    draw_weights(torch, module, seed)
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, FrozenBatchNorm):
+                mod.weight.add_(1.0)
+    return module
+
+
+@contextlib.contextmanager
+def host_matches(record: list, replay: bool):
+    """The DETR3D losses' host Hungarian matchings: appended to ``record``
+    while the block runs, or with ``replay`` handed back from it in order,
+    so that the card's loss takes the CPU's assignment."""
+    from panacea_tpu_torch.perception import vestigial_train
+
+    match, given = vestigial_train.hungarian_match, iter(list(record))
+
+    def recorded(*a, **kw):
+        record.append(match(*a, **kw))
+        return record[-1]
+
+    vestigial_train.hungarian_match = (lambda *a, **kw: next(given)) if replay else recorded
+    try:
+        yield
+    finally:
+        vestigial_train.hungarian_match = match
+
+
+@contextlib.contextmanager
+def given_topk(torch, idx):
+    """The FCOS proposals' top-k at the indices ``idx`` (B, K) (the CPU's:
+    the local-maximum scores tie at rounding noise)."""
+    from panacea_tpu_torch.perception import fcos_proposal
+
+    topk = fcos_proposal.topk_stable
+
+    def given(x, k):
+        i = idx.to(x.device)
+        return torch.gather(x, -1, i), i
+
+    fcos_proposal.topk_stable = given
+    try:
+        yield
+    finally:
+        fcos_proposal.topk_stable = topk
+
+
+def to_dev(x, dev):
+    """Tensors in ``x`` (nested tuples and lists) moved to ``dev``."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_dev(v, dev) for v in x)
+    return x.to(dev) if hasattr(x, "to") and hasattr(x, "shape") else x
+
+
+def rel_diff(torch, got, want) -> float:
+    return ((got.detach().cpu().double() - want.double()).abs().max()
+            / want.double().abs().max().clamp(min=1e-12)).item()
+
+
+def random_boxes2d(torch, g, shape, hw=PERCEPTION_HW):
+    """xyxy boxes in image pixels, 16 to 128 wide and 16 to 96 high."""
+    h, w = hw
+    x1 = torch.rand(shape, generator=g) * (w - 144)
+    y1 = torch.rand(shape, generator=g) * (h - 112)
+    return torch.stack([x1, y1, x1 + 16 + torch.rand(shape, generator=g) * 112,
+                        y1 + 16 + torch.rand(shape, generator=g) * 80], -1)
+
+
+def gt3d(torch, np, g, n: int):
+    """``n`` ground-truth boxes (1, n, 9) in the point-cloud range, labels (1, n)."""
+    boxes = torch.cat([torch.rand((1, n, 2), generator=g) * 80 - 40,
+                       torch.rand((1, n, 1), generator=g) * 2 - 2,
+                       torch.rand((1, n, 3), generator=g) * 4 + 0.5,
+                       torch.rand((1, n, 1), generator=g) * 6 - 3,
+                       torch.randn((1, n, 2), generator=g)], -1)
+    return boxes, torch.randint(0, 10, (1, n), generator=g)
+
+
+def grads_finite(torch, module) -> dict:
+    """Of the parameters that take a gradient: how many got one, and
+    whether every one is finite."""
+    got = [p.grad for p in module.parameters() if p.requires_grad and p.grad is not None]
+    return {"with_grad": len(got),
+            "without_grad": sum(1 for p in module.parameters() if p.grad is None),
+            "finite": all(bool(torch.isfinite(t).all()) for t in got)}
+
+
+def simmod_phase(torch, np, dev, fa, gg, card: str):
+    """(b) SimMOD (r50, the FPN from C3 with 4 levels, FCOS with
+    SIMMOD_PROPOSALS proposals, the 6-layer decoder) on one frame of 6
+    cameras, with the deformable and then the two-stage cross-attention:
+    s/frame and its split, peak memory, the self-attention over the
+    proposals on SDPA (no flash launch). Card against CPU: the proposals'
+    indices (at most SIMMOD_INDEX_SLACK ranks differ, near-ties; the scores
+    at every rank within PERCEPTION_TOL); every piece of the decoder on the
+    CPU's inputs of that piece within PERCEPTION_TOL (the input and position
+    projections, each layer, each cls and reg branch, each box refinement,
+    the score combination); and the whole decoder chained on the CPU's
+    proposals, within PERCEPTION_TOL with the deformable attention. The
+    two-stage decoder's chain amplifies rounding (its unnormalised sigmoid
+    weights), so its chained difference is reported beside how far the
+    CPU's own decoder moves when its proposal features move by 1e-6 of
+    themselves, over SIMMOD_NUDGE_SEEDS draws. Returns the counts of each."""
+    from panacea_tpu_torch.perception import simmod
+
+    imgs, data = perception_window(torch, np, dev, 1)
+    img, frame = imgs[:, 0], {k: v[:, 0] for k, v in data.items()}
+    cpu_frame = {k: v.cpu() for k, v in frame.items()}
+    paths = {}
+    for cross in ("deformable", "twostage"):
+        cpu = draw_zoo(torch, simmod.SimMOD(num_proposal=SIMMOD_PROPOSALS,
+                                            head_cfg={"cross_attn": cross}), SEED)
+        model = copy_to(cpu, dev)
+        split = dict.fromkeys(("backbone_fpn_s", "fcos_head_s", "proposals_s", "decoder_s"), 0.0)
+        model.extract_feats = split_timer(torch, split, "backbone_fpn_s", model.extract_feats)
+        model.img_rpn_head.forward = split_timer(torch, split, "fcos_head_s",
+                                                 model.img_rpn_head.forward)
+        model.img_rpn_head.get_proposals = split_timer(torch, split, "proposals_s",
+                                                       model.img_rpn_head.get_proposals)
+        model.pts_bbox_head.forward = split_timer(torch, split, "decoder_s",
+                                                  model.pts_bbox_head.forward)
+        with torch.inference_mode():
+            model(img, frame)                       # first use
+            torch.cuda.synchronize()
+            split.update(dict.fromkeys(split, 0.0))
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(fa, gg)
+            with flash_shapes() as shapes:
+                t0 = time.perf_counter()
+                outs, props = model(img, frame)
+                torch.cuda.synchronize()
+                frame_s = time.perf_counter() - t0
+            paths[f"perception_simmod_{cross}"] = counts = read_counts(fa, gg)
+            frame_split = dict(split)
+            del model.extract_feats, model.img_rpn_head.forward, model.img_rpn_head.get_proposals
+            del model.pts_bbox_head.forward
+            # every piece of the CPU's decoder, with its inputs and output
+            head_c, head = cpu.pts_bbox_head, model.pts_bbox_head
+            io, n_layers = [], len(head_c.transformer.decoder.layers)
+            pieces = ["input_proj", "pos_proj"] + [
+                f"{kind}.{i}" for kind in ("transformer.decoder.layers", "cls_branches",
+                                           "reg_branches") for i in range(n_layers)]
+            hooks = [head_c.get_submodule(name).register_forward_hook(
+                lambda m, a, out, name=name: io.append((name, a, out))) for name in pieces]
+            refine = head_c.refine
+            head_c.refine = lambda *a: io.append(("refine", a, refine(*a))) or io[-1][2]
+            want, want_props = cpu(img.cpu(), cpu_frame)
+            for hook in hooks:
+                hook.remove()
+            del head_c.refine
+            feats = model.extract_feats(img)
+            on_cpu_props = head(feats, want_props["proposal_features"].to(dev),
+                                want_props["proposal_positions"].to(dev), frame, PERCEPTION_HW,
+                                proposal_scores=want_props["proposal_scores"].to(dev))
+            # each piece on the card on the CPU's inputs of that piece
+            on_card = {}
+            for name, args, out in io:
+                fn = head.refine if name == "refine" else head.get_submodule(name)
+                got = fn(*to_dev(args, dev))
+                kind = (name.rsplit(".", 1)[0] if name[-1].isdigit() else name).replace(
+                    "transformer.decoder.layers", "decoder_layers")
+                on_card.setdefault(kind, []).append(max(
+                    rel_diff(torch, g, w) for g, w in zip(
+                        *((got, out) if isinstance(out, tuple) else ((got,), (out,))))))
+            on_card["combine_scores"] = [rel_diff(torch, simmod.combine_scores(
+                want["all_cls_scores"].to(dev), want_props["proposal_scores"].to(dev)),
+                want["all_cls_scores_combined"])]
+            # how far the CPU's own chained decoder moves when its proposal
+            # features move by 1e-6 of themselves
+            feats_c = cpu.extract_feats(img.cpu())
+            chain_keys = ("all_cls_scores", "all_bbox_preds", "all_cls_scores_combined")
+            nudges = []
+            for seed in range(SIMMOD_NUDGE_SEEDS):
+                pf = want_props["proposal_features"]
+                nudged = pf * (1.0 + 1e-6 * torch.randn(
+                    pf.shape, generator=torch.Generator().manual_seed(seed)))
+                moved = head_c(feats_c, nudged, want_props["proposal_positions"], cpu_frame,
+                               PERCEPTION_HW, proposal_scores=want_props["proposal_scores"])
+                nudges.append({k: rel_diff(torch, moved[k], want[k]) for k in chain_keys})
+        same = (props["proposal_indices"].cpu() == want_props["proposal_indices"])
+        chained = {k: rel_diff(torch, on_cpu_props[k], want[k]) for k in chain_keys}
+        worst = {"proposal_scores": rel_diff(torch, props["proposal_scores"],
+                                             want_props["proposal_scores"]),
+                 **{f"{k}_max": max(v) for k, v in on_card.items()}}
+        rec = {"phase": f"perception_simmod_{cross}", "card": card, "cross_attn": cross,
+               "image_hw": list(PERCEPTION_HW), "cams": 6, "proposals": SIMMOD_PROPOSALS,
+               "params": sum(p.numel() for p in model.parameters()), "s_per_frame": frame_s,
+               "split_s": frame_split, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts, "flash_calls_by_shape": dict(shapes),
+               "scores_shape": list(outs["all_cls_scores"].shape),
+               "finite": all(bool(torch.isfinite(v).all()) for v in outs.values()
+                             if v is not None),
+               "proposal_index_differing": int((~same).sum()),
+               "proposal_index_slack": SIMMOD_INDEX_SLACK,
+               "card_vs_cpu": worst, "pieces_card_vs_cpu": on_card,
+               "chained_decoder_card_vs_cpu": chained,
+               "chained_held": cross == "deformable",
+               "cpu_chained_moved_by_1e-6_nudges": nudges, "tol": PERCEPTION_TOL}
+        log(rec)
+        if not (rec["finite"] and rec["scores_shape"] == [6, 1, SIMMOD_PROPOSALS, 10]
+                and not dict(shapes) and ztrain_counts_ok(counts, 0, 0)
+                and rec["proposal_index_differing"] <= SIMMOD_INDEX_SLACK
+                and len(on_card["refine"]) == n_layers
+                and max(worst.values()) <= PERCEPTION_TOL
+                and all(np.isfinite(v) for v in chained.values())
+                and (cross != "deformable" or max(chained.values()) <= PERCEPTION_TOL)):
+            raise AssertionError(f"SimMOD ({cross}) went wrong: {rec}")
+        del model, cpu
+        free(torch)
+    return paths
+
+
+def joint_model(torch, dev, cls_name: str, head: str):
+    """A streaming detector of ``perception.detector`` with ``head`` of
+    ``joint_head`` (the detector's full-width head config and QueryRoIHead
+    at its defaults) on the card, its weights drawn from the seed by
+    ``init_weights``; and the same weights on the CPU."""
+    from panacea_tpu_torch.perception import detector, joint_head
+
+    def build():
+        m = getattr(detector, cls_name)()
+        m.pts_bbox_head = getattr(joint_head, head)(
+            num_classes=10, embed_dims=256, num_query=644, memory_len=1024,
+            topk_proposals=256, num_propagated=256, num_decoder_layers=6, num_levels=5,
+            num_cams=6, pc_range=m.pc_range)
+        return m.eval()
+
+    model = build().to(dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
+    cpu = build()
+    cpu.load_state_dict(model.state_dict())
+    return model, cpu
+
+
+def joint_data(torch, data, dev, frames: int, seed: int = SEED):
+    """``data`` with JOINT_PROPOSALS random 2D proposal boxes a camera (B, T,
+    N, P, 4), all valid; drawn on the host."""
+    g = torch.Generator().manual_seed(seed)
+    boxes = random_boxes2d(torch, g, (1, frames, 6, JOINT_PROPOSALS))
+    return dict(data, proposal_boxes=boxes.to(dev),
+                proposal_valid=torch.ones(boxes.shape[:-1], device=dev))
+
+
+def joint_phase(torch, np, dev, fa, gg, card: str):
+    """(c) ``JointStreamPETRHead`` (on Petr3D) streaming two frames with
+    JOINT_PROPOSALS proposals a camera lifted by QueryRoIHead (1024-wide RoI
+    tower, 7 x 7 RoIAlign on the stride-16 level), then ``JointHead`` (on
+    Sparse4D, 'seed'): s/frame, the lifting's share, the flash calls by
+    shape, all on ``tc32``, card against CPU (each frame's CPU run from the
+    card's memory). Returns the counts of both and the heads' shapes."""
+    imgs, data = perception_window(torch, np, dev, 2)
+    data = joint_data(torch, data, dev, 2)
+    keys = ("all_cls_scores", "all_bbox_preds")
+    paths, seen = {}, {}
+    for name, cls_name, head in (("perception_joint_streampetr", "Petr3D", "JointStreamPETRHead"),
+                                 ("perception_joint_sparse", "Sparse4D", "JointHead")):
+        model, cpu = joint_model(torch, dev, cls_name, head)
+        split = {"query_head_s": 0.0}
+        qh = model.pts_bbox_head.query_head
+        qh.forward = split_timer(torch, split, "query_head_s", qh.forward)
+        with torch.inference_mode():
+            model.stream(imgs[:, 0], {k: v[:, 0] for k, v in data.items()})   # first use
+            torch.cuda.synchronize()
+            split["query_head_s"] = 0.0
+            reset_counts(fa, gg)
+            frame_s, mem = [], None
+            with flash_shapes() as shapes:
+                for fi in range(2):
+                    t0 = time.perf_counter()
+                    outs, mem = model.stream(imgs[:, fi], {k: v[:, fi] for k, v in data.items()},
+                                             mem)
+                    torch.cuda.synchronize()
+                    frame_s.append(time.perf_counter() - t0)
+            paths[name] = counts = read_counts(fa, gg)
+        del qh.forward
+        worst, _ = frames_card_vs_cpu(torch, model, cpu, imgs, data, 2, keys)
+        layers = len(model.pts_bbox_head.transformer.decoder.layers)
+        if head == "JointStreamPETRHead":
+            q = 6 * JOINT_PROPOSALS + model.num_propagated
+            want_shapes = {f"{q}x{6 * (PERCEPTION_HW[0] // 8) * (PERCEPTION_HW[1] // 8)}": 2 * layers,
+                           f"{q}x{q + model.memory_len - model.num_propagated}": 2 * layers}
+        else:
+            q = max(6 * JOINT_PROPOSALS, model.num_query) + model.num_propagated
+            want_shapes = {f"{q}x{q + model.memory_len - model.num_propagated}": 2 * layers}
+        seen[name] = dict(shapes)
+        rec = {"phase": name, "card": card, "head": head, "frames": 2,
+               "proposals_per_camera": JOINT_PROPOSALS, "queries": q,
+               "params": sum(p.numel() for p in model.parameters()),
+               "query_head_params": sum(p.numel() for p in qh.parameters()),
+               "s_per_frame": frame_s, "query_head_s_two_frames": split["query_head_s"],
+               "launches": counts, "flash_calls_by_shape": dict(shapes),
+               "expected_flash_calls_by_shape": want_shapes,
+               "scores_shape": list(outs["all_cls_scores"].shape),
+               "finite": all(bool(torch.isfinite(v).all()) for v in outs.values()),
+               "card_vs_cpu_t2": worst, "tol": PERCEPTION_TOL}
+        log(rec)
+        if not (rec["finite"] and dict(shapes) == want_shapes
+                and ztrain_counts_ok(counts, sum(want_shapes.values()), 0)
+                and max(worst.values()) <= PERCEPTION_TOL):
+            raise AssertionError(f"{head} went wrong: {rec}")
+        del model, cpu
+        free(torch)
+    return paths, seen
+
+
+def fpn_feats(torch, np, dev):
+    """The r50 + FPN levels (6, 256, h, w) of one frame of the eval window on
+    the card, drawn as ``zoo_model`` draws, and a CPU copy of them."""
+    model, _ = zoo_model(torch, dev, "StreamPETRWindow")
+    imgs, _ = perception_window(torch, np, dev, 1)
+    with torch.no_grad():   # not inference tensors: phase (e)'s heads train on them
+        feats = model.extract_feats(imgs[:, 0])
+    del model
+    free(torch)
+    return feats, [f.cpu() for f in feats]
+
+
+def roi_boxes(torch, seed: int):
+    """ROI_BOXES boxes on each of the 6 cameras, (6, P, 4), and a validity."""
+    g = torch.Generator().manual_seed(seed)
+    return random_boxes2d(torch, g, (6, ROI_BOXES)), torch.ones(6, ROI_BOXES)
+
+
+def cascade_yolox_phase(torch, np, dev, fa, gg, card: str, feats, cpu_feats):
+    """(d) ``CascadeRoIHead`` (3 stages, RoIAlign on the stride-16 level) with
+    ROI_BOXES boxes a camera and ``YOLOXHead`` (strides 8, 16, 32) at their
+    defaults on the FPN of the six cameras: ms a call, card against CPU on
+    the card's features."""
+    from panacea_tpu_torch.perception import cascade_roi, yolox_head
+
+    boxes, valid = roi_boxes(torch, SEED + 4)
+    cas_cpu = draw_zoo(torch, cascade_roi.CascadeRoIHead(), SEED + 5)
+    yol_cpu = draw_zoo(torch, yolox_head.YOLOXHead(), SEED + 6)
+    cas, yol = copy_to(cas_cpu, dev), copy_to(yol_cpu, dev)
+    with torch.inference_mode():
+        reset_counts(fa, gg)
+        got_c = cas(feats[1], boxes.to(dev), valid.to(dev))
+        got_y = yol(feats[:3])
+        counts = read_counts(fa, gg)
+        cas_ms = time_ms(torch, lambda: cas(feats[1], boxes.to(dev), valid.to(dev)), 5)
+        yol_ms = time_ms(torch, lambda: yol(feats[:3]), 5)
+        want_c = cas_cpu(cpu_feats[1], boxes, valid)
+        want_y = yol_cpu(cpu_feats[:3])
+    worst = {f"cascade_{k}": rel_diff(torch, got_c[k], want_c[k]) for k in ("cls_scores", "boxes")}
+    worst.update({f"cascade_stage{s}_reg": rel_diff(torch, got_c["stage_reg"][s],
+                                                     want_c["stage_reg"][s]) for s in range(3)})
+    worst.update({f"yolox_{k}": rel_diff(torch, got_y[k], want_y[k])
+                  for k in ("enc_cls_scores", "enc_bbox_preds", "objectnesses",
+                            "pred_centers2d_offset")})
+    rec = {"phase": "perception_cascade_yolox", "card": card, "boxes_per_camera": ROI_BOXES,
+           "cascade_ms": cas_ms, "yolox_ms": yol_ms, "launches": counts,
+           "cascade_params": sum(p.numel() for p in cas.parameters()),
+           "yolox_params": sum(p.numel() for p in yol.parameters()),
+           "yolox_priors": int(got_y["objectnesses"].shape[1]), "card_vs_cpu": worst,
+           "tol": PERCEPTION_TOL}
+    log(rec)
+    if not (max(worst.values()) <= PERCEPTION_TOL and ztrain_counts_ok(counts, 0, 0)):
+        raise AssertionError(f"CascadeRoIHead or YOLOXHead went wrong: {rec}")
+    return counts
+
+
+def loss_record(torch, name, card, got, want, module, counts, extra=None):
+    terms = {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
+             for k in want}
+    rec = {"phase": name, "card": card, "batch": 1, "loss_card": {k: float(v)
+                                                                 for k, v in got.items()},
+           "loss_cpu": {k: float(v) for k, v in want.items()}, "rel_diff": terms,
+           "tol": LOSS_TOL, "grads": grads_finite(torch, module), "launches": counts,
+           **(extra or {})}
+    log(rec)
+    if not (max(terms.values()) <= LOSS_TOL and rec["grads"]["finite"]
+            and rec["grads"]["with_grad"] > 0):
+        raise AssertionError(f"{name}: the card's loss or gradients went wrong: {rec}")
+    return rec
+
+
+def rest_losses_phase(torch, np, dev, fa, gg, card: str, feats, cpu_feats):
+    """(e) One backward of each family's loss at full width, B 1, each loss
+    term card against CPU (LOSS_TOL; the CPU's host matchings, SimOTA
+    targets, cascade stage inputs and FCOS top-k given to the card), every
+    parameter's gradient finite: ``simmod_loss`` with the IoU3D branch
+    (code size 11) plus ``fcos_loss``; ``joint_family_loss`` with
+    JOINT_MAX_GT boxes of DN queries through ``JointStreamPETRHead`` (its 6
+    cross-attention calls forward and backward on ``tc32``);
+    ``cascade_roi_loss``; ``yolox_loss`` after ``simota_assign``. Returns
+    the counts of each."""
+    from panacea_tpu_torch.perception import (cascade_roi, denoise, fcos_proposal, joint_head,
+                                              simmod, vestigial_train, yolox_head)
+    from panacea_tpu_torch.perception.head import init_memory
+
+    paths = {}
+    g = torch.Generator().manual_seed(SEED + 7)
+    boxes, labels = gt3d(torch, np, g, JOINT_MAX_GT)
+    boxes_list, labels_list = [boxes[0].numpy()], [labels[0].numpy()]
+    imgs, data = perception_window(torch, np, dev, 1)
+    img, frame = imgs[:, 0], {k: v[:, 0] for k, v in data.items()}
+    cpu_frame = {k: v.cpu() for k, v in frame.items()}
+
+    # SimMOD: the decoder's and the FCOS head's losses
+    cpu = draw_zoo(torch, simmod.SimMOD(num_proposal=SIMMOD_PROPOSALS,
+                                        head_cfg={"code_size": 11}), SEED + 8)
+    model = copy_to(cpu, dev)
+    box2d = [random_boxes2d(torch, g, (5,)).numpy() for _ in range(6)]
+    lab2d = [np.arange(5) % 10 for _ in range(6)]
+    dep2d = [np.linspace(5.0, 40.0, 5) for _ in range(6)]
+    matches = []
+    with torch.no_grad():
+        feats_c = cpu.extract_feats(img.cpu())
+        rpn_c = cpu.img_rpn_head(feats_c)
+        props_c = cpu.img_rpn_head.get_proposals(rpn_c, cpu_frame, 6)
+        outs_c = cpu.pts_bbox_head(feats_c, props_c["proposal_features"],
+                                   props_c["proposal_positions"], cpu_frame, PERCEPTION_HW,
+                                   proposal_scores=props_c["proposal_scores"])
+        sizes = [tuple(r["cls_score"].shape[-2:]) for r in rpn_c]
+        fcos_t = fcos_proposal.fcos_targets(sizes, model.img_rpn_head.strides, box2d, lab2d,
+                                            dep2d)
+        with host_matches(matches, replay=False):
+            want = simmod.simmod_loss(outs_c, boxes_list, labels_list, compute_loss_iou3d=True)
+        want.update(fcos_proposal.fcos_loss(rpn_c, fcos_t))
+    reset_counts(fa, gg)
+    feats_d = model.extract_feats(img)
+    rpn = model.img_rpn_head(feats_d)
+    with given_topk(torch, props_c["proposal_indices"]):
+        props = model.img_rpn_head.get_proposals(rpn, frame, 6)
+    outs = model.pts_bbox_head(feats_d, props["proposal_features"], props["proposal_positions"],
+                               frame, PERCEPTION_HW, proposal_scores=props["proposal_scores"])
+    with host_matches(matches, replay=True):
+        got = simmod.simmod_loss(outs, boxes_list, labels_list, compute_loss_iou3d=True)
+    got.update(fcos_proposal.fcos_loss(rpn, fcos_t))
+    (got["loss"] + sum(v for k, v in got.items() if k.startswith("fcos_"))).backward()
+    torch.cuda.synchronize()
+    paths["perception_simmod_train"] = counts = read_counts(fa, gg)
+    loss_record(torch, "perception_simmod_loss_card_vs_cpu", card, got, want, model, counts,
+                {"iou3d": True, "code_size": 11, "gt_boxes": JOINT_MAX_GT,
+                 "fcos_pos": float(fcos_t[4])})
+    del model, cpu, outs, rpn, feats_d
+    free(torch)
+
+    # the joint head with DN queries: forward and backward on tc32
+    model, cpu = joint_model(torch, dev, "Petr3D", "JointStreamPETRHead")
+    jdata = joint_data(torch, data, dev, 1, seed=SEED + 9)
+    jframe = {k: v[:, 0] for k, v in jdata.items()}
+    pack = denoise.prepare_dn(boxes, labels, num_query=6 * JOINT_PROPOSALS,
+                              num_propagated=model.num_propagated, memory_len=model.memory_len,
+                              pc_range=model.pc_range, scalar=10,
+                              generator=torch.Generator().manual_seed(SEED + 10))
+    pack_dev = denoise.DNPack(*(t.to(dev) if torch.is_tensor(t) else t for t in pack))
+    matches = []
+    with torch.no_grad():
+        outs_c, _, _ = cpu.train_frame(img.cpu(), init_memory(1, cpu.memory_len, cpu.embed_dims),
+                                       {k: v.cpu() for k, v in jframe.items()}, dn=pack)
+        with host_matches(matches, replay=False):
+            want = joint_head.joint_family_loss(outs_c, boxes_list, labels_list, dn_pack=pack,
+                                                pc_range=model.pc_range)
+    reset_counts(fa, gg)
+    with flash_shapes() as shapes:
+        t0 = time.perf_counter()
+        outs, _, _ = model.train_frame(img, init_memory(1, model.memory_len, model.embed_dims,
+                                                        device=dev), jframe, dn=pack_dev)
+        with host_matches(matches, replay=True):
+            got = joint_head.joint_family_loss(outs, boxes_list, labels_list, dn_pack=pack_dev,
+                                               pc_range=model.pc_range)
+        got["loss"].backward()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    paths["perception_joint_train"] = counts = read_counts(fa, gg)
+    layers = len(model.pts_bbox_head.transformer.decoder.layers)
+    sq = pack.pad_size + 6 * JOINT_PROPOSALS + model.num_propagated
+    want_shapes = {f"{sq}x{6 * (PERCEPTION_HW[0] // 8) * (PERCEPTION_HW[1] // 8)}": layers}
+    loss_record(torch, "perception_joint_loss_card_vs_cpu", card, got, want, model, counts,
+                {"dn_pad": pack.pad_size, "fwd_bwd_s": step_s, "flash_calls_by_shape":
+                 dict(shapes), "expected_flash_calls_by_shape": want_shapes})
+    if not (dict(shapes) == want_shapes and ztrain_counts_ok(counts, layers, layers)):
+        raise AssertionError(f"the joint head's DN step did not make {layers} tc32 forward and "
+                             f"backward launches at {want_shapes}: {counts} {dict(shapes)}")
+    del model, cpu, outs
+    free(torch)
+
+    # cascade RoI on the stride-16 level, the proposals near the boxes
+    gt2d = [random_boxes2d(torch, g, (8,)).numpy() for _ in range(6)]
+    gl2d = [np.arange(8) % 10 for _ in range(6)]
+    near = torch.as_tensor(np.stack([b[np.arange(ROI_BOXES) % 8] for b in gt2d]))
+    rois = (near + torch.randn(near.shape, generator=g) * 6.0).float()
+    valid = torch.ones(6, ROI_BOXES)
+    cpu = draw_zoo(torch, cascade_roi.CascadeRoIHead(), SEED + 11)
+    model = copy_to(cpu, dev)
+    with torch.no_grad():
+        outs_c = cpu(cpu_feats[1], rois, valid)
+        inputs = [rois.numpy()] + [b.numpy() for b in outs_c["stage_boxes"][:-1]]
+        want = vestigial_train.cascade_roi_loss(outs_c["stage_cls"], outs_c["stage_reg"], inputs,
+                                                valid.numpy(), gt2d, gl2d, 10)
+    reset_counts(fa, gg)
+    outs = model(feats[1], rois.to(dev), valid.to(dev))
+    got = vestigial_train.cascade_roi_loss(outs["stage_cls"], outs["stage_reg"], inputs,
+                                           valid.numpy(), gt2d, gl2d, 10)
+    got["loss"].backward()
+    torch.cuda.synchronize()
+    paths["perception_cascade_train"] = counts = read_counts(fa, gg)
+    loss_record(torch, "perception_cascade_loss_card_vs_cpu", card, got, want, model, counts)
+    del model, cpu, outs
+
+    # YOLOX after SimOTA on the CPU's outputs
+    cpu = draw_zoo(torch, yolox_head.YOLOXHead(), SEED + 12)
+    model = copy_to(cpu, dev)
+    sizes = [tuple(f.shape[-2:]) for f in cpu_feats[:3]]
+    priors = yolox_head.mlvl_priors(sizes, model.strides)
+    with torch.no_grad():
+        outs_c = cpu(cpu_feats[:3])
+        dec = yolox_head.bbox_decode(priors, outs_c["enc_bbox_preds"]).numpy()
+        targets = yolox_head.yolox_targets(
+            priors, outs_c["enc_cls_scores"].numpy(), outs_c["objectnesses"].numpy(), dec, gt2d,
+            gl2d, [(b[:, :2] + b[:, 2:]) / 2 for b in gt2d])
+        want = yolox_head.yolox_loss(outs_c, priors, targets, use_l1=True)
+    reset_counts(fa, gg)
+    outs = model(feats[:3])
+    got = yolox_head.yolox_loss(outs, priors, targets, use_l1=True)
+    sum(got.values()).backward()
+    torch.cuda.synchronize()
+    paths["perception_yolox_train"] = counts = read_counts(fa, gg)
+    loss_record(torch, "perception_yolox_loss_card_vs_cpu", card, got, want, model, counts,
+                {"simota_positives": float(targets[-1])})
+    return paths
+
+
+def rest_zoo_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
+    """Phase 18 (a) to (e). Returns the counts of its paths and the ``tc32``
+    forward and backward records at its new shapes."""
+    t0 = time.perf_counter()
+    recs = [check_flash(torch, F, fa, tol, dev, *shape, fp32=True) for shape in JOINT_FLASH]
+    for rec in recs:
+        if (rec["route"], rec["fp32_kernel"]) != ("fp32", "tc32"):
+            raise AssertionError(f"a new shape took route {rec['route']}, kernel "
+                                 f"{rec['fp32_kernel']}: {rec}")
+    bwd = [check_flash_bwd(torch, F, fa, tol, dev, *shape, merged_kv=False, fp32=True)
+           for shape in JOINT_BWD]
+    free(torch)
+    paths = simmod_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    joint_paths, seen = joint_phase(torch, np, dev, fa, gg, card)
+    paths.update(joint_paths)
+    # a shape the heads gave that JOINT_FLASH lacks (JointHead's 900 x 1668)
+    # is held against float64 here too, untimed
+    heads = {s for shapes in seen.values() for s in shapes}
+    tested = {f"{r['shape']['Sq']}x{r['shape']['Skv']}" for r in recs}
+    for shape in sorted(heads - tested):
+        sq, skv = map(int, shape.split("x"))
+        rec = check_flash(torch, F, fa, tol, dev, 1, sq, skv, 8, 32, timed=False, fp32=True)
+        if (rec["route"], rec["fp32_kernel"]) != ("fp32", "tc32"):
+            raise AssertionError(f"the joint heads' shape {shape} took route {rec['route']}, "
+                                 f"kernel {rec['fp32_kernel']}: {rec}")
+    free(torch)
+    feats, cpu_feats = fpn_feats(torch, np, dev)
+    paths["perception_cascade_yolox"] = cascade_yolox_phase(torch, np, dev, fa, gg, card, feats,
+                                                           cpu_feats)
+    free(torch)
+    paths.update(rest_losses_phase(torch, np, dev, fa, gg, card, feats, cpu_feats))
+    del feats, cpu_feats
+    free(torch)
+    log({"phase": "perception_rest_zoo_total", "seconds": time.perf_counter() - t0})
+    return {"paths": paths, "flash": recs, "bwd": bwd}
+
+
 # the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
 BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
            ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
@@ -3348,9 +3965,9 @@ def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
 def main(mode: str = "all") -> int:
     """``mode``: "all" (every phase), "kernels" (phases 1 and 2),
     "perception" (phase 1, the flash check at the perception shape and
-    phases 11, 14 and 15), "metrics" (phase 1 and phase 12, on the tree of
+    phases 11 and 14 to 18), "metrics" (phase 1 and phase 12, on the tree of
     a 2-step full-width generation run), "variants" (phase 1 and phase 13)
-    or "zoo" (phase 1 and phases 15 to 17)."""
+    or "zoo" (phase 1 and phases 15 to 18)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3408,6 +4025,8 @@ def main(mode: str = "all") -> int:
         ztrain_phase(torch, F, np, dev, fa, gg, tol, card)
         free(torch)
         eva_phase(torch, F, np, dev, fa, gg, tol, card)
+        free(torch)
+        rest_zoo_phase(torch, F, np, dev, fa, gg, tol, card)
         log({"phase": "perception_only", "ok": True})
         return 0
     if mode == "zoo":
@@ -3416,6 +4035,8 @@ def main(mode: str = "all") -> int:
         ztrain_phase(torch, F, np, dev, fa, gg, tol, card)
         free(torch)
         eva_phase(torch, F, np, dev, fa, gg, tol, card)
+        free(torch)
+        rest_zoo_phase(torch, F, np, dev, fa, gg, tol, card)
         log({"phase": "zoo_only", "ok": True})
         return 0
     if mode == "variants":
@@ -3627,6 +4248,9 @@ def main(mode: str = "all") -> int:
     eva = eva_phase(torch, F, np, dev, fa, gg, tol, card)
     paths.update(eva["paths"])
     free(torch)
+    rest = rest_zoo_phase(torch, F, np, dev, fa, gg, tol, card)
+    paths.update(rest["paths"])
+    free(torch)
     paths["sampler_dpmpp2m"] = metrics_phase(torch, np, dev, fa, gg, card, gen_tree,
                                              euler_s_per_step)
     gen_dir.cleanup()
@@ -3652,7 +4276,7 @@ def main(mode: str = "all") -> int:
     flash32 = [r for r in flash32 if r["shape"]["D"] != 32]
     perception_paths = ("perception", "perception_cli", "perception_train",
                         "perception_train_no_dn", "perception_train_streaming") + tuple(
-        zoo["paths"]) + tuple(ztrain["paths"]) + tuple(eva["paths"])
+        zoo["paths"]) + tuple(ztrain["paths"]) + tuple(eva["paths"]) + tuple(rest["paths"])
     generation_paths = tuple(p for p in paths if p not in perception_paths)
 
     def summary(name, kernel, source, replaces, recs, main, path, paths_of=tuple(paths),
@@ -3676,9 +4300,9 @@ def main(mode: str = "all") -> int:
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
     d32, d32_train = flash32_perception, ptrain["fwd"]
-    d32_recs = flash32_d32 + [ptrain["fwd"]] + zoo["flash"] + eva["flash"]
+    d32_recs = flash32_d32 + [ptrain["fwd"]] + zoo["flash"] + eva["flash"] + rest["flash"]
     bwd, bwd_b1 = ztrain["bwd"][0], flash_bwd32_d32[1]
-    bwd32_d32 = flash_bwd32_d32 + [ptrain["bwd"]] + ztrain["bwd"]
+    bwd32_d32 = flash_bwd32_d32 + [ptrain["bwd"]] + ztrain["bwd"] + rest["bwd"]
     bwd_keys = ("ms", "ms_device", "plain_ms", "library_ms", "library_ms_device", "bound_ms",
                 "bound_fma_ms", "host_us")
     dense_bwd = [{"worst_ratio": max(r["worst_ratio"].values()), "shape": r["shape"],
@@ -3727,6 +4351,10 @@ def main(mode: str = "all") -> int:
                                                         "bound_ms", "bound_fma_ms", "host_us",
                                                         "worst_ratio")}
                                      for r in eva["flash"]],
+                joint_shapes=[{k: r[k] for k in ("shape", "ms", "ms_device", "plain_ms",
+                                                 "library_ms", "library_ms_device", "bound_ms",
+                                                 "bound_fma_ms", "host_us", "worst_ratio")}
+                              for r in rest["flash"]],
                 dense_bwd_shapes=dense_bwd),
         summary("geglu_fp32", "geglu", geglu_src, geglu_tpu, geglu32, geglu32[0],
                 "fp32_engine", entry="f32::pn_geglu_3xtf32_fwd (3xTF32 wgmma, TMA)",
@@ -3765,7 +4393,9 @@ def main(mode: str = "all") -> int:
                 b1_shape=bwd_b1["shape"], **{f"b1_{k}": bwd_b1[k] for k in bwd_keys},
                 no_dn_shape=ptrain["bwd"]["shape"],
                 **{f"no_dn_{k}": ptrain["bwd"][k] for k in bwd_keys},
-                dense_shapes=dense_bwd),
+                dense_shapes=dense_bwd,
+                joint_shapes=[{"worst_ratio": max(r["worst_ratio"].values()), "shape": r["shape"],
+                               **{k: r[k] for k in bwd_keys}} for r in rest["bwd"]]),
         summary("geglu_bwd", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd, geglu_bwd[0],
                 "train"),
         summary("geglu_bwd_fp32", "geglu_bwd", geglu_src, geglu_tpu, geglu_bwd32,

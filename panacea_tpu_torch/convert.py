@@ -22,7 +22,7 @@ are mapped to the reference's here alone.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -495,6 +495,17 @@ def fpn_map(prefix: str, path: Path, num_laterals: int, num_outs: int) -> Dict[s
     return m
 
 
+def _deformable(ref: str, path: Path) -> Dict[str, Entry]:
+    """DeformableFeatureAggregation's names."""
+    m = {}
+    for name, p in (("weights_fc", "weights_fc"), ("output_proj", "output_proj"),
+                    ("learnable_fc", "learnable_fc"), ("cam_embed.0", "cam_embed_fc1"),
+                    ("cam_embed.2", "cam_embed_fc2")):
+        m.update(_dense(f"{ref}.{name}", path + (p,)))
+    m.update(_norm_flat(f"{ref}.cam_embed.4", path + ("cam_embed_ln",)))
+    return m
+
+
 def sparse_head_map(prefix: str, path: Path, num_layers: int,
                     proposal_queries: bool = False) -> Dict[str, Entry]:
     """SparseHead's names; with ``proposal_queries`` also SparseHeadv3's
@@ -530,13 +541,8 @@ def sparse_head_map(prefix: str, path: Path, num_layers: int,
         m.update(_mln(f"{prefix}.{ref}", path + (p,)))
     for i in range(num_layers):
         ref = f"{prefix}.transformer.decoder.layers.{i}"
-        d = path + (f"cross_attn_{i}",)
         m.update(_dense(f"{ref}.attentions.0.attn.out_proj", path + (f"self_attn_{i}", "out_proj")))
-        for name, p in (("weights_fc", "weights_fc"), ("output_proj", "output_proj"),
-                        ("learnable_fc", "learnable_fc"), ("cam_embed.0", "cam_embed_fc1"),
-                        ("cam_embed.2", "cam_embed_fc2")):
-            m.update(_dense(f"{ref}.attentions.1.{name}", d + (p,)))
-        m.update(_norm_flat(f"{ref}.attentions.1.cam_embed.4", d + ("cam_embed_ln",)))
+        m.update(_deformable(f"{ref}.attentions.1", path + (f"cross_attn_{i}",)))
         m.update(_dense(f"{ref}.ffns.0.layers.0.0", path + (f"ffn_{i}", "fc1")))
         m.update(_dense(f"{ref}.ffns.0.layers.1", path + (f"ffn_{i}", "fc2")))
         for ni in range(3):
@@ -703,6 +709,270 @@ def _vovnet_plan(flat: Dict[Path, np.ndarray]):
     layers = len({p[2] for p in flat if p[:2] == ("backbone", "stage2_block0")
                   and p[2].startswith("conv")})
     return blocks, layers
+
+
+# --------------------------------------------------------------------------
+# The rest of the perception zoo: SimMOD (the FCOS proposals, the two-stage
+# attention), the joint heads, cascade RoI and YOLOX. ``yolox_head_map`` and
+# ``fcos_proposal_map`` invert the JAX converter's (panacea_tpu/utils/
+# convert.py:1276-1387); the other names are the reference files' that the
+# JAX modules cite, with no JAX mapping to check them against.
+# --------------------------------------------------------------------------
+
+
+class _FcFromHWC:
+    """flax Dense (h w C, O) on a channels-last flattened RoI -> torch
+    Linear (O, C h w) on mmdet's channel-major flattening."""
+
+    def __init__(self, channels: int, roi_hw: Tuple[int, int]):
+        self.c, (self.h, self.w) = channels, roi_hw
+
+    def __call__(self, k: np.ndarray) -> np.ndarray:
+        return k.reshape(self.h, self.w, self.c, -1).transpose(3, 2, 0, 1).reshape(k.shape[1], -1)
+
+    def inverse(self, w: np.ndarray) -> np.ndarray:
+        return w.reshape(-1, self.c, self.h, self.w).transpose(2, 3, 1, 0).reshape(-1, w.shape[0])
+
+
+def yolox_head_map(prefix: str, path: Path, num_levels: int = 3,
+                   stacked_convs: int = 2) -> Dict[str, Entry]:
+    """YOLOXHeadCustom's names (the inverse of ``build_yolox_head_mapping``)."""
+    m = {}
+    for li in range(num_levels):
+        for i in range(stacked_convs):
+            for fam, nm in (("cls_convs", "cls"), ("reg_convs", "reg")):
+                ref = f"{prefix}.multi_level_{fam}.{li}.{i}"
+                m[f"{ref}.conv.weight"] = (path + (f"l{li}_{nm}{i}_conv", "kernel"), _conv2d)
+                m.update(_bn(f"{ref}.bn", path + (f"l{li}_{nm}{i}_bn",)))
+        for pred in ("cls", "reg", "obj", "centers2d"):
+            m.update(_conv(f"{prefix}.multi_level_conv_{pred}.{li}",
+                           path + (f"l{li}_conv_{pred}",)))
+    return m
+
+
+def fcos_proposal_map(prefix: str, path: Path, stacked_convs: int = 4,
+                      cls_branch=(128, 64), centerness_branch=(64,),
+                      reg_keys=("offset", "depth", "size", "rot", "velo"),
+                      reg_branch=((128, 64), (128, 64), (64,), (64,), ()),
+                      dir_branch=(64,)) -> Dict[str, Entry]:
+    """FCOSMono3D_ProposalHead's names (the inverse of
+    ``build_fcos_proposal_mapping``); the per-level scales are carried by
+    ``fcos_scales_from_jax``, as the JAX converter's ``pack_fcos_scales``."""
+    m = {}
+
+    def branch(ref, p, n):
+        for i in range(n):
+            m[f"{ref}.{i}.conv.weight"] = (p + (f"conv{i}", "kernel"), _conv2d)
+            m[f"{ref}.{i}.gn.weight"] = (p + (f"gn{i}", "scale"), _none)
+            m[f"{ref}.{i}.gn.bias"] = (p + (f"gn{i}", "bias"), _none)
+
+    for name, n in (("cls_convs", stacked_convs), ("reg_convs", stacked_convs),
+                    ("conv_cls_prev", len(cls_branch)),
+                    ("conv_centerness_prev", len(centerness_branch)),
+                    ("conv_dir_cls_prev", len(dir_branch))):
+        branch(f"{prefix}.{name}", path + (name,), n)
+    for k, br in zip(reg_keys, reg_branch):
+        if len(br):
+            branch(f"{prefix}.conv_reg_prevs.{k}", path + (f"conv_reg_prev_{k}",), len(br))
+        m.update(_conv(f"{prefix}.conv_regs.{k}", path + (f"conv_reg_{k}",)))
+    for name in ("conv_cls", "conv_centerness", "conv_dir_cls"):
+        m.update(_conv(f"{prefix}.{name}", path + (name,)))
+    return m
+
+
+def fcos_scales_from_jax(scales: np.ndarray, prefix: str) -> Dict[str, torch.Tensor]:
+    """The JAX head's packed (L, 2) ``scales`` -> ``scales.{l}.{offset,depth}.scale``."""
+    return {f"{prefix}.scales.{li}.{attr}.scale": torch.tensor(float(scales[li, ci]))
+            for li in range(len(scales)) for ci, attr in enumerate(("offset", "depth"))}
+
+
+def twostage_attn_map(prefix: str, path: Path, pos_encoder_linear: bool = False
+                      ) -> Dict[str, Entry]:
+    """TwoStageDetr3DCrossAtten's names (twostage_detr3d_transformer.py:283-300)."""
+    m = _dense(f"{prefix}.attention_weights", path + ("attention_weights",))
+    m.update(_dense(f"{prefix}.output_proj", path + ("output_proj",)))
+    if pos_encoder_linear:
+        m.update(_dense(f"{prefix}.position_encoder", path + ("position_encoder",)))
+        return m
+    for i, p in ((0, "pos_fc1"), (3, "pos_fc2")):
+        m.update(_dense(f"{prefix}.position_encoder.{i}", path + (p,)))
+    for i, p in ((1, "pos_ln1"), (4, "pos_ln2")):
+        m.update(_norm_flat(f"{prefix}.position_encoder.{i}", path + (p,)))
+    return m
+
+
+def simmod_head_map(prefix: str, path: Path, num_layers: int, cross_attn: str = "deformable",
+                    with_box_refine: bool = True, num_reg_fcs: int = 2, num_input_proj: int = 2,
+                    proposal_cam_embeddings: bool = False,
+                    proposal_level_embeddings: bool = False) -> Dict[str, Entry]:
+    """SimMODHead's names (simmod_head.py:107-386); the packed self-attention
+    is in ``simmod_packed`` (both carried by ``simmod_state_dict_from_jax``)."""
+    m = {}
+    for i in range(num_input_proj):
+        m.update(_dense(f"{prefix}.input_proj.{3 * i}", path + (f"input_proj_{i}",)))
+        m.update(_norm_flat(f"{prefix}.input_proj.{3 * i + 1}", path + (f"input_proj_ln_{i}",)))
+    m.update(_dense(f"{prefix}.pos_proj", path + ("pos_proj",)))
+    if proposal_cam_embeddings:
+        m[f"{prefix}.proposal_cam_embeds"] = (path + ("proposal_cam_embeds",), _none)
+    if proposal_level_embeddings:
+        m[f"{prefix}.proposal_level_embeds"] = (path + ("proposal_level_embeds",), _none)
+    for i in range(num_layers):
+        ref = f"{prefix}.transformer.decoder.layers.{i}"
+        m.update(_dense(f"{ref}.attentions.0.attn.out_proj", path + (f"self_attn_{i}", "out_proj")))
+        cross = (twostage_attn_map if cross_attn == "twostage" else _deformable)
+        m.update(cross(f"{ref}.attentions.1", path + (f"cross_attn_{i}",)))
+        m.update(_dense(f"{ref}.ffns.0.layers.0.0", path + (f"ffn_{i}", "fc1")))
+        m.update(_dense(f"{ref}.ffns.0.layers.1", path + (f"ffn_{i}", "fc2")))
+        for ni in range(3):
+            m.update(_norm_flat(f"{ref}.norms.{ni}", path + (f"norm_{3 * i + ni}",)))
+    for bi in range(num_layers if with_box_refine else 1):
+        sfx = f"_{bi}" if with_box_refine else ""
+        for fi in range(num_reg_fcs):
+            m.update(_dense(f"{prefix}.cls_branches.{bi}.{3 * fi}",
+                            path + (f"cls_branch{sfx}_fc{fi}",)))
+            m.update(_norm_flat(f"{prefix}.cls_branches.{bi}.{3 * fi + 1}",
+                                path + (f"cls_branch{sfx}_ln{fi}",)))
+            m.update(_dense(f"{prefix}.reg_branches.{bi}.{2 * fi}",
+                            path + (f"reg_branch{sfx}_fc{fi}",)))
+        m.update(_dense(f"{prefix}.cls_branches.{bi}.{3 * num_reg_fcs}",
+                        path + (f"cls_branch{sfx}_out",)))
+        m.update(_dense(f"{prefix}.reg_branches.{bi}.{2 * num_reg_fcs}",
+                        path + (f"reg_branch{sfx}_out",)))
+    return m
+
+
+def simmod_packed(prefix: str, path: Path, num_layers: int):
+    """SimMODHead's packed self-attentions: (reference name, flax path) pairs."""
+    return [(f"{prefix}.transformer.decoder.layers.{i}.attentions.0.attn",
+             path + (f"self_attn_{i}",)) for i in range(num_layers)]
+
+
+def simmod_map(num_layers: int, stage_blocks=(3, 4, 6, 3), num_levels: int = 4,
+               fcos_cfg: Optional[dict] = None, **head_kw) -> Dict[str, Entry]:
+    """The SimMOD driver: ``img_backbone``, ``img_neck`` (3 laterals),
+    ``img_rpn_head`` (the JAX tree's ``img_roi_head``) and ``pts_bbox_head``."""
+    fcos = {k: v for k, v in dict(fcos_cfg or {}).items()
+            if k in ("stacked_convs", "cls_branch", "centerness_branch", "reg_keys",
+                     "reg_branch", "dir_branch")}
+    m = resnet50_map("img_backbone", ("backbone",), stage_blocks)
+    m.update(fpn_map("img_neck", ("neck",), 3, num_levels))
+    m.update(fcos_proposal_map("img_rpn_head", ("img_roi_head",), **fcos))
+    m.update(simmod_head_map("pts_bbox_head", ("pts_bbox_head",), num_layers, **head_kw))
+    return m
+
+
+def query_roi_head_map(prefix: str, path: Path, num_branch_convs: int = 2,
+                       num_branch_fcs: int = 2, first_conv: bool = True) -> Dict[str, Entry]:
+    """QueryRoIHeadv2's names (joint_streampetr_head.py:37-233);
+    ``first_conv``: the first branch conv is a ConvModule (the input width
+    differs from conv_out_channels), else every one is a BasicBlock."""
+    m = {}
+    for i in range(num_branch_convs):
+        ref = f"{prefix}.branch_convs.{i}"
+        if i == 0 and first_conv:
+            m[f"{ref}.conv.weight"] = (path + ("branch_conv0", "kernel"), _conv2d)
+            m.update(_bn(f"{ref}.bn", path + ("branch_bn0",)))
+            continue
+        for k in (1, 2):
+            m[f"{ref}.conv{k}.weight"] = (path + (f"branch_block{i}", f"conv{k}", "kernel"),
+                                          _conv2d)
+            m.update(_bn(f"{ref}.bn{k}", path + (f"branch_block{i}", f"bn{k}")))
+    for k in (0, 2):
+        m.update(_dense(f"{prefix}.geo_embed.{k}", path + (f"geo_embed_{k}",)))
+    for i in range(num_branch_fcs):
+        m.update(_dense(f"{prefix}.branch_fcs.{i}", path + (f"branch_fc{i}",)))
+    for name in ("center_head", "depth_head"):
+        m.update(_dense(f"{prefix}.{name}", path + (name,)))
+    return m
+
+
+def joint_streampetr_head_map(prefix: str, path: Path, num_layers: int,
+                              **query_kw) -> Dict[str, Entry]:
+    """JointStreamPETRHead: ``petr_head_map`` and ``query_head.*``; its
+    packed attentions are ``petr_packed``'s (both carried by
+    ``joint_head_state_dict_from_jax``)."""
+    m = petr_head_map(prefix, path, num_layers)
+    m.update(query_roi_head_map(f"{prefix}.query_head", path + ("query_head",), **query_kw))
+    return m
+
+
+def joint_head_map(prefix: str, path: Path, num_layers: int, **query_kw) -> Dict[str, Entry]:
+    """JointHead ('seed' SparseHeadv4): ``sparse_head_map`` and ``query_head.*``;
+    its packed self-attentions are ``petr_packed``'s with ``cross`` False
+    (both carried by ``joint_head_state_dict_from_jax``)."""
+    m = sparse_head_map(prefix, path, num_layers)
+    m.update(query_roi_head_map(f"{prefix}.query_head", path + ("query_head",), **query_kw))
+    return m
+
+
+def petr_packed(prefix: str, path: Path, num_layers: int, cross: bool = True):
+    """The packed attentions of a PETR head (self and dense cross) or, with
+    ``cross`` False, of a sparse head: (reference name, flax path) pairs."""
+    kinds = (("attentions.0", "self_attn"),) + ((("attentions.1", "cross_attn"),) if cross else ())
+    return [(f"{prefix}.transformer.decoder.layers.{i}.{ref}.attn", path + (f"{name}_{i}",))
+            for i in range(num_layers) for ref, name in kinds]
+
+
+def cascade_roi_map(prefix: str, path: Path, num_stages: int = 3, in_channels: int = 256,
+                    roi_size: Tuple[int, int] = (7, 7)) -> Dict[str, Entry]:
+    """mmdet CascadeRoIHead's ``bbox_head.{s}`` Shared2FCBBoxHead names; the
+    first shared FC's input re-ordered from the JAX head's channels-last
+    flattening to mmdet's channel-major one."""
+    m = {}
+    for s in range(num_stages):
+        ref, p = f"{prefix}.bbox_head.{s}", path + (f"bbox_head_{s}",)
+        m[f"{ref}.shared_fcs.0.weight"] = (p + ("shared_fc0", "kernel"),
+                                           _FcFromHWC(in_channels, roi_size))
+        m[f"{ref}.shared_fcs.0.bias"] = (p + ("shared_fc0", "bias"), _none)
+        m.update(_dense(f"{ref}.shared_fcs.1", p + ("shared_fc1",)))
+        for name in ("fc_cls", "fc_reg"):
+            m.update(_dense(f"{ref}.{name}", p + (name,)))
+    return m
+
+
+def _with_packed(flat: Dict[Path, np.ndarray], mapping: Dict[str, Entry], packed
+                 ) -> Dict[str, torch.Tensor]:
+    """``apply_map``, and each (reference name, flax path) of ``packed`` as
+    a packed attention's ``in_proj`` (``_packed_qkv``)."""
+    sd = apply_map(flat, mapping)
+    for ref, path in packed:
+        sd.update(_packed_qkv(flat, path, ref))
+    return sd
+
+
+def simmod_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 6,
+                               stage_blocks=(3, 4, 6, 3), num_levels: int = 4,
+                               fcos_cfg: Optional[dict] = None, **head_kw
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX ``SimMOD``'s parameter tree -> the port's ``SimMOD`` state
+    dict (``simmod_map``), each decoder self-attention's q/k/v packed as
+    ``in_proj`` and the FCOS head's (L, 2) ``scales`` as its Scale modules;
+    ``head_kw`` as ``simmod_head_map`` takes them."""
+    flat = flatten(params)
+    sd = _with_packed(flat, simmod_map(num_layers, stage_blocks, num_levels, fcos_cfg, **head_kw),
+                      simmod_packed("pts_bbox_head", ("pts_bbox_head",), num_layers))
+    scales = flat.get(("img_roi_head", "scales"))
+    if scales is not None:
+        sd.update(fcos_scales_from_jax(scales, "img_rpn_head"))
+    return sd
+
+
+def joint_head_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 6,
+                                   head: str = "JointStreamPETRHead", **query_kw
+                                   ) -> Dict[str, torch.Tensor]:
+    """The tree of a JAX ``JointStreamPETRHead`` (or, with ``head``
+    'JointHead', a ``JointHead``) -> the port head's state dict, its
+    packed attentions' q/k/v as ``in_proj``; ``query_kw`` as
+    ``query_roi_head_map`` takes them."""
+    if head == "JointStreamPETRHead":
+        mapping = joint_streampetr_head_map("h", (), num_layers, **query_kw)
+    elif head == "JointHead":
+        mapping = joint_head_map("h", (), num_layers, **query_kw)
+    else:
+        raise ValueError(f"no joint head {head!r}")
+    sd = _with_packed(flatten(params), mapping,
+                      petr_packed("h", (), num_layers, cross=head == "JointStreamPETRHead"))
+    return {k[len("h."):]: v for k, v in sd.items()}
 
 
 def streampetr_state_dict_from_jax(params: Mapping[str, Any], num_layers: int = 6,

@@ -11,4 +11,23 @@ EVA-02, the dense PETR heads, the proposal-query heads, FocalHead and the
 DETR3D family's loss). Module names are the
 reference's mmdet ones (``img_backbone``, ``img_neck``, ``pts_bbox_head``,
 ``img_roi_head``), so a StreamPETR ``.pth`` loads without a converter.
+
+The rest of the zoo (SimMOD with its FCOS proposals and two-stage
+attention, the joint 2D-to-3D heads, cascade RoI, YOLOX, their losses,
+the vector-map AP and the eval filters) is exported below.
 """
+
+from panacea_tpu_torch.perception import (
+    cascade_roi,
+    eval_filters,
+    fcos_proposal,
+    joint_head,
+    simmod,
+    twostage_attn,
+    vector_metrics,
+    vestigial_train,
+    yolox_head,
+)
+
+__all__ = ["cascade_roi", "eval_filters", "fcos_proposal", "joint_head", "simmod",
+           "twostage_attn", "vector_metrics", "vestigial_train", "yolox_head"]

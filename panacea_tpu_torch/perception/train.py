@@ -66,16 +66,27 @@ def _bbox_cost_np(bbox_preds: np.ndarray, gt_norm: np.ndarray,
     return np.abs(p[:, None] - g[None, :]).sum(-1)
 
 
+def hungarian_match(cls_logits: np.ndarray, bbox_preds: np.ndarray, gt_norm: np.ndarray,
+                    gt_labels: np.ndarray, cls_weight: float, bbox_weight: float):
+    """One image's matching (HungarianAssigner3D): the focal classification
+    cost and the code-weighted L1 of the first 8 box dims, cls_logits (Q, C),
+    bbox_preds (Q, 10), gt_norm (G, 10), gt_labels (G,). Returns (rows,
+    cols) of ``linear_sum_assignment``."""
+    from scipy.optimize import linear_sum_assignment
+
+    mc = np.asarray(CODE_WEIGHTS, np.float32)
+    cost = (cls_weight * _focal_cost_np(cls_logits, gt_labels)
+            + bbox_weight * _bbox_cost_np(bbox_preds, np.nan_to_num(gt_norm), mc))
+    return linear_sum_assignment(np.nan_to_num(cost))
+
+
 def make_batched_assigner(pc_range, num_classes: int, cls_weight: float, bbox_weight: float):
     """The host function (cls (N, Q, C), bbox (N, Q, 10), gt_norm (N, G, 10),
     gt_labels (N, G) -1-padded) -> per-query targets (labels_q (N, Q) int32,
     gt_norm_q (N, Q, 10), mask_q (N, Q), asg_q (N, Q) the matched gt's index
     in G, num_pos)."""
-    mc = np.asarray(CODE_WEIGHTS, np.float32)
 
     def assign(cls_logits, bbox_preds, gt_norm, gt_labels):
-        from scipy.optimize import linear_sum_assignment
-
         cls_logits = np.asarray(cls_logits, np.float32)
         bbox_preds = np.asarray(bbox_preds, np.float32)
         gt_norm = np.asarray(gt_norm, np.float32)
@@ -94,9 +105,8 @@ def make_batched_assigner(pc_range, num_classes: int, cls_weight: float, bbox_we
             orig_idx = np.nonzero(valid)[0]
             gl = gt_labels[bi][valid].astype(np.int64)
             gn = gt_norm[bi][valid]
-            cost = (cls_weight * _focal_cost_np(cls_logits[bi], gl)
-                    + bbox_weight * _bbox_cost_np(bbox_preds[bi], np.nan_to_num(gn), mc))
-            rows, cols = linear_sum_assignment(np.nan_to_num(cost))
+            rows, cols = hungarian_match(cls_logits[bi], bbox_preds[bi], gn, gl, cls_weight,
+                                         bbox_weight)
             labels_q[bi, rows] = gl[cols]
             gt_norm_q[bi, rows] = gn[cols]
             mask_q[bi, rows] = 1.0
@@ -134,19 +144,31 @@ def hungarian_targets(assign, cls_all: torch.Tensor, bbox_all: torch.Tensor,
                             asg_q.reshape(n_layers, b, q))
 
 
+def detection_layer_losses(cls_all: torch.Tensor, bbox_all: torch.Tensor,
+                           labels: torch.Tensor, gt_norm_q: torch.Tensor, mask_q: torch.Tensor,
+                           num_classes: int = 10, bg_cls_weight: float = 0.0):
+    """Each layer's focal sum over max(num_pos + bg_cls_weight num_neg, 1)
+    and code-weighted L1 (an element whose target is not finite left out)
+    over max(num_pos, 1), unweighted: two (L,) tensors. labels (L, B, Q),
+    gt_norm_q (L, B, Q, 10), mask_q (L, B, Q) 1 where matched."""
+    n_pos = mask_q.sum((1, 2))                                      # (L,)
+    n_neg = mask_q[0].numel() - n_pos
+    cls_l = sigmoid_focal_loss(cls_all, labels, num_classes).sum((1, 2)) / (
+        n_pos + bg_cls_weight * n_neg).clamp(min=1.0)
+    diff = masked_l1(bbox_all[..., :10], gt_norm_q, CODE_WEIGHTS)
+    return cls_l, (diff.sum(-1) * mask_q).sum((1, 2)) / n_pos.clamp(min=1.0)
+
+
 def detection_loss(cls_all: torch.Tensor, bbox_all: torch.Tensor, tgt: HungarianTargets,
                    num_classes: int = 10, cls_weight: float = 2.0,
                    bbox_weight: float = 0.25) -> Dict[str, torch.Tensor]:
     """Per layer focal and code-weighted L1 over the matched count, summed
     over the layers (the mmdet loss dict: loss_cls + d0..d(L-2).loss_cls)."""
     dev = cls_all.device
-    labels = torch.as_tensor(tgt.labels, dtype=torch.long, device=dev)
-    gt_norm_q = torch.as_tensor(tgt.gt_norm, device=dev)
-    mask_q = torch.as_tensor(tgt.mask, device=dev)
-    n_pos = mask_q.sum((1, 2)).clamp(min=1.0)                      # (L,)
-    cls_l = sigmoid_focal_loss(cls_all, labels, num_classes).sum((1, 2)) / n_pos
-    diff = masked_l1(bbox_all, gt_norm_q, CODE_WEIGHTS)
-    bbox_l = (diff.sum(-1) * mask_q).sum((1, 2)) / n_pos
+    cls_l, bbox_l = detection_layer_losses(
+        cls_all, bbox_all, torch.as_tensor(tgt.labels, dtype=torch.long, device=dev),
+        torch.as_tensor(tgt.gt_norm, device=dev), torch.as_tensor(tgt.mask, device=dev),
+        num_classes)
     return {"loss_cls": cls_weight * cls_l.sum(), "loss_bbox": bbox_weight * bbox_l.sum()}
 
 

@@ -65,14 +65,33 @@ def draw(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     return module.eval()
 
 
-def to_jax(module: torch.nn.Module, mapping, prefix: str = "n."):
+def to_jax(module: torch.nn.Module, mapping, prefix: str = "n.", packed=(), carried=()):
     """The flax tree of ``module``'s weights through ``mapping`` (reference
-    names under ``prefix``). Every name of the module must be mapped."""
+    names under ``prefix``; a transform that is no layout change of
+    ``convert`` carries its own ``inverse``), and each (reference name, flax
+    path) of ``packed``, a packed attention's ``in_proj`` split into the
+    q/k/v Dense layers. Every name of the module must be mapped, or be
+    one of ``carried``, which the caller carries itself."""
     sd = {prefix + k: v.detach().numpy() for k, v in module.state_dict().items()}
-    unmapped = set(sd) - set(mapping)
+    tree = {}
+    for ref, path in packed:
+        w, b = sd.pop(f"{ref}.in_proj_weight"), sd.pop(f"{ref}.in_proj_bias")
+        for name, wi, bi in zip(("q_proj", "k_proj", "v_proj"), np.split(w, 3), np.split(b, 3)):
+            tree[path + (name, "kernel")], tree[path + (name, "bias")] = wi.T, bi
+    unmapped = set(sd) - set(mapping) - set(carried)
     assert not unmapped, sorted(unmapped)[:5]
-    return unflatten_dict({path: _INVERSE[t](sd[ref]) for ref, (path, t) in mapping.items()
-                           if ref in sd})
+    tree.update({path: (_INVERSE[t] if t in _INVERSE else t.inverse)(sd[ref])
+                 for ref, (path, t) in mapping.items() if ref in sd})
+    return unflatten_dict(tree)
+
+
+def assert_same_state(sd, module: torch.nn.Module) -> None:
+    """``sd`` holds exactly ``module``'s state: the same names, shapes and
+    values."""
+    want = module.state_dict()
+    assert sorted(sd) == sorted(want), sorted(set(sd) ^ set(want))[:5]
+    for k, v in want.items():
+        assert sd[k].shape == v.shape and torch.equal(sd[k], v), k
 
 
 def from_jax(module: torch.nn.Module, params, mapping, prefix: str = "n."):
