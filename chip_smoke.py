@@ -7,6 +7,7 @@
     python3 chip_smoke.py --metrics      # phase 1, phase 12
     python3 chip_smoke.py --variants     # phase 1, phase 13
     python3 chip_smoke.py --zoo          # phase 1, phases 15 to 18
+    python3 chip_smoke.py --dist         # phase 1, phase 19
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -213,6 +214,32 @@ Phases, in order; any failure exits non-zero:
      launches), ``cascade_roi_loss`` and ``yolox_loss`` after SimOTA: each
      loss term card against CPU (``LOSS_TOL``, the CPU's host assignments
      given to the card), every gradient finite.
+ 19. data parallelism (``panacea_tpu_torch/parallel``): each item starts a
+     CLI through ``scripts/dist_rank.py`` under ``python -m
+     torch.distributed.run --standalone``; every rank must exit 0 and print
+     its report (rank, world, backend, device, launch counters, times, peak
+     memory) and import no JAX. (a) the inference CLI at full width, one
+     clip a rank, 2 steps, on 2 ranks sharing the card over gloo
+     (``PANACEA_DIST_BACKEND=gloo``): 21 flash and 69 GEGLU launches per
+     network evaluation on each rank, each rank's sampled latents against
+     this process's ``log_images`` for the same clip and generator
+     (``SMALL_TOL``), s/clip per rank with the card shared; (b) the same
+     on one NCCL rank; (c) the generator's trainer at full width in
+     ``spatial``, ``--dp 2 --bs 2``, 2 steps, on 2 ranks over gloo against
+     one process of ``--bs 2`` (``--dp 1``, a group of one over NCCL): the
+     losses and the sampled parameters' updates (``SMALL_TOL``), both
+     ranks' parameters equal, per rank s/step with its ``allreduce``
+     phase, the bytes all-reduced a step, peak memory, 42 / 21 / 138 / 69
+     launches a step; (d) the detector's trainer at the window recipe's full
+     width, ``--batch 1`` on 2 ranks over gloo against ``--batch 2`` in one
+     process, GridMask, DN and the history jitter off: the loss terms and
+     the trained parameters (``PERCEPTION_TOL``), the first step's update
+     (``DIST_UPDATE_TOL``), both ranks' parameters equal, 48 ``tc32``
+     forward and 6 backward launches a step; (e) the synthetic perception
+     eval at full width on 2 ranks over gloo: rank 0's merged metrics equal one
+     process's, its predictions within ``PERCEPTION_TOL``. The runs share
+     the card in three groups: (a) with (d) and (e); (c)'s 2 ranks with
+     (b); (c)'s reference while this process samples (a)'s.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -362,9 +389,31 @@ LPIPS_PAIRS = 4
 # the VAE's losses in fp32, card against CPU: the largest difference over the
 # largest value (a scalar's relative difference)
 LOSS_TOL = 1e-3
+# phase 19: the CLIs under torchrun. Inference at full width, 2 steps a clip;
+# the generator's trainer at full width in ``spatial``, 2 steps; the window
+# recipe's detector without DN, whose grad frame then takes the fp32 flash
+# forward and backward: 7 history frames x 6 layers + 6 forward and 6
+# backward launches a step, all tc32. DIST_TIMEOUT bounds each command
+DIST_STEPS, DIST_TRAIN_STEPS = 2, 2
+DIST_PTRAIN_FLASH, DIST_PTRAIN_BWD = 6 * (PERCEPTION_T - 1) + 6, 6
+# the detector's 2-rank step against one process's, fp32 on the card: the
+# loss terms and the trained parameters within PERCEPTION_TOL, both ranks'
+# parameters equal, and the first AdamW step's update (about lr times the
+# gradient's sign) within DIST_UPDATE_TOL of its norm. Where a gradient is
+# near zero, cuDNN's algorithms for batch 1 and 2 round it to either sign:
+# 1.4e-2 on an H100; a rank that steps on its own half of the batch's
+# gradient, without the all-reduce, moves most signs, and one that skips the
+# optimizer reads 1
+DIST_UPDATE_TOL = 0.1
+DIST_TIMEOUT = 300
+
+
+T_START = time.perf_counter()
 
 
 def log(obj) -> None:
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)   # seconds into the run
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
 
 
@@ -3925,11 +3974,364 @@ BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_
            ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "cat")))
 
 
+# --------------------------------------------------------------------------
+# phase 19: data parallelism over torch.distributed
+# --------------------------------------------------------------------------
+
+
+def start_ranks(cli: str, cli_args, log: str, nproc=None, backend=None, dump=None,
+                no_final=False) -> dict:
+    """Start ``scripts/dist_rank.py cli`` under ``python -m
+    torch.distributed.run --standalone`` on ``nproc`` ranks, or as one plain
+    process where ``nproc`` is None, its output to ``log``.out and .err;
+    ``backend`` sets PANACEA_DIST_BACKEND. ``wait_all`` waits for it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable]
+    if nproc:
+        cmd += ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc)]
+    cmd += [os.path.join(root, "scripts", "dist_rank.py"), cli]
+    if dump:
+        cmd += ["--dump", dump]
+    if no_final:
+        cmd += ["--no_final"]
+    cmd += ["--", *cli_args]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                        "MASTER_PORT", "PANACEA_DIST_BACKEND")}
+    if backend:
+        env["PANACEA_DIST_BACKEND"] = backend
+    with open(log + ".out", "w") as out, open(log + ".err", "w") as err:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out, stderr=err,
+                                start_new_session=True)
+    return {"proc": proc, "cli": cli, "nproc": nproc, "log": log, "t0": time.perf_counter()}
+
+
+def wait_all(jobs, timeout=DIST_TIMEOUT) -> None:
+    """Wait for ``start_ranks`` jobs that run side by side, noting when each
+    ended; a job past ``timeout`` s from its start is killed, torchrun and
+    its workers."""
+    import signal
+
+    while True:
+        now = time.perf_counter()
+        for job in jobs:
+            if "end" not in job:
+                if job["proc"].poll() is not None:
+                    job["end"] = now
+                elif now - job["t0"] > timeout:
+                    os.killpg(job["proc"].pid, signal.SIGKILL)
+                    job["proc"].wait()
+                    job["end"] = now
+        if all("end" in job for job in jobs):
+            return
+        time.sleep(0.5)
+
+
+def finish_ranks(job: dict):
+    """The result of a ``start_ranks`` job that ``wait_all`` waited for. Every
+    rank must exit 0, print its report and have imported no JAX. Returns
+    (reports by rank, seconds from the job's start to its end)."""
+    proc, world = job["proc"], job["nproc"] or 1
+    seconds = job["end"] - job["t0"]
+    with open(job["log"] + ".out") as f:
+        out = f.read()
+    with open(job["log"] + ".err") as f:
+        err = f.read()
+    reports, decoder = {}, json.JSONDecoder()
+    for line in out.splitlines():
+        at = line.find('{"rank_report"')   # wherever another rank's output left it
+        if at >= 0:
+            rec = decoder.raw_decode(line[at:])[0]["rank_report"]
+            reports[rec["rank"]] = rec
+    if proc.returncode != 0 or sorted(reports) != list(range(world)):
+        raise AssertionError(f"{job['cli']} on {world} rank(s): exit {proc.returncode} after "
+                             f"{seconds:.1f} s, reports from ranks {sorted(reports)}: "
+                             f"{out[-3000:]} {err[-3000:]}")
+    for rec in reports.values():
+        if rec["jax_modules"]:
+            raise AssertionError(f"rank {rec['rank']} imported {rec['jax_modules']}")
+    return reports, seconds
+
+
+def check_group(torch, reports, world: int, backend: str) -> None:
+    """Every rank in a group of ``world`` on ``backend``, on a card: its own
+    under NCCL, the one card shared under gloo."""
+    cards = torch.cuda.device_count()
+    for r, rec in reports.items():
+        want = f"cuda:{r % cards}"
+        if (rec["world"], rec["backend"], rec["device"]) != (world, backend, want):
+            raise AssertionError(f"rank {r}: world {rec['world']}, backend {rec['backend']}, "
+                                 f"device {rec['device']}; expected {world}, {backend}, {want}")
+
+
+def rel_err(a, b) -> float:
+    """The largest difference over the largest value of ``b``."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def update_rel_err(torch, got: dict, want: dict) -> float:
+    """The relative distance of two runs' parameter updates (final less
+    init, at the sampled positions), over every sampled parameter."""
+    num = den = 0.0
+    for k in want["final"]:
+        ug = got["final"][k].double() - got["init"][k].double()
+        uw = want["final"][k].double() - want["init"][k].double()
+        num += float((ug - uw).norm() ** 2)
+        den += float(uw.norm() ** 2)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def dist_inference_reference(torch, dev, world: int, steps: int):
+    """What each of ``world`` inference ranks samples, from this process: the
+    CLI's full-width engine and weights (seed CLI_SEED), rank r's first clip
+    of the synthetic set read from a fresh dataset, log_images with the
+    generator of its first offset. The sampled latents, by rank."""
+    from panacea_tpu_torch import inference
+    from panacea_tpu_torch.config import load_configs_with_overrides
+    from panacea_tpu_torch.data.nuscenes.dataset import NuScenesVideoDataset, collate
+    from panacea_tpu_torch.data.nuscenes.synthetic import (make_synthetic_infos,
+                                                           synthetic_image_loader)
+    from panacea_tpu_torch.parallel.mesh import shard_indices
+    from panacea_tpu_torch.registry import instantiate_from_config
+
+    eng = instantiate_from_config(load_configs_with_overrides(["inference_nuscenes"], [])["model"],
+                                  device=dev)
+    eng.init_weights(torch.Generator(device=dev).manual_seed(CLI_SEED))
+    t = eng.num_frames
+    sampled = []
+    sample = eng.sample
+
+    def recorded(*a, **kw):
+        out = sample(*a, **kw)
+        sampled.append(out.detach().float().cpu())
+        return out
+
+    eng.sample = recorded
+    for r in range(world):
+        ds = NuScenesVideoDataset(infos=make_synthetic_infos(num_frames=max(t, 2) * 4,
+                                                             seed=CLI_SEED),
+                                  queue_length=t, final_dim=inference.FULL_FINAL_DIM,
+                                  use_last_frame=True, image_loader=synthetic_image_loader,
+                                  seed=CLI_SEED)
+        idx = shard_indices([t - 1 + i * t for i in range(len(ds) // t)], r, world)[0]
+        eng.log_images(collate([ds[idx]]), N=1,
+                       generator=torch.Generator(device=dev).manual_seed(CLI_SEED),
+                       num_steps=steps)
+    del eng
+    return sampled
+
+
+def clip_split(rec) -> dict:
+    ph = rec["phase_s"]
+    return {"s_per_clip": sum(ph[k] for k in ("dataset", "clip", "to_host", "write")),
+            "log_images_s": ph["clip"], "writers_s": ph["write"], "dataset_s": ph["dataset"],
+            "peak_mem_gb": rec["peak_mem_gb"], "launches": {k: rec["launches"][k] for k in
+                                                           ("flash_attention", "geglu")}}
+
+
+def train_split(rep) -> dict:
+    """A generator rank's s/step and its split (the last step; the first
+    one's warm-up is in the means), all-reduce, peak memory, losses and
+    launches."""
+    ph = rep["phase_last_s"]
+    return {"s_per_step": sum(ph[k] for k in ("dataset", "conditioning", "vae_encode", "forward",
+                                              "backward", "allreduce", "optimizer")),
+            "split_s": ph, "mean_split_s": rep["phase_s"], "allreduce_ms": 1e3 * ph["allreduce"],
+            "allreduce_bytes_per_step": rep["allreduce_bytes_per_step"],
+            "peak_mem_gb": rep["peak_mem_gb"], "losses": rep["losses"],
+            "launches": {k: rep["launches"][k] for k in TRAIN_LAUNCHES_PER_STEP}}
+
+
+def param_rel_err(got: dict, want: dict) -> float:
+    """The distance of two runs' trained parameters after their steps over
+    their norm, at the sampled positions."""
+    num = sum(float((got["final"][k].double() - w.double()).norm() ** 2)
+              for k, w in want["final"].items())
+    den = sum(float(w.double().norm() ** 2) for w in want["final"].values())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def detector_recipe(tmp: str) -> str:
+    """The window recipe with GridMask, DN and the history jitter off (each
+    rank draws its own, so the 2-rank step could not equal one process's)."""
+    import yaml
+
+    from panacea_tpu_torch.configs import PERCEPTION
+
+    cfg = PERCEPTION[PTRAIN_RECIPE]
+    p = cfg["perception"]
+    p = dict(p, train=dict(p["train"], use_grid_mask=False, with_dn=False, random_length=0))
+    path = os.path.join(tmp, "window.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(cfg, perception=p), f)
+    return path
+
+
+def dist_phase(torch, np, dev, card: str) -> dict:
+    """Phase 19: the CLIs under torchrun through ``scripts/dist_rank.py``,
+    in three groups of runs that share the card (the script's time limit)
+    while each group's peak memory stays well under the card's."""
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        def at(name):
+            return os.path.join(tmp, name)
+
+        inf = ["--synthetic", "--num_batches", "1", "--bs", "1", "--num_steps", str(DIST_STEPS),
+               "--seed", str(CLI_SEED), "--name", "dist"]
+        gen = ["--synthetic", "--freeze_type", "spatial", "--steps", str(DIST_TRAIN_STEPS),
+               "--ckpt_every", "0", "--log_every", "1"]
+        det = ["--synthetic", "--config", detector_recipe(tmp), "--steps", "1",
+               "--ckpt_every", "0"]
+        # three groups of runs that share the card, each within its memory:
+        # (a) 2 inference ranks over gloo beside (d) the detector's trainer
+        # and (e) the eval, 2 gloo ranks and one process each
+        jobs = [start_ranks("inference", inf + ["--outdir", at("inf2")], at("inf2"), nproc=2,
+                            backend="gloo", dump=at("inf2_dump")),
+                start_ranks("perception_train", det + ["--batch", "1", "--workdir", at("pw2")],
+                            at("pt2"), nproc=2, backend="gloo", dump=at("pt2_dump")),
+                start_ranks("perception_train", det + ["--batch", "2", "--workdir", at("pw1")],
+                            at("pt1"), dump=at("pt1_dump")),
+                start_ranks("perception_eval", ["--synthetic", "--out", at("ev2.json")],
+                            at("ev2"), nproc=2, backend="gloo", dump=at("ev2_dump")),
+                start_ranks("perception_eval", ["--synthetic", "--out", at("ev1.json")],
+                            at("ev1"), dump=at("ev1_dump"))]
+        wait_all(jobs)
+        ((inf2, inf2_s), (pt2, pt2_s), (pt1, pt1_s), (ev2, ev2_s),
+         (ev1, ev1_s)) = (finish_ranks(j) for j in jobs)
+        # (c) 2 generator-training ranks over gloo beside (b) one NCCL
+        # inference rank
+        jobs = [start_ranks("train", gen + ["--dp", "2", "--bs", "2"], at("tr2"), nproc=2,
+                            backend="gloo", dump=at("tr2_dump"), no_final=True),
+                start_ranks("inference", inf + ["--outdir", at("inf1")], at("inf1"), nproc=1,
+                            dump=at("inf1_dump"))]
+        wait_all(jobs)
+        (tr2, tr2_s), (inf1, inf1_s) = (finish_ranks(j) for j in jobs)
+        # (c)'s reference, one NCCL process of --bs 2 (--dp 1), beside (a)'s
+        # reference: each rank's clip sampled in this process
+        job = start_ranks("train", gen + ["--dp", "1", "--bs", "2"], at("tr1"), nproc=1,
+                          dump=at("tr1_dump"), no_final=True)
+        want = dist_inference_reference(torch, dev, 2, DIST_STEPS)
+        free(torch)
+        wait_all([job])
+        tr1, tr1_s = finish_ranks(job)
+        runs_s = time.perf_counter() - t_start
+
+        def dumped(name, rank=0):
+            return torch.load(os.path.join(tmp, f"{name}_dump", f"rank{rank}.pt"))
+
+        for reports, world, backend in ((inf2, 2, "gloo"), (inf1, 1, "nccl"), (tr2, 2, "gloo"),
+                                        (tr1, 1, "nccl"), (pt2, 2, "gloo"), (ev2, 2, "gloo")):
+            check_group(torch, reports, world, backend)
+
+        # (a), (b): each rank's clip against this process's log_images
+        got = [dumped("inf2", r)["latents"] for r in (0, 1)]
+        nccl = dumped("inf1")["latents"]
+        errs = [rel_err(got[r][0], want[r]) for r in (0, 1)]
+        nccl_err = rel_err(nccl[0], want[0])
+        files = {"gloo": len(tree_of(at("inf2"))), "nccl": len(tree_of(at("inf1")))}
+        rec_inf = {"phase": "dist_inference", "card": card, "steps": DIST_STEPS,
+                   "tol": SMALL_TOL,
+                   "gloo_2_ranks_beside_the_detectors_runs": {
+                       "seconds": inf2_s, "max_rel_err_vs_one_process": errs,
+                       "ranks": {r: clip_split(inf2[r]) for r in (0, 1)}},
+                   "nccl_1_rank_beside_2_training_ranks": {
+                       "seconds": inf1_s, "max_rel_err_vs_one_process": nccl_err,
+                       "rank0": clip_split(inf1[0])},
+                   "files": files}
+        log(rec_inf)
+        expected = {"flash_attention": FLASH_PER_EVAL * DIST_STEPS,
+                    "geglu": GEGLU_PER_EVAL * DIST_STEPS}
+        for rep in list(inf2.values()) + list(inf1.values()):
+            if {k: rep["launches"][k] for k in expected} != expected or rep["clips"] != 1:
+                raise AssertionError(f"inference rank {rep['rank']}: launches {rep['launches']}, "
+                                     f"clips {rep['clips']}; expected {expected} and 1 clip")
+        if max(errs + [nccl_err]) > SMALL_TOL or not all(bool(torch.isfinite(g[0]).all())
+                                                         for g in got):
+            raise AssertionError(f"a rank's clip differs from this process's: {rec_inf}")
+        if files["gloo"] != 2 * files["nccl"] or files["nccl"] == 0:
+            raise AssertionError(f"2 ranks wrote {files['gloo']} files, one rank {files['nccl']}")
+
+        # (c): the 2-rank generator step against one process of the global batch
+        a, a1, b = dumped("tr2"), dumped("tr2", 1), dumped("tr1")
+        ranks_same = all(torch.equal(a["final"][k], a1["final"][k]) for k in a["final"])
+        loss_err = max(abs(x - y) / abs(y) for r in (0, 1)
+                       for x, y in zip(tr2[r]["losses"], tr1[0]["losses"]))
+        per_run = {k: v * DIST_TRAIN_STEPS for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+        rec_tr = {"phase": "dist_train", "card": card, "freeze_type": "spatial",
+                  "steps": DIST_TRAIN_STEPS, "tol": SMALL_TOL,
+                  "gloo_2_ranks_beside_1_inference_rank": {
+                      "seconds": tr2_s, "ranks": {r: train_split(tr2[r]) for r in (0, 1)}},
+                  "nccl_1_process_bs2_beside_the_clip_reference": {
+                      "seconds": tr1_s, **train_split(tr1[0])},
+                  "max_loss_rel_err": loss_err, "param_rel_err": param_rel_err(a, b),
+                  "update_rel_err": update_rel_err(torch, a, b),
+                  "ranks_hold_the_same_parameters": ranks_same,
+                  "trained_params": tr2[0]["trained_params"]}
+        log(rec_tr)
+        for rep in list(tr2.values()) + list(tr1.values()):
+            if {k: rep["launches"][k] for k in per_run} != per_run:
+                raise AssertionError(f"training rank {rep['rank']}: launches {rep['launches']}, "
+                                     f"expected {per_run}")
+        if not (ranks_same and loss_err <= SMALL_TOL and rec_tr["update_rel_err"] <= SMALL_TOL
+                and all(np.isfinite(r["losses"]).all() for r in tr2.values())):
+            raise AssertionError(f"the 2-rank generator step is not one process's: {rec_tr}")
+
+        # (d): the 2-rank detector step against one process of the global batch
+        a, a1, b = dumped("pt2"), dumped("pt2", 1), dumped("pt1")
+        det_ranks_same = all(torch.equal(a["final"][k], a1["final"][k]) for k in a["final"])
+        want_m = pt1[0]["final_metrics"]
+        loss_err = max(abs(pt2[r]["final_metrics"][k] - v) / abs(v) for r in (0, 1)
+                       for k, v in want_m.items())
+        p2 = dumped("ev2")["predictions"]
+        p1 = dumped("ev1")["predictions"]
+        pred_err = max(rel_err(x[k].float(), y[k].float()) for x, y in zip(p2, p1)
+                       for k in ("boxes", "scores"))
+        rec_p = {"phase": "dist_perception", "card": card, "recipe": PTRAIN_RECIPE,
+                 "tol": PERCEPTION_TOL,
+                 "train": {"gloo_2_ranks_s": pt2_s, "one_process_s": pt1_s,
+                           "step_s": {r: pt2[r]["steps"][0]["s"] for r in (0, 1)},
+                           "one_process_step_s": pt1[0]["steps"][0]["s"],
+                           "launches_per_step": {r: {k: pt2[r]["steps"][0][k] for k in
+                                                     ("flash_attention", "flash_attention_bwd")}
+                                                 for r in (0, 1)},
+                           "fp32_kernels": {r: pt2[r]["launches"]["flash_fp32_kernels"]
+                                            for r in (0, 1)},
+                           "peak_mem_gb": {r: pt2[r]["peak_mem_gb"] for r in (0, 1)},
+                           "max_loss_rel_err": loss_err, "param_rel_err": param_rel_err(a, b),
+                           "update_rel_err": update_rel_err(torch, a, b),
+                           "update_tol": DIST_UPDATE_TOL,
+                           "ranks_hold_the_same_parameters": det_ranks_same, "metrics": want_m},
+                 "eval": {"gloo_2_ranks_s": ev2_s, "one_process_s": ev1_s, "windows": len(p1),
+                          "metrics_equal": ev2[0]["metrics"] == ev1[0]["metrics"],
+                          "max_pred_rel_err": pred_err, "NDS": ev1[0]["metrics"].get("NDS"),
+                          "launches": {r: ev2[r]["launches"]["flash_fp32_kernels"]
+                                       for r in (0, 1)}},
+                 "runs_and_reference_s": runs_s}
+        log(rec_p)
+        for r in (0, 1):
+            c = rec_p["train"]["launches_per_step"][r]
+            if c != {"flash_attention": DIST_PTRAIN_FLASH, "flash_attention_bwd": DIST_PTRAIN_BWD} \
+                    or rec_p["train"]["fp32_kernels"][r]["tc32"] != DIST_PTRAIN_FLASH:
+                raise AssertionError(f"detector rank {r}: {c}, expected {DIST_PTRAIN_FLASH} tc32 "
+                                     f"forward and {DIST_PTRAIN_BWD} backward launches")
+        if not (det_ranks_same and loss_err <= PERCEPTION_TOL
+                and rec_p["train"]["param_rel_err"] <= PERCEPTION_TOL
+                and rec_p["train"]["update_rel_err"] <= DIST_UPDATE_TOL):
+            raise AssertionError(f"the 2-rank detector step is not one process's: {rec_p}")
+        if not (rec_p["eval"]["metrics_equal"] and len(p2) == len(p1) > 0
+                and pred_err <= PERCEPTION_TOL):
+            raise AssertionError(f"the 2-rank eval differs from one process: {rec_p}")
+    log({"phase": "dist_total", "seconds": time.perf_counter() - t_start})
+    return {"inference": rec_inf, "train": rec_tr, "perception": rec_p}
+
+
 def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
     """One step under torch.profiler (a network evaluation of the main path
     under no_grad, or with ``grad`` a training step, after one warm-up):
     device time per kernel bucket and the device's idle share of the wall
-    time."""
+    time. The host's and the card's activity are recorded; the kernels are
+    read from the profiler's raw events, without the tree of host ops that
+    ``key_averages`` builds first (about 40 s for a training step)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.set_grad_enabled(grad):
@@ -3942,16 +4344,16 @@ def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     buckets, other, total = {}, {}, 0.0
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0.0) or 0.0
-        if us <= 0 or not str(evt.device_type).endswith("CUDA"):
+    for evt in prof.profiler.kineto_results.events():
+        ms = evt.duration_ns() / 1e6
+        if ms <= 0 or not str(evt.device_type()).endswith("CUDA"):
             continue  # host ops carry their kernels' time too: count kernels only
-        key = evt.key.lower()
+        key = evt.name().lower()
         bucket = next((b for b, keys in BUCKETS if any(k in key for k in keys)), "other")
-        buckets[bucket] = buckets.get(bucket, 0.0) + us / 1e3
+        buckets[bucket] = buckets.get(bucket, 0.0) + ms
         if bucket == "other":
-            other[evt.key] = other.get(evt.key, 0.0) + us / 1e3
-        total += us / 1e3
+            other[evt.name()] = other.get(evt.name(), 0.0) + ms
+        total += ms
     rec = {"phase": name, "wall_ms": wall_ms,
            "device_ms": total if total > 0 else "not measured",
            "idle_share": 1 - total / wall_ms if total > 0 else "not measured",
@@ -3967,7 +4369,7 @@ def main(mode: str = "all") -> int:
     "perception" (phase 1, the flash check at the perception shape and
     phases 11 and 14 to 18), "metrics" (phase 1 and phase 12, on the tree of
     a 2-step full-width generation run), "variants" (phase 1 and phase 13)
-    or "zoo" (phase 1 and phases 15 to 18)."""
+    "zoo" (phase 1 and phases 15 to 18) or "dist" (phase 1 and phase 19)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -4043,6 +4445,10 @@ def main(mode: str = "all") -> int:
         stage1_kernel_checks(torch, F, fa, gg, tol, dev)
         stage1_phase(torch, np, dev, fa, gg, card)
         log({"phase": "variants_only", "ok": True})
+        return 0
+    if mode == "dist":
+        dist_phase(torch, np, dev, card)
+        log({"phase": "dist_only", "ok": True})
         return 0
     if mode == "metrics":
         with tempfile.TemporaryDirectory() as tmp:
@@ -4256,6 +4662,8 @@ def main(mode: str = "all") -> int:
     gen_dir.cleanup()
     free(torch)
     paths.update(stage1_phase(torch, np, dev, fa, gg, card))
+    free(torch)
+    dist_phase(torch, np, dev, card)
 
     def count(c, kernel, fp32, fp32_kernel=None):
         """Launches of one kernel on one type's routes, from a path's counts
@@ -4412,9 +4820,9 @@ def main(mode: str = "all") -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] not in ([], ["--kernels"], ["--perception"], ["--metrics"], ["--variants"],
-                            ["--zoo"]):
+                            ["--zoo"], ["--dist"]):
         sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception | --metrics | --variants | "
-                 "--zoo]")
+                 "--zoo | --dist]")
     sys.exit(main({"--kernels": "kernels", "--perception": "perception",
-                   "--metrics": "metrics", "--variants": "variants", "--zoo": "zoo"}.get(
-                       (sys.argv[1:] or [""])[0], "all")))
+                   "--metrics": "metrics", "--variants": "variants", "--zoo": "zoo",
+                   "--dist": "dist"}.get((sys.argv[1:] or [""])[0], "all")))

@@ -37,11 +37,9 @@ class ClipSource:
 
 def process_shard() -> Tuple[int, int]:
     """(rank, world size) of the process group, or (0, 1) without one."""
-    import torch.distributed as dist
+    from panacea_tpu_torch.parallel.mesh import rank_world
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return rank_world()
 
 
 def epoch_records(num_records: int, epoch: int, shuffle: bool = False, seed: int = 0,

@@ -37,9 +37,12 @@ class StandardDiffusionLoss:
     def __call__(self, network, denoiser, cond: Dict[str, Any], x: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  sigma_rand: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-                 offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 offset: Optional[torch.Tensor] = None,
+                 share_frame: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: clean latents (B*T, H, W, C) channels-last, fp32. Returns the
-        per-sample loss, (B*T,)."""
+        per-sample loss, (B*T,). ``share_frame`` is the conditioning frame
+        of the shared-noise bias, by default ``cond["concat"][-1]`` (a
+        data-parallel rank passes the global batch's)."""
         n = x.shape[0]
         sigmas = self.sigma_sampler(n, generator=generator, rand=sigma_rand, device=x.device)
         if noise is None:
@@ -53,7 +56,7 @@ class StandardDiffusionLoss:
         if self.share_noise_level > 0.0:
             # bias all frames' noise toward the conditioning-frame latent
             # (loss.py:54-60); concat[-1] is the conditioning frame
-            cf = cond["concat"][-1].to(x.dtype)
+            cf = (cond["concat"][-1] if share_frame is None else share_frame).to(x.dtype)
             cf_seq = cf[None].expand((self.num_frames,) + tuple(cf.shape))
             noise = noise + cf_seq.repeat((n // self.num_frames,) + (1,) * (x.ndim - 1)) \
                 * self.share_noise_level
@@ -61,6 +64,18 @@ class StandardDiffusionLoss:
         model_output = denoiser(network, noised, sigmas, cond)
         w = append_dims(denoiser.w(sigmas), x.ndim)
         return self.get_loss(model_output, x, w)
+
+    def draw(self, shape, generator: Optional[torch.Generator] = None,
+             device=None) -> Dict[str, torch.Tensor]:
+        """What a call on clean latents of ``shape`` draws from ``generator``,
+        in its order, under the names that inject it: ``sigma_rand``,
+        ``noise`` and, with the offset noise, ``offset``."""
+        n = shape[0]
+        out = {"sigma_rand": self.sigma_sampler.draw(n, generator, device),
+               "noise": torch.randn(tuple(shape), generator=generator, device=device)}
+        if self.offset_noise_level > 0.0:
+            out["offset"] = torch.randn((n,), generator=generator, device=device)
+        return out
 
     def get_loss(self, model_output: torch.Tensor, target: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:

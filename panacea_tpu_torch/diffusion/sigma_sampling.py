@@ -21,10 +21,15 @@ class EDMSampling:
         self.p_mean = p_mean
         self.p_std = p_std
 
+    def draw(self, n_samples: int, generator: Optional[torch.Generator] = None,
+             device=None) -> torch.Tensor:
+        """The standard normals of ``n_samples`` sigmas (what ``rand`` injects)."""
+        return torch.randn((n_samples,), generator=generator, device=device)
+
     def __call__(self, n_samples: int, generator: Optional[torch.Generator] = None,
                  rand: Optional[torch.Tensor] = None, device=None) -> torch.Tensor:
         if rand is None:
-            rand = torch.randn((n_samples,), generator=generator, device=device)
+            rand = self.draw(n_samples, generator, device)
         return torch.exp(self.p_mean + self.p_std * torch.as_tensor(rand, dtype=torch.float32))
 
 
@@ -37,12 +42,16 @@ class DiscreteSampling:
             sigmas = torch.cat([torch.as_tensor(sigmas), torch.zeros(1)]).numpy()
         self.sigmas_np = (sigmas[::-1] if flip else sigmas).copy()
 
+    def draw(self, n_samples: int, generator: Optional[torch.Generator] = None,
+             device=None) -> torch.Tensor:
+        """The level indices of ``n_samples`` sigmas (what ``rand`` injects)."""
+        return torch.randint(0, self.num_idx, (n_samples,), generator=generator, device=device)
+
     def idx_to_sigma(self, idx: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(self.sigmas_np, device=idx.device)[idx]
 
     def __call__(self, n_samples: int, generator: Optional[torch.Generator] = None,
                  rand: Optional[torch.Tensor] = None, device=None) -> torch.Tensor:
         if rand is None:
-            rand = torch.randint(0, self.num_idx, (n_samples,), generator=generator,
-                                 device=device)
+            rand = self.draw(n_samples, generator, device)
         return self.idx_to_sigma(torch.as_tensor(rand, dtype=torch.long, device=device))

@@ -6,12 +6,16 @@ dotlist overrides) and the same output layout, ``<outdir>/<name>/<split>/``
 with a folder of PNG grids and GIFs per log key, the ``gen-nuscenes`` JPEG
 tree and, with ``--rollout``, ``rollout/<stem>/``. One process drives one
 card. It runs on CUDA and raises without a card; ``--device cpu`` is for
-tests.
+tests. Under ``torchrun --nproc_per_node N`` each rank takes every N-th clip
+(``indices[rank::N]``, as the JAX CLI and the reference's
+DistributedSampler) on its own card and writes into the one output
+directory; the ranks never talk (``parallel/mesh.py``).
 
 Examples:
   python inference_torch.py --ckpt ckpts/panaceaplus_40k_deepspeed.ckpt \\
       --split val --name panacea
   python inference_torch.py --synthetic --tiny --device cpu --num_batches 1
+  torchrun --nproc_per_node 8 inference_torch.py --ckpt ckpts/panaceaplus_40k_deepspeed.ckpt
 """
 
 from __future__ import annotations
@@ -59,8 +63,8 @@ def get_parser() -> argparse.ArgumentParser:
                         "output layout, not the standard log_images grids; "
                         "use --rollout 0 (default) for grids")
     p.add_argument("--view_shard", type=int, default=0,
-                   help="shard ONE clip over the local devices; not ported: "
-                        "any value above 0 raises")
+                   help="shard ONE clip over the local devices; not ported "
+                        "(ROADMAP Queue A item 7b): any value above 0 raises")
     p.add_argument("--dry_convert", nargs="?", default=None,
                    const="tests/fixtures/panaceaplus_keys.json",
                    help="checkpoint-readiness drill: given a state-dict KEY "
@@ -69,35 +73,29 @@ def get_parser() -> argparse.ArgumentParser:
                         ".ckpt, report name and shape coverage against the "
                         "engine (0 unmapped / 0 missing) and exit")
     p.add_argument("--device", default=None,
-                   help="torch device; default cuda, which raises without a "
-                        "card. 'cpu' is for tests")
+                   help="torch device; default the local rank's card, which "
+                        "raises without a card. 'cpu' is for tests")
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns a summary:
-    the output directory, the number of clips or rollouts done, and the
-    phase timer."""
+    the output directory, the number of clips or rollouts done by this
+    rank, and the phase timer."""
     args, unknown = get_parser().parse_known_args(argv)
+    if args.view_shard:
+        from panacea_tpu_torch.parallel.mesh import VIEW_SHARD
 
-    import numpy as np
-    import torch
-
+        raise SystemExit(f"--view_shard {args.view_shard}: {VIEW_SHARD}; run one clip a "
+                         "card (torchrun --nproc_per_node N shards the clips)")
     from panacea_tpu_torch.config import load_configs_with_overrides
-    from panacea_tpu_torch.data.nuscenes.dataset import NuScenesVideoDataset, collate
-    from panacea_tpu_torch.models.engine import resolve_device
-    from panacea_tpu_torch.registry import instantiate_from_config
-    from panacea_tpu_torch.utils.profiling import Timer
-    from panacea_tpu_torch.writers import log_outputs
+    from panacea_tpu_torch.parallel.mesh import process_group
 
     if args.tiny:
         args.base = ["tiny_cpu"]
-    if args.view_shard:
-        raise SystemExit(
-            f"--view_shard {args.view_shard}: sharding one clip over several "
-            "devices is not ported; run without it (one clip on one card)")
     if args.dry_convert:
         from panacea_tpu_torch.checkpoint import dry_convert
+        from panacea_tpu_torch.registry import instantiate_from_config
 
         cfg = load_configs_with_overrides(args.base, unknown)
         engine = instantiate_from_config(cfg["model"], device="meta")
@@ -114,7 +112,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                 "Set PANACEA_CLIP_BPE=/path/to/bpe_simple_vocab_16e6.txt.gz "
                 "or run with --synthetic for a smoke test."
             )
-    device = resolve_device(args.device)  # raises without a card unless told otherwise
+    with process_group(args.device) as group:
+        return _run(args, unknown, group)
+
+
+def _run(args, unknown, group) -> Dict[str, Any]:
+    """The run of one rank (``group``: ``parallel.mesh.Group``)."""
+    import numpy as np
+    import torch
+
+    from panacea_tpu_torch.config import load_configs_with_overrides
+    from panacea_tpu_torch.data.nuscenes.dataset import NuScenesVideoDataset, collate
+    from panacea_tpu_torch.parallel.mesh import shard_indices
+    from panacea_tpu_torch.registry import instantiate_from_config
+    from panacea_tpu_torch.utils.profiling import Timer
+    from panacea_tpu_torch.writers import log_outputs
+
+    device = group.device
     cfg = load_configs_with_overrides(args.base, unknown)
     engine = instantiate_from_config(cfg["model"], device=device)
     t = engine.num_frames
@@ -158,8 +172,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     outdir = os.path.join(args.outdir, args.name, args.split)
     os.makedirs(outdir, exist_ok=True)
 
+    # the clips of this rank, as the reference's DistributedSampler and the
+    # JAX CLI shard them (inference.py:243-247); each rank writes its own
+    # clips' files into the one output directory
     n_total = len(dataset) // max(t, 1)
-    indices = [t - 1 + i * t for i in range(n_total)]
+    indices = shard_indices([t - 1 + i * t for i in range(n_total)], group.rank, group.world)
     if args.num_batches > 0:
         indices = indices[: args.num_batches * args.bs]
 

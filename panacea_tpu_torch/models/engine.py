@@ -45,6 +45,7 @@ from panacea_tpu_torch.models.conditioner import VAEEmbedder
 from panacea_tpu_torch.models.layers import GroupNorm
 from panacea_tpu_torch.models.clip import (CLIPAttention, CLIPTextTransformer,
                                            CLIPVisionTransformer)
+from panacea_tpu_torch.parallel.mesh import local_device
 from panacea_tpu_torch.registry import instantiate_from_config, resolve_target
 
 # engine config keys of the reference yaml that the port does not use (the
@@ -64,12 +65,11 @@ def is_non_weight(key: str) -> bool:
 
 
 def resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("DiffusionEngine3D runs on CUDA by default and no CUDA "
-                               "device is present; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    """``device``, or by default this process's card (``parallel.mesh.local_device``:
+    the local rank's under torchrun); raises without a card unless the CPU is asked for."""
+    if device is not None and torch.device(device).type not in ("cpu", "cuda"):
+        return torch.device(device)
+    return local_device(device)
 
 
 @contextlib.contextmanager
@@ -196,6 +196,15 @@ class DiffusionEngine3D(nn.Module):
                                            noise=None if noise is None else noise[i:i + 1])
              for i in range(x.shape[0])]
         return self.scale_factor * torch.cat(z)
+
+    def draw_posterior_noise(self, n: int, image_hw, generator: torch.Generator) -> torch.Tensor:
+        """The standard normals that ``encode_first_stage`` draws from
+        ``generator`` for ``n`` frames of ``image_hw``, in its order (a
+        frame at a time): what ``noise`` injects."""
+        fs = self.first_stage_model
+        shape = (1, image_hw[0] // fs.downsample, image_hw[1] // fs.downsample, fs.embed_dim)
+        return torch.cat([torch.randn(shape, generator=generator, device=self.device)
+                          for _ in range(n)])
 
     @torch.no_grad()
     @no_tf32()

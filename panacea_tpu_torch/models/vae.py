@@ -165,6 +165,8 @@ class AutoencoderKL(nn.Module):
         self.decoder = Decoder(out_ch=dd.get("out_ch", 3), **common)
         self.quant_conv = Conv2d((2 if dd.get("double_z", True) else 1) * z, 2 * embed_dim, 1)
         self.post_quant_conv = Conv2d(embed_dim, z, 1)
+        self.embed_dim = embed_dim
+        self.downsample = 2 ** (len(common["ch_mult"]) - 1)
 
     def encode(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -11,13 +11,14 @@ the gt list is padded to a fixed ``max_gt``.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from panacea_tpu_torch.perception.coder import normalize_bbox
-from panacea_tpu_torch.perception.train_losses import CODE_WEIGHTS, masked_l1, sigmoid_focal_loss
+from panacea_tpu_torch.perception.train_losses import (CODE_WEIGHTS, masked_l1, reduced,
+                                                       sigmoid_focal_loss)
 
 NEG_INF = -1e9
 
@@ -88,14 +89,16 @@ def prepare_dn(gt_boxes: torch.Tensor, gt_labels: torch.Tensor, num_query: int,
 
 def dn_loss(outs_dn_cls: torch.Tensor, outs_dn_reg: torch.Tensor, pack: DNPack, pc_range=None,
             num_classes: int = 10, dn_weight: float = 1.0, split: float = 0.75,
-            cls_weight: float = 2.0, bbox_weight: float = 0.25) -> torch.Tensor:
+            cls_weight: float = 2.0, bbox_weight: float = 0.25,
+            reduce_fn: Optional[Callable] = None) -> torch.Tensor:
     """Focal and code-weighted L1 on the DN slice (dn_loss_single,
     sparse_head.py:710-766), summed over the decoder layers; outs_dn_* are
     (L, B, pad, ...). The class normaliser is num_tgt * pi / 6 * split^3
     (the expected positive rate of the flip ball); the box loss covers
     every known row, flipped negatives included, a row whose target is
-    not finite dropped whole, over num_tgt."""
-    num_tgt = pack.valid.sum().clamp(min=1.0)
+    not finite dropped whole, over num_tgt. ``reduce_fn`` averages num_tgt
+    over the ranks (mmdet ``reduce_mean``, :730-737; JAX ``dn_loss``, :132)."""
+    num_tgt = reduced(reduce_fn, pack.valid.sum()).clamp(min=1.0)
     cls_af = (num_tgt * 3.14159 / 6 * split ** 3).clamp(min=1.0)
     row_ok = pack.valid * torch.isfinite(pack.box_targets).all(-1)
     total = 0.0

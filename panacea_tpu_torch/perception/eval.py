@@ -4,6 +4,9 @@ frames -> NDS/mAP.
 Counterpart of the JAX package's root ``eval_perception.py``, with its
 flags, choices and defaults, and ``--device``. One process drives one card;
 it runs on CUDA and raises without a card, ``--device cpu`` is for tests.
+Under ``torchrun --nproc_per_node N`` each rank evaluates every N-th window
+on its own card, the ranks' results are merged through a directory beside
+``--out`` (``collect.collect_results_cpu``) and rank 0 scores them.
 Every backbone (``--backbone r50``, ``vovnet``, or ``eva`` with
 ``--num_levels 4``: EVA-02's adapter gives four levels) runs with every
 head (``--head sparse``, the eval recipe's; ``sparse_v3`` and
@@ -19,6 +22,8 @@ working grid as the reference's ``get_abs_pos`` resizes it.
   python eval_perception_torch.py --synthetic --tiny --device cpu
   python eval_perception_torch.py --synthetic --tiny --device cpu --backbone eva \\
       --num_levels 4 --head sparse_v3
+  torchrun --nproc_per_node 8 eval_perception_torch.py --ann ... --gen_root ... \\
+      --torch_ckpt streampetr.pth --out metrics.json
 """
 
 from __future__ import annotations
@@ -76,8 +81,8 @@ def get_parser() -> argparse.ArgumentParser:
                    help="pkl list of sample tokens to keep (reference "
                         "filter_file)")
     p.add_argument("--device", default=None,
-                   help="torch device; default cuda, which raises without a "
-                        "card. 'cpu' is for tests")
+                   help="torch device; default the local rank's card, which "
+                        "raises without a card. 'cpu' is for tests")
     return p
 
 
@@ -118,19 +123,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
             f"--ckpt {args.ckpt}: the JAX package's orbax trees need JAX to read, "
             "which the port does not use (ROADMAP 'Not queued'); pass the "
             "reference .pth as --torch_ckpt")
+    from panacea_tpu_torch.parallel.mesh import process_group
 
+    with process_group(args.device) as group:
+        return _run(args, group)
+
+
+def _run(args, group) -> Dict[str, float]:
+    """The run of one rank (``group``: ``parallel.mesh.Group``)."""
     import numpy as np
     import torch
-    import torch.distributed as dist
 
-    from panacea_tpu_torch.models.engine import resolve_device
     from panacea_tpu_torch.perception.coder import NMSFreeCoder
     from panacea_tpu_torch.perception.collect import collect_results_cpu
     from panacea_tpu_torch.perception.detector import StreamPETRWindow
     from panacea_tpu_torch.perception.eval_dataset import GenNuScenesEvalDataset
     from panacea_tpu_torch.perception.metrics import CLASS_NAMES, evaluate_detections
 
-    device = resolve_device(args.device)  # raises without a card unless told otherwise
+    device = group.device
     if args.synthetic:
         from panacea_tpu_torch.data.nuscenes.synthetic import make_synthetic_infos
 
@@ -188,8 +198,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
 
     coder = NMSFreeCoder(pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
                          max_num=20 if args.tiny else 300)
-    distributed = dist.is_available() and dist.is_initialized()
-    proc, nproc = (dist.get_rank(), dist.get_world_size()) if distributed else (0, 1)
+    proc, nproc = group.rank, group.world
     preds, gts = [], []
     n = 0
     t0 = time.time()

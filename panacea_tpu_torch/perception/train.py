@@ -15,7 +15,15 @@ a linear warmup.
 The Hungarian assignment runs on the host (scipy) on the detached
 predictions of every layer, one transfer a step, between the forward and
 the loss, as in the reference; the ATSS targets depend only on the
-anchors and the 2D ground truth and are made on the host per batch. One
+anchors and the 2D ground truth and are made on the host per batch.
+
+Under a process group (data parallelism, JAX ``make_detector_train`` with
+a ``mesh``) each rank computes the loss of its own batch, with the avg
+factors of four terms (the detection layers' matched count, the DN
+targets, ATSS's positive count and total centerness) averaged over the
+ranks before the division (mmdet's ``reduce_mean``, the ``reduce_fn``
+hook), so that the gradients averaged over the ranks are the global
+batch's ratio of sums; the logged metrics are averaged too. One
 difference from the JAX package is kept: JAX clips by the global norm of
 every gradient, those of the frozen stages and of the batch-norm
 statistics (flax parameters there) included; the port clips the trained
@@ -33,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from panacea_tpu_torch.models.engine import no_tf32
+from panacea_tpu_torch.parallel.train import allreduce_mean, mean_metrics, reduce_mean
 from panacea_tpu_torch.perception.atss import (atss_assign, centerness_target, delta_decode,
                                                giou_loss)
 from panacea_tpu_torch.perception.coder import normalize_bbox
@@ -40,7 +49,8 @@ from panacea_tpu_torch.perception.denoise import DNPack, draw_dn_noise, dn_loss,
 from panacea_tpu_torch.perception.gridmask import GridDraws, draw_grid, grid_mask
 from panacea_tpu_torch.perception.head import MemoryState
 from panacea_tpu_torch.perception.motion_head import traj_loss_v1, traj_targets_from_assignment
-from panacea_tpu_torch.perception.train_losses import CODE_WEIGHTS, masked_l1, sigmoid_focal_loss
+from panacea_tpu_torch.perception.train_losses import (CODE_WEIGHTS, masked_l1, reduced,
+                                                       sigmoid_focal_loss)
 from panacea_tpu_torch.utils.optim import AdamW
 
 # --------------------------------------------------------------------------
@@ -146,34 +156,39 @@ def hungarian_targets(assign, cls_all: torch.Tensor, bbox_all: torch.Tensor,
 
 def detection_layer_losses(cls_all: torch.Tensor, bbox_all: torch.Tensor,
                            labels: torch.Tensor, gt_norm_q: torch.Tensor, mask_q: torch.Tensor,
-                           num_classes: int = 10, bg_cls_weight: float = 0.0):
+                           num_classes: int = 10, bg_cls_weight: float = 0.0,
+                           reduce_fn: Optional[Callable] = None):
     """Each layer's focal sum over max(num_pos + bg_cls_weight num_neg, 1)
     and code-weighted L1 (an element whose target is not finite left out)
     over max(num_pos, 1), unweighted: two (L,) tensors. labels (L, B, Q),
-    gt_norm_q (L, B, Q, 10), mask_q (L, B, Q) 1 where matched."""
+    gt_norm_q (L, B, Q, 10), mask_q (L, B, Q) 1 where matched. ``reduce_fn``
+    averages both avg factors over the ranks (JAX ``loss_fn``, :352)."""
     n_pos = mask_q.sum((1, 2))                                      # (L,)
     n_neg = mask_q[0].numel() - n_pos
-    cls_l = sigmoid_focal_loss(cls_all, labels, num_classes).sum((1, 2)) / (
-        n_pos + bg_cls_weight * n_neg).clamp(min=1.0)
+    cls_af = reduced(reduce_fn, n_pos + bg_cls_weight * n_neg if bg_cls_weight else n_pos)
+    n_pos = reduced(reduce_fn, n_pos) if bg_cls_weight else cls_af
+    cls_l = sigmoid_focal_loss(cls_all, labels, num_classes).sum((1, 2)) / cls_af.clamp(min=1.0)
     diff = masked_l1(bbox_all[..., :10], gt_norm_q, CODE_WEIGHTS)
     return cls_l, (diff.sum(-1) * mask_q).sum((1, 2)) / n_pos.clamp(min=1.0)
 
 
 def detection_loss(cls_all: torch.Tensor, bbox_all: torch.Tensor, tgt: HungarianTargets,
                    num_classes: int = 10, cls_weight: float = 2.0,
-                   bbox_weight: float = 0.25) -> Dict[str, torch.Tensor]:
+                   bbox_weight: float = 0.25,
+                   reduce_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """Per layer focal and code-weighted L1 over the matched count, summed
     over the layers (the mmdet loss dict: loss_cls + d0..d(L-2).loss_cls)."""
     dev = cls_all.device
     cls_l, bbox_l = detection_layer_losses(
         cls_all, bbox_all, torch.as_tensor(tgt.labels, dtype=torch.long, device=dev),
         torch.as_tensor(tgt.gt_norm, device=dev), torch.as_tensor(tgt.mask, device=dev),
-        num_classes)
+        num_classes, reduce_fn=reduce_fn)
     return {"loss_cls": cls_weight * cls_l.sum(), "loss_bbox": bbox_weight * bbox_l.sum()}
 
 
 def trajectory_loss(traj_all: torch.Tensor, score_all: torch.Tensor, tgt: HungarianTargets,
-                    gt_trajs: torch.Tensor, gt_traj_mask: torch.Tensor) -> torch.Tensor:
+                    gt_trajs: torch.Tensor, gt_traj_mask: torch.Tensor,
+                    reduce_fn: Optional[Callable] = None) -> torch.Tensor:
     """The motion head's term (petr_motion_head.py loss: loss_traj and
     d{i}.loss_traj summed; JAX ``loss_fn``, :367-398): each layer's matched
     ground-truth futures broadcast over the modes, the layers folded into
@@ -184,7 +199,7 @@ def trajectory_loss(traj_all: torch.Tensor, score_all: torch.Tensor, tgt: Hungar
     dev = traj_all.device
     mask_q = torch.as_tensor(tgt.mask, device=dev)
     assigned = torch.as_tensor(tgt.assigned, device=dev)
-    n_pos = mask_q.sum((1, 2)).clamp(min=1.0)
+    n_pos = reduced(reduce_fn, mask_q.sum((1, 2))).clamp(min=1.0)
     targets, weights = [], []
     for li in range(n_layers):
         for bi in range(b):
@@ -242,11 +257,14 @@ def atss_targets(anchors_per_level: List[np.ndarray], gt2d_boxes: Sequence[np.nd
 
 def atss_loss(atss_outs, anchors_per_level: List[np.ndarray], tgt: ATSSTargets,
               num_classes: int = 10, cls_weight: float = 1.0, bbox_weight: float = 2.0,
-              ctr_weight: float = 1.0) -> Dict[str, torch.Tensor]:
+              ctr_weight: float = 1.0,
+              reduce_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """Focal classification, centerness-weighted GIoU and centerness BCE
     (ATSSTaskHead's losses, window.py:79-95). ``atss_outs``: per level
     (cls (BN, C, h, w), deltas (BN, 4, h, w), centerness (BN, 1, h, w)),
-    flattened in (h, w) order as the anchors are."""
+    flattened in (h, w) order as the anchors are. ``reduce_fn`` averages
+    the positive count and the total centerness over the ranks (mmdet
+    atss_head.py:310-328; JAX ``atss_loss``, :186 and :199)."""
     def flat(x):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, x.shape[1])
 
@@ -256,14 +274,14 @@ def atss_loss(atss_outs, anchors_per_level: List[np.ndarray], tgt: ATSSTargets,
     dev = cls.device
     anchors = torch.as_tensor(np.concatenate(anchors_per_level, 0), dtype=torch.float32,
                               device=dev)
-    n_pos = max(float(tgt.num_pos), 1.0)
+    n_pos = reduced(reduce_fn, torch.tensor(float(tgt.num_pos), device=dev)).clamp(min=1.0)
     cls_l = sigmoid_focal_loss(cls, tgt.labels, num_classes).sum() / n_pos
     pos = (tgt.labels < num_classes).float()
     bn, a = pos.shape
     decoded = delta_decode(anchors.expand(bn, a, 4).reshape(-1, 4), reg.reshape(-1, 4))
     giou = giou_loss(decoded, tgt.gt_xyxy.reshape(-1, 4)).reshape(bn, a)
     w = tgt.centerness * pos
-    bbox_l = (giou * w).sum() / w.sum().clamp(min=1e-6)
+    bbox_l = (giou * w).sum() / reduced(reduce_fn, w.sum()).clamp(min=1e-6)
     ctr_bce = F.binary_cross_entropy_with_logits(ctr, tgt.centerness, reduction="none")
     ctr_l = (ctr_bce * pos).sum() / n_pos
     return {"loss_atss_cls": cls_weight * cls_l, "loss_atss_bbox": bbox_weight * bbox_l,
@@ -395,7 +413,11 @@ class DetectorTrainer:
 
     ``streaming``: the seq_mode recipes, one frame a step with the memory
     threaded across steps (``train_frame``); otherwise a window a step
-    (``train_window``)."""
+    (``train_window``). Under a process group the loss averages its avg
+    factors over the ranks (``reduce_mean``), the gradients are averaged
+    over the ranks before the optimizer and the metrics are the ranks' mean
+    (JAX ``make_detector_train`` with a ``mesh``); without one each of
+    these is the identity."""
 
     def __init__(self, pc_range, num_classes: int = 10, cls_weight: float = 2.0,
                  bbox_weight: float = 0.25, use_grid_mask: bool = True, with_dn: bool = True,
@@ -468,19 +490,21 @@ class DetectorTrainer:
             assignment = hungarian_targets(self.assign, cls_all, bbox_all,
                                            normalize_bbox(gt_boxes), gt_labels)
         metrics = detection_loss(cls_all, bbox_all, assignment, self.num_classes,
-                                 self.cls_weight, self.bbox_weight)
+                                 self.cls_weight, self.bbox_weight, reduce_fn=reduce_mean)
         if "all_traj_preds" in outs and gt_trajs is not None:
             metrics["loss_traj"] = trajectory_loss(
                 outs["all_traj_preds"], outs["all_traj_scores"], assignment,
                 gt_trajs.to(cls_all.device, torch.float32),
-                gt_traj_mask.to(cls_all.device, torch.float32))
+                gt_traj_mask.to(cls_all.device, torch.float32), reduce_fn=reduce_mean)
         if self.with_dn:
             metrics["loss_dn"] = dn_loss(outs["dn_cls_scores"], outs["dn_bbox_preds"], dn,
                                          self.pc_range, self.num_classes,
-                                         dn_weight=self.dn_weight, split=self.dn_split)
+                                         dn_weight=self.dn_weight, split=self.dn_split,
+                                         reduce_fn=reduce_mean)
         if atss_tgt is not None and atss_outs is not None:
             metrics.update(atss_loss(atss_outs, self.anchors_per_level,
-                                     atss_tgt.to(cls_all.device), self.num_classes))
+                                     atss_tgt.to(cls_all.device), self.num_classes,
+                                     reduce_fn=reduce_mean))
         total = sum(metrics.values())
         metrics["loss"] = total
         return total, metrics, assignment
@@ -511,8 +535,10 @@ class DetectorTrainer:
         total, metrics, _ = self.loss(outs, atss_outs, dn, gt_boxes, gt_labels, atss_tgt,
                                       gt_trajs=gt_trajs, gt_traj_mask=gt_traj_mask)
         grads = self.backward(state, total)
+        grads = dict(zip(grads, allreduce_mean(list(grads.values()))))
         state.optimizer.step(grads)
         state.step += 1
         if new_memory is not None:
             new_memory = MemoryState(*(m.detach() for m in new_memory))
-        return StepOut({k: float(v.detach()) for k, v in metrics.items()}, new_memory)
+        metrics = {k: float(v.detach()) for k, v in metrics.items()}
+        return StepOut(mean_metrics(metrics), new_memory)

@@ -4,6 +4,16 @@ Counterpart of the JAX package's root ``train_perception.py`` (reference
 tools/train.py over the recipes of ``panacea_tpu/configs/perception``),
 with its flags and defaults, and ``--device``. One process drives one card;
 it runs on CUDA and raises without a card, ``--device cpu`` is for tests.
+Under ``torchrun --nproc_per_node N`` the run is data-parallel (the JAX
+CLI's ``dp`` mesh, the reference's DDP): each rank trains on its own
+``--batch`` windows, every N-th of the training windows (or its slots of
+the streaming sampler), with its own GridMask, DN and augmentation draws;
+the loss's avg factors and the gradients are averaged over the ranks, so
+the step is the one of the global batch of N x ``--batch``. Rank 0 writes
+the checkpoints (with every rank's cursor and draw states), ``final.pt``,
+``train_log.json`` and the eval hook's result. ``PANACEA_PERCEPTION_DP``,
+with which the JAX CLI makes a ``dp`` mesh of one process's devices, gives
+dp 1 here: the port has one device a process.
 ``--config`` names one of the four recipes of ``configs.PERCEPTION`` (by
 file name, or by the JAX package's path), or a YAML file where PyYAML
 imports. The window recipes train ``StreamPETRWindow`` on sliding windows;
@@ -35,6 +45,7 @@ the JAX CLI normalises them a second time (ROADMAP Queue C).
 
   python train_perception_torch.py --config streampetr_r50_atss_512x256_window
   python train_perception_torch.py --synthetic --tiny --steps 2 --device cpu
+  torchrun --nproc_per_node 8 train_perception_torch.py --batch 2
 """
 
 from __future__ import annotations
@@ -47,8 +58,6 @@ from typing import Any, Dict, Optional, Sequence
 
 NOT_QUEUED = ("is a JAX orbax tree, which needs JAX to read; the port does not use JAX "
               "(ROADMAP 'Not queued')")
-DATA_PARALLEL = ("data-parallel perception training (the JAX CLI's 'dp' mesh) is not "
-                 "ported: ROADMAP Queue A item 7")
 MAX_KEEP = 3
 TINY = dict(embed_dims=32, num_query=12, memory_len=24, topk_proposals=8, num_propagated=8,
             num_decoder_layers=2, atss_stacked_convs=1)
@@ -71,7 +80,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--workdir", default="work_dirs")
     p.add_argument("--max_gt", type=int, default=64)
     p.add_argument("--batch", type=int, default=0,
-                   help="batch size (0: the config's batch_size, --tiny 1)")
+                   help="batch size of one rank (0: the config's batch_size, --tiny 1); "
+                        "the global batch is this times the number of ranks")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--tiny", action="store_true",
@@ -91,19 +101,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--filter_file", default=None,
                    help="infos pkl restricting the training pool to its tokens")
     p.add_argument("--device", default=None,
-                   help="torch device; default cuda, which raises without a card. 'cpu' "
-                        "is for tests")
+                   help="torch device; default the local rank's card, which raises "
+                        "without a card. 'cpu' is for tests")
     return p
-
-
-def _refuse_data_parallel() -> None:
-    import torch.distributed as dist
-
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if dist.is_available() and dist.is_initialized():
-        world = max(world, dist.get_world_size())
-    if world > 1 or os.environ.get("PANACEA_PERCEPTION_DP"):
-        raise NotImplementedError(DATA_PARALLEL)
 
 
 def load_init(model, path: str) -> Optional[Dict[str, Any]]:
@@ -194,16 +194,24 @@ def collate(items, anchors, device):
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns the
-    train log it wrote, with the run's ``state`` and ``outdir``."""
+    train log it wrote (rank 0's), with the run's ``state`` and ``outdir``."""
     args = get_parser().parse_args(argv)
-    _refuse_data_parallel()
+    from panacea_tpu_torch.parallel.mesh import process_group
 
+    with process_group(args.device) as group:
+        return _run(args, group)
+
+
+def _run(args, group) -> Dict[str, Any]:
+    """The run of one rank (``group``: ``parallel.mesh.Group``)."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from panacea_tpu_torch.checkpoint import _STATE_FILE
     from panacea_tpu_torch.config import load_perception_config
-    from panacea_tpu_torch.models.engine import resolve_device
+    from panacea_tpu_torch.parallel.mesh import rank_seed, shard_indices
+    from panacea_tpu_torch.parallel.train import any_rank, barrier, broadcast_from_rank0
     from panacea_tpu_torch.perception.atss import fpn_shapes, grid_anchors
     from panacea_tpu_torch.perception.head import MemoryState, init_memory
     from panacea_tpu_torch.perception.train import (DetectorOptimizer, DetectorTrainer,
@@ -212,7 +220,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                                             StreamingSampler)
     from panacea_tpu_torch.registry import instantiate_from_config
 
-    device = resolve_device(args.device)  # raises without a card unless told otherwise
+    device = group.device
+    rank, world = group.rank, group.world
+    # each rank's own draws (GridMask, DN, the dataset's augmentation), as
+    # JAX folds the replica index into the step's key (train.py:427-432)
+    seed = rank_seed(args.seed, rank)
     cfg = load_perception_config(args.config)["perception"]
     tcfg, ocfg, dcfg = cfg["train"], cfg["optimizer"], cfg["data"]
     det_cfg = dict(cfg["detector"])
@@ -257,7 +269,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             infos=infos, queue_length=queue_length, final_dim=final_dim, image_loader=loader,
             gen_root=args.gen_root, gen_clip_len=args.gen_clip_len,
             filter_tokens=filter_tokens, random_length=int(tcfg.get("random_length", 0)),
-            seq_split_num=seq_split_num, seed=args.seed)
+            seq_split_num=seq_split_num, seed=seed)
     else:
         ds = PerceptionTrainDataset(
             ann_file=dcfg["ann_file"], gen_root=args.gen_root or dcfg.get("gen_root"),
@@ -268,7 +280,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             rot_range=tuple(dcfg["rot_range"]) if dcfg.get("rot_range") else None,
             scale_ratio_range=(tuple(dcfg["scale_ratio_range"])
                                if dcfg.get("scale_ratio_range") else None),
-            seq_split_num=seq_split_num, seed=args.seed)
+            seq_split_num=seq_split_num, seed=seed)
 
     if args.steps > 0:
         total_iters = args.steps
@@ -311,8 +323,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     n_trained = sum(p.numel() for p in state.params.values())
     print(f"device={device} trained parameters={n_trained} frozen tensors={len(opt.frozen)} "
           f"batch={bs} streaming={seq_mode}", flush=True)
+    if world > 1 or os.environ.get("PANACEA_PERCEPTION_DP"):
+        print(f"[ddp] rank {rank} of {world} process(es) x batch {bs} -> dp={world}, "
+              f"backend {group.backend}, synced grads", flush=True)
 
-    valid_idx = [i for i in range(len(ds)) if i >= queue_length - 1]
+    # this rank's training windows (the reference's DistributedGroupSampler,
+    # JAX train_perception.py:343-346)
+    valid_idx = shard_indices([i for i in range(len(ds)) if i >= queue_length - 1], rank, world)
     if not valid_idx:
         raise RuntimeError("the dataset has no full windows")
     eval_idx: list = []
@@ -333,18 +350,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             groups_num = int(flags.max()) + 1
             g = groups_num - 1
             held_wins: list = []
-            while (g >= 0 and groups_num - len(held_groups) - 1 >= bs
-                   and len(held_wins) < args.eval_samples):
+            while (g >= 0 and groups_num - len(held_groups) - 1 >= bs * world
+                   and len(held_wins) < args.eval_samples * world):
                 held_groups.add(g)
                 held_wins.extend(int(i) for i in np.where(flags == g)[0]
                                  if i >= queue_length - 1)
                 g -= 1
-            eval_idx = sorted(held_wins)[:args.eval_samples]
-        sampler = StreamingSampler(ds.seq_flags, batch_size=bs, seed=args.seed,
-                                   exclude_groups=held_groups)
+            eval_idx = shard_indices(sorted(held_wins), rank, world)[:args.eval_samples]
+        sampler = StreamingSampler(ds.seq_flags, batch_size=bs, num_replicas=world, rank=rank,
+                                   seed=args.seed, exclude_groups=held_groups)
         memory = init_memory(bs, model.memory_len, model.embed_dims, device=device)
 
-    generator = torch.Generator().manual_seed(args.seed)   # GridMask and DN draws, on the host
+    generator = torch.Generator().manual_seed(seed)   # GridMask and DN draws, on the host
     step = ptr = draws = 0
     if args.resume:
         rpath = resume_path(args.resume)
@@ -354,6 +371,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         opt.load_state_dict(blob["optimizer"])
         state.step = step = int(blob["step"])
         meta = blob["meta"]
+        ranks = meta.get("ranks")
+        if len(ranks or [meta]) != world:
+            raise SystemExit(f"--resume {rpath}: written by {len(ranks or [meta])} rank(s), "
+                             f"this run has {world}")
+        if ranks:
+            meta = ranks[rank]      # each rank's own cursor, draw states and memory
         ptr, draws = int(meta["ptr"]), int(meta["draws"])
         generator.set_state(meta["generator"])
         ds.rng.set_state(meta["ds_rng_state"])
@@ -365,6 +388,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         if memory is not None and meta.get("memory") is not None:
             memory = MemoryState(*(m.to(device) for m in meta["memory"]))
         print(f"[resume] {rpath} -> step {step}", flush=True)
+    # one set of parameters and statistics on every rank, as DDP starts
+    broadcast_from_rank0(list(model.parameters()) + list(model.buffers()))
 
     t0 = time.time()
     metrics: Dict[str, float] = {}
@@ -375,9 +400,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             draws += 1
             items = [ds.window_with_gt(i, max_gt=args.max_gt, pred_steps=pred_steps)
                      for i in idxs]
-            if any(it is None for it in items):
+            if any_rank(any(it is None for it in items)):
                 # a window without its history skips the draw: the streams
-                # stay consumed, so the memory never meets another scene
+                # stay consumed, so the memory never meets another scene;
+                # every rank skips with it, so the ranks stay in step (as the
+                # JAX CLI all-gathers the miss flags, train_perception.py:472-489)
                 skipped += 1
                 if skipped > 2 * len(ds):
                     raise RuntimeError("the sampler's streams give no full training window")
@@ -405,7 +432,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             out = trainer.step(state, imgs, data, *targets, generator=generator)
         metrics = out.metrics
         step = state.step
-        if step % 10 == 0 or step == total_iters:
+        if rank == 0 and (step % 10 == 0 or step == total_iters):
             msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
             print(f"[{step}/{total_iters}] {msg} ({(time.time() - t0) / max(step, 1):.2f}s/it)",
                   flush=True)
@@ -414,13 +441,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     "ds_rng_state": ds.rng.get_state(),
                     "memory": (None if memory is None
                                else MemoryState(*(m.cpu() for m in memory)))}
-            save_checkpoint(outdir, state, meta)
-        if args.eval_every > 0 and step % args.eval_every == 0 and eval_idx:
-            evaluate(model, ds, eval_idx, outdir, step, device)
+            if world > 1:
+                every = [None] * world
+                dist.all_gather_object(every, meta)
+                meta = dict(meta, ranks=every)
+            if rank == 0:
+                save_checkpoint(outdir, state, meta)
+            barrier()
+        if args.eval_every > 0 and step % args.eval_every == 0:
+            if rank == 0 and eval_idx:
+                evaluate(model, ds, eval_idx, outdir, step, device)
+            barrier()
 
+    log: Dict[str, Any] = {"steps": step, "final_metrics": metrics}
+    if rank != 0:
+        barrier()
+        return dict(log, state=state, outdir=outdir)
     torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
                os.path.join(outdir, "final.pt"))
-    log: Dict[str, Any] = {"steps": step, "final_metrics": metrics}
     if load_report:
         log["load_from"] = load_report
     if args.gen_root or dcfg.get("gen_root"):
@@ -431,6 +469,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     with open(os.path.join(outdir, "train_log.json"), "w") as f:
         json.dump(log, f)
     print(f"done: {step} steps -> {outdir}", flush=True)
+    barrier()
     return dict(log, state=state, outdir=outdir)
 
 

@@ -11,7 +11,7 @@ the reference and the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,3 +100,12 @@ def detection_loss_single(cls_logits: torch.Tensor, bbox_preds: torch.Tensor,
     rows_t, cols_t = (torch.as_tensor(x, device=dev) for x in (rows, cols))
     bbox_l = masked_l1(bbox_preds[rows_t], gt_norm[cols_t], CODE_WEIGHTS).sum() / max(g, 1)
     return {"loss_cls": cls_weight * cls_l, "loss_bbox": bbox_weight * bbox_l}
+
+
+def reduced(reduce_fn: Optional[Callable], x: torch.Tensor) -> torch.Tensor:
+    """``reduce_fn(x)`` (an avg factor averaged over the ranks, mmdet's
+    ``reduce_mean``) as a tensor of ``x``'s device and type; ``x`` where
+    ``reduce_fn`` is None."""
+    if reduce_fn is None:
+        return x
+    return torch.as_tensor(reduce_fn(x), dtype=x.dtype, device=x.device)

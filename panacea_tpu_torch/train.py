@@ -1,5 +1,6 @@
 """Training entry point of the port (counterpart of the JAX package's root
-``train.py``): the generator trained with the diffusion loss on one card.
+``train.py``): the generator trained with the diffusion loss, on one card
+or data-parallel over several.
 
 The JAX CLI's flags and defaults, plus ``--device`` (the card by default;
 ``--device cpu`` for tests). One step: a batch of clips picked with the JAX
@@ -10,12 +11,24 @@ checkpoint ``{ckpt_dir}/iter_N`` (``--resume`` continues from it exactly);
 at the end ``final.pt`` (the network's parameters, fp32), ``final_ema.pt``
 (the EMA shadows, with ``--use_ema``) and ``engine_final.ckpt``, a reference
 style checkpoint that ``inference_torch.py --ckpt`` loads (``--prefer_ema``
-for the shadows). ``--fsdp`` and ``--dp > 1`` raise: multi-device training is
-not ported.
+for the shadows).
+
+Data parallelism (the JAX CLI's ``--dp``, its mesh's ``dp`` axis): under
+``torchrun --nproc_per_node N`` each rank holds the parameters, ``--bs`` is
+the global batch split evenly over the N ranks, and a step is the
+one-process step of that batch: every rank reads the whole batch and
+computes its conditioning with the ucg dropout, as the JAX CLI's processes
+do (so the dataset's own random stream stays the same on every rank), draws
+the posterior, sigmas and noise at the global batch's shape from the shared
+generator, keeps its own clips' rows, and averages its gradients with the
+other ranks' before the optimizer (``parallel/train.py``). Rank 0 writes the
+checkpoints. ``--dp`` must equal the number of processes; ``--fsdp`` (ROADMAP
+Queue A item 7c) raises.
 
 Examples:
   python train_torch.py --tiny --synthetic --steps 3 --ckpt_every 0 --device cpu
   python train_torch.py --synthetic --steps 10 --freeze_type spatial --use_ema
+  torchrun --nproc_per_node 8 train_torch.py --synthetic --bs 8 --freeze_type spatial
 """
 
 from __future__ import annotations
@@ -31,8 +44,6 @@ TINY_FINAL_DIM, FULL_FINAL_DIM = (16, 32), (256, 512)
 TINY_LATENT_HW, FULL_LATENT_HW = (2, 24), (32, 384)
 GRAD_CLIP = 1.0
 MAX_KEEP = 3
-MULTI_DEVICE = ("multi-device training is not ported (ROADMAP.md, Queue A item 7); "
-                "run on one device without --fsdp and --dp")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -49,9 +60,11 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--bs", type=int, default=1)
     p.add_argument("--lr", type=float, default=2e-5)
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel size; only 1 is ported (more raises)")
+                   help="data-parallel size: the number of processes (torchrun "
+                        "--nproc_per_node), which is the default")
     p.add_argument("--fsdp", action="store_true",
-                   help="sharded training state; not ported (raises)")
+                   help="sharded training state; not ported (ROADMAP Queue A item "
+                        "7c): raises")
     p.add_argument("--freeze_type", default=None, choices=[None, "none", "spatial"])
     p.add_argument("--use_ema", action="store_true")
     p.add_argument("--ckpt_dir", default="ckpts/train")
@@ -64,8 +77,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", default=None,
-                   help="torch device; default cuda, which raises without a "
-                        "card. 'cpu' is for tests")
+                   help="torch device; default the local rank's card, which "
+                        "raises without a card. 'cpu' is for tests")
     return p
 
 
@@ -80,13 +93,51 @@ def default_loss_config(engine) -> Dict[str, Any]:
                 "num_frames": engine.num_frames}}
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-    """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns a
-    summary: the losses, the train state, the engine and the timer."""
-    args, unknown = get_parser().parse_known_args(argv)
-    if args.fsdp or (args.dp or 1) > 1:
-        raise SystemExit(f"--fsdp / --dp {args.dp}: {MULTI_DEVICE}")
+def rank_rows(engine, batch: Dict[str, Any], cond: Dict[str, Any], generator, rows: slice):
+    """One rank's part of a global step: the clips ``rows`` of the global
+    batch's ``jpg``, their rows of the conditioning ``cond`` (per clip or
+    per frame), and the step's random draws made from ``generator`` at the
+    global batch's shape, in ``train_step``'s order (the posterior, then the
+    loss's sigmas and noise), cut to the same rows; with the global batch's
+    conditioning frame for the shared-noise bias. With every row, the step
+    is the one-process step. Returns (jpg, cond, draws to inject)."""
+    jpg = batch["jpg"]                       # (B, T, H, W, 3)
+    b, t = jpg.shape[:2]
+    frames = slice(rows.start * t, rows.stop * t)
+    posterior = engine.draw_posterior_noise(b * t, jpg.shape[2:4], generator)
+    inject = engine.loss_fn.draw(posterior.shape, generator, engine.device)
+    inject = {k: v[frames] for k, v in inject.items()}
+    inject["posterior_noise"] = posterior[frames]
+    if "concat" in cond:
+        inject["share_frame"] = cond["concat"][-1]
 
+    def cut(k, v):
+        if v.shape[0] not in (b, b * t):
+            raise ValueError(f"conditioning {k!r} has {v.shape[0]} rows, neither the "
+                             f"batch's {b} clips nor its {b * t} frames")
+        return v[rows] if v.shape[0] == b else v[frames]
+
+    return jpg[rows], {k: cut(k, v) for k, v in cond.items()}, inject
+
+
+def main(argv: Optional[Sequence[str]] = None, save_final: bool = True) -> Dict[str, Any]:
+    """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns a
+    summary: the losses, the train state, the engine and the timer.
+    ``save_final`` False leaves out the final saves (27 GB at full width),
+    for callers that read the state in memory."""
+    args, unknown = get_parser().parse_known_args(argv)
+    if args.fsdp:
+        from panacea_tpu_torch.parallel.mesh import FSDP
+
+        raise SystemExit(f"--fsdp: {FSDP}")
+    from panacea_tpu_torch.parallel.mesh import process_group
+
+    with process_group(args.device) as group:
+        return _run(args, unknown, group, save_final)
+
+
+def _run(args, unknown, group, save_final: bool) -> Dict[str, Any]:
+    """The run of one rank (``group``: ``parallel.mesh.Group``)."""
     import numpy as np
     import torch
 
@@ -95,14 +146,21 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                               save_engine_checkpoint, save_train_checkpoint)
     from panacea_tpu_torch.config import load_configs_with_overrides
     from panacea_tpu_torch.data.nuscenes.dataset import NuScenesVideoDataset, collate
-    from panacea_tpu_torch.models.engine import resolve_device
+    from panacea_tpu_torch.parallel.mesh import check_dp
+    from panacea_tpu_torch.parallel.train import assert_same, barrier, broadcast_from_rank0
     from panacea_tpu_torch.registry import instantiate_from_config
     from panacea_tpu_torch.train_step import init_train_state, train_step
     from panacea_tpu_torch.utils.profiling import Timer
 
+    dp = check_dp(args.dp, group.world)
+    if args.bs % dp:
+        raise SystemExit(f"--bs {args.bs} is the global batch: it must split evenly over "
+                         f"--dp {dp}")
+    local_bs = args.bs // dp
+    rows = slice(group.rank * local_bs, (group.rank + 1) * local_bs)
     if args.tiny:
         args.base = ["tiny_cpu"]
-    device = resolve_device(args.device)  # raises without a card unless told otherwise
+    device = group.device
     cfg = load_configs_with_overrides(args.base, unknown)
     engine = instantiate_from_config(cfg["model"], device=device)
     if args.freeze_type:
@@ -137,9 +195,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.resume and is_train_checkpoint(args.resume):
         resume_meta = load_train_checkpoint(args.resume, state, engine)
         print(f"[resume] {resume_meta['path']} -> step {state.step}", flush=True)
+    if group.backend is not None:
+        # one set of parameters on every rank, as DDP starts (the frozen ones
+        # come from the same seed or checkpoint: checked, not sent)
+        broadcast_from_rank0(list(state.params.values()))
+        state.sync_network()
+        assert_same([p for k, p in engine.named_parameters() if k not in state.params])
     n_trained = sum(p.numel() for p in state.params.values())
-    print(f"device={device} trained parameters={n_trained} freeze_type={engine.freeze_type} "
-          f"ema={args.use_ema}", flush=True)
+    print(f"rank={group.rank}/{group.world} backend={group.backend} device={device} "
+          f"trained parameters={n_trained} freeze_type={engine.freeze_type} "
+          f"ema={args.use_ema} batch={args.bs} ({local_bs} a rank)", flush=True)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     rs = np.random.RandomState(args.seed)
@@ -155,32 +220,41 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     start = state.step
     t0 = time.time()
     for step in range(start, args.steps):
-        idxs = rs.randint(t - 1, len(dataset), args.bs)  # as the JAX CLI (train.py:204)
+        # the global batch's clips, the same on every rank (train.py:204)
+        idxs = rs.randint(t - 1, len(dataset), args.bs)
         with timer("dataset"):
+            # every rank reads the whole global batch, as the JAX CLI's
+            # processes do (train.py:204-205): the dataset's own random.Random
+            # (prompt wording, view order) then advances alike on every rank
             batch = collate([dataset[int(i)] for i in idxs])
         with timer("conditioning"), torch.no_grad():
             cond = engine.conditioner(batch, device, generator=generator, apply_ucg=True)
-        loss = float(train_step(engine, state, batch["jpg"], cond, generator, timer=timer))
+            jpg, cond, draws = rank_rows(engine, batch, cond, generator, rows)
+        loss = float(train_step(engine, state, jpg, cond, timer=timer, **draws))
         losses.append(loss)
-        if step % args.log_every == 0:
+        if step % args.log_every == 0 and group.rank == 0:
             dt = (time.time() - t0) / max(step - start, 1)
             print(f"step {step} loss {loss:.4f} ({dt:.2f}s/it)", flush=True)
         if args.ckpt_every > 0 and state.step % args.ckpt_every == 0:
-            meta = {"generator": generator.get_state(), "rs_state": rs.get_state(),
-                    "ds_rng_state": dataset.rng.getstate()}
-            save_train_checkpoint(args.ckpt_dir, state, engine, meta, max_keep=MAX_KEEP)
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    final = {f"model.{n}": state.params.get(f"model.{n}", p).detach().float().cpu()
-             for n, p in engine.model.named_parameters()}
-    torch.save(final, os.path.join(args.ckpt_dir, "final.pt"))
-    if state.ema is not None:
-        torch.save({k: v.cpu() for k, v in state.ema.shadows.items()},
-                   os.path.join(args.ckpt_dir, "final_ema.pt"))
-    # train -> inference: a reference-style checkpoint of the whole engine,
-    # with the EMA shadows where the EMA is on (inference_torch.py --ckpt
-    # ... --prefer_ema samples from them, as the reference samples from model_ema)
-    path = save_engine_checkpoint(os.path.join(args.ckpt_dir, "engine_final.ckpt"), engine,
-                                  state=state, ema=state.ema)
-    print(f"training done -> {path}", flush=True)
+            if group.rank == 0:
+                meta = {"generator": generator.get_state(), "rs_state": rs.get_state(),
+                        "ds_rng_state": dataset.rng.getstate()}
+                save_train_checkpoint(args.ckpt_dir, state, engine, meta, max_keep=MAX_KEEP)
+            barrier()
+    path = os.path.join(args.ckpt_dir, "engine_final.ckpt")
+    if save_final and group.rank == 0:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        final = {f"model.{n}": state.params.get(f"model.{n}", p).detach().float().cpu()
+                 for n, p in engine.model.named_parameters()}
+        torch.save(final, os.path.join(args.ckpt_dir, "final.pt"))
+        if state.ema is not None:
+            torch.save({k: v.cpu() for k, v in state.ema.shadows.items()},
+                       os.path.join(args.ckpt_dir, "final_ema.pt"))
+        # train -> inference: a reference-style checkpoint of the whole engine,
+        # with the EMA shadows where the EMA is on (inference_torch.py --ckpt
+        # ... --prefer_ema samples from them, as the reference samples from model_ema)
+        path = save_engine_checkpoint(path, engine, state=state, ema=state.ema)
+        print(f"training done -> {path}", flush=True)
+    barrier()
     return {"losses": losses, "state": state, "engine": engine, "timer": timer,
             "engine_ckpt": path}

@@ -6,8 +6,11 @@
 One step: the clip is encoded without gradients, the network runs with
 gradients (ResBlocks and transformers recomputed in the backward pass where
 ``use_checkpoint`` is set), the loss is averaged, the gradients go back
-through the hand-written backward kernels, AdamW (with the global-norm clip
-over the trained parameters) updates the fp32 masters, the network's
+through the hand-written backward kernels, under a process group they are
+averaged over the ranks (``parallel.train.allreduce_mean``: each rank's
+gradient is of its rows' mean loss, so the average is the global batch's,
+as the JAX package's sharded step gives it), AdamW (with the global-norm
+clip over the trained parameters) updates the fp32 masters, the network's
 parameters take the masters' values in their compute type, and the EMA
 follows the masters.
 
@@ -26,6 +29,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from panacea_tpu_torch.parallel.train import allreduce_mean, reduce_mean
 from panacea_tpu_torch.utils.ema import LitEma
 from panacea_tpu_torch.utils.optim import AdamW
 
@@ -68,9 +72,11 @@ def train_step(engine, state: TrainState, jpg, cond: Dict[str, torch.Tensor],
     """One step of ``state`` on the clip ``jpg`` (B, T, H, W, 3) with the
     precomputed conditioning ``cond``. Random draws (posterior, sigmas,
     noise) come from ``generator`` in that order, or are injected
-    (``posterior_noise``, ``sigma_rand``, ``noise``, ``offset``). ``timer``
-    (``utils.profiling.Timer``) splits the step into vae_encode, forward,
-    backward, optimizer and ema. Returns the loss (a detached scalar)."""
+    (``posterior_noise``, ``sigma_rand``, ``noise``, ``offset``,
+    ``share_frame``). ``timer`` (``utils.profiling.Timer``) splits the step
+    into vae_encode, forward, backward, allreduce, optimizer and ema.
+    Returns the loss (a detached scalar), averaged over the ranks under a
+    process group."""
     def phase(name):
         return timer(name) if timer is not None else contextlib.nullcontext()
 
@@ -86,12 +92,14 @@ def train_step(engine, state: TrainState, jpg, cond: Dict[str, torch.Tensor],
         loss = engine.diffusion_loss(z, cond, generator=generator, **inject)
     with phase("backward"):
         loss.backward()
+    missing = [k for k, p in state.network.items() if p.grad is None]
+    if missing:
+        raise RuntimeError(f"no gradient reached {len(missing)} trained parameters, "
+                           f"e.g. {missing[:3]}")
+    with phase("allreduce"):
+        grads = dict(zip(state.network, allreduce_mean([p.grad for p in state.network.values()])))
+        loss = reduce_mean(loss.detach())
     with phase("optimizer"):
-        grads = {k: p.grad for k, p in state.network.items()}
-        missing = [k for k, g in grads.items() if g is None]
-        if missing:
-            raise RuntimeError(f"no gradient reached {len(missing)} trained parameters, "
-                               f"e.g. {missing[:3]}")
         state.optimizer.step(state.params, grads)
         for p in state.network.values():
             p.grad = None

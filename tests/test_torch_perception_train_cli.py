@@ -194,21 +194,28 @@ def zoo_recipe(tmp_path, **params):
 @pytest.mark.parametrize("case", ["backbone_eva", "dp_env", "world_size", "orbax_resume",
                                   "orbax_load_from"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, case):
-    """EVA with the recipe's 5 levels (its adapter gives 4), data
-    parallelism (ROADMAP Queue A item 7) and the JAX CLI's orbax trees.
-    VoVNet and the PETR heads train (tests/test_torch_perception_zoo_train.py),
-    EVA and the proposal-query heads too
-    (tests/test_torch_perception_focal_detectors.py)."""
+    """EVA with the recipe's 5 levels (its adapter gives 4), a world size
+    without torchrun's rendezvous and the JAX CLI's orbax trees. VoVNet and
+    the PETR heads train (tests/test_torch_perception_zoo_train.py), EVA and
+    the proposal-query heads too (tests/test_torch_perception_focal_detectors.py);
+    so does one process with ``PANACEA_PERCEPTION_DP`` (the JAX CLI's dp mesh
+    over one process's devices), with dp 1, and 2 ranks under torchrun
+    (tests/test_torch_parallel_train.py)."""
     flags = ["--steps", "1"]
     if case == "backbone_eva":
         error, match = ValueError, "eva neck gave 4 levels, the head takes num_levels 5"
         flags += ["--config", zoo_recipe(tmp_path, backbone_type="eva",
                                          backbone_cfg={"layers": 1})]
-    elif case in ("dp_env", "world_size"):
-        error = NotImplementedError
-        monkeypatch.setenv(*(("PANACEA_PERCEPTION_DP", "1") if case == "dp_env"
-                             else ("WORLD_SIZE", "2")))
-        match = "Queue A item 7"
+    elif case == "dp_env":
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(k, raising=False)
+        monkeypatch.setenv("PANACEA_PERCEPTION_DP", "1")
+        out = run(tmp_path, *flags)
+        assert out["steps"] == 1 and math.isfinite(out["final_metrics"]["loss"])
+        return
+    elif case == "world_size":
+        error, match = RuntimeError, "WORLD_SIZE=2 but no rendezvous"
+        monkeypatch.setenv("WORLD_SIZE", "2")
     else:
         orbax = tmp_path / "jax_run" / "iter_4"
         orbax.mkdir(parents=True)

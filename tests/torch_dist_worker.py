@@ -1,0 +1,77 @@
+"""One rank of the data-parallel tests (tests/test_torch_parallel*.py):
+``scripts/dist_rank.py`` with two test hooks, each set by a flag given
+before dist_rank's own arguments.
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        tests/torch_dist_worker.py [--uneven_gt] [--record_saves DIR] <dist_rank args>
+
+``--uneven_gt`` keeps 1 + key % 3 of each training window's boxes (key =
+the window's key frame), so that windows differ in their matched counts and
+a loss whose avg factor is not averaged over the ranks shows in the step.
+``--record_saves DIR`` writes the paths of the files every ``torch.save``
+of this rank wrote to ``DIR/saves_rank{R}.json``.
+"""
+
+import json
+import os
+import runpy
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    uneven = "--uneven_gt" in args
+    if uneven:
+        args.remove("--uneven_gt")
+    record = None
+    if "--record_saves" in args:
+        i = args.index("--record_saves")
+        record = args[i + 1]
+        del args[i:i + 2]
+
+    import torch
+
+    if uneven:
+        from panacea_tpu_torch.perception.train_dataset import PerceptionTrainDataset
+
+        window_with_gt = PerceptionTrainDataset.window_with_gt
+
+        def fewer_boxes(self, key_idx, *a, **kw):
+            item = window_with_gt(self, key_idx, *a, **kw)
+            if item is None:
+                return None
+            boxes, labels = item[1].copy(), item[2].copy()
+            keep = 1 + key_idx % 3
+            boxes[:, keep:] = 0.0
+            labels[:, keep:] = -1
+            return (item[0], boxes, labels) + tuple(item[3:])
+
+        PerceptionTrainDataset.window_with_gt = fewer_boxes
+    saves = []
+    if record:
+        save = torch.save
+
+        def recorded_save(obj, f, *a, **kw):
+            if isinstance(f, (str, os.PathLike)):     # files, not the collectives' buffers
+                saves.append(os.path.abspath(f))
+            return save(obj, f, *a, **kw)
+
+        torch.save = recorded_save
+    sys.argv = [os.path.join(ROOT, "scripts", "dist_rank.py")] + args
+    try:
+        runpy.run_path(sys.argv[0], run_name="__main__")
+    except SystemExit as e:
+        if e.code:
+            raise
+    if record:
+        os.makedirs(record, exist_ok=True)
+        rank = int(os.environ.get("RANK", "0"))
+        with open(os.path.join(record, f"saves_rank{rank}.json"), "w") as f:
+            json.dump(saves, f)
+
+
+if __name__ == "__main__":
+    main()
