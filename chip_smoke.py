@@ -8,6 +8,7 @@
     python3 chip_smoke.py --variants     # phase 1, phase 13
     python3 chip_smoke.py --zoo          # phase 1, phases 15 to 18
     python3 chip_smoke.py --dist         # phase 1, phase 19
+    python3 chip_smoke.py --view_shard   # phase 1, phase 20
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -225,7 +226,7 @@ Phases, in order; any failure exits non-zero:
      this process's ``log_images`` for the same clip and generator
      (``SMALL_TOL``), s/clip per rank with the card shared; (b) the same
      on one NCCL rank; (c) the generator's trainer at full width in
-     ``spatial``, ``--dp 2 --bs 2``, 2 steps, on 2 ranks over gloo against
+     ``spatial``, ``--dp 2 --bs 2``, 1 step, on 2 ranks over gloo against
      one process of ``--bs 2`` (``--dp 1``, a group of one over NCCL): the
      losses and the sampled parameters' updates (``SMALL_TOL``), both
      ranks' parameters equal, per rank s/step with its ``allreduce``
@@ -238,8 +239,27 @@ Phases, in order; any failure exits non-zero:
      forward and 6 backward launches a step; (e) the synthetic perception
      eval at full width on 2 ranks over gloo: rank 0's merged metrics equal one
      process's, its predictions within ``PERCEPTION_TOL``. The runs share
-     the card in three groups: (a) with (d) and (e); (c)'s 2 ranks with
-     (b); (c)'s reference while this process samples (a)'s.
+     the card in three groups: (d)'s 2 ranks and (e) (beside phase 20's
+     ranks in the whole run); (c)'s 2 ranks with (b) and (d)'s reference;
+     (c)'s reference with (a) while this process samples (a)'s reference.
+ 20. one clip over several ranks (``--view_shard``): the bf16 flash kernel
+     at the ring's ragged shapes (B 24 at each level, ``kv_lens`` 2 Sq or Sq
+     for the global last view) against its plain version and timed beside
+     SDPA with the same mask; then the inference CLI with ``--synthetic
+     --view_shard 2``, 1 clip of 2 steps, through ``scripts/dist_rank.py
+     inference_view_shard`` under torchrun on 4 gloo ranks sharing the card
+     (t 2 x V 2, their exchanges staged through host memory), random
+     weights from the CLI's seed with the zero-initialised layers at
+     ``ZERO_INIT_STD``: per rank 21 flash calls an evaluation, all with
+     ``kv_lens`` at the ring's shapes, and 69 GEGLU calls; every rank
+     returns the same clip; rank 0 writes one clip's files. Then the CLI's
+     sample call again for one step with the network in fp32: over the
+     grid against rank 0 alone (``VIEW_SHARD_TOL``) and with a planted
+     fault (each rank's own boundary views in place of its neighbours',
+     set in that script) at least ``VIEW_SHARD_FAULT`` times it. Per rank
+     the seconds of the CLI and the clip's split, the exchanges by kind
+     with bytes, peak memory. In the whole run the 4 ranks share the card
+     with phase 19's first group.
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
@@ -390,11 +410,11 @@ LPIPS_PAIRS = 4
 # largest value (a scalar's relative difference)
 LOSS_TOL = 1e-3
 # phase 19: the CLIs under torchrun. Inference at full width, 2 steps a clip;
-# the generator's trainer at full width in ``spatial``, 2 steps; the window
+# the generator's trainer at full width in ``spatial``, 1 step; the window
 # recipe's detector without DN, whose grad frame then takes the fp32 flash
 # forward and backward: 7 history frames x 6 layers + 6 forward and 6
 # backward launches a step, all tc32. DIST_TIMEOUT bounds each command
-DIST_STEPS, DIST_TRAIN_STEPS = 2, 2
+DIST_STEPS, DIST_TRAIN_STEPS = 2, 1
 DIST_PTRAIN_FLASH, DIST_PTRAIN_BWD = 6 * (PERCEPTION_T - 1) + 6, 6
 # the detector's 2-rank step against one process's, fp32 on the card: the
 # loss terms and the trained parameters within PERCEPTION_TOL, both ranks'
@@ -406,6 +426,28 @@ DIST_PTRAIN_FLASH, DIST_PTRAIN_BWD = 6 * (PERCEPTION_T - 1) + 6, 6
 # optimizer reads 1
 DIST_UPDATE_TOL = 0.1
 DIST_TIMEOUT = 300
+# phase 20: one clip over 4 gloo ranks sharing the card, t 2 x V 2, full
+# width, 2 steps. A rank of (t 2, V 2) holds 2 CFG halves x 4 frames x 3
+# views: the ring's one flash call a cross-view block has B 24 and kv_lens
+# 2 Sq, or Sq for the global last view (view rank 1's third view); the
+# mid-block's Sq 32 goes to SDPA. 21 of those calls and 69 GEGLU calls an
+# evaluation on every rank, as one process's
+VIEW_SHARD_RANKS, VIEW_SHARD_V, VIEW_SHARD_STEPS = 4, 2, 2
+RING_FLASH = ((24, 2048, 4096, 5), (24, 512, 1024, 10), (24, 128, 256, 20))
+RING_CALLS_PER_LEVEL = 7    # cross-view blocks an evaluation at each of levels 0 to 2
+# the check: the CLI's sample call repeated with the network in fp32 (TF32
+# off; the fp32 kernels), one step, over the grid and by rank 0 alone, as
+# the largest difference over the largest latent: summation orders and
+# algorithms differ (the statistics' sums, cuDNN at other widths, the ring's
+# one flash call against one process's flash and SDPA calls), within
+# VIEW_SHARD_TOL; the planted fault (each rank's own boundary views in place
+# of its neighbours' K/V) at least VIEW_SHARD_FAULT times it. In bf16 the
+# same one-step call read 4.49e-2 over the grid and 5.29e-2 with the fault
+# on an H100 (PERF.md, the single-clip findings): no bf16 check tells them
+# apart, so the bf16 route of the ring's call is held by the kernel checks
+# at its shapes
+VIEW_SHARD_TOL = 1e-4
+VIEW_SHARD_FAULT = 10.0
 
 
 T_START = time.perf_counter()
@@ -881,6 +923,7 @@ def small_input_agreement(torch, np, dev):
 
 
 def reset_counts(fa, gg) -> None:
+    fa.flash_attention.shape_launches.clear()
     fa.flash_attention.launches = gg.geglu.launches = 0
     fa.flash_attention_bwd.launches = gg.geglu_bwd.launches = 0
     for counts in (fa.flash_attention.route_launches, fa.flash_attention_bwd.route_launches,
@@ -1015,11 +1058,23 @@ def image_info(path: str):
         return im.size[0], im.size[1], frames, float(first.std())
 
 
+def clip_files(t: int = 8) -> list:
+    """The files the inference CLI writes for the synthetic set's first clip
+    of ``t`` frames, sorted as ``tree_of`` lists them."""
+    from panacea_tpu_torch.data.nuscenes.dataset import PANORAMA_VIEWS
+
+    stem = f"synth__CAM_FRONT__{t - 1:012d}"
+    want = [f"{key}/{stem}.{ext}" for key in ("control", "inputs", "samples")
+            for ext in ("gif", "png")]
+    want += [f"gen-nuscenes/{cam}_synth__{cam}__{t - 1:012d}/_{i:06d}.jpg"
+             for cam in PANORAMA_VIEWS for i in range(t)]
+    return sorted(want)
+
+
 def cli_phase(torch, np, dev, fa, gg, card: str, keep_gen: str = None):
     """The inference CLI at full width, one synthetic clip, 25 steps; its
     Gen-nuScenes tree is copied to ``keep_gen`` when given."""
     from panacea_tpu_torch import inference
-    from panacea_tpu_torch.data.nuscenes.dataset import PANORAMA_VIEWS
 
     copies = {"seconds": 0.0, "bytes": 0, "calls": 0}
     as_tensor = torch.as_tensor
@@ -1072,12 +1127,8 @@ def cli_phase(torch, np, dev, fa, gg, card: str, keep_gen: str = None):
         main_s = time.perf_counter() - t0
         counts = read_counts(fa, gg)
         tree = tree_of(out["outdir"])
-        t = 8
-        stem = f"synth__CAM_FRONT__{t - 1:012d}"
-        want = [f"{key}/{stem}.{ext}" for key in ("control", "inputs", "samples")
-                for ext in ("gif", "png")]
-        want += [f"gen-nuscenes/{cam}_synth__{cam}__{t - 1:012d}/_{i:06d}.jpg"
-                 for cam in PANORAMA_VIEWS for i in range(t)]
+        want = clip_files()
+        stem = want[0].split("/")[1].rsplit(".", 1)[0]
         sizes = {"jpg": image_info(os.path.join(out["outdir"], want[-1])),
                  "png": image_info(os.path.join(out["outdir"], "samples", stem + ".png")),
                  "gif": image_info(os.path.join(out["outdir"], "samples", stem + ".gif"))}
@@ -1101,8 +1152,8 @@ def cli_phase(torch, np, dev, fa, gg, card: str, keep_gen: str = None):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": counts, "files": len(tree), "sizes": sizes}
     log(rec)
-    if tree != sorted(want):
-        raise AssertionError(f"the CLI wrote {tree}, expected {sorted(want)}")
+    if tree != want:
+        raise AssertionError(f"the CLI wrote {tree}, expected {want}")
     if not (jpg_ok and sizes["png"][:3] == (3072, 8 * 256, 1) and sizes["gif"][:3] == (3072, 256, 8)):
         raise AssertionError(f"the CLI's images have the wrong sizes: {sizes}")
     if not all(v[3] > 1.0 for v in sizes.values()):
@@ -3980,20 +4031,19 @@ BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_
 
 
 def start_ranks(cli: str, cli_args, log: str, nproc=None, backend=None, dump=None,
-                no_final=False) -> dict:
+                opts=()) -> dict:
     """Start ``scripts/dist_rank.py cli`` under ``python -m
     torch.distributed.run --standalone`` on ``nproc`` ranks, or as one plain
     process where ``nproc`` is None, its output to ``log``.out and .err;
-    ``backend`` sets PANACEA_DIST_BACKEND. ``wait_all`` waits for it."""
+    ``backend`` sets PANACEA_DIST_BACKEND; ``opts`` are more of dist_rank's
+    own options. ``wait_all`` waits for it."""
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable]
     if nproc:
         cmd += ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc)]
-    cmd += [os.path.join(root, "scripts", "dist_rank.py"), cli]
+    cmd += [os.path.join(root, "scripts", "dist_rank.py"), cli, *opts]
     if dump:
         cmd += ["--dump", dump]
-    if no_final:
-        cmd += ["--no_final"]
     cmd += ["--", *cli_args]
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
@@ -4167,10 +4217,14 @@ def detector_recipe(tmp: str) -> str:
     return path
 
 
-def dist_phase(torch, np, dev, card: str) -> dict:
+def dist_phase(torch, np, dev, card: str, beside=None) -> dict:
     """Phase 19: the CLIs under torchrun through ``scripts/dist_rank.py``,
     in three groups of runs that share the card (the script's time limit)
-    while each group's peak memory stays well under the card's."""
+    while each group's peak memory stays well under the card's.
+    ``beside``, (start, finish): ``start(tmp)`` starts another
+    ``start_ranks`` job in the first group (phase 20's ranks), and what
+    ``finish(tmp, finish_ranks(job))`` returns comes back under
+    ``"beside"``."""
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         def at(name):
@@ -4182,38 +4236,43 @@ def dist_phase(torch, np, dev, card: str) -> dict:
                "--ckpt_every", "0", "--log_every", "1"]
         det = ["--synthetic", "--config", detector_recipe(tmp), "--steps", "1",
                "--ckpt_every", "0"]
-        # three groups of runs that share the card, each within its memory:
-        # (a) 2 inference ranks over gloo beside (d) the detector's trainer
-        # and (e) the eval, 2 gloo ranks and one process each
-        jobs = [start_ranks("inference", inf + ["--outdir", at("inf2")], at("inf2"), nproc=2,
-                            backend="gloo", dump=at("inf2_dump")),
-                start_ranks("perception_train", det + ["--batch", "1", "--workdir", at("pw2")],
-                            at("pt2"), nproc=2, backend="gloo", dump=at("pt2_dump")),
-                start_ranks("perception_train", det + ["--batch", "2", "--workdir", at("pw1")],
-                            at("pt1"), dump=at("pt1_dump")),
-                start_ranks("perception_eval", ["--synthetic", "--out", at("ev2.json")],
-                            at("ev2"), nproc=2, backend="gloo", dump=at("ev2_dump")),
-                start_ranks("perception_eval", ["--synthetic", "--out", at("ev1.json")],
-                            at("ev1"), dump=at("ev1_dump"))]
+        # three groups of runs that share the card, each within its memory
+        # (peak GB on an H100: inference 13.3 a rank; phase 20's 11.6 a rank
+        # in the CLI, 13.5 in its fp32 replay and 18.9 on rank 0 alone; the
+        # generator's trainer 21.6 a rank of 2 and 28.5 alone, the detector's
+        # 4.4 a rank of 2): (d) the detector's 2 gloo ranks and (e) the
+        # eval's 2 gloo ranks and one process, beside phase 20's 4 ranks
+        jobs = [beside[0](tmp)] if beside else []
+        jobs += [start_ranks("perception_train", det + ["--batch", "1", "--workdir", at("pw2")],
+                             at("pt2"), nproc=2, backend="gloo", dump=at("pt2_dump")),
+                 start_ranks("perception_eval", ["--synthetic", "--out", at("ev2.json")],
+                             at("ev2"), nproc=2, backend="gloo", dump=at("ev2_dump")),
+                 start_ranks("perception_eval", ["--synthetic", "--out", at("ev1.json")],
+                             at("ev1"), dump=at("ev1_dump"))]
         wait_all(jobs)
-        ((inf2, inf2_s), (pt2, pt2_s), (pt1, pt1_s), (ev2, ev2_s),
-         (ev1, ev1_s)) = (finish_ranks(j) for j in jobs)
+        besides = beside[1](tmp, finish_ranks(jobs.pop(0))) if beside else None
+        (pt2, pt2_s), (ev2, ev2_s), (ev1, ev1_s) = (finish_ranks(j) for j in jobs)
         # (c) 2 generator-training ranks over gloo beside (b) one NCCL
-        # inference rank
+        # inference rank and (d)'s reference, one process of --batch 2
         jobs = [start_ranks("train", gen + ["--dp", "2", "--bs", "2"], at("tr2"), nproc=2,
-                            backend="gloo", dump=at("tr2_dump"), no_final=True),
+                            backend="gloo", dump=at("tr2_dump"), opts=["--no_final"]),
                 start_ranks("inference", inf + ["--outdir", at("inf1")], at("inf1"), nproc=1,
-                            dump=at("inf1_dump"))]
+                            dump=at("inf1_dump")),
+                start_ranks("perception_train", det + ["--batch", "2", "--workdir", at("pw1")],
+                            at("pt1"), dump=at("pt1_dump"))]
         wait_all(jobs)
-        (tr2, tr2_s), (inf1, inf1_s) = (finish_ranks(j) for j in jobs)
-        # (c)'s reference, one NCCL process of --bs 2 (--dp 1), beside (a)'s
-        # reference: each rank's clip sampled in this process
-        job = start_ranks("train", gen + ["--dp", "1", "--bs", "2"], at("tr1"), nproc=1,
-                          dump=at("tr1_dump"), no_final=True)
+        (tr2, tr2_s), (inf1, inf1_s), (pt1, pt1_s) = (finish_ranks(j) for j in jobs)
+        # (c)'s reference, one NCCL process of --bs 2 (--dp 1), beside (a) 2
+        # inference ranks over gloo and their reference: each rank's clip
+        # sampled in this process
+        jobs = [start_ranks("train", gen + ["--dp", "1", "--bs", "2"], at("tr1"), nproc=1,
+                            dump=at("tr1_dump"), opts=["--no_final"]),
+                start_ranks("inference", inf + ["--outdir", at("inf2")], at("inf2"), nproc=2,
+                            backend="gloo", dump=at("inf2_dump"))]
         want = dist_inference_reference(torch, dev, 2, DIST_STEPS)
         free(torch)
-        wait_all([job])
-        tr1, tr1_s = finish_ranks(job)
+        wait_all(jobs)
+        (tr1, tr1_s), (inf2, inf2_s) = (finish_ranks(j) for j in jobs)
         runs_s = time.perf_counter() - t_start
 
         def dumped(name, rank=0):
@@ -4231,10 +4290,10 @@ def dist_phase(torch, np, dev, card: str) -> dict:
         files = {"gloo": len(tree_of(at("inf2"))), "nccl": len(tree_of(at("inf1")))}
         rec_inf = {"phase": "dist_inference", "card": card, "steps": DIST_STEPS,
                    "tol": SMALL_TOL,
-                   "gloo_2_ranks_beside_the_detectors_runs": {
+                   "gloo_2_ranks_beside_1_training_process_and_the_reference": {
                        "seconds": inf2_s, "max_rel_err_vs_one_process": errs,
                        "ranks": {r: clip_split(inf2[r]) for r in (0, 1)}},
-                   "nccl_1_rank_beside_2_training_ranks": {
+                   "nccl_1_rank_beside_3_training_ranks": {
                        "seconds": inf1_s, "max_rel_err_vs_one_process": nccl_err,
                        "rank0": clip_split(inf1[0])},
                    "files": files}
@@ -4259,9 +4318,9 @@ def dist_phase(torch, np, dev, card: str) -> dict:
         per_run = {k: v * DIST_TRAIN_STEPS for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
         rec_tr = {"phase": "dist_train", "card": card, "freeze_type": "spatial",
                   "steps": DIST_TRAIN_STEPS, "tol": SMALL_TOL,
-                  "gloo_2_ranks_beside_1_inference_rank": {
+                  "gloo_2_ranks_beside_1_inference_rank_and_1_detector": {
                       "seconds": tr2_s, "ranks": {r: train_split(tr2[r]) for r in (0, 1)}},
-                  "nccl_1_process_bs2_beside_the_clip_reference": {
+                  "nccl_1_process_bs2_beside_2_inference_ranks_and_the_reference": {
                       "seconds": tr1_s, **train_split(tr1[0])},
                   "max_loss_rel_err": loss_err, "param_rel_err": param_rel_err(a, b),
                   "update_rel_err": update_rel_err(torch, a, b),
@@ -4322,7 +4381,117 @@ def dist_phase(torch, np, dev, card: str) -> dict:
                 and pred_err <= PERCEPTION_TOL):
             raise AssertionError(f"the 2-rank eval differs from one process: {rec_p}")
     log({"phase": "dist_total", "seconds": time.perf_counter() - t_start})
-    return {"inference": rec_inf, "train": rec_tr, "perception": rec_p}
+    return {"inference": rec_inf, "train": rec_tr, "perception": rec_p, "beside": besides}
+
+
+# --------------------------------------------------------------------------
+# phase 20: one clip over several ranks (--view_shard)
+# --------------------------------------------------------------------------
+
+
+def view_shard_kernels(torch, F, fa, tol, dev) -> list:
+    """Phase 20's kernel checks: the bf16 flash kernel at the ring's ragged
+    shapes against its plain version, view rank 1's (the global last view
+    masks its right block) timed beside SDPA with the same mask."""
+    ring = []
+    for b, sq, skv, h in RING_FLASH:
+        ring.append(check_flash(torch, F, fa, tol, dev, b, sq, skv, h, 64,
+                                lens=[skv, skv, sq] * (b // 3)))
+        ring.append(check_flash(torch, F, fa, tol, dev, b, sq, skv, h, 64, timed=False,
+                                lens=[skv] * b))
+    for rec in ring:
+        if rec["route"] != "wgmma":
+            raise AssertionError(f"the ring's call left the wgmma route: {rec}")
+    free(torch)
+    return ring
+
+
+def start_view_shard(tmp: str) -> dict:
+    """Phase 20's run: the inference CLI with ``--view_shard`` on 4 gloo
+    ranks sharing the card, through ``scripts/dist_rank.py
+    inference_view_shard``, with its fp32 replays."""
+    args = ["--synthetic", "--view_shard", str(VIEW_SHARD_V), "--num_batches", "1", "--bs", "1",
+            "--num_steps", str(VIEW_SHARD_STEPS), "--seed", str(CLI_SEED),
+            "--outdir", os.path.join(tmp, "vs"), "--name", "vs"]
+    return start_ranks("inference_view_shard", args, os.path.join(tmp, "vs_ranks"),
+                       nproc=VIEW_SHARD_RANKS, backend="gloo", dump=os.path.join(tmp, "vs_dump"),
+                       opts=["--replay", "fp32", "--zero_init_std", str(ZERO_INIT_STD)])
+
+
+def finish_view_shard(torch, tmp: str, ranks, card: str, ring: list) -> dict:
+    """Phase 20's checks and record, from the ranks' reports
+    (``finish_ranks``), their dumps and rank 0's files under ``tmp``."""
+    from panacea_tpu_torch.parallel import comm_report
+
+    reports, seconds = ranks
+    check_group(torch, reports, VIEW_SHARD_RANKS, "gloo")
+    zero = reports[0]
+    fp32 = zero["against_one_process"]["fp32"]
+    latents = [torch.load(os.path.join(tmp, "vs_dump", f"rank{r}.pt"))["latents"]
+               for r in range(VIEW_SHARD_RANKS)]
+    files = tree_of(os.path.join(tmp, "vs", "vs", "val"))
+    rec = {"phase": "view_shard", "card": card, "ranks": VIEW_SHARD_RANKS,
+           "t": VIEW_SHARD_RANKS // VIEW_SHARD_V, "view": VIEW_SHARD_V,
+           "steps": VIEW_SHARD_STEPS, "tol_fp32": VIEW_SHARD_TOL,
+           "fault_factor": VIEW_SHARD_FAULT, "seconds": seconds,
+           "fp32_vs_one_process": fp32["grid"], "fault_fp32_vs_one_process": fp32["fault"],
+           "replay_s": {k: fp32[k] for k in ("grid_s", "fault_s", "alone_s")},
+           "against_one_process": zero["against_one_process"],
+           "latent_abs_max": fp32["latent_abs_max"],
+           "latents_shape": [list(x.shape) for x in latents[0]], "files": len(files),
+           "exchanges_rank0": zero["exchanges"],
+           "flash_by_shape": {r: rep["flash_launches_by_shape"] for r, rep in reports.items()},
+           "launches": {r: {k: rep["launches"][k] for k in ("flash_attention", "geglu")}
+                        for r, rep in reports.items()},
+           "ranks_detail": {r: {"cli_s": rep["seconds"], "phase_s": rep["phase_last_s"],
+                                "clip_split_s": rep["clip_split_s"],
+                                "cli_peak_mem_gb": rep["cli_peak_mem_gb"],
+                                "peak_mem_gb": rep["peak_mem_gb"], "grid": rep["grid"],
+                                "exchanges_per_eval": rep["exchanges"]["per_eval_total"],
+                                "exchanges_once": rep["exchanges"]["once_total"],
+                                "replay_s": rep["against_one_process"]["fp32"]}
+                            for r, rep in reports.items()},
+           "ring_flash": [{k: x.get(k) for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "bound_by", "max_abs_err")}
+                          for x in ring]}
+    log(rec)
+    log("view_shard exchanges, rank 0:\n" + comm_report.format_report(zero["exchanges"]))
+    steps = VIEW_SHARD_STEPS
+    want = {"flash_attention": FLASH_PER_EVAL * steps, "geglu": GEGLU_PER_EVAL * steps}
+    want_shapes = {f"{b}x{sq}x{skv}x{h}x64+kv_lens": RING_CALLS_PER_LEVEL * steps
+                   for b, sq, skv, h in RING_FLASH}
+    for r, rep in reports.items():
+        c = rep["launches"]
+        if ({k: c[k] for k in want} != want or c["flash_routes"]["wgmma"] != want[
+                "flash_attention"] or rep["flash_launches_by_shape"] != want_shapes):
+            raise AssertionError(f"view_shard rank {r}: launches {c}, by shape "
+                                 f"{rep['flash_launches_by_shape']}; expected {want}, all on "
+                                 f"wgmma, by shape {want_shapes}")
+        if not (rep["grid"]["host_staged"] and rep["clips"] == 1 and len(latents[r]) == 1
+                and torch.equal(latents[r][0], latents[0][0])):
+            raise AssertionError(f"view_shard rank {r}: {rep['grid']}, {rep['clips']} clip(s); "
+                                 "every rank returns the same whole clip")
+    if not (rec["latents_shape"] == [[8, 32, 384, 4]] and bool(torch.isfinite(latents[0][0]).all())
+            and files == clip_files()):
+        raise AssertionError(f"view_shard: latents {rec['latents_shape']}, rank 0 wrote {files}")
+    if rec["fp32_vs_one_process"]["max_rel"] > VIEW_SHARD_TOL:
+        raise AssertionError(f"the sharded clip differs from one process in fp32: {rec}")
+    if rec["fault_fp32_vs_one_process"]["max_rel"] < VIEW_SHARD_FAULT * VIEW_SHARD_TOL:
+        raise AssertionError(f"the planted ring fault reads within the tolerance: {rec}")
+    return {"paths": {"view_shard": zero["launches"]}, "ring": ring}
+
+
+def view_shard_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
+    """Phase 20 alone (``--view_shard``): the kernel checks, then the run
+    on the card by itself."""
+    t_start = time.perf_counter()
+    ring = view_shard_kernels(torch, F, fa, tol, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = start_view_shard(tmp)
+        wait_all([job])
+        out = finish_view_shard(torch, tmp, finish_ranks(job), card, ring)
+    log({"phase": "view_shard_total", "seconds": time.perf_counter() - t_start})
+    return out
 
 
 def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
@@ -4369,7 +4538,8 @@ def main(mode: str = "all") -> int:
     "perception" (phase 1, the flash check at the perception shape and
     phases 11 and 14 to 18), "metrics" (phase 1 and phase 12, on the tree of
     a 2-step full-width generation run), "variants" (phase 1 and phase 13)
-    "zoo" (phase 1 and phases 15 to 18) or "dist" (phase 1 and phase 19)."""
+    "zoo" (phase 1 and phases 15 to 18), "dist" (phase 1 and phase 19) or
+    "view_shard" (phase 1 and phase 20)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -4449,6 +4619,10 @@ def main(mode: str = "all") -> int:
     if mode == "dist":
         dist_phase(torch, np, dev, card)
         log({"phase": "dist_only", "ok": True})
+        return 0
+    if mode == "view_shard":
+        view_shard_phase(torch, F, np, dev, fa, gg, tol, card)
+        log({"phase": "view_shard_only", "ok": True})
         return 0
     if mode == "metrics":
         with tempfile.TemporaryDirectory() as tmp:
@@ -4663,7 +4837,14 @@ def main(mode: str = "all") -> int:
     free(torch)
     paths.update(stage1_phase(torch, np, dev, fa, gg, card))
     free(torch)
-    dist_phase(torch, np, dev, card)
+    # phase 20: its kernel checks with the card to themselves, then its ranks
+    # beside phase 19's first group
+    ring = view_shard_kernels(torch, F, fa, tol, dev)
+    view_shard = dist_phase(torch, np, dev, card, beside=(
+        start_view_shard,
+        lambda tmp, ranks: finish_view_shard(torch, tmp, ranks, card, ring)))["beside"]
+    free(torch)
+    paths.update(view_shard["paths"])
 
     def count(c, kernel, fp32, fp32_kernel=None):
         """Launches of one kernel on one type's routes, from a path's counts
@@ -4720,8 +4901,12 @@ def main(mode: str = "all") -> int:
     flash_bwd_src = "panacea_tpu_torch/csrc/flash_attention_bwd.cu"
     flash_tpu, geglu_tpu = "panacea_tpu/ops/flash_attention.py:33", "panacea_tpu/ops/geglu.py:64"
     log({"kernels": [
-        summary("flash_attention", "flash_attention", flash_src, flash_tpu, flash + flash_s1,
-                flash[0], "cli", **stage1_levels(flash_s1)),
+        summary("flash_attention", "flash_attention", flash_src, flash_tpu,
+                flash + flash_s1 + view_shard["ring"], flash[0], "cli",
+                **stage1_levels(flash_s1),
+                ring_shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}
+                             for r in view_shard["ring"] if "ms" in r]),
         summary("geglu", "geglu", geglu_src, geglu_tpu, geglu + geglu_s1, geglu[0], "cli",
                 **stage1_levels(geglu_s1)),
         summary("flash_attention_fp32", "flash_attention", flash_src, flash_tpu, flash32,
@@ -4820,9 +5005,10 @@ def main(mode: str = "all") -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] not in ([], ["--kernels"], ["--perception"], ["--metrics"], ["--variants"],
-                            ["--zoo"], ["--dist"]):
+                            ["--zoo"], ["--dist"], ["--view_shard"]):
         sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception | --metrics | --variants | "
-                 "--zoo | --dist]")
+                 "--zoo | --dist | --view_shard]")
     sys.exit(main({"--kernels": "kernels", "--perception": "perception",
                    "--metrics": "metrics", "--variants": "variants", "--zoo": "zoo",
-                   "--dist": "dist"}.get((sys.argv[1:] or [""])[0], "all")))
+                   "--dist": "dist", "--view_shard": "view_shard"}.get(
+                       (sys.argv[1:] or [""])[0], "all")))

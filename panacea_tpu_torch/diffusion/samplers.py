@@ -17,7 +17,7 @@ those draws reproduces them. Without churn, Euler draws nothing.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -77,10 +77,15 @@ def _vanishes(sigma_np, batch: int) -> bool:
 
 class _Noise:
     """Per-step gaussian noise of the latent's shape: ``noise[i]`` when
-    injected, else a draw from ``generator``."""
+    injected, else a draw from ``generator``. With ``slab`` (one clip
+    sampled over several ranks), ``x`` is the whole clip's latent and
+    ``_Noise(...)[i]`` this rank's ``slab`` of step i's noise, as one
+    process draws it; the engine gives such a ``_Noise`` to the sampler as
+    its injected noise."""
 
-    def __init__(self, noise, generator: Optional[torch.Generator], x: torch.Tensor):
-        self.noise = noise
+    def __init__(self, noise, generator: Optional[torch.Generator], x: torch.Tensor,
+                 slab: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        self.noise, self.slab, self.whole = noise, slab, x
         if noise is None and generator is None:
             generator = torch.Generator(device=x.device).manual_seed(0)
         self.generator = generator
@@ -89,6 +94,9 @@ class _Noise:
         if self.noise is not None:
             return torch.as_tensor(self.noise[i], dtype=x.dtype, device=x.device)
         return torch.randn(x.shape, generator=self.generator, device=x.device, dtype=x.dtype)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.slab(self(i, self.whole))
 
 
 class BaseDiffusionSampler:

@@ -9,13 +9,18 @@ card. It runs on CUDA and raises without a card; ``--device cpu`` is for
 tests. Under ``torchrun --nproc_per_node N`` each rank takes every N-th clip
 (``indices[rank::N]``, as the JAX CLI and the reference's
 DistributedSampler) on its own card and writes into the one output
-directory; the ranks never talk (``parallel/mesh.py``).
+directory; the ranks never talk (``parallel/mesh.py``). With
+``--view_shard V`` the N ranks instead sample each clip together, as the
+JAX CLI's mesh of ``t = N / V`` frame slabs by ``V`` view slabs (``dp`` 1):
+every rank walks every clip with the same seed, rank 0 writes and the
+others wait for it (``parallel/shardctx.py``).
 
 Examples:
   python inference_torch.py --ckpt ckpts/panaceaplus_40k_deepspeed.ckpt \\
       --split val --name panacea
   python inference_torch.py --synthetic --tiny --device cpu --num_batches 1
   torchrun --nproc_per_node 8 inference_torch.py --ckpt ckpts/panaceaplus_40k_deepspeed.ckpt
+  torchrun --nproc_per_node 4 inference_torch.py --synthetic --view_shard 2 --num_batches 1
 """
 
 from __future__ import annotations
@@ -63,8 +68,12 @@ def get_parser() -> argparse.ArgumentParser:
                         "output layout, not the standard log_images grids; "
                         "use --rollout 0 (default) for grids")
     p.add_argument("--view_shard", type=int, default=0,
-                   help="shard ONE clip over the local devices; not ported "
-                        "(ROADMAP Queue A item 7b): any value above 0 raises")
+                   help="shard ONE clip over the torchrun ranks: panorama "
+                        "width over V view ranks (V must divide 6 and the "
+                        "process count; ring cross-view attention) x frames "
+                        "over t = processes / V (must divide the frames). "
+                        "0 (default) = replicated model, clips data-parallel "
+                        "over the ranks")
     p.add_argument("--dry_convert", nargs="?", default=None,
                    const="tests/fixtures/panaceaplus_keys.json",
                    help="checkpoint-readiness drill: given a state-dict KEY "
@@ -83,11 +92,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     the output directory, the number of clips or rollouts done by this
     rank, and the phase timer."""
     args, unknown = get_parser().parse_known_args(argv)
-    if args.view_shard:
-        from panacea_tpu_torch.parallel.mesh import VIEW_SHARD
-
-        raise SystemExit(f"--view_shard {args.view_shard}: {VIEW_SHARD}; run one clip a "
-                         "card (torchrun --nproc_per_node N shards the clips)")
     from panacea_tpu_torch.config import load_configs_with_overrides
     from panacea_tpu_torch.parallel.mesh import process_group
 
@@ -113,6 +117,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                 "or run with --synthetic for a smoke test."
             )
     with process_group(args.device) as group:
+        if args.view_shard:
+            from panacea_tpu_torch.parallel.mesh import check_view_shard
+
+            check_view_shard(args.view_shard, group.world)
         return _run(args, unknown, group)
 
 
@@ -123,7 +131,8 @@ def _run(args, unknown, group) -> Dict[str, Any]:
 
     from panacea_tpu_torch.config import load_configs_with_overrides
     from panacea_tpu_torch.data.nuscenes.dataset import NuScenesVideoDataset, collate
-    from panacea_tpu_torch.parallel.mesh import shard_indices
+    from panacea_tpu_torch.parallel.mesh import make_grid, shard_indices
+    from panacea_tpu_torch.parallel.train import barrier
     from panacea_tpu_torch.registry import instantiate_from_config
     from panacea_tpu_torch.utils.profiling import Timer
     from panacea_tpu_torch.writers import log_outputs
@@ -168,6 +177,15 @@ def _run(args, unknown, group) -> Dict[str, Any]:
                 "checkpoint trees are not ported")
         report = load_checkpoint(args.ckpt, engine, prefer_ema=args.prefer_ema)
         print(f"[ckpt] {args.ckpt}: {report}", flush=True)
+    grid = None
+    if args.view_shard:
+        grid = make_grid(group.world, args.view_shard, device)
+        engine.set_grid(grid)
+        if grid is not None:
+            print(f"[grid] ONE clip over {group.world} ranks: t={grid.t} x view={grid.view}; "
+                  f"rank {group.rank} holds frame slab {grid.t_index}, view slab "
+                  f"{grid.view_index}", flush=True)
+    writes = grid is None or group.rank == 0
 
     outdir = os.path.join(args.outdir, args.name, args.split)
     os.makedirs(outdir, exist_ok=True)
@@ -176,7 +194,9 @@ def _run(args, unknown, group) -> Dict[str, Any]:
     # JAX CLI shard them (inference.py:243-247); each rank writes its own
     # clips' files into the one output directory
     n_total = len(dataset) // max(t, 1)
-    indices = shard_indices([t - 1 + i * t for i in range(n_total)], group.rank, group.world)
+    indices = [t - 1 + i * t for i in range(n_total)]
+    if grid is None:
+        indices = shard_indices(indices, group.rank, group.world)
     if args.num_batches > 0:
         indices = indices[: args.num_batches * args.bs]
 
@@ -200,18 +220,22 @@ def _run(args, unknown, group) -> Dict[str, Any]:
             stem = os.path.basename(
                 str(out["filenames"][-1][0])).rsplit(".", 1)[0]
             rdir = os.path.join(outdir, "rollout", stem)
-            os.makedirs(rdir, exist_ok=True)
             with timer("write"):
-                save_gif(frames, os.path.join(rdir, "long.gif"), fps=4.0)
-                u8 = to_uint8(frames)
-                for fi in range(len(u8)):
-                    Image.fromarray(u8[fi]).save(
-                        os.path.join(rdir, f"frame_{fi:04d}.jpg"))
+                if writes:
+                    os.makedirs(rdir, exist_ok=True)
+                    save_gif(frames, os.path.join(rdir, "long.gif"), fps=4.0)
+                    u8 = to_uint8(frames)
+                    for fi in range(len(u8)):
+                        Image.fromarray(u8[fi]).save(
+                            os.path.join(rdir, f"frame_{fi:04d}.jpg"))
+                if grid is not None:
+                    barrier()
             n_done += 1
             print(f"[rollout {n_done}] {len(frames)} frames "
                   f"{timer.report()}", flush=True)
         print(f"done: {n_done} rollouts -> {outdir}/rollout")
-        return {"outdir": outdir, "done": n_done, "timer": timer}
+        return {"outdir": outdir, "done": n_done, "timer": timer, "grid": grid,
+                "clip_split": dict(engine.clip_split)}
     for start in range(0, len(indices), args.bs):
         chunk = indices[start:start + args.bs]
         with timer("dataset"):
@@ -224,9 +248,13 @@ def _run(args, unknown, group) -> Dict[str, Any]:
         with timer("to_host"):
             log = {k: np.asarray(v.float().cpu()) for k, v in log.items()}
         with timer("write"):
-            log_outputs(log, outdir, batch["filenames"][0], num_frames=t,
-                        view_width=final_dim[1])
+            if writes:
+                log_outputs(log, outdir, batch["filenames"][0], num_frames=t,
+                            view_width=final_dim[1])
+            if grid is not None:
+                barrier()
         n_done += len(chunk)
         print(f"[{n_done}] {timer.report()}", flush=True)
     print(f"done: {n_done} clips -> {outdir}")
-    return {"outdir": outdir, "done": n_done, "timer": timer}
+    return {"outdir": outdir, "done": n_done, "timer": timer, "grid": grid,
+            "clip_split": dict(engine.clip_split)}

@@ -29,23 +29,36 @@ Device and precision:
     the flags touch only the fp32 parts (VAE, text tower, sampler
     arithmetic), which are fp32 to stay close to the fp32 reference, and
     TF32 would cut them to a 10-bit mantissa. The bf16 UNet is unaffected.
+
+One clip over several ranks (``set_grid``, the counterpart of the JAX
+engine's ``set_mesh``): every rank computes the clip's conditioning from
+the same inputs, draws the noise at the clip's full shape from the same
+generator and keeps its slab (its frames of both CFG halves, its views'
+columns), and samples under the sharded context (``parallel/shardctx.py``);
+``sample`` returns the whole clip's latents on every rank. The VAE's work
+on the clip (the reconstructions, the decode of the samples) is split over
+the ranks a frame at a time and gathered, so that every rank returns what
+one process returns.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from panacea_tpu_torch.diffusion.samplers import _Noise
 from panacea_tpu_torch.models.conditioner import VAEEmbedder
 from panacea_tpu_torch.models.layers import GroupNorm
 from panacea_tpu_torch.models.clip import (CLIPAttention, CLIPTextTransformer,
                                            CLIPVisionTransformer)
-from panacea_tpu_torch.parallel.mesh import local_device
+from panacea_tpu_torch.parallel import comm_report, shardctx
+from panacea_tpu_torch.parallel.mesh import NUM_VIEWS, check_frames, local_device
 from panacea_tpu_torch.registry import instantiate_from_config, resolve_target
 
 # engine config keys of the reference yaml that the port does not use (the
@@ -53,6 +66,10 @@ from panacea_tpu_torch.registry import instantiate_from_config, resolve_target
 _COMPAT_KEYS = frozenset({"use_ema", "disable_first_stage_autocast", "wrapper_type",
                           "log_keys"})
 FREEZE_TYPES = ("none", "spatial")
+# conditioning tensors with a row per frame (the others have one per clip)
+FRAME_KEYS = ("concat", "cond_bev_feat", "cond_feat")
+# the ControlNet's hint stack halves the image's width this many times
+HINT_DOWNSAMPLES = 3
 # checkpoint entries that are not weights of the generation path
 # (panacea_tpu/utils/convert.py:504-509): EMA shadows, loss buffers, the
 # CLIP causal-mask buffer and its pooled-output projection
@@ -135,6 +152,72 @@ class DiffusionEngine3D(nn.Module):
         for emb in self.conditioner.embedders:
             if isinstance(emb, VAEEmbedder):
                 emb.encode_fn = self.encode_first_stage
+        self.grid = None
+        self.clip_split: Dict[str, float] = {}
+
+    # ----------------------------------------------------------- sharding
+    def set_grid(self, grid) -> None:
+        """Sample one clip over the ranks of ``grid`` (``parallel.mesh.make_grid``),
+        or as one process where it is None. ``grid.t`` must divide the
+        clip's frames."""
+        if grid is not None:
+            check_frames(grid.t, self.num_frames)
+        self.grid = grid
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        """Seconds of a part of the clip under a grid, into ``clip_split``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.clip_split[name] = self.clip_split.get(name, 0.0) + time.perf_counter() - t0
+
+    def _check_widths(self, latent_w: int, image_w: Optional[int]) -> None:
+        """Every level of the UNet (and of the hint stack) must split into 6
+        whole views of even width, so that each view rank holds whole views
+        and the stride-2 convolutions see even slabs."""
+        net = self.model.diffusion_model
+        downs = sum(1 for item in net.plan[0] if item[0] == "down")
+        for w, n in ((latent_w, downs), (image_w, HINT_DOWNSAMPLES)):
+            if w is not None and w % (NUM_VIEWS << n):
+                raise ValueError(f"a panorama {w} columns wide does not split into {NUM_VIEWS} "
+                                 f"views at each of its {n + 1} widths over {self.grid.view} "
+                                 "view ranks")
+
+    def _local(self, x: torch.Tensor, clips: int) -> torch.Tensor:
+        """This rank's slab of a per-frame tensor (clips * T * m, H, W, C):
+        its frames of each clip and its views' columns."""
+        g = self.grid
+        tl = self.num_frames // g.t
+        wl = shardctx.split_width(x.shape[-2], g)
+        x = x.reshape((clips, self.num_frames, -1) + tuple(x.shape[1:]))
+        x = x[:, g.t_index * tl:(g.t_index + 1) * tl, ..., g.view_index * wl:(g.view_index + 1)
+              * wl, :]
+        return x.reshape((-1,) + tuple(x.shape[3:]))
+
+    def _local_cond(self, c, clips: int):
+        if c is None:
+            return None
+        return {k: self._local(v, clips) if k in FRAME_KEYS else v for k, v in c.items()}
+
+    def _split_frames(self, name: str, n: int, out_shape, fn) -> torch.Tensor:
+        """``fn(start, count)``, a frame-wise VAE pass over rows
+        [start, start + count) of the clip, on this rank's share of its
+        ``n`` rows (timed as ``name``); every rank's results, (n,) +
+        ``out_shape``, gathered in order on every rank."""
+        g = self.grid
+        counts = shardctx.row_split(n, g.world)
+        k = counts[g.rank]
+        with self._timed(name):
+            mine = (fn(sum(counts[:g.rank]), k) if k else
+                    torch.empty((0,) + tuple(out_shape), device=self.device))
+        with self._timed("gather"):
+            return shardctx.gather_rows(mine, g, counts)
 
     # ------------------------------------------------------------ weights
     @torch.no_grad()
@@ -260,14 +343,23 @@ class DiffusionEngine3D(nn.Module):
                 c["guided_hint"] = net.encode_hint(c.pop("cond_feat"))
             return c
 
-        cond, uc = prepare(cond), prepare(uc)
+        grid = self.grid
+        if grid is None:
+            cond, uc = prepare(cond), prepare(uc)
+        else:
+            clips = batch_size // self.num_frames
+            hint = cond.get("cond_feat")
+            self._check_widths(shape[1], None if hint is None else hint.shape[-2])
+            full_cond = cond   # the shared-noise frame, which any rank may hold
+            with shardctx.sharded(grid):
+                cond, uc = (prepare(self._local_cond(c, clips)) for c in (cond, uc))
         if noise is not None:
             randn = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
         else:
             randn = torch.randn((batch_size,) + tuple(shape), generator=generator,
                                 device=self.device)
         if self.share_noise_level > 0.0:
-            cf = cond["concat"][share_noise_frame].float()
+            cf = (cond if grid is None else full_cond)["concat"][share_noise_frame].float()
             cf_seq = cf[None].expand((self.num_frames,) + cf.shape)
             randn = randn + cf_seq.repeat(batch_size // self.num_frames, 1, 1, 1) \
                 * self.share_noise_level
@@ -276,8 +368,25 @@ class DiffusionEngine3D(nn.Module):
             return self.denoiser(self.network_fn, x, sigma, c)
 
         kw = {"return_trajectory": True} if return_trajectory else {}
-        return self.sampler(denoiser, randn, cond, uc=uc, num_steps=num_steps,
-                            generator=generator, noise=sampler_noise, **kw)
+        if grid is None:
+            return self.sampler(denoiser, randn, cond, uc=uc, num_steps=num_steps,
+                                generator=generator, noise=sampler_noise, **kw)
+
+        def counted(x, sigma, c):
+            with comm_report.evaluation():
+                return denoiser(x, sigma, c)
+
+        # the per-step draws at the clip's full shape, this rank's slab kept
+        draws = _Noise(sampler_noise, generator, randn, slab=lambda x: self._local(x, clips))
+        with self._timed("sampling"), shardctx.sharded(grid):
+            out = self.sampler(counted, self._local(randn, clips), cond, uc=uc,
+                               num_steps=num_steps, generator=generator, noise=draws, **kw)
+        with self._timed("gather"):
+            if return_trajectory:
+                x, traj = out
+                return (shardctx.gather_clip(x, grid, clips),
+                        torch.stack([shardctx.gather_clip(s, grid, clips) for s in traj]))
+            return shardctx.gather_clip(out, grid, clips)
 
     # --------------------------------------------------------- log_images
     @torch.no_grad()
@@ -302,18 +411,43 @@ class DiffusionEngine3D(nn.Module):
 
         batch_uc = dict(batch)
         batch_uc["txt"] = ["" for _ in batch["txt"]]
-        c, uc = self.conditioner.get_unconditional_conditioning(batch, batch_uc, self.device)
-        z = self.encode_first_stage(x_flat, generator=generator)
-        log["reconstructions"] = self.decode_first_stage(z)
+        grid = self.grid
+        if grid is not None:
+            self.clip_split = {}
+        with self._timed("conditioning") if grid is not None else contextlib.nullcontext():
+            c, uc = self.conditioner.get_unconditional_conditioning(batch, batch_uc,
+                                                                    self.device)
+        if grid is None:
+            z = self.encode_first_stage(x_flat, generator=generator)
+            log["reconstructions"] = self.decode_first_stage(z)
+            z_shape = tuple(z.shape[1:])
+        else:
+            # the posterior draws of every frame, in encode_first_stage's
+            # order; each rank encodes and decodes its share of the frames
+            noise = self.draw_posterior_noise(x_flat.shape[0], x_flat.shape[1:3], generator)
+            z_shape = tuple(noise.shape[1:])
+
+            def reconstruct(start, k):
+                z = self.encode_first_stage(x_flat[start:start + k],
+                                            noise=noise[start:start + k])
+                return self.decode_first_stage(z)
+
+            log["reconstructions"] = self._split_frames("reconstructions", x_flat.shape[0],
+                                                        x_flat.shape[1:], reconstruct)
         if "cond_feat" in c:
             log["control"] = c["cond_feat"] * 2.0 - 1.0
         n_frames = N * self.num_frames
         for k in list(c):
-            cut = n_frames if k in ("concat", "cond_bev_feat", "cond_feat") else N
+            cut = n_frames if k in FRAME_KEYS else N
             c[k], uc[k] = c[k][:cut], uc[k][:cut]
-        samples = self.sample(c, uc=uc, batch_size=n_frames, shape=tuple(z.shape[1:]),
+        samples = self.sample(c, uc=uc, batch_size=n_frames, shape=z_shape,
                               generator=generator, **kwargs)
-        log["samples"] = self.decode_first_stage(samples)
+        if grid is None:
+            log["samples"] = self.decode_first_stage(samples)
+        else:
+            log["samples"] = self._split_frames(
+                "decode", n_frames, x_flat.shape[1:],
+                lambda start, k: self.decode_first_stage(samples[start:start + k]))
         return log
 
     # ------------------------------------------------------------ training

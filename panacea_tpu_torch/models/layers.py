@@ -6,6 +6,12 @@ cuDNN sees a channels-last tensor and nothing is copied. GroupNorm and
 TemporalGroupNorm reduce in fp32 whatever the compute dtype. Submodule and
 parameter names are the reference checkpoint's
 (sgm/modules/diffusionmodules/openaimodel.py:106-542).
+
+Under a sharded context (``parallel/shardctx.py``: this rank holds 1/t of
+the frames and 1/V of the panorama's columns) the convolutions take a
+column halo from the neighbouring view ranks, GroupNorm shares its
+statistics over the view group, TemporalGroupNorm over the frame group,
+and TemporalConv takes a frame halo. Without it they run as before.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from panacea_tpu_torch.parallel import shardctx
+
 
 def zero_init(module: nn.Module) -> nn.Module:
     """Mark a module whose parameters start at zero (``init_weights``)."""
@@ -24,10 +32,23 @@ def zero_init(module: nn.Module) -> nn.Module:
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` on channels-last (N, H, W, C) tensors."""
+    """``nn.Conv2d`` on channels-last (N, H, W, C) tensors. Sharded over
+    view ranks, a convolution wider than one column takes a halo of its
+    width padding from the neighbours (zeros at the panorama's ends) and
+    pads only the height; a stride-2 one needs an even slab."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        g = shardctx.current()
+        if g is None or g.view == 1 or self.kernel_size[1] == 1:
+            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        pw, sw = self.padding[1], self.stride[1]
+        if self.kernel_size[1] != 2 * pw + 1 or (sw > 1 and x.shape[2] % sw):
+            raise ValueError(f"Conv2d {self.kernel_size} stride {self.stride} padding "
+                             f"{self.padding} on a slab {x.shape[2]} columns wide: no halo form")
+        xh = shardctx.halo_w(x, pw).permute(0, 3, 1, 2)
+        out = F.conv2d(xh, self.weight, self.bias, self.stride, (self.padding[0], 0),
+                       self.dilation, self.groups)
+        return out.permute(0, 2, 3, 1)
 
 
 class GroupNorm(nn.Module):
@@ -46,8 +67,13 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         n, c = x.shape[0], x.shape[-1]
         xf = x.float().reshape(n, -1, self.num_groups, c // self.num_groups)
-        var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
-        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        g = shardctx.current()
+        if g is None or g.view == 1:
+            var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
+            y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        else:   # the columns are split over the view group
+            mean, inv = shardctx.group_stats(xf, (1, 3), "view", self.eps)
+            y = ((xf - mean) * inv).reshape(x.shape)
         y = y * self.weight.float() + self.bias.float()
         return (F.silu(y) if silu else y).to(x.dtype)
 
@@ -64,10 +90,15 @@ class TemporalGroupNorm(GroupNorm):
 
     def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
         n, h, w, c = x.shape
-        t, g = self.num_frames, self.num_groups
+        t, g = shardctx.local_frames(self.num_frames), self.num_groups
         xf = x.float().reshape(n // t, t, h * w, g, c // g)
-        var, mean = torch.var_mean(xf, dim=(1, 4), keepdim=True, correction=0)
-        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        grid = shardctx.current()
+        if grid is None or grid.t == 1:
+            var, mean = torch.var_mean(xf, dim=(1, 4), keepdim=True, correction=0)
+            y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        else:   # the frames are split over the t group
+            mean, inv = shardctx.group_stats(xf, (1, 4), "t", self.eps)
+            y = ((xf - mean) * inv).reshape(x.shape)
         y = y * self.weight.float() + self.bias.float()
         return (F.silu(y) if silu else y).to(x.dtype)
 
@@ -88,10 +119,16 @@ class TemporalConv(nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, h, w, c = x.shape
-        t = self.num_frames
+        t = shardctx.local_frames(self.num_frames)
         k = self.kernel_size[0]
-        xb = x.reshape(n // t, t, h * w, c).permute(0, 3, 1, 2)
-        out = F.conv2d(xb, self.weight.unsqueeze(-1), self.bias, padding=(k // 2, 0))
+        xb = x.reshape(n // t, t, h * w, c)
+        grid = shardctx.current()
+        if grid is None or grid.t == 1:
+            pad = k // 2
+        else:   # the neighbouring frame ranks' edge frames, zeros at the clip's ends
+            xb, pad = shardctx.halo_t(xb, k // 2), 0
+        out = F.conv2d(xb.permute(0, 3, 1, 2), self.weight.unsqueeze(-1), self.bias,
+                       padding=(pad, 0))
         return out.permute(0, 2, 3, 1).reshape(n, h, w, c)
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from panacea_tpu_torch.models.layers import GroupNorm, zero_init
+from panacea_tpu_torch.parallel import shardctx
 
 
 def qkv_attention(qkv: torch.Tensor, n_heads: int, legacy_order: bool = True) -> torch.Tensor:
@@ -68,6 +69,9 @@ class LegacyAttentionBlock3D(nn.Module):
             self.proj_out_temporal = zero_init(nn.Conv1d(channels, channels, 1))
 
     def forward(self, x: torch.Tensor, context=None) -> torch.Tensor:
+        if shardctx.current() is not None:
+            raise NotImplementedError("LegacyAttentionBlock3D (use_spatial_transformer=False) "
+                                      "has no sharded form: run it on one rank")
         n, hh, ww, c = x.shape
         h = _conv1x1(self.qkv, self.norm(x).reshape(n, hh * ww, c))
         h = qkv_attention(h, self.heads, self.legacy_order)

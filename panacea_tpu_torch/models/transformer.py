@@ -16,6 +16,13 @@
     clip's context are folded into the query sequence.
 
 The feed-forward is GEGLU through the fused kernel (``ops/geglu.py``).
+
+Under a sharded context (``parallel/shardctx.py``) a rank holds 1/V of the
+views and 1/t of the frames: the inter-view mode runs the ring
+(``parallel/ring_attention.py``), 'full' gathers K and V over the view
+group, and the temporal stage runs between two all-to-alls over the frame
+group, with the sin-cos table of the clip's full T. Intra-view attention,
+text cross-attention, the LayerNorms and the GEGLU stay rank-local.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from panacea_tpu_torch.models.layers import GroupNorm, zero_init
 from panacea_tpu_torch.ops.attention import attention, merge_heads, split_heads
 from panacea_tpu_torch.ops.geglu import geglu
 from panacea_tpu_torch.ops.panorama import NUM_VIEWS, merge_views, neighbor_kv, split_views
+from panacea_tpu_torch.parallel import shardctx
+from panacea_tpu_torch.parallel.ring_attention import ring_cross_view_attention
 
 
 class MultiHeadAttention(nn.Module):
@@ -46,9 +55,12 @@ class MultiHeadAttention(nn.Module):
         self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim), nn.Dropout(0.0)])
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                attn_fn=attention) -> torch.Tensor:
         """x: (B, S, C). context: (B', L, D) with B = B' * r: r frames share
-        one clip's context and are folded into the query sequence."""
+        one clip's context and are folded into the query sequence.
+        ``attn_fn(q, k, v)`` on (B, S, H, D) heads: the attention op, or
+        the sharded context's ring or gathered form."""
         wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
         if context is None:
             # self-attention: one merged qkv product, a single read of x
@@ -62,8 +74,8 @@ class MultiHeadAttention(nn.Module):
             if b % bk:
                 raise ValueError(f"query batch {b} is not a multiple of context batch {bk}")
             q = q.reshape(bk, (b // bk) * s, inner)
-        out = attention(split_heads(q, self.heads), split_heads(k, self.heads),
-                        split_heads(v, self.heads))
+        out = attn_fn(split_heads(q, self.heads), split_heads(k, self.heads),
+                      split_heads(v, self.heads))
         out = merge_heads(out)
         if bk != b:
             out = out.reshape(b, s, inner)
@@ -126,11 +138,26 @@ class BasicTransformerBlock(nn.Module):
 
         n, hh, ww, c = x.shape
         h = self.norm1(x)
-        wv = ww // NUM_VIEWS
+        g = shardctx.current()
+        split = g is not None and g.view > 1   # this rank holds 6 / V of the views
+        nv = shardctx.local_views()
+        wv = ww // nv
         s = hh * wv
         if self.mode == "intra-view":
-            tokens = split_views(h).reshape(n * NUM_VIEWS, s, c)
-            out = merge_views(self.attn1(tokens).reshape(n, NUM_VIEWS, hh, wv, c))
+            tokens = split_views(h, nv).reshape(n * nv, s, c)
+            out = merge_views(self.attn1(tokens).reshape(n, nv, hh, wv, c))
+        elif self.mode == "inter-view" and split:
+            tokens = split_views(h, nv).reshape(n * nv, s, c)
+
+            def ring(q, k, v):   # (n * nv, s, H, D) -> the ring's (n, nv, s, H, D)
+                def by_view(z):
+                    return z.reshape(n, nv, s, *z.shape[2:])
+
+                return ring_cross_view_attention(by_view(q), by_view(k), by_view(v),
+                                                 g).flatten(0, 1)
+
+            out = self.attn1(tokens, context=tokens, attn_fn=ring)
+            out = merge_views(out.reshape(n, nv, hh, wv, c))
         elif self.mode == "inter-view":
             tokens = split_views(h).reshape(n, NUM_VIEWS, s, c)
             kv_both = neighbor_kv(tokens)                    # (n, V, 2s, c)
@@ -140,6 +167,12 @@ class BasicTransformerBlock(nn.Module):
                               context=kv_both[:, NUM_VIEWS - 1, :s])
             out = torch.cat([out04.reshape(n, NUM_VIEWS - 1, s, c), out5[:, None]], dim=1)
             out = merge_views(out.reshape(n, NUM_VIEWS, hh, wv, c))
+        elif split:   # full, over the panorama's tokens on every view rank
+            def gathered(q, k, v):
+                kv = shardctx.gather_view(torch.stack([k, v]), dim=2)
+                return attention(q, kv[0], kv[1])
+
+            out = self.attn1(h.reshape(n, hh * ww, c), attn_fn=gathered).reshape(n, hh, ww, c)
         else:  # full: every token of the panorama (transformer.py:307-309)
             out = self.attn1(h.reshape(n, hh * ww, c)).reshape(n, hh, ww, c)
         x = x + out
@@ -182,10 +215,6 @@ class SpatialTemporalTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         """x: (N, H, W, C) with N = B*T; context: (B, L, context_dim) per clip."""
-        n, hh, ww, _ = x.shape
-        t = self.num_frames
-        b = n // t
-
         h = self.proj_in(self.norm(x))
         for blk in self.transformer_blocks:
             h = blk(h, context)
@@ -196,14 +225,32 @@ class SpatialTemporalTransformer(nn.Module):
             for blk in self.transformer_blocks_crossview:
                 h = blk(h, context)
             x = x + self.proj_out_crossview(h)
+        return self.temporal_stage(x, context)
 
+    def temporal_stage(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        """The temporal stage with its residual: per-pixel attention over
+        the frames."""
+        n, hh, ww, _ = x.shape
+        t = shardctx.local_frames(self.num_frames)   # this rank's frames of each clip
+        b = n // t
         h = self.proj_in_temporal(self.norm_temporal(x))
         inner = h.shape[-1]
+        g = shardctx.current()
+        depth = len(self.transformer_blocks_temporal)
+        if g is not None and g.t > 1:
+            # frames over the t group: all T frames of 1/t of the pixels on
+            # each rank (the all-to-all in), the blocks without the tail's
+            # back-transpose, and the all-to-all out (JAX transformer.py:397-447)
+            h = shardctx.temporal_in(h, b, t)
+            pe = sincos_1d_embedding(self.num_frames, inner, legacy_int_freq=True)
+            h = h + torch.as_tensor(pe, dtype=h.dtype, device=h.device)
+            for blk in self.transformer_blocks_temporal:
+                h = blk(h, context)
+            return x + self.proj_out_temporal(shardctx.temporal_out(h, b, hh, ww))
         # (B*T, H, W, C) -> (B*H*W, T, C)
         h = h.reshape(b, t, hh, ww, inner).permute(0, 2, 3, 1, 4).reshape(b * hh * ww, t, inner)
         pe = sincos_1d_embedding(t, inner, legacy_int_freq=True)  # as trained
         h = h + torch.as_tensor(pe, dtype=h.dtype, device=h.device)
-        depth = len(self.transformer_blocks_temporal)
         for d, blk in enumerate(self.transformer_blocks_temporal):
             # the last block returns frame-major (B*T, H*W, C)
             h = blk(h, context, temporal_tail=(b, hh, ww, t) if d == depth - 1 else None)

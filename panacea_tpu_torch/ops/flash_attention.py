@@ -19,8 +19,10 @@ to the wgmma/TMA kernel, at 16, 32 and 128 to the mma.sync kernel
 3xTF32 (wgmma; TMA at 64, cp.async from the strides at 32, the perception
 self-attention's), at 16 and 128 on the FMA units.
 ``flash_attention.launches`` counts all launches,
-``flash_attention.route_launches`` each route's and
-``flash_attention.fp32_kernel_launches`` each fp32 kernel's.
+``flash_attention.route_launches`` each route's,
+``flash_attention.fp32_kernel_launches`` each fp32 kernel's and
+``flash_attention.shape_launches`` each shape's ("BxSqxSkvxHxD", with
+"+kv_lens" where the call gave per-row key counts).
 
 Gradients: where autograd needs them, ``flash_attention`` goes through a
 ``torch.autograd.Function`` whose forward also writes the row log-sum-exp
@@ -263,6 +265,8 @@ def _forward(q, k, v, scale: float, kv_lens, with_lse: bool):
     flash_attention.route_launches[route] += 1
     if route == "fp32":
         flash_attention.fp32_kernel_launches[_tma.flash_f32_kernel(d)] += 1
+    shape = f"{b}x{sq}x{k.shape[1]}x{h}x{d}" + ("+kv_lens" if kv_lens is not None else "")
+    flash_attention.shape_launches[shape] = flash_attention.shape_launches.get(shape, 0) + 1
     return out, lse
 
 
@@ -363,4 +367,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention.route_launches = {"wgmma": 0, "mma": 0, "fp32": 0}
 flash_attention.fp32_kernel_launches = {"tc": 0, "tc32": 0, "fma": 0}
+flash_attention.shape_launches = {}
 

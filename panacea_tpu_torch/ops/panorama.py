@@ -12,10 +12,11 @@ import torch
 NUM_VIEWS = 6
 
 
-def split_views(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W_pano, C) -> (B, V, H, W_view, C)"""
+def split_views(x: torch.Tensor, views: int = NUM_VIEWS) -> torch.Tensor:
+    """(B, H, W_pano, C) -> (B, V, H, W_view, C); ``views``: the views the
+    width holds (fewer than 6 on a rank that holds part of the panorama)."""
     b, h, w, c = x.shape
-    return x.reshape(b, h, NUM_VIEWS, w // NUM_VIEWS, c).permute(0, 2, 1, 3, 4)
+    return x.reshape(b, h, views, w // views, c).permute(0, 2, 1, 3, 4)
 
 
 def merge_views(x: torch.Tensor) -> torch.Tensor:

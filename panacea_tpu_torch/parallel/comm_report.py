@@ -1,0 +1,89 @@
+"""What one clip over several ranks exchanges (counterpart of
+``panacea_tpu/parallel/hlo_report.py``).
+
+The JAX package reads the collectives of its sharded sampler from the
+compiled program's HLO, split into "per-step" (inside the sampler's loop,
+once a denoiser evaluation) and "once" (set-up and epilogue). The port
+issues each collective itself (``parallel/shardctx.py``), so it counts them
+as they run: by kind, with the bytes this rank hands to the collective (its
+send buffers: both halves of a halo, the partial sums of a statistic, the
+whole buffer of an all-to-all or a gather) and the host milliseconds of the
+call. Under gloo with CUDA tensors the card is synchronised before the
+clock starts, so those milliseconds are the host copies and the transfer;
+under NCCL they are the enqueueing only. ``evaluation()`` marks one
+denoiser evaluation; what runs outside it counts as once a clip.
+
+Kinds: ``halo_w`` (a column a side, the convolutions), ``halo_t`` (a frame
+a side, the temporal convolutions), ``stats_view`` and ``stats_t`` (the
+GroupNorm and TemporalGroupNorm sums), ``all_to_all`` (the temporal stage),
+``ring`` (the cross-view boundary K/V), ``gather_view`` (K/V of stage 1's
+'full' mode) and ``gather`` (the clip's latents and decoded frames).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from collections import defaultdict
+from typing import Any, Dict
+
+KINDS = ("halo_w", "halo_t", "stats_view", "stats_t", "all_to_all", "ring", "gather_view",
+         "gather")
+
+_PHASE: contextvars.ContextVar = contextvars.ContextVar("panacea_comm_phase", default="once")
+_counts: Dict[tuple, list] = defaultdict(lambda: [0, 0, 0.0])
+_evals = [0]
+
+
+def reset() -> None:
+    _counts.clear()
+    _evals[0] = 0
+
+
+def record(kind: str, nbytes: int, seconds: float) -> None:
+    """One collective of ``kind`` that handed over ``nbytes`` in ``seconds``."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown exchange kind {kind!r}")
+    entry = _counts[(_PHASE.get(), kind)]
+    entry[0] += 1
+    entry[1] += int(nbytes)
+    entry[2] += seconds
+
+
+@contextlib.contextmanager
+def evaluation():
+    """One denoiser evaluation: its exchanges count as per evaluation."""
+    _evals[0] += 1
+    token = _PHASE.set("per_eval")
+    try:
+        yield
+    finally:
+        _PHASE.reset(token)
+
+
+def summary() -> Dict[str, Any]:
+    """``per_eval``: each kind's calls, MiB and host ms for one denoiser
+    evaluation (the mean over ``evals``); ``once``: the totals outside
+    the evaluations; ``per_eval_total`` and ``once_total`` over kinds."""
+    n = max(_evals[0], 1)
+    out: Dict[str, Any] = {"evals": _evals[0], "per_eval": {}, "once": {}}
+    for (phase, kind), (calls, nbytes, secs) in sorted(_counts.items()):
+        div = n if phase == "per_eval" else 1
+        out[phase][kind] = {"calls": calls / div, "MiB": nbytes / div / 2**20,
+                            "ms": 1e3 * secs / div}
+    for phase in ("per_eval", "once"):
+        rows = out[phase].values()
+        out[f"{phase}_total"] = {k: sum(r[k] for r in rows) for k in ("calls", "MiB", "ms")}
+    return out
+
+
+def format_report(s: Dict[str, Any]) -> str:
+    lines = [f"  exchanges over {s['evals']} denoiser evaluations (calls / MiB / host ms):"]
+    for phase, label in (("per_eval", "per evaluation"), ("once", "once a clip")):
+        for kind, r in s[phase].items():
+            lines.append(f"    {label:15s} {kind:12s} x{r['calls']:<8.1f} {r['MiB']:10.2f} MiB "
+                         f"{r['ms']:10.2f} ms")
+        t = s[f"{phase}_total"]
+        lines.append(f"    {label:15s} {'total':12s} x{t['calls']:<8.1f} {t['MiB']:10.2f} MiB "
+                     f"{t['ms']:10.2f} ms")
+    return "\n".join(lines)

@@ -1,18 +1,24 @@
-"""Process groups, devices and shards of the port's data parallelism.
+"""Process groups, devices and shards of the port's parallelism.
 
-Counterpart of ``panacea_tpu/parallel/mesh.py``'s ``dp`` axis (and of
-``maybe_init_distributed``), over ``torch.distributed``. One process drives
-one card, as the reference ran under ``torch.distributed.launch`` with
-DDP: start the CLIs with ``torchrun --nproc_per_node N``. Inference and the
-perception eval shard their clips or windows over the ranks, which never
-talk until the eval's results are merged; training replicates the
-parameters and averages the gradients (``parallel/train.py``).
+Counterpart of ``panacea_tpu/parallel/mesh.py`` (its ``dp``, ``t`` and
+``view`` axes and ``maybe_init_distributed``), over ``torch.distributed``.
+One process drives one card, as the reference ran under
+``torch.distributed.launch`` with DDP: start the CLIs with ``torchrun
+--nproc_per_node N``. Inference and the perception eval shard their clips
+or windows over the ranks, which never talk until the eval's results are
+merged; training replicates the parameters and averages the gradients
+(``parallel/train.py``).
+
+One clip over several devices (``inference_torch.py --view_shard V``, the
+JAX ``make_mesh(n, dp=1, view=V)``): ``make_grid`` lays the ranks out as
+``t = N / V`` frame ranks by ``V`` view ranks, and the layers exchange
+what crosses a shard explicitly (``parallel/shardctx.py``). Training over
+``t`` (ROADMAP Queue A item 7b-ii) and sharded training state (``--fsdp``,
+item 7c) are not ported.
 
 The backend is NCCL on CUDA and gloo on the CPU. ``PANACEA_DIST_BACKEND=gloo``
 lets several ranks share a card: NCCL refuses two ranks on one device, and
-nothing switches backend on its own. Sharding one clip over several devices
-(the JAX package's ``t`` and ``view`` axes, ``--view_shard``) and sharded
-training state (``--fsdp``) are not ported (ROADMAP Queue A items 7b, 7c).
+nothing switches backend on its own.
 """
 
 from __future__ import annotations
@@ -24,12 +30,14 @@ from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from panacea_tpu_torch.ops.panorama import NUM_VIEWS
+
 BACKEND_VAR = "PANACEA_DIST_BACKEND"
 BACKENDS = ("nccl", "gloo")
 # what torchrun sets for each worker
 RENDEZVOUS_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-VIEW_SHARD = ("sharding one clip over several devices (the JAX package's 't' and 'view' "
-              "axes) is not ported: ROADMAP Queue A item 7b")
+TRAIN_T = ("training one clip over several ranks (the JAX trainer's 't' axis) is not "
+           "ported: ROADMAP Queue A item 7b-ii")
 FSDP = "sharded training state (FSDP) is not ported: ROADMAP Queue A item 7c"
 
 
@@ -166,5 +174,74 @@ def check_dp(dp: Optional[int], world: int) -> int:
                          f"--nproc_per_node {dp}); this run has {world}")
     if dp < world:
         raise SystemExit(f"--dp {dp} over {world} processes leaves t = {world / dp:g} ranks "
-                         f"a clip: {VIEW_SHARD}")
+                         f"a clip: {TRAIN_T}")
     return dp
+
+
+class Grid(NamedTuple):
+    """One clip over ``t * view`` ranks (``dp`` = 1): rank ``r`` holds the
+    frames of slab ``t_index = r // view`` and the panorama columns of view
+    slab ``view_index = r % view``, as JAX ``make_mesh(n, dp=1, view=V)``
+    orders its devices. ``t_ranks`` and ``view_ranks`` are the global ranks
+    of this rank's ``t`` group (the same view slab) and ``view`` group (the
+    same frames); ``t_group`` and ``view_group`` their process groups.
+    ``host_staged``: gloo with CUDA tensors, whose exchanges go through
+    host copies (``shardctx``)."""
+    rank: int
+    world: int
+    t: int
+    view: int
+    t_index: int
+    view_index: int
+    t_ranks: Tuple[int, ...]
+    view_ranks: Tuple[int, ...]
+    t_group: object
+    view_group: object
+    backend: str
+    host_staged: bool
+
+
+def check_view_shard(view: int, world: int) -> int:
+    """``t = world / view``, or SystemExit where ``view`` does not divide 6
+    and the process count (JAX ``inference.py:230-233``)."""
+    if view < 1 or NUM_VIEWS % view or world % view:
+        raise SystemExit(f"--view_shard {view} must divide {NUM_VIEWS} and the process count "
+                         f"({world})")
+    return world // view
+
+
+def check_frames(t: int, frames: int) -> None:
+    """Each frame rank holds ``frames / t`` frames: ``t`` must divide them.
+    (The JAX partitioner replicates frames that do not split and computes
+    the clip ``t`` times; the port refuses.)"""
+    if frames % t:
+        raise SystemExit(f"t = {t} frame ranks do not divide the clip's {frames} frames: "
+                         "choose --view_shard so that the process count / view_shard "
+                         "divides the frames")
+
+
+def make_grid(world: int, view: int, device=None) -> Optional[Grid]:
+    """The grid of one clip over the default process group's ``world``
+    ranks, ``view`` of them over the panorama's width and ``world / view``
+    over the frames; None for a grid of one rank (the plain path). Every
+    rank calls it, in the same order: it makes the ``t`` and ``view``
+    process groups with ``dist.new_group``."""
+    t = check_view_shard(view, world)
+    if world == 1:
+        return None
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    backend = dist.get_backend()
+    groups = {}
+    for i in range(t):       # the view groups: the same frames
+        ranks = tuple(range(i * view, (i + 1) * view))
+        groups[("view", i)] = ranks, dist.new_group(list(ranks))
+    for j in range(view):    # the t groups: the same view slab
+        ranks = tuple(range(j, world, view))
+        groups[("t", j)] = ranks, dist.new_group(list(ranks))
+    ti, vi = rank // view, rank % view
+    on_card = device is not None and torch.device(device).type == "cuda"
+    return Grid(rank, world, t, view, ti, vi, groups[("t", vi)][0], groups[("view", ti)][0],
+                groups[("t", vi)][1], groups[("view", ti)][1], backend,
+                backend == "gloo" and on_card)

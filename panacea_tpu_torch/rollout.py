@@ -10,6 +10,10 @@ shared-noise init, diffusion.py:244-249). This module implements that loop:
   window 0: condition on the dataset's key frame (use_last_frame placement)
   window k>0: condition on window k-1's LAST GENERATED frame, placed at
               slot 0 of the new window (windows overlap by one frame)
+
+Under a grid (``DiffusionEngine3D.set_grid``) the same calls sample each
+window over the ranks: ``log_images`` returns the whole window on every
+rank, so every rank conditions the next window on the same frame.
 """
 
 from __future__ import annotations

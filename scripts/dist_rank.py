@@ -11,8 +11,25 @@ process group itself (``panacea_tpu_torch/parallel/mesh.py``).
     python scripts/dist_rank.py train --dump out/one -- --tiny --synthetic --bs 2 --steps 2 \\
         --device cpu
 
-``cli`` is one of ``inference``, ``train``, ``perception_eval``,
-``perception_train``; the arguments after ``--`` go to it. The last line
+``cli`` is one of ``inference``, ``inference_view_shard``, ``train``,
+``perception_eval``, ``perception_train``; the arguments after ``--`` go to
+it. ``inference_view_shard`` is the inference CLI sampling each clip over
+the ranks (its arguments must hold ``--view_shard V``); its report adds the
+grid, the exchanges by kind with their bytes and host milliseconds
+(``parallel/comm_report.py``), the clip's split and the flash launches by
+shape, and its dump holds the whole clip's latents on every rank. With
+``--replay DTYPE ...`` the ranks then repeat the CLI's last sample call for
+one step (its conditioning and generator state) with the network in each
+type: over the grid, and with a planted fault (each rank's own boundary
+views in place of its neighbours' in the cross-view ring, set here and by
+no switch of the package); rank 0 then repeats it alone while the others
+wait. The report's ``against_one_process`` holds, by type, the largest
+difference over the largest latent and the relative RMS of the grid's and
+the fault's latents from rank 0's alone; the counts, the exchanges and the
+clip's split above are the CLI's, taken before the replays.
+``--zero_init_std S`` draws the weights the model zero-initialises with std
+``S`` (``DiffusionEngine3D.init_weights``), so that every branch computes
+on random weights. The last line
 this script prints is ``{"rank_report": {...}}``: the rank, world size,
 backend and device the CLI took, the launches of the port's kernels (and
 for the trainers a step's), the seconds of the run, the CLI's phase times,
@@ -44,17 +61,22 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SAMPLES = 4096
 CLIS = {"inference": "panacea_tpu_torch.inference",
+        "inference_view_shard": "panacea_tpu_torch.inference",
         "train": "panacea_tpu_torch.train",
         "perception_eval": "panacea_tpu_torch.perception.eval",
         "perception_train": "panacea_tpu_torch.perception.train_cli"}
 
 
 def launches(fa, gg) -> dict:
+    """The launch counters, as ``chip_smoke.py``'s ``read_counts``."""
     return {"flash_attention": fa.flash_attention.launches,
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "geglu": gg.geglu.launches, "geglu_bwd": gg.geglu_bwd.launches,
+            "flash_routes": dict(fa.flash_attention.route_launches),
             "flash_fp32_kernels": dict(fa.flash_attention.fp32_kernel_launches),
-            "flash_bwd_fp32_kernels": dict(fa.flash_attention_bwd.fp32_kernel_launches)}
+            "flash_bwd_routes": dict(fa.flash_attention_bwd.route_launches),
+            "flash_bwd_fp32_kernels": dict(fa.flash_attention_bwd.fp32_kernel_launches),
+            "geglu_routes": dict(gg.geglu.route_launches)}
 
 
 def sampled(torch, tensors: dict) -> dict:
@@ -71,15 +93,78 @@ def sampled(torch, tensors: dict) -> dict:
     return out
 
 
+def distance(got, want) -> dict:
+    """The largest difference over the largest value, and the relative RMS."""
+    d = got.double() - want.double()
+    return {"max_rel": float(d.abs().max() / want.double().abs().max()),
+            "rms_rel": float(d.norm() / want.double().norm())}
+
+
+def replay_against_one_process(torch, sample, call: dict, rank: int, dtypes) -> dict:
+    """The CLI's last sample call again, one step, with the network in each
+    of ``dtypes`` (``sample``, the unrecorded ``DiffusionEngine3D.sample``):
+    over the grid, with the ring fault, and on rank 0 alone
+    (the grid unset) while the others wait. On rank 0, by type, the
+    distances of the grid's and the fault's latents from its own alone and
+    the seconds of each; on the other ranks, the seconds."""
+    from panacea_tpu_torch.parallel import shardctx
+    from panacea_tpu_torch.parallel.train import barrier
+
+    eng, types = call["engine"], {"fp32": torch.float32, "bf16": torch.bfloat16}
+    grid, clip_dtype = eng.grid, eng.dtype
+
+    def run(dtype):
+        eng.model.to(dtype)
+        eng.dtype = dtype
+        gen = call["kw"].get("generator")
+        if gen is not None:
+            gen.set_state(call["state"])
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        t0 = time.perf_counter()
+        out = sample(eng, *call["a"], **dict(call["kw"], num_steps=1)).float().cpu()
+        return out, time.perf_counter() - t0
+
+    def faulty(dtype):
+        exchange = shardctx.ring_exchange
+        shardctx.ring_exchange = lambda to_right, to_left: (to_right, to_left)
+        try:
+            return run(dtype)
+        finally:
+            shardctx.ring_exchange = exchange
+
+    out = {}
+    for name in dtypes:   # each type's three runs on the same weights
+        (got, grid_s), (fault, fault_s) = run(types[name]), faulty(types[name])
+        out[name] = {"grid_s": grid_s, "fault_s": fault_s}
+        if rank == 0:
+            eng.set_grid(None)
+            alone, out[name]["alone_s"] = run(types[name])
+            eng.set_grid(grid)
+            out[name].update(grid=distance(got, alone), fault=distance(fault, alone),
+                             latent_abs_max=float(alone.abs().max()))
+        barrier()
+    eng.model.to(clip_dtype)
+    eng.dtype = clip_dtype
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("cli", choices=sorted(CLIS))
     p.add_argument("--dump", default=None, help="directory of rank{R}.pt")
     p.add_argument("--no_final", action="store_true")
+    p.add_argument("--replay", nargs="+", choices=("fp32", "bf16"), default=(),
+                   help="inference_view_shard: the one-step replays, by network type")
+    p.add_argument("--zero_init_std", type=float, default=None)
     argv = sys.argv[1:]
     split = argv.index("--") if "--" in argv else len(argv)
     args = p.parse_args(argv[:split])
     cli_argv = argv[split + 1:]
+    if args.cli == "inference_view_shard" and "--view_shard" not in cli_argv:
+        p.error("inference_view_shard needs --view_shard V among the CLI's arguments")
+    if args.replay and args.cli != "inference_view_shard":
+        p.error("--replay is for inference_view_shard")
 
     import importlib
 
@@ -88,12 +173,13 @@ def main() -> int:
     from panacea_tpu_torch.models.engine import DiffusionEngine3D
     from panacea_tpu_torch.ops import flash_attention as fa
     from panacea_tpu_torch.ops import geglu as gg
-    from panacea_tpu_torch.parallel import mesh
+    from panacea_tpu_torch.parallel import comm_report, mesh
     from panacea_tpu_torch.perception.train import DetectorTrainer
 
     # what the CLI's process group context yields, and a record of the
-    # latents it samples, of its training steps and of what it scores
-    seen, latents, steps, first = [], [], [], {}
+    # latents it samples (and of its last sample call), of its training
+    # steps and of what it scores
+    seen, latents, steps, first, calls, cli_end = [], [], [], {}, [], {}
     group_of = mesh.process_group
 
     @contextlib.contextmanager
@@ -101,16 +187,36 @@ def main() -> int:
         with group_of(device) as group:
             seen.append(group)
             yield group
+            # the CLI's run has ended; its group is still up for the replays
+            cli_end.update(t=time.perf_counter(), counts=launches(fa, gg),
+                           exchanges=comm_report.summary(),
+                           shapes=dict(fa.flash_attention.shape_launches))
+            if group.device.type == "cuda":
+                cli_end["peak_mem_gb"] = torch.cuda.max_memory_allocated(group.device) / 1e9
+            if args.replay and calls:
+                cli_end["against_one_process"] = replay_against_one_process(
+                    torch, sample, calls[-1], group.rank, args.replay)
 
     mesh.process_group = recorded_group
     sample = DiffusionEngine3D.sample
 
     def recorded_sample(self, *a, **kw):
+        gen = kw.get("generator")
+        state = None if gen is None else gen.get_state()
         out = sample(self, *a, **kw)
         latents.append(out.detach().float().cpu())
+        if args.replay:
+            calls[:] = [{"engine": self, "a": a, "kw": kw, "state": state}]
         return out
 
     DiffusionEngine3D.sample = recorded_sample
+    if args.zero_init_std is not None:
+        init_weights = DiffusionEngine3D.init_weights
+
+        def drawn_zero_init(self, generator, zero_init_std=0.0):
+            return init_weights(self, generator, zero_init_std=args.zero_init_std)
+
+        DiffusionEngine3D.init_weights = drawn_zero_init
     det_step = DetectorTrainer.step
 
     def timed_step(self, state, *a, **kw):
@@ -143,29 +249,42 @@ def main() -> int:
     det_metrics.evaluate_detections = recorded_evaluate
 
     cli = importlib.import_module(CLIS[args.cli])
+    comm_report.reset()
+    fa.flash_attention.shape_launches.clear()
     t0 = time.perf_counter()
     if args.cli == "train":
         out = cli.main(cli_argv, save_final=not args.no_final)
     else:
         out = cli.main(cli_argv)
-    seconds = time.perf_counter() - t0
+    seconds = cli_end.get("t", time.perf_counter()) - t0
     group = seen[-1]
     report = {"cli": args.cli, "rank": group.rank, "world": group.world,
               "backend": group.backend, "device": str(group.device),
-              "launches": launches(fa, gg), "seconds": seconds,
+              "launches": cli_end.get("counts", launches(fa, gg)), "seconds": seconds,
               # the port runs without JAX: none of it, nor the JAX package, is loaded
               "jax_modules": sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "flax", "optax", "panacea_tpu"))}
     if group.device.type == "cuda":
         report["card"] = torch.cuda.get_device_name(group.device)
         report["peak_mem_gb"] = torch.cuda.max_memory_allocated(group.device) / 1e9
+        report["cli_peak_mem_gb"] = cli_end.get("peak_mem_gb")
     timer = out.get("timer") if isinstance(out, dict) else None
     if timer is not None:
         report["phase_s"] = {k: timer.mean(k) for k in timer.totals}
         report["phase_last_s"] = dict(timer.last)
         report["phase_counts"] = dict(timer.counts)
     dump = {}
-    if args.cli == "inference":
+    if args.cli == "inference_view_shard":
+        g = out["grid"]
+        report["grid"] = (None if g is None else
+                          {k: getattr(g, k) for k in ("t", "view", "t_index", "view_index",
+                                                      "host_staged")})
+        report["exchanges"] = cli_end["exchanges"]
+        report["clip_split_s"] = out["clip_split"]
+        report["flash_launches_by_shape"] = cli_end["shapes"]
+        if args.replay:
+            report["against_one_process"] = cli_end.get("against_one_process")
+    if args.cli.startswith("inference"):
         report["clips"] = out["done"]
         dump["latents"] = latents
     elif args.cli == "train":

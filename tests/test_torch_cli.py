@@ -424,8 +424,9 @@ def test_cli_refuses(case, monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             inference.main(base)
     elif case == "view_shard":
+        # one clip over 2 view ranks needs 2 processes
         msg = str(run_cli(base + ["--device", "cpu", "--view_shard", "2"]))
-        assert "not ported" in msg and "Queue A item 7b" in msg
+        assert "must divide 6 and the process count (1)" in msg
     elif case == "no_bpe":
         monkeypatch.delenv("PANACEA_CLIP_BPE", raising=False)
         assert "BPE merge table" in str(run_cli(["--tiny", "--device", "cpu"]))

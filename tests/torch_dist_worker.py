@@ -9,7 +9,10 @@ before dist_rank's own arguments.
 the window's key frame), so that windows differ in their matched counts and
 a loss whose avg factor is not averaged over the ranks shows in the step.
 ``--record_saves DIR`` writes the paths of the files every ``torch.save``
-of this rank wrote to ``DIR/saves_rank{R}.json``.
+of this rank wrote to ``DIR/saves_rank{R}.json``. ``--view_shard_checks
+DIR`` first runs ``tests/torch_view_shard_checks.py`` in the process group
+(on the grid of the CLI's ``--view_shard``) and writes its results to DIR;
+``--ring_checks DIR`` runs its ring cases alone, without a CLI.
 """
 
 import json
@@ -19,6 +22,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(1, os.path.dirname(os.path.abspath(__file__)))
 
 
 def main() -> None:
@@ -31,8 +35,31 @@ def main() -> None:
         i = args.index("--record_saves")
         record = args[i + 1]
         del args[i:i + 2]
+    checks = ring = None
+    if "--view_shard_checks" in args:
+        i = args.index("--view_shard_checks")
+        checks = args[i + 1]
+        del args[i:i + 2]
+    if "--ring_checks" in args:
+        i = args.index("--ring_checks")
+        ring = args[i + 1]
+        del args[i:i + 2]
 
     import torch
+
+    if checks or ring:
+        import torch.distributed as dist
+        import torch_view_shard_checks
+
+        from panacea_tpu_torch.parallel import mesh
+
+        mesh.maybe_init_distributed("cpu")
+    if ring:
+        torch_view_shard_checks.run_ring(ring)
+        dist.destroy_process_group()
+        return
+    if checks:
+        torch_view_shard_checks.run(checks, int(args[args.index("--view_shard") + 1]))
 
     if uneven:
         from panacea_tpu_torch.perception.train_dataset import PerceptionTrainDataset
@@ -66,6 +93,8 @@ def main() -> None:
     except SystemExit as e:
         if e.code:
             raise
+    if checks:
+        dist.destroy_process_group()
     if record:
         os.makedirs(record, exist_ok=True)
         rank = int(os.environ.get("RANK", "0"))
