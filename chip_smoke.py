@@ -9,6 +9,7 @@
     python3 chip_smoke.py --zoo          # phase 1, phases 15 to 18
     python3 chip_smoke.py --dist         # phase 1, phase 19
     python3 chip_smoke.py --view_shard   # phase 1, phase 20
+    python3 chip_smoke.py --train_grid   # phase 1, phase 21 with its reference
 
 Phases, in order; any failure exits non-zero:
   1. build: compile the port's CUDA kernels from ``panacea_tpu_torch/csrc``
@@ -231,7 +232,8 @@ Phases, in order; any failure exits non-zero:
      losses and the sampled parameters' updates (``SMALL_TOL``), both
      ranks' parameters equal, per rank s/step with its ``allreduce``
      phase, the bytes all-reduced a step, peak memory, 42 / 21 / 138 / 69
-     launches a step; (d) the detector's trainer at the window recipe's full
+     launches a step (both runs with the zero-initialised layers drawn at
+     ``ZERO_INIT_STD``); (d) the detector's trainer at the window recipe's full
      width, ``--batch 1`` on 2 ranks over gloo against ``--batch 2`` in one
      process, GridMask, DN and the history jitter off: the loss terms and
      the trained parameters (``PERCEPTION_TOL``), the first step's update
@@ -260,9 +262,35 @@ Phases, in order; any failure exits non-zero:
      the seconds of the CLI and the clip's split, the exchanges by kind
      with bytes, peak memory. In the whole run the 4 ranks share the card
      with phase 19's first group.
+ 21. one clip trained over several ranks (the trainer's ``t`` axis): the
+     generator's trainer with ``--synthetic --freeze_type spatial --dp 1
+     --bs 2``, 1 step, through ``scripts/dist_rank.py train`` under
+     torchrun on 2 gloo ranks sharing the card (dp 1, t 2: each rank holds
+     frames 4 r to 4 r + 3 of both clips; the frame halos, the temporal
+     statistics and the temporal all-to-all staged through host memory,
+     forward, recomputed forward and backward), at full width with the
+     zero-initialised layers at ``ZERO_INIT_STD``: the losses and the
+     sampled parameters' updates against phase 19 (c)'s one process of
+     ``--bs 2`` (``SMALL_TOL``), both ranks' parameters equal, per rank
+     s/step and its split, the exchanges a step by kind and direction,
+     peak memory, 42 / 21 / 138 / 69 launches a step, all on the bf16
+     routes, the flash calls at B 40 (one process's ``--bs 1`` shapes).
+     Then the step's forward and backward again with the network in fp32
+     on the first clip: the grid's trained gradients against rank 0 alone
+     with the whole clip (``TRAIN_GRID_TOL``) and with a planted fault (the
+     frame halo's gradient not sent back, set in that script) at least
+     ``TRAIN_GRID_FAULT`` times it. In the whole run its 2 ranks start after
+     phase 8 and run beside phases 6, 9, 10 and 12 (d)'s tiny samplers,
+     whose records say ``shared_card``; phases 11 to 13, which time paths,
+     wait for the ranks to end; its checks wait for phase 19 (c).
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
+
+The whole run's order: phases 1 to 5, 7 and 8; phase 21's ranks started;
+phases 6, 9, 10 and 12 (d)'s tiny samplers beside them; phases 11, 12 and
+13 once they have ended; phases 14 to 18; phase 20's kernel checks; phases
+19 and 20 in their groups; phase 21's checks.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 summary, the card's name and power limit as nvidia-smi reports them, and
@@ -426,6 +454,12 @@ DIST_PTRAIN_FLASH, DIST_PTRAIN_BWD = 6 * (PERCEPTION_T - 1) + 6, 6
 # optimizer reads 1
 DIST_UPDATE_TOL = 0.1
 DIST_TIMEOUT = 300
+# the generator's trainer in phases 19 and 21: no final saves (27 GB at full
+# width), the zero-initialised layers drawn so that the frame grid's
+# exchanges carry gradients
+TRAIN_OPTS = ["--no_final", "--zero_init_std", str(ZERO_INIT_STD)]
+GEN_ARGS = ["--synthetic", "--freeze_type", "spatial", "--steps", str(DIST_TRAIN_STEPS),
+            "--ckpt_every", "0", "--log_every", "1"]
 # phase 20: one clip over 4 gloo ranks sharing the card, t 2 x V 2, full
 # width, 2 steps. A rank of (t 2, V 2) holds 2 CFG halves x 4 frames x 3
 # views: the ring's one flash call a cross-view block has B 24 and kv_lens
@@ -448,15 +482,44 @@ RING_CALLS_PER_LEVEL = 7    # cross-view blocks an evaluation at each of levels 
 # at its shapes
 VIEW_SHARD_TOL = 1e-4
 VIEW_SHARD_FAULT = 10.0
+# phase 21: the generator's trainer over t on 2 gloo ranks sharing the card
+# (dp 1, t 2: each rank 4 frames of both clips of --bs 2, the shapes of one
+# process's --bs 1), full width, ``spatial``, 1 step, against phase 19 (c)'s
+# one process of --bs 2. The check: the step's forward and backward again
+# with the network in fp32 on the first clip, over the grid and by rank 0
+# alone with the whole clip; the trained gradients' distance (the ranks'
+# mean, jointly over the norm of rank 0's alone) within TRAIN_GRID_TOL (the
+# summation orders differ: the temporal statistics' two all-reduced passes,
+# cuDNN and cuBLAS at 4 frames against 8, the flash and GEGLU kernels on
+# other batch sizes), and a planted fault (the frame halo's gradient not
+# sent back, set in scripts/dist_rank.py) at least TRAIN_GRID_FAULT times it
+TRAIN_GRID_RANKS = 2
+TRAIN_GRID_TOL = 1e-4
+TRAIN_GRID_FAULT = 10.0
 
 
 T_START = time.perf_counter()
+# what runs on the card beside the phases now logging (``card_shared_with``)
+SHARED = {"with": None}
 
 
 def log(obj) -> None:
     if isinstance(obj, dict) and "phase" in obj:
         obj = dict(obj, t_s=time.perf_counter() - T_START)   # seconds into the run
+        if SHARED["with"]:
+            obj.update(shared_card=True, card_shared_with=SHARED["with"])
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def card_shared_with(what: str):
+    """Every record logged inside says that ``what`` ran on the card beside
+    it (``shared_card``): its times are not the card's alone."""
+    SHARED["with"] = what
+    try:
+        yield
+    finally:
+        SHARED["with"] = None
 
 
 def card_line() -> str:
@@ -1901,10 +1964,9 @@ def sampler_config(name: str, steps: int, **params) -> dict:
                                "params": {"scale": 5.0}})}
 
 
-def samplers_phase(torch, np, dev, fa, gg, card: str, euler_s_per_step):
+def samplers_tiny_phase(torch, np, dev, card: str) -> None:
     """(d) each new sampler on the tiny engine, card against CPU with the
-    same injected noise; DPM++2M through ``log_images`` at full width.
-    Returns that run's launch counts."""
+    same injected noise."""
     from panacea_tpu_torch.registry import instantiate_from_config
 
     cpu, card_eng = tiny_pair(torch, dev)
@@ -1924,7 +1986,12 @@ def samplers_phase(torch, np, dev, fa, gg, card: str, euler_s_per_step):
     del cpu, card_eng
     free(torch)
 
+
+def dpmpp_phase(torch, np, dev, fa, gg, card: str, euler_s_per_step):
+    """(d) DPM++2M through ``log_images`` at full width. Returns that run's
+    launch counts."""
     from panacea_tpu_torch.configs import INFERENCE_NUSCENES
+    from panacea_tpu_torch.registry import instantiate_from_config
 
     eng = instantiate_from_config(INFERENCE_NUSCENES["model"], device=dev)
     eng.init_weights(torch.Generator(device=dev).manual_seed(SEED), zero_init_std=ZERO_INIT_STD)
@@ -1966,14 +2033,19 @@ def samplers_phase(torch, np, dev, fa, gg, card: str, euler_s_per_step):
     return counts
 
 
-def metrics_phase(torch, np, dev, fa, gg, card: str, gen_tree: str, euler_s_per_step=None):
-    """Phase 12: the generation metrics, then the new samplers."""
+def metrics_phase(torch, np, dev, fa, gg, card: str, gen_tree: str, euler_s_per_step=None,
+                  tiny_samplers: bool = True):
+    """Phase 12: the generation metrics, then the new samplers (their tiny
+    check left out with ``tiny_samplers`` False: the whole run makes it
+    beside phase 21's ranks)."""
     t0 = time.perf_counter()
     metric_towers_phase(torch, np, dev, card)
     free(torch)
     metrics_cli_phase(torch, np, dev, card, gen_tree)
     free(torch)
-    counts = samplers_phase(torch, np, dev, fa, gg, card, euler_s_per_step)
+    if tiny_samplers:
+        samplers_tiny_phase(torch, np, dev, card)
+    counts = dpmpp_phase(torch, np, dev, fa, gg, card, euler_s_per_step)
     log({"phase": "metrics_total", "seconds": time.perf_counter() - t0})
     return counts
 
@@ -4077,6 +4149,16 @@ def wait_all(jobs, timeout=DIST_TIMEOUT) -> None:
         time.sleep(0.5)
 
 
+def stop_job(job: dict) -> None:
+    """Kill a ``start_ranks`` job that is still running, torchrun and its
+    workers."""
+    import signal
+
+    if job["proc"].poll() is None:
+        os.killpg(job["proc"].pid, signal.SIGKILL)
+        job["proc"].wait()
+
+
 def finish_ranks(job: dict):
     """The result of a ``start_ranks`` job that ``wait_all`` waited for. Every
     rank must exit 0, print its report and have imported no JAX. Returns
@@ -4217,14 +4299,16 @@ def detector_recipe(tmp: str) -> str:
     return path
 
 
-def dist_phase(torch, np, dev, card: str, beside=None) -> dict:
+def dist_phase(torch, np, dev, card: str, beside=None, train_grid=None) -> dict:
     """Phase 19: the CLIs under torchrun through ``scripts/dist_rank.py``,
     in three groups of runs that share the card (the script's time limit)
     while each group's peak memory stays well under the card's.
     ``beside``, (start, finish): ``start(tmp)`` starts another
     ``start_ranks`` job in the first group (phase 20's ranks), and what
     ``finish(tmp, finish_ranks(job))`` returns comes back under
-    ``"beside"``."""
+    ``"beside"``. ``train_grid``, (directory, ``finish_ranks`` result) of
+    phase 21's run: held to (c)'s one process, its record comes back under
+    ``"train_grid"``."""
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         def at(name):
@@ -4232,8 +4316,7 @@ def dist_phase(torch, np, dev, card: str, beside=None) -> dict:
 
         inf = ["--synthetic", "--num_batches", "1", "--bs", "1", "--num_steps", str(DIST_STEPS),
                "--seed", str(CLI_SEED), "--name", "dist"]
-        gen = ["--synthetic", "--freeze_type", "spatial", "--steps", str(DIST_TRAIN_STEPS),
-               "--ckpt_every", "0", "--log_every", "1"]
+        gen = GEN_ARGS
         det = ["--synthetic", "--config", detector_recipe(tmp), "--steps", "1",
                "--ckpt_every", "0"]
         # three groups of runs that share the card, each within its memory
@@ -4255,7 +4338,7 @@ def dist_phase(torch, np, dev, card: str, beside=None) -> dict:
         # (c) 2 generator-training ranks over gloo beside (b) one NCCL
         # inference rank and (d)'s reference, one process of --batch 2
         jobs = [start_ranks("train", gen + ["--dp", "2", "--bs", "2"], at("tr2"), nproc=2,
-                            backend="gloo", dump=at("tr2_dump"), opts=["--no_final"]),
+                            backend="gloo", dump=at("tr2_dump"), opts=TRAIN_OPTS),
                 start_ranks("inference", inf + ["--outdir", at("inf1")], at("inf1"), nproc=1,
                             dump=at("inf1_dump")),
                 start_ranks("perception_train", det + ["--batch", "2", "--workdir", at("pw1")],
@@ -4266,7 +4349,7 @@ def dist_phase(torch, np, dev, card: str, beside=None) -> dict:
         # inference ranks over gloo and their reference: each rank's clip
         # sampled in this process
         jobs = [start_ranks("train", gen + ["--dp", "1", "--bs", "2"], at("tr1"), nproc=1,
-                            dump=at("tr1_dump"), opts=["--no_final"]),
+                            dump=at("tr1_dump"), opts=TRAIN_OPTS),
                 start_ranks("inference", inf + ["--outdir", at("inf2")], at("inf2"), nproc=2,
                             backend="gloo", dump=at("inf2_dump"))]
         want = dist_inference_reference(torch, dev, 2, DIST_STEPS)
@@ -4274,6 +4357,8 @@ def dist_phase(torch, np, dev, card: str, beside=None) -> dict:
         wait_all(jobs)
         (tr1, tr1_s), (inf2, inf2_s) = (finish_ranks(j) for j in jobs)
         runs_s = time.perf_counter() - t_start
+        if train_grid:
+            grid = finish_train_grid(torch, np, *train_grid, tr1[0], at("tr1_dump"), card)
 
         def dumped(name, rank=0):
             return torch.load(os.path.join(tmp, f"{name}_dump", f"rank{rank}.pt"))
@@ -4381,7 +4466,8 @@ def dist_phase(torch, np, dev, card: str, beside=None) -> dict:
                 and pred_err <= PERCEPTION_TOL):
             raise AssertionError(f"the 2-rank eval differs from one process: {rec_p}")
     log({"phase": "dist_total", "seconds": time.perf_counter() - t_start})
-    return {"inference": rec_inf, "train": rec_tr, "perception": rec_p, "beside": besides}
+    return {"inference": rec_inf, "train": rec_tr, "perception": rec_p, "beside": besides,
+            "train_grid": grid if train_grid else None}
 
 
 # --------------------------------------------------------------------------
@@ -4494,6 +4580,113 @@ def view_shard_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 21: training one clip over several ranks (the trainer's t axis)
+# --------------------------------------------------------------------------
+
+
+def start_train_grid(tmp: str) -> dict:
+    """Phase 21's run: the generator's trainer with --dp 1 --bs 2 on 2 gloo
+    ranks sharing the card (t 2), through ``scripts/dist_rank.py train``,
+    with its fp32 replay against rank 0 alone and the planted halo fault."""
+    return start_ranks("train", GEN_ARGS + ["--dp", "1", "--bs", "2"], os.path.join(tmp, "tg"),
+                       nproc=TRAIN_GRID_RANKS, backend="gloo",
+                       dump=os.path.join(tmp, "tg_dump"),
+                       opts=TRAIN_OPTS + ["--replay", "fp32"])
+
+
+def finish_train_grid(torch, np, tmp: str, ranks, ref: dict, ref_dump: str, card: str) -> dict:
+    """Phase 21's checks and record, from the ranks' reports and dumps under
+    ``tmp`` and ``ref``, the report of phase 19 (c)'s one process of the
+    same global batch, whose dump directory is ``ref_dump``."""
+    from panacea_tpu_torch.parallel import comm_report
+
+    reports, seconds = ranks
+    check_group(torch, reports, TRAIN_GRID_RANKS, "gloo")
+    dumps = [torch.load(os.path.join(tmp, "tg_dump", f"rank{r}.pt"))
+             for r in range(TRAIN_GRID_RANKS)]
+    one = torch.load(os.path.join(ref_dump, "rank0.pt"))
+    zero = reports[0]
+    fp32 = zero["against_one_process"]["fp32"]
+    ranks_same = all(torch.equal(dumps[0]["final"][k], d["final"][k])
+                     for d in dumps[1:] for k in dumps[0]["final"])
+    loss_err = max(abs(x - y) / abs(y) for rep in reports.values()
+                   for x, y in zip(rep["losses"], ref["losses"]))
+    steps = DIST_TRAIN_STEPS
+    rec = {"phase": "train_grid", "card": card, "ranks": TRAIN_GRID_RANKS, "freeze_type":
+           "spatial", "steps": steps, "tol": SMALL_TOL, "tol_fp32": TRAIN_GRID_TOL,
+           "fault_factor": TRAIN_GRID_FAULT, "seconds": seconds,
+           "max_loss_rel_err": loss_err, "update_rel_err": update_rel_err(torch, dumps[0], one),
+           "param_rel_err": param_rel_err(dumps[0], one), "ranks_hold_the_same_parameters":
+           ranks_same, "fp32_grid_vs_rank0_alone": fp32["grid"],
+           "fault_fp32_vs_rank0_alone": fp32["fault"],
+           "replay_s": {k: fp32[k] for k in ("grid_s", "fault_s", "alone_s")},
+           "against_one_process": zero["against_one_process"],
+           "one_process_bs2": {"s_per_step": train_split(ref)["s_per_step"],
+                               "peak_mem_gb": ref["peak_mem_gb"], "losses": ref["losses"]},
+           "ranks_detail": {r: dict(train_split(rep), grid=rep["grid"], slab=rep["slab"],
+                                    cli_s=rep["seconds"], cli_peak_mem_gb=rep["cli_peak_mem_gb"],
+                                    replay_peak_mem_gb=rep["peak_mem_gb"],
+                                    flash_by_shape=rep["flash_launches_by_shape"],
+                                    routes={k: rep["launches"][k] for k in
+                                            ("flash_routes", "flash_bwd_routes",
+                                             "geglu_routes")},
+                                    exchanges_per_step={
+                                        p: rep["exchanges"][p] for p in
+                                        comm_report.STEP_PHASES + tuple(
+                                            f"{q}_total" for q in comm_report.STEP_PHASES)})
+                             for r, rep in reports.items()}}
+    log(rec)
+    log("train_grid exchanges, rank 0:\n" + comm_report.format_report(zero["exchanges"]))
+    per_run = {k: v * steps for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    # a rank of t 2 at --bs 2 holds 2 clips x 4 frames: the flash calls at
+    # B 40 (x 5 views), as one process at --bs 1
+    want_shapes = {f"40x{sq}x{skv}x{h}x64": 14 * steps
+                   for sq, skv, h in ((2048, 4096, 5), (512, 1024, 10), (128, 256, 20))}
+    for r, rep in reports.items():
+        c = rep["launches"]
+        if ({k: c[k] for k in per_run} != per_run or c["flash_routes"]["wgmma"] != per_run[
+                "flash_attention"] or c["flash_bwd_routes"]["wgmma"] != per_run[
+                "flash_attention_bwd"] or rep["flash_launches_by_shape"] != want_shapes):
+            raise AssertionError(f"train_grid rank {r}: launches {c}, by shape "
+                                 f"{rep['flash_launches_by_shape']}; expected {per_run} on "
+                                 f"wgmma, by shape {want_shapes}")
+        if not (rep["grid"] == {"dp": 1, "t": 2, "dp_index": 0, "t_index": r,
+                                "host_staged": True}
+                and rep["slab"] == {"clips": [0, 2], "frames": [4 * r, 4 * r + 4]}
+                and rep["exchanges"]["steps"] == steps
+                and all(rep["exchanges"][f"{p}_total"]["calls"] > 0
+                        for p in comm_report.STEP_PHASES)):
+            raise AssertionError(f"train_grid rank {r}: grid {rep['grid']}, slab {rep['slab']}, "
+                                 f"exchanges {rep['exchanges']}")
+    if not (ranks_same and loss_err <= SMALL_TOL and rec["update_rel_err"] <= SMALL_TOL
+            and all(np.isfinite(rep["losses"]).all() for rep in reports.values())):
+        raise AssertionError(f"the 2-rank grid step is not one process's: {rec}")
+    if fp32["grid"]["joint"] > TRAIN_GRID_TOL:
+        raise AssertionError(f"the grid's fp32 gradients differ from rank 0 alone: {rec}")
+    if fp32["fault"]["joint"] < TRAIN_GRID_FAULT * TRAIN_GRID_TOL:
+        raise AssertionError(f"the planted halo fault reads within the tolerance: {rec}")
+    return {"paths": {"train_grid": zero["launches"]}, "record": rec}
+
+
+def train_grid_phase(torch, np, card: str) -> dict:
+    """Phase 21 alone (``--train_grid``): phase 19 (c)'s one process of
+    --bs 2, then the 2 grid ranks, each with the card to itself."""
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = start_ranks("train", GEN_ARGS + ["--dp", "1", "--bs", "2"],
+                          os.path.join(tmp, "tr1"), nproc=1,
+                          dump=os.path.join(tmp, "tr1_dump"), opts=TRAIN_OPTS)
+        wait_all([job])
+        ref, _ = finish_ranks(job)
+        job = start_train_grid(tmp)
+        wait_all([job])
+        out = finish_train_grid(torch, np, tmp, finish_ranks(job), ref[0],
+                                os.path.join(tmp, "tr1_dump"), card)
+    log({"phase": "train_grid_total", "seconds": time.perf_counter() - t_start})
+    return out
+
+
 def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
     """One step under torch.profiler (a network evaluation of the main path
     under no_grad, or with ``grad`` a training step, after one warm-up):
@@ -4538,8 +4731,9 @@ def main(mode: str = "all") -> int:
     "perception" (phase 1, the flash check at the perception shape and
     phases 11 and 14 to 18), "metrics" (phase 1 and phase 12, on the tree of
     a 2-step full-width generation run), "variants" (phase 1 and phase 13)
-    "zoo" (phase 1 and phases 15 to 18), "dist" (phase 1 and phase 19) or
-    "view_shard" (phase 1 and phase 20)."""
+    "zoo" (phase 1 and phases 15 to 18), "dist" (phase 1 and phase 19),
+    "view_shard" (phase 1 and phase 20) or "train_grid" (phase 1 and phase
+    21 with its reference run)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -4623,6 +4817,10 @@ def main(mode: str = "all") -> int:
     if mode == "view_shard":
         view_shard_phase(torch, F, np, dev, fa, gg, tol, card)
         log({"phase": "view_shard_only", "ok": True})
+        return 0
+    if mode == "train_grid":
+        train_grid_phase(torch, np, card)
+        log({"phase": "train_grid_only", "ok": True})
         return 0
     if mode == "metrics":
         with tempfile.TemporaryDirectory() as tmp:
@@ -4796,8 +4994,6 @@ def main(mode: str = "all") -> int:
     gen_tree = os.path.join(gen_dir.name, "gen-nuscenes")
     paths["cli"] = cli_phase(torch, np, dev, fa, gg, card, keep_gen=gen_tree)
     free(torch)
-    paths["rollout"] = rollout_phase(torch, np, dev, fa, gg, card)
-    free(torch)
     paths["fp32_engine"] = fp32_engine_phase(torch, np, dev, fa, gg, card)
     free(torch)
     setup = train_setup(torch, np, dev)
@@ -4805,16 +5001,40 @@ def main(mode: str = "all") -> int:
     paths["train_fp32"] = train_fp32_phase(torch, np, dev, fa, gg, card, setup)
     del setup
     free(torch)
-    train_tiny_card_vs_cpu(torch, np, dev)
-    free(torch)
-    train_cli_phase(torch, np, dev, fa, gg, card)
-    free(torch)
+    # phase 21's 2 ranks start here and run beside phases 6, 9, 10 and the
+    # tiny samplers of 12 (d), whose records then say shared_card; phases
+    # 11 to 13 time their paths with the card to themselves once the ranks
+    # have ended; phase 21's reference is phase 19 (c)'s one process
+    grid_dir = tempfile.TemporaryDirectory()
+    grid_job = start_train_grid(grid_dir.name)
+    try:
+        with card_shared_with("phase 21's 2 training ranks"):
+            paths["rollout"] = rollout_phase(torch, np, dev, fa, gg, card)
+            free(torch)
+            train_tiny_card_vs_cpu(torch, np, dev)
+            free(torch)
+            train_cli_phase(torch, np, dev, fa, gg, card)
+            free(torch)
+            samplers_tiny_phase(torch, np, dev, card)
+            free(torch)
+            wait_all([grid_job])
+    finally:
+        stop_job(grid_job)   # a phase that failed leaves no rank running
+    grid_ranks = finish_ranks(grid_job)
+    log({"phase": "train_grid_ranks_done", "seconds": grid_ranks[1],
+         "ran_beside": "phases 6, 9, 10 and 12 (d)'s tiny samplers"})
     t0 = time.perf_counter()
     paths["perception"] = perception_phase(torch, np, dev, fa, gg, card)
     free(torch)
     paths["perception_cli"] = perception_cli_phase(torch, np, dev, fa, gg, card)
     log({"phase": "perception_total", "seconds": time.perf_counter() - t0,
          "kernel_check_s": flash32_perception_s})
+    free(torch)
+    paths["sampler_dpmpp2m"] = metrics_phase(torch, np, dev, fa, gg, card, gen_tree,
+                                             euler_s_per_step, tiny_samplers=False)
+    gen_dir.cleanup()
+    free(torch)
+    paths.update(stage1_phase(torch, np, dev, fa, gg, card))
     free(torch)
     ptrain = perception_train_phase(torch, F, np, dev, fa, gg, tol, card)
     paths.update(ptrain["paths"])
@@ -4831,20 +5051,18 @@ def main(mode: str = "all") -> int:
     rest = rest_zoo_phase(torch, F, np, dev, fa, gg, tol, card)
     paths.update(rest["paths"])
     free(torch)
-    paths["sampler_dpmpp2m"] = metrics_phase(torch, np, dev, fa, gg, card, gen_tree,
-                                             euler_s_per_step)
-    gen_dir.cleanup()
-    free(torch)
-    paths.update(stage1_phase(torch, np, dev, fa, gg, card))
-    free(torch)
     # phase 20: its kernel checks with the card to themselves, then its ranks
-    # beside phase 19's first group
+    # beside phase 19's first group; phase 21's checks after phase 19 (c)
     ring = view_shard_kernels(torch, F, fa, tol, dev)
-    view_shard = dist_phase(torch, np, dev, card, beside=(
+    dist = dist_phase(torch, np, dev, card, beside=(
         start_view_shard,
-        lambda tmp, ranks: finish_view_shard(torch, tmp, ranks, card, ring)))["beside"]
+        lambda tmp, ranks: finish_view_shard(torch, tmp, ranks, card, ring)),
+        train_grid=(grid_dir.name, grid_ranks))
+    grid_dir.cleanup()
+    view_shard = dist["beside"]
     free(torch)
     paths.update(view_shard["paths"])
+    paths.update(dist["train_grid"]["paths"])
 
     def count(c, kernel, fp32, fp32_kernel=None):
         """Launches of one kernel on one type's routes, from a path's counts
@@ -5005,10 +5223,10 @@ def main(mode: str = "all") -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] not in ([], ["--kernels"], ["--perception"], ["--metrics"], ["--variants"],
-                            ["--zoo"], ["--dist"], ["--view_shard"]):
+                            ["--zoo"], ["--dist"], ["--view_shard"], ["--train_grid"]):
         sys.exit(f"usage: {sys.argv[0]} [--kernels | --perception | --metrics | --variants | "
-                 "--zoo | --dist | --view_shard]")
+                 "--zoo | --dist | --view_shard | --train_grid]")
     sys.exit(main({"--kernels": "kernels", "--perception": "perception",
                    "--metrics": "metrics", "--variants": "variants", "--zoo": "zoo",
-                   "--dist": "dist", "--view_shard": "view_shard"}.get(
-                       (sys.argv[1:] or [""])[0], "all")))
+                   "--dist": "dist", "--view_shard": "view_shard",
+                   "--train_grid": "train_grid"}.get((sys.argv[1:] or [""])[0], "all")))

@@ -56,10 +56,10 @@ class StandardDiffusionLoss:
         if self.share_noise_level > 0.0:
             # bias all frames' noise toward the conditioning-frame latent
             # (loss.py:54-60); concat[-1] is the conditioning frame
+            # (the same frame for every row; a rank of a frame grid holds
+            # fewer rows than a clip's frames)
             cf = (cond["concat"][-1] if share_frame is None else share_frame).to(x.dtype)
-            cf_seq = cf[None].expand((self.num_frames,) + tuple(cf.shape))
-            noise = noise + cf_seq.repeat((n // self.num_frames,) + (1,) * (x.ndim - 1)) \
-                * self.share_noise_level
+            noise = noise + cf[None].expand_as(noise) * self.share_noise_level
         noised = x + noise * append_dims(sigmas, x.ndim)
         model_output = denoiser(network, noised, sigmas, cond)
         w = append_dims(denoiser.w(sigmas), x.ndim)

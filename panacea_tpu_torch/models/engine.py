@@ -39,6 +39,14 @@ columns), and samples under the sharded context (``parallel/shardctx.py``);
 on the clip (the reconstructions, the decode of the samples) is split over
 the ranks a frame at a time and gathered, so that every rank returns what
 one process returns.
+
+Training over a grid (``train.py`` sets one of ``dp`` clip groups of ``t``
+frame ranks): the caller hands ``train_loss`` / ``diffusion_loss`` this
+rank's clips and its slab of their frames (``train.rank_rows``), and the
+network runs under the sharded context, so that the frame halos, the
+temporal statistics and the temporal all-to-all cross the ranks of the
+clip group, forward and backward (the exchanges' backward passes,
+``parallel/shardctx.py``). The loss is the mean over this rank's frames.
 """
 
 from __future__ import annotations
@@ -157,9 +165,9 @@ class DiffusionEngine3D(nn.Module):
 
     # ----------------------------------------------------------- sharding
     def set_grid(self, grid) -> None:
-        """Sample one clip over the ranks of ``grid`` (``parallel.mesh.make_grid``),
-        or as one process where it is None. ``grid.t`` must divide the
-        clip's frames."""
+        """Sample or train one clip over the ranks of ``grid``
+        (``parallel.mesh.make_grid``), or as one process where it is None.
+        ``grid.t`` must divide the clip's frames."""
         if grid is not None:
             check_frames(grid.t, self.num_frames)
         self.grid = grid
@@ -477,11 +485,21 @@ class DiffusionEngine3D(nn.Module):
                        generator: Optional[torch.Generator] = None, **inject) -> torch.Tensor:
         """The mean loss of the clean latents ``z`` under ``loss_fn``, with
         gradients to the trained parameters. ``inject``: ``sigma_rand``,
-        ``noise``, ``offset`` for ``StandardDiffusionLoss``."""
+        ``noise``, ``offset`` for ``StandardDiffusionLoss``. Under a grid,
+        ``z`` and ``cond`` are this rank's slab and the network runs
+        sharded; with the shared-noise bias on, ``share_frame`` (the
+        clip's conditioning frame, which ``train.rank_rows`` passes) must
+        be injected, since the rank's own last frame is not it."""
         if self.loss_fn is None:
             raise RuntimeError("DiffusionEngine3D: training needs a loss_fn")
-        return self.loss_fn(self.network_fn, self.denoiser, cond, z, generator=generator,
-                            **inject).mean()
+        if (self.grid is not None and getattr(self.loss_fn, "share_noise_level", 0.0) > 0.0
+                and inject.get("share_frame") is None):
+            raise ValueError("diffusion_loss under a grid with the shared-noise bias needs "
+                             "share_frame, the clip's conditioning frame (train.rank_rows "
+                             "passes it): the rank's own last frame is not it")
+        with shardctx.sharded(self.grid):
+            return self.loss_fn(self.network_fn, self.denoiser, cond, z, generator=generator,
+                                **inject).mean()
 
     def train_loss(self, jpg, cond: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None,
@@ -490,7 +508,8 @@ class DiffusionEngine3D(nn.Module):
         ``train_loss``, engine.py:485-495): jpg (B, T, H, W, 3) is encoded
         without gradients (posterior drawn from ``generator`` or injected),
         the network runs with gradients, the mean loss comes back. ``cond``
-        is precomputed: conditioning is frozen in Panacea."""
+        is precomputed: conditioning is frozen in Panacea. Under a grid,
+        ``jpg`` holds this rank's clips and frames (``train.rank_rows``)."""
         x = torch.as_tensor(jpg, dtype=torch.float32, device=self.device)
         x = x.reshape((-1,) + tuple(x.shape[2:]))
         z = self.encode_first_stage(x, generator=generator, noise=posterior_noise)
@@ -499,7 +518,9 @@ class DiffusionEngine3D(nn.Module):
     def loss(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
              ucg_keep=None) -> torch.Tensor:
         """Host-level loss (engine.py:497-505): conditioning with ucg
-        dropout, then ``train_loss``."""
+        dropout, then ``train_loss``, on the whole batch. Under a grid it
+        raises where the shared-noise bias is on (``diffusion_loss``): a
+        rank's slab and its draws come from ``train.rank_rows``."""
         with torch.no_grad():
             cond = self.conditioner(batch, self.device, generator=generator, apply_ucg=True,
                                     ucg_keep=ucg_keep)

@@ -19,6 +19,9 @@ ResBlock3D and each attention block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant) where the JAX modules apply
 ``nn.remat`` (panacea_tpu/models/unet.py:78-81, 127-137): only while the
 module trains and autograd records. Sampling under ``no_grad`` is unaffected.
+Under a frame grid the recomputed forward runs under the grid of the
+forward it repeats (``shardctx.checkpoint_contexts``) and re-issues its
+exchanges, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from panacea_tpu_torch.models.layers import (Conv2d, Downsample, GroupNorm, ResB
                                              Upsample, zero_init)
 from panacea_tpu_torch.models.legacy_attention import LegacyAttentionBlock3D
 from panacea_tpu_torch.models.transformer import SpatialTemporalTransformer
+from panacea_tpu_torch.parallel import shardctx
 
 # config keys the reference yaml carries that change nothing here
 COMPAT_KEYS = frozenset({"use_fp16", "legacy", "alpha", "use_linear_in_transformer"})
@@ -167,7 +171,9 @@ class _Torso(nn.Module):
         for layer in layers:
             if isinstance(layer, _BLOCKS):
                 arg = emb if isinstance(layer, ResBlock3D) else context
-                h = checkpoint(layer, h, arg, use_reentrant=False) if remat else layer(h, arg)
+                h = (checkpoint(layer, h, arg, use_reentrant=False,
+                                context_fn=shardctx.checkpoint_contexts)
+                     if remat else layer(h, arg))
             else:
                 h = layer(h)
         return h

@@ -9,12 +9,19 @@ or windows over the ranks, which never talk until the eval's results are
 merged; training replicates the parameters and averages the gradients
 (``parallel/train.py``).
 
-One clip over several devices (``inference_torch.py --view_shard V``, the
-JAX ``make_mesh(n, dp=1, view=V)``): ``make_grid`` lays the ranks out as
-``t = N / V`` frame ranks by ``V`` view ranks, and the layers exchange
-what crosses a shard explicitly (``parallel/shardctx.py``). Training over
-``t`` (ROADMAP Queue A item 7b-ii) and sharded training state (``--fsdp``,
-item 7c) are not ported.
+One clip over several devices: ``make_grid`` lays the ranks out as the
+JAX ``make_mesh`` orders its devices, ``(dp, t, view)`` with the view axis
+fastest, so rank ``(d * t + i) * view + j`` holds clip group ``d``'s
+frames of slab ``i`` and its views of slab ``j``; the layers exchange what
+crosses a shard explicitly (``parallel/shardctx.py``). Sampling
+(``inference_torch.py --view_shard V``, JAX ``make_mesh(n, dp=1,
+view=V)``) takes ``dp`` 1 and ``t = N / V``. Training (JAX ``train.py``'s
+``make_mesh(dp * t, dp=dp)``) takes ``view`` 1: ``check_dp`` gives ``dp =
+max(1, N // T)`` for a clip of ``T`` frames unless ``--dp`` is given, and
+``t = N / dp`` frame ranks a clip, which must divide ``T``. The exchanges
+of the ``t`` group differentiate (their backward passes send the gradient
+back), those of the ``view`` group do not and refuse to. Sharded training
+state (``--fsdp``, ROADMAP Queue A item 7c) is not ported.
 
 The backend is NCCL on CUDA and gloo on the CPU. ``PANACEA_DIST_BACKEND=gloo``
 lets several ranks share a card: NCCL refuses two ranks on one device, and
@@ -36,8 +43,6 @@ BACKEND_VAR = "PANACEA_DIST_BACKEND"
 BACKENDS = ("nccl", "gloo")
 # what torchrun sets for each worker
 RENDEZVOUS_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-TRAIN_T = ("training one clip over several ranks (the JAX trainer's 't' axis) is not "
-           "ported: ROADMAP Queue A item 7b-ii")
 FSDP = "sharded training state (FSDP) is not ported: ROADMAP Queue A item 7c"
 
 
@@ -161,32 +166,41 @@ def rank_seed(seed: int, rank: int) -> int:
     return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
 
 
-def check_dp(dp: Optional[int], world: int) -> int:
-    """The data-parallel size of a trainer: the world size by default, and
-    it must equal it. A larger one needs more processes; a smaller one
-    would put several ranks on one clip (the JAX trainer's ``t`` axis)."""
+def check_dp(dp: Optional[int], world: int, frames: int) -> Tuple[int, int]:
+    """(dp, t) of a trainer on ``world`` processes and clips of ``frames``
+    frames: ``dp`` clip groups of ``t = world / dp`` frame ranks each. The
+    default is the JAX trainer's (``train.py:146``), ``max(1, world //
+    frames)``: two to ``frames`` processes train one clip's frames over all
+    of them. ``t`` must divide ``frames`` (the JAX partitioner replicates
+    frames that do not split; the port refuses)."""
     if dp is None:
-        return world
+        dp = max(1, world // frames)
     if dp < 1:
         raise SystemExit(f"--dp {dp}: must be at least 1")
     if dp > world:
         raise SystemExit(f"--dp {dp} needs {dp} processes, one a rank (torchrun "
                          f"--nproc_per_node {dp}); this run has {world}")
-    if dp < world:
-        raise SystemExit(f"--dp {dp} over {world} processes leaves t = {world / dp:g} ranks "
-                         f"a clip: {TRAIN_T}")
-    return dp
+    if world % dp:
+        raise SystemExit(f"--dp {dp} does not divide the {world} processes into clip groups "
+                         "of equal size")
+    t = world // dp
+    if frames % t:
+        raise SystemExit(f"t = {t} frame ranks a clip ({world} processes / dp {dp}) do not "
+                         f"divide the clip's {frames} frames: choose --dp or the process "
+                         "count so that they do")
+    return dp, t
 
 
 class Grid(NamedTuple):
-    """One clip over ``t * view`` ranks (``dp`` = 1): rank ``r`` holds the
-    frames of slab ``t_index = r // view`` and the panorama columns of view
-    slab ``view_index = r % view``, as JAX ``make_mesh(n, dp=1, view=V)``
+    """The place of a rank in ``dp`` clip groups of ``t * view`` ranks:
+    rank ``r = (dp_index * t + t_index) * view + view_index`` holds the
+    frames of slab ``t_index`` and the panorama columns of view slab
+    ``view_index`` of clip group ``dp_index``'s clips, as JAX ``make_mesh``
     orders its devices. ``t_ranks`` and ``view_ranks`` are the global ranks
-    of this rank's ``t`` group (the same view slab) and ``view`` group (the
-    same frames); ``t_group`` and ``view_group`` their process groups.
-    ``host_staged``: gloo with CUDA tensors, whose exchanges go through
-    host copies (``shardctx``)."""
+    of this rank's ``t`` group (the same clips and view slab) and ``view``
+    group (the same clips and frames); ``t_group`` and ``view_group`` their
+    process groups. ``host_staged``: gloo with CUDA tensors, whose
+    exchanges go through host copies (``shardctx``)."""
     rank: int
     world: int
     t: int
@@ -199,6 +213,8 @@ class Grid(NamedTuple):
     view_group: object
     backend: str
     host_staged: bool
+    dp: int = 1
+    dp_index: int = 0
 
 
 def check_view_shard(view: int, world: int) -> int:
@@ -216,32 +232,40 @@ def check_frames(t: int, frames: int) -> None:
     the clip ``t`` times; the port refuses.)"""
     if frames % t:
         raise SystemExit(f"t = {t} frame ranks do not divide the clip's {frames} frames: "
-                         "choose --view_shard so that the process count / view_shard "
-                         "divides the frames")
+                         "choose the process count (and --view_shard or --dp) so that "
+                         "they do")
 
 
-def make_grid(world: int, view: int, device=None) -> Optional[Grid]:
-    """The grid of one clip over the default process group's ``world``
-    ranks, ``view`` of them over the panorama's width and ``world / view``
-    over the frames; None for a grid of one rank (the plain path). Every
-    rank calls it, in the same order: it makes the ``t`` and ``view``
-    process groups with ``dist.new_group``."""
-    t = check_view_shard(view, world)
-    if world == 1:
+def make_grid(world: int, view: int, device=None, dp: int = 1) -> Optional[Grid]:
+    """The grid of the default process group's ``world`` ranks: ``dp``
+    clip groups, each of ``t = world / (dp * view)`` frame ranks by
+    ``view`` view ranks; None for a grid of one rank a clip (the plain
+    path). Every rank calls it, in the same order: it makes the ``t`` and
+    ``view`` process groups with ``dist.new_group``."""
+    if world % dp:
+        raise SystemExit(f"dp {dp} does not divide the {world} processes")
+    t = check_view_shard(view, world // dp)
+    if t * view == 1:
         return None
     import torch.distributed as dist
 
     rank = dist.get_rank()
     backend = dist.get_backend()
+
+    def at(d, i, j):
+        return (d * t + i) * view + j
+
     groups = {}
-    for i in range(t):       # the view groups: the same frames
-        ranks = tuple(range(i * view, (i + 1) * view))
-        groups[("view", i)] = ranks, dist.new_group(list(ranks))
-    for j in range(view):    # the t groups: the same view slab
-        ranks = tuple(range(j, world, view))
-        groups[("t", j)] = ranks, dist.new_group(list(ranks))
-    ti, vi = rank // view, rank % view
+    for d in range(dp):
+        for i in range(t):       # the view groups: the same clips and frames
+            ranks = tuple(at(d, i, j) for j in range(view))
+            groups[("view", d, i)] = ranks, dist.new_group(list(ranks))
+        for j in range(view):    # the t groups: the same clips and view slab
+            ranks = tuple(at(d, i, j) for i in range(t))
+            groups[("t", d, j)] = ranks, dist.new_group(list(ranks))
+    d, rest = divmod(rank, t * view)
+    ti, vi = divmod(rest, view)
     on_card = device is not None and torch.device(device).type == "cuda"
-    return Grid(rank, world, t, view, ti, vi, groups[("t", vi)][0], groups[("view", ti)][0],
-                groups[("t", vi)][1], groups[("view", ti)][1], backend,
-                backend == "gloo" and on_card)
+    return Grid(rank, world, t, view, ti, vi, groups[("t", d, vi)][0],
+                groups[("view", d, ti)][0], groups[("t", d, vi)][1],
+                groups[("view", d, ti)][1], backend, backend == "gloo" and on_card, dp, d)

@@ -22,9 +22,30 @@ each exchange by hand, over the process groups of a ``mesh.Grid``:
   * ``gather_clip`` / ``gather_rows``: the clip's latents and decoded frames
     over every rank.
 
-``sharded(grid)`` holds the grid in a context variable around sampling;
-layers read it with ``current()``. Without it every layer runs its
-one-process code, down to the same calls.
+Training over ``t`` (the JAX ``make_train_step`` on a ``(dp, t)`` mesh)
+differentiates through the exchanges of the frame group, so each is a
+``torch.autograd.Function`` whose backward sends the gradient the other
+way: a frame halo's gradient goes back to the rank that sent the frames,
+which adds it to its edge frames (the zeros at the clip's ends take
+none); the statistics' all-reduce (sum) is its own adjoint, an all-reduce
+of the incoming gradients over the same group; the all-to-all's adjoint
+is the inverse all-to-all, the same call on the gradient laid out as the
+output. Each backward is counted in ``comm_report`` under its own kind
+(``halo_t_bwd``, ``stats_t_bwd``, ``all_to_all_bwd``). Every rank's
+backward issues them in one order, as it runs one graph.
+
+The exchanges of the view group (``halo_w``, the statistics over
+``view``, the ring, ``gather_view``) and the gathers stay forward-only:
+no JAX path trains over ``view``. Given a tensor that needs a gradient
+they raise; they never hand back a wrong one.
+
+``sharded(grid)`` holds the grid in a context variable around sampling
+and training; layers read it with ``current()``. Without it every layer
+runs its one-process code, down to the same calls. ``checkpoint_contexts``
+is the ``context_fn`` of the network's ``torch.utils.checkpoint``: the
+recomputed forward, which runs inside the backward (in another thread on
+the card), sees the grid of the forward it repeats, and its exchanges
+count as recomputed.
 
 Transport, chosen by the backend and nothing else: NCCL on CUDA tensors
 (a rank a card), gloo on CPU tensors, and gloo with CUDA tensors (ranks
@@ -66,6 +87,29 @@ def sharded(grid: Optional[Grid]) -> Iterator[Optional[Grid]]:
         yield grid
     finally:
         _CTX.reset(token)
+
+
+@contextlib.contextmanager
+def _recomputing(grid: Grid) -> Iterator[None]:
+    with sharded(grid), comm_report.recompute():
+        yield
+
+
+def checkpoint_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint`` (non-reentrant): no
+    context around the forward; around its recomputation in the backward,
+    the grid that holds now (and the exchanges counted as recomputed).
+    Without a grid, neither."""
+    g = current()
+    return contextlib.nullcontext(), (contextlib.nullcontext() if g is None else _recomputing(g))
+
+
+def _forward_only(kind: str, *xs: torch.Tensor) -> None:
+    """Raise where autograd would need the backward of exchange ``kind``."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(f"{kind} has no backward pass: no JAX path trains over the 'view' "
+                           "axis (make_train_step takes a (dp, t) mesh); run it under "
+                           "torch.no_grad(), or train over t alone")
 
 
 def local_frames(frames: int) -> int:
@@ -138,7 +182,7 @@ def _all_reduce(g: Grid, kind: str, x: torch.Tensor, group) -> torch.Tensor:
     return y
 
 
-def _all_to_all(g: Grid, x: torch.Tensor, group) -> torch.Tensor:
+def _all_to_all(g: Grid, kind: str, x: torch.Tensor, group) -> torch.Tensor:
     """``x`` (n, ...) with n the group's size: part i goes to the group's
     i-th rank, and part i of the result came from it."""
     import torch.distributed as dist
@@ -148,13 +192,14 @@ def _all_to_all(g: Grid, x: torch.Tensor, group) -> torch.Tensor:
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
     out = _from_wire(g, recv, x)
-    comm_report.record("all_to_all", x.numel() * x.element_size(), time.perf_counter() - t0)
+    comm_report.record(kind, x.numel() * x.element_size(), time.perf_counter() - t0)
     return out
 
 
 def _all_gather(g: Grid, kind: str, x: torch.Tensor, group, size: int) -> List[torch.Tensor]:
     import torch.distributed as dist
 
+    _forward_only(kind, x)
     t0 = _clock(g, x)
     send = _to_wire(g, x)
     parts = [torch.empty_like(send) for _ in range(size)]
@@ -167,12 +212,17 @@ def _all_gather(g: Grid, kind: str, x: torch.Tensor, group, size: int) -> List[t
 # ------------------------------------------------------------- exchanges
 
 
+def _neighbours(ranks: Sequence[int], index: int):
+    """(left, right) neighbours of ``ranks[index]``, None past the ends."""
+    return (ranks[index - 1] if index > 0 else None,
+            ranks[index + 1] if index < len(ranks) - 1 else None)
+
+
 def _halo(g: Grid, kind: str, x: torch.Tensor, dim: int, ranks: Sequence[int], index: int,
           pad: int) -> torch.Tensor:
     """``x`` with ``pad`` slices a side along ``dim`` from the neighbouring
     ranks of ``ranks`` (this rank is ``ranks[index]``), zeros past the ends."""
-    left = ranks[index - 1] if index > 0 else None
-    right = ranks[index + 1] if index < len(ranks) - 1 else None
+    left, right = _neighbours(ranks, index)
     edge = list(x.shape)
     edge[dim] = pad
     sends, recvs = [], []
@@ -188,32 +238,102 @@ def _halo(g: Grid, kind: str, x: torch.Tensor, dim: int, ranks: Sequence[int], i
     return torch.cat([lo, x, hi], dim=dim)
 
 
+def _halo_grad(g: Grid, kind: str, gy: torch.Tensor, dim: int, ranks: Sequence[int],
+               index: int, pad: int) -> torch.Tensor:
+    """The adjoint of ``_halo``: the gradient of the slab's own slices, plus
+    the gradients of its edge slices that the neighbours received, sent
+    back by them; each halo's gradient goes to the rank it came from."""
+    left, right = _neighbours(ranks, index)
+    n = gy.shape[dim] - 2 * pad
+    gx = gy.narrow(dim, pad, n).clone()
+    edge = list(gx.shape)
+    edge[dim] = pad
+    sends, recvs = [], []
+    if left is not None:       # the left halo's gradient to the left, as its right edge's
+        sends.append((gy.narrow(dim, 0, pad), left, TAG_TO_LEFT))
+        recvs.append((edge, left, TAG_TO_RIGHT))
+    if right is not None:
+        sends.append((gy.narrow(dim, n + pad, pad), right, TAG_TO_RIGHT))
+        recvs.append((edge, right, TAG_TO_LEFT))
+    got = iter(_p2p(g, kind, gy, sends, recvs))
+    if left is not None:
+        gx.narrow(dim, 0, pad).add_(next(got))
+    if right is not None:
+        gx.narrow(dim, n - pad, pad).add_(next(got))
+    return gx
+
+
+class _HaloT(torch.autograd.Function):
+    """``halo_t`` with its backward (``_halo_grad``)."""
+
+    @staticmethod
+    def forward(ctx, x, g, pad):
+        ctx.g, ctx.pad = g, pad
+        return _halo(g, "halo_t", x, 1, g.t_ranks, g.t_index, pad)
+
+    @staticmethod
+    def backward(ctx, gy):
+        g = ctx.g
+        return _halo_grad(g, "halo_t_bwd", gy, 1, g.t_ranks, g.t_index, ctx.pad), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """An all-reduce (sum) over ``group``; its adjoint is the same
+    all-reduce of the gradients."""
+
+    @staticmethod
+    def forward(ctx, x, g, kind, group):
+        ctx.g, ctx.kind, ctx.group = g, kind, group
+        return _all_reduce(g, kind, x, group)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _all_reduce(ctx.g, ctx.kind + "_bwd", gy, ctx.group), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``_all_to_all`` over the ``t`` group; its adjoint is the inverse
+    all-to-all: part i of the gradient goes back to rank i."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _all_to_all(g, "all_to_all", x, g.t_group)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _all_to_all(ctx.g, "all_to_all_bwd", gy.contiguous(), ctx.g.t_group), None
+
+
 def halo_w(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
     """(N, H, W, C) -> (N, H, W + 2 pad, C): the neighbouring view ranks'
-    edge columns, zeros at the panorama's ends."""
+    edge columns, zeros at the panorama's ends. Forward-only."""
     g = current()
+    _forward_only("halo_w", x)
     return _halo(g, "halo_w", x, 2, g.view_ranks, g.view_index, pad)
 
 
 def halo_t(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
     """(B, T_local, ...) -> (B, T_local + 2 pad, ...): the neighbouring
     frame ranks' edge frames, zeros at the clip's ends."""
-    g = current()
-    return _halo(g, "halo_t", x, 1, g.t_ranks, g.t_index, pad)
+    return _HaloT.apply(x, current(), pad)
 
 
 def group_stats(xf: torch.Tensor, dims, over: str, eps: float):
     """(mean, rsqrt(var + eps)) of fp32 ``xf`` over ``dims`` and over the
     ranks of the ``over`` group ('view' or 't'), each holding an equal part:
-    the sum, then the centred sum of squares, each all-reduced."""
+    the sum, then the centred sum of squares, each all-reduced. Over 't'
+    both all-reduces have their backward; over 'view' they are forward-only."""
     g = current()
     group, size = (g.view_group, g.view) if over == "view" else (g.t_group, g.t)
     kind = "stats_" + over
+    if over == "view":
+        _forward_only(kind, xf)
     n = size
     for d in dims:
         n *= xf.shape[d]
-    mean = _all_reduce(g, kind, xf.sum(dim=dims, keepdim=True), group) / n
-    css = _all_reduce(g, kind, (xf - mean).square().sum(dim=dims, keepdim=True), group)
+    mean = _AllReduce.apply(xf.sum(dim=dims, keepdim=True), g, kind, group) / n
+    css = _AllReduce.apply((xf - mean).square().sum(dim=dims, keepdim=True), g, kind, group)
     return mean, torch.rsqrt(css / n + eps)
 
 
@@ -227,7 +347,7 @@ def temporal_in(h: torch.Tensor, b: int, t_local: int) -> torch.Tensor:
         raise ValueError(f"{p} pixels do not split over t = {g.t} frame ranks")
     pt = p // g.t
     x = h.reshape(b, t_local, g.t, pt, c).permute(2, 0, 1, 3, 4)
-    y = _all_to_all(g, x, g.t_group)                # (t, b, t_local, pt, c) from each rank
+    y = _AllToAll.apply(x, g)                       # (t, b, t_local, pt, c) from each rank
     return y.permute(1, 3, 0, 2, 4).reshape(b * pt, g.t * t_local, c)
 
 
@@ -237,7 +357,7 @@ def temporal_out(h: torch.Tensor, b: int, hh: int, ww: int) -> torch.Tensor:
     _, tt, c = h.shape
     t_local, pt = tt // g.t, hh * ww // g.t
     x = h.reshape(b, pt, g.t, t_local, c).permute(2, 0, 3, 1, 4)
-    y = _all_to_all(g, x, g.t_group)                # (t, b, t_local, pt, c): pixels by rank
+    y = _AllToAll.apply(x, g)                       # (t, b, t_local, pt, c): pixels by rank
     return y.permute(1, 2, 0, 3, 4).reshape(b * t_local, hh, ww, c)
 
 
@@ -251,6 +371,7 @@ def ring_exchange(to_right: torch.Tensor, to_left: torch.Tensor):
     """(from the left neighbour, from the right neighbour) over the view
     ring, which wraps: view rank 0's left is the last view rank."""
     g = current()
+    _forward_only("ring", to_right, to_left)
     v, j = g.view, g.view_index
     left, right = g.view_ranks[(j - 1) % v], g.view_ranks[(j + 1) % v]
     # sends right then left, receives from the left then the right: with

@@ -7,6 +7,22 @@ rows, ``allreduce_mean`` averages it over the ranks before the optimizer,
 ``broadcast_from_rank0`` makes the ranks start from one set of parameters,
 and ``reduce_mean`` is mmdet's ``reduce_mean`` for the loss's avg factors.
 Without a process group each of them is the identity.
+
+Over a training grid (the JAX ``(dp, t)`` mesh; ``mesh.make_grid``: rank
+``d * t + i`` holds clip group ``d``'s frames of slab ``i``) the same
+``allreduce_mean`` over the whole world gives the global batch's gradient.
+Rank r's loss L_r is the mean over its own frames, and every rank holds
+the same number of frames, so the global mean loss is L = mean_r L_r. The
+frame group's exchanges (``shardctx``: the frame halo, the temporal
+statistics, the temporal all-to-all) are autograd functions whose
+backward passes are their adjoints; the view group's have none and raise
+where a gradient would need them. So rank r's backward of L_r puts on the
+parameters it used its share of the gradient of sum_r L_r, the cross-rank
+terms included (a neighbour's halo gradient comes back to the rank that
+sent the frames, the statistics' gradients are all-reduced, the
+all-to-all's are sent back by the inverse all-to-all); the shares sum
+over the ranks to d(sum_r L_r)/d(theta), and their mean is dL/d(theta).
+``tests/test_torch_train_grid.py`` holds it to one process.
 """
 
 from __future__ import annotations

@@ -13,22 +13,32 @@ at the end ``final.pt`` (the network's parameters, fp32), ``final_ema.pt``
 style checkpoint that ``inference_torch.py --ckpt`` loads (``--prefer_ema``
 for the shadows).
 
-Data parallelism (the JAX CLI's ``--dp``, its mesh's ``dp`` axis): under
-``torchrun --nproc_per_node N`` each rank holds the parameters, ``--bs`` is
-the global batch split evenly over the N ranks, and a step is the
-one-process step of that batch: every rank reads the whole batch and
-computes its conditioning with the ucg dropout, as the JAX CLI's processes
-do (so the dataset's own random stream stays the same on every rank), draws
-the posterior, sigmas and noise at the global batch's shape from the shared
-generator, keeps its own clips' rows, and averages its gradients with the
-other ranks' before the optimizer (``parallel/train.py``). Rank 0 writes the
-checkpoints. ``--dp`` must equal the number of processes; ``--fsdp`` (ROADMAP
-Queue A item 7c) raises.
+Parallelism (the JAX CLI's mesh of ``dp`` clip groups by ``t`` frame ranks,
+``train.py:145-147``): under ``torchrun --nproc_per_node N`` each rank holds
+the parameters, ``--bs`` is the global batch split evenly over the ``dp``
+clip groups, and each clip's frames are split over the ``t = N / dp`` ranks
+of its group. ``--dp`` defaults to the JAX CLI's ``max(1, N // T)`` for
+clips of T frames, so two to T processes train one clip's frames over all
+of them (``--dp N``: plain data parallelism). Rank ``(d * t + i)`` takes
+clip group ``d``'s clips and frames ``[i T / t, (i + 1) T / t)`` of each.
+A step is the one-process step of the global batch: every rank reads the
+whole batch and computes its conditioning with the ucg dropout, as the
+JAX CLI's processes do (so the dataset's own random stream stays the same
+on every rank), draws the posterior, sigmas and noise at the global
+batch's shape from the shared generator, keeps its own clips' slab of
+frames (``rank_rows``), VAE-encodes only those frames, runs the network
+under the grid (``parallel/shardctx.py``: the frame halos, the temporal
+statistics and the all-to-all cross the clip group, forward and
+backward), and averages its gradients with the other ranks' before the
+optimizer (``parallel/train.py``; ``train_step.py`` says why that mean is
+the global batch's gradient). Rank 0 writes the checkpoints. ``t`` must
+divide T; ``--fsdp`` (ROADMAP Queue A item 7c) raises.
 
 Examples:
   python train_torch.py --tiny --synthetic --steps 3 --ckpt_every 0 --device cpu
   python train_torch.py --synthetic --steps 10 --freeze_type spatial --use_ema
-  torchrun --nproc_per_node 8 train_torch.py --synthetic --bs 8 --freeze_type spatial
+  torchrun --nproc_per_node 8 train_torch.py --synthetic --bs 8 --dp 8 --freeze_type spatial
+  torchrun --nproc_per_node 2 train_torch.py --tiny --synthetic --device cpu   # t 2
 """
 
 from __future__ import annotations
@@ -60,8 +70,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--bs", type=int, default=1)
     p.add_argument("--lr", type=float, default=2e-5)
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel size: the number of processes (torchrun "
-                        "--nproc_per_node), which is the default")
+                   help="clip groups (data-parallel size); each clip's frames split over "
+                        "the process count / dp ranks of its group. Default, as the JAX "
+                        "CLI: max(1, processes // frames), so that 2 to 'frames' "
+                        "processes split one clip's frames over all of them")
     p.add_argument("--fsdp", action="store_true",
                    help="sharded training state; not ported (ROADMAP Queue A item "
                         "7c): raises")
@@ -93,21 +105,28 @@ def default_loss_config(engine) -> Dict[str, Any]:
                 "num_frames": engine.num_frames}}
 
 
-def rank_rows(engine, batch: Dict[str, Any], cond: Dict[str, Any], generator, rows: slice):
+def rank_rows(engine, batch: Dict[str, Any], cond: Dict[str, Any], generator, rows: slice,
+              frames: slice = slice(None)):
     """One rank's part of a global step: the clips ``rows`` of the global
-    batch's ``jpg``, their rows of the conditioning ``cond`` (per clip or
-    per frame), and the step's random draws made from ``generator`` at the
-    global batch's shape, in ``train_step``'s order (the posterior, then the
-    loss's sigmas and noise), cut to the same rows; with the global batch's
-    conditioning frame for the shared-noise bias. With every row, the step
-    is the one-process step. Returns (jpg, cond, draws to inject)."""
+    batch's ``jpg`` and their frames ``frames`` (the rank's slab of each
+    clip), the same clips' rows of the conditioning ``cond`` (per clip) and
+    slab (per frame), and the step's random draws made from ``generator`` at
+    the global batch's shape, in ``train_step``'s order (the posterior, then
+    the loss's sigmas and noise), cut to the same frames; with the global
+    batch's conditioning frame for the shared-noise bias. With every row
+    and frame, the step is the one-process step. Returns (jpg, cond, draws
+    to inject)."""
     jpg = batch["jpg"]                       # (B, T, H, W, 3)
     b, t = jpg.shape[:2]
-    frames = slice(rows.start * t, rows.stop * t)
+
+    def per_frame(v):                        # (B * T, ...) -> this rank's frames, flat
+        v = v.reshape((b, t) + tuple(v.shape[1:]))[rows, frames]
+        return v.reshape((-1,) + tuple(v.shape[2:]))
+
     posterior = engine.draw_posterior_noise(b * t, jpg.shape[2:4], generator)
     inject = engine.loss_fn.draw(posterior.shape, generator, engine.device)
-    inject = {k: v[frames] for k, v in inject.items()}
-    inject["posterior_noise"] = posterior[frames]
+    inject = {k: per_frame(v) for k, v in inject.items()}
+    inject["posterior_noise"] = per_frame(posterior)
     if "concat" in cond:
         inject["share_frame"] = cond["concat"][-1]
 
@@ -115,9 +134,9 @@ def rank_rows(engine, batch: Dict[str, Any], cond: Dict[str, Any], generator, ro
         if v.shape[0] not in (b, b * t):
             raise ValueError(f"conditioning {k!r} has {v.shape[0]} rows, neither the "
                              f"batch's {b} clips nor its {b * t} frames")
-        return v[rows] if v.shape[0] == b else v[frames]
+        return v[rows] if v.shape[0] == b else per_frame(v)
 
-    return jpg[rows], {k: cut(k, v) for k, v in cond.items()}, inject
+    return jpg[rows, frames], {k: cut(k, v) for k, v in cond.items()}, inject
 
 
 def main(argv: Optional[Sequence[str]] = None, save_final: bool = True) -> Dict[str, Any]:
@@ -146,18 +165,12 @@ def _run(args, unknown, group, save_final: bool) -> Dict[str, Any]:
                                               save_engine_checkpoint, save_train_checkpoint)
     from panacea_tpu_torch.config import load_configs_with_overrides
     from panacea_tpu_torch.data.nuscenes.dataset import NuScenesVideoDataset, collate
-    from panacea_tpu_torch.parallel.mesh import check_dp
+    from panacea_tpu_torch.parallel.mesh import check_dp, make_grid
     from panacea_tpu_torch.parallel.train import assert_same, barrier, broadcast_from_rank0
     from panacea_tpu_torch.registry import instantiate_from_config
     from panacea_tpu_torch.train_step import init_train_state, train_step
     from panacea_tpu_torch.utils.profiling import Timer
 
-    dp = check_dp(args.dp, group.world)
-    if args.bs % dp:
-        raise SystemExit(f"--bs {args.bs} is the global batch: it must split evenly over "
-                         f"--dp {dp}")
-    local_bs = args.bs // dp
-    rows = slice(group.rank * local_bs, (group.rank + 1) * local_bs)
     if args.tiny:
         args.base = ["tiny_cpu"]
     device = group.device
@@ -168,6 +181,18 @@ def _run(args, unknown, group, save_final: bool) -> Dict[str, Any]:
     engine.loss_fn = instantiate_from_config(cfg.get("loss_fn_config")
                                              or default_loss_config(engine))
     t = engine.num_frames
+    dp, t_ranks = check_dp(args.dp, group.world, t)
+    if args.bs % dp:
+        raise SystemExit(f"--bs {args.bs} is the global batch: it must split evenly over "
+                         f"--dp {dp}")
+    local_bs = args.bs // dp
+    # rank (d * t_ranks + i): clip group d's clips, slab i of their frames
+    d, i = divmod(group.rank, t_ranks)
+    rows = slice(d * local_bs, (d + 1) * local_bs)
+    slab = t // t_ranks
+    frames = slice(i * slab, (i + 1) * slab)
+    grid = make_grid(group.world, 1, device, dp=dp)
+    engine.set_grid(grid)
     final_dim = TINY_FINAL_DIM if args.tiny else FULL_FINAL_DIM
 
     if args.synthetic:
@@ -204,7 +229,8 @@ def _run(args, unknown, group, save_final: bool) -> Dict[str, Any]:
     n_trained = sum(p.numel() for p in state.params.values())
     print(f"rank={group.rank}/{group.world} backend={group.backend} device={device} "
           f"trained parameters={n_trained} freeze_type={engine.freeze_type} "
-          f"ema={args.use_ema} batch={args.bs} ({local_bs} a rank)", flush=True)
+          f"ema={args.use_ema} batch={args.bs} grid dp={dp} t={t_ranks} ({local_bs} clips "
+          f"and frames {frames.start}-{frames.stop - 1} a rank)", flush=True)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     rs = np.random.RandomState(args.seed)
@@ -229,7 +255,7 @@ def _run(args, unknown, group, save_final: bool) -> Dict[str, Any]:
             batch = collate([dataset[int(i)] for i in idxs])
         with timer("conditioning"), torch.no_grad():
             cond = engine.conditioner(batch, device, generator=generator, apply_ucg=True)
-            jpg, cond, draws = rank_rows(engine, batch, cond, generator, rows)
+            jpg, cond, draws = rank_rows(engine, batch, cond, generator, rows, frames)
         loss = float(train_step(engine, state, jpg, cond, timer=timer, **draws))
         losses.append(loss)
         if step % args.log_every == 0 and group.rank == 0:
@@ -257,4 +283,4 @@ def _run(args, unknown, group, save_final: bool) -> Dict[str, Any]:
         print(f"training done -> {path}", flush=True)
     barrier()
     return {"losses": losses, "state": state, "engine": engine, "timer": timer,
-            "engine_ckpt": path}
+            "engine_ckpt": path, "grid": grid, "slab": (rows, frames)}

@@ -14,6 +14,21 @@ clip over the trained parameters) updates the fp32 masters, the network's
 parameters take the masters' values in their compute type, and the EMA
 follows the masters.
 
+Over a grid (``engine.grid``: ``dp`` clip groups of ``t`` frame ranks,
+``parallel/mesh.py``) each rank holds its clips' slab of ``T / t`` frames,
+and the network runs under the sharded context. Why the
+ranks' mean of their gradients is the global batch's: rank r's loss L_r
+is the mean over its F frames, and every rank holds F = B T / world
+frames, so the global batch's mean loss is L = (1 / world) sum_r L_r. The
+exchanges of the frame group are autograd functions whose backward
+passes are their adjoints (``shardctx``), so rank r's backward of L_r
+gives, on the parameters it used, its share of the gradient of sum_r L_r
+with the cross-rank terms included (a neighbour's halo gradient, the
+other ranks' part of the GroupNorm statistics, the all-to-all's inverse).
+Summed over the ranks these shares are d(sum_r L_r) / d(theta), so
+``allreduce_mean`` (the sum over the world, divided by its size) gives
+dL / d(theta), as JAX's ``value_and_grad`` of the sharded step does.
+
 Parameter types: on the card the network computes in bf16 and the trained
 parameters' fp32 masters live in the ``TrainState``; the gradients arrive in
 bf16 on the network's parameters (the cotangents of JAX's fp32-to-bf16
@@ -29,6 +44,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from panacea_tpu_torch.parallel import comm_report
 from panacea_tpu_torch.parallel.train import allreduce_mean, reduce_mean
 from panacea_tpu_torch.utils.ema import LitEma
 from panacea_tpu_torch.utils.optim import AdamW
@@ -66,6 +82,41 @@ def init_train_state(engine, lr: float = 1e-4, weight_decay: float = 1e-2,
     return TrainState(params=params, network=network, optimizer=opt, ema=ema)
 
 
+def local_grads(engine, network: Dict[str, torch.nn.Parameter], jpg,
+                cond: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+                timer=None, **inject) -> torch.Tensor:
+    """This rank's forward and backward of a step: the clip ``jpg`` (B, T,
+    H, W, 3) encoded without gradients, the loss with gradients under the
+    engine's grid, its backward into ``.grad`` of the trained parameters
+    ``network`` (each must get one). Draws and ``timer`` as
+    ``train_step``'s. Returns the rank's loss, not yet reduced."""
+    def phase(name):
+        return timer(name) if timer is not None else contextlib.nullcontext()
+
+    engine.train()
+    posterior_noise = inject.pop("posterior_noise", None)
+    for p in network.values():
+        p.grad = None
+    with phase("vae_encode"):
+        x = torch.as_tensor(jpg, dtype=torch.float32, device=engine.device)
+        z = engine.encode_first_stage(x.reshape((-1,) + tuple(x.shape[2:])),
+                                      generator=generator, noise=posterior_noise)
+    # the forward runs under the engine's grid (``diffusion_loss``); the
+    # backward needs no context: each exchange keeps its grid, and the
+    # recomputed forward gets it from ``shardctx.checkpoint_contexts``
+    with (comm_report.training_step() if engine.grid is not None
+          else contextlib.nullcontext()):
+        with phase("forward"):
+            loss = engine.diffusion_loss(z, cond, generator=generator, **inject)
+        with phase("backward"):
+            loss.backward()
+    missing = [k for k, p in network.items() if p.grad is None]
+    if missing:
+        raise RuntimeError(f"no gradient reached {len(missing)} trained parameters, "
+                           f"e.g. {missing[:3]}")
+    return loss.detach()
+
+
 def train_step(engine, state: TrainState, jpg, cond: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None, timer=None,
                **inject) -> torch.Tensor:
@@ -75,30 +126,17 @@ def train_step(engine, state: TrainState, jpg, cond: Dict[str, torch.Tensor],
     (``posterior_noise``, ``sigma_rand``, ``noise``, ``offset``,
     ``share_frame``). ``timer`` (``utils.profiling.Timer``) splits the step
     into vae_encode, forward, backward, allreduce, optimizer and ema.
-    Returns the loss (a detached scalar), averaged over the ranks under a
-    process group."""
+    Under a grid, ``jpg``, ``cond`` and the draws are this rank's slab
+    (``train.rank_rows``). Returns the loss (a detached scalar), averaged
+    over the ranks under a process group."""
     def phase(name):
         return timer(name) if timer is not None else contextlib.nullcontext()
 
-    engine.train()
-    posterior_noise = inject.pop("posterior_noise", None)
-    for p in state.network.values():
-        p.grad = None
-    with phase("vae_encode"):
-        x = torch.as_tensor(jpg, dtype=torch.float32, device=engine.device)
-        z = engine.encode_first_stage(x.reshape((-1,) + tuple(x.shape[2:])),
-                                      generator=generator, noise=posterior_noise)
-    with phase("forward"):
-        loss = engine.diffusion_loss(z, cond, generator=generator, **inject)
-    with phase("backward"):
-        loss.backward()
-    missing = [k for k, p in state.network.items() if p.grad is None]
-    if missing:
-        raise RuntimeError(f"no gradient reached {len(missing)} trained parameters, "
-                           f"e.g. {missing[:3]}")
+    loss = local_grads(engine, state.network, jpg, cond, generator=generator, timer=timer,
+                       **inject)
     with phase("allreduce"):
         grads = dict(zip(state.network, allreduce_mean([p.grad for p in state.network.values()])))
-        loss = reduce_mean(loss.detach())
+        loss = reduce_mean(loss)
     with phase("optimizer"):
         state.optimizer.step(state.params, grads)
         for p in state.network.values():

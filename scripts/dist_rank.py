@@ -27,9 +27,22 @@ wait. The report's ``against_one_process`` holds, by type, the largest
 difference over the largest latent and the relative RMS of the grid's and
 the fault's latents from rank 0's alone; the counts, the exchanges and the
 clip's split above are the CLI's, taken before the replays.
-``--zero_init_std S`` draws the weights the model zero-initialises with std
-``S`` (``DiffusionEngine3D.init_weights``), so that every branch computes
-on random weights. The last line
+For ``train`` the report adds the grid (``dp``, ``t`` and this rank's
+indices; None for plain data parallelism), the rank's slab (its clips
+and frames of the global batch) and the exchanges of its steps by kind
+and direction (``forward``, ``recompute``, ``backward``), and ``--replay
+DTYPE ...`` repeats the last step's forward and backward with the network
+in each type on the first clip of each clip group (the step's batch,
+conditioning and generator state): over the grid, with a planted fault
+(each rank keeps its own frames' gradient and sends its halo's back to no
+one, set here and by no switch of the package), then on rank 0 alone with
+those clips whole while the others wait; ``against_one_process`` holds,
+by type, the distances of the grid's and the fault's trained gradients
+(the ranks' mean) from rank 0's alone, jointly over the norm of rank 0's
+and the largest parameter's over its own norm (``grad_distance``).
+``--zero_init_std S`` draws the weights the model zero-initialises with
+std ``S`` (``DiffusionEngine3D.init_weights``), so that every branch
+computes on random weights. The last line
 this script prints is ``{"rank_report": {...}}``: the rank, world size,
 backend and device the CLI took, the launches of the port's kernels (and
 for the trainers a step's), the seconds of the run, the CLI's phase times,
@@ -60,6 +73,9 @@ import zlib
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SAMPLES = 4096
+# a parameter whose gradient norm is at most this share of the whole is at
+# rounding level (``grad_distance``)
+ROUNDING = 1e-6
 CLIS = {"inference": "panacea_tpu_torch.inference",
         "inference_view_shard": "panacea_tpu_torch.inference",
         "train": "panacea_tpu_torch.train",
@@ -149,13 +165,104 @@ def replay_against_one_process(torch, sample, call: dict, rank: int, dtypes) -> 
     return out
 
 
+def grad_distance(got: dict, want: dict) -> dict:
+    """Two gradients' distance: jointly over the norm of ``want``, and each
+    parameter's over its own norm in ``want`` (the largest, ``max_param``),
+    leaving out the parameters whose gradient in ``want`` is at rounding
+    level (its norm at most ``ROUNDING`` of the whole: a bias before a
+    GroupNorm of one channel a group, whose exact gradient is 0). Those are
+    named (``rounding``) and held over the whole norm (``rounding_max``)."""
+    norm = sum(float(w.double().norm()) ** 2 for w in want.values()) ** 0.5
+    diff = {k: float((got[k].double() - w.double()).norm()) for k, w in want.items()}
+    small = sorted(k for k, w in want.items() if float(w.double().norm()) <= ROUNDING * norm)
+    own = {k: diff[k] / float(w.double().norm()) for k, w in want.items() if k not in small}
+    return {"joint": sum(v * v for v in diff.values()) ** 0.5 / norm,
+            "max_param": max(own.values()), "worst": max(own, key=own.get),
+            "rounding": small, "rounding_max": max((diff[k] / norm for k in small), default=0.0)}
+
+
+def dropped_halo_grad(ctx, gy):
+    """The planted fault: a frame halo's gradient stays with the rank that
+    received the frames, and its own frames get theirs alone."""
+    return gy.narrow(1, ctx.pad, gy.shape[1] - 2 * ctx.pad), None, None
+
+
+def replay_train_against_one_process(torch, rank_rows, call: dict, rank: int, dtypes) -> dict:
+    """The CLI's last step again, forward and backward, with the network in
+    each of ``dtypes``, on the first clip of each clip group: over the grid,
+    with the halo fault, and on rank 0 alone with those clips whole (the
+    grid unset) while the others wait. ``rank_rows`` is the trainer's own.
+    On rank 0, by type, the gradients' distances from its own alone and
+    the seconds of each; on the other ranks, the seconds."""
+    from panacea_tpu_torch.parallel import shardctx
+    from panacea_tpu_torch.parallel.train import allreduce_mean, barrier
+    from panacea_tpu_torch.train_step import local_grads
+
+    eng, types = call["engine"], {"fp32": torch.float32, "bf16": torch.bfloat16}
+    grid, step_dtype = eng.grid, eng.dtype
+    dp, d, t, i = (1, 0, 1, 0) if grid is None else (grid.dp, grid.dp_index, grid.t,
+                                                     grid.t_index)
+    tl = eng.num_frames // t
+    net = eng.set_trainable()
+
+    def run(dtype, rows, frames, reduce):
+        eng.model.to(dtype)
+        eng.dtype = dtype
+        gen = call["generator"]
+        gen.set_state(call["state"])
+        with torch.no_grad():
+            jpg, cond, draws = rank_rows(eng, call["batch"], call["cond"], gen, rows, frames)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        t0 = time.perf_counter()
+        local_grads(eng, net, jpg, cond, **draws)
+        grads = [p.grad for p in net.values()]
+        if reduce:
+            grads = allreduce_mean(grads)
+        out = ({k: g.detach().float().cpu() for k, g in zip(net, grads)} if rank == 0
+               else None)
+        for p in net.values():
+            p.grad = None
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+            seconds = time.perf_counter() - t0
+            torch.cuda.empty_cache()   # room for rank 0 alone beside the others
+            return out, seconds
+        return out, time.perf_counter() - t0
+
+    def faulty(dtype):
+        sound = shardctx._HaloT.backward
+        shardctx._HaloT.backward = staticmethod(dropped_halo_grad)
+        try:
+            return run(dtype, slice(d, d + 1), slice(i * tl, (i + 1) * tl), True)
+        finally:
+            shardctx._HaloT.backward = sound
+
+    out = {}
+    for name in dtypes:
+        got, grid_s = run(types[name], slice(d, d + 1), slice(i * tl, (i + 1) * tl), True)
+        fault, fault_s = faulty(types[name])
+        out[name] = {"grid_s": grid_s, "fault_s": fault_s}
+        if rank == 0:
+            eng.set_grid(None)
+            alone, out[name]["alone_s"] = run(types[name], slice(0, dp), slice(None), False)
+            eng.set_grid(grid)
+            out[name].update(grid=grad_distance(got, alone), fault=grad_distance(fault, alone),
+                             clips=dp, frames=eng.num_frames)
+        barrier()
+    eng.model.to(step_dtype)
+    eng.dtype = step_dtype
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("cli", choices=sorted(CLIS))
     p.add_argument("--dump", default=None, help="directory of rank{R}.pt")
     p.add_argument("--no_final", action="store_true")
     p.add_argument("--replay", nargs="+", choices=("fp32", "bf16"), default=(),
-                   help="inference_view_shard: the one-step replays, by network type")
+                   help="inference_view_shard and train: the replays against rank 0 "
+                        "alone, by network type")
     p.add_argument("--zero_init_std", type=float, default=None)
     argv = sys.argv[1:]
     split = argv.index("--") if "--" in argv else len(argv)
@@ -163,8 +270,8 @@ def main() -> int:
     cli_argv = argv[split + 1:]
     if args.cli == "inference_view_shard" and "--view_shard" not in cli_argv:
         p.error("inference_view_shard needs --view_shard V among the CLI's arguments")
-    if args.replay and args.cli != "inference_view_shard":
-        p.error("--replay is for inference_view_shard")
+    if args.replay and args.cli not in ("inference_view_shard", "train"):
+        p.error("--replay is for inference_view_shard and train")
 
     import importlib
 
@@ -193,7 +300,10 @@ def main() -> int:
                            shapes=dict(fa.flash_attention.shape_launches))
             if group.device.type == "cuda":
                 cli_end["peak_mem_gb"] = torch.cuda.max_memory_allocated(group.device) / 1e9
-            if args.replay and calls:
+            if args.replay and args.cli == "train":
+                cli_end["against_one_process"] = replay_train_against_one_process(
+                    torch, rank_rows, calls[-1], group.rank, args.replay)
+            elif args.replay and calls:
                 cli_end["against_one_process"] = replay_against_one_process(
                     torch, sample, calls[-1], group.rank, args.replay)
 
@@ -249,6 +359,15 @@ def main() -> int:
     det_metrics.evaluate_detections = recorded_evaluate
 
     cli = importlib.import_module(CLIS[args.cli])
+    rank_rows = getattr(cli, "rank_rows", None)
+    if args.cli == "train":
+        def recorded_rows(engine, batch, cond, generator, *a):
+            # the last step's inputs, before its draws, for the replays
+            calls[:] = [{"engine": engine, "batch": batch, "cond": cond,
+                         "generator": generator, "state": generator.get_state()}]
+            return rank_rows(engine, batch, cond, generator, *a)
+
+        cli.rank_rows = recorded_rows
     comm_report.reset()
     fa.flash_attention.shape_launches.clear()
     t0 = time.perf_counter()
@@ -288,7 +407,16 @@ def main() -> int:
         report["clips"] = out["done"]
         dump["latents"] = latents
     elif args.cli == "train":
-        state, engine = out["state"], out["engine"]
+        state, engine, g = out["state"], out["engine"], out["grid"]
+        rows, frames = out["slab"]
+        report["grid"] = (None if g is None else
+                          {k: getattr(g, k) for k in ("dp", "t", "dp_index", "t_index",
+                                                      "host_staged")})
+        report["slab"] = {"clips": [rows.start, rows.stop], "frames": [frames.start, frames.stop]}
+        report["exchanges"] = cli_end["exchanges"]
+        report["flash_launches_by_shape"] = cli_end["shapes"]
+        if args.replay:
+            report["against_one_process"] = cli_end.get("against_one_process")
         report["losses"] = out["losses"]
         report["steps"] = len(out["losses"])
         report["trained_params"] = sum(p.numel() for p in state.params.values())

@@ -174,14 +174,18 @@ def test_shard_indices_are_the_jax_clis_slices(t, n_total, world):
 
 
 def test_check_dp():
-    assert mesh.check_dp(None, 1) == 1 and mesh.check_dp(None, 4) == 4
-    assert mesh.check_dp(2, 2) == 2
+    """(dp, t) for clips of 8 frames: the JAX trainer's default dp =
+    max(1, processes // frames) (train.py:146), t = processes / dp frame
+    ranks a clip, which must divide the frames."""
+    assert mesh.check_dp(None, 1, 8) == (1, 1) and mesh.check_dp(None, 2, 8) == (1, 2)
+    assert mesh.check_dp(None, 16, 8) == (2, 8)
+    assert mesh.check_dp(2, 2, 8) == (2, 1) and mesh.check_dp(2, 4, 8) == (2, 2)
     with pytest.raises(SystemExit, match="needs 2 processes"):
-        mesh.check_dp(2, 1)
-    with pytest.raises(SystemExit, match="item 7b"):
-        mesh.check_dp(2, 4)
+        mesh.check_dp(2, 1, 8)
+    with pytest.raises(SystemExit, match="t = 3 frame ranks .* the clip's 8 frames"):
+        mesh.check_dp(None, 3, 8)
     with pytest.raises(SystemExit, match="at least 1"):
-        mesh.check_dp(0, 1)
+        mesh.check_dp(0, 1, 8)
 
 
 def test_rank_seeds():

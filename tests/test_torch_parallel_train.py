@@ -49,15 +49,16 @@ def update_rel(got, want, init) -> float:
 @pytest.fixture(scope="module")
 def generator_runs(tmp_path_factory):
     """The 2-rank run (--dp 2, an iter_N a step), its resume from iter_1 on
-    2 ranks, one process with the same global batch, and the random init
+    2 ranks at --dp 2 (2 ranks default to t 2 on the tiny config's 2
+    frames), one process with the same global batch, and the random init
     (a run of 0 steps)."""
     root = tmp_path_factory.mktemp("gen_dp")
     two = torchrun([WORKER, "--record_saves", str(root / "saves"), "train", "--dump",
                     str(root / "ranks"), "--"] + GEN
                    + ["--dp", "2", "--ckpt_every", "1", "--ckpt_dir", str(root / "two")])
     resumed = torchrun([WORKER, "train", "--"] + GEN
-                       + ["--resume", str(root / "two" / "iter_1"), "--ckpt_every", "0",
-                          "--ckpt_dir", str(root / "resumed")])
+                       + ["--dp", "2", "--resume", str(root / "two" / "iter_1"),
+                          "--ckpt_every", "0", "--ckpt_dir", str(root / "resumed")])
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:

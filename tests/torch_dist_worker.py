@@ -13,6 +13,12 @@ of this rank wrote to ``DIR/saves_rank{R}.json``. ``--view_shard_checks
 DIR`` first runs ``tests/torch_view_shard_checks.py`` in the process group
 (on the grid of the CLI's ``--view_shard``) and writes its results to DIR;
 ``--ring_checks DIR`` runs its ring cases alone, without a CLI.
+``--train_grid_checks DIR`` first runs ``tests/torch_train_grid_checks.py``
+in the process group and writes its results to DIR; without dist_rank
+arguments after it, nothing else runs. ``--then_resume`` runs the training
+CLI again in the same group after dist_rank's run, on the same arguments
+resumed from ``<--ckpt_dir>/iter_1`` (``torch_train_grid_checks.resume``,
+results in the checks' DIR).
 """
 
 import json
@@ -35,7 +41,14 @@ def main() -> None:
         i = args.index("--record_saves")
         record = args[i + 1]
         del args[i:i + 2]
-    checks = ring = None
+    checks = ring = grid = None
+    then_resume = "--then_resume" in args
+    if then_resume:
+        args.remove("--then_resume")
+    if "--train_grid_checks" in args:
+        i = args.index("--train_grid_checks")
+        grid = args[i + 1]
+        del args[i:i + 2]
     if "--view_shard_checks" in args:
         i = args.index("--view_shard_checks")
         checks = args[i + 1]
@@ -47,8 +60,9 @@ def main() -> None:
 
     import torch
 
-    if checks or ring:
+    if checks or ring or grid:
         import torch.distributed as dist
+        import torch_train_grid_checks
         import torch_view_shard_checks
 
         from panacea_tpu_torch.parallel import mesh
@@ -58,6 +72,11 @@ def main() -> None:
         torch_view_shard_checks.run_ring(ring)
         dist.destroy_process_group()
         return
+    if grid:
+        torch_train_grid_checks.run(grid)
+        if not args:
+            dist.destroy_process_group()
+            return
     if checks:
         torch_view_shard_checks.run(checks, int(args[args.index("--view_shard") + 1]))
 
@@ -93,7 +112,13 @@ def main() -> None:
     except SystemExit as e:
         if e.code:
             raise
-    if checks:
+    if then_resume:
+        cli = args[args.index("--") + 1:]
+        ckpt = cli[cli.index("--ckpt_dir") + 1]
+        torch_train_grid_checks.resume(grid, cli + ["--resume", os.path.join(ckpt, "iter_1"),
+                                                    "--ckpt_every", "0", "--ckpt_dir",
+                                                    os.path.join(grid, "resumed")])
+    if checks or grid:
         dist.destroy_process_group()
     if record:
         os.makedirs(record, exist_ok=True)
