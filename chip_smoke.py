@@ -275,22 +275,39 @@ Phases, in order; any failure exits non-zero:
      s/step and its split, the exchanges a step by kind and direction,
      peak memory, 42 / 21 / 138 / 69 launches a step, all on the bf16
      routes, the flash calls at B 40 (one process's ``--bs 1`` shapes).
-     Then the step's forward and backward again with the network in fp32
-     on the first clip: the grid's trained gradients against rank 0 alone
-     with the whole clip (``TRAIN_GRID_TOL``) and with a planted fault (the
-     frame halo's gradient not sent back, set in that script) at least
-     ``TRAIN_GRID_FAULT`` times it. In the whole run its 2 ranks start after
-     phase 8 and run beside phases 6, 9, 10 and 12 (d)'s tiny samplers,
-     whose records say ``shared_card``; phases 11 to 13, which time paths,
+     The run shards the training state over both ranks (``--fsdp``,
+     ZeRO-3: the network's parameters, the masters, AdamW's moments and
+     the first stage split by the JAX leaf rule; each unit gathered through
+     the host as it runs, the gradients reduce-scattered): the rank's
+     layout and state, measured and counted. Then the step's forward and
+     backward again with the network in fp32 on the first clip: the grid's
+     trained gradients, reduce-scattered and gathered whole, against rank
+     0 alone with the whole clip and the network gathered whole
+     (``TRAIN_GRID_TOL``) and with a planted fault (the frame halo's
+     gradient not sent back, set in that script) at least
+     ``TRAIN_GRID_FAULT`` times it; each gradient's AdamW update, the
+     sharded one over the ranks' slices, against rank 0's alone
+     (``FSDP_UPDATE_TOL``), and with a planted fault (each rank keeps its
+     own gradient slice and skips the reduce-scatter) at least
+     ``TRAIN_GRID_FAULT`` times it. Then, in the same group, one bf16 step
+     with every network parameter trained and the EMA on (``none``), on
+     the first clip (4 frames a rank): each rank's state measured within 5
+     % of the layout's count, both ranks' peaks together under the card's
+     memory, s/step, its split and its exchanges by kind. In the whole run
+     its 2 ranks start after phase 8 and run beside phases 6, 9, 10, 12
+     (d)'s tiny samplers and the card-against-CPU checks of phases 13 to
+     18, whose records say ``shared_card``; phases 11 to 13, which time paths,
      wait for the ranks to end; its checks wait for phase 19 (c).
 
 The backward kernels (``flash_attention_bwd``, ``geglu_bwd``) are checked in
 phase 2 at the training shapes, and counted in phase 8 per route.
 
 The whole run's order: phases 1 to 5, 7 and 8; phase 21's ranks started;
-phases 6, 9, 10 and 12 (d)'s tiny samplers beside them; phases 11, 12 and
-13 once they have ended; phases 14 to 18; phase 20's kernel checks; phases
-19 and 20 in their groups; phase 21's checks.
+beside them phases 6, 9, 10 and 12 (d)'s tiny samplers, then the checks of
+the card against the CPU that time nothing (phase 13 (c) and (d), the loss
+terms of phases 14, 16 and 17 (b), phase 18 (e); ``checks_beside_ranks``);
+phases 11, 12 and 13 once the ranks have ended; phases 14 to 18; phase 20's
+kernel checks; phases 19 and 20 in their groups; phase 21's checks.
 
 The last three lines of standard output are the ``{"kernels": [...]}``
 summary, the card's name and power limit as nvidia-smi reports them, and
@@ -496,11 +513,26 @@ VIEW_SHARD_FAULT = 10.0
 TRAIN_GRID_RANKS = 2
 TRAIN_GRID_TOL = 1e-4
 TRAIN_GRID_FAULT = 10.0
+# the sharded step's fp32 AdamW update against rank 0's alone, over the
+# norm of rank 0's: the gradients differ by the grid's rounding (2.5e-5),
+# and AdamW's first step moves an element whose gradient is near 0 by about
+# lr either way (the tiny CPU step reads 7e-4); the planted fault (no
+# reduce-scatter) at least TRAIN_GRID_FAULT times it
+FSDP_UPDATE_TOL = 1e-2
+# a rank's training state measured on its tensors against the layout's count
+FSDP_STATE_TOL = 0.05
+# phase 21's job: the sharded step, its replays and the none + EMA step
+TRAIN_GRID_TIMEOUT = 600
 
 
 T_START = time.perf_counter()
 # what runs on the card beside the phases now logging (``card_shared_with``)
 SHARED = {"with": None}
+# the checks of the card against the CPU that time nothing (phase 13 (c)
+# and (d), the loss terms of phases 14, 16 and 17 (b) and 18 (e)): the
+# whole run makes them beside phase 21's ranks (``checks_beside_ranks``),
+# and their phases leave them out then
+BESIDE_RANKS = {"card_vs_cpu": False}
 
 
 def log(obj) -> None:
@@ -2324,9 +2356,10 @@ def stage1_phase(torch, np, dev, fa, gg, card: str) -> dict:
                                       FULL_PER_EVAL, "stage1_full_attention")
     del eng
     free(torch)
-    stage1_tiny_phase(torch, np, dev, fa, gg, card)
-    free(torch)
-    variants_phase(torch, np, dev, card)
+    if not BESIDE_RANKS["card_vs_cpu"]:
+        stage1_tiny_phase(torch, np, dev, fa, gg, card)
+        free(torch)
+        variants_phase(torch, np, dev, card)
     log({"phase": "stage1_total", "seconds": time.perf_counter() - t0})
     return paths
 
@@ -2670,8 +2703,9 @@ def perception_train_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
     t0 = time.perf_counter()
     setup, counts = ptrain_window_phase(torch, np, dev, fa, gg, card)
     free(torch)
-    ptrain_card_vs_cpu(torch, np, dev, card)
-    free(torch)
+    if not BESIDE_RANKS["card_vs_cpu"]:
+        ptrain_card_vs_cpu(torch, np, dev, card)
+        free(torch)
     nodn, bwd, fwd = ptrain_nodn_phase(torch, F, np, dev, fa, gg, tol, card, setup)
     del setup
     free(torch)
@@ -3170,9 +3204,10 @@ def ztrain_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
     free(torch)
     paths = {"perception_zoo_train": ztrain_window_phase(torch, np, dev, fa, gg, card)}
     free(torch)
-    ptrain_card_vs_cpu(torch, np, dev, card, params=ZTRAIN_PETR,
-                       name="perception_zoo_train_card_vs_cpu")
-    free(torch)
+    if not BESIDE_RANKS["card_vs_cpu"]:
+        ptrain_card_vs_cpu(torch, np, dev, card, params=ZTRAIN_PETR,
+                           name="perception_zoo_train_card_vs_cpu")
+        free(torch)
     paths["perception_zoo_train_vovnet_petr_dn"] = ztrain_vovnet_phase(torch, np, dev, fa, gg,
                                                                        card)
     free(torch)
@@ -3428,8 +3463,9 @@ def eva_train_phase(torch, np, dev, fa, gg, card: str):
                           {f"{q}x{keys}": layers * (PERCEPTION_T - 1)}, 0)
     del setup
     free(torch)
-    ptrain_card_vs_cpu(torch, np, dev, card, params=params,
-                       name="perception_eva_train_card_vs_cpu")
+    if not BESIDE_RANKS["card_vs_cpu"]:
+        ptrain_card_vs_cpu(torch, np, dev, card, params=params,
+                           name="perception_eva_train_card_vs_cpu")
     return counts
 
 
@@ -4079,22 +4115,35 @@ def rest_zoo_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
     paths["perception_cascade_yolox"] = cascade_yolox_phase(torch, np, dev, fa, gg, card, feats,
                                                            cpu_feats)
     free(torch)
-    paths.update(rest_losses_phase(torch, np, dev, fa, gg, card, feats, cpu_feats))
+    if not BESIDE_RANKS["card_vs_cpu"]:
+        paths.update(rest_losses_phase(torch, np, dev, fa, gg, card, feats, cpu_feats))
     del feats, cpu_feats
     free(torch)
     log({"phase": "perception_rest_zoo_total", "seconds": time.perf_counter() - t0})
     return {"paths": paths, "flash": recs, "bwd": bwd}
 
 
-# the port's kernels by their own symbols: PyTorch's SDPA has a flash_fwd_kernel too
-BUCKETS = (("flash_attention_bwd", ("pn_flash_bwd",)), ("flash_attention", ("pn_flash_",)),
-           ("geglu_bwd", ("pn_geglu_bwd",)), ("geglu", ("pn_geglu_fwd",)),
-           ("sdpa", ("fmha", "flash", "attention", "softmax")),
-           ("conv", ("conv", "cudnn", "implicit", "dgrad", "wgrad", "nhwc")),
-           ("matmul", ("gemm", "xmma", "cutlass", "gemv", "matmul", "sm90")),
-           ("norm_reduce", ("reduce", "norm", "welford")),
-           ("grid_sample", ("grid_sampler",)),
-           ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "cat")))
+def checks_beside_ranks(torch, np, dev, fa, gg, card: str) -> dict:
+    """The checks of ``BESIDE_RANKS``, for the whole run to make beside
+    phase 21's ranks: phase 13 (c) and (d), phase 14, 16 and 17 (b)'s loss
+    terms card against CPU, phase 18 (e). Returns phase 18 (e)'s counts."""
+    stage1_tiny_phase(torch, np, dev, fa, gg, card)
+    free(torch)
+    variants_phase(torch, np, dev, card)
+    free(torch)
+    ptrain_card_vs_cpu(torch, np, dev, card)
+    free(torch)
+    ptrain_card_vs_cpu(torch, np, dev, card, params=ZTRAIN_PETR,
+                       name="perception_zoo_train_card_vs_cpu")
+    free(torch)
+    ptrain_card_vs_cpu(torch, np, dev, card, params=dict(EVA_B, head_type="sparse_v3"),
+                       name="perception_eva_train_card_vs_cpu")
+    free(torch)
+    feats, cpu_feats = fpn_feats(torch, np, dev)
+    paths = rest_losses_phase(torch, np, dev, fa, gg, card, feats, cpu_feats)
+    del feats, cpu_feats
+    free(torch)
+    return paths
 
 
 # --------------------------------------------------------------------------
@@ -4586,13 +4635,14 @@ def view_shard_phase(torch, F, np, dev, fa, gg, tol, card: str) -> dict:
 
 
 def start_train_grid(tmp: str) -> dict:
-    """Phase 21's run: the generator's trainer with --dp 1 --bs 2 on 2 gloo
-    ranks sharing the card (t 2), through ``scripts/dist_rank.py train``,
-    with its fp32 replay against rank 0 alone and the planted halo fault."""
-    return start_ranks("train", GEN_ARGS + ["--dp", "1", "--bs", "2"], os.path.join(tmp, "tg"),
-                       nproc=TRAIN_GRID_RANKS, backend="gloo",
+    """Phase 21's run: the generator's trainer with --dp 1 --bs 2 --fsdp on 2
+    gloo ranks sharing the card (t 2), through ``scripts/dist_rank.py
+    train``, with its fp32 replay against rank 0 alone and the planted
+    faults, then the ``none`` + EMA step."""
+    return start_ranks("train", GEN_ARGS + ["--dp", "1", "--bs", "2", "--fsdp"],
+                       os.path.join(tmp, "tg"), nproc=TRAIN_GRID_RANKS, backend="gloo",
                        dump=os.path.join(tmp, "tg_dump"),
-                       opts=TRAIN_OPTS + ["--replay", "fp32"])
+                       opts=TRAIN_OPTS + ["--replay", "fp32", "--none_ema_step"])
 
 
 def finish_train_grid(torch, np, tmp: str, ranks, ref: dict, ref_dump: str, card: str) -> dict:
@@ -4622,10 +4672,17 @@ def finish_train_grid(torch, np, tmp: str, ranks, ref: dict, ref_dump: str, card
            "fault_fp32_vs_rank0_alone": fp32["fault"],
            "replay_s": {k: fp32[k] for k in ("grid_s", "fault_s", "alone_s")},
            "against_one_process": zero["against_one_process"],
+           "fsdp_update_vs_rank0_alone": fp32.get("update"),
+           "fault_no_reduce_vs_rank0_alone": fp32.get("fault_no_reduce"),
+           "fsdp_update_tol": FSDP_UPDATE_TOL,
+           "fsdp": {r: rep["fsdp"] for r, rep in reports.items()},
+           "none_ema_step": {r: {k: v for k, v in rep["none_ema_step"].items()
+                                 if k != "exchanges"} for r, rep in reports.items()},
            "one_process_bs2": {"s_per_step": train_split(ref)["s_per_step"],
                                "peak_mem_gb": ref["peak_mem_gb"], "losses": ref["losses"]},
            "ranks_detail": {r: dict(train_split(rep), grid=rep["grid"], slab=rep["slab"],
-                                    cli_s=rep["seconds"], cli_peak_mem_gb=rep["cli_peak_mem_gb"],
+                                    cli_s=rep["seconds"], after_cli_s=rep["after_cli_s"],
+                                    cli_peak_mem_gb=rep["cli_peak_mem_gb"],
                                     replay_peak_mem_gb=rep["peak_mem_gb"],
                                     flash_by_shape=rep["flash_launches_by_shape"],
                                     routes={k: rep["launches"][k] for k in
@@ -4638,6 +4695,8 @@ def finish_train_grid(torch, np, tmp: str, ranks, ref: dict, ref_dump: str, card
                              for r, rep in reports.items()}}
     log(rec)
     log("train_grid exchanges, rank 0:\n" + comm_report.format_report(zero["exchanges"]))
+    log("train_grid none + EMA step exchanges, rank 0:\n"
+        + comm_report.format_report(zero["none_ema_step"]["exchanges"]))
     per_run = {k: v * steps for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
     # a rank of t 2 at --bs 2 holds 2 clips x 4 frames: the flash calls at
     # B 40 (x 5 views), as one process at --bs 1
@@ -4666,6 +4725,23 @@ def finish_train_grid(torch, np, tmp: str, ranks, ref: dict, ref_dump: str, card
         raise AssertionError(f"the grid's fp32 gradients differ from rank 0 alone: {rec}")
     if fp32["fault"]["joint"] < TRAIN_GRID_FAULT * TRAIN_GRID_TOL:
         raise AssertionError(f"the planted halo fault reads within the tolerance: {rec}")
+    if fp32["update"] > FSDP_UPDATE_TOL:
+        raise AssertionError(f"the sharded fp32 update differs from rank 0 alone: {rec}")
+    if fp32["fault_no_reduce"] < TRAIN_GRID_FAULT * FSDP_UPDATE_TOL:
+        raise AssertionError(f"the planted no-reduce fault reads within the tolerance: {rec}")
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    peaks = [rep["none_ema_step"]["peak_mem_gb"] for rep in reports.values()]
+    rec["none_ema_peaks_gb"], rec["card_gb"] = peaks, card_gb
+    for r, rep in reports.items():
+        st = rep["none_ema_step"]
+        got, want = st["state_bytes"]["total"], st["counted_bytes"]["total"]
+        if not (rep["fsdp"]["leaves_split"] > 0 and abs(got - want) <= FSDP_STATE_TOL * want
+                and np.isfinite(st["loss"]) and st["exchanges"]["backward"].get(
+                    "fsdp_reduce_scatter_bwd", {}).get("calls", 0) > 0):
+            raise AssertionError(f"train_grid rank {r}: the sharded none + EMA step: {st}")
+    if sum(peaks) >= card_gb:
+        raise AssertionError(f"the sharded none + EMA step's peaks {peaks} GB do not fit in "
+                             f"{card_gb:.1f} GB")
     return {"paths": {"train_grid": zero["launches"]}, "record": rec}
 
 
@@ -4680,7 +4756,7 @@ def train_grid_phase(torch, np, card: str) -> dict:
         wait_all([job])
         ref, _ = finish_ranks(job)
         job = start_train_grid(tmp)
-        wait_all([job])
+        wait_all([job], timeout=TRAIN_GRID_TIMEOUT)
         out = finish_train_grid(torch, np, tmp, finish_ranks(job), ref[0],
                                 os.path.join(tmp, "tr1_dump"), card)
     log({"phase": "train_grid_total", "seconds": time.perf_counter() - t_start})
@@ -4690,11 +4766,15 @@ def train_grid_phase(torch, np, card: str) -> dict:
 def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
     """One step under torch.profiler (a network evaluation of the main path
     under no_grad, or with ``grad`` a training step, after one warm-up):
-    device time per kernel bucket and the device's idle share of the wall
-    time. The host's and the card's activity are recorded; the kernels are
-    read from the profiler's raw events, without the tree of host ops that
-    ``key_averages`` builds first (about 40 s for a training step)."""
+    device time per kernel bucket (``utils/profiling.device_summary``: the
+    port's buckets, the JAX package's, the port's kernels by symbol) and
+    the device's idle share of the wall time. The host's and the card's
+    activity are recorded; the kernels are read from the profiler's raw
+    events, without the tree of host ops that ``key_averages`` builds first
+    (about 40 s for a training step) or a trace file."""
     from torch.profiler import ProfilerActivity, profile
+
+    from panacea_tpu_torch.utils.profiling import device_summary
 
     with torch.set_grad_enabled(grad):
         step()
@@ -4705,24 +4785,20 @@ def profile_step(torch, step, name: str = "profile_step", grad: bool = False):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    buckets, other, total = {}, {}, 0.0
-    for evt in prof.profiler.kineto_results.events():
-        ms = evt.duration_ns() / 1e6
-        if ms <= 0 or not str(evt.device_type()).endswith("CUDA"):
-            continue  # host ops carry their kernels' time too: count kernels only
-        key = evt.name().lower()
-        bucket = next((b for b, keys in BUCKETS if any(k in key for k in keys)), "other")
-        buckets[bucket] = buckets.get(bucket, 0.0) + ms
-        if bucket == "other":
-            other[evt.name()] = other.get(evt.name(), 0.0) + ms
-        total += ms
+    # host ops carry their kernels' time too: count the device's work only
+    summary = device_summary((evt.name(), evt.duration_ns() / 1e6)
+                             for evt in prof.profiler.kineto_results.events()
+                             if str(evt.device_type()).endswith("CUDA")) or {}
+    total = summary.get("device_ms", 0.0)
     rec = {"phase": name, "wall_ms": wall_ms,
            "device_ms": total if total > 0 else "not measured",
            "idle_share": 1 - total / wall_ms if total > 0 else "not measured",
-           "bucket_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1]))}
+           "bucket_ms": summary.get("port_bucket_ms", {}),
+           "jax_bucket_ms": summary.get("bucket_ms", {}),
+           "kernel_ms": summary.get("kernel_ms", {})}
     log(rec)
     log({"phase": f"{name}_other", "top10_ms": [
-        [name[:120], ms] for name, ms in sorted(other.items(), key=lambda kv: -kv[1])[:10]]})
+        [n[:120], ms] for n, ms in summary.get("other_ms", {}).items()]})
     return rec
 
 
@@ -5017,12 +5093,16 @@ def main(mode: str = "all") -> int:
             free(torch)
             samplers_tiny_phase(torch, np, dev, card)
             free(torch)
-            wait_all([grid_job])
+            BESIDE_RANKS["card_vs_cpu"] = True
+            paths.update(checks_beside_ranks(torch, np, dev, fa, gg, card))
+            free(torch)
+            wait_all([grid_job], timeout=TRAIN_GRID_TIMEOUT)
     finally:
         stop_job(grid_job)   # a phase that failed leaves no rank running
     grid_ranks = finish_ranks(grid_job)
     log({"phase": "train_grid_ranks_done", "seconds": grid_ranks[1],
-         "ran_beside": "phases 6, 9, 10 and 12 (d)'s tiny samplers"})
+         "ran_beside": "phases 6, 9, 10, 12 (d)'s tiny samplers and the checks of the card "
+                       "against the CPU of phases 13 (c, d), 14, 16, 17 (b) and 18 (e)"})
     t0 = time.perf_counter()
     paths["perception"] = perception_phase(torch, np, dev, fa, gg, card)
     free(torch)

@@ -161,6 +161,8 @@ class DiffusionEngine3D(nn.Module):
             if isinstance(emb, VAEEmbedder):
                 emb.encode_fn = self.encode_first_stage
         self.grid = None
+        # the sharded training state (parallel/fsdp.py ``Shards``), or None
+        self.shards = None
         self.clip_split: Dict[str, float] = {}
 
     # ----------------------------------------------------------- sharding
@@ -283,10 +285,17 @@ class DiffusionEngine3D(nn.Module):
             noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
         elif generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        z = [self.first_stage_model.encode(x[i:i + 1], generator,
-                                           noise=None if noise is None else noise[i:i + 1])
-             for i in range(x.shape[0])]
+        with self._first_stage():
+            z = [self.first_stage_model.encode(x[i:i + 1], generator,
+                                               noise=None if noise is None else noise[i:i + 1])
+                 for i in range(x.shape[0])]
         return self.scale_factor * torch.cat(z)
+
+    def _first_stage(self):
+        """The first stage's whole parameters within the block where the
+        training state is sharded (its slices otherwise)."""
+        return (contextlib.nullcontext() if self.shards is None
+                else self.shards.first_stage_gathered())
 
     def draw_posterior_noise(self, n: int, image_hw, generator: torch.Generator) -> torch.Tensor:
         """The standard normals that ``encode_first_stage`` draws from
@@ -302,7 +311,9 @@ class DiffusionEngine3D(nn.Module):
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         """Scaled latents -> images, fp32, one frame at a time (engine.py:218-227)."""
         z = z.float() / self.scale_factor
-        return torch.cat([self.first_stage_model.decode(z[i:i + 1]) for i in range(z.shape[0])])
+        with self._first_stage():
+            return torch.cat([self.first_stage_model.decode(z[i:i + 1])
+                              for i in range(z.shape[0])])
 
     # ------------------------------------------------------------ network
     def network_fn(self, x: torch.Tensor, c_noise: torch.Tensor,

@@ -25,6 +25,14 @@ GroupNorm and TemporalGroupNorm sums), ``all_to_all`` (the temporal stage),
 ``ring`` (the cross-view boundary K/V), ``gather_view`` (K/V of stage 1's
 'full' mode) and ``gather`` (the clip's latents and decoded frames); the
 backward passes ``halo_t_bwd``, ``stats_t_bwd`` and ``all_to_all_bwd``.
+The sharded training state (``parallel/fsdp.py``, ``--fsdp``) adds
+``fsdp_gather`` (a unit's parameters, or the first stage's, all-gathered
+before it runs, forward or recomputed), ``fsdp_reduce_scatter_bwd`` (a
+unit's fp32 gradients, each rank receiving its slices), ``fsdp_norm`` (the
+clip's squared norm, summed over the ranks after the backward, counted
+"once") and ``fsdp_state`` (a checkpoint's whole tensors gathered a bucket
+at a time). Their bytes are this rank's send buffer: its slices for a
+gather, the whole fp32 buffer for a reduce-scatter.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ from collections import defaultdict
 from typing import Any, Dict
 
 KINDS = ("halo_w", "halo_t", "stats_view", "stats_t", "all_to_all", "ring", "gather_view",
-         "gather", "halo_t_bwd", "stats_t_bwd", "all_to_all_bwd")
+         "gather", "halo_t_bwd", "stats_t_bwd", "all_to_all_bwd", "fsdp_gather",
+         "fsdp_reduce_scatter_bwd", "fsdp_norm", "fsdp_state")
 # the phases of a training step, by direction
 STEP_PHASES = ("forward", "recompute", "backward")
 

@@ -20,8 +20,11 @@ view=V)``) takes ``dp`` 1 and ``t = N / V``. Training (JAX ``train.py``'s
 max(1, N // T)`` for a clip of ``T`` frames unless ``--dp`` is given, and
 ``t = N / dp`` frame ranks a clip, which must divide ``T``. The exchanges
 of the ``t`` group differentiate (their backward passes send the gradient
-back), those of the ``view`` group do not and refuse to. Sharded training
-state (``--fsdp``, ROADMAP Queue A item 7c) is not ported.
+back), those of the ``view`` group do not and refuse to.
+
+Sharded training state (``train_torch.py --fsdp``, JAX ``fsdp_sharding``):
+``fsdp_layout`` is the JAX leaf rule over every rank of the training grid;
+``parallel/fsdp.py`` holds the shards and their exchanges.
 
 The backend is NCCL on CUDA and gloo on the CPU. ``PANACEA_DIST_BACKEND=gloo``
 lets several ranks share a card: NCCL refuses two ranks on one device, and
@@ -43,7 +46,8 @@ BACKEND_VAR = "PANACEA_DIST_BACKEND"
 BACKENDS = ("nccl", "gloo")
 # what torchrun sets for each worker
 RENDEZVOUS_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-FSDP = "sharded training state (FSDP) is not ported: ROADMAP Queue A item 7c"
+# leaves under this many elements stay replicated (JAX fsdp_sharding's min_size)
+FSDP_MIN_SIZE = 65536
 
 
 class Group(NamedTuple):
@@ -189,6 +193,33 @@ def check_dp(dp: Optional[int], world: int, frames: int) -> Tuple[int, int]:
                          f"divide the clip's {frames} frames: choose --dp or the process "
                          "count so that they do")
     return dp, t
+
+
+def fsdp_spec(shape: Sequence[int], n: int) -> Optional[int]:
+    """The dimension of a leaf of ``shape`` that ZeRO-3 splits over ``n``
+    ranks, or None to replicate it (JAX ``fsdp_spec``): the largest
+    dimension that ``n`` divides, the first of equal ones; None for a 0-d
+    leaf or where no dimension divides."""
+    order = sorted(range(len(shape)), key=lambda i: shape[i], reverse=True)
+    for i in order:
+        if shape[i] % n == 0 and shape[i] >= n:
+            return i
+    return None
+
+
+def fsdp_layout(named_shapes, n: int, min_size: int = FSDP_MIN_SIZE) -> dict:
+    """name -> the split dimension (``fsdp_spec``), or None for a leaf that
+    stays replicated: under ``min_size`` elements, or with no dimension that
+    ``n`` divides (JAX ``fsdp_sharding`` over every axis of the mesh). Torch
+    orders a convolution's or a linear layer's dimensions otherwise than
+    flax, so the split dimension may differ from JAX's; which leaves are
+    split, and each rank's element count, do not."""
+    out = {}
+    for name, shape in named_shapes.items():
+        shape = tuple(shape)
+        out[name] = None if int(np.prod(shape, dtype=np.int64)) < min_size else fsdp_spec(
+            shape, n)
+    return out
 
 
 class Grid(NamedTuple):

@@ -45,7 +45,8 @@ runs its one-process code, down to the same calls. ``checkpoint_contexts``
 is the ``context_fn`` of the network's ``torch.utils.checkpoint``: the
 recomputed forward, which runs inside the backward (in another thread on
 the card), sees the grid of the forward it repeats, and its exchanges
-count as recomputed.
+(and those of the sharded training state, ``parallel/fsdp.py``) count as
+recomputed.
 
 Transport, chosen by the backend and nothing else: NCCL on CUDA tensors
 (a rank a card), gloo on CPU tensors, and gloo with CUDA tensors (ranks
@@ -90,7 +91,7 @@ def sharded(grid: Optional[Grid]) -> Iterator[Optional[Grid]]:
 
 
 @contextlib.contextmanager
-def _recomputing(grid: Grid) -> Iterator[None]:
+def _recomputing(grid: Optional[Grid]) -> Iterator[None]:
     with sharded(grid), comm_report.recompute():
         yield
 
@@ -98,10 +99,9 @@ def _recomputing(grid: Grid) -> Iterator[None]:
 def checkpoint_contexts():
     """``context_fn`` of ``torch.utils.checkpoint`` (non-reentrant): no
     context around the forward; around its recomputation in the backward,
-    the grid that holds now (and the exchanges counted as recomputed).
-    Without a grid, neither."""
-    g = current()
-    return contextlib.nullcontext(), (contextlib.nullcontext() if g is None else _recomputing(g))
+    the grid that holds now, and the exchanges (the grid's, the sharded
+    state's gathers) counted as recomputed."""
+    return contextlib.nullcontext(), _recomputing(current())
 
 
 def _forward_only(kind: str, *xs: torch.Tensor) -> None:

@@ -32,13 +32,25 @@ statistics and the all-to-all cross the clip group, forward and
 backward), and averages its gradients with the other ranks' before the
 optimizer (``parallel/train.py``; ``train_step.py`` says why that mean is
 the global batch's gradient). Rank 0 writes the checkpoints. ``t`` must
-divide T; ``--fsdp`` (ROADMAP Queue A item 7c) raises.
+divide T.
+
+``--fsdp`` shards the training state over all N ranks, as the JAX CLI's
+(``train.py:179-188``, ZeRO-3, the layout the reference trained under with
+DeepSpeed): the network's parameters, trained and frozen, their fp32
+masters, AdamW's moments, the EMA shadows and the first stage, each leaf of
+at least 65,536 elements split along its largest dimension that N divides
+(``parallel/fsdp.py``). The network's units gather their parameters as they
+run, the gradients are reduce-scattered, each rank updates its slices, and
+the checkpoints are the replicated run's files, gathered for rank 0 to
+write. With one process ``--fsdp`` warns, as the JAX CLI does, and trains
+unsharded.
 
 Examples:
   python train_torch.py --tiny --synthetic --steps 3 --ckpt_every 0 --device cpu
   python train_torch.py --synthetic --steps 10 --freeze_type spatial --use_ema
   torchrun --nproc_per_node 8 train_torch.py --synthetic --bs 8 --dp 8 --freeze_type spatial
   torchrun --nproc_per_node 2 train_torch.py --tiny --synthetic --device cpu   # t 2
+  torchrun --nproc_per_node 2 train_torch.py --tiny --synthetic --device cpu --fsdp
 """
 
 from __future__ import annotations
@@ -75,8 +87,10 @@ def get_parser() -> argparse.ArgumentParser:
                         "CLI: max(1, processes // frames), so that 2 to 'frames' "
                         "processes split one clip's frames over all of them")
     p.add_argument("--fsdp", action="store_true",
-                   help="sharded training state; not ported (ROADMAP Queue A item "
-                        "7c): raises")
+                   help="ZeRO-3: shard the network's parameters, their fp32 masters, the "
+                        "optimizer state, the EMA and the first stage over all processes "
+                        "(the reference trained under DeepSpeed); with one process it "
+                        "warns and trains unsharded")
     p.add_argument("--freeze_type", default=None, choices=[None, "none", "spatial"])
     p.add_argument("--use_ema", action="store_true")
     p.add_argument("--ckpt_dir", default="ckpts/train")
@@ -139,32 +153,33 @@ def rank_rows(engine, batch: Dict[str, Any], cond: Dict[str, Any], generator, ro
     return jpg[rows, frames], {k: cut(k, v) for k, v in cond.items()}, inject
 
 
-def main(argv: Optional[Sequence[str]] = None, save_final: bool = True) -> Dict[str, Any]:
+def main(argv: Optional[Sequence[str]] = None, save_final: bool = True,
+         fsdp_min_size: Optional[int] = None) -> Dict[str, Any]:
     """Run the CLI on ``argv`` (default ``sys.argv[1:]``). Returns a
     summary: the losses, the train state, the engine and the timer.
     ``save_final`` False leaves out the final saves (27 GB at full width),
-    for callers that read the state in memory."""
+    for callers that read the state in memory. ``fsdp_min_size`` replaces
+    the 65,536 elements under which ``--fsdp`` keeps a leaf replicated (the
+    JAX ``fsdp_min_size``; tests split the tiny config's small leaves)."""
     args, unknown = get_parser().parse_known_args(argv)
-    if args.fsdp:
-        from panacea_tpu_torch.parallel.mesh import FSDP
-
-        raise SystemExit(f"--fsdp: {FSDP}")
-    from panacea_tpu_torch.parallel.mesh import process_group
+    from panacea_tpu_torch.parallel.mesh import FSDP_MIN_SIZE, process_group
 
     with process_group(args.device) as group:
-        return _run(args, unknown, group, save_final)
+        return _run(args, unknown, group, save_final, fsdp_min_size or FSDP_MIN_SIZE)
 
 
-def _run(args, unknown, group, save_final: bool) -> Dict[str, Any]:
+def _run(args, unknown, group, save_final: bool, fsdp_min_size: int) -> Dict[str, Any]:
     """The run of one rank (``group``: ``parallel.mesh.Group``)."""
     import numpy as np
     import torch
 
-    from panacea_tpu_torch.checkpoint import (CHECKPOINT_SUFFIXES, is_train_checkpoint,
-                                              load_checkpoint, load_train_checkpoint,
+    from panacea_tpu_torch.checkpoint import (CHECKPOINT_SUFFIXES, ema_state,
+                                              is_train_checkpoint, load_checkpoint,
+                                              load_train_checkpoint, network_state,
                                               save_engine_checkpoint, save_train_checkpoint)
     from panacea_tpu_torch.config import load_configs_with_overrides
     from panacea_tpu_torch.data.nuscenes.dataset import NuScenesVideoDataset, collate
+    from panacea_tpu_torch.parallel.fsdp import Shards, measured_bytes
     from panacea_tpu_torch.parallel.mesh import check_dp, make_grid
     from panacea_tpu_torch.parallel.train import assert_same, barrier, broadcast_from_rank0
     from panacea_tpu_torch.registry import instantiate_from_config
@@ -216,16 +231,34 @@ def _run(args, unknown, group, save_final: bool) -> Dict[str, Any]:
                              f"(directory) nor a {'/'.join(CHECKPOINT_SUFFIXES)} file")
         # weights-only warm start; the optimizer and the step start fresh
         print(f"[resume] weights {load_checkpoint(args.resume, engine)}", flush=True)
+    fsdp = args.fsdp and group.world > 1
+    if args.fsdp and not fsdp:
+        print("WARNING: --fsdp ignored: needs a multi-device mesh (have 1 device); "
+              "training state stays replicated", flush=True)
+    if fsdp:
+        # one set of parameters on every rank before they are split (the
+        # frozen ones come from the same seed or checkpoint: checked, not sent)
+        trained = engine.set_trainable()
+        broadcast_from_rank0(list(trained.values()))
+        assert_same([p for k, p in engine.named_parameters() if k not in trained])
+        Shards(engine, group.rank, group.world, group.backend, min_size=fsdp_min_size)
     state = init_train_state(engine, lr=args.lr, grad_clip=GRAD_CLIP, use_ema=args.use_ema)
     if args.resume and is_train_checkpoint(args.resume):
         resume_meta = load_train_checkpoint(args.resume, state, engine)
         print(f"[resume] {resume_meta['path']} -> step {state.step}", flush=True)
-    if group.backend is not None:
+    if group.backend is not None and not fsdp:
         # one set of parameters on every rank, as DDP starts (the frozen ones
         # come from the same seed or checkpoint: checked, not sent)
         broadcast_from_rank0(list(state.params.values()))
         state.sync_network()
         assert_same([p for k, p in engine.named_parameters() if k not in state.params])
+    if fsdp:
+        sh = engine.shards
+        print(f"fsdp: {len(sh.leaves)} of {len(sh.dims)} leaves split over {group.world} "
+              f"ranks (at least {sh.min_size} elements), "
+              f"{sum(sh.numel[k] for k in sh.leaves)} of {sum(sh.numel.values())} "
+              "parameters of the network and the first stage; state a rank "
+              f"{measured_bytes(state, engine)['total'] / 1e9:.3f} GB", flush=True)
     n_trained = sum(p.numel() for p in state.params.values())
     print(f"rank={group.rank}/{group.world} backend={group.backend} device={device} "
           f"trained parameters={n_trained} freeze_type={engine.freeze_type} "
@@ -262,25 +295,26 @@ def _run(args, unknown, group, save_final: bool) -> Dict[str, Any]:
             dt = (time.time() - t0) / max(step - start, 1)
             print(f"step {step} loss {loss:.4f} ({dt:.2f}s/it)", flush=True)
         if args.ckpt_every > 0 and state.step % args.ckpt_every == 0:
-            if group.rank == 0:
+            if group.rank == 0 or fsdp:    # under --fsdp every rank gathers, rank 0 writes
                 meta = {"generator": generator.get_state(), "rs_state": rs.get_state(),
                         "ds_rng_state": dataset.rng.getstate()}
                 save_train_checkpoint(args.ckpt_dir, state, engine, meta, max_keep=MAX_KEEP)
             barrier()
     path = os.path.join(args.ckpt_dir, "engine_final.ckpt")
-    if save_final and group.rank == 0:
-        os.makedirs(args.ckpt_dir, exist_ok=True)
-        final = {f"model.{n}": state.params.get(f"model.{n}", p).detach().float().cpu()
-                 for n, p in engine.model.named_parameters()}
-        torch.save(final, os.path.join(args.ckpt_dir, "final.pt"))
-        if state.ema is not None:
-            torch.save({k: v.cpu() for k, v in state.ema.shadows.items()},
-                       os.path.join(args.ckpt_dir, "final_ema.pt"))
+    if save_final and (group.rank == 0 or fsdp):
+        final, shadows = network_state(state, engine), ema_state(state)
+        if group.rank == 0:
+            os.makedirs(args.ckpt_dir, exist_ok=True)
+            torch.save(final, os.path.join(args.ckpt_dir, "final.pt"))
+            if shadows is not None:
+                torch.save(shadows, os.path.join(args.ckpt_dir, "final_ema.pt"))
+        del final, shadows
         # train -> inference: a reference-style checkpoint of the whole engine,
         # with the EMA shadows where the EMA is on (inference_torch.py --ckpt
         # ... --prefer_ema samples from them, as the reference samples from model_ema)
         path = save_engine_checkpoint(path, engine, state=state, ema=state.ema)
-        print(f"training done -> {path}", flush=True)
+        if group.rank == 0:
+            print(f"training done -> {path}", flush=True)
     barrier()
     return {"losses": losses, "state": state, "engine": engine, "timer": timer,
             "engine_ckpt": path, "grid": grid, "slab": (rows, frames)}

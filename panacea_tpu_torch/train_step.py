@@ -29,6 +29,14 @@ Summed over the ranks these shares are d(sum_r L_r) / d(theta), so
 ``allreduce_mean`` (the sum over the world, divided by its size) gives
 dL / d(theta), as JAX's ``value_and_grad`` of the sharded step does.
 
+With a sharded training state (``engine.shards``, ``parallel/fsdp.py``;
+the CLI's ``--fsdp``) the network's split parameters, their masters, the
+moments and the EMA shadows are this rank's slices: the units gather their
+parameters as they run, the backward reduce-scatters the split leaves'
+fp32 gradients (the same ranks' mean, each rank receiving its slices) where
+the replicated ones are all-reduced, AdamW and the EMA update the slices,
+and each rank casts its master slices into its network slices.
+
 Parameter types: on the card the network computes in bf16 and the trained
 parameters' fp32 masters live in the ``TrainState``; the gradients arrive in
 bf16 on the network's parameters (the cotangents of JAX's fp32-to-bf16
@@ -57,6 +65,7 @@ class TrainState:
     optimizer: AdamW
     step: int = 0
     ema: Optional[LitEma] = None
+    shards: Optional[object] = None      # parallel.fsdp.Shards, or None: replicated
 
     def sync_network(self) -> None:
         """Copy the masters into the network's parameters (a cast where the
@@ -72,14 +81,17 @@ def init_train_state(engine, lr: float = 1e-4, weight_decay: float = 1e-2,
                      lr_schedule: Optional[Callable[[int], float]] = None,
                      use_ema: bool = False, ema_decay: float = 0.9999) -> TrainState:
     """Mark the trained parameters (``engine.freeze_type``), make their fp32
-    masters, the optimizer and, with ``use_ema``, the EMA shadows."""
+    masters, the optimizer and, with ``use_ema``, the EMA shadows; of this
+    rank's slices where the engine's state is sharded (``engine.shards``)."""
     network = engine.set_trainable()
     params = {k: p if p.dtype == torch.float32 else p.detach().float().clone()
               for k, p in network.items()}
     opt = AdamW(params, lr=lr, weight_decay=weight_decay, grad_clip=grad_clip,
-                spatial_lr_rate=spatial_lr_rate, lr_schedule=lr_schedule)
+                spatial_lr_rate=spatial_lr_rate, lr_schedule=lr_schedule,
+                shards=engine.shards)
     ema = LitEma(params, decay=ema_decay) if use_ema else None
-    return TrainState(params=params, network=network, optimizer=opt, ema=ema)
+    return TrainState(params=params, network=network, optimizer=opt, ema=ema,
+                      shards=engine.shards)
 
 
 def local_grads(engine, network: Dict[str, torch.nn.Parameter], jpg,
@@ -88,29 +100,35 @@ def local_grads(engine, network: Dict[str, torch.nn.Parameter], jpg,
     """This rank's forward and backward of a step: the clip ``jpg`` (B, T,
     H, W, 3) encoded without gradients, the loss with gradients under the
     engine's grid, its backward into ``.grad`` of the trained parameters
-    ``network`` (each must get one). Draws and ``timer`` as
-    ``train_step``'s. Returns the rank's loss, not yet reduced."""
+    ``network`` (each must get one; under a sharded state the split
+    ones' reduced fp32 gradients go to ``engine.shards.grads``). Draws and
+    ``timer`` as ``train_step``'s. Returns the rank's loss, not yet
+    reduced."""
     def phase(name):
         return timer(name) if timer is not None else contextlib.nullcontext()
 
     engine.train()
     posterior_noise = inject.pop("posterior_noise", None)
+    shards = engine.shards
     for p in network.values():
         p.grad = None
-    with phase("vae_encode"):
-        x = torch.as_tensor(jpg, dtype=torch.float32, device=engine.device)
-        z = engine.encode_first_stage(x.reshape((-1,) + tuple(x.shape[2:])),
-                                      generator=generator, noise=posterior_noise)
+    if shards is not None:
+        shards.grads.clear()
     # the forward runs under the engine's grid (``diffusion_loss``); the
     # backward needs no context: each exchange keeps its grid, and the
     # recomputed forward gets it from ``shardctx.checkpoint_contexts``
-    with (comm_report.training_step() if engine.grid is not None
+    with (comm_report.training_step() if engine.grid is not None or shards is not None
           else contextlib.nullcontext()):
+        with phase("vae_encode"):
+            x = torch.as_tensor(jpg, dtype=torch.float32, device=engine.device)
+            z = engine.encode_first_stage(x.reshape((-1,) + tuple(x.shape[2:])),
+                                          generator=generator, noise=posterior_noise)
         with phase("forward"):
             loss = engine.diffusion_loss(z, cond, generator=generator, **inject)
         with phase("backward"):
             loss.backward()
-    missing = [k for k, p in network.items() if p.grad is None]
+    missing = ([k for k, p in network.items() if p.grad is None] if shards is None
+               else shards.missing(network))
     if missing:
         raise RuntimeError(f"no gradient reached {len(missing)} trained parameters, "
                            f"e.g. {missing[:3]}")
@@ -135,7 +153,11 @@ def train_step(engine, state: TrainState, jpg, cond: Dict[str, torch.Tensor],
     loss = local_grads(engine, state.network, jpg, cond, generator=generator, timer=timer,
                        **inject)
     with phase("allreduce"):
-        grads = dict(zip(state.network, allreduce_mean([p.grad for p in state.network.values()])))
+        if state.shards is None:
+            grads = dict(zip(state.network,
+                             allreduce_mean([p.grad for p in state.network.values()])))
+        else:
+            grads = state.shards.grads_of(state.network)
         loss = reduce_mean(loss)
     with phase("optimizer"):
         state.optimizer.step(state.params, grads)

@@ -4,7 +4,10 @@
 The shadows are fp32 tensors updated in place (the JAX package builds a new
 tree each step; in place saves a copy of every trained parameter). The decay
 is ramped in over the first updates, ``min(decay, (1 + n) / (10 + n))``,
-computed in fp32 as the JAX package does.
+computed in fp32 as the JAX package does. With a sharded training state
+(``parallel/fsdp.py``) the parameters it follows are this rank's slices of
+the masters, and so are its shadows (JAX ``fsdp_sharding`` shards the EMA
+tree as it shards the parameters).
 """
 
 from __future__ import annotations

@@ -21,6 +21,12 @@ a chain whose clip comes before a per-parameter scale. The arithmetic is optax's
 The update runs as multi-tensor (``torch._foreach_*``) operations over
 chunks of ``CHUNK`` parameters: a few launches a chunk rather than a dozen a
 parameter, and temporaries of one chunk's size.
+
+With a sharded training state (``shards``, ``parallel/fsdp.py``) the
+parameters, gradients and moments of the split leaves are this rank's
+slices, and the update of each is local; the clip's global norm then sums
+the split leaves' squares over the ranks and counts each replicated leaf
+once (``fsdp.square_over_ranks``).
 """
 
 from __future__ import annotations
@@ -41,8 +47,9 @@ class AdamW:
                  betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 1e-2,
                  grad_clip: Optional[float] = None, spatial_lr_rate: Optional[float] = None,
                  lr_schedule: Optional[Callable[[int], float]] = None,
-                 lr_mults: Optional[Mapping[str, float]] = None):
+                 lr_mults: Optional[Mapping[str, float]] = None, shards=None):
         self.b1, self.b2 = betas
+        self.shards = shards
         self.eps = eps
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
@@ -64,14 +71,28 @@ class AdamW:
         self.mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
         self.nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
 
-    def _clip_scale(self, grads: Sequence[torch.Tensor]) -> Optional[float]:
+    def _clip_scale(self, names: Sequence[str],
+                    grads: Mapping[str, torch.Tensor]) -> Optional[float]:
         """optax.clip_by_global_norm: None where the group's norm is below
         the limit, else the norm (the gradients are divided by it and
         multiplied by the limit)."""
-        if not self.grad_clip or not grads:
+        if not self.grad_clip or not names:
             return None
-        sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32).square()
-                          for g in grads]).sum()
+
+        def square(ks):
+            if not ks:
+                return torch.zeros((), dtype=torch.float32, device=grads[names[0]].device)
+            return torch.stack([torch.linalg.vector_norm(grads[k], dtype=torch.float32).square()
+                                for k in ks]).sum()
+
+        if self.shards is None:
+            sq = square(names)
+        else:
+            from panacea_tpu_torch.parallel import fsdp
+
+            split = self.shards.leaves
+            sq = fsdp.square_over_ranks(self.shards, square([k for k in names if k in split]),
+                                        square([k for k in names if k not in split]))
         norm = float(sq.sqrt())
         return None if norm < self.grad_clip else norm
 
@@ -85,13 +106,13 @@ class AdamW:
         n = self.count + 1
         c1, c2 = 1.0 - self.b1 ** n, 1.0 - self.b2 ** n
         if self.joint_clip:
-            norm = self._clip_scale([grads[k] for g in self.groups for k in g["names"]])
+            norm = self._clip_scale([k for g in self.groups for k in g["names"]], grads)
             if norm is not None:
                 clipped["all"] = norm
         for gi, group in enumerate(self.groups):
             names: List[str] = group["names"]
             if not self.joint_clip:
-                norm = self._clip_scale([grads[k] for k in names])
+                norm = self._clip_scale(names, grads)
                 if norm is not None:
                     clipped[f"group{gi}"] = norm
             lr = group["lr"] * (self.lr_schedule(self.count) if self.lr_schedule else 1.0)
@@ -99,8 +120,8 @@ class AdamW:
                 chunk = names[i:i + CHUNK]
                 ps = [params[k] for k in chunk]
                 gs = [grads[k].float() for k in chunk]
-                if norm is not None:
-                    torch._foreach_div_(gs, norm)
+                if norm is not None:   # new tensors: the caller's gradients stay as given
+                    gs = torch._foreach_div(gs, norm)
                     torch._foreach_mul_(gs, self.grad_clip)
                 mus, nus = [self.mu[k] for k in chunk], [self.nu[k] for k in chunk]
                 torch._foreach_mul_(mus, self.b1)

@@ -181,33 +181,86 @@ def grad_distance(got: dict, want: dict) -> dict:
             "rounding": small, "rounding_max": max((diff[k] / norm for k in small), default=0.0)}
 
 
+@contextlib.contextmanager
+def no_reduce_beside(shards, kept: dict):
+    """The planted fault of the sharded step, computed beside the sound one
+    in the same backward: what each rank would hold had it kept its own
+    gradient slice and skipped the reduce-scatter (its slice of its own
+    gradient, divided by the world size as the reduce's mean is), into
+    ``kept`` by name. Set here, by no switch of the package."""
+    sound = shards.scatter_grads
+
+    def scatter(leaves, grads):
+        for leaf, g in zip(leaves, grads):
+            if g is not None:
+                kept[leaf.name] = shards.local(leaf.name, g.float()) / shards.world
+        return sound(leaves, grads)
+
+    shards.scatter_grads = scatter
+    try:
+        yield
+    finally:
+        del shards.scatter_grads
+
+
+def update_distance(got: dict, want: dict) -> float:
+    """Two AdamW updates' distance over the norm of ``want``."""
+    num = sum(float((got[k].double() - w.double()).norm()) ** 2 for k, w in want.items())
+    return (num / sum(float(w.double().norm()) ** 2 for w in want.values())) ** 0.5
+
+
 def dropped_halo_grad(ctx, gy):
     """The planted fault: a frame halo's gradient stays with the rank that
     received the frames, and its own frames get theirs alone."""
     return gy.narrow(1, ctx.pad, gy.shape[1] - 2 * ctx.pad), None, None
 
 
-def replay_train_against_one_process(torch, rank_rows, call: dict, rank: int, dtypes) -> dict:
+def replay_train_against_one_process(torch, rank_rows, call: dict, rank: int, dtypes,
+                                     lr: float, grad_clip: float) -> dict:
     """The CLI's last step again, forward and backward, with the network in
     each of ``dtypes``, on the first clip of each clip group: over the grid,
     with the halo fault, and on rank 0 alone with those clips whole (the
     grid unset) while the others wait. ``rank_rows`` is the trainer's own.
     On rank 0, by type, the gradients' distances from its own alone and
-    the seconds of each; on the other ranks, the seconds."""
+    the seconds of each; on the other ranks, the seconds. Under a sharded
+    state (``--fsdp``) the grid's gradients are the reduce-scattered ones,
+    gathered whole for rank 0; rank 0 alone runs on the gathered network
+    (``Shards.unsharded``), as does the halo fault, which is the grid's;
+    and the sharded gradient and rank 0's also take one AdamW step
+    (``lr``, ``grad_clip``; fresh moments, on copies of the masters), the
+    sharded one over the ranks' slices with the norm over the ranks, so
+    that ``update`` and ``fault_no_reduce`` (each rank keeping its own
+    gradient slice, unreduced: computed beside the grid's backward,
+    ``no_reduce_beside``) hold the sharded step's update against rank 0's
+    alone."""
     from panacea_tpu_torch.parallel import shardctx
     from panacea_tpu_torch.parallel.train import allreduce_mean, barrier
     from panacea_tpu_torch.train_step import local_grads
+    from panacea_tpu_torch.utils.optim import AdamW
 
     eng, types = call["engine"], {"fp32": torch.float32, "bf16": torch.bfloat16}
-    grid, step_dtype = eng.grid, eng.dtype
+    grid, step_dtype, shards = eng.grid, eng.dtype, eng.shards
     dp, d, t, i = (1, 0, 1, 0) if grid is None else (grid.dp, grid.dp_index, grid.t,
                                                      grid.t_index)
     tl = eng.num_frames // t
-    net = eng.set_trainable()
+    mine, every = (slice(d, d + 1), slice(i * tl, (i + 1) * tl)), (slice(0, dp), slice(None))
 
-    def run(dtype, rows, frames, reduce):
+    def step_update(net, grads):
+        """One AdamW step on copies of the masters: the update, whole on rank 0."""
+        masters = {k: p.detach().float().clone() for k, p in net.items()}
+        before = {k: v.clone() for k, v in masters.items()}
+        AdamW(masters, lr=lr, grad_clip=grad_clip, shards=eng.shards).step(masters, grads)
+        update = {k: masters[k] - before[k] for k in masters}
+        del masters, before
+        if eng.shards is not None:
+            update = eng.shards.full(update)
+        return ({k: u.float().cpu() for k, u in update.items()}
+                if rank == 0 and update is not None else None)
+
+    def run(dtype, rows, frames, reduce, tee=False, update=False):
         eng.model.to(dtype)
         eng.dtype = dtype
+        net = eng.set_trainable()
         gen = call["generator"]
         gen.set_state(call["state"])
         with torch.no_grad():
@@ -215,43 +268,142 @@ def replay_train_against_one_process(torch, rank_rows, call: dict, rank: int, dt
         if eng.device.type == "cuda":
             torch.cuda.synchronize(eng.device)
         t0 = time.perf_counter()
-        local_grads(eng, net, jpg, cond, **draws)
-        grads = [p.grad for p in net.values()]
-        if reduce:
-            grads = allreduce_mean(grads)
-        out = ({k: g.detach().float().cpu() for k, g in zip(net, grads)} if rank == 0
+        kept = {}
+        with (no_reduce_beside(eng.shards, kept) if tee else contextlib.nullcontext()):
+            local_grads(eng, net, jpg, cond, **draws)
+        if eng.shards is not None:
+            grads = eng.shards.grads_of(net)
+        elif reduce:
+            grads = dict(zip(net, allreduce_mean([p.grad for p in net.values()])))
+        else:
+            grads = {k: p.grad for k, p in net.items()}
+        updates = []
+        if update:                 # the step's AdamW update (and the fault's)
+            updates.append(step_update(net, grads))
+            if tee:
+                updates.append(step_update(net, dict(grads, **kept)))
+        del kept
+        if eng.shards is not None:
+            grads = eng.shards.full(grads)
+        out = ({k: g.detach().float().cpu() for k, g in grads.items()} if rank == 0
                else None)
+        del grads
         for p in net.values():
             p.grad = None
         if eng.device.type == "cuda":
             torch.cuda.synchronize(eng.device)
             seconds = time.perf_counter() - t0
             torch.cuda.empty_cache()   # room for rank 0 alone beside the others
-            return out, seconds
-        return out, time.perf_counter() - t0
+        else:
+            seconds = time.perf_counter() - t0
+        return out, updates, seconds
 
     def faulty(dtype):
         sound = shardctx._HaloT.backward
         shardctx._HaloT.backward = staticmethod(dropped_halo_grad)
         try:
-            return run(dtype, slice(d, d + 1), slice(i * tl, (i + 1) * tl), True)
+            return run(dtype, *mine, True)
         finally:
             shardctx._HaloT.backward = sound
 
     out = {}
+    sharded = shards is not None
     for name in dtypes:
-        got, grid_s = run(types[name], slice(d, d + 1), slice(i * tl, (i + 1) * tl), True)
-        fault, fault_s = faulty(types[name])
-        out[name] = {"grid_s": grid_s, "fault_s": fault_s}
-        if rank == 0:
-            eng.set_grid(None)
-            alone, out[name]["alone_s"] = run(types[name], slice(0, dp), slice(None), False)
-            eng.set_grid(grid)
-            out[name].update(grid=grad_distance(got, alone), fault=grad_distance(fault, alone),
-                             clips=dp, frames=eng.num_frames)
-        barrier()
+        got, upd, grid_s = run(types[name], *mine, True, tee=sharded, update=sharded)
+        # the halo fault and rank 0 alone on the network gathered whole: the
+        # fault is the grid's (the check without --fsdp), not the sharded state's. The
+        # network goes back to its own type first, so that the gather moves
+        # half the bytes of fp32 (each pass casts it as the grid's did)
+        eng.model.to(step_dtype)
+        with (contextlib.nullcontext() if shards is None else shards.unsharded()):
+            fault, _, fault_s = faulty(types[name])
+            out[name] = {"grid_s": grid_s, "fault_s": fault_s}
+            if rank == 0:
+                eng.set_grid(None)
+                alone, upd_alone, out[name]["alone_s"] = run(types[name], *every, False,
+                                                             update=sharded)
+                eng.set_grid(grid)
+                out[name].update(grid=grad_distance(got, alone),
+                                 fault=grad_distance(fault, alone), clips=dp,
+                                 frames=eng.num_frames)
+                if shards is not None:
+                    out[name].update(update=update_distance(upd[0], upd_alone[0]),
+                                     fault_no_reduce=update_distance(upd[1], upd_alone[0]))
+            barrier()
     eng.model.to(step_dtype)
     eng.dtype = step_dtype
+    eng.set_trainable()
+    return out
+
+
+def fsdp_report(shards, state, engine) -> dict:
+    """The sharded layout and this rank's training state: measured on its
+    tensors and counted from the layout."""
+    from panacea_tpu_torch.parallel.fsdp import measured_bytes
+
+    net_size = next(engine.model.parameters()).element_size()
+    return {"leaves_split": len(shards.leaves), "leaves": len(shards.dims),
+            "params_split": sum(shards.numel[k] for k in shards.leaves),
+            "params": sum(shards.numel.values()), "min_size": shards.min_size,
+            "units": len(shards.units), "state_bytes": measured_bytes(state, engine),
+            "counted_bytes": shards.counted_bytes(list(state.params), net_size,
+                                                  state.ema is not None)}
+
+
+def none_ema_step(torch, rank_rows, call: dict, states: list, group) -> dict:
+    """One bf16 step of the CLI's engine with every network parameter
+    trained (``freeze_type none``) and the EMA on, on the first clip of the
+    CLI's last batch and this rank's frames of it, after the CLI's own train
+    state is emptied: the rank's state measured and counted from the layout
+    (``fsdp_report``), its device memory after the step and its peak, the
+    step's seconds and split, and its exchanges by kind and direction."""
+    from panacea_tpu_torch.parallel import comm_report
+    from panacea_tpu_torch.parallel.train import barrier
+    from panacea_tpu_torch.train import GRAD_CLIP
+    from panacea_tpu_torch.train_step import init_train_state, train_step
+    from panacea_tpu_torch.utils.profiling import Timer
+
+    eng = call["engine"]
+    for st in states:                       # the CLI's state, no longer read
+        st.params.clear()
+        st.optimizer.mu.clear()
+        st.optimizer.nu.clear()
+        if st.ema is not None:
+            st.ema.shadows.clear()
+    states.clear()
+    cuda = eng.device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(eng.device)
+    eng.freeze_type = "none"
+    state = init_train_state(eng, lr=2e-5, grad_clip=GRAD_CLIP, use_ema=True)
+    grid = eng.grid
+    t, i = (1, 0) if grid is None else (grid.t, grid.t_index)
+    tl = eng.num_frames // t
+    gen = call["generator"]
+    gen.set_state(call["state"])
+    with torch.no_grad():
+        jpg, cond, draws = rank_rows(eng, call["batch"], call["cond"], gen, slice(0, 1),
+                                     slice(i * tl, (i + 1) * tl))
+    comm_report.reset()
+    timer = Timer(eng.device)
+    barrier()
+    t0 = time.perf_counter()
+    loss = float(train_step(eng, state, jpg, cond, timer=timer, **draws))
+    seconds = time.perf_counter() - t0
+    out = {"loss": loss, "s_per_step": seconds, "split_s": dict(timer.last),
+           "exchanges": comm_report.summary(),
+           "trained_params": sum(p.numel() for p in state.params.values())}
+    if eng.shards is not None:
+        out.update(fsdp_report(eng.shards, state, eng))
+    if cuda:
+        out["allocated_gb"] = torch.cuda.memory_allocated(eng.device) / 1e9
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated(eng.device) / 1e9
+    state.params.clear()
+    state.optimizer.mu.clear()
+    state.optimizer.nu.clear()
+    state.ema.shadows.clear()
+    barrier()
     return out
 
 
@@ -264,6 +416,10 @@ def main() -> int:
                    help="inference_view_shard and train: the replays against rank 0 "
                         "alone, by network type")
     p.add_argument("--zero_init_std", type=float, default=None)
+    p.add_argument("--none_ema_step", action="store_true",
+                   help="train: after the CLI and the replays, one more step on the CLI's "
+                        "engine with every network parameter trained and the EMA on, on "
+                        "the first clip of the last batch")
     argv = sys.argv[1:]
     split = argv.index("--") if "--" in argv else len(argv)
     args = p.parse_args(argv[:split])
@@ -272,11 +428,14 @@ def main() -> int:
         p.error("inference_view_shard needs --view_shard V among the CLI's arguments")
     if args.replay and args.cli not in ("inference_view_shard", "train"):
         p.error("--replay is for inference_view_shard and train")
+    if args.none_ema_step and args.cli != "train":
+        p.error("--none_ema_step is for train")
 
     import importlib
 
     import torch
 
+    from panacea_tpu_torch import train_step
     from panacea_tpu_torch.models.engine import DiffusionEngine3D
     from panacea_tpu_torch.ops import flash_attention as fa
     from panacea_tpu_torch.ops import geglu as gg
@@ -300,12 +459,36 @@ def main() -> int:
                            shapes=dict(fa.flash_attention.shape_launches))
             if group.device.type == "cuda":
                 cli_end["peak_mem_gb"] = torch.cuda.max_memory_allocated(group.device) / 1e9
+            if args.cli == "train":
+                state = states[-1]
+                cli_end["trained"] = {k: p.numel() for k, p in state.params.items()}
+                cli_end["fsdp"] = (None if state.shards is None else
+                                   fsdp_report(state.shards, state, state_engine[-1]))
+            if args.cli == "train" and args.dump:
+                # the dump's trained parameters and shadows, whole (gathered
+                # where the state is sharded), before anything else runs
+                def whole(tensors):
+                    if state.shards is None:
+                        return tensors
+                    return state.shards.full(tensors, everywhere=True)
+
+                cli_end["dump"] = {"final": sampled(torch, whole(state.params)), "ema": None}
+                if state.ema is not None:
+                    cli_end["dump"]["ema"] = sampled(torch, whole(state.ema.shadows))
+            cli_end["hook_s"] = {"dump": time.perf_counter() - cli_end["t"]}
             if args.replay and args.cli == "train":
+                cli_parsed = cli.get_parser().parse_known_args(cli_argv)[0]
                 cli_end["against_one_process"] = replay_train_against_one_process(
-                    torch, rank_rows, calls[-1], group.rank, args.replay)
+                    torch, rank_rows, calls[-1], group.rank, args.replay, cli_parsed.lr,
+                    cli.GRAD_CLIP)
             elif args.replay and calls:
                 cli_end["against_one_process"] = replay_against_one_process(
                     torch, sample, calls[-1], group.rank, args.replay)
+            cli_end["hook_s"]["replay"] = time.perf_counter() - cli_end["t"]
+            if args.none_ema_step:
+                cli_end["none_ema_step"] = none_ema_step(torch, rank_rows, calls[-1], states,
+                                                         group)
+            cli_end["hook_s"]["none_ema_step"] = time.perf_counter() - cli_end["t"]
 
     mesh.process_group = recorded_group
     sample = DiffusionEngine3D.sample
@@ -320,13 +503,29 @@ def main() -> int:
         return out
 
     DiffusionEngine3D.sample = recorded_sample
-    if args.zero_init_std is not None:
-        init_weights = DiffusionEngine3D.init_weights
+    # the trainer's weights as drawn (before any step or split) and its train
+    # states, for the dump and the extra step
+    init, states, state_engine = {}, [], []
+    init_weights = DiffusionEngine3D.init_weights
 
-        def drawn_zero_init(self, generator, zero_init_std=0.0):
-            return init_weights(self, generator, zero_init_std=args.zero_init_std)
+    def recorded_init(self, generator, zero_init_std=0.0):
+        if args.zero_init_std is not None:
+            zero_init_std = args.zero_init_std
+        out = init_weights(self, generator, zero_init_std=zero_init_std)
+        if args.cli == "train" and args.dump:
+            init.update(sampled(torch, {f"model.{n}": p for n, p in
+                                        self.model.named_parameters()}))
+        return out
 
-        DiffusionEngine3D.init_weights = drawn_zero_init
+    DiffusionEngine3D.init_weights = recorded_init
+    init_train_state = train_step.init_train_state
+
+    def recorded_state(engine, *a, **kw):
+        states.append(init_train_state(engine, *a, **kw))
+        state_engine.append(engine)
+        return states[-1]
+
+    train_step.init_train_state = recorded_state
     det_step = DetectorTrainer.step
 
     def timed_step(self, state, *a, **kw):
@@ -378,6 +577,7 @@ def main() -> int:
     seconds = cli_end.get("t", time.perf_counter()) - t0
     group = seen[-1]
     report = {"cli": args.cli, "rank": group.rank, "world": group.world,
+              "after_cli_s": cli_end.get("hook_s"),
               "backend": group.backend, "device": str(group.device),
               "launches": cli_end.get("counts", launches(fa, gg)), "seconds": seconds,
               # the port runs without JAX: none of it, nor the JAX package, is loaded
@@ -407,7 +607,7 @@ def main() -> int:
         report["clips"] = out["done"]
         dump["latents"] = latents
     elif args.cli == "train":
-        state, engine, g = out["state"], out["engine"], out["grid"]
+        state, g = out["state"], out["grid"]
         rows, frames = out["slab"]
         report["grid"] = (None if g is None else
                           {k: getattr(g, k) for k in ("dp", "t", "dp_index", "t_index",
@@ -419,18 +619,25 @@ def main() -> int:
             report["against_one_process"] = cli_end.get("against_one_process")
         report["losses"] = out["losses"]
         report["steps"] = len(out["losses"])
-        report["trained_params"] = sum(p.numel() for p in state.params.values())
-        # allreduce_mean sends every trained gradient once, in fp32
-        report["allreduce_bytes_per_step"] = 4 * report["trained_params"]
+        shards, trained = state.shards, cli_end["trained"]
+        report["trained_params"] = sum(trained.values())
+        if shards is None:
+            # allreduce_mean sends every trained gradient once, in fp32
+            report["allreduce_bytes_per_step"] = 4 * report["trained_params"]
+        else:
+            # the replicated trained leaves' gradients (the split ones are
+            # reduce-scattered, counted in the exchanges)
+            report["allreduce_bytes_per_step"] = 4 * sum(
+                n for k, n in trained.items() if k not in shards.leaves)
+        if args.none_ema_step:
+            report["none_ema_step"] = cli_end["none_ema_step"]
+        report["fsdp"] = cli_end["fsdp"]
         if args.dump:
             dump["losses"] = out["losses"]
-            dump["final"] = sampled(torch, state.params)
-            if state.ema is not None:
-                dump["ema"] = sampled(torch, state.ema.shadows)
-            seed = cli.get_parser().parse_known_args(cli_argv)[0].seed
-            engine.init_weights(torch.Generator(device=engine.device).manual_seed(seed))
-            network = dict(engine.named_parameters())
-            dump["init"] = sampled(torch, {k: network[k] for k in state.params})
+            dump["final"] = cli_end["dump"]["final"]
+            if cli_end["dump"]["ema"] is not None:
+                dump["ema"] = cli_end["dump"]["ema"]
+            dump["init"] = {k: init[k] for k in trained}
     elif args.cli == "perception_train":
         report["final_metrics"] = out["final_metrics"]
         report["steps"] = steps

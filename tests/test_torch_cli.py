@@ -295,8 +295,10 @@ def test_checkpoint_loader_refuses_what_does_not_fit(jax_tiny, tmp_path):
     extra = dict(sd, **{"model.diffusion_model.not_a_weight": np.zeros(1, np.float32)})
     with pytest.raises(RuntimeError, match="Unexpected key"):
         checkpoint.load_checkpoint(deepspeed_ckpt(extra, str(tmp_path / "e.ckpt")), eng)
-    with pytest.raises(ValueError, match="safetensors"):
-        checkpoint.load_torch_checkpoint("weights.safetensors")
+    bad = tmp_path / "weights.safetensors"          # a header longer than the file
+    bad.write_bytes((1 << 20).to_bytes(8, "little") + b"{}")
+    with pytest.raises(ValueError, match="weights.safetensors"):
+        checkpoint.load_torch_checkpoint(str(bad))
 
 
 def run_cli(argv):

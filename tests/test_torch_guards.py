@@ -24,7 +24,8 @@ ROOT_SCRIPTS = ("chip_smoke.py", "inference_torch.py", "train_torch.py",
                 os.path.join("scripts", "compare_latents_torch.py"),
                 os.path.join("scripts", "probe_torch_kernels.py"),
                 os.path.join("scripts", "sampling_step_torch.py"),
-                os.path.join("scripts", "flash_bwd_ablation.py"))
+                os.path.join("scripts", "flash_bwd_ablation.py"),
+                os.path.join("scripts", "dist_rank.py"))
 
 
 def port_files():
@@ -72,6 +73,9 @@ def test_port_source_imports_no_jax():
     assert {os.path.join("panacea_tpu_torch", "models", f"{m}.py")
             for m in ("legacy_attention", "vae_temporal", "clip", "conditioner")} | {
         os.path.join("panacea_tpu_torch", "ops", "resize.py")} <= names
+    assert {os.path.join("panacea_tpu_torch", "parallel", "fsdp.py"),
+            os.path.join("panacea_tpu_torch", "data", "nuscenes", "render_bev.py"),
+            os.path.join("scripts", "dist_rank.py")} <= names
     for path in port_files():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -106,6 +110,18 @@ def test_engine_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         instantiate_from_config(INFERENCE_NUSCENES["model"])
+
+
+def test_fsdp_trainer_without_device_needs_cuda(monkeypatch):
+    """``train_torch.py --fsdp`` without ``--device`` asks for the card, as
+    every entry point does; it never trains on the CPU unasked."""
+    from panacea_tpu_torch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--tiny", "--synthetic", "--fsdp", "--steps", "1", "--ckpt_every", "0"])
 
 
 def test_production_model_has_the_reference_keys():

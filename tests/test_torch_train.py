@@ -426,12 +426,18 @@ def test_checkpoint_rotation_keeps_the_newest(tmp_path, setup):
     assert state.step == 5 and meta["path"].endswith("iter_5")
 
 
-def test_cli_refuses_multi_device_options():
+def test_cli_refuses_multi_device_options(tmp_path, capsys):
     """``--dp 2`` needs 2 processes (torchrun; tests/test_torch_parallel_train.py
-    runs them); sharded training state is not ported."""
-    for argv, match in ((["--fsdp"], "Queue A item 7c"), (["--dp", "2"], "needs 2 processes")):
-        with pytest.raises(SystemExit, match=match):
-            train.main(["--tiny", "--synthetic", "--device", "cpu"] + argv)
+    runs them); ``--fsdp`` with one process warns as the JAX CLI does
+    (train.py:179-181) and trains unsharded (tests/test_torch_fsdp.py runs
+    it over 2 and 4 ranks)."""
+    with pytest.raises(SystemExit, match="needs 2 processes"):
+        train.main(["--tiny", "--synthetic", "--device", "cpu", "--dp", "2"])
+    out = train.main(["--tiny", "--synthetic", "--device", "cpu", "--fsdp", "--steps", "1",
+                      "--ckpt_every", "0", "--ckpt_dir", str(tmp_path)], save_final=False)
+    assert "WARNING: --fsdp ignored: needs a multi-device mesh" in capsys.readouterr().out
+    assert out["state"].shards is None and len(out["losses"]) == 1
+    assert np.isfinite(out["losses"]).all()
 
 
 def _jax_cli():

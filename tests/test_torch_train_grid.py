@@ -297,11 +297,6 @@ def test_t_must_divide_the_frames(monkeypatch, tmp_path):
     assert not os.path.exists(tmp_path / "x")
 
 
-def test_fsdp_still_raises():
-    with pytest.raises(SystemExit, match="item 7c"):
-        train.main(CLI + ["--fsdp"])
-
-
 # ------------------------------------------------------------- forward-only exchanges
 
 

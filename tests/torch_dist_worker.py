@@ -13,7 +13,8 @@ of this rank wrote to ``DIR/saves_rank{R}.json``. ``--view_shard_checks
 DIR`` first runs ``tests/torch_view_shard_checks.py`` in the process group
 (on the grid of the CLI's ``--view_shard``) and writes its results to DIR;
 ``--ring_checks DIR`` runs its ring cases alone, without a CLI.
-``--train_grid_checks DIR`` first runs ``tests/torch_train_grid_checks.py``
+``--fsdp_checks DIR`` runs ``tests/torch_fsdp_checks.py`` in the process
+group and nothing else. ``--train_grid_checks DIR`` first runs ``tests/torch_train_grid_checks.py``
 in the process group and writes its results to DIR; without dist_rank
 arguments after it, nothing else runs. ``--then_resume`` runs the training
 CLI again in the same group after dist_rank's run, on the same arguments
@@ -41,13 +42,17 @@ def main() -> None:
         i = args.index("--record_saves")
         record = args[i + 1]
         del args[i:i + 2]
-    checks = ring = grid = None
+    checks = ring = grid = fsdp_dir = None
     then_resume = "--then_resume" in args
     if then_resume:
         args.remove("--then_resume")
     if "--train_grid_checks" in args:
         i = args.index("--train_grid_checks")
         grid = args[i + 1]
+        del args[i:i + 2]
+    if "--fsdp_checks" in args:
+        i = args.index("--fsdp_checks")
+        fsdp_dir = args[i + 1]
         del args[i:i + 2]
     if "--view_shard_checks" in args:
         i = args.index("--view_shard_checks")
@@ -60,6 +65,16 @@ def main() -> None:
 
     import torch
 
+    if fsdp_dir:
+        import torch.distributed as dist
+        import torch_fsdp_checks
+
+        from panacea_tpu_torch.parallel import mesh
+
+        mesh.maybe_init_distributed("cpu")
+        torch_fsdp_checks.run(fsdp_dir)
+        dist.destroy_process_group()
+        return
     if checks or ring or grid:
         import torch.distributed as dist
         import torch_train_grid_checks
