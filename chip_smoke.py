@@ -24,12 +24,18 @@ Phases, in order; any failure exits non-zero:
      kernels (flash as 3xTF32 on the tensor cores at head dims 64 and 32,
      on the FMA units at 16 and 128; GEGLU as 3xTF32; both held to their
      plain versions in float64; TF32 off in every PyTorch product), then the
-     backward kernels on each route (bf16 wgmma at head dim 64, mma.sync at
-     16, 32, 128; fp32: 3xTF32 wgmma at head dims 64 and 32, FMA at 16 and
-     128, held to the plain version in float64), their library time read as
-     the device time of SDPA's backward; every flash route also with rows of
-     no valid key; the off-path routes (bf16 mma.sync, fp32 FMA) timed at
-     their small check shapes; the fp32 backward at head dim 32 (``tc32``)
+     backward kernels on each route (bf16 wgmma at every head dim; fp32:
+     3xTF32 wgmma at head dims 64 and 32, FMA at 16 and 128, held to the
+     plain version in float64), their library time read as the device time
+     of SDPA's backward; every flash route also with rows of no valid key;
+     the fp32 FMA routes (off every path) timed at their small check shapes;
+     the bf16 kernels at head dims 16, 32 and 128 (off the generator's
+     paths) checked with ragged, empty and one-key rows and tails, and timed
+     forward and backward at shapes with real work (``FLASH_REAL``: the
+     generator's per-call work at 640 channels) beside bf16 SDPA and their
+     bound, whose terms count the exponentials too; ptxas's registers and
+     spills of each bf16 flash instantiation on a line of their own (a spill
+     fails the run); the fp32 backward at head dim 32 (``tc32``)
      at the perception training's shape, at B 1, with ragged rows and an
      empty one, and off the tiles; the GEGLU backward timed in bf16 and fp32
      at the training shapes; the fp32 flash forward at the perception eval's
@@ -340,6 +346,15 @@ PEAK_BF16 = 989e12     # H100 SXM dense bf16 flop/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12      # H100 SXM fp32 flop/s outside the tensor cores (same data sheet)
 PEAK_TF32 = 495e12     # H100 SXM dense TF32 flop/s on the tensor cores (same data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
+# exponentials a second with the special-function units and the FMA units
+# both at their peak: ex2.approx 16 an SM a clock, where the tensor cores do
+# 4,096 bf16 flops (989e12 / 256 = 3.86e12 at the data sheet's clock), and
+# a polynomial 2^x (pn::ex2_poly) on the fp32 lanes, which do PEAK_FP32 / 2
+# operations a second, at EX2_POLY_OPS of them an exponential (the three
+# adds of its split and the three FMAs of its polynomial; its clamp and its
+# exponent add run on the integer units): 3.86e12 + 5.58e12 = 9.45e12
+EX2_POLY_OPS = 6
+PEAK_EX2 = PEAK_BF16 / 256 + PEAK_FP32 / 2 / EX2_POLY_OPS
 QUEUE_CYCLES = 400_000  # a sleep of 0.2 ms a call (at 1.98 GHz), past any call's host time
 SMALL_TOL = 5e-2       # tiny engine, bf16 card vs fp32 CPU, relative to the latent's scale
 FLASH_PER_EVAL, GEGLU_PER_EVAL = 21, 69
@@ -369,6 +384,14 @@ TRAIN_GEGLU = ((98304, 320), (24576, 640), (6144, 1280), (1536, 1280))
 # Sq 644 + 256, Skv 900 + 768, 8 heads of dim 32 (the fp32 FMA flash route)
 PERCEPTION_T, PERCEPTION_HW = 8, (256, 512)
 PERCEPTION_FLASH = (1, 900, 1668, 8, 32)
+# the bf16 flash kernels at the head dims off the generator's (16, 32, 128),
+# timed at the generator's per-call work at a width of 640 channels (H = 640
+# / D), k and v the halves of one merged projection: (B, Sq, Skv)
+FLASH_REAL = ((40, 2048, 4096), (40, 512, 1024))
+FLASH_REAL_WIDTH = 640
+# batch rows of a real-work call held to the plain versions: the first two
+# and the last two, so that the grid's last blocks are checked too
+FLASH_REAL_ROWS = (0, 1, -2, -1)
 # the detector in fp32 on the card (cuDNN, cuBLAS, the fp32 flash kernel;
 # TF32 off) against the CPU (the plain versions): each output's largest
 # difference over its largest value, after a randomly drawn ResNet-50
@@ -602,9 +625,161 @@ def host_us(torch, fn, iters: int) -> float:
     return dt / iters * 1e6
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+def bound_terms(flops: float, nbytes: float, peak: float = PEAK_BF16, exps: float = 0.0) -> dict:
+    """ms of each term of a bound: the products at ``peak`` ("tensor"), the
+    bytes at PEAK_BYTES, the exponentials at PEAK_EX2."""
+    return {"tensor": flops / peak * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
+            "exponentials": exps / PEAK_EX2 * 1e3}
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16, exps: float = 0.0):
+    """(ms, "operations" or "bytes"): the largest of the terms of
+    ``bound_terms``; the products and the exponentials are both operations."""
+    t = bound_terms(flops, nbytes, peak, exps)
+    ops = max(t["tensor"], t["exponentials"])
+    return max(ops, t["bytes"]), ("operations" if ops >= t["bytes"] else "bytes")
+
+
+def flash_bound(b, sq, skv, h, d, kv_eff, bwd: bool):
+    """(ms, bound_by, terms) of a bf16 flash call with ``kv_eff`` valid
+    keys a row: forward 4 B H Sq kv_eff D flops and one exponential a score,
+    reading q, k and v and writing o; backward 10 flops a score and channel
+    (the five products) and one exponential a score (P, which the function
+    needs once, however often a design recomputes it), reading q, k, v, o,
+    dO and lse and writing dq, dk and dv."""
+    scores = float(b) * h * sq * kv_eff
+    if bwd:
+        nbytes = 2.0 * b * h * d * (3 * sq + 2 * kv_eff) + 4.0 * b * h * sq \
+            + 2.0 * b * h * d * (sq + 2 * skv)
+        flops, exps = 10.0 * scores * d, scores
+    else:
+        nbytes = 2.0 * (2 * b * sq * h * d + 2 * b * kv_eff * h * d)
+        flops, exps = 4.0 * scores * d, scores
+    terms = bound_terms(flops, nbytes, PEAK_BF16, exps)
+    return (*bound(flops, nbytes, PEAK_BF16, exps), terms)
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill stores, spill loads) of each flash kernel
+    in an nvcc -Xptxas -v log."""
+    import re
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and "flash" in name:
+            out.append({"kernel": name, "registers": int(m.group(1)),
+                        "spill_stores": spill[0], "spill_loads": spill[1]})
+            name = None
+    return out
+
+
+def flash_inputs(torch, dev, b, sq, skv, h, d, merged=True, seed=SEED):
+    """bf16 q, k, v and dO from a seed; ``merged``: k and v the halves of one
+    (B, Skv, 2 H D) projection."""
+    g = torch.Generator(device=dev).manual_seed(seed + sq + skv + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
+    if merged:
+        kv = torch.randn((b, skv, 2 * h * d), generator=g, device=dev).bfloat16()
+        k, v = (t.unflatten(-1, (h, d)) for t in kv.chunk(2, dim=-1))
+    else:
+        k, v = (torch.randn((b, skv, h, d), generator=g, device=dev).bfloat16()
+                for _ in range(2))
+    do = torch.randn((b, sq, h, d), generator=g, device=dev).bfloat16()
+    return q, k, v, do
+
+
+def flash_fwd_bwd_check(torch, fa, tol, q, k, v, do, lens, rows=None) -> dict:
+    """The bf16 forward and backward kernels against the plain versions on
+    the batch rows ``rows`` (indices, negative from the end; all by
+    default): ``fwd_ratio`` under ``tol.FLASH``,
+    ``bwd_ratio`` the worst of dq, dk, dv under ``tol.FLASH_BWD``; keys
+    past a row's kv_len and empty rows' dq and dk, which must be exactly 0;
+    ``ok`` where all hold."""
+    out, lse = fa.flash_attention_with_lse(q, k, v, kv_lens=lens)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, kv_lens=lens)
+    n = slice(None) if rows is None else sorted({r % q.shape[0] for r in rows})
+    sub = [t[n] for t in (q, k, v, out, lse, do)]
+    sub_lens = None if lens is None else lens[n]
+    want = fa.flash_attention_plain(*sub[:3], kv_lens=sub_lens)
+    want_g = fa.flash_attention_bwd_plain(*sub, kv_lens=sub_lens)
+    rec = {"fwd_ratio": tol.worst_ratio(out[n], want, **tol.FLASH),
+           "bwd_ratio": max(tol.worst_ratio(a[n], w, **tol.FLASH_BWD)
+                            for a, w in zip(grads, want_g))}
+    if lens is not None:
+        dead = (torch.arange(k.shape[1], device=q.device)[None] >= lens[:, None]) & (
+            lens[:, None] > 0)
+        empty = lens == 0
+        rec["masked_keys_grad_max"] = max(
+            (g[dead].abs().max().item() if dead.any() else 0.0) for g in grads[1:])
+        rec["empty_rows_dq_dk_max"] = max(
+            (g[empty].abs().max().item() if empty.any() else 0.0) for g in grads[:2])
+    rec["ok"] = (rec["fwd_ratio"] <= 1.0 and rec["bwd_ratio"] <= 1.0
+                 and rec.get("masked_keys_grad_max", 0.0) == 0.0
+                 and rec.get("empty_rows_dq_dk_max", 0.0) == 0.0)
+    return rec
+
+
+def flash_real_work(torch, F, fa, tol, dev, b, sq, skv, h, d, iters=10, backward=True,
+                    plain=False) -> dict:
+    """One real-work shape of the bf16 flash kernels (merged kv): the
+    FLASH_REAL_ROWS batch rows of the forward and the backward against the
+    plain versions (``flash_fwd_bwd_check``); each timed as device time with
+    the host's time kept out (``queued_ms``), as CUDA events over calls
+    issued back to back and as the host's microseconds a call; SDPA in bf16
+    on the same inputs as device time (its backward alone, of one recorded
+    forward); the bounds (``flash_bound``) with their terms; ``plain``: the
+    plain versions' time on the whole call too."""
+    q, k, v, do = flash_inputs(torch, dev, b, sq, skv, h, d)
+    rec = {"kernel": "flash_attention_real_work",
+           "shape": {"B": b, "Sq": sq, "Skv": skv, "H": h, "D": d, "kv": "merged"}}
+    before = (dict(fa.flash_attention.route_launches), dict(fa.flash_attention_bwd.route_launches))
+    rec.update(flash_fwd_bwd_check(torch, fa, tol, q, k, v, do, None,
+                                   rows=FLASH_REAL_ROWS))
+    rec["route"], rec["bwd_route"] = (
+        next(r for r, n in f.route_launches.items() if n != was[r])
+        for f, was in zip((fa.flash_attention, fa.flash_attention_bwd), before))
+    out, lse = fa.flash_attention_with_lse(q, k, v)
+
+    def fwd():
+        return fa.flash_attention(q, k, v)
+
+    def bwd():
+        return fa.flash_attention_bwd(q, k, v, out, lse, do)
+
+    rec["fwd_ms_device"] = queued_ms(torch, fwd, iters)
+    rec["fwd_ms"] = time_ms(torch, fwd, iters)
+    rec["fwd_host_us"] = host_us(torch, fwd, 2 * iters)
+    q0, k0, v0 = (t.transpose(1, 2) for t in (q, k, v))
+    rec["sdpa_fwd_ms_device"] = queued_ms(
+        torch, lambda: F.scaled_dot_product_attention(q0, k0, v0), iters)
+    if plain:
+        rec["fwd_plain_ms"] = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v), 1)
+    ms, rec["fwd_bound_by"], terms = flash_bound(b, sq, skv, h, d, skv, bwd=False)
+    rec.update(fwd_bound_ms=ms, fwd_bound_term=max(terms, key=terms.get), fwd_bound_terms_ms=terms)
+    if not backward:
+        return rec
+    rec["bwd_ms_device"] = queued_ms(torch, bwd, iters)
+    rec["bwd_ms"] = time_ms(torch, bwd, iters)
+    rec["bwd_host_us"] = host_us(torch, bwd, 2 * iters)
+    qt, kt, vt = (t.detach().requires_grad_() for t in (q0, k0, v0))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    rec["sdpa_bwd_ms_device"] = queued_ms(
+        torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True),
+        iters)
+    if plain:
+        rec["bwd_plain_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do), 1)
+    ms, rec["bwd_bound_by"], terms = flash_bound(b, sq, skv, h, d, skv, bwd=True)
+    rec.update(bwd_bound_ms=ms, bwd_bound_term=max(terms, key=terms.get), bwd_bound_terms_ms=terms)
+    return rec
 
 
 def check_flash(torch, F, fa, tol, dev, b, sq, skv, h, d, ragged=False, merged_kv=False,
@@ -865,7 +1040,7 @@ def check_flash_bwd(torch, F, fa, tol, dev, b, sq, skv, h, d, merged_kv=True, le
             and rec.get("masked_keys_grad_max", 0.0) == 0.0
             and rec.get("empty_rows_dq_dk_max", 0.0) == 0.0):
         raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {rec}")
-    want_route = "fp32" if fp32 else ("wgmma" if d == 64 else "mma")
+    want_route = "fp32" if fp32 else "wgmma"   # bf16 at every head dim
     if route != want_route or (fp32 and rec["fp32_kernel"] != {64: "tc", 32: "tc32"}.get(d, "fma")):
         raise AssertionError(f"flash_attention_bwd took route {route}, not {want_route}, or "
                              f"the wrong fp32 kernel: {rec}")
@@ -1023,7 +1198,9 @@ def reset_counts(fa, gg) -> None:
     fa.flash_attention_bwd.launches = gg.geglu_bwd.launches = 0
     for counts in (fa.flash_attention.route_launches, fa.flash_attention_bwd.route_launches,
                    gg.geglu.route_launches, fa.flash_attention.fp32_kernel_launches,
-                   fa.flash_attention_bwd.fp32_kernel_launches):
+                   fa.flash_attention_bwd.fp32_kernel_launches,
+                   fa.flash_attention.bf16_head_dim_launches,
+                   fa.flash_attention_bwd.bf16_head_dim_launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -1035,6 +1212,8 @@ def read_counts(fa, gg) -> dict:
             "flash_fp32_kernels": dict(fa.flash_attention.fp32_kernel_launches),
             "flash_bwd_routes": dict(fa.flash_attention_bwd.route_launches),
             "flash_bwd_fp32_kernels": dict(fa.flash_attention_bwd.fp32_kernel_launches),
+            "flash_bf16_head_dims": dict(fa.flash_attention.bf16_head_dim_launches),
+            "flash_bwd_bf16_head_dims": dict(fa.flash_attention_bwd.bf16_head_dim_launches),
             "geglu_routes": dict(gg.geglu.route_launches)}
 
 
@@ -4850,6 +5029,15 @@ def main(mode: str = "all") -> int:
         if "C7508" in text or "setmaxnreg ignored" in text:
             raise AssertionError(f"{src}: ptxas ignored setmaxnreg, so the consumer "
                                  "warpgroups do not get the producer's registers")
+    # the bf16 flash kernels' instantiations (wg::, one per head dim)
+    wg_flash = [r for src in ("flash_attention.cu", "flash_attention_bwd.cu")
+                for r in ptxas_report(_build.build_log.get(src, ""))
+                if any(n in r["kernel"] for n in ("wg12pn_flash_fwd", "wg20pn_flash_bwd_dkdv_wg",
+                                                  "wg18pn_flash_bwd_dq_wg"))]
+    log({"phase": "ptxas_bf16_flash", "kernels": wg_flash})
+    if len(wg_flash) != 12 or any(r["spill_stores"] or r["spill_loads"] for r in wg_flash):
+        raise AssertionError(f"the bf16 flash kernels spill, or not every head dim's forward, "
+                             f"dK/dV and dQ kernel was built: {wg_flash}")
 
     if mode == "perception":
         rec = check_flash(torch, F, fa, tol, dev, *PERCEPTION_FLASH, fp32=True)
@@ -4917,7 +5105,12 @@ def main(mode: str = "all") -> int:
     flash += [check_flash(torch, F, fa, tol, dev, b, 512, 1024, 10, 64, ragged=True),
               check_flash(torch, F, fa, tol, dev, 8, 300, 650, 5, 64),
               check_flash(torch, F, fa, tol, dev, 16, 100, 70, 3, 64, ragged=True, timed=False)]
-    flash += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d) for d in (16, 32, 128)]
+    # the other head dims at a launch-bound shape (checked, not timed) and
+    # with tails, a row of one key and an empty one; timed at real work below
+    flash += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d, timed=False)
+              for d in (16, 32, 128)]
+    flash += [check_flash(torch, F, fa, tol, dev, 3, 129, 4097, 2, d, timed=False, merged_kv=True,
+                          lens=[4097, 1, 0]) for d in (16, 32, 128)]
     # tails of one row past a tile, a single key, one key past a tile edge,
     # and a batch whose rows all differ in length
     flash += [check_flash(torch, F, fa, tol, dev, 4, 129, 4097, 5, 64, timed=False),
@@ -4930,10 +5123,9 @@ def main(mode: str = "all") -> int:
                           merged_kv=True, lens=[0, 129, 0, 512])]
     flash += [check_flash(torch, F, fa, tol, dev, 2, 256, 512, 2, d, timed=False, lens=[0, 300])
               for d in (16, 32, 128)]
-    for rec in flash:
-        want = "wgmma" if rec["shape"]["D"] == 64 else "mma"
-        if rec["route"] != want:
-            raise AssertionError(f"flash_attention took route {rec['route']}, not {want}: {rec}")
+    for rec in flash:   # bf16 at every head dim: the wgmma kernel
+        if rec["route"] != "wgmma":
+            raise AssertionError(f"flash_attention took route {rec['route']}, not wgmma: {rec}")
     geglu = []
     for tokens, c in ((196608, 320), (49152, 640), (12288, 1280), (3072, 1280)):
         geglu.append(check_geglu(torch, F, gg, tol, dev, tokens, c))
@@ -5018,19 +5210,38 @@ def main(mode: str = "all") -> int:
                                  lens=[1, 65], fp32=fp32),
                  check_flash_bwd(torch, F, fa, tol, dev, 4, 200, 256, 3, 64, timed=False,
                                  lens=[1, 129, 128, 192], fp32=fp32)]
-        # the routes off every path (bf16 mma.sync, fp32 FMA) timed here
+        # every head dim at a launch-bound shape; the fp32 FMA routes (off
+        # every path) timed here, the bf16 ones at real work below
         recs += [check_flash_bwd(torch, F, fa, tol, dev, 2, 200, 400, 2, d, merged_kv=False,
-                                 timed=d != 64 and not (fp32 and d == 32), fp32=fp32)
+                                 timed=fp32 and d in (16, 128), fp32=fp32)
                  for d in (16, 32, 64, 128)]
         # rows with no valid key on each route: dq = dk = 0, dv = sum dO / Skv
         recs += [check_flash_bwd(torch, F, fa, tol, dev, 2, 100, 70, 3, 64, timed=False,
                                  lens=[0, 65], fp32=fp32)]
         recs += [check_flash_bwd(torch, F, fa, tol, dev, 2, 200, 400, 2, d, merged_kv=False,
                                  timed=False, lens=[0, 300], fp32=fp32) for d in (16, 32, 64, 128)]
+        if not fp32:   # tails, rows of one key and none, blocks past kv_len
+            recs += [check_flash_bwd(torch, F, fa, tol, dev, 3, 129, 4097, 2, d, timed=False,
+                                     lens=[4097, 1, 0]) for d in (16, 32, 128)]
         return recs
 
     flash_bwd = bwd_checks(False)
     flash_bwd32 = bwd_checks(True)
+    # the bf16 kernels at head dims 16, 32 and 128 at shapes with real work,
+    # forward and backward (the plain versions timed at the smaller shape)
+    t0 = time.perf_counter()
+    flash_real = []
+    for d in (16, 32, 128):
+        for b_, sq, skv in FLASH_REAL:
+            rec = flash_real_work(torch, F, fa, tol, dev, b_, sq, skv, FLASH_REAL_WIDTH // d, d,
+                                  plain=sq <= 512)
+            log(rec)
+            flash_real.append(rec)
+            if not (rec["ok"] and rec["route"] == rec["bwd_route"] == "wgmma"):
+                raise AssertionError(f"the bf16 flash kernels at head dim {d} disagree with "
+                                     f"their plain versions or left the wgmma route: {rec}")
+            free(torch)
+    log({"phase": "flash_real_work", "seconds": time.perf_counter() - t0})
     # the fp32 backward at head dim 32 (tc32): the perception training's
     # shape at B 2 (again in phase 14) and at B 1; ragged rows with an empty
     # one, a row of one key and key blocks wholly past kv_len; Sq and Skv
@@ -5181,6 +5392,30 @@ def main(mode: str = "all") -> int:
                 "bound_by": main["bound_by"], "library_ms": main["library_ms"],
                 "dtype": main["dtype"], "shape": main["shape"]}
 
+    def head_dims(what):
+        """The bf16 kernel's instantiations at head dims 16, 32 and 128
+        (``what``: "fwd" or "bwd"), each at the two real-work shapes, with
+        their launches on every path."""
+        entry = {"fwd": "wg::pn_flash_fwd<{}>",
+                 "bwd": "wg::pn_flash_bwd_{{dkdv,dq}}_wg<{}> + pn_flash_bwd_delta<{}>"}[what]
+        key = {"fwd": "flash_bf16_head_dims", "bwd": "flash_bwd_bf16_head_dims"}[what]
+        out = []
+        for d in (16, 32, 128):
+            recs = [r for r in flash_real if r["shape"]["D"] == d]
+            out.append({
+                "entry": entry.format(d, d), "D": d, "shapes": [r["shape"] for r in recs],
+                "launches_by_path": {p: paths[p].get(key, {}).get(d) for p in paths},
+                "ms_levels": [r[f"{what}_ms_device"] for r in recs],
+                "events_ms_levels": [r[f"{what}_ms"] for r in recs],
+                "host_us_levels": [r[f"{what}_host_us"] for r in recs],
+                "library_ms_levels": [r[f"sdpa_{what}_ms_device"] for r in recs],
+                "plain_ms_levels": [r.get(f"{what}_plain_ms") for r in recs],
+                "bound_ms_levels": [r[f"{what}_bound_ms"] for r in recs],
+                "bound_by": recs[0][f"{what}_bound_by"],
+                "bound_term": recs[0][f"{what}_bound_term"],
+                "worst_ratio": max(r[f"{what}_ratio"] for r in recs)})
+        return out
+
     def stage1_levels(recs):
         """The bf16 kernel's numbers at stage 1's shapes, level by level."""
         return {f"stage1_{k}_levels": [r[k] for r in recs]
@@ -5201,7 +5436,7 @@ def main(mode: str = "all") -> int:
     log({"kernels": [
         summary("flash_attention", "flash_attention", flash_src, flash_tpu,
                 flash + flash_s1 + view_shard["ring"], flash[0], "cli",
-                **stage1_levels(flash_s1),
+                **stage1_levels(flash_s1), head_dims=head_dims("fwd"),
                 ring_shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")}
                              for r in view_shard["ring"] if "ms" in r]),
@@ -5255,7 +5490,7 @@ def main(mode: str = "all") -> int:
                 fp32_plain_worst_ratio_vs_f64=max(r["fp32_plain_worst_ratio_vs_f64"]
                                                   for r in geglu32)),
         summary("flash_attention_bwd", "flash_attention_bwd", flash_bwd_src, flash_tpu, flash_bwd,
-                flash_bwd[0], "train"),
+                flash_bwd[0], "train", head_dims=head_dims("bwd")),
         summary("flash_attention_bwd_fp32", "flash_attention_bwd", flash_bwd_src, flash_tpu,
                 flash_bwd32, flash_bwd32[0], "train_fp32", paths_of=generation_paths,
                 entry="tc::pn_flash_bwd_f32_{dkdv,dq}_tc (3xTF32 wgmma, TMA)",

@@ -17,35 +17,43 @@
 // clock: the exponentials take as long as both products, so the two must
 // overlap.
 //
-// Two hand-written bf16 kernels, chosen by head dim in the C entry (fp32
-// operands go to three others, tc::pn_flash_f32_fwd_tc at head dim 64,
-// tc32::pn_flash_f32_fwd_tc32 at 32, the perception self-attention's, and
-// f32::pn_flash_f32_fwd at 16 and 128, described at their namespaces):
-//
-// pn_flash_fwd (D = 64, the production head dim): one block of three
-// warpgroups per (128 query rows, head, batch).
+// One hand-written bf16 kernel, pn_flash_fwd<D>, instantiated at every head
+// dim the dispatch takes (fp32 operands go to three others,
+// tc::pn_flash_f32_fwd_tc at head dim 64, tc32::pn_flash_f32_fwd_tc32 at 32,
+// the perception self-attention's, and f32::pn_flash_f32_fwd at 16 and 128,
+// described at their namespaces). One block of three warpgroups per (128
+// query rows, head, batch):
 //  - The producer warpgroup gives its registers away (setmaxnreg) and one of
 //    its threads starts TMA loads: the Q tile once, then K and V tiles of
-//    128 keys into two rings of STAGES slots each, with the 128-byte
-//    swizzle, completing on mbarriers. The tensor maps are 4-D (D, H, S, B)
-//    with the byte strides of the views, so the halves of a merged kv
-//    projection load in place; rows past Skv (and past Sq) arrive as zeros.
+//    BK keys into two rings of STAGES slots each, completing on mbarriers.
+//    The tensor maps are 4-D (D, H, S, B) with the byte strides of the
+//    views, so the halves of a merged kv projection load in place; rows past
+//    Skv (and past Sq) arrive as zeros. A row is swizzled by its width (32,
+//    64 or 128 bytes at D 16, 32, 64); at D 128 each tile is two panels of
+//    64 columns, two boxes of one map (flash_bf16_schedule.h).
 //  - Two consumer warpgroups own 64 query rows each. S = Q K^T is
-//    wgmma m64n128k16 with both operands in shared memory; the probabilities
-//    stay in registers, are rounded to bf16 and are the A operand of the
-//    P V wgmma (m64n64k16), which reads V MN-major, as TMA laid it down.
-//    Running max, sum and the output stay in fp32 registers; the exponent is
-//    base 2 with scale * log2(e) folded into one fused multiply-add.
+//    wgmma m64nBKk16 with both operands in shared memory (D / 16 k-steps,
+//    the descriptors stepping 32 bytes into a panel or to the next); the
+//    probabilities stay in registers, are rounded to bf16 and are the A
+//    operand of the P V wgmma (m64nDk16; two m64n64k16 on the two panels at
+//    D 128), which reads V MN-major, as TMA laid it down. Running max, sum
+//    and the output stay in fp32 registers; the exponent is base 2 with
+//    scale * log2(e) folded into one fused multiply-add.
 //  - Overlap of softmax and tensor cores: inside a warpgroup, tile j's
 //    Q K^T and tile j-1's P V are both started before tile j's softmax, so
 //    the exponentials run while P V is in flight; and the two warpgroups run
 //    unsynchronised, so one's exponentials also fill the other's products.
 //  - A block visits only the tiles below its row's kv_len and masks the last
 //    one in registers. The output is written once with masked stores.
-//
-// pn_flash_mma_fwd (D = 16, 32, 128): the mma.sync m16n8k16 kernel, one block
-// of 4 warps per 64 query rows, Q fragments in registers, K/V tiles of 64
-// keys staged in padded shared memory with plain loads.
+// Per head dim (flash_bf16_schedule.h): BK 128 and three slots at D 16, 32
+// and 64 (D 64, the production head dim, is the earlier design unchanged).
+// D 128: Q takes 32 KB; the 384 threads hold ptxas to 168 registers a
+// thread, where 128-key tiles needed 64 (S) + 64 (O) + 32 (P) beside the
+// softmax and spilled P, so BK is 64 (S 32, P 16) with four 16 KB slots.
+// D 16 and 32: a score costs 64 or 128 tensor-core flops and one
+// exponential, and an SM does 1,024 flops but 16 exponentials a clock, so
+// the exponentials bound them (4 and 2 times the products); a share of them
+// may go to the FMA units (sched::poly_every, pn::ex2_poly).
 //
 // Every route can also write the row log-sum-exp that the backward kernels
 // (flash_attention_bwd.cu) recompute the probabilities from: fp32, (B, H, Sq),
@@ -58,7 +66,10 @@
 // log2(Skv), the answer of the reference, whose empty row masks every score
 // alike.
 
+#include <type_traits>
+
 #include "hopper.cuh"
+#include "flash_bf16_schedule.h"
 #include "flash_f32_tc.cuh"
 #include "flash_f32_tc32_schedule.h"
 
@@ -69,25 +80,32 @@ constexpr float NEG = -1e30f;
 // a masked score's exponent in the fp32 tensor-core kernels: ex2 of it is 0
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-// ------------------------------------------------------------ wgmma, D = 64
+// ------------------------------------------------- wgmma, D = 16, 32, 64, 128
 
 namespace wg {
 
-constexpr int D = 64;
-constexpr int BQ = 128;      // query rows per block: 2 consumer warpgroups x 64
-constexpr int BK = 128;      // keys per tile
-constexpr int STAGES = 3;    // slots in each of the K and V rings
-constexpr int NTHREADS = 384;
-constexpr int TILE_BYTES = BK * D * 2;
+namespace sched = pn::bf16_schedule;
 
+constexpr int BQ = sched::FWD_BQ;  // query rows per block: 2 consumer warpgroups x 64
+constexpr int NTHREADS = 384;
+
+template <int D>
 struct Smem {
+  static constexpr int BK = sched::fwd_bk(D);           // keys per tile
+  static constexpr int STAGES = sched::fwd_stages(D);  // slots in each of the K and V rings
   __nv_bfloat16 q[BQ * D];
   __nv_bfloat16 k[STAGES][BK * D];
   __nv_bfloat16 v[STAGES][BK * D];
   uint64_t q_full;
   uint64_t k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
 };
-constexpr int SMEM_BYTES = sizeof(Smem) + pn::SWIZZLE_ATOM;  // room to align
+template <int D>
+constexpr int SMEM_BYTES = sizeof(Smem<D>) + pn::SWIZZLE_ATOM;  // room to align
+static_assert(SMEM_BYTES<16> == sched::fwd_smem_bytes(16) &&
+                  SMEM_BYTES<32> == sched::fwd_smem_bytes(32) &&
+                  SMEM_BYTES<64> == sched::fwd_smem_bytes(64) &&
+                  SMEM_BYTES<128> == sched::fwd_smem_bytes(128),
+              "the shared memory of flash_bf16_schedule.h");
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -98,18 +116,21 @@ __device__ __forceinline__ float ex2(float x) {
 // One tile's online-softmax step on this thread's two rows. On entry s holds
 // raw scores; on exit the probabilities exp2((s - max) * scale_log2). m is
 // the running max of raw scores, l this thread's share of the running sum.
-// Columns from `limit` on are masked. Returns the factors for the old sums.
-__device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], float (&l)[2],
+// Columns from `limit` on are masked where MASK (a tile no later tile
+// follows). Returns the factors for the old sums. Every POLY-th probability
+// (none where POLY is 0) is pn::ex2_poly's. BK: keys per tile.
+template <int BK, int POLY, bool MASK>
+__device__ __forceinline__ void softmax_step(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], float scale_log2, int limit,
                                              int t) {
-  if (limit < BK) {
+  if (MASK && limit < BK) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i)
+    for (int i = 0; i < BK / 2; ++i)
       if ((i >> 2) * 8 + t * 2 + (i & 1) >= limit) s[i] = NEG;
   }
   float mx[2] = {NEG, NEG};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
   float ms[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -122,21 +143,28 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    s[i] = ex2(fmaf(s[i], scale_log2, -ms[(i >> 1) & 1]));
+  for (int i = 0; i < BK / 2; ++i) {
+    const float x = fmaf(s[i], scale_log2, -ms[(i >> 1) & 1]);
+    if constexpr (POLY > 0) s[i] = i % POLY == POLY - 1 ? pn::ex2_poly(x) : ex2(x);
+    else s[i] = ex2(x);
     sum[(i >> 1) & 1] += s[i];
   }
   l[0] = l[0] * corr[0] + sum[0];
   l[1] = l[1] * corr[1] + sum[1];
 }
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
              float* __restrict__ lse, const int* __restrict__ kv_lens, int heads, int sq,
              int skv, int q_tiles, float scale_log2) {
+  constexpr int BK = Smem<D>::BK, STAGES = Smem<D>::STAGES;
+  constexpr int TILE_BYTES = BK * D * 2;
+  // a row lies in PANELS panels of PC columns, rows of SW bytes each
+  constexpr int SW = sched::swizzle_bytes(D), PC = sched::panel_cols(D), PANELS = D / PC;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(pn::align_smem(smem_raw));
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(pn::align_smem(smem_raw));
 
   // blockIdx.x = (batch * heads + head) * q_tiles + q tile: the blocks that
   // share one head's K and V are neighbours in launch order
@@ -163,19 +191,25 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
   __syncthreads();
 
   if (group == 2) {
-    // ---- producer
+    // ---- producer: each tile as PANELS boxes of PC columns
     pn::setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
       pn::mbar_arrive_expect_tx(&sm.q_full, BQ * D * 2);
-      pn::tma_load_4d(sm.q, &q_map, &sm.q_full, 0, h, q_row0, b);
+#pragma unroll
+      for (int p = 0; p < PANELS; ++p)
+        pn::tma_load_4d(sm.q + p * BQ * PC, &q_map, &sm.q_full, p * PC, h, q_row0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES, free_parity = ((j / STAGES) & 1) ^ 1;
         pn::mbar_wait(&sm.k_empty[s], free_parity);
         pn::mbar_arrive_expect_tx(&sm.k_full[s], TILE_BYTES);
-        pn::tma_load_4d(sm.k[s], &k_map, &sm.k_full[s], 0, h, j * BK, b);
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p)
+          pn::tma_load_4d(sm.k[s] + p * BK * PC, &k_map, &sm.k_full[s], p * PC, h, j * BK, b);
         pn::mbar_wait(&sm.v_empty[s], free_parity);
         pn::mbar_arrive_expect_tx(&sm.v_full[s], TILE_BYTES);
-        pn::tma_load_4d(sm.v[s], &v_map, &sm.v_full[s], 0, h, j * BK, b);
+#pragma unroll
+        for (int p = 0; p < PANELS; ++p)
+          pn::tma_load_4d(sm.v[s] + p * BK * PC, &v_map, &sm.v_full[s], p * PC, h, j * BK, b);
       }
     }
   } else {
@@ -183,31 +217,39 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     pn::setmaxnreg_inc<232>();
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
-    const uint64_t q_desc = pn::smem_desc(pn::smem_u32(sm.q) + group * 64 * pn::SWIZZLE_BYTES);
+    const uint64_t q_desc = pn::smem_desc<SW>(pn::smem_u32(sm.q) + group * 64 * SW);
 
-    float s[64], acc[32];
+    float s[BK / 2], acc[D / 2];
     uint32_t p[BK / 16][4];
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
     auto start_qk = [&](int stage) {  // s = Q K^T, one committed group
-      const uint64_t k_desc = pn::smem_desc(pn::smem_u32(sm.k[stage]));
+      const uint64_t k_desc = pn::smem_desc<SW>(pn::smem_u32(sm.k[stage]));
       pn::pin(s);
       pn::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        pn::wgmma_m64n128k16_ss(s, pn::desc_advance(q_desc, kk * 32),
-                                pn::desc_advance(k_desc, kk * 32), kk > 0);
+        pn::wgmma_ss<BK>(s, pn::desc_advance(q_desc, sched::kstep_offset(D, BQ, kk)),
+                         pn::desc_advance(k_desc, sched::kstep_offset(D, BK, kk)), kk > 0);
       pn::wgmma_commit();
     };
     auto start_pv = [&](int stage) {  // acc += P V, one committed group
-      const uint64_t v_desc = pn::smem_desc(pn::smem_u32(sm.v[stage]));
+      const uint64_t v_desc = pn::smem_desc<SW>(pn::smem_u32(sm.v[stage]));
       pn::pin(acc);
       pn::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        pn::wgmma_m64n64k16_rs_mn(acc, p[kk], pn::desc_advance(v_desc, kk * 16 * pn::SWIZZLE_BYTES));
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if constexpr (PANELS == 1) {
+          pn::wgmma_rs_mn<D>(acc, p[kk], pn::desc_advance(v_desc, kk * 16 * SW));
+        } else {
+#pragma unroll
+          for (int pa = 0; pa < PANELS; ++pa)
+            pn::wgmma_rs_mn<64>(pn::acc_half(acc, pa), p[kk],
+                                pn::desc_advance(v_desc, pa * BK * SW + kk * 16 * SW));
+        }
+      }
       pn::wgmma_commit();
     };
     auto pack_p = [&]() {  // the probabilities, rounded to bf16, as A fragments
@@ -220,6 +262,7 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     auto release = [&](uint64_t* bar) {
       if (lane == 0) pn::mbar_arrive(bar);
     };
+    constexpr int POLY = sched::poly_every(D);
 
     pn::mbar_wait(&sm.q_full, 0);
     pn::mbar_wait(&sm.k_full[0], 0);
@@ -227,25 +270,53 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
     pn::wgmma_wait<0>();
     pn::pin(s);
     release(&sm.k_empty[0]);
-    softmax_step(s, m, l, corr, scale_log2, row_len, t);
-    pack_p();
-
-    for (int j = 1; j < n_tiles; ++j) {
-      const int st = j % STAGES, prev = (j - 1) % STAGES;
-      pn::mbar_wait(&sm.k_full[st], (j / STAGES) & 1);
-      start_qk(st);
-      pn::mbar_wait(&sm.v_full[prev], ((j - 1) / STAGES) & 1);
-      start_pv(prev);
-      pn::wgmma_wait<1>();  // Q K^T of tile j is done; P V of tile j-1 runs on
-      pn::pin(s);
-      release(&sm.k_empty[st]);
-      softmax_step(s, m, l, corr, scale_log2, row_len - j * BK, t);
-      pn::wgmma_wait<0>();
-      pn::pin(acc);
-      release(&sm.v_empty[prev]);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= corr[(i >> 1) & 1];
+    if constexpr (sched::fwd_mask_every_tile(D)) {
+      // the test of the mask on every tile (D 64, where it is faster)
+      softmax_step<BK, POLY, true>(s, m, l, corr, scale_log2, row_len, t);
       pack_p();
+      for (int j = 1; j < n_tiles; ++j) {
+        const int st = j % STAGES, prev = (j - 1) % STAGES;
+        pn::mbar_wait(&sm.k_full[st], (j / STAGES) & 1);
+        start_qk(st);
+        pn::mbar_wait(&sm.v_full[prev], ((j - 1) / STAGES) & 1);
+        start_pv(prev);
+        pn::wgmma_wait<1>();  // Q K^T of tile j is done; P V of tile j-1 runs on
+        pn::pin(s);
+        release(&sm.k_empty[st]);
+        softmax_step<BK, POLY, true>(s, m, l, corr, scale_log2, row_len - j * BK, t);
+        pn::wgmma_wait<0>();
+        pn::pin(acc);
+        release(&sm.v_empty[prev]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+        pack_p();
+      }
+    } else {
+      // the same steps, with the mask only in the last tile, which the loop
+      // leaves out (a test inside the loop kept both softmax bodies in it)
+      auto step = [&](int j, auto mask) {
+        const int st = j % STAGES, prev = (j - 1) % STAGES;
+        pn::mbar_wait(&sm.k_full[st], (j / STAGES) & 1);
+        start_qk(st);
+        pn::mbar_wait(&sm.v_full[prev], ((j - 1) / STAGES) & 1);
+        start_pv(prev);
+        pn::wgmma_wait<1>();
+        pn::pin(s);
+        release(&sm.k_empty[st]);
+        softmax_step<BK, POLY, decltype(mask)::value>(s, m, l, corr, scale_log2,
+                                                      row_len - j * BK, t);
+        pn::wgmma_wait<0>();
+        pn::pin(acc);
+        release(&sm.v_empty[prev]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+        pack_p();
+      };
+      if (n_tiles == 1) softmax_step<BK, POLY, true>(s, m, l, corr, scale_log2, row_len, t);
+      else softmax_step<BK, POLY, false>(s, m, l, corr, scale_log2, row_len, t);
+      pack_p();
+      for (int j = 1; j < n_tiles - 1; ++j) step(j, std::false_type{});
+      if (n_tiles > 1) step(n_tiles - 1, std::true_type{});
     }
     const int last = (n_tiles - 1) % STAGES;
     pn::mbar_wait(&sm.v_full[last], ((n_tiles - 1) / STAGES) & 1);
@@ -280,12 +351,15 @@ pn_flash_fwd(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
 }
 
 // maps: three specs of 12 values (dims, byte strides, boxes of the 4-D views
-// of q, k and v, innermost first), as pn::encode_map takes them.
+// of q, k and v, innermost first), as pn::encode_map takes them: boxes of
+// BQ (q) or sched::fwd_bk(D) (k, v) rows of one head and
+// sched::panel_cols(D) columns.
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
            int batch, int heads, int sq, int skv, const long long* maps, float scale_log2,
            cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      pn_flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      pn_flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES<D>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (!maps) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap q_map, k_map, v_map;
@@ -296,210 +370,13 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
   const int q_tiles = (sq + BQ - 1) / BQ;
   const long long blocks = static_cast<long long>(batch) * heads * q_tiles;
   if (blocks < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  pn_flash_fwd<<<static_cast<unsigned>(blocks), NTHREADS, SMEM_BYTES, stream>>>(
+  pn_flash_fwd<D><<<static_cast<unsigned>(blocks), NTHREADS, SMEM_BYTES<D>, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       static_cast<const int*>(kv_lens), heads, sq, skv, q_tiles, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wg
-
-// ------------------------------------------------- mma.sync, D = 16, 32, 128
-
-namespace mma {
-
-constexpr int BQ = 64;     // query rows per block: 4 warps x 16 rows
-constexpr int BK = 64;     // keys per shared-memory tile
-constexpr int NTHREADS = 128;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-pn_flash_mma_fwd(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, const int* __restrict__ kv_lens, int heads, int sq,
-                 int skv, long long q_sb, long long q_ss, long long q_sh,
-             long long k_sb, long long k_ss, long long k_sh,
-             long long v_sb, long long v_ss, long long v_sh, float scale_log2) {
-  constexpr int LD = D + 8;  // padded row: fragment reads hit 32 distinct banks
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LD];
-
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row_len = pn::row_keys(kv_lens, b, skv);
-  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-
-  // this warp's 16 query rows as mma A-fragments, held for the whole KV loop
-  const int r0 = blockIdx.x * BQ + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    qf[kk][0] = r0 < sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_ss + c) : 0u;
-    qf[kk][1] = r1 < sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_ss + c) : 0u;
-    qf[kk][2] = r0 < sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_ss + c + 8) : 0u;
-    qf[kk][3] = r1 < sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_ss + c + 8) : 0u;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
-
-  constexpr int VEC = 8;  // bf16 per 16-byte load
-  constexpr int CHUNKS = BK * D / VEC;
-  const int n_tiles = (row_len + BK - 1) / BK;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int kv0 = tile * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = threadIdx.x; c < CHUNKS; c += NTHREADS) {
-      const int r = c / (D / VEC), col = (c % (D / VEC)) * VEC;
-      const int kv = kv0 + r;
-      uint4 kval = make_uint4(0u, 0u, 0u, 0u), vval = make_uint4(0u, 0u, 0u, 0u);
-      if (kv < skv) {  // zero past Skv: a masked p of 0 must not meet garbage
-        kval = *reinterpret_cast<const uint4*>(kb + kv * k_ss + col);
-        vval = *reinterpret_cast<const uint4*>(vb + kv * v_ss + col);
-      }
-      *reinterpret_cast<uint4*>(ks + r * LD + col) = kval;
-      *reinterpret_cast<uint4*>(vs + r * LD + col) = vval;
-    }
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys, fp32
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = ks + (nt * 8 + g) * LD + kk * 16 + t * 2;
-        mma_bf16(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // online softmax in the log2 domain
-    float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = kv0 + nt * 8 + t * 2 + e < row_len;
-        s[nt][e] = ok ? s[nt][e] * scale_log2 : NEG;
-        s[nt][2 + e] = ok ? s[nt][2 + e] * scale_log2 : NEG;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-    const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - mn0);
-        s[nt][2 + e] = exp2f(s[nt][2 + e] - mn1);
-        ls0 += s[nt][e];
-        ls1 += s[nt][2 + e];
-      }
-    }
-    l0 = l0 * corr0 + quad_sum(ls0);
-    l1 = l1 * corr1 + quad_sum(ls1);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr0;
-      acc[dt][1] *= corr0;
-      acc[dt][2] *= corr1;
-      acc[dt][3] *= corr1;
-    }
-
-    // O += P V: the S accumulators are reused in registers as bf16 A-fragments
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vr = vs + (kk * 16 + t * 2) * LD + dt * 8 + g;
-        mma_bf16(acc[dt], a, pack_bf16(vr[0], vr[LD]), pack_bf16(vr[8 * LD], vr[9 * LD]));
-      }
-    }
-  }
-
-  // the output, (B, Sq, H, D) contiguous, written once
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  __nv_bfloat16* ob = o + (static_cast<long long>(b) * sq * heads + h) * D;
-  const long long o_ss = static_cast<long long>(heads) * D;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + c) = pack_f32(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (r1 < sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + c) = pack_f32(acc[dt][2] * inv1, acc[dt][3] * inv1);
-  }
-  if (lse && t == 0) {
-    float* lb = lse + static_cast<long long>(bh) * sq;
-    if (r0 < sq) lb[r0] = m0 + log2f(l0);
-    if (r1 < sq) lb[r1] = m1 + log2f(l1);
-  }
-}
-
-template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
-            int batch, int heads, int sq, int skv, const long long* st, float scale_log2,
-            cudaStream_t stream) {
-  dim3 grid((sq + BQ - 1) / BQ, batch * heads);
-  pn_flash_mma_fwd<D><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), static_cast<const int*>(kv_lens), heads, sq, skv, st[0], st[1],
-      st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], scale_log2);
-}
-
-}  // namespace mma
 
 // ------------------------------------------------------ fp32, D = 16, 128
 //
@@ -1329,25 +1206,26 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
 }  // namespace
 
 // strides: {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h} in elements; the
-// head-dim stride is 1. kv_lens: (B,) int32 on the device, or null. lse:
-// (B, H, Sq) fp32 for the row log-sum-exp, or null. maps: the tensor-map
-// specs of q, k and v (see wg::launch), used at d = 64.
+// head-dim stride is 1 (the bf16 kernels read through the tensor maps; the
+// strides serve the fp32 entry's kernels). kv_lens: (B,) int32 on the
+// device, or null. lse: (B, H, Sq) fp32 for the row log-sum-exp, or null.
+// maps: the tensor-map specs of q, k and v (see wg::launch).
 // Returns a cudaError_t value: of the set-up, or cudaGetLastError() after
 // the launch.
 extern "C" int pn_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                        void* lse, const void* kv_lens, int batch, int heads, int sq,
                                        int skv, int d, const long long* strides,
                                        const long long* maps, float scale, void* stream) {
+  (void)strides;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return wg::launch(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
-    case 16: mma::launch<16>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
-    case 32: mma::launch<32>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
-    case 128: mma::launch<128>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, strides, scale_log2, s); break;
+    case 16: return wg::launch<16>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
+    case 32: return wg::launch<32>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
+    case 64: return wg::launch<64>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
+    case 128: return wg::launch<128>(q, k, v, o, lse, kv_lens, batch, heads, sq, skv, maps, scale_log2, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The fp32 entry: the same arguments; q, k, v and o are fp32, strides in

@@ -27,10 +27,10 @@
 // Every route keeps FA2's deterministic form, with no atomics: Delta in a
 // pre-pass, dk and dv from blocks over key tiles, dq from blocks over query
 // tiles (S and dP are computed in both passes), so the same inputs give the
-// same bits. Five routes, chosen by the wrapper (ops/flash_attention.py) by
+// same bits. Four routes, chosen by the wrapper (ops/flash_attention.py) by
 // type and head dim:
 //
-// wg (bf16, D = 64, the production head dim): TMA + wgmma, two passes.
+// wg (bf16, every head dim: 16, 32, 64, 128): TMA + wgmma, two passes.
 // The two passes cost 14 B H Sq Skv D flops, not 10; a single pass would
 // need atomics or an ordered accumulation of dq across key blocks, and the
 // 40 % more tensor-core work is the price of staying deterministic simply.
@@ -38,42 +38,46 @@
 // with 8 warps an SM sub-partition holds two of a block's warps, so ptxas
 // gives every thread up to 255 registers; a ninth warp, or a producer
 // warpgroup with setmaxnreg, held the consumers' code to 168 and spilled.
-// Thread 0 issues the TMA loads (4-D tensor maps, 128-byte swizzle,
+// Thread 0 issues the TMA loads (4-D tensor maps, each row swizzled by its
+// width: 32, 64 or 128 bytes at D 16, 32, 64, two 128-byte panels at D 128;
 // mbarriers) and refills a ring slot LAG tiles after it was consumed, once
 // both warpgroups have released it (LAG >= 2: a warpgroup releases tile j-1
-// late in iteration j).
+// late in iteration j). The tiles per head dim are in flash_bf16_schedule.h.
 //  - dK/dV pass: one block per (128 keys, head, batch row); K and V are
 //    loaded once and stay resident; 64-row tiles of Q and dO stream through
-//    a 5-slot ring. Each warpgroup owns 64 keys: S^T = K Q^T and
-//    dP^T = V dO^T are wgmma m64n64k16 with both operands in shared memory,
-//    K-major; P^T and dS^T are formed in registers (the accumulator layout)
-//    from the tile's lse (+inf for rows past Sq, so their P is 0) and Delta,
-//    which each warpgroup stages in shared memory a tile ahead; rounded to
-//    bf16 they are the register A operands of dV += P^T dO and dK += dS^T Q,
-//    which read dO and Q MN-major as TMA laid them down. Tile j's S^T and
-//    dP^T are issued before tile j-1's dV and dK products, so the
-//    exponentials of tile j run while those are in flight, and the two
-//    warpgroups run unsynchronised.
+//    a 5-slot ring (4 at D 128, where a thread holds 255 registers: dK and
+//    dV 128, S^T and dP^T 64, P^T and dS^T 32; 32-row tiles held 210 but
+//    ran the pass a third longer). Each warpgroup owns 64 keys:
+//    S^T = K Q^T and dP^T = V dO^T are wgmma
+//    m64n64k16 with both operands in shared memory, K-major; P^T and dS^T
+//    are formed in registers (the accumulator layout) from the tile's lse
+//    (+inf for rows past Sq, so their P is 0) and Delta, which each
+//    warpgroup stages in shared memory a tile ahead; rounded to bf16 they
+//    are the register A operands of dV += P^T dO and dK += dS^T Q, which
+//    read dO and Q MN-major as TMA laid them down. Tile j's S^T and dP^T are
+//    issued before tile j-1's dV and dK products, so the exponentials of
+//    tile j run while those are in flight, and the two warpgroups run
+//    unsynchronised.
 //  - dQ pass: one block per (128 query rows, head, batch row), Q and dO
-//    resident; K and V stream in 128-key tiles through a 4-slot ring.
-//    S = Q K^T and dP = dO V^T are m64n128k16 from shared memory; dS stays
-//    in registers and feeds dQ += dS K (K read MN-major); tile j's S and dP
-//    are issued before tile j-1's dQ product. Only the key tiles below
-//    kv_len are visited, the last one masked in registers.
+//    resident; K and V stream in KT-key tiles through a 4-slot ring (KT 128;
+//    64 at D 128, where two 128-key tiles would not fit beside Q and dO).
+//    S = Q K^T and dP = dO V^T are m64nKTk16 from shared memory; dS stays in
+//    registers and feeds dQ += dS K (K read MN-major); tile j's S and dP are
+//    issued before tile j-1's dQ product. Only the key tiles below kv_len
+//    are visited, the last one masked in registers. The k and v maps' boxes
+//    are KT keys: the dK/dV pass loads its 128 resident keys as 128 / KT
+//    boxes.
+//  - D 16 and 32: a score costs 14 D tensor-core flops over the two passes
+//    and two exponentials, and an SM computes 1,024 bf16 flops but 16
+//    exponentials a clock, so the exponentials bound them on paper; in the
+//    loops the issue slots bound them first (a D 16 dK/dV tile: about 450
+//    instructions a warp against 32 exponentials, 256 clocks of the
+//    special-function unit), so no exponential moves to the FMA units here.
 //  - Masks select the exponent's argument (-inf), never the result: a
 //    per-thread branch around the exponential, beside thread 0's refill
 //    path, makes ptxas serialise the products (advisory C7520). For the same
 //    reason a dK/dV block whose keys all lie past kv_len does not return
 //    early: it streams one tile with every key masked and writes zeros.
-//
-// mma (bf16, D = 16, 32, 128): the first, simple kernels, mma.sync m16n8k16.
-//  - dK/dV: one block of 4 warps per (64 keys, head, batch row); a warp owns
-//    16 keys and walks over the query tiles of 64 rows, staged with plain
-//    16-byte loads in padded shared memory; S^T = K Q^T and dP^T = V dO^T
-//    with the keys as rows put P^T and dS^T in registers in the accumulator
-//    layout, as the A operands of dV += P^T dO and dK += dS^T Q.
-//  - dQ: one block of 4 warps per (64 query rows, head, batch row) over the
-//    key tiles below kv_len.
 //
 // tc (fp32, D = 64, the production head dim): the five products on the
 // tensor cores as 3xTF32 (pn::tf32_split: each operand a big and a small
@@ -162,6 +166,7 @@
 // dO / Skv, and dq and dk, scaled by 0, are exactly 0.
 
 #include "hopper.cuh"
+#include "flash_bf16_schedule.h"
 #include "flash_f32_tc.cuh"
 #include "flash_f32_tc32_bwd_schedule.h"
 
@@ -210,339 +215,35 @@ int launch_delta(const void* o, const void* d_o, void* delta, int heads, int sq,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------- mma.sync, D = 16, 32, 128
-
-namespace mma {
-
-constexpr int BT = 64;        // rows per tile: keys (dk/dv) or queries (dq)
-constexpr int NTHREADS = 128; // 4 warps x 16 rows
-
-// the padded row of a shared-memory tile: fragment reads hit distinct banks
-template <int D>
-__host__ __device__ constexpr int ld() { return D + 8; }
-
-// four (64, D) bf16 tiles and two rows of 64 floats
-template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return 4 * BT * ld<D>() * 2 + 2 * BT * 4;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + 64) of a (rows, D) view with row stride `stride` into a
-// padded shared-memory tile; rows from `rows` on arrive as zeros
-template <int D>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                      long long stride, int row0, int rows) {
-  constexpr int CH = D / 8;  // 16-byte pieces a row
-  for (int c = threadIdx.x; c < BT * CH; c += NTHREADS) {
-    const int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + col);
-    *reinterpret_cast<uint4*>(dst + r * ld<D>() + col) = val;
-  }
-}
-
-// The A fragment (16 rows x 16 columns, columns kk * 16..) of a padded tile
-// whose warp rows start at `row0`.
-template <int D>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const __nv_bfloat16* tile, int row0,
-                                       int kk, int g, int t) {
-  const __nv_bfloat16* p = tile + (row0 + g) * ld<D>() + kk * 16 + t * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld<D>());
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld<D>() + 8);
-}
-
-// acc (16 x 64) = A (16 rows of `a_tile` from a_row0, D wide) times the
-// transpose of `b_tile` (64 rows, D wide): both operands row-major along D.
-template <int D>
-__device__ __forceinline__ void product_nt(float (&acc)[BT / 8][4], const __nv_bfloat16* a_tile,
-                                           int a_row0, const __nv_bfloat16* b_tile, int g,
-                                           int t) {
-#pragma unroll
-  for (int nt = 0; nt < BT / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    a_frag<D>(a, a_tile, a_row0, kk, g, t);
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-      const __nv_bfloat16* br = b_tile + (nt * 8 + g) * ld<D>() + kk * 16 + t * 2;
-      mma_bf16(acc[nt], a, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// out (16 x D) += P (16 x 64, in the accumulator layout, rounded to bf16)
-// times `b_tile` (64 rows, D wide).
-template <int D>
-__device__ __forceinline__ void product_nn(float (&out)[D / 8][4], const float (&p)[BT / 8][4],
-                                           const __nv_bfloat16* b_tile, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pn::pack_bf16x2(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pn::pack_bf16x2(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pn::pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pn::pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const __nv_bfloat16* br = b_tile + (kk * 16 + t * 2) * ld<D>() + dt * 8 + g;
-      mma_bf16(out[dt], a, pack_bf16(br[0], br[ld<D>()]),
-               pack_bf16(br[8 * ld<D>()], br[9 * ld<D>()]));
-    }
-  }
-}
-
-// (16 x D) fp32 rows g and g + 8 of a warp, scaled, as bf16 into a (B, S, H, D)
-// contiguous tensor at rows r0 and r0 + 8 (those below `rows`)
-template <int D>
-__device__ __forceinline__ void write_rows(__nv_bfloat16* base, long long row_stride,
-                                           const float (&acc)[D / 8][4], float scale, int r0,
-                                           int rows, int t) {
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + t * 2;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(base + r0 * row_stride + c) =
-          pn::pack_bf16x2(acc[dt][0] * scale, acc[dt][1] * scale);
-    if (r0 + 8 < rows)
-      *reinterpret_cast<uint32_t*>(base + (r0 + 8) * row_stride + c) =
-          pn::pack_bf16x2(acc[dt][2] * scale, acc[dt][3] * scale);
-  }
-}
-
-// ------------------------------------------------------------------ dK, dV
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-pn_flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ d_o,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                  const int* __restrict__ kv_lens, int heads, int sq, int skv, long long q_sb,
-                  long long q_ss, long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                  long long v_sb, long long v_ss, long long v_sh, float scale,
-                  float scale_log2) {
-  extern __shared__ uint4 smem_bwd[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_bwd);
-  __nv_bfloat16* vs = ks + BT * ld<D>();
-  __nv_bfloat16* qs = vs + BT * ld<D>();
-  __nv_bfloat16* dos = qs + BT * ld<D>();
-  float* lse_s = reinterpret_cast<float*>(dos + BT * ld<D>());
-  float* delta_s = lse_s + BT;
-
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row_len = pn::row_keys(kv_lens, b, skv);
-  scale = pn::row_scale(kv_lens, b, scale);
-  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
-  const int key0 = blockIdx.x * BT;
-  const long long o_ss = static_cast<long long>(heads) * D;  // row stride of (B, S, H, D)
-  __nv_bfloat16* dkb = dk + (static_cast<long long>(b) * skv * heads + h) * D;
-  __nv_bfloat16* dvb = dv + (static_cast<long long>(b) * skv * heads + h) * D;
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
-  const int kr0 = key0 + warp * 16 + g;  // this thread's keys kr0 and kr0 + 8
-
-  if (key0 < row_len) {
-    stage<D>(ks, k + b * k_sb + h * k_sh, k_ss, key0, skv);
-    stage<D>(vs, v + b * v_sb + h * v_sh, v_ss, key0, skv);
-    const bool key_ok[2] = {kr0 < row_len, kr0 + 8 < row_len};
-    const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-    const __nv_bfloat16* dob = d_o + (static_cast<long long>(b) * sq * heads + h) * D;
-    const float* lse_b = lse + static_cast<long long>(bh) * sq;
-    const float* delta_b = delta + static_cast<long long>(bh) * sq;
-    for (int q0 = 0; q0 < sq; q0 += BT) {
-      __syncthreads();  // every warp is done with the previous query tile
-      stage<D>(qs, qb, q_ss, q0, sq);
-      stage<D>(dos, dob, o_ss, q0, sq);
-      if (threadIdx.x < BT) {
-        const int r = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = r < sq ? lse_b[r] : pos_inf();
-        delta_s[threadIdx.x] = r < sq ? delta_b[r] : 0.f;
-      }
-      __syncthreads();
-
-      // P^T and dS^T, keys as rows: (16 keys x 64 queries) in registers
-      float p[BT / 8][4], ds[BT / 8][4];
-      product_nt<D>(p, ks, warp * 16, qs, g, t);
-      product_nt<D>(ds, vs, warp * 16, dos, g, t);  // dP^T = V dO^T
-#pragma unroll
-      for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + t * 2 + (e & 1);  // the query of this element
-          const float pe =
-              key_ok[e >> 1] ? exp2f(fmaf(p[nt][e], scale_log2, -lse_s[col])) : 0.f;
-          p[nt][e] = pe;
-          ds[nt][e] = pe * (ds[nt][e] - delta_s[col]);
-        }
-      product_nn<D>(dv_acc, p, dos, g, t);
-      product_nn<D>(dk_acc, ds, qs, g, t);
-    }
-  }
-  // keys past the row's length (and whole tiles of them) get zeros
-  write_rows<D>(dvb, o_ss, dv_acc, 1.f, kr0, skv, t);
-  write_rows<D>(dkb, o_ss, dk_acc, scale, kr0, skv, t);
-}
-
-// ------------------------------------------------------------------ dQ
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-pn_flash_bwd_dq(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ d_o,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                __nv_bfloat16* __restrict__ dq, const int* __restrict__ kv_lens, int heads,
-                int sq, int skv, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-                float scale, float scale_log2) {
-  extern __shared__ uint4 smem_bwd[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_bwd);
-  __nv_bfloat16* vs = ks + BT * ld<D>();
-  __nv_bfloat16* qs = vs + BT * ld<D>();
-  __nv_bfloat16* dos = qs + BT * ld<D>();
-
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row_len = pn::row_keys(kv_lens, b, skv);
-  scale = pn::row_scale(kv_lens, b, scale);
-  scale_log2 = pn::row_scale(kv_lens, b, scale_log2);
-  const int q0 = blockIdx.x * BT;
-  const long long o_ss = static_cast<long long>(heads) * D;
-
-  stage<D>(qs, q + b * q_sb + h * q_sh, q_ss, q0, sq);
-  stage<D>(dos, d_o + (static_cast<long long>(b) * sq * heads + h) * D, o_ss, q0, sq);
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    row_lse[r] = row < sq ? lse[static_cast<long long>(bh) * sq + row] : pos_inf();
-    row_delta[r] = row < sq ? delta[static_cast<long long>(bh) * sq + row] : 0.f;
-  }
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[dt][e] = 0.f;
-
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  for (int key0 = 0; key0 < row_len; key0 += BT) {
-    __syncthreads();  // every warp is done with the previous key tile
-    stage<D>(ks, kb, k_ss, key0, skv);
-    stage<D>(vs, vb, v_ss, key0, skv);
-    __syncthreads();
-
-    float p[BT / 8][4], ds[BT / 8][4];
-    product_nt<D>(p, qs, warp * 16, ks, g, t);   // S = Q K^T
-    product_nt<D>(ds, dos, warp * 16, vs, g, t); // dP = dO V^T
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + nt * 8 + t * 2 + (e & 1), r = e >> 1;
-        const float pe = key < row_len ? exp2f(fmaf(p[nt][e], scale_log2, -row_lse[r])) : 0.f;
-        ds[nt][e] = pe * (ds[nt][e] - row_delta[r]);
-      }
-    product_nn<D>(dq_acc, ds, ks, g, t);
-  }
-  write_rows<D>(dq + (static_cast<long long>(b) * sq * heads + h) * D, o_ss, dq_acc, scale, r0,
-                sq, t);
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* o, const void* d_o,
-           const void* lse, void* delta, void* dq, void* dk, void* dv, const void* kv_lens,
-           int batch, int heads, int sq, int skv, const long long* st, float scale,
-           cudaStream_t stream) {
-  static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      pn_flash_bwd_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
-  static const cudaError_t attr_q = cudaFuncSetAttribute(
-      pn_flash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
-  if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
-  if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
-  const long long bh = static_cast<long long>(batch) * heads;
-  if (bh < 1 || bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* dop = static_cast<const __nv_bfloat16*>(d_o);
-  const auto* lens = static_cast<const int*>(kv_lens);
-
-  int err = launch_delta<D>(o, d_o, delta, heads, sq, bh * sq, stream);
-  if (err) return err;
-
-  dim3 grid_kv((skv + BT - 1) / BT, static_cast<unsigned>(bh));
-  pn_flash_bwd_dkdv<D><<<grid_kv, NTHREADS, smem_bytes<D>(), stream>>>(
-      qp, kp, vp, dop, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), lens, heads, sq, skv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, scale_log2);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-
-  dim3 grid_q((sq + BT - 1) / BT, static_cast<unsigned>(bh));
-  pn_flash_bwd_dq<D><<<grid_q, NTHREADS, smem_bytes<D>(), stream>>>(
-      qp, kp, vp, dop, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), lens, heads, sq, skv, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], scale, scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace mma
-
-// ------------------------------------------------------------ wgmma, D = 64
+// ------------------------------------------------- wgmma, D = 16, 32, 64, 128
 
 namespace wg {
 
-constexpr int D = 64;
-constexpr int KB = 128;       // keys per dK/dV block: 2 consumer warpgroups x 64
-constexpr int QT = 64;        // query rows per streamed tile of the dK/dV pass
-constexpr int QB = 128;       // query rows per dQ block: 2 consumer warpgroups x 64
-constexpr int KT = 128;       // keys per streamed tile of the dQ pass
-constexpr int KV_STAGES = 5;  // ring slots of the dK/dV pass (Q and dO tiles)
-constexpr int Q_STAGES = 4;   // ring slots of the dQ pass (K and V tiles)
-constexpr int LAG = 2;        // a slot is refilled two tiles after it was consumed
-constexpr int NTHREADS = 256;  // two consumer warpgroups, no producer warp (see above)
-constexpr int ROW = D * 2;    // bytes of one swizzled tile row
+namespace sched = pn::bf16_schedule;
 
+constexpr int KB = sched::BWD_KB;  // keys per dK/dV block: 2 consumer warpgroups x 64
+constexpr int QB = sched::BWD_QB;  // query rows per dQ block: 2 consumer warpgroups x 64
+constexpr int Q_STAGES = sched::BWD_Q_STAGES;  // ring slots of the dQ pass (K and V tiles)
+constexpr int LAG = sched::BWD_LAG;  // a slot is refilled two tiles after it was consumed
+constexpr int NTHREADS = 256;  // two consumer warpgroups, no producer warp (see above)
+
+// QT: query rows per streamed tile of the dK/dV pass; KT: keys per streamed
+// tile of the dQ pass (and rows of the k and v maps' boxes)
+template <int D>
 struct KvSmem {
+  static constexpr int QT = sched::BWD_QT, STAGES = sched::bwd_kv_stages(D);
   __nv_bfloat16 k[KB * D];
   __nv_bfloat16 v[KB * D];
-  __nv_bfloat16 q[KV_STAGES][QT * D];
-  __nv_bfloat16 d_o[KV_STAGES][QT * D];
+  __nv_bfloat16 q[STAGES][QT * D];
+  __nv_bfloat16 d_o[STAGES][QT * D];
   float stats[2][2][2 * QT];  // per warpgroup and tile parity: QT lse, then QT Delta
   uint64_t kv_full;
-  uint64_t full[KV_STAGES], empty[KV_STAGES];
+  uint64_t full[STAGES], empty[STAGES];
 };
 
+template <int D>
 struct QSmem {
+  static constexpr int KT = sched::bwd_kt(D);
   __nv_bfloat16 q[QB * D];
   __nv_bfloat16 d_o[QB * D];
   __nv_bfloat16 k[Q_STAGES][KT * D];
@@ -551,8 +252,19 @@ struct QSmem {
   uint64_t full[Q_STAGES], empty[Q_STAGES];
 };
 
-constexpr int KV_SMEM_BYTES = sizeof(KvSmem) + pn::SWIZZLE_ATOM;  // room to align
-constexpr int Q_SMEM_BYTES = sizeof(QSmem) + pn::SWIZZLE_ATOM;
+template <int D>
+constexpr int KV_SMEM_BYTES = sizeof(KvSmem<D>) + pn::SWIZZLE_ATOM;  // room to align
+template <int D>
+constexpr int Q_SMEM_BYTES = sizeof(QSmem<D>) + pn::SWIZZLE_ATOM;
+
+template <int D>
+constexpr bool smem_as_scheduled() {
+  return KV_SMEM_BYTES<D> == sched::bwd_kv_smem_bytes(D) &&
+         Q_SMEM_BYTES<D> == sched::bwd_q_smem_bytes(D);
+}
+static_assert(smem_as_scheduled<16>() && smem_as_scheduled<32>() && smem_as_scheduled<64>() &&
+                  smem_as_scheduled<128>(),
+              "the shared memory of flash_bf16_schedule.h");
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -563,10 +275,11 @@ __device__ __forceinline__ float ex2(float x) {
 // a masked score's exponent: ex2 of it is 0 (see the note on masks above)
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-// The (64 x 64) fp32 accumulator rows 16 w + g and + 8 of a warpgroup, times
+// The (64 x D) fp32 accumulator rows 16 w + g and + 8 of a warpgroup, times
 // `scale`, as bf16 into rows r0, r0 + 8 (those below `rows`) of `base`.
+template <int D>
 __device__ __forceinline__ void write_acc(__nv_bfloat16* base, long long row_stride,
-                                          const float (&acc)[32], float scale, int r0, int rows,
+                                          const float (&acc)[D / 2], float scale, int r0, int rows,
                                           int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -580,6 +293,23 @@ __device__ __forceinline__ void write_acc(__nv_bfloat16* base, long long row_str
   }
 }
 
+// acc (64 x D) += A (registers) * B (16 x D rows of a tile of `rows` rows,
+// MN-major, at `desc`): one m64nDk16, or at D 128 one m64n64k16 on each of
+// the two panels
+template <int D>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[4],
+                                           uint64_t desc, int rows) {
+  if constexpr (sched::panels(D) == 1) {
+    pn::wgmma_rs_mn<D>(acc, a, desc);
+  } else {
+#pragma unroll
+    for (int pa = 0; pa < sched::panels(D); ++pa)
+      pn::wgmma_rs_mn<64>(pn::acc_half(acc, pa),
+                          a, pn::desc_advance(desc, pa * rows * sched::swizzle_bytes(D)));
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 pn_flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap do_map,
@@ -588,8 +318,11 @@ pn_flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap q_map,
                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, const int* __restrict__ kv_lens, int heads,
                      int sq, int skv, int k_tiles, float scale, float scale_log2) {
+  constexpr int QT = KvSmem<D>::QT, KV_STAGES = KvSmem<D>::STAGES, KT = sched::bwd_kt(D);
+  // a row lies in PANELS panels of PC columns, rows of SW bytes each
+  constexpr int SW = sched::swizzle_bytes(D), PC = sched::panel_cols(D), PANELS = D / PC;
   extern __shared__ uint8_t smem_raw[];
-  KvSmem& sm = *reinterpret_cast<KvSmem*>(pn::align_smem(smem_raw));
+  KvSmem<D>& sm = *reinterpret_cast<KvSmem<D>*>(pn::align_smem(smem_raw));
 
   // blockIdx.x = (batch * heads + head) * k_tiles + key tile: the blocks that
   // stream one head's Q and dO are neighbours in launch order
@@ -610,8 +343,11 @@ pn_flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap q_map,
   auto load = [&](int j) {  // Q and dO tile j into its slot (thread 0)
     const int s = j % KV_STAGES;
     pn::mbar_arrive_expect_tx(&sm.full[s], 2 * QT * D * 2);
-    pn::tma_load_4d(sm.q[s], &q_map, &sm.full[s], 0, h, j * QT, b);
-    pn::tma_load_4d(sm.d_o[s], &do_map, &sm.full[s], 0, h, j * QT, b);
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      pn::tma_load_4d(sm.q[s] + p * QT * PC, &q_map, &sm.full[s], p * PC, h, j * QT, b);
+      pn::tma_load_4d(sm.d_o[s] + p * QT * PC, &do_map, &sm.full[s], p * PC, h, j * QT, b);
+    }
   };
   if (threadIdx.x == 0) {
     pn::mbar_init(&sm.kv_full, 1);
@@ -620,9 +356,18 @@ pn_flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap q_map,
       pn::mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
     }
     pn::mbar_init_fence();
+    // the resident keys: KB / KT boxes of the k and v maps (the dQ pass's
+    // tiles) in each panel
     pn::mbar_arrive_expect_tx(&sm.kv_full, 2 * KB * D * 2);
-    pn::tma_load_4d(sm.k, &k_map, &sm.kv_full, 0, h, key0, b);
-    pn::tma_load_4d(sm.v, &v_map, &sm.kv_full, 0, h, key0, b);
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+      for (int part = 0; part < KB / KT; ++part) {
+        pn::tma_load_4d(sm.k + p * KB * PC + part * KT * PC, &k_map, &sm.kv_full, p * PC, h,
+                        key0 + part * KT, b);
+        pn::tma_load_4d(sm.v + p * KB * PC + part * KT * PC, &v_map, &sm.kv_full, p * PC, h,
+                        key0 + part * KT, b);
+      }
     for (int j = 0; j < min(KV_STAGES, q_tiles); ++j) load(j);
   }
   __syncthreads();
@@ -631,56 +376,58 @@ pn_flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap q_map,
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, tid = threadIdx.x & 127;
   const int kr0 = key0 + group * 64 + warp * 16 + g;  // this thread's keys kr0, kr0 + 8
-  float dk_acc[32], dv_acc[32];
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   {
     const bool key_ok[2] = {kr0 < row_len, kr0 + 8 < row_len};
-    const uint64_t k_desc = pn::smem_desc(pn::smem_u32(sm.k) + group * 64 * ROW);
-    const uint64_t v_desc = pn::smem_desc(pn::smem_u32(sm.v) + group * 64 * ROW);
+    const uint64_t k_desc = pn::smem_desc<SW>(pn::smem_u32(sm.k) + group * 64 * SW);
+    const uint64_t v_desc = pn::smem_desc<SW>(pn::smem_u32(sm.v) + group * 64 * SW);
     const float* lse_b = lse + static_cast<long long>(bh) * sq;
     const float* delta_b = delta + static_cast<long long>(bh) * sq;
-    float s[32], dp[32];           // S^T then P^T; dP^T then dS^T (keys x 64 queries)
-    uint32_t pp[4][4], pds[4][4];  // P^T and dS^T as bf16 A operands, k16 steps
+    float s[QT / 2], dp[QT / 2];   // S^T then P^T; dP^T then dS^T (keys x QT queries)
+    uint32_t pp[QT / 16][4], pds[QT / 16][4];  // P^T and dS^T as bf16 A operands, k16 steps
 
     // tile j's lse (+inf past Sq) and Delta, one value a thread; no branch,
     // so that no divergent path lies between a wgmma and its wait
+    static_assert(2 * QT == 128, "a warpgroup's threads fetch a tile's statistics");
     auto fetch_stats = [&](int j) {
-      const int row = j * QT + (tid & 63);
-      const float v = (tid < 64 ? lse_b : delta_b)[min(row, sq - 1)];
-      return row < sq ? v : (tid < 64 ? pos_inf() : 0.f);
+      const int row = j * QT + (tid & (QT - 1));
+      const bool is_lse = tid < QT;
+      const float v = (is_lse ? lse_b : delta_b)[min(row, sq - 1)];
+      return row < sq ? v : (is_lse ? pos_inf() : 0.f);
     };
     auto start_sdp = [&](int j) {  // S^T = K Q^T, dP^T = V dO^T: one committed group
       const int st = j % KV_STAGES;
-      const uint64_t q_desc = pn::smem_desc(pn::smem_u32(sm.q[st]));
-      const uint64_t do_desc = pn::smem_desc(pn::smem_u32(sm.d_o[st]));
+      const uint64_t q_desc = pn::smem_desc<SW>(pn::smem_u32(sm.q[st]));
+      const uint64_t do_desc = pn::smem_desc<SW>(pn::smem_u32(sm.d_o[st]));
       pn::pin(s);
       pn::pin(dp);
       pn::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        pn::wgmma_m64n64k16_ss(s, pn::desc_advance(k_desc, kk * 32),
-                               pn::desc_advance(q_desc, kk * 32), kk > 0);
+        pn::wgmma_ss<QT>(s, pn::desc_advance(k_desc, sched::kstep_offset(D, KB, kk)),
+                         pn::desc_advance(q_desc, sched::kstep_offset(D, QT, kk)), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        pn::wgmma_m64n64k16_ss(dp, pn::desc_advance(v_desc, kk * 32),
-                               pn::desc_advance(do_desc, kk * 32), kk > 0);
+        pn::wgmma_ss<QT>(dp, pn::desc_advance(v_desc, sched::kstep_offset(D, KB, kk)),
+                         pn::desc_advance(do_desc, sched::kstep_offset(D, QT, kk)), kk > 0);
       pn::wgmma_commit();
     };
     auto start_dkdv = [&](int j) {  // dV += P^T dO, dK += dS^T Q: one committed group
       const int st = j % KV_STAGES;
-      const uint64_t q_desc = pn::smem_desc(pn::smem_u32(sm.q[st]));
-      const uint64_t do_desc = pn::smem_desc(pn::smem_u32(sm.d_o[st]));
+      const uint64_t q_desc = pn::smem_desc<SW>(pn::smem_u32(sm.q[st]));
+      const uint64_t do_desc = pn::smem_desc<SW>(pn::smem_u32(sm.d_o[st]));
       pn::pin(dk_acc);
       pn::pin(dv_acc);
       pn::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < QT / 16; ++kk)
-        pn::wgmma_m64n64k16_rs_mn(dv_acc, pp[kk], pn::desc_advance(do_desc, kk * 16 * ROW));
+        product_rs<D>(dv_acc, pp[kk], pn::desc_advance(do_desc, kk * 16 * SW), QT);
 #pragma unroll
       for (int kk = 0; kk < QT / 16; ++kk)
-        pn::wgmma_m64n64k16_rs_mn(dk_acc, pds[kk], pn::desc_advance(q_desc, kk * 16 * ROW));
+        product_rs<D>(dk_acc, pds[kk], pn::desc_advance(q_desc, kk * 16 * SW), QT);
       pn::wgmma_commit();
     };
     auto grads = [&](int j) {  // P^T and dS^T in place, from the tile's lse and Delta
@@ -763,10 +510,11 @@ pn_flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap q_map,
     pn::pin(pds);
   }
   // keys past the row's length get zeros; rows past Skv are not written
-  write_acc(dvb, o_ss, dv_acc, 1.f, kr0, skv, t);
-  write_acc(dkb, o_ss, dk_acc, scale, kr0, skv, t);
+  write_acc<D>(dvb, o_ss, dv_acc, 1.f, kr0, skv, t);
+  write_acc<D>(dkb, o_ss, dk_acc, scale, kr0, skv, t);
 }
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 pn_flash_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap do_map,
@@ -775,8 +523,10 @@ pn_flash_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
                    const int* __restrict__ kv_lens, int heads, int sq, int skv, int q_tiles,
                    float scale, float scale_log2) {
+  constexpr int KT = QSmem<D>::KT;
+  constexpr int SW = sched::swizzle_bytes(D), PC = sched::panel_cols(D), PANELS = D / PC;
   extern __shared__ uint8_t smem_raw[];
-  QSmem& sm = *reinterpret_cast<QSmem*>(pn::align_smem(smem_raw));
+  QSmem<D>& sm = *reinterpret_cast<QSmem<D>*>(pn::align_smem(smem_raw));
 
   // blockIdx.x = (batch * heads + head) * q_tiles + query tile, as the forward
   const int qt = blockIdx.x % q_tiles, bh = blockIdx.x / q_tiles;
@@ -790,8 +540,11 @@ pn_flash_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
   auto load = [&](int j) {  // K and V tile j into its slot (thread 0)
     const int s = j % Q_STAGES;
     pn::mbar_arrive_expect_tx(&sm.full[s], 2 * KT * D * 2);
-    pn::tma_load_4d(sm.k[s], &k_map, &sm.full[s], 0, h, j * KT, b);
-    pn::tma_load_4d(sm.v[s], &v_map, &sm.full[s], 0, h, j * KT, b);
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      pn::tma_load_4d(sm.k[s] + p * KT * PC, &k_map, &sm.full[s], p * PC, h, j * KT, b);
+      pn::tma_load_4d(sm.v[s] + p * KT * PC, &v_map, &sm.full[s], p * PC, h, j * KT, b);
+    }
   };
   if (threadIdx.x == 0) {
     pn::mbar_init(&sm.q_full, 1);
@@ -801,8 +554,11 @@ pn_flash_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
     }
     pn::mbar_init_fence();
     pn::mbar_arrive_expect_tx(&sm.q_full, 2 * QB * D * 2);
-    pn::tma_load_4d(sm.q, &q_map, &sm.q_full, 0, h, qt * QB, b);
-    pn::tma_load_4d(sm.d_o, &do_map, &sm.q_full, 0, h, qt * QB, b);
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p) {
+      pn::tma_load_4d(sm.q + p * QB * PC, &q_map, &sm.q_full, p * PC, h, qt * QB, b);
+      pn::tma_load_4d(sm.d_o + p * QB * PC, &do_map, &sm.q_full, p * PC, h, qt * QB, b);
+    }
     for (int j = 0; j < min(Q_STAGES, n_tiles); ++j) load(j);
   }
   __syncthreads();
@@ -818,42 +574,42 @@ pn_flash_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
     row_lse[r] = row < sq ? lse[static_cast<long long>(bh) * sq + row] : pos_inf();
     row_delta[r] = row < sq ? delta[static_cast<long long>(bh) * sq + row] : 0.f;
   }
-  const uint64_t q_desc = pn::smem_desc(pn::smem_u32(sm.q) + group * 64 * ROW);
-  const uint64_t do_desc = pn::smem_desc(pn::smem_u32(sm.d_o) + group * 64 * ROW);
-  float s[64], dp[64], dq_acc[32];  // S, then dP and dS (64 rows x 128 keys); dQ
-  uint32_t pds[KT / 16][4];        // dS as bf16 A operands, k16 steps
+  const uint64_t q_desc = pn::smem_desc<SW>(pn::smem_u32(sm.q) + group * 64 * SW);
+  const uint64_t do_desc = pn::smem_desc<SW>(pn::smem_u32(sm.d_o) + group * 64 * SW);
+  float s[KT / 2], dp[KT / 2], dq_acc[D / 2];  // S, then dP and dS (64 rows x KT keys); dQ
+  uint32_t pds[KT / 16][4];                    // dS as bf16 A operands, k16 steps
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
 
   auto start_sdp = [&](int j) {  // S = Q K^T, dP = dO V^T: one committed group
     const int st = j % Q_STAGES;
-    const uint64_t k_desc = pn::smem_desc(pn::smem_u32(sm.k[st]));
-    const uint64_t v_desc = pn::smem_desc(pn::smem_u32(sm.v[st]));
+    const uint64_t k_desc = pn::smem_desc<SW>(pn::smem_u32(sm.k[st]));
+    const uint64_t v_desc = pn::smem_desc<SW>(pn::smem_u32(sm.v[st]));
     pn::pin(s);
     pn::pin(dp);
     pn::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      pn::wgmma_m64n128k16_ss(s, pn::desc_advance(q_desc, kk * 32),
-                              pn::desc_advance(k_desc, kk * 32), kk > 0);
+      pn::wgmma_ss<KT>(s, pn::desc_advance(q_desc, sched::kstep_offset(D, QB, kk)),
+                       pn::desc_advance(k_desc, sched::kstep_offset(D, KT, kk)), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      pn::wgmma_m64n128k16_ss(dp, pn::desc_advance(do_desc, kk * 32),
-                              pn::desc_advance(v_desc, kk * 32), kk > 0);
+      pn::wgmma_ss<KT>(dp, pn::desc_advance(do_desc, sched::kstep_offset(D, QB, kk)),
+                       pn::desc_advance(v_desc, sched::kstep_offset(D, KT, kk)), kk > 0);
     pn::wgmma_commit();
   };
   auto start_dq = [&](int j) {  // dQ += dS K: one committed group
-    const uint64_t k_desc = pn::smem_desc(pn::smem_u32(sm.k[j % Q_STAGES]));
+    const uint64_t k_desc = pn::smem_desc<SW>(pn::smem_u32(sm.k[j % Q_STAGES]));
     pn::pin(dq_acc);
     pn::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk)
-      pn::wgmma_m64n64k16_rs_mn(dq_acc, pds[kk], pn::desc_advance(k_desc, kk * 16 * ROW));
+      product_rs<D>(dq_acc, pds[kk], pn::desc_advance(k_desc, kk * 16 * SW), KT);
     pn::wgmma_commit();
   };
   auto grads = [&](int limit) {  // dS in dp; keys from `limit` on are masked
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < KT / 2; ++i) {
       const int r = (i >> 1) & 1;
       const float pe = ex2((i >> 2) * 8 + t * 2 + (i & 1) < limit
                                ? fmaf(s[i], scale_log2, -row_lse[r])
@@ -906,28 +662,31 @@ pn_flash_bwd_dq_wg(const __grid_constant__ CUtensorMap q_map,
   pn::pin(pds);
 
   // dq, (B, Sq, H, D) contiguous, written once; rows past Sq never
-  write_acc(dq + (static_cast<long long>(b) * sq * heads + h) * D,
-            static_cast<long long>(heads) * D, dq_acc, scale, r0, sq, t);
+  write_acc<D>(dq + (static_cast<long long>(b) * sq * heads + h) * D,
+               static_cast<long long>(heads) * D, dq_acc, scale, r0, sq, t);
 }
 
 // maps: six specs of 12 values (dims, byte strides, boxes of 4-D views,
-// innermost first, as pn::encode_map takes them): q and dO with 64-row
-// boxes (the dK/dV pass's streamed tiles), q and dO with 128-row boxes (the
-// dQ pass's resident rows), k and v with 128-row boxes (both passes).
+// innermost first, as pn::encode_map takes them), each box
+// sched::panel_cols(D) columns of one head: q and dO with boxes of the dK/dV
+// pass's streamed tiles (BWD_QT rows), q and dO with the dQ pass's resident
+// 128 rows, k and v with boxes of the dQ pass's streamed tiles (bwd_kt
+// rows; the dK/dV pass loads its 128 resident keys as 128 / bwd_kt of them).
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* d_o,
            const void* lse, void* delta, void* dq, void* dk, void* dv, const void* kv_lens,
            int batch, int heads, int sq, int skv, const long long* maps, float scale,
            cudaStream_t stream) {
   static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      pn_flash_bwd_dkdv_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM_BYTES);
+      pn_flash_bwd_dkdv_wg<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM_BYTES<D>);
   static const cudaError_t attr_q = cudaFuncSetAttribute(
-      pn_flash_bwd_dq_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM_BYTES);
+      pn_flash_bwd_dq_wg<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Q_SMEM_BYTES<D>);
   if (attr_kv != cudaSuccess) return static_cast<int>(attr_kv);
   if (attr_q != cudaSuccess) return static_cast<int>(attr_q);
   if (!maps) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap q64, do64, q128, do128, k_map, v_map;
+  CUtensorMap q_kv, do_kv, q_q, do_q, k_map, v_map;
   const void* bases[6] = {q, d_o, q, d_o, k, v};
-  CUtensorMap* out[6] = {&q64, &do64, &q128, &do128, &k_map, &v_map};
+  CUtensorMap* out[6] = {&q_kv, &do_kv, &q_q, &do_q, &k_map, &v_map};
   for (int i = 0; i < 6; ++i) {
     const int err = pn::encode_map(out[i], bases[i], 4, maps + 12 * i,
                                    CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
@@ -940,14 +699,16 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   const float scale_log2 = scale * 1.4426950408889634f;
   int err = launch_delta<D>(o, d_o, delta, heads, sq, bh * sq, stream);
   if (err) return err;
-  pn_flash_bwd_dkdv_wg<<<static_cast<unsigned>(bh * k_tiles), NTHREADS, KV_SMEM_BYTES, stream>>>(
-      q64, do64, k_map, v_map, static_cast<const float*>(lse), static_cast<const float*>(delta),
+  pn_flash_bwd_dkdv_wg<D><<<static_cast<unsigned>(bh * k_tiles), NTHREADS, KV_SMEM_BYTES<D>,
+                            stream>>>(
+      q_kv, do_kv, k_map, v_map, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
       static_cast<const int*>(kv_lens), heads, sq, skv, k_tiles, scale, scale_log2);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  pn_flash_bwd_dq_wg<<<static_cast<unsigned>(bh * q_tiles), NTHREADS, Q_SMEM_BYTES, stream>>>(
-      q128, do128, k_map, v_map, static_cast<const float*>(lse), static_cast<const float*>(delta),
+  pn_flash_bwd_dq_wg<D><<<static_cast<unsigned>(bh * q_tiles), NTHREADS, Q_SMEM_BYTES<D>,
+                          stream>>>(
+      q_q, do_q, k_map, v_map, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), static_cast<const int*>(kv_lens), heads, sq, skv, q_tiles,
       scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
@@ -2085,7 +1846,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 // v_b, v_s, v_h} in elements (multiples of 8), unit head-dim stride; o, d_o,
 // dq (B, Sq, H, D) and dk, dv (B, Skv, H, D) contiguous bf16; lse (the
 // forward's) and delta (scratch) fp32 (B, H, Sq); kv_lens (B,) int32 or null.
-// maps: the tensor-map specs of wg::launch, used at d = 64 (null otherwise).
+// maps: the tensor-map specs of wg::launch (the bf16 kernels read q, k, v
+// and dO through them; the strides serve the fp32 entry's kernels).
 // Returns a cudaError_t value: of the set-up, or cudaGetLastError() after the
 // last launch.
 extern "C" int pn_flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
@@ -2094,12 +1856,13 @@ extern "C" int pn_flash_attention_bwd_bf16(const void* q, const void* k, const v
                                            const void* kv_lens, int batch, int heads, int sq,
                                            int skv, int d, const long long* strides,
                                            const long long* maps, float scale, void* stream) {
+  (void)strides;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 64: return wg::launch(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, maps, scale, s);
-    case 16: return mma::launch<16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
-    case 32: return mma::launch<32>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
-    case 128: return mma::launch<128>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, strides, scale, s);
+    case 16: return wg::launch<16>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, maps, scale, s);
+    case 32: return wg::launch<32>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, maps, scale, s);
+    case 64: return wg::launch<64>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, maps, scale, s);
+    case 128: return wg::launch<128>(q, k, v, o, d_o, lse, delta, dq, dk, dv, kv_lens, batch, heads, sq, skv, maps, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

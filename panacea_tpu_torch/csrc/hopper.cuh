@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: tensor maps
 // for the Tensor Memory Accelerator (TMA), mbarriers, warpgroup matrix
-// products (wgmma) on 128-byte-swizzled shared-memory tiles, and register
-// rebalancing between warpgroups. Plain inline PTX; no library kernel.
+// products (wgmma) on swizzled shared-memory tiles (rows of 32, 64 or 128
+// bytes), and register rebalancing between warpgroups. Plain inline PTX; no
+// library kernel.
 
 #pragma once
 
@@ -34,8 +35,10 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 constexpr int MAX_RANK = 4;
 
-// A tensor map of bf16 or fp32 elements (`type`) with the 128-byte swizzle
-// and zero fill outside the tensor. `spec` holds rank dims, rank byte strides
+// A tensor map of bf16 or fp32 elements (`type`) with zero fill outside the
+// tensor, swizzled by the width of its box's rows: the innermost box dim
+// times the element size, 32, 64 or 128 bytes, is the swizzle (a row of a
+// swizzled box may not be wider). `spec` holds rank dims, rank byte strides
 // (the first is the element size and is implied) and rank box sizes,
 // innermost dimension first. Returns a cudaError_t value.
 inline int encode_map(CUtensorMap* map, const void* base, int rank, const long long* spec,
@@ -51,8 +54,15 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank, const long l
     box[i] = static_cast<cuuint32_t>(spec[2 * rank + i]);
     elem[i] = 1;
   }
+  CUtensorMapSwizzle swizzle;
+  switch (box[0] * static_cast<cuuint32_t>(spec[rank])) {  // row bytes of the box
+    case 32: swizzle = CU_TENSOR_MAP_SWIZZLE_32B; break;
+    case 64: swizzle = CU_TENSOR_MAP_SWIZZLE_64B; break;
+    case 128: swizzle = CU_TENSOR_MAP_SWIZZLE_128B; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides + 1, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return static_cast<int>(r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue);
 }
@@ -265,18 +275,26 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
-// Shared-memory matrix descriptor of a tile whose rows are 128 bytes, laid
-// down by TMA with the 128-byte swizzle, 1024-byte aligned. Groups of 8 rows
-// are 1024 bytes apart (the stride offset). The same descriptor serves a
-// K-major operand (a row is 64 bf16 or 32 fp32 values of K; a k16 step of
-// bf16 and a k8 step of TF32 are both 32 bytes on)
-// and an MN-major one of width 64 (a row is one k; 16 more of K are 16 rows
-// on); the leading offset is then unused and set to the same 1024 bytes.
+// Shared-memory matrix descriptor of a tile whose rows are SW bytes (32, 64
+// or 128), laid down by TMA with the swizzle of that width, aligned to 1024
+// bytes. Groups of 8 rows are 8 SW bytes apart (the stride offset). The same
+// descriptor serves a K-major operand (a row is SW bytes of K; a k16 step of
+// bf16 and a k8 step of TF32 are both 32 bytes on) and an MN-major one of
+// width SW / 2 bf16 (a row is one k; 16 more of K are 16 rows on); the
+// leading offset, unused for both, is set to the same 8 SW bytes. Layout
+// type (bits 62-63): 1 the 128-byte swizzle, 2 the 64-byte, 3 the 32-byte.
+template <int SW>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t OFFSET = SWIZZLE_ATOM >> 4;
+  static_assert(SW == 32 || SW == 64 || SW == 128, "a swizzle of 32, 64 or 128 bytes");
+  constexpr uint64_t OFFSET = (8 * SW) >> 4;
+  constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (OFFSET << 16) | (OFFSET << 32) |
-         (1ull << 62);
+         (LAYOUT << 62);
 }
+
+// The descriptor of a tile of 128-byte rows, the layout of every kernel but
+// the bf16 flash kernels at head dims 16 and 32.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) { return smem_desc<128>(addr); }
 
 // Descriptor moved on by `bytes` (a multiple of 16) inside its tile.
 __device__ __forceinline__ uint64_t desc_advance(uint64_t desc, int bytes) {
@@ -419,6 +437,105 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 32, fp32) = or += A (64 x 16, shared, K-major) * B (32 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 16, fp32) += A (64 x 16, bf16 pairs in registers) * B (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n16k16_rs_mn(float (&d)[8], const uint32_t (&a)[4],
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 32, fp32) += A (64 x 16, bf16 pairs in registers) * B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n32k16_rs_mn(float (&d)[16], const uint32_t (&a)[4],
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The products above by their width N: d (64 x N) = or += A (shared, K-major)
+// * B (N x 16, shared, K-major), N 32, 64 or 128 ...
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  if constexpr (N == 32) wgmma_m64n32k16_ss(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 64) wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
+  else {
+    static_assert(N == 128, "wgmma_ss: N 32, 64 or 128");
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, accumulate);
+  }
+}
+
+// ... and d (64 x N) += A (registers) * B (16 x N, shared, MN-major), N 16, 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  if constexpr (N == 16) wgmma_m64n16k16_rs_mn(d, a, desc_b);
+  else if constexpr (N == 32) wgmma_m64n32k16_rs_mn(d, a, desc_b);
+  else {
+    static_assert(N == 64, "wgmma_rs_mn: N 16, 32 or 64");
+    wgmma_m64n64k16_rs_mn(d, a, desc_b);
+  }
+}
+
+// Columns [32 i, 32 i + 32) of a wider accumulator, as the 32 registers of a
+// 64 x 64 product: the accumulator of m64n128 is two of m64n64 side by side
+// (d[i] is column 8 (i / 4) + ..., see above), so a 64 x 128 output is two
+// m64n64 products on its halves.
+template <int M>
+__device__ __forceinline__ float (&acc_half(float (&d)[M], int i))[32] {
+  return *reinterpret_cast<float(*)[32]>(d + 32 * i);
+}
+
+// 2^x on the FMA units, for a share of a softmax's exponentials beside
+// ex2.approx (the special-function unit's 16 a clock on an SM): a
+// Cody-Waite split x = j + f, j = floor(x), 2^f by a degree-3 polynomial on
+// [0, 1) with p(0) = 1 exactly, and j added to the exponent bits by an
+// integer shift and add. The floor is a round-down add of 1.5 * 2^23, which
+// leaves j in the low mantissa bits of t (|x| < 2^22). Arguments at or below
+// -127 (masked scores give -inf) are clamped to -127, where f = 0, p = 1 and
+// the result's bits are exactly 0, as ex2.approx.ftz gives 0 there. The
+// relative error, at most 8.8e-5 over [-126, 0] (the coefficients are a
+// minimax fit; tests/test_torch_kernels.py emulates the function in numpy),
+// is far below the 2^-8 that rounding P and dS to bf16 costs.
+constexpr float EX2_POLY_C1 = 0.695146143436431884765625f;
+constexpr float EX2_POLY_C2 = 0.227564394474029541015625f;
+constexpr float EX2_POLY_C3 = 0.077119089663028717041015625f;
+
+__device__ __forceinline__ float ex2_poly(float x) {
+  x = fmaxf(x, -127.f);
+  const float t = __fadd_rd(x, 12582912.f);
+  const float f = x - (t - 12582912.f);
+  const float p = fmaf(fmaf(fmaf(EX2_POLY_C3, f, EX2_POLY_C2), f, EX2_POLY_C1), f, 1.f);
+  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(t) << 23));
 }
 
 // ---------------------------------------------------------------- TF32

@@ -4,7 +4,10 @@ Each ``csrc/*.cu`` becomes its own shared library with a plain C interface,
 compiled for ``sm_90a``. The build runs at first use, into
 ``panacea_tpu_torch/_build/<hash of the sources>/`` (listed in .gitignore),
 so a fresh checkout builds itself. ``build_all`` starts one ``nvcc`` per
-source, all at once. A missing ``nvcc`` or a failed build raises.
+source, all at once. A missing ``nvcc`` or a failed build raises. nvcc's
+output (ptxas's registers and spills of each kernel) is kept beside each
+library as ``<source>.log`` and read back into ``build_log`` when the
+library is reused; a library without its log is built again.
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}  # source -> nvcc's output (ptxas register report)
+
+
+def _log_path(lib_path: str) -> str:
+    return lib_path[:-len(".so")] + ".log"
 
 
 def find_nvcc() -> str:
@@ -63,7 +70,8 @@ def build_all(sources: List[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
         out_dir = _build_dir()
         os.makedirs(out_dir, exist_ok=True)
         outs = {s: os.path.join(out_dir, s.replace(".cu", ".so")) for s in todo}
-        missing = [s for s in todo if not os.path.exists(outs[s])]
+        missing = [s for s in todo
+                   if not (os.path.exists(outs[s]) and os.path.exists(_log_path(outs[s])))]
         if missing:
             nvcc = find_nvcc()
             procs = {s: _start(nvcc, s, outs[s]) for s in missing}
@@ -74,10 +82,16 @@ def build_all(sources: List[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
                 if p.returncode != 0:
                     failed.append(f"{s} (exit {p.returncode}):\n{log}")
                 else:
+                    with open(f"{_log_path(outs[s])}.{os.getpid()}.tmp", "w") as f:
+                        f.write(log)
+                    os.replace(f"{_log_path(outs[s])}.{os.getpid()}.tmp", _log_path(outs[s]))
                     os.replace(f"{outs[s]}.{os.getpid()}.tmp", outs[s])
             if failed:
                 raise RuntimeError("nvcc failed to build " + "\n".join(failed))
         for s in todo:
+            if s not in build_log:
+                with open(_log_path(outs[s])) as f:
+                    build_log[s] = f.read()
             lib = ctypes.CDLL(outs[s])
             lib.pn_error_string.argtypes = [ctypes.c_int]
             lib.pn_error_string.restype = ctypes.c_char_p

@@ -4,7 +4,8 @@ forward and backward and of both GEGLU forwards.
 
 Everything here is plain Python on shapes and strides, so the CPU tests hold
 it against brute force; the C entries (``csrc/hopper.cuh``, ``encode_map``)
-only hand the numbers to ``cuTensorMapEncodeTiled``.
+only hand the numbers to ``cuTensorMapEncodeTiled``. The bf16 flash
+kernels' tiles at each head dim are those of ``csrc/flash_bf16_schedule.h``.
 """
 
 from __future__ import annotations
@@ -13,20 +14,26 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-SWIZZLE_BYTES = 128     # the innermost box row: 64 bf16 or 32 fp32
+SWIZZLE_BYTES = 128     # the widest innermost box row: 64 bf16 or 32 fp32
+# a box's rows are swizzled by their width, which must be one of these
+# (``encode_map`` picks CU_TENSOR_MAP_SWIZZLE_32B, _64B or _128B)
+SWIZZLES = (32, 64, 128)
 MAX_BOX = 256           # TMA's limit on a box dimension
 MAX_RANK = 4
 
-FLASH_BQ, FLASH_BK = 128, 128       # query rows per block, keys per tile
+# the bf16 flash forward: query rows per block, keys per tile (at head dims
+# 16 to 64; flash_fwd_bk(d) at each); its boxes are flash_panel_cols(d)
+# columns of a head
+FLASH_BQ, FLASH_BK = 128, 128
 # the fp32 forward on the tensor cores (``tc`` in csrc/flash_attention.cu):
 # query rows per block (two warpgroups of 64) and keys per tile, which both
 # warpgroups walk; its three maps have the fp32 backward's 32 x 32 boxes
 FLASH_F32_BQ, FLASH_F32_T = 128, 32
-# the wgmma backward: keys per dK/dV block and query rows per tile it
-# streams; query rows per dQ block and keys per tile it streams (one k and
-# one v map serve both passes, so the two key counts are equal)
+# the bf16 backward at every head dim: keys per dK/dV block and query rows
+# per tile it streams; query rows per dQ block (the keys per tile it
+# streams are flash_bwd_kt(d))
 FLASH_BWD_KB, FLASH_BWD_QT = 128, 64
-FLASH_BWD_QB, FLASH_BWD_KT = 128, FLASH_BWD_KB
+FLASH_BWD_QB = 128
 # the fp32 backward on the tensor cores (``tc`` in csrc/flash_attention_bwd.cu):
 # keys per dK/dV block, query rows per dQ block, rows of the tiles each
 # warpgroup streams (the two warpgroups take them in turn), and the box of
@@ -61,9 +68,9 @@ def map_spec(t: torch.Tensor, box: Sequence[int]) -> List[int]:
     dims = [int(n) for n in reversed(t.shape)]
     strides = [int(s) * elem for s in reversed(t.stride())]
     boxes = [int(n) for n in reversed(box)]
-    if boxes[0] * elem != SWIZZLE_BYTES:
+    if boxes[0] * elem not in SWIZZLES:
         raise ValueError(f"tensor map: the innermost box {boxes[0]} must span "
-                         f"{SWIZZLE_BYTES} bytes (the swizzle)")
+                         f"{' or '.join(map(str, SWIZZLES))} bytes (the swizzle)")
     if any(not 1 <= n <= MAX_BOX for n in boxes):
         raise ValueError(f"tensor map: box {tuple(box)} outside 1..{MAX_BOX}")
     if any(n < 1 or n >= 2**32 for n in dims):
@@ -91,23 +98,51 @@ def flash_block(block: int, heads: int, q_tiles: int,
 
 
 def flash_kv_tiles(row_len: int, keys: int = FLASH_BK) -> int:
-    """Key tiles of ``keys`` keys (FLASH_F32_T for the fp32 forward) a
-    block visits for a row of ``row_len`` valid keys."""
+    """Key tiles of ``keys`` keys (``flash_fwd_bk(d)`` for the bf16
+    forward, FLASH_F32_T for the fp32 one) a block visits for a row of
+    ``row_len`` valid keys."""
     return -(-row_len // keys)
 
 
 def flash_route(d: int) -> str:
-    """Which of the two hand-written bf16 kernels serves head dim ``d``, in
-    the forward and in the backward alike."""
-    return "wgmma" if d == 64 else "mma"
+    """The hand-written bf16 kernels that serve head dim ``d``, in the
+    forward and in the backward alike: TMA + wgmma at every head dim."""
+    if d not in (16, 32, 64, 128):
+        raise ValueError(f"flash_route: no bf16 kernel at head dim {d}")
+    return "wgmma"
+
+
+def flash_panel_cols(d: int) -> int:
+    """Columns of one box (and one shared-memory panel) of a bf16 flash
+    map: a row of d bf16, or its halves at d 128; their bytes, 2 d or 128,
+    are the map's swizzle (``csrc/flash_bf16_schedule.h``)."""
+    return min(d, 64)
+
+
+def flash_fwd_bk(d: int) -> int:
+    """Keys per tile of the bf16 forward at head dim ``d``: FLASH_BK, or 64
+    at 128 (registers)."""
+    return 64 if d == 128 else FLASH_BK
+
+
+def flash_map_specs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> List[int]:
+    """The three maps of the bf16 forward, as ``wg::launch`` in
+    csrc/flash_attention.cu takes them: 4-D views (B, S, H, D) of q, k and
+    v (the strided halves of a merged kv projection load in place), loaded
+    as boxes of FLASH_BQ (q) or ``flash_fwd_bk(d)`` (k, v) rows of one head
+    and ``flash_panel_cols(d)`` columns (at d 128 two boxes a row)."""
+    d = q.shape[-1]
+    pc, bk = flash_panel_cols(d), flash_fwd_bk(d)
+    return (map_spec(q, (1, FLASH_BQ, 1, pc)) + map_spec(k, (1, bk, 1, pc))
+            + map_spec(v, (1, bk, 1, pc)))
 
 
 def flash_strides(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> List[int]:
     """The element strides (batch, sequence, head) of q, k and v, as the C
     entries of the flash kernels take them (the head dim's is 1): the
-    kernels that read through strides (mma.sync, FMA, and cp.async at head
-    dim 32 in fp32) address element (b, s, h, c) of each at its pointer plus
-    b, s and h times these plus c."""
+    kernels that read through strides (fp32 FMA, and cp.async at head dim 32
+    in fp32) address element (b, s, h, c) of each at its pointer plus b, s
+    and h times these plus c."""
     return [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
 
 
@@ -130,9 +165,17 @@ def flash_f32_map_specs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Li
     return map_spec(q, box) + map_spec(k, box) + map_spec(v, box)
 
 
+def flash_bwd_kt(d: int) -> int:
+    """Keys of the tiles the bf16 dQ pass streams at head dim ``d``, and
+    the rows of the k and v maps' boxes: 128, or 64 at 128 (shared
+    memory); the dK/dV pass loads its FLASH_BWD_KB resident keys as
+    FLASH_BWD_KB / flash_bwd_kt(d) boxes."""
+    return 64 if d == 128 else 128
+
+
 def flash_bwd_grid(batch: int, heads: int, sq: int, skv: int) -> Tuple[int, int, int, int]:
     """(key tiles per head, dK/dV blocks, query tiles per head, dQ blocks)
-    of the wgmma backward."""
+    of the wgmma backward, the same at every head dim."""
     k_tiles, q_tiles = -(-skv // FLASH_BWD_KB), -(-sq // FLASH_BWD_QB)
     return k_tiles, batch * heads * k_tiles, q_tiles, batch * heads * q_tiles
 
@@ -158,21 +201,25 @@ def flash_bwd_q_tiles(sq: int) -> int:
     return -(-sq // FLASH_BWD_QT)
 
 
-def flash_bwd_kv_tiles(row_len: int) -> int:
-    """Key tiles a dQ block visits for a row of ``row_len`` valid keys."""
-    return -(-row_len // FLASH_BWD_KT)
+def flash_bwd_kv_tiles(row_len: int, d: int) -> int:
+    """Key tiles a dQ block visits at head dim ``d`` for a row of
+    ``row_len`` valid keys."""
+    return -(-row_len // flash_bwd_kt(d))
 
 
 def flash_bwd_map_specs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor) -> List[int]:
     """The six tensor maps the wgmma backward takes, as in
-    ``pn_flash_attention_bwd_bf16``: q and dO with boxes of the dK/dV pass's
-    streamed tiles, q and dO with the dQ pass's resident rows, k and v with
-    128-key boxes (both passes)."""
+    ``pn_flash_attention_bwd_bf16``, each box ``flash_panel_cols(d)``
+    columns of one head: q and dO with boxes of the dK/dV pass's streamed
+    tiles (FLASH_BWD_QT rows), q and dO with the dQ pass's resident
+    FLASH_BWD_QB rows, k and v with boxes of the dQ pass's streamed tiles
+    (``flash_bwd_kt(d)`` keys, which the dK/dV pass loads too)."""
     d = q.shape[-1]
-    return (map_spec(q, (1, FLASH_BWD_QT, 1, d)) + map_spec(do, (1, FLASH_BWD_QT, 1, d))
-            + map_spec(q, (1, FLASH_BWD_QB, 1, d)) + map_spec(do, (1, FLASH_BWD_QB, 1, d))
-            + map_spec(k, (1, FLASH_BWD_KB, 1, d)) + map_spec(v, (1, FLASH_BWD_KB, 1, d)))
+    pc, qt, kt = flash_panel_cols(d), FLASH_BWD_QT, flash_bwd_kt(d)
+    return (map_spec(q, (1, qt, 1, pc)) + map_spec(do, (1, qt, 1, pc))
+            + map_spec(q, (1, FLASH_BWD_QB, 1, pc)) + map_spec(do, (1, FLASH_BWD_QB, 1, pc))
+            + map_spec(k, (1, kt, 1, pc)) + map_spec(v, (1, kt, 1, pc)))
 
 
 def flash_bwd_f32_grid(batch: int, heads: int, sq: int, skv: int) -> Tuple[int, int, int, int]:

@@ -12,15 +12,18 @@ version computes it as a row of Skv keys whose scores are all 0.
 
 On a CPU tensor ``flash_attention`` runs ``flash_attention_plain``. On a
 CUDA tensor it launches a kernel or raises: it never falls back. The
-operands keep their type, as in the Pallas kernel: bf16 at head dim 64 goes
-to the wgmma/TMA kernel, at 16, 32 and 128 to the mma.sync kernel
-(``_tma.flash_route``); fp32 goes to the fp32 kernels
+operands keep their type, as in the Pallas kernel: bf16 goes to the
+wgmma/TMA kernel at every head dim, 16, 32, 64 and 128 (``_tma.flash_route``;
+its tiles by head dim in ``csrc/flash_bf16_schedule.h``); fp32 goes to the
+fp32 kernels
 (``_tma.flash_f32_kernel``), at head dims 64 and 32 on the tensor cores as
 3xTF32 (wgmma; TMA at 64, cp.async from the strides at 32, the perception
 self-attention's), at 16 and 128 on the FMA units.
 ``flash_attention.launches`` counts all launches,
 ``flash_attention.route_launches`` each route's,
-``flash_attention.fp32_kernel_launches`` each fp32 kernel's and
+``flash_attention.fp32_kernel_launches`` each fp32 kernel's,
+``flash_attention.bf16_head_dim_launches`` the bf16 kernel's at each head
+dim and
 ``flash_attention.shape_launches`` each shape's ("BxSqxSkvxHxD", with
 "+kv_lens" where the call gave per-row key counts).
 
@@ -28,13 +31,14 @@ Gradients: where autograd needs them, ``flash_attention`` goes through a
 ``torch.autograd.Function`` whose forward also writes the row log-sum-exp
 (fp32, (B, H, Sq), base 2) and whose backward is ``flash_attention_bwd``:
 ``flash_attention_bwd_plain`` on a CPU tensor, and on a CUDA tensor the
-kernels of ``csrc/flash_attention_bwd.cu``, routed as the forward: bf16 at
-head dim 64 to the wgmma/TMA kernels, at 16, 32 and 128 to the mma.sync
-ones, fp32 to the fp32 kernels (at head dims 64 and 32 on the tensor cores
-as 3xTF32: TMA at 64, cp.async from the strides at 32, the perception
-self-attention's; at 16 and 128 on the FMA units)
-(``flash_attention_bwd.launches``, ``flash_attention_bwd.route_launches``,
-``flash_attention_bwd.fp32_kernel_launches``). The Pallas kernel has no VJP; the
+kernels of ``csrc/flash_attention_bwd.cu``, routed as the forward: bf16 to
+the wgmma/TMA kernels at every head dim, fp32 to the fp32 kernels (at head
+dims 64 and 32 on the tensor cores as 3xTF32: TMA at 64, cp.async from the
+strides at 32, the perception self-attention's; at 16 and 128 on the FMA
+units) (``flash_attention_bwd.launches``,
+``flash_attention_bwd.route_launches``,
+``flash_attention_bwd.fp32_kernel_launches``,
+``flash_attention_bwd.bf16_head_dim_launches``). The Pallas kernel has no VJP; the
 JAX trainer differentiates its plain form (``_lax_flash``), and that is the
 gradient computed here.
 """
@@ -188,9 +192,6 @@ def _check_cuda(q, k, v, kv_lens, d):
                 or kv_lens.shape != (q.shape[0],) or not kv_lens.is_contiguous()):
             raise ValueError("flash_attention: kv_lens must be a contiguous (B,) "
                              "int32 tensor on q's device")
-    if _route(q.dtype, d) == "mma" and q.shape[0] * q.shape[2] > 65535:
-        raise ValueError("flash_attention: batch * heads exceeds the mma.sync kernel's "
-                         "65535 grid rows")
 
 
 @functools.cache
@@ -249,13 +250,10 @@ def _forward(q, k, v, scale: float, kv_lens, with_lse: bool):
     lens_ptr = kv_lens.data_ptr() if kv_lens is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     spec = None
-    if d == 64:  # the TMA kernels: bf16 wgmma, fp32 3xTF32
-        if route == "fp32":
-            spec = _tma.flash_f32_map_specs(q, k, v)
-        else:  # 4-D views (B, S, H, D), loaded as (rows, 64) boxes of one head
-            spec = (_tma.map_spec(q, (1, _tma.FLASH_BQ, 1, d))
-                    + _tma.map_spec(k, (1, _tma.FLASH_BK, 1, d))
-                    + _tma.map_spec(v, (1, _tma.FLASH_BK, 1, d)))
+    if route != "fp32":  # the bf16 kernel at every head dim: TMA, wgmma
+        spec = _tma.flash_map_specs(q, k, v)
+    elif d == 64:        # the fp32 kernel on TMA, 3xTF32
+        spec = _tma.flash_f32_map_specs(q, k, v)
     maps = None if spec is None else (ctypes.c_longlong * len(spec))(*spec)
     entry = lib.pn_flash_attention_f32 if route == "fp32" else lib.pn_flash_attention_bf16
     err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, lens_ptr,
@@ -265,6 +263,8 @@ def _forward(q, k, v, scale: float, kv_lens, with_lse: bool):
     flash_attention.route_launches[route] += 1
     if route == "fp32":
         flash_attention.fp32_kernel_launches[_tma.flash_f32_kernel(d)] += 1
+    else:
+        flash_attention.bf16_head_dim_launches[d] += 1
     shape = f"{b}x{sq}x{k.shape[1]}x{h}x{d}" + ("+kv_lens" if kv_lens is not None else "")
     flash_attention.shape_launches[shape] = flash_attention.shape_launches.get(shape, 0) + 1
     return out, lse
@@ -314,9 +314,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     stream = torch.cuda.current_stream(q.device).cuda_stream
     route = _route(q.dtype, d)
     spec = None
-    if d == 64:  # the TMA kernels: bf16 wgmma, fp32 3xTF32
-        spec = (_tma.flash_bwd_f32_map_specs if route == "fp32" else _tma.flash_bwd_map_specs)(
-            q, k, v, do)
+    if route != "fp32":  # the bf16 kernels at every head dim: TMA, wgmma
+        spec = _tma.flash_bwd_map_specs(q, k, v, do)
+    elif d == 64:        # the fp32 kernels on TMA, 3xTF32
+        spec = _tma.flash_bwd_f32_map_specs(q, k, v, do)
     maps = None if spec is None else (ctypes.c_longlong * len(spec))(*spec)
     entry = lib.pn_flash_attention_bwd_f32 if route == "fp32" else lib.pn_flash_attention_bwd_bf16
     err = entry(*args, maps, scale, stream)
@@ -325,12 +326,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     flash_attention_bwd.route_launches[route] += 1
     if route == "fp32":
         flash_attention_bwd.fp32_kernel_launches[_tma.flash_f32_kernel(d)] += 1
+    else:
+        flash_attention_bwd.bf16_head_dim_launches[d] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.route_launches = {"wgmma": 0, "mma": 0, "fp32": 0}
+flash_attention_bwd.route_launches = {"wgmma": 0, "fp32": 0}
 flash_attention_bwd.fp32_kernel_launches = {"tc": 0, "tc32": 0, "fma": 0}
+flash_attention_bwd.bf16_head_dim_launches = dict.fromkeys(HEAD_DIMS, 0)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -365,7 +369,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = {"wgmma": 0, "mma": 0, "fp32": 0}
+flash_attention.route_launches = {"wgmma": 0, "fp32": 0}
 flash_attention.fp32_kernel_launches = {"tc": 0, "tc32": 0, "fma": 0}
+flash_attention.bf16_head_dim_launches = dict.fromkeys(HEAD_DIMS, 0)
 flash_attention.shape_launches = {}
 

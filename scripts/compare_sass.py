@@ -3,6 +3,7 @@
 toolkit.
 
     python3 scripts/compare_sass.py [--other DIR] [--kernel NAME ...]
+                                    [--pair MINE OTHER ...]
 
 Builds ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` of
 this tree with nvcc (the flags of ``ops/_build.py``), dumps their SASS with
@@ -11,7 +12,12 @@ cuobjdump and:
 - with ``--other``, the root of another checkout (for example the parent
   commit unpacked with ``git archive``): builds its two sources the same
   way and says, for every fp32 kernel (``f32`` in its name), whether
-  its SASS is the same instruction for instruction in both trees;
+  its SASS is the same instruction for instruction in both trees; and
+  with ``--pair MINE OTHER`` (repeatable), the same for the first kernel
+  of this tree whose name contains MINE against the first of the other
+  whose name contains OTHER, for a kernel whose name changed (the bf16
+  ``pn_flash_fwd``, now ``pn_flash_fwd<64>``: ``--pair
+  pn_flash_fwdILi64E wg12pn_flash_fwdE``);
 - for the first kernel whose name contains each ``--kernel`` (default
   ``tc32``, the fp32 forward at head dim 32; ``dkdv_tc32`` and ``dq_tc32``
   are the passes of its backward), finds its main loop (the longest
@@ -89,6 +95,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", help="root of another checkout to compare with")
     parser.add_argument("--kernel", nargs="+", default=["tc32"])
+    parser.add_argument("--pair", nargs=2, action="append", default=[],
+                        metavar=("MINE", "OTHER"))
     args = parser.parse_args()
     out = tempfile.mkdtemp(prefix="compare_sass_")
     result: dict = {}
@@ -108,6 +116,16 @@ def main() -> int:
                     same[name] = "only in " + ("this tree" if name in mine else "the other")
                 print(f"{name}: {same[name]}", flush=True)
             result["same_sass"] = same
+            pairs = {}
+            for a, b in args.pair:
+                na = next((n for n in mine if a in n), None)
+                nb = next((n for n in other if b in n), None)
+                pairs[f"{a} = {b}"] = (
+                    [i for _, i in mine[na]] == [i for _, i in other[nb]]
+                    if na and nb else f"not found: {a if not na else b}")
+                print(f"{na} against {nb}: {pairs[f'{a} = {b}']}", flush=True)
+            if pairs:
+                result["same_sass_pairs"] = pairs
         for pattern in args.kernel:
             name = next((n for n in mine if pattern in n), None)
             if not name:

@@ -92,6 +92,8 @@ def launches(fa, gg) -> dict:
             "flash_fp32_kernels": dict(fa.flash_attention.fp32_kernel_launches),
             "flash_bwd_routes": dict(fa.flash_attention_bwd.route_launches),
             "flash_bwd_fp32_kernels": dict(fa.flash_attention_bwd.fp32_kernel_launches),
+            "flash_bf16_head_dims": dict(fa.flash_attention.bf16_head_dim_launches),
+            "flash_bwd_bf16_head_dims": dict(fa.flash_attention_bwd.bf16_head_dim_launches),
             "geglu_routes": dict(gg.geglu.route_launches)}
 
 

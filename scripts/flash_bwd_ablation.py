@@ -69,7 +69,7 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = ("flash_attention_bwd.cu", "hopper.cuh", "flash_f32_tc.cuh",
-           "flash_f32_tc32_bwd_schedule.h")
+           "flash_f32_tc32_bwd_schedule.h", "flash_bf16_schedule.h")
 CU = "flash_attention_bwd.cu"
 EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
 PACK = """  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

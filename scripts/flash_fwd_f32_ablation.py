@@ -65,7 +65,8 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("flash_attention.cu", "hopper.cuh", "flash_f32_tc.cuh", "flash_f32_tc32_schedule.h")
+SOURCES = ("flash_attention.cu", "hopper.cuh", "flash_f32_tc.cuh", "flash_f32_tc32_schedule.h",
+           "flash_bf16_schedule.h")
 CU, CUH, SCHED = "flash_attention.cu", "flash_f32_tc.cuh", "flash_f32_tc32_schedule.h"
 INT_ROUND = "  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xFFFFE000u);"
 CVT_ROUND = """  uint32_t r;

@@ -36,11 +36,16 @@ def cuda():
     (200, 700, 2, 64, [1 + 61 * i for i in range(12)], False),
     # rows with no valid key (the mean of V) on each route
     (256, 512, 2, 64, [0, 300], True), (256, 512, 2, 16, [300, 0], False),
-    (256, 512, 2, 32, [0, 300], False), (256, 512, 2, 128, [0, 300], False)])
+    (256, 512, 2, 32, [0, 300], False), (256, 512, 2, 128, [0, 300], False),
+    # head dims 16, 32, 128: Sq and Skv off the tiles with ragged rows, a row
+    # of one key and an empty one; fewer rows and keys than one tile
+    (129, 4097, 2, 16, [4097, 1, 0], True), (129, 4097, 2, 32, [4097, 1, 0], True),
+    (129, 4097, 2, 128, [4097, 1, 0], True), (31, 33, 4, 16, [1, 33], False),
+    (31, 33, 4, 32, [1, 33], False), (31, 33, 4, 128, [1, 33], False)])
 def test_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
     """``merged``: k and v are the halves of one (B, Skv, 2 H D) projection,
-    the strided layout of the cross-view call. Head dim 64 runs the wgmma
-    kernel, the others the mma.sync kernel."""
+    the strided layout of the cross-view call. Every head dim runs the
+    wgmma kernel."""
     b = 2 if lens is None else len(lens)
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((b, sq, h, d), generator=g, device=cuda).bfloat16()
@@ -51,7 +56,10 @@ def test_flash_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
         k, v = (torch.randn((b, skv, h, d), generator=g, device=cuda).bfloat16()
                 for _ in range(2))
     kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = (flash_attention.route_launches["wgmma"], flash_attention.bf16_head_dim_launches[d])
     got = flash_attention(q, k, v, kv_lens=kvl)
+    assert (flash_attention.route_launches["wgmma"],
+            flash_attention.bf16_head_dim_launches[d]) == (before[0] + 1, before[1] + 1)
     want = flash_attention_plain(q, k, v, kv_lens=kvl)
     assert tolerance.worst_ratio(got, want, **tolerance.FLASH) <= 1.0
 
@@ -167,6 +175,14 @@ BWD_CASES = [
     # past kv_len; Sq and Skv off the 64-row blocks and the 32-row tiles
     (900, 1668, 8, 32, None, False), (900, 1668, 8, 32, [1668], False),
     (900, 1668, 8, 32, [0, 1, 833, 1668], True), (129, 1667, 2, 32, [1667, 0, 65], False)]
+# the bf16 kernels at head dims 16, 32, 128: Sq and Skv off the tiles with
+# ragged rows, a row of one key and an empty one, key blocks past kv_len;
+# fewer rows and keys than one tile (the fp32 FMA backward at 16 reads 2.1
+# of FLASH_BWD_F32 at the first: ROADMAP Queue C)
+BF16_BWD_CASES = [
+    (129, 4097, 2, 16, [4097, 1, 0], True), (129, 4097, 2, 32, [4097, 1, 0], True),
+    (129, 4097, 2, 128, [4097, 1, 0], True), (31, 33, 4, 16, [1, 33], False),
+    (31, 33, 4, 32, [1, 33], False), (31, 33, 4, 128, [1, 33], False)]
 
 
 def _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, dtype):
@@ -188,7 +204,7 @@ def _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, dtype):
     o, lse = flash_attention_with_lse(q, k, v, kv_lens=kvl)
     _, lse_plain = flash_attention_plain(q, k, v, kv_lens=kvl, return_lse=True)
     assert tolerance.worst_ratio(lse, lse_plain, **tolerance.FLASH_LSE) <= 1.0
-    route = "fp32" if dtype == torch.float32 else ("wgmma" if d == 64 else "mma")
+    route = "fp32" if dtype == torch.float32 else "wgmma"   # bf16: every head dim
     before = (flash_attention_bwd.launches, flash_attention_bwd.route_launches[route])
     kernels = dict(flash_attention_bwd.fp32_kernel_launches)
     got = flash_attention_bwd(q, k, v, o, lse, do, kv_lens=kvl)
@@ -214,9 +230,9 @@ def _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,skv,h,d,lens,merged", BWD_CASES)
+@pytest.mark.parametrize("sq,skv,h,d,lens,merged", BWD_CASES + BF16_BWD_CASES)
 def test_flash_bwd_kernel_matches_plain_on_card(cuda, sq, skv, h, d, lens, merged):
-    """bf16: the wgmma kernels at head dim 64, the mma.sync ones at the others."""
+    """bf16: the wgmma kernels at every head dim."""
     _check_flash_bwd(cuda, sq, skv, h, d, lens, merged, torch.bfloat16)
 
 

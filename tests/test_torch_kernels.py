@@ -45,14 +45,22 @@ def lax_flash(q, k, v, kv_lens=None):
     return np.asarray(out.reshape(b, h, sq, d).transpose(0, 2, 1, 3))
 
 
-@pytest.mark.parametrize("sq,skv,lens", [
+PALLAS_CASES = [
     (256, 512, None),          # multi-block, Skv = 2 Sq (the cross-view shape)
     (200, 650, None),          # Sq and Skv not tile multiples
     (256, 640, [640, 130]),    # ragged per-row kv_lens
     (256, 512, [0, 300]),      # a row with no valid key: the mean of V
-])
-def test_flash_plain_matches_pallas_kernel(sq, skv, lens):
-    q, k, v = qkv(sq + skv, 2, sq, skv, 2, 16)
+]
+_PALLAS_IDS = ["256-512-None", "200-650-None", "256-640-lens2", "256-512-lens3"]
+
+
+@pytest.mark.parametrize("sq,skv,lens,d", [
+    pytest.param(*case, d, id=name if d == 16 else f"d{d}-{name}")
+    for d in (16, 32, 128) for case, name in zip(PALLAS_CASES, _PALLAS_IDS)])
+def test_flash_plain_matches_pallas_kernel(sq, skv, lens, d):
+    """At every head dim the bf16 kernels serve off the production one (16,
+    the tiny configs'; 32; 128); 64 is the fp32 test's below."""
+    q, k, v = qkv(sq + skv + d, 2, sq, skv, 2, d)
     kvl = None if lens is None else np.asarray(lens, np.int32)
     want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                 block_q=128, block_k=128, interpret=True,
@@ -122,6 +130,52 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+_FAKE_NVCC = r"""#!{python}
+import subprocess, sys
+out, src = sys.argv[sys.argv.index("-o") + 1], sys.argv[-1]
+with open(sys.argv[0] + ".calls", "a") as f:
+    f.write(src + "\n")
+stub = out + ".cpp"
+with open(stub, "w") as f:
+    f.write('extern "C" const char* pn_error_string(int) {{ return "stub"; }}\n')
+subprocess.run(["g++", "-shared", "-fPIC", "-o", out, stub], check=True)
+print("ptxas info    : Compiling entry function 'pn_flash_stub' for 'sm_90a'")
+print("ptxas info    : Used 42 registers")
+"""
+
+
+def test_build_keeps_nvcc_report_beside_the_library(monkeypatch, tmp_path):
+    """ptxas's report (nvcc's output) is saved beside each library and read
+    back when a later process reuses the library, without nvcc; a library
+    whose report is missing is built again."""
+    import sys
+
+    csrc, nvcc = tmp_path / "csrc", tmp_path / "nvcc"
+    csrc.mkdir()
+    (csrc / "stub.cu").write_text("// a source\n")
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "_build"))
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+
+    def fresh_process():
+        monkeypatch.setattr(_build, "_libs", {})
+        monkeypatch.setattr(_build, "build_log", {})
+        _build.build_all(["stub.cu"])
+        return _build.build_log["stub.cu"]
+
+    first = fresh_process()
+    assert "Used 42 registers" in first
+    log_file = os.path.join(_build._build_dir(), "stub.log")
+    assert open(log_file).read() == first
+    assert fresh_process() == first                        # reused: read back
+    assert open(f"{nvcc}.calls").read().count("stub.cu") == 1
+    os.remove(log_file)
+    assert fresh_process() == first                        # no report: built again
+    assert open(f"{nvcc}.calls").read().count("stub.cu") == 2
 
 
 def _one_bf16_step(t):
@@ -231,7 +285,8 @@ def test_geglu_tensor_map_specs(tokens, c, inner, dtype):
      (1, 128, 64, 1), "innermost stride"),
     (lambda: torch.zeros((2, 8, 68), dtype=torch.bfloat16)[..., :64].unflatten(-1, (1, 64)),
      (1, 128, 1, 64), "multiples of"),
-    (lambda: torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16), (1, 128, 1, 32), "swizzle"),
+    # a box row of 48 bytes: no swizzle (32, 64 or 128 bytes) has that width
+    (lambda: torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16), (1, 128, 1, 24), "swizzle"),
     (lambda: torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16), (1, 512, 1, 64), "outside 1"),
     (lambda: torch.zeros((2, 8, 3, 64), dtype=torch.bfloat16), (128, 64), "same rank"),
     (lambda: torch.zeros((2, 8, 3, 72), dtype=torch.bfloat16)[..., 4:68],
@@ -655,12 +710,18 @@ def test_flash_bwd_d32_one_key_row_takes_dp_in_sets_of_8(tc32_schedule):
     assert ratio[8] <= 1.0 and ratio[16] > 1.2 * ratio[8], ratio
 
 
-@pytest.mark.parametrize("d,route", [(16, "mma"), (32, "mma"), (64, "wgmma"), (128, "mma")])
-def test_flash_route_by_head_dim(d, route):
-    assert _tma.flash_route(d) == route
-    assert fa_mod._route(torch.bfloat16, d) == route
+@pytest.mark.parametrize("d,earlier", [(16, "mma"), (32, "mma"), (64, "wgmma"), (128, "mma")])
+def test_flash_route_by_head_dim(d, earlier):
+    """bf16 takes the TMA + wgmma kernel at every head dim; ``earlier`` is
+    the route the head dim took before, and the mma.sync one is gone (no
+    counter, no kernel in the sources)."""
+    assert _tma.flash_route(d) == "wgmma"
+    assert fa_mod._route(torch.bfloat16, d) == "wgmma"
     assert fa_mod._route(torch.float32, d) == "fp32"     # fp32 operands keep their type
-    assert set(fa_mod.flash_attention.route_launches) == {"wgmma", "mma", "fp32"}
+    assert set(fa_mod.flash_attention.route_launches) == {"wgmma", "fp32"}
+    assert earlier == "wgmma" or earlier not in fa_mod.flash_attention.route_launches
+    for source in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert "mma.sync" not in open(os.path.join(_build.CSRC, source)).read()
     assert set(gg_mod.geglu.route_launches) == {"bf16", "fp32"}
 
 
@@ -784,17 +845,19 @@ def test_fp32_geglu_plain_matches_pallas_kernel_on_fp32_inputs(tokens, c, inner)
 # (ops/_tma.py), held against brute force as the forward's are above
 
 
-@pytest.mark.parametrize("dtype,d,route", [
+@pytest.mark.parametrize("dtype,d,earlier", [
     (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 128, "mma"), (torch.float32, 16, "fp32"), (torch.float32, 32, "fp32"),
     (torch.float32, 64, "fp32"), (torch.float32, 128, "fp32")])
-def test_flash_bwd_route_by_type_and_head_dim(dtype, d, route):
-    """The backward takes the forward's route: bf16 at head dim 64 the wgmma
-    kernels, at 16/32/128 the mma.sync ones, fp32 the fp32 kernels; each
-    route has its own launch counter, and each fp32 kernel too (tc at head
-    dim 64, tc32 at 32, fma at 16 and 128, as the forward's)."""
-    assert fa_mod._route(dtype, d) == route
-    assert set(fa_mod.flash_attention_bwd.route_launches) == {"wgmma", "mma", "fp32"}
+def test_flash_bwd_route_by_type_and_head_dim(dtype, d, earlier):
+    """The backward takes the forward's route: bf16 the wgmma kernels at
+    every head dim (``earlier``, the route before, was mma.sync at
+    16/32/128), fp32 the fp32 kernels; each route has its own launch
+    counter, and each fp32 kernel too (tc at head dim 64, tc32 at 32, fma at
+    16 and 128, as the forward's)."""
+    route = "fp32" if dtype == torch.float32 else "wgmma"
+    assert fa_mod._route(dtype, d) == route and earlier in (route, "mma")
+    assert set(fa_mod.flash_attention_bwd.route_launches) == {"wgmma", "fp32"}
     assert set(fa_mod.flash_attention_bwd.fp32_kernel_launches) == {"tc", "tc32", "fma"}
 
 
@@ -852,11 +915,11 @@ def test_flash_bwd_key_blocks_past_kv_len_are_skipped(skv, row_len):
         if active:
             covered.update(keys)
     assert {k for k in range(skv) if valid[k]} <= covered
-    n = _tma.flash_bwd_kv_tiles(row_len)
-    visited = [k for j in range(n) for k in range(j * _tma.FLASH_BWD_KT,
-                                                   (j + 1) * _tma.FLASH_BWD_KT)]
+    kt = _tma.flash_bwd_kt(64)
+    n = _tma.flash_bwd_kv_tiles(row_len, 64)
+    visited = [k for j in range(n) for k in range(j * kt, (j + 1) * kt)]
     assert set(k for k in range(skv) if valid[k]) <= set(visited)
-    assert n * _tma.FLASH_BWD_KT - row_len < _tma.FLASH_BWD_KT   # no tile of masked keys only
+    assert n * kt - row_len < kt   # no tile of masked keys only
 
 
 @pytest.mark.parametrize("kind", ["contiguous", "merged_kv", "batch_slice"])
@@ -874,7 +937,7 @@ def test_flash_bwd_tensor_map_specs_address_every_element(kind, b, sq, h):
     spec = _tma.flash_bwd_map_specs(q, k, v, do)
     assert len(spec) == 6 * 12
     rows = (_tma.FLASH_BWD_QT, _tma.FLASH_BWD_QT, _tma.FLASH_BWD_QB, _tma.FLASH_BWD_QB,
-            _tma.FLASH_BWD_KB, _tma.FLASH_BWD_KT)
+            _tma.flash_bwd_kt(d), _tma.flash_bwd_kt(d))
     rng = np.random.default_rng(sq + h)
     for i, (t, r) in enumerate(zip((q, do, q, do, k, v), rows)):
         dims, strides, box = spec[12 * i:12 * i + 4], spec[12 * i + 4:12 * i + 8], \
@@ -1373,3 +1436,241 @@ def test_flash_plain_in_float64_is_the_exact_softmax(lens):
         row = lens.index(0)
         torch.testing.assert_close(out[row], v[row].mean(0).expand(sq, h, d), rtol=1e-12,
                                    atol=1e-12)
+
+
+# ---- the bf16 kernels (TMA + wgmma) at every head dim: the tiles of
+# csrc/flash_bf16_schedule.h, built for the host as the kernels include it,
+# against the host's (ops/_tma.py); the tensor maps, panels and swizzles by
+# head dim; the schedules; the polynomial exp2 of the exponential-bound head
+# dims
+
+
+_BF16_SCHEDULE_SHIM = r"""
+#include "flash_bf16_schedule.h"
+namespace s = pn::bf16_schedule;
+extern "C" {
+int bf16_constant(int i) {
+  const int c[] = {s::MAX_SMEM, s::FWD_BQ, s::BWD_KB, s::BWD_QB, s::BWD_Q_STAGES, s::BWD_LAG,
+                   s::BWD_QT};
+  return c[i];
+}
+int bf16_of(int what, int d) {
+  switch (what) {
+    case 0: return s::panel_cols(d);
+    case 1: return s::swizzle_bytes(d);
+    case 2: return s::panels(d);
+    case 3: return s::fwd_bk(d);
+    case 4: return s::fwd_stages(d);
+    case 5: return s::fwd_smem_bytes(d);
+    case 6: return s::bwd_kt(d);
+    case 7: return s::bwd_kv_stages(d);
+    case 8: return s::bwd_kv_smem_bytes(d);
+    case 9: return s::bwd_q_smem_bytes(d);
+    case 10: return s::poly_every(d);
+    case 11: return s::fwd_mask_every_tile(d);
+    default: return -1;
+  }
+}
+int bf16_kstep_offset(int d, int rows, int kk) { return s::kstep_offset(d, rows, kk); }
+}
+"""
+
+_BF16_OF = ("panel_cols", "swizzle_bytes", "panels", "fwd_bk", "fwd_stages", "fwd_smem_bytes",
+            "bwd_kt", "bwd_kv_stages", "bwd_kv_smem_bytes", "bwd_q_smem_bytes", "poly_every",
+            "fwd_mask_every_tile")
+
+
+@pytest.fixture(scope="module")
+def bf16_schedule(tmp_path_factory):
+    """csrc/flash_bf16_schedule.h built with g++: its constants (MAX_SMEM,
+    FWD_BQ, BWD_KB, BWD_QB, BWD_Q_STAGES, BWD_LAG, BWD_QT), each
+    per-head-dim function as ``of(name, d)``, and ``kstep_offset(d, rows,
+    kk)``."""
+    import ctypes
+    import subprocess
+    from types import SimpleNamespace
+
+    out = tmp_path_factory.mktemp("bf16_schedule")
+    src, lib_path = out / "shim.cpp", out / "shim.so"
+    src.write_text(_BF16_SCHEDULE_SHIM)
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", _build.CSRC,
+                    str(src), "-o", str(lib_path)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    names = ("MAX_SMEM", "FWD_BQ", "BWD_KB", "BWD_QB", "BWD_Q_STAGES", "BWD_LAG", "BWD_QT")
+    return SimpleNamespace(**{n: lib.bf16_constant(i) for i, n in enumerate(names)},
+                           of=lambda name, d: lib.bf16_of(_BF16_OF.index(name), d),
+                           kstep_offset=lib.bf16_kstep_offset)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bf16_tiles_and_shared_memory_by_head_dim(d, bf16_schedule):
+    """The host's tiles are the kernels' at each head dim; each kernel's
+    shared memory (its tiles, rings, statistics and mbarriers, and the
+    1,024-byte pad, as the kernels' static_asserts hold their structures
+    to) fits the 232,448 bytes an H100 block may have. Head dim 64 keeps the
+    earlier design's tiles and bytes."""
+    sch = bf16_schedule
+    of = sch.of
+    assert sch.MAX_SMEM == 232448
+    assert (sch.FWD_BQ, sch.BWD_KB, sch.BWD_QB) == (_tma.FLASH_BQ, _tma.FLASH_BWD_KB,
+                                                   _tma.FLASH_BWD_QB)
+    assert of("panel_cols", d) == _tma.flash_panel_cols(d) == min(d, 64)
+    assert of("swizzle_bytes", d) == 2 * min(d, 64) and of("swizzle_bytes", d) in _tma.SWIZZLES
+    assert of("panels", d) * of("panel_cols", d) == d
+    assert (of("fwd_bk", d), sch.BWD_QT, of("bwd_kt", d)) == (
+        _tma.flash_fwd_bk(d), _tma.FLASH_BWD_QT, _tma.flash_bwd_kt(d))
+    assert sch.BWD_KB % of("bwd_kt", d) == 0
+
+    # the layouts, counted here field by field
+    bq, bk, st = sch.FWD_BQ, of("fwd_bk", d), of("fwd_stages", d)
+    fwd = 2 * (bq * d + 2 * st * bk * d) + 8 * (1 + 4 * st) + 1024
+    qt, kvs = sch.BWD_QT, of("bwd_kv_stages", d)
+    kv = 2 * (2 * sch.BWD_KB * d + 2 * kvs * qt * d) + 4 * 2 * 2 * 2 * qt \
+        + 8 * (1 + 2 * kvs) + 1024
+    kt, qs = of("bwd_kt", d), sch.BWD_Q_STAGES
+    q = 2 * (2 * sch.BWD_QB * d + 2 * qs * kt * d) + 8 * (1 + 2 * qs) + 1024
+    assert (of("fwd_smem_bytes", d), of("bwd_kv_smem_bytes", d), of("bwd_q_smem_bytes", d)) == (
+        fwd, kv, q)
+    assert max(fwd, kv, q) <= 232448
+    if d == 64:   # the earlier design's, unchanged
+        assert (bk, st, qt, kt, kvs, qs, sch.BWD_LAG) == (128, 3, 64, 128, 5, 4, 2)
+        assert (fwd, kv, q) == (115816, 117848, 164936)
+    # the exponential-bound head dims move every 8th exponential of the
+    # forward to the FMA units, 64 and 128 none; D 64 masks the keys on
+    # every tile, the others on the last one alone
+    assert of("poly_every", d) == (8 if d < 64 else 0)
+    assert of("fwd_mask_every_tile", d) == (d == 64)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bf16_kstep_offsets_address_the_panels(d, bf16_schedule):
+    """A k16 step of a K-major operand, brute force: columns [16 kk, 16 kk +
+    16) of row 0 of a tile of ``rows`` rows lie in panel 16 kk // pc, whose
+    rows are 2 pc bytes, at that panel's start plus the column's bytes
+    inside it; the schedule's offset is that address, and each step stays
+    inside one swizzled row."""
+    pc = _tma.flash_panel_cols(d)
+    for rows in (32, 64, 128):
+        for kk in range(d // 16):
+            col = 16 * kk
+            want = col // pc * rows * 2 * pc + col % pc * 2
+            assert bf16_schedule.kstep_offset(d, rows, kk) == want
+            assert col % pc + 16 <= pc
+
+
+def _box_address(t, spec, coords):
+    """The byte address TMA reads for element ``coords`` (innermost first,
+    inside the tensor) of a map ``spec``: the base plus the coordinates
+    times the map's strides (the innermost stride is the element size)."""
+    return t.data_ptr() + sum(c * s for c, s in zip(coords, spec[4:8]))
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "merged_kv", "batch_slice"])
+@pytest.mark.parametrize("d", [16, 32, 128])
+def test_flash_bf16_map_specs_by_head_dim_address_every_element(kind, d):
+    """The forward's three maps and the backward's six at head dims 16, 32
+    and 128, for contiguous, merged-kv and batch-slice views: the box row
+    is the panel (2 d bytes, the swizzle: 32 at 16, 64 at 32; two 128-byte
+    boxes a 256-byte row at 128); the boxes' rows are the kernels' tiles
+    (the dQ pass's k and v boxes of ``flash_bwd_kt(d)`` keys, which the
+    dK/dV pass loads 128 / kt times); and every element (b, s, h, c) lies
+    where torch has it, read by the box at panel c // pc, column c % pc."""
+    b, sq, skv, h = 3, 129, 258, 5
+    pc = _tma.flash_panel_cols(d)
+    q = _views("contiguous", b, sq, h, d)[0]
+    do = torch.zeros((b, sq, h, d), dtype=torch.bfloat16)
+    k, v = (_views(kind, b, skv, h, d) * 2)[:2]
+    fwd = _tma.flash_map_specs(q, k, v)
+    bwd = _tma.flash_bwd_map_specs(q, k, v, do)
+    assert len(fwd) == 3 * 12 and len(bwd) == 6 * 12
+    maps = [(q, _tma.FLASH_BQ, fwd[:12]), (k, _tma.flash_fwd_bk(d), fwd[12:24]),
+            (v, _tma.flash_fwd_bk(d), fwd[24:])]
+    rows = (_tma.FLASH_BWD_QT,) * 2 + (_tma.FLASH_BWD_QB,) * 2 + (_tma.flash_bwd_kt(d),) * 2
+    maps += [(t, r, bwd[12 * i:12 * i + 12])
+             for i, (t, r) in enumerate(zip((q, do, q, do, k, v), rows))]
+    rng = np.random.default_rng(d + len(kind))
+    for t, r, spec in maps:
+        dims, box = spec[:4], spec[8:]
+        n = t.shape[1]
+        assert dims == [d, h, n, b] and box == [pc, 1, r, 1]
+        assert box[0] * 2 == 2 * pc and box[0] * 2 in _tma.SWIZZLES
+        assert d // box[0] == (2 if d == 128 else 1)
+        picks = [(0, 0, 0, 0), (b - 1, n - 1, h - 1, d - 1)]
+        picks += [tuple(int(rng.integers(m)) for m in (b, n, h, d)) for _ in range(30)]
+        for bi, si, hi, ci in picks:
+            panel, col = divmod(ci, pc)       # the box at c0 = panel * pc reads it
+            got = _box_address(t, spec, (panel * pc + col, hi, si, bi))
+            assert got == t[bi, si, hi, ci].data_ptr()
+    # the dK/dV pass's 128 resident keys: 128 / kt boxes of the dQ pass's map
+    kt = _tma.flash_bwd_kt(d)
+    starts = [key0 + part * kt for key0 in range(0, skv, _tma.FLASH_BWD_KB)
+              for part in range(_tma.FLASH_BWD_KB // kt)]
+    assert sorted(r for s0 in starts for r in range(s0, s0 + kt) if r < skv) == list(range(skv))
+
+
+@pytest.mark.parametrize("d", [16, 32, 128])
+@pytest.mark.parametrize("sq,row_len", [(1, 1), (129, 63), (129, 64), (200, 65), (2048, 4096),
+                                        (31, 4097), (100, 0)])
+def test_flash_bf16_schedules_by_head_dim_cover_every_row_once(d, sq, row_len):
+    """Brute force at each head dim: the forward's key tiles of
+    ``flash_fwd_bk(d)`` keys cover a row's valid keys with no tile past
+    them; the dK/dV pass streams every query row once in tiles of
+    FLASH_BWD_QT; the dQ pass visits the ``flash_bwd_kt(d)``-key
+    tiles below the row's length. A row of kv_lens 0 takes all Skv keys
+    (``pn::row_keys``), here Skv = 4097. The grids do not depend on d."""
+    keys = row_len if row_len > 0 else 4097
+    bk, qt, kt = _tma.flash_fwd_bk(d), _tma.FLASH_BWD_QT, _tma.flash_bwd_kt(d)
+    n = _tma.flash_kv_tiles(keys, bk)
+    assert sorted(k for j in range(n) for k in range(j * bk, (j + 1) * bk) if k < keys) == list(
+        range(keys)) and (n - 1) * bk < keys
+    n = _tma.flash_bwd_q_tiles(sq)
+    assert [r for j in range(n) for r in range(j * qt, (j + 1) * qt) if r < sq] == list(range(sq))
+    n = _tma.flash_bwd_kv_tiles(keys, d)
+    assert n * kt - keys < kt and n * kt >= keys
+    assert _tma.flash_grid(40, 640 // d, sq) == (-(-sq // 128), 40 * (640 // d) * -(-sq // 128))
+    assert _tma.flash_bwd_grid(40, 640 // d, sq, 2 * sq)[1::2] == (
+        40 * (640 // d) * -(-2 * sq // 128), 40 * (640 // d) * -(-sq // 128))
+
+
+def _ex2_poly_emulated(x):
+    """``pn::ex2_poly`` (csrc/hopper.cuh) in numpy, float32 step by step with
+    its own coefficients: the clamp at -127, the floor as a round-down add of
+    1.5 * 2^23, the degree-3 polynomial on the fraction, the floor added to
+    the exponent bits."""
+    src = open(os.path.join(_build.CSRC, "hopper.cuh")).read()
+    c = [np.float32(float(re.search(rf"EX2_POLY_C{i} = ([0-9.]+)f;", src).group(1)))
+         for i in (1, 2, 3)]
+    magic = np.float32(12582912.0)
+    x = np.maximum(np.asarray(x, np.float32), np.float32(-127.0))
+    exact = x.astype(np.float64) + np.float64(magic)        # the add, rounded down
+    t = exact.astype(np.float32)
+    up = t.astype(np.float64) > exact
+    t[up] = np.nextafter(t[up], np.float32(-np.inf))
+    f = x - (t - magic)
+    p = f.astype(np.float64)          # fmaf: one rounding each, exact in float64
+    p = np.float32(np.float32(np.float32(c[2] * p + c[1]) * p + c[0]) * p + 1.0)
+    bits = (p.view(np.uint32).astype(np.uint64) + (t.view(np.uint32).astype(np.uint64) << 23))
+    return (bits & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
+
+
+def test_ex2_poly_emulation_matches_exp2():
+    """The forward's exponentials on the FMA units at head dims 16 and 32
+    (every ``poly_every(d)``-th one): over the arguments the softmax gives,
+    (s - max) scale log2(e) in [-126, 0] and a little above 0 (a row's max
+    against rounding), the relative error stays within the 8.8e-5 stated in
+    csrc/hopper.cuh, far below bf16's 2^-8 at which P is rounded; p(0) = 1
+    exactly, integers give powers of two, and masked scores (-inf, the
+    masked score's -1e30 scaled) and anything at or below -127 give exactly
+    0, as ex2.approx.ftz does."""
+    x = np.concatenate([np.linspace(-126, 0.01, 1_000_001, dtype=np.float32),
+                        np.arange(-126, 1, dtype=np.float32)])
+    got = _ex2_poly_emulated(x).astype(np.float64)
+    want = np.exp2(x.astype(np.float64))
+    rel = np.abs(got - want) / want
+    assert rel.max() <= 8.8e-5
+    assert 2.0**-14 < rel.max() < 2.0**-8 / 16
+    ints = np.arange(-126, 1, dtype=np.float32)
+    assert np.array_equal(_ex2_poly_emulated(ints), np.exp2(ints))
+    dead = np.array([-np.inf, -1e30 * 0.36067, -127.0, -127.5, -200.0], np.float32)
+    assert np.array_equal(_ex2_poly_emulated(dead), np.zeros(5, np.float32))
+    assert not np.signbit(_ex2_poly_emulated(dead)).any()

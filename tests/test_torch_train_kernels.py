@@ -22,6 +22,7 @@ from panacea_tpu_torch.ops.flash_attention import (flash_attention, flash_attent
                                                    flash_attention_bwd_plain,
                                                    flash_attention_plain,
                                                    flash_attention_with_lse)
+from panacea_tpu_torch.ops import tolerance
 from panacea_tpu_torch.ops.geglu import geglu, geglu_bwd, geglu_bwd_plain, geglu_plain
 
 ATOL = 2e-5
@@ -76,6 +77,32 @@ def test_flash_bwd_plain_matches_jax_grad_of_lax_flash(sq, skv, lens, merged):
     got = flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, kv_lens=kvl)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=0, err_msg=name)
+    if lens is not None:  # masked keys get no gradient
+        for g in got[1:]:
+            assert not g[1, lens[1]:].any()
+
+
+@pytest.mark.parametrize("d", [16, 32, 128])
+# the empty row's Skv is a multiple of 128: _lax_flash pads the keys to one,
+# and its empty row attends to the padding too (ROADMAP Queue C)
+@pytest.mark.parametrize("sq,skv,lens", [(130, 300, [300, 1]), (100, 256, [0, 200])])
+def test_bf16_flash_bwd_plain_matches_jax_grad_of_lax_flash(d, sq, skv, lens):
+    """The plain backward that the bf16 CUDA kernels are held to on the card
+    (``tolerance.FLASH_BWD``), on bf16 inputs at the head dims whose kernels
+    this rule now covers besides 64: P and dS rounded to bf16 as the kernels
+    round them, against ``jax.grad`` of ``_lax_flash`` in fp32 on the same
+    bf16 values, within the kernels' own rule; tails off the tiles, a row of
+    one key and an empty row; two threads."""
+    b, h = 2, 2
+    q, _, k, v, do = _inputs(d + sq + skv, b, sq, skv, h, d, True)
+    q, k, v, do = (torch.from_numpy(np.ascontiguousarray(x)).bfloat16() for x in (q, k, v, do))
+    want = _jax_grads(*(x.float().numpy() for x in (q, k, v, do)), lens)
+    kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    out, lse = flash_attention_plain(q, k, v, kv_lens=kvl, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, kv_lens=kvl)   # the CPU route
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        assert tolerance.worst_ratio(g, torch.tensor(w), **tolerance.FLASH_BWD) <= 1.0, name
     if lens is not None:  # masked keys get no gradient
         for g in got[1:]:
             assert not g[1, lens[1]:].any()
